@@ -8,11 +8,15 @@
         --precision bfloat16 --batch_size_per_gpu 8 \\
         --opts DATA.PATH_TO_DATA_DIR /data/msvd DATA.PATH_PREFIX /data/msvd/videos
 
-The approximation flags of the JAX CLI are accepted but not ported yet: any
-of them away from its default raises NotImplementedError naming the ROADMAP
-item. ``--device`` defaults to ``cuda``. Without ``--pretrained_weights``
-the model gets numpy-seeded random weights (``utils/synthetic.py``, seed
-``RNG_SEED``).
+``--band both|teacher`` runs banded one-pass scoring (``band_mode``;
+``engine/scoring.py``): "both" scores every frame from one banded teacher
+and one banded student pass per segment, "teacher" keeps the exact windowed
+students against banded teacher rows; in bf16 on the card both run the
+banded Hopper kernels. The other approximation flags of the JAX CLI are
+accepted but not ported yet: any of them away from its default raises
+NotImplementedError naming the ROADMAP item. ``--device`` defaults to
+``cuda``. Without ``--pretrained_weights`` the model gets numpy-seeded
+random weights (``utils/synthetic.py``, seed ``RNG_SEED``).
 """
 
 import argparse
@@ -30,7 +34,6 @@ UNPORTED_FLAGS = {
     "score_stride": (1, "scorer approximation knobs"),
     "score_refine": (0.0, "scorer approximation knobs"),
     "teacher_precision": ("same", "mixed teacher (teacher_dtype=f32)"),
-    "band": ("none", "banded one-pass scoring"),
     "student_quant": ("none", "int8 tiers"),
     "teacher_quant": ("none", "int8 tiers"),
     "wire_format": ("rgb8", "yuv420 wire"),
@@ -130,7 +133,8 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
         local_size=local_clip_size, global_size=global_clip_size,
         chunk=cli.batch_size_per_gpu,
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-        precision=None if bf16 else "highest")
+        precision=None if bf16 else "highest",
+        band_mode=None if cli.band == "none" else cli.band)
     run_scoring(dataset, scorer, file_path, num_workers=cli.num_workers,
                 shard_id=cli.shard_id, num_shards=cli.num_shards)
 

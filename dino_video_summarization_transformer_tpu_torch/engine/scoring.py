@@ -1,5 +1,6 @@
 """Per-frame DINO importance scoring on the card (counterpart of the JAX
-package's ``engine/scoring.py``, exact windowed path).
+package's ``engine/scoring.py``: the exact windowed path and banded
+one-pass scoring).
 
 For every frame of a video the scorer runs the student forward over the
 frame's 3-frame local window and the teacher forward over its 30-frame
@@ -11,14 +12,21 @@ with index offsets), and a chunk of frames is scored per call — two
 batched forwards and a vectorized loss. Launches are queued without host
 syncs; results are fetched once per video group.
 
+Banded one-pass scoring (``band_mode``, ``models/banded.py``) processes
+each frame once per pass instead of once per overlapping window: "both"
+runs a banded teacher pass (band = global window) and a banded student pass
+(band = local window) per segment of up to ``band_chunk`` frames; "teacher"
+keeps the exact windowed students and takes its teacher rows from the
+banded teacher pass.
+
 Numerics: f32 (``precision="highest"``, TF32 off) is the reference-compat
 tier and reproduces the JAX package's f32 golden scores; bf16 is the
-production tier and runs every block through the whole-block Hopper
-kernels on a CUDA device (``use_kernels="auto"``).
+production tier and runs every block through the Hopper kernels on a CUDA
+device (``use_kernels="auto"``): the whole-block pair on the windowed path,
+the banded kernels and the MLP-phase kernel on the banded path.
 
-The approximation knobs of the JAX scorer (teacher/score strides, banded
-scoring, int8 tiers, the mixed teacher, the yuv wire) are not ported yet
-(ROADMAP).
+The approximation knobs of the JAX scorer (teacher/score strides, int8
+tiers, the mixed teacher, the yuv wire) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,9 +39,12 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ..models import banded
 from ..models.timesformer import TimeSformerConfig, build_timesformer
+from ..ops.banded_block import banded_problems
 from ..train.dino import scoring_dino_loss
 from ..utils.device import resolve_device
+from ..utils.flops import banded_pass_flops
 
 MAX_GROUP_FRAMES = 1536  # frames of one video group held on the device
 
@@ -51,6 +62,12 @@ class ScorerConfig:
     precision: "highest" turns TF32 off for matmuls and convolutions (the
       f32 reference-compat tier); None leaves PyTorch's settings alone.
     device: "cuda" (default), "cuda:i" or "cpu".
+    band_mode: None (exact windows), "both" or "teacher" (module docstring).
+    band_chunk: frames per banded pass; longer videos run in segments that
+      overlap by ``band_halo`` frames on each side, so frames near a seam
+      keep their full CLS window (band_halo >= global_size // 2).
+    band_block: query frames per block of the plain route's slab-blocked
+      banded attention.
     """
 
     local_size: int = 3
@@ -62,10 +79,15 @@ class ScorerConfig:
     precision: Optional[str] = "highest"
     use_kernels: Union[str, bool] = "auto"
     device: Optional[object] = None
+    band_mode: Optional[str] = None
+    band_chunk: int = 512
+    band_halo: int = 32
+    band_block: int = 32
 
 
 class FrameScorer:
-    """Batched per-frame scorer for one model and window geometry.
+    """Batched per-frame scorer for one model and window geometry: exact
+    windows, or banded one-pass scoring with ``band_mode``.
 
     ``state_dict``: reference-layout backbone weights (numpy arrays or
     tensors, e.g. ``models.convert.convert_svt_checkpoint``)."""
@@ -102,11 +124,39 @@ class FrameScorer:
             raise NotImplementedError(
                 "the kernels take bf16 activations; the f32-in temporal "
                 "kernel of the mixed teacher is not ported yet (ROADMAP)")
+        self.band_mode = config.band_mode
+        if self.band_mode is not None:
+            if self.band_mode not in ("both", "teacher"):
+                raise ValueError(f"band_mode={self.band_mode!r}")
+            if config.band_halo < self.global_size // 2:
+                raise ValueError(
+                    f"band_halo={config.band_halo} must cover half the "
+                    f"global window ({self.global_size // 2}) so seam "
+                    "frames keep their full CLS window")
+            if config.band_chunk < self.global_size:
+                raise ValueError("band_chunk must be >= global_size")
+            if config.band_chunk <= 2 * config.band_halo:
+                raise ValueError(
+                    f"band_chunk={config.band_chunk} must exceed twice "
+                    f"band_halo={config.band_halo}: each segment emits "
+                    "band_chunk - 2 * band_halo frames")
+            if use:
+                bad = banded_problems(model_cfg.embed_dim, model_cfg.num_heads,
+                                      model_cfg.num_patches,
+                                      int(model_cfg.embed_dim * model_cfg.mlp_ratio))
+                if bad:
+                    raise ValueError(f"band_mode with the kernels: {bad}")
         self.model_cfg = dataclasses.replace(model_cfg, use_kernels=bool(use))
         self.model = build_timesformer(self.model_cfg, state_dict,
                                        device=self.device,
                                        dtype=self.compute_dtype)
         self._dummy_loss: Optional[float] = None
+        # rows computed (window rows per pass), and for the banded passes the
+        # chunk rows processed (padding and seam halo included) and the
+        # analytic FLOP they cost
+        self.stats = {"teacher_rows": 0, "student_rows": 0,
+                      "band_teacher_frames": 0, "band_student_frames": 0,
+                      "band_flops": 0.0}
 
     # -- one chunk -------------------------------------------------------------
 
@@ -116,13 +166,102 @@ class FrameScorer:
         v = frames[idx.reshape(-1)].reshape(*idx.shape, *frames.shape[1:])
         return v.permute(0, 4, 1, 2, 3)
 
+    def _loss(self, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return scoring_dino_loss(s, t, teacher_temp=self.teacher_temp,
+                                 student_temp=self.student_temp)
+
     @torch.inference_mode()
     def _score_chunk(self, frames, loc_idx, glob_idx) -> torch.Tensor:
         """Both forwards + the loss for a chunk of frames: (chunk,) f32."""
         s = self.model(self._gather_views(frames, loc_idx))
         t = self.model(self._gather_views(frames, glob_idx))
-        return scoring_dino_loss(s, t, teacher_temp=self.teacher_temp,
-                                 student_temp=self.student_temp)
+        return self._loss(s, t)
+
+    @torch.inference_mode()
+    def _student_chunk(self, frames, loc_idx, t_rows) -> torch.Tensor:
+        """The student forward + the loss against given teacher rows."""
+        return self._loss(self.model(self._gather_views(frames, loc_idx)), t_rows)
+
+    # -- banded one-pass scoring ------------------------------------------------
+
+    def _band_segments(self, T: int) -> List[tuple]:
+        """[(w0, w1, e0, e1)]: compute windows [w0, w1) tiling the video
+        with ``band_halo`` overlap; rows [e0, e1) are emitted."""
+        cap = self.config.band_chunk
+        if T <= cap:
+            return [(0, T, 0, T)]
+        halo = self.config.band_halo
+        step = cap - 2 * halo
+        segs, e0 = [], 0
+        while e0 < T:
+            e1 = min(e0 + step, T)
+            segs.append((max(0, e0 - halo), min(T, e1 + halo), e0, e1))
+            e0 = e1
+        return segs
+
+    _BAND_BUCKETS = (64, 128, 256, 384, 512)
+
+    def _band_bucket(self, n: int) -> int:
+        """Pad segment lengths to a few chunk sizes, so short videos do not
+        pay for a full ``band_chunk``."""
+        cap = self.config.band_chunk
+        for b in self._BAND_BUCKETS:
+            if b >= cap:
+                break
+            if n <= b:
+                return b
+        return cap if n <= cap else n
+
+    @torch.inference_mode()
+    def _band_pass(self, frames: torch.Tensor, t_real: int, eff: int,
+                   kind: str) -> torch.Tensor:
+        """(Cb, D) f32 CLS rows of one banded pass over gathered frames."""
+        Cb = frames.shape[0]
+        self.stats[f"band_{kind}_frames"] += Cb
+        self.stats["band_flops"] += banded_pass_flops(
+            self.model_cfg, Cb, eff, self.config.band_block,
+            fused=self.model_cfg.use_kernels)
+        return banded.banded_cls_features(self.model, frames, t_real, eff,
+                                          block=self.config.band_block)
+
+    def _score_video_banded(self, frames: np.ndarray, local_idx: np.ndarray,
+                            eff_global: int) -> "PendingScore":
+        """Per segment, one banded teacher pass and, in "both" mode, one
+        banded student pass; in "teacher" mode the exact windowed student
+        chunks then score against the banded teacher rows (a device-side
+        hand-off). Nothing is fetched."""
+        T = frames.shape[0]
+        buf = self._upload(frames)
+        outs, t_parts = [], []
+        for w0, w1, e0, e1 in self._band_segments(T):
+            Lw = w1 - w0
+            Cb = self._band_bucket(Lw)
+            # padding rows repeat the segment's last frame; their rows drop
+            idx = torch.from_numpy(np.minimum(w0 + np.arange(Cb), w1 - 1)).to(
+                self.device)
+            fr = buf[idx]
+            t_rows = self._band_pass(fr, Lw, eff_global, "teacher")
+            if self.band_mode == "both":
+                s_rows = self._band_pass(fr, Lw, self.local_size, "student")
+                outs.append((self._loss(s_rows, t_rows)[e0 - w0:e1 - w0],
+                             e1 - e0))
+            else:
+                t_parts.append(t_rows[e0 - w0:e1 - w0])
+        self.stats["teacher_rows"] += T
+        self.stats["student_rows"] += T
+        if self.band_mode == "both":
+            return PendingScore(outs)
+        t_all = torch.cat(t_parts)
+        n_chunks = -(-T // self.chunk)
+        pad = n_chunks * self.chunk - T
+        loc = torch.from_numpy(np.pad(np.asarray(local_idx), ((0, pad), (0, 0))))
+        loc = loc.to(self.device).reshape(n_chunks, self.chunk, -1)
+        t_all = torch.nn.functional.pad(t_all, (0, 0, 0, pad)).reshape(
+            n_chunks, self.chunk, -1)
+        for c in range(n_chunks):
+            n = min(self.chunk, T - c * self.chunk)
+            outs.append((self._student_chunk(buf, loc[c], t_all[c]), n))
+        return PendingScore(outs)
 
     # -- video groups ----------------------------------------------------------
 
@@ -165,6 +304,9 @@ class FrameScorer:
         batching; one PendingScore per item, order preserved. Dummies get
         the constant-loss protocol; videos whose teacher windows differ in
         length (the short-video clamp) are batched separately."""
+        if self.band_mode is not None:
+            # banded passes batch within a video (chunk buckets)
+            return [self.score_item_async(it) for it in items]
         results: List[Optional[PendingScore]] = [None] * len(items)
         groups: Dict[int, List[int]] = {}
         for i, item in enumerate(items):
@@ -183,6 +325,8 @@ class FrameScorer:
         handles, s = [], 0
         for it in items:
             T = it["frames"].shape[0]
+            self.stats["teacher_rows"] += T
+            self.stats["student_rows"] += T
             handles.append(PendingScore([], group=(gf, s, s + T)))
             s += T
         return handles
@@ -195,9 +339,21 @@ class FrameScorer:
         if global_idx.shape[1] != eff_global:
             raise ValueError(f"global_idx has {global_idx.shape[1]} columns, "
                              f"eff_global is {eff_global}")
+        if self.band_mode is not None:
+            return self._score_video_banded(frames, local_idx, eff_global)
         item = {"frames": frames, "local_idx": local_idx,
                 "global_idx": global_idx}
+        self.stats["teacher_rows"] += frames.shape[0]
+        self.stats["student_rows"] += frames.shape[0]
         return PendingScore(self._run_group_chunks([item]))
+
+    def score_item_async(self, item: dict) -> "PendingScore":
+        """Queue one DinoLossDataset item's scoring; ``.fetch()`` the handle
+        for the losses. Dummies get the constant-loss protocol."""
+        if item["dummy"]:
+            return PendingScore([], ready=self.dummy_losses())
+        return self.score_video_async(item["frames"], item["local_idx"],
+                                      item["global_idx"], item["eff_global"])
 
     def score_video(self, frames: np.ndarray, local_idx: np.ndarray,
                     global_idx: np.ndarray, eff_global: int) -> np.ndarray:

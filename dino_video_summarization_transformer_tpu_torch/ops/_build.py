@@ -1,9 +1,11 @@
 """Build the Hopper kernels with nvcc and load them with ctypes.
 
-One shared library with a plain C interface per source in ``csrc/``,
-compiled for ``sm_90a`` into ``build/torch_kernels/`` at the repo root
-(listed in ``.gitignore``) at first use. Nothing here runs at import: the
-CPU tests import every module on a machine with no nvcc.
+One shared library with a plain C interface per source in ``csrc/``
+(``fused_block.cu``, ``banded_block.cu``; both include
+``dvst_common.cuh``), compiled for ``sm_90a`` into ``build/torch_kernels/``
+at the repo root (listed in ``.gitignore``) at first use, one nvcc per
+source, all started together. Nothing here runs at import: the CPU tests
+import every module on a machine with no nvcc.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/libdvst_fused.so \\
@@ -18,16 +20,41 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Dict, List
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(os.path.dirname(_OPS_DIR))
-SOURCE = os.path.join(_OPS_DIR, "csrc", "fused_block.cu")
+_CSRC = os.path.join(_OPS_DIR, "csrc")
+HEADER = os.path.join(_CSRC, "dvst_common.cuh")
 LIB_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
-LIB_PATH = os.path.join(LIB_DIR, "libdvst_fused.so")
+# library name -> source
+SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
+           "banded": os.path.join(_CSRC, "banded_block.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
+_p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# C entry point -> argtypes (pointers, then sizes, then the stream)
+_SIGNATURES = {
+    "fused": {
+        # x, 8 weights, workspace, out | B, T, N, D, H | stream
+        "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 5 + [_p],
+        # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
+        "dvst_spatial_mlp": [_p] * 18 + [_i] * 6 + [_p],
+        # x, 6 weights, workspace, out | M | D, Dh, residual | stream
+        "dvst_mlp_phase": [_p] * 9 + [_l] + [_i] * 3 + [_p],
+    },
+    "banded": {
+        # qkv, out | C, N, D, H, t_real, eff | stream
+        "dvst_banded_temporal_attn": [_p] * 2 + [_i] * 6 + [_p],
+        # x, cls, 6 weights, workspace, out, qkv, qkv_cls | C, N, D, H | stream
+        "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
+        # qkv_cls, qkv, out | C, N, D, H, t_real, eff | stream
+        "dvst_cls_band_attn": [_p] * 3 + [_i] * 6 + [_p],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 @dataclasses.dataclass
@@ -35,6 +62,10 @@ class BuildResult:
     path: str
     seconds: float  # 0.0 when an up-to-date library was found
     log: str        # nvcc's output, with the -Xptxas -v resource lines
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(LIB_DIR, f"libdvst_{name}.so")
 
 
 def nvcc_path() -> str:
@@ -48,45 +79,62 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build(force: bool = False) -> BuildResult:
-    """Compile ``SOURCE`` unless an up-to-date library exists (or
-    ``force``). The library is written under a temporary name and renamed,
-    so concurrent builders never load a half-written file."""
-    if (not force and os.path.exists(LIB_PATH)
-            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE)):
-        return BuildResult(LIB_PATH, 0.0, "")
+def _fresh(name: str) -> bool:
+    path = lib_path(name)
+    return (os.path.exists(path) and os.path.getmtime(path)
+            >= max(os.path.getmtime(SOURCES[name]), os.path.getmtime(HEADER)))
+
+
+def build(force: bool = False) -> List[BuildResult]:
+    """Compile every library whose source or header is newer than it (all
+    of them with ``force``), one nvcc per source, run in parallel. Each
+    library is written under a temporary name and renamed, so concurrent
+    builders never load a half-written file."""
     os.makedirs(LIB_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log[-6000:]}")
-    os.replace(tmp, LIB_PATH)
-    return BuildResult(LIB_PATH, seconds, log)
+    procs = {}
+    for name, src in SOURCES.items():
+        if not force and _fresh(name):
+            continue
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    results, failed = [], []
+    for name in SOURCES:
+        if name not in procs:
+            results.append(BuildResult(lib_path(name), 0.0, ""))
+            continue
+        tmp, t0, proc = procs[name]
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name]} failed (exit "
+                          f"{proc.returncode}):\n{log[-6000:]}")
+            continue
+        os.replace(tmp, lib_path(name))
+        results.append(BuildResult(lib_path(name), seconds, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    build()
-    lib = ctypes.CDLL(LIB_PATH)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # x, 8 weights, workspace, out | B, T, N, D, H | stream
-    lib.dvst_temporal_phase_tm.argtypes = [p] * 11 + [i] * 5 + [p]
-    lib.dvst_temporal_phase_tm.restype = i
-    # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
-    lib.dvst_spatial_mlp.argtypes = [p] * 18 + [i] * 6 + [p]
-    lib.dvst_spatial_mlp.restype = i
-    lib.dvst_error_string.argtypes = [i]
-    lib.dvst_error_string.restype = ctypes.c_char_p
-    _lib = lib
+def load(name: str = "fused") -> ctypes.CDLL:
+    """One kernel library (``"fused"`` or ``"banded"``), built on first
+    use."""
+    if name in _libs:
+        return _libs[name]
+    if not _fresh(name):
+        build()
+    lib = ctypes.CDLL(lib_path(name))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _i
+    if name == "fused":
+        lib.dvst_error_string.argtypes = [_i]
+        lib.dvst_error_string.restype = ctypes.c_char_p
+    _libs[name] = lib
     return lib
 
 
 def error_string(err: int) -> str:
-    return load().dvst_error_string(err).decode()
+    return load("fused").dvst_error_string(err).decode()

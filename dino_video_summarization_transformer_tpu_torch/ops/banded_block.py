@@ -1,0 +1,318 @@
+"""The banded one-pass scoring kernels, for Hopper, with plain twins.
+
+Counterpart of the JAX package's ``ops/banded_block.py``. A banded pass
+runs one forward over a chunk of C frames in which frame i attends in time
+only to its clamp-shifted window [lo_i, lo_i + eff) (``band_starts``) and
+owns a CLS row of its own (``models/banded.py``). Three ops:
+
+* ``banded_temporal_attn``: qkv (C, N, 3D) bf16 -> (C, N, D) bf16, each
+  frame's queries against its window's keys at the same position —
+  replaces ``_banded_temporal_kernel`` (banded_block.py:43);
+* ``spatial_phase_pf``: per frame on [cls_i, x_i]: LN -> qkv -> MHSA ->
+  proj -> bf16 grid residual; returns the new grid and the two bf16 qkv
+  buffers (grid rows, CLS rows), whose K/V and CLS-query columns are the
+  TPU kernel's exports — replaces ``_spatial_pf_kernel`` (:174);
+* ``cls_band_attn``: for each frame i, the mean over t in its window of
+  softmax(q_cls_i . [k_cls_i, K_t]) [v_cls_i; V_t], one softmax per (i, t)
+  pair, read straight from those qkv buffers — replaces ``_cls_band_kernel``
+  (:291);
+
+and ``banded_temporal_phase``, the temporal half around the first: LN, the
+qkv, proj and temporal_fc products stay plain torch (the JAX package leaves
+them to XLA outside its kernel).
+
+Each wrapper runs its Hopper kernel (``csrc/banded_block.cu``) on a CUDA
+tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on any
+other device and never falls back. ``launches`` counts kernel launches.
+
+Numerics, shared by kernel and twin: f32 scores with the row max
+subtracted, f32 denominators, probabilities rounded to bf16 before the PV
+product, bf16 outputs; the spatial op as ``fused_block``'s (f32 LN, qkv
+rounded to bf16 after the bias) with the projection rounded to bf16 before
+the bf16 residual add, as the Pallas kernel rounds it. The Pallas kernels'
++/-80 logit clamp without the max and ones-column denominators are TPU
+workarounds; the tests bound the gap.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from . import fused_block as fb
+
+# Kernel launches per op wrapper (plain twins do not count).
+launches: Dict[str, int] = {"banded_temporal_attn": 0, "spatial_phase_pf": 0,
+                            "cls_band_attn": 0}
+
+PF_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b")
+BAND_TQ = 32  # query frames per block of the temporal kernel (csrc: kBandTq)
+BAND_WARPS = 4
+CLS_TQ = 16  # query frames per block of the CLS-band kernel (csrc: kClsTq)
+CLS_WARPS = 8
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def band_starts(idx: torch.Tensor, eff: int, t_real: int) -> torch.Tensor:
+    """Per-frame window start ``lo_i`` — clamp for clamp the arithmetic of
+    ``data/windows.window_indices`` (windows shift at the edges and never
+    shrink): window(i) = [lo_i, lo_i + eff)."""
+    return torch.clamp(idx - eff // 2, 0, max(int(t_real) - eff, 0))
+
+
+def _band_temporal_smem(eff: int, hd: int) -> int:
+    """Shared bytes of the banded temporal kernel (csrc:
+    band_temporal_launch): the tile's queries, the keys and values its
+    windows cover, one score row per warp."""
+    return (BAND_TQ * hd * 2 + (BAND_TQ + eff - 1) * (2 * hd + 2) * 2
+            + BAND_WARPS * eff * 4)
+
+
+def _cls_band_smem(N: int, hd: int) -> int:
+    """Shared bytes of the CLS-band kernel (csrc: cls_band_launch)."""
+    return (N * (2 * hd + 2) * 2 + CLS_TQ * hd * 2 * 3 + CLS_TQ * hd * 4
+            + CLS_WARPS * N * 4)
+
+
+def banded_problems(D: int, num_heads: int, N: int, Dh: int) -> List[str]:
+    """What keeps the banded kernels from a model geometry; empty when they
+    take it."""
+    bad = []
+    if num_heads <= 0 or D % num_heads:
+        return [f"D={D} is not divisible by num_heads={num_heads}"]
+    hd = D // num_heads
+    if hd % 16 or hd > 128:
+        bad.append(f"head dim {hd}: the kernels need hd % 16 == 0 and hd <= 128")
+    if D % 128 or D > 1024 or Dh % 128:
+        bad.append(f"D={D}, MLP width {Dh}: the kernels need multiples of 128 "
+                   "and D <= 1024")
+    for what, need in [("spatial attention", fb._attn_smem(N + 1, hd)),
+                       ("CLS window aggregation", _cls_band_smem(N, hd))]:
+        if need > fb.SMEM_LIMIT:
+            bad.append(f"{what} over {N} patches at head dim {hd} needs "
+                       f"{need} B of shared memory (limit {fb.SMEM_LIMIT})")
+    return bad
+
+
+def banded_ok(D: int, num_heads: int, N: int, Dh: int) -> bool:
+    """Shape gate of the banded kernel route (the port's own limits: the
+    GEMM tiles, the LN row width, shared memory)."""
+    return not banded_problems(D, num_heads, N, Dh)
+
+
+def _check_band(C: int, t_real: int, eff: int) -> None:
+    if not 1 <= eff <= C:
+        raise ValueError(f"window {eff} must lie in [1, C={C}]")
+    if not 1 <= t_real <= C:
+        raise ValueError(f"t_real={t_real} must lie in [1, C={C}]")
+
+
+def _split_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    return t.reshape(*t.shape[:-1], H, t.shape[-1] // H)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+def banded_temporal_attn_plain(qkv: torch.Tensor, t_real: int, eff: int,
+                               num_heads: int, block: int = 32) -> torch.Tensor:
+    """Plain twin of ``banded_temporal_attn``: blocks of ``block`` query
+    frames against the keys their windows cover, masked to each window."""
+    C, N, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = (_split_heads(qkv[..., i * D:(i + 1) * D], num_heads).permute(
+        1, 2, 0, 3).float() for i in range(3))  # (N, H, C, hd)
+    scale = (D // num_heads) ** -0.5
+    lo = band_starts(torch.arange(C, device=qkv.device), eff, t_real)
+    out = torch.empty((N, num_heads, C, D // num_heads), dtype=torch.float32,
+                      device=qkv.device)
+    for i0 in range(0, C, block):
+        i1 = min(C, i0 + block)
+        k0, k1 = int(lo[i0]), int(lo[i1 - 1]) + eff
+        kj = torch.arange(k0, k1, device=qkv.device)
+        lo_b = lo[i0:i1, None]
+        inband = (kj >= lo_b) & (kj < lo_b + eff)  # (P, S)
+        s = torch.matmul(q[:, :, i0:i1], k[:, :, k0:k1].transpose(-2, -1)) * scale
+        s = s.masked_fill(~inband, float("-inf"))
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e.to(torch.bfloat16).float()
+        out[:, :, i0:i1] = torch.matmul(p, v[:, :, k0:k1]) / e.sum(-1, keepdim=True)
+    return out.to(torch.bfloat16).permute(2, 0, 1, 3).reshape(C, N, D)
+
+
+def spatial_phase_pf_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
+                           num_heads: int):
+    """Plain twin of ``spatial_phase_pf``."""
+    C, N, D = x.shape
+    xf = x.float()
+    y = fb._ln(xf, p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    y_c = fb._ln(cls.float(), p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    qkv = (fb._mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    qkv_cls = (fb._mm(y_c, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    seq = torch.cat([qkv_cls[:, None], qkv], dim=1)  # (C, 1 + N, 3D)
+    q, k, v = seq.reshape(C, N + 1, 3, num_heads, D // num_heads).permute(
+        2, 0, 3, 1, 4).unbind(0)  # (C, H, 1 + N, hd)
+    a = fb._attention(q, k, v)[:, :, 1:].transpose(1, 2).reshape(C, N, D)
+    proj = (fb._mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
+    return (xf + proj.float()).to(torch.bfloat16), qkv, qkv_cls
+
+
+def cls_band_attn_plain(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
+                        eff: int, num_heads: int) -> torch.Tensor:
+    """Plain twin of ``cls_band_attn``: for each window offset j, every
+    frame i against frame lo_i + j, normalised per pair, then the mean."""
+    C, N, D3 = qkv.shape
+    D = D3 // 3
+    H = num_heads
+    q = _split_heads(qkv_cls[:, :D], H).float()          # (C, H, hd)
+    k_self = _split_heads(qkv_cls[:, D:2 * D], H).float()
+    v_self = _split_heads(qkv_cls[:, 2 * D:], H)
+    k_pat = _split_heads(qkv[..., D:2 * D], H)            # (C, N, H, hd)
+    v_pat = _split_heads(qkv[..., 2 * D:], H)
+    scale = (D // H) ** -0.5
+    lo = band_starts(torch.arange(C, device=qkv.device), eff, t_real)
+    s_self = (q * k_self).sum(-1, keepdim=True) * scale  # (C, H, 1)
+    acc = torch.zeros_like(q)
+    for j in range(eff):
+        t = lo + j
+        s = torch.einsum("chd,cnhd->chn", q, k_pat[t].float()) * scale
+        s = torch.cat([s_self, s], dim=-1)                # (C, H, 1 + N)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e.to(torch.bfloat16).float()
+        vals = torch.cat([v_self[:, None], v_pat[t]], dim=1).float()
+        acc += (torch.einsum("chn,cnhd->chd", p, vals)
+                / e.sum(-1, keepdim=True))
+    return (acc * (1.0 / eff)).reshape(C, D).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def banded_temporal_attn(qkv: torch.Tensor, t_real: int, eff: int,
+                         num_heads: int) -> torch.Tensor:
+    """qkv (C, N, 3D) bf16, frame-major -> (C, N, D) bf16 pre-projection
+    attention outputs, frame i's queries against its window's keys at the
+    same position. Kernel on CUDA, plain twin on CPU."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (C, N, 3D), got {tuple(qkv.shape)}")
+    C, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = fb._device_of(qkv)
+    fb._check_geometry(D, num_heads, 1)
+    fb._check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    _check_band(C, t_real, eff)
+    need = _band_temporal_smem(eff, D // num_heads)
+    if need > fb.SMEM_LIMIT:
+        raise ValueError(f"a {eff}-frame window at head dim {D // num_heads} "
+                         f"needs {need} B of shared memory (limit "
+                         f"{fb.SMEM_LIMIT})")
+    if dev.type == "cpu":
+        return banded_temporal_attn_plain(qkv, t_real, eff, num_heads)
+
+    from . import _build
+
+    lib = _build.load("banded")
+    out = torch.empty((C, N, D), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        fb._run(lib.dvst_banded_temporal_attn, qkv.data_ptr(), out.data_ptr(),
+                C, N, D, num_heads, int(t_real), eff,
+                torch.cuda.current_stream(dev).cuda_stream)
+    launches["banded_temporal_attn"] += 1
+    return out
+
+
+def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
+                     num_heads: int):
+    """x (C, N, D) bf16 grid, cls (C, D) bf16 per-frame CLS rows, ``p`` the
+    ``PF_KEYS`` weights of ``fused_block.block_params(...)["spatial"]`` ->
+    (x + proj(MHSA over [cls_i, x_i]) (C, N, D) bf16, the grid rows' qkv
+    (C, N, 3D) bf16, the CLS rows' qkv (C, 3D) bf16). Kernel on CUDA,
+    plain twin on CPU."""
+    if x.dim() != 3:
+        raise ValueError(f"x: expected (C, N, D), got {tuple(x.shape)}")
+    C, N, D = x.shape
+    dev = fb._device_of(x)
+    fb._check_geometry(D, num_heads, N + 1)
+    fb._check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    fb._check_tensor("cls", cls, torch.bfloat16, (C, D), dev)
+    shapes = {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
+              "qkv_b": (3 * D,), "proj_w": (D, D), "proj_b": (D,)}
+    for k in PF_KEYS:
+        fb._check_tensor(k, p[k], torch.bfloat16 if k in ("qkv_w", "proj_w")
+                         else torch.float32, shapes[k], dev)
+    if dev.type == "cpu":
+        return spatial_phase_pf_plain(x, cls, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load("banded")
+    out = torch.empty((C, N, D), dtype=torch.bfloat16, device=dev)
+    qkv = torch.empty((C, N, 3 * D), dtype=torch.bfloat16, device=dev)
+    qkv_cls = torch.empty((C, 3 * D), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(2 * C * N * D + C * D, dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        fb._run(lib.dvst_spatial_pf, x.data_ptr(), cls.data_ptr(),
+                *(p[k].data_ptr() for k in PF_KEYS), ws.data_ptr(),
+                out.data_ptr(), qkv.data_ptr(), qkv_cls.data_ptr(),
+                C, N, D, num_heads, torch.cuda.current_stream(dev).cuda_stream)
+    launches["spatial_phase_pf"] += 1
+    return out, qkv, qkv_cls
+
+
+def cls_band_attn(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
+                  eff: int, num_heads: int) -> torch.Tensor:
+    """qkv_cls (C, 3D), qkv (C, N, 3D) bf16 (``spatial_phase_pf``'s) ->
+    (C, D) bf16 pre-projection CLS outputs, each frame's averaged over its
+    window. Kernel on CUDA, plain twin on CPU."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (C, N, 3D), got {tuple(qkv.shape)}")
+    C, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = fb._device_of(qkv)
+    fb._check_geometry(D, num_heads, 1)
+    fb._check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    fb._check_tensor("qkv_cls", qkv_cls, torch.bfloat16, (C, D3), dev)
+    _check_band(C, t_real, eff)
+    need = _cls_band_smem(N, D // num_heads)
+    if need > fb.SMEM_LIMIT:
+        raise ValueError(f"{N} patches at head dim {D // num_heads} need "
+                         f"{need} B of shared memory (limit {fb.SMEM_LIMIT})")
+    if dev.type == "cpu":
+        return cls_band_attn_plain(qkv_cls, qkv, t_real, eff, num_heads)
+
+    from . import _build
+
+    lib = _build.load("banded")
+    out = torch.empty((C, D), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        fb._run(lib.dvst_cls_band_attn, qkv_cls.data_ptr(), qkv.data_ptr(),
+                out.data_ptr(), C, N, D, num_heads, int(t_real), eff,
+                torch.cuda.current_stream(dev).cuda_stream)
+    launches["cls_band_attn"] += 1
+    return out
+
+
+def _linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A dense layer in the activations' dtype (XLA's ``linear``)."""
+    return F.linear(a, w.to(a.dtype), b.to(a.dtype))
+
+
+def banded_temporal_phase(x: torch.Tensor, p: dict, t_real: int, eff: int,
+                          num_heads: int) -> torch.Tensor:
+    """x + temporal_fc(proj(banded_attn(LN x))) for x (C, N, D) bf16, ``p``
+    the ``fused_block.TEMPORAL_KEYS`` weights: the attention is
+    ``banded_temporal_attn``; LN (f32 statistics) and the dense layers are
+    plain torch in bf16."""
+    y = fb._ln(x.float(), p["ln_w"], p["ln_b"]).to(x.dtype)
+    qkv = _linear(y, p["qkv_w"], p["qkv_b"])
+    o = banded_temporal_attn(qkv, t_real, eff, num_heads)
+    res = _linear(o.to(x.dtype), p["proj_w"], p["proj_b"])
+    return x + _linear(res, p["fc_w"], p["fc_b"])

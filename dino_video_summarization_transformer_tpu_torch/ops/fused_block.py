@@ -12,7 +12,12 @@ Counterpart of the JAX package's ``ops/fused_block.py`` whole-block path
   replaces ``_spatial_mlp_kernel`` (fused_block.py:1556);
 
 and ``divided_block_wb``, which chains them and updates the CLS row in
-plain f32 torch (B rows: negligible), as the JAX package does.
+plain f32 torch (B rows: negligible), as the JAX package does; plus
+
+* ``mlp_phase``: rows (M, D) bf16 -> [x +] fc2(GELU(fc1(LN x))), bf16 out,
+  fc2's output rounded to bf16 before the residual add (the Pallas order) —
+  replaces ``_mlp_phase_kernel`` (fused_block.py:1191); the banded block's
+  grid MLP (``models/banded.py``).
 
 Each op's wrapper runs its Hopper kernels (``csrc/fused_block.cu``) on a
 CUDA tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on
@@ -40,7 +45,8 @@ LN_EPS = 1e-6
 SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into on sm_90
 
 # Kernel launches per op wrapper (plain twins do not count).
-launches: Dict[str, int] = {"temporal_phase_tm": 0, "spatial_mlp": 0}
+launches: Dict[str, int] = {"temporal_phase_tm": 0, "spatial_mlp": 0,
+                             "mlp_phase": 0}
 
 
 def reset_launches() -> None:
@@ -52,6 +58,7 @@ TEMPORAL_KEYS = ("ln_w", "ln_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "fc_w", "fc_b")
 SPATIAL_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                 "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+MLP_KEYS = ("ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 
 
 def block_params(block) -> dict:
@@ -151,6 +158,17 @@ def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
     h = F.gelu(_mm(y2, p["fc1_w"]) + p["fc1_b"]).to(torch.bfloat16)
     out = x2 + (_mm(h, p["fc2_w"]) + p["fc2_b"])
     return out.to(torch.bfloat16), cls_rows.contiguous()
+
+
+def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
+    """Plain twin of ``mlp_phase``."""
+    xf = x.float()
+    y = _ln(xf, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
+    h = F.gelu(_mm(y, p["fc1_w"]) + p["fc1_b"]).to(torch.bfloat16)
+    out = (_mm(h, p["fc2_w"]) + p["fc2_b"]).to(torch.bfloat16)
+    if residual:
+        out = (xf + out.float()).to(torch.bfloat16)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -298,3 +316,38 @@ def divided_block_wb(p: dict, cls: torch.Tensor, grid: torch.Tensor,
     mo = _mm(h.to(torch.bfloat16), s["fc2_w"])
     clsf = clsf + mo + s["fc2_b"]
     return clsf.to(cls.dtype), grid_out
+
+
+def mlp_phase(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
+    """x (M, D) bf16 rows -> [x +] fc2(GELU(fc1(LN x))) as (M, D) bf16, with
+    the ``MLP_KEYS`` weights of ``block_params(...)["spatial"]``. Kernel on
+    CUDA, plain twin on CPU."""
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
+    M, D = x.shape
+    Dh = p["fc1_w"].shape[0]
+    dev = _device_of(x)
+    if D % 128 or D > 1024 or Dh % 128:
+        raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
+                         "multiples of 128 and D <= 1024")
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    shapes = {"ln2_w": (D,), "ln2_b": (D,), "fc1_w": (Dh, D), "fc1_b": (Dh,),
+              "fc2_w": (D, Dh), "fc2_b": (D,)}
+    for k in MLP_KEYS:
+        _check_tensor(k, p[k], torch.bfloat16 if k in ("fc1_w", "fc2_w")
+                      else torch.float32, shapes[k], dev)
+    if dev.type == "cpu":
+        return mlp_phase_plain(x, p, residual)
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(M * (D + Dh), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_mlp_phase, x.data_ptr(),
+             *(p[k].data_ptr() for k in MLP_KEYS), ws.data_ptr(),
+             out.data_ptr(), M, D, Dh, int(residual),
+             torch.cuda.current_stream(dev).cuda_stream)
+    launches["mlp_phase"] += 1
+    return out

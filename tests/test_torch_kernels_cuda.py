@@ -11,10 +11,11 @@ runs on a machine without JAX:
 Tolerance: ``ops/twin_check.py``, the one ``chip_smoke.py`` uses. Kernel
 and twin share every bf16 rounding point and differ only in f32 summation
 order, so each output's gap is held against what the op computes: the
-temporal op's out - x, the spatial grid's out - x1 and the CLS rows, at
-rms(err) <= 1e-2 x rms(branch), f32 max|err| <= 2e-2 x max|branch|, and
-the bf16 grid within 4 bf16 ulps of max(|want|, rms(branch)) at every
-element.
+temporal op's out - x, the spatial grids' out - x1 (out - x for the
+banded spatial phase and the MLP phase), the CLS rows, the qkv buffers
+and the banded attention outputs, at rms(err) <= 1e-2 x rms(branch), f32
+max|err| <= 2e-2 x max|branch|, and bf16 outputs within 4 bf16 ulps of
+max(|want|, rms(branch)) at every element.
 """
 
 import os
@@ -28,8 +29,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E402
     convert, timesformer as tsf)
+from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E402
+    banded)
 from dino_video_summarization_transformer_tpu_torch.ops import (  # noqa: E402
-    fused_block as fb, twin_check)
+    banded_block as bb, fused_block as fb, twin_check)
 from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (  # noqa: E402
     make_numpy_params)
 
@@ -119,3 +122,89 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         fb.temporal_phase_tm(x, p, 2)  # f32 in: the kernel takes bf16
     with pytest.raises(ValueError):
         fb.temporal_phase_tm(x.to(torch.bfloat16), p, 3)  # 128 % 3
+
+
+# Banded path: (C, t_real, eff, N, D, H). The full 512-frame bucket at
+# ViT-B widths for both windows, padded chunks (t_real < C), and head dims
+# 128 and 32 beside 64.
+BAND_SHAPES = [(64, 64, 30, 8, 256, 4), (64, 50, 3, 8, 256, 4),
+               (64, 40, 30, 16, 256, 2), (512, 512, 30, 196, 768, 12),
+               (512, 500, 3, 196, 768, 12), (512, 300, 30, 16, 384, 12)]
+
+
+def _qkv(shape, seed, device):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape)).to(
+        device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES)
+def test_banded_temporal_attn_kernel_matches_twin(cuda_device, C, t_real, eff,
+                                                  N, D, H):
+    qkv = _qkv((C, N, 3 * D), 5, cuda_device)
+    before = bb.launches["banded_temporal_attn"]
+    got = bb.banded_temporal_attn(qkv, t_real, eff, H)
+    torch.cuda.synchronize()
+    assert bb.launches["banded_temporal_attn"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (C, N, D)
+    _close(got, bb.banded_temporal_attn_plain(qkv, t_real, eff, H))
+
+
+@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES)
+def test_cls_band_attn_kernel_matches_twin(cuda_device, C, t_real, eff, N, D,
+                                           H):
+    qkv = _qkv((C, N, 3 * D), 6, cuda_device)
+    qkv_cls = _qkv((C, 3 * D), 7, cuda_device)
+    before = bb.launches["cls_band_attn"]
+    got = bb.cls_band_attn(qkv_cls, qkv, t_real, eff, H)
+    torch.cuda.synchronize()
+    assert bb.launches["cls_band_attn"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (C, D)
+    _close(got, bb.cls_band_attn_plain(qkv_cls, qkv, t_real, eff, H))
+
+
+@pytest.mark.parametrize("C,N,D,H", [(64, 16, 256, 4), (50, 196, 256, 2),
+                                     (512, 196, 768, 12)])
+def test_spatial_phase_pf_kernel_matches_twin(cuda_device, C, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((C, N, D), 8, cuda_device)
+    cls = _qkv((C, D), 9, cuda_device)
+    before = bb.launches["spatial_phase_pf"]
+    got = bb.spatial_phase_pf(x, cls, p, H)
+    torch.cuda.synchronize()
+    assert bb.launches["spatial_phase_pf"] == before + 1
+    want = bb.spatial_phase_pf_plain(x, cls, p, H)
+    _close(got[0], want[0], x)
+    _close(got[1], want[1])
+    _close(got[2], want[2])
+
+
+@pytest.mark.parametrize("M,D,H", [(200, 256, 4), (512 * 196, 768, 12)])
+def test_mlp_phase_kernel_matches_twin(cuda_device, M, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((M, D), 10, cuda_device)
+    before = fb.launches["mlp_phase"]
+    got = fb.mlp_phase(x, p)
+    torch.cuda.synchronize()
+    assert fb.launches["mlp_phase"] == before + 1
+    _close(got, fb.mlp_phase_plain(x, p), x)
+    _close(fb.mlp_phase(x, p, residual=False),
+           fb.mlp_phase_plain(x, p, residual=False))
+
+
+@pytest.mark.parametrize("t_real,eff", [(64, 30), (50, 3)])
+def test_banded_forward_kernels_match_twins(cuda_device, t_real, eff):
+    """A whole bf16 banded pass on the kernels against the same pass with
+    the twins (CPU), at depth 2."""
+    cfg = tsf.TimeSformerConfig(img_size=64, patch_size=16, embed_dim=256,
+                                depth=2, num_heads=4, num_frames=8,
+                                num_classes=0, use_kernels=True)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 11), cfg)
+    fr = torch.from_numpy(np.random.RandomState(12).randn(64, 64, 64, 3))
+    gpu = tsf.build_timesformer(cfg, sd, device=cuda_device, dtype=torch.bfloat16)
+    cpu = tsf.build_timesformer(cfg, sd, device="cpu", dtype=torch.bfloat16)
+    before = dict(bb.launches)
+    with torch.inference_mode():
+        got = banded.banded_cls_features(gpu, fr.to(cuda_device), t_real, eff)
+        want = banded.banded_cls_features(cpu, fr, t_real, eff)
+    assert all(bb.launches[k] == before[k] + 2 for k in before)
+    _close(got.cpu()[:t_real], want[:t_real])
