@@ -12,8 +12,11 @@ Imports torch, numpy and the port package
    time and ptxas's register / shared-memory lines.
 3. kernels: each kernel against its plain twin on the card at ViT-B/16
    widths (N=196, D=768, H=12, MLP 3072): the windowed pair at the teacher
-   (B=8, T=30) and student (B=8, T=3) windows of the chunk-8 scorer, the
-   banded kernels at the full 512-frame bucket for the teacher (eff=30)
+   (B=8, T=30) and student (B=8, T=3) windows of the chunk-8 scorer; the
+   training ops (the bf16 tier of the temporal op, the spatial phase, and
+   the three backwards: temporal, spatial, MLP, each gradient held to its
+   twin) at the train step's global (B=16 clips, T=8, N=196) and local
+   (B=64, T=8, N=36) crops; the banded kernels at the full 512-frame bucket for the teacher (eff=30)
    and student (eff=3) passes; CUDA-event times of kernel and twin beside
    the bound computed from the shapes, and for the banded temporal
    attention the time of ``F.scaled_dot_product_attention`` with the band
@@ -34,6 +37,16 @@ Imports torch, numpy and the port package
    64-frame clip with both kernel sets counted; frames/s beside the
    windowed path's, and the rank correlation of banded against exact
    losses (information only).
+7. DINO SSL train step, bf16: ``init_train_state`` + ``make_train_step``
+   on ViT-B/16 (T=8, batch 8: 16 global 224-px and 64 local 96-px clips,
+   out_dim 65536, AdamW) on the kernel route; launch counters read around
+   one step (each per-phase forward once per block of the three forwards,
+   each backward once per block of the two student passes, no scoring
+   kernel); ms per step and TFLOP/s from ``train_step_flops``; the loss
+   finite at every step; the teacher equal to the EMA of the new student;
+   a profiled step. Before the steps, at batch 2 on the initial weights
+   and one set of crops, the gradients of the kernel route against the
+   plain bf16 route and the f32 route (TF32 off).
 
 Tolerances (stated here, checked below):
 * kernel vs twin (``ops/twin_check.py``, per output): both share every
@@ -51,6 +64,13 @@ Tolerances (stated here, checked below):
   1e-3. Both bf16 tiers sit a few % from f32 (the teacher softmax at
   temperature 0.02 amplifies feature rounding); the kernels' f32
   accumulation should keep them no further than the plain tier.
+* training-op gradients (f32) vs their twins: the same rms and max
+  bounds; dx (bf16) within 4 ulps of its branch dx - dout.
+* train step, kernel route vs the plain bf16 route: per parameter
+  max|diff| / max|plain| < 0.15, and the mean distance to the f32
+  gradients <= 1.5 x the plain bf16 route's + 1e-6 (the CPU test's
+  bounds against JAX); the teacher after a step equals t * m + s * (1 - m)
+  of the teacher before and the new student to 1e-6.
 * per-frame losses, kernel path vs the plain bf16 path: mean relative
   difference <= 0.06 on the windowed path, about 2x the largest sound
   reading (0.031; kernels with uniform attention read 0.072), and <= 0.04
@@ -76,6 +96,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
+TRAIN_OPS = ("temporal_phase_tm_bf16", "spatial_phase", "temporal_phase_tm_bwd",
+             "spatial_phase_bwd", "mlp_phase_bwd")
+TRAIN_GRAD_REL_MAX = 0.15
+TRAIN_F32_RATIO = 1.5
 LOSS_REL_TOL = 0.06
 BAND_LOSS_REL_TOL = 0.04
 LOSS_F32_RATIO = 1.5
@@ -170,6 +194,53 @@ def mlp_cost(M, D, Dh):
     """fc1 and fc2 over M rows; rows read and written (bf16), weights
     once."""
     return 4 * M * D * Dh, 2 * M * D * 2 + 2 * D * Dh * 2
+
+
+def temporal_bf16_cost(B, T, N, D):
+    """The temporal op's GEMMs and attention; x read, out written (bf16),
+    weights once (bf16)."""
+    M = B * T * N
+    return M * (10 * D * D + 4 * T * D), 2 * M * D * 2 + 5 * D * D * 2
+
+
+def spatial_phase_cost(B, T, N, D):
+    """qkv over the grid rows and one CLS row per clip, attention over L =
+    N + 1 per frame, proj over the grid and the per-frame CLS rows; x and
+    cls read, grid and CLS rows written (bf16), weights once."""
+    M, L = B * T * N, N + 1
+    flops = 2 * (M + B) * D * 3 * D + 4 * B * T * L * L * D + 2 * (M + B * T) * D * D
+    return flops, 2 * M * D * 2 + B * D * 2 + B * T * D * 2 + 4 * D * D * 2
+
+
+def temporal_bwd_cost(B, T, N, D):
+    """Recompute (qkv, attention, proj: 8 D^2 + 4 T D per row) and
+    backward (fc, proj: 8 D^2; qkv: 12 D^2; attention with its score
+    recompute: 10 T D); x and dout read, dx written (bf16), weights read
+    (bf16), gradients written (f32)."""
+    M = B * T * N
+    return (M * (28 * D * D + 14 * T * D),
+            3 * M * D * 2 + 5 * D * D * 2 + (5 * D * D + 7 * D) * 4)
+
+
+def spatial_bwd_cost(B, T, N, D):
+    """Recompute (qkv over grid + CLS rows, attention), backward over the R
+    = grid + per-frame CLS rows (proj: 4 D^2, qkv: 12 D^2 per row;
+    attention with its score recompute: 14 L^2 D per frame); x, dgo read,
+    dx written, cls and dco read (bf16), dcls written (f32), weights read,
+    gradients written."""
+    M, L = B * T * N, N + 1
+    R = M + B * T
+    flops = 6 * (M + B) * D * D + 14 * B * T * L * L * D + 16 * R * D * D
+    nbytes = (3 * M * D * 2 + B * D * 2 + B * T * D * 2 + B * D * 4
+              + 4 * D * D * 2 + (4 * D * D + 6 * D) * 4)
+    return flops, nbytes
+
+
+def mlp_bwd_cost(M, D, Dh):
+    """fc1 recompute and the four backward GEMMs (10 M D Dh); x, do read,
+    dx written (bf16), weights read (bf16), gradients written (f32)."""
+    return (10 * M * D * Dh,
+            3 * M * D * 2 + 2 * D * Dh * 2 + (2 * D * Dh + Dh + 3 * D) * 4)
 
 
 def kernel_breakdown(fn):
@@ -353,6 +424,87 @@ def main():
                 for k, n, ms in rows:
                     print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
     del x, x1, cls
+
+    # the training ops at the train step's global and local crop shapes
+    bf16 = torch.bfloat16
+    for k in TRAIN_OPS:
+        stats[k] = []
+    for tag, (B, T, Np) in [("global", (16, 8, N)), ("local", (64, 8, 36))]:
+        r = np.random.RandomState(40 + Np)
+
+        def rnd(*shape):
+            return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(dev, bf16)
+
+        x, cls, dout, dco = rnd(B, T, Np, D), rnd(B, 1, D), rnd(B, T, Np, D), rnd(B, T, D)
+        xm, dm = x.reshape(-1, D), dout.reshape(-1, D)
+        pt, ps = p["temporal"], p["spatial"]
+        runs = {
+            "temporal_phase_tm_bf16": (
+                lambda: fb.temporal_phase_tm(x, pt, H, out_dtype=bf16),
+                lambda: fb.temporal_phase_tm_plain(x, pt, H, bf16),
+                temporal_bf16_cost(B, T, Np, D)),
+            "spatial_phase": (
+                lambda: fb.spatial_phase(x, cls, ps, H),
+                lambda: fb.spatial_phase_plain(x, cls, ps, H),
+                spatial_phase_cost(B, T, Np, D)),
+            "temporal_phase_tm_bwd": (
+                lambda: fb.temporal_phase_tm_bwd(x, dout, pt, H),
+                lambda: fb.temporal_phase_tm_bwd_plain(x, dout, pt, H),
+                temporal_bwd_cost(B, T, Np, D)),
+            "spatial_phase_bwd": (
+                lambda: fb.spatial_phase_bwd(x, cls, dout, dco, ps, H),
+                lambda: fb.spatial_phase_bwd_plain(x, cls, dout, dco, ps, H),
+                spatial_bwd_cost(B, T, Np, D)),
+            "mlp_phase_bwd": (
+                lambda: fb.mlp_phase_bwd(xm, dm, ps),
+                lambda: fb.mlp_phase_bwd_plain(xm, dm, ps),
+                mlp_bwd_cost(B * T * Np, D, Dh)),
+        }
+        with torch.inference_mode():
+            checks = {}
+            for name, (kern, plain, _) in runs.items():
+                got, want = kern(), plain()
+                lbl = f"{name} {tag}"
+                if name == "temporal_phase_tm_bf16":
+                    checks[name] = [check_close(f"{lbl} out-x", got, want, x)]
+                elif name == "spatial_phase":
+                    checks[name] = [check_close(f"{lbl} grid-x", got[0], want[0], x),
+                                    check_close(f"{lbl} cls rows", got[1], want[1])]
+                else:
+                    base = dm if name == "mlp_phase_bwd" else dout
+                    c = [check_close(f"{lbl} dx-dout", got[0], want[0], base)]
+                    if name == "spatial_phase_bwd":
+                        c.append(check_close(f"{lbl} dcls", got[1], want[1]))
+                    c += [check_close(f"{lbl} d{k}", got[-1][k], want[-1][k])
+                          for k in want[-1]]
+                    checks[name] = c
+                del got, want
+            if not all(ok for v in checks.values() for ok, _ in v):
+                fail(f"a training kernel disagrees with its plain twin ({tag} crops)")
+            for name, (kern, plain, cost) in runs.items():
+                ms = cuda_ms(kern, 5)
+                pl = cuda_ms(plain, 1, warmup=1)
+                b, by = bound_ms(*cost)
+                gaps = [gap for _, gap in checks[name]]
+                stats[name].append({
+                    "crops": tag, "B": B, "T": T, "N": Np, "ms": ms,
+                    "plain_ms": pl, "bound_ms": b, "bound_by": by,
+                    "library_ms": None,
+                    "max_abs_err": max(g["max_abs_err"] for g in gaps),
+                    "rel_rms": max(g["rel_rms"] for g in gaps)})
+                print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms, "
+                      f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
+                      f"{b / ms:.1%} of bound", flush=True)
+        if tag == "global":  # where the time goes inside each backward
+            for name in ("temporal_phase_tm_bwd", "spatial_phase_bwd", "mlp_phase_bwd"):
+                rows, _ = kernel_breakdown(runs[name][0])
+                total = sum(r_[2] for r_ in rows)
+                print(f"  {name} {tag} by kernel (torch.profiler, {total:.3f} ms "
+                      "device time):", flush=True)
+                for k, n, ms in rows[:8]:
+                    print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
+        del x, cls, dout, dco, xm, dm, runs
+        torch.cuda.empty_cache()
 
     # the banded kernels at the full bucket, teacher and student pass
     C, M = BAND_C, BAND_C * N
@@ -596,7 +748,8 @@ def main():
                      items[:1], "hybrid")
         seen = counts()
         n_chunks = math.ceil(items[0]["num_frames"] / 8)
-        want = {k: (n_chunks if k in windowed else 1) * cfg.depth for k in seen}
+        want = {k: (n_chunks if k in windowed else 1 if k in band_ops else 0)
+                * cfg.depth for k in seen}
         print(f"  hybrid launches {seen} (expected {want}: one banded teacher "
               f"pass, {n_chunks} student chunks)", flush=True)
         if seen != want:
@@ -609,6 +762,150 @@ def main():
               f"rank correlation {spearman(h, got['clip0']):.4f} (information "
               "only)", flush=True)
 
+    # -- 7. DINO SSL train step, bf16 kernel route ---------------------------------
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+    from dino_video_summarization_transformer_tpu_torch.utils.flops import (
+        train_step_flops)
+
+    batch, n_local, out_dim = 8, 8, 65536
+    print(f"[7] DINO SSL train step, bf16: ViT-B/16, T=8, batch {batch} "
+          f"({2 * batch} global 224-px clips, {n_local * batch} local 96-px "
+          f"clips), out_dim {out_dim}, AdamW", flush=True)
+    torch.cuda.empty_cache()
+    tcfg = tsf.vit_base_config(num_frames=8, num_classes=0)
+    state, core, mask = ssl.init_train_state(tcfg, out_dim=out_dim,
+                                             optimizer="adamw", seed=0,
+                                             device=dev)
+    step = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local,
+                               clip_grad=3.0, compute_dtype=torch.bfloat16)
+    if step.route != "kernels":
+        fail(f"the bf16 ViT-B train step chose the {step.route!r} route")
+
+    def crops(b, seed):
+        r = np.random.RandomState(seed)
+        g = torch.from_numpy(r.randn(2 * b, 3, 8, 224, 224).astype(np.float32))
+        l = torch.from_numpy(r.randn(n_local * b, 3, 8, 96, 96).astype(np.float32))
+        return g.to(dev), l.to(dev)
+
+    # routes on the same (initial) weights and crops, at batch 2: after a
+    # few steps the temporal branches of the zero-initialised temporal_fc
+    # blocks carry gradients ~1e-7 of the rest, which both bf16 routes
+    # only round
+    torch.backends.cudnn.allow_tf32 = False
+    g2, l2 = crops(2, 51)
+    route_grads, route_loss = {}, {}
+    for name, cd, route in [("kernels", torch.bfloat16, "kernels"),
+                            ("plain bf16", torch.bfloat16, "plain"),
+                            ("f32", torch.float32, "plain")]:
+        st = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local,
+                                 compute_dtype=cd, route=route)
+        reset_counts()
+        loss, _, grads = st.loss_and_grads(state, g2, l2, 0.04)
+        torch.cuda.synchronize()
+        if route == "plain" and any(counts().values()):
+            fail(f"the {name} route launched a kernel")
+        route_loss[name], route_grads[name] = float(loss), grads
+        del grads
+        torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("the f32 route ran with TF32 on")
+    worst, e_k, e_p = ("", 0.0), 0.0, 0.0
+    gk, gp, gf = (route_grads[k] for k in ("kernels", "plain bf16", "f32"))
+    for n in gf:
+        rel = float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-12))
+        worst = max(worst, (n, rel), key=lambda t: t[1])
+        scale = float(gf[n].abs().mean()) + 1e-12
+        e_k += float((gk[n] - gf[n]).abs().mean()) / scale
+        e_p += float((gp[n] - gf[n]).abs().mean()) / scale
+    e_k, e_p = e_k / len(gf), e_p / len(gf)
+    print(f"  batch 2, losses {route_loss}; kernel vs plain bf16 gradients: "
+          f"worst max|diff|/max|plain| {worst[1]:.3e} at {worst[0]} (< "
+          f"{TRAIN_GRAD_REL_MAX}); mean distance to f32: kernel route {e_k:.3e}, "
+          f"plain bf16 {e_p:.3e} (need kernel <= {TRAIN_F32_RATIO} x plain + "
+          "1e-6)", flush=True)
+    if worst[1] >= TRAIN_GRAD_REL_MAX:
+        fail("kernel-route gradients disagree with the plain bf16 route")
+    if e_k > TRAIN_F32_RATIO * e_p + 1e-6:
+        fail("kernel-route gradients are further from f32 than allowed")
+    del route_grads, gk, gp, gf, g2, l2
+    torch.cuda.empty_cache()
+
+    g, l = crops(batch, 50)
+    hp = (5e-4, 0.04, 0.996, 0.04, True)  # lr, wd, teacher momentum, temp, freeze
+    losses = []
+
+    def train_step():
+        nonlocal state
+        state, metrics = step(state, g, l, *hp)
+        losses.append(float(metrics["loss"]))  # a sync per step, as the NaN guard
+
+    torch.cuda.reset_peak_memory_stats()
+    train_step()  # first-call allocations
+    torch.cuda.synchronize()
+    reset_counts()
+    train_step()
+    torch.cuda.synchronize()
+    seen = counts()
+    depth = tcfg.depth
+    want = {k: 0 for k in seen}
+    want.update({"temporal_phase_tm_bf16": 3 * depth, "spatial_phase": 3 * depth,
+                 "mlp_phase": 6 * depth, "temporal_phase_tm_bwd": 2 * depth,
+                 "spatial_phase_bwd": 2 * depth,
+                 # the last block's grid MLP feeds nothing the loss reads
+                 # (only the CLS row goes on to the head): autograd skips
+                 # its backward
+                 "mlp_phase_bwd": 2 * (2 * depth - 1)})
+    print(f"  launches in one step {seen} (expected {want}: 3 forwards and 2 "
+          f"student backwards x {depth} blocks, the MLP on the grid and the "
+          "CLS rows, no backward of the last block's grid MLP)", flush=True)
+    if seen != want:
+        fail(f"train step launches {seen}, expected {want}")
+    launches.update({k: seen[k] for k in TRAIN_OPS})
+    launches["mlp_phase_train_step"] = seen["mlp_phase"]
+    n_steps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        train_step()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / n_steps
+    flops = train_step_flops(tcfg, batch, n_local_crops=n_local, local_size_px=96)
+    print(f"  ms_per_step={ms_step:.1f} ({n_steps} steps), {flops:.3e} FLOP per "
+          f"step (train_step_flops), {flops / ms_step / 1e9:.1f} TFLOP/s, "
+          f"{flops / ms_step / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of the bf16 "
+          f"peak; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB on {card}", flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("a train step gave a non-finite loss")
+
+    # the teacher after a step is the EMA of the teacher before and the new student
+    t_before = [t.detach().clone() for t in state.teacher.parameters()]
+    train_step()
+    m = hp[2]
+    ema_err = max(float((t - (tb * m + s.detach() * (1.0 - m))).abs().max())
+                  for t, tb, s in zip(state.teacher.parameters(), t_before,
+                                      state.student.parameters()))
+    del t_before
+    print(f"  teacher vs EMA of the new student: max abs {ema_err:.3e} (<= 1e-6)",
+          flush=True)
+    if not math.isfinite(losses[-1]) or ema_err > 1e-6:
+        fail("the teacher is not the EMA of the student")
+
+    rows, prof_wall = kernel_breakdown(train_step)
+    busy = sum(r[2] for r in rows)
+    ours = sum(r[2] for r in rows if "(anonymous namespace)::" in r[0])
+    print(f"  one step, profiled: wall {prof_wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {1 - busy / prof_wall:.1%}), inside the "
+          f"port's kernels {ours:.1f} ms ({ours / busy:.1%} of device time); by "
+          "kernel:", flush=True)
+    for k, n, ms in rows[:16]:
+        print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
+    del g, l
+
+    del state, step
+    torch.cuda.empty_cache()
+
     kernels = []
     sources = {
         "temporal_phase_tm": ("fused_block.cu", "ops/fused_block.py:761"),
@@ -617,14 +914,22 @@ def main():
         "spatial_phase_pf": ("banded_block.cu", "ops/banded_block.py:174"),
         "cls_band_attn": ("banded_block.cu", "ops/banded_block.py:291"),
         "mlp_phase": ("fused_block.cu", "ops/fused_block.py:1191"),
+        "temporal_phase_tm_bf16": ("fused_block.cu", "ops/fused_block.py:761"),
+        "spatial_phase": ("fused_block.cu", "ops/fused_block.py:287"),
+        "temporal_phase_tm_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:963"),
+        "spatial_phase_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:430"),
+        "mlp_phase_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:1233"),
     }
     for name, rows in stats.items():
         # per block, the op runs once per window (windowed: the teacher and
-        # the student forward) or once per pass (banded: the teacher and
-        # the student pass): ms, plain_ms and bound_ms sum the two rows
+        # the student forward), once per pass (banded: the teacher and the
+        # student pass) or once per crop shape (training: global and
+        # local): ms, plain_ms and bound_ms sum the two rows
         src, tpu = sources[name]
         libs = [r["library_ms"] for r in rows]
-        kernels.append({
+        extra = ({"launches_train_step": launches["mlp_phase_train_step"]}
+                 if name == "mlp_phase" else {})
+        kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",
             "replaces": f"dino_video_summarization_transformer_tpu/{tpu}",

@@ -1,11 +1,12 @@
 from . import selection, video, windows
-from .datasets import DinoLossDataset, read_csv_entries
+from .datasets import ClipDataset, DinoLossDataset, read_csv_entries
 from .loader import PrefetchLoader, shard_indices
 
 __all__ = [
     "selection",
     "video",
     "windows",
+    "ClipDataset",
     "DinoLossDataset",
     "read_csv_entries",
     "PrefetchLoader",

@@ -1,6 +1,7 @@
-"""CSV-driven scoring dataset (counterpart of the JAX package's
-``data/datasets.py``: ``read_csv_entries`` and ``DinoLossDataset``, rgb8
-wire only).
+"""CSV-driven datasets (counterpart of the JAX package's
+``data/datasets.py``): ``read_csv_entries``, the scoring dataset
+``DinoLossDataset`` (rgb8 wire only) and the training dataset
+``ClipDataset`` (train mode, DINO multi-crop).
 
 The dataset returns the decoded frame buffer plus window *index maps*
 instead of materialized (2T, 3, 30, 224, 224) view stacks; the scorer
@@ -15,7 +16,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import video as vio
-from .transform import tensor_normalize, uniform_crop
+from .transform import (VideoDataAugmentationDINO, temporal_sampling,
+                        tensor_normalize, uniform_crop)
 from .windows import WindowMismatch, window_indices
 
 
@@ -126,3 +128,72 @@ class DinoLossDataset:
         out.update(frames=frames, local_idx=local_idx, global_idx=global_idx,
                    eff_global=eff_global, num_frames=T)
         return out
+
+
+class ClipDataset:
+    """Train-mode DINO multi-crop clip dataset for Kinetics / UCF101 /
+    HMDB51 (the JAX package's ``ClipDataset`` with ``temporal_aug``, ref:
+    datasets_custom/kinetics.py:121-332). An item is the multi-crop of one
+    video: 2 global 224-px clips sampled over the whole video and 8 local
+    96-px clips over an eighth of it each, every clip (C, T, H, W) float32
+    (ref: decoder.py:428-440, transform.py:661-749), as ``(crops, label,
+    index, meta)``. A video that fails to decode is swapped for a random
+    other one, up to ``num_retries`` times. Videos are decoded whole through
+    ``data/video.py`` (the repo's native decoder). The val / test modes and
+    the plain-clip, two-token, rand-fr, tiled-local and flow variants are
+    not ported (ROADMAP)."""
+
+    def __init__(self, cfg, mode: str = "train", num_retries: int = 10,
+                 csv_name: Optional[str] = None, seed: Optional[int] = None):
+        if mode != "train":
+            raise NotImplementedError(f"ClipDataset mode {mode!r}: only the "
+                                      "train mode is ported (ROADMAP)")
+        self.cfg = cfg
+        self._num_retries = num_retries
+        self.rng = np.random.RandomState(seed)
+        csv = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, csv_name or f"{mode}.csv")
+        self._path_to_videos, self._labels = read_csv_entries(
+            csv, cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_LABEL_SEPARATOR, 1)
+        print(f"Constructing dataloader (size: {len(self._path_to_videos)}) "
+              f"from {csv}")
+
+    def __len__(self):
+        return len(self._path_to_videos)
+
+    @property
+    def labels(self):
+        return list(self._labels)
+
+    def _decode_clips(self, index: int):
+        """The 10 multi-crop clips, (T, H, W, C) uint8 each, or None when
+        the video does not decode."""
+        try:
+            frames, _ = vio.read_video(self._path_to_videos[index])
+        except vio.DecodeError:
+            return None
+        if frames.shape[0] == 0:
+            return None
+        num_frames = self.cfg.DATA.NUM_FRAMES
+        max_len = frames.shape[0]
+        local_width = max_len // 8
+        clips = [temporal_sampling(frames, 0, max_len - 5, num_frames),
+                 temporal_sampling(frames, 5, max_len, num_frames)]
+        for _ in range(8):
+            ri = int(self.rng.randint(0, max(max_len - local_width, 1)))
+            clips.append(temporal_sampling(frames, ri, ri + local_width, num_frames))
+        return clips
+
+    def __getitem__(self, index: int):
+        for _ in range(self._num_retries):
+            clips = self._decode_clips(index)
+            if clips is not None:
+                break
+            index = int(self.rng.randint(0, len(self)))
+        else:
+            raise RuntimeError(f"failed to decode after {self._num_retries} retries")
+        aug = VideoDataAugmentationDINO(rng=self.rng)
+        as_tchw = [np.moveaxis(c, -1, 1).astype(np.float32) for c in clips]
+        crops = aug(as_tchw, from_list=True)
+        # T C H W -> C T H W (ref: kinetics.py:306-311)
+        return ([np.ascontiguousarray(np.moveaxis(c, 0, 1)) for c in crops],
+                self._labels[index], index, {})

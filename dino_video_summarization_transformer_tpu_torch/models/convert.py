@@ -7,7 +7,10 @@ state dict. ``state_dict_from_jax_params`` is the other direction the tests
 and ``chip_smoke.py`` need: a JAX-layout pytree (numpy arrays, blocks
 stacked along a leading depth axis, as ``utils/synthetic.make_numpy_params``
 returns) to the reference layout, with the logic of the JAX package's
-``pytree_to_reference_state_dict`` and no JAX.
+``pytree_to_reference_state_dict`` and no JAX; ``head_state_dict_from_jax``
+does the same for the DINO head (the inverse of the JAX package's
+``dino_head_to_pytree``). Both are linear in the leaves, so they also carry
+JAX gradients and optimizer moments across for the tests.
 """
 
 from __future__ import annotations
@@ -166,4 +169,27 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any], cfg
     put_ln("norm", params_np["norm"])
     if "head" in params_np:
         put_linear("head", params_np["head"])
+    return out
+
+
+def head_state_dict_from_jax(head_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX DINO-head pytree (``{"mlp": {"fc0": ...}, "last_layer":
+    {"weight_g": (out,), "weight_v": (in, out)}}``, numpy leaves) -> the
+    reference layout ``mlp.{0,2,4}.weight/bias`` (``mlp.weight`` for one
+    layer), ``last_layer.weight_g`` (out, 1), ``last_layer.weight_v``
+    (out, in): the inverse of the JAX package's ``dino_head_to_pytree``
+    (``models/convert.py:199-218``)."""
+    out: Dict[str, np.ndarray] = {}
+    mlp = head_np["mlp"]
+    n = len(mlp)
+    for i in range(n):
+        p = mlp[f"fc{i}"]
+        name = "mlp" if n == 1 else f"mlp.{2 * i}"
+        out[name + ".weight"] = np.ascontiguousarray(
+            np.asarray(p["kernel"], np.float32).T)
+        out[name + ".bias"] = np.asarray(p["bias"], np.float32)
+    ll = head_np["last_layer"]
+    out["last_layer.weight_g"] = np.asarray(ll["weight_g"], np.float32).reshape(-1, 1)
+    out["last_layer.weight_v"] = np.ascontiguousarray(
+        np.asarray(ll["weight_v"], np.float32).T)
     return out

@@ -18,6 +18,20 @@ Two block routes, chosen per model by ``TimeSformerConfig.use_kernels``:
 
 Patch embedding is patchify + one matmul (as in JAX), which also keeps
 cuDNN's TF32 convolution default out of the f32 tier.
+
+Training (``TimeSformer.forward_train``) keeps the parameters in f32 and
+takes an explicit compute dtype, casting where the JAX package casts: the
+input, ``cls_token``, ``pos_embed``, ``time_embed``, each linear kernel and
+bias to the activations' dtype, LayerNorm output to x's dtype. Its two
+routes, chosen once per model by ``train_route``:
+
+* plain: the JAX XLA ``divided_block`` without drop-path, differentiable
+  by autograd — the f32 tier and the plain bf16 tier;
+* kernels: the counterpart of ``divided_block_fused`` on the frame-major
+  grid, through the autograd Functions ``TemporalPhaseTm``,
+  ``SpatialPhase`` and ``MlpPhase`` of ``ops/fused_block.py`` (Hopper
+  kernels forward and backward on a CUDA tensor, plain twins on a CPU
+  tensor). The CLS update ``cls + mean(cls_frames)`` stays plain torch.
 """
 
 from __future__ import annotations
@@ -131,6 +145,47 @@ def mhsa(x: torch.Tensor, qkv: nn.Linear, proj: nn.Linear,
     return proj(out)
 
 
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """The JAX package's ``linear``: the kernel and then the bias cast to
+    x's dtype, each added in that dtype."""
+    y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    if lin.bias is not None:
+        y = y + lin.bias.to(x.dtype)
+    return y
+
+
+def mhsa_train(x: torch.Tensor, attn: nn.Module, num_heads: int) -> torch.Tensor:
+    """The JAX package's ``mhsa`` with master weights cast to x's dtype:
+    bf16 keeps the scores in bf16 (softmax over them), f32 takes the
+    softmax in f32."""
+    S, L, C = x.shape
+    hd = C // num_heads
+    q, k, v = linear(x, attn.qkv).reshape(S, L, 3, num_heads, hd).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    a = (q @ k.transpose(-2, -1)) * hd ** -0.5
+    if x.dtype == torch.bfloat16:
+        a = a.softmax(dim=-1)
+    else:
+        a = a.float().softmax(dim=-1).to(x.dtype)
+    return linear((a @ v).transpose(1, 2).reshape(S, L, C), attn.proj)
+
+
+def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype) -> str:
+    """``"kernels"`` or ``"plain"``: the JAX package's glue-free gate
+    (models/timesformer.py:679-686) — bf16 compute, divided attention,
+    D % 128 == 0 and head dim < 128 — plus what the Hopper kernels take
+    (head dim % 16 == 0, D <= 1024, qkv biases). Every other geometry
+    (vit_tiny's D = 192 among them) and f32 take the plain route. A static
+    choice, not a fallback: on the kernel route a CUDA tensor launches the
+    kernels or raises."""
+    D, H = cfg.embed_dim, cfg.num_heads
+    ok = (compute_dtype == torch.bfloat16
+          and cfg.attention_type == "divided_space_time"
+          and D % 128 == 0 and D // H < 128 and D % H == 0
+          and (D // H) % 16 == 0 and D <= 1024 and cfg.qkv_bias)
+    return "kernels" if ok else "plain"
+
+
 def interp_nearest_1d(src: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     """torch F.interpolate(mode='nearest') index rule floor(i*in/out),
     evaluated in float32 as the JAX package evaluates it."""
@@ -153,6 +208,28 @@ def resize_pos_embed(pos_embed: torch.Tensor, n_tokens: int, W: int) -> torch.Te
     grid = interp_nearest_1d(grid, H_new, axis=0)
     grid = interp_nearest_1d(grid, W, axis=1)
     return torch.cat([cls_pe, grid.reshape(1, H_new * W, D)], dim=1)
+
+
+def load_reference_state_dict(module: nn.Module, sd: Mapping[str, object]) -> None:
+    """Load a reference-layout state dict (numpy arrays or tensors) into
+    ``module``. Every parameter must be present; keys the module has no use
+    for (a classifier head it does not build) are ignored, as the JAX
+    converter ignores them. Values are cast to the parameters' dtype
+    (round to nearest even for bf16)."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise KeyError(f"state dict lacks {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    with torch.no_grad():
+        for k, t in own.items():
+            v = sd[k]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v))  # a writable copy
+            if v.shape != t.shape:
+                raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +273,17 @@ class PatchEmbed(nn.Module):
         # w[d, c, kh, kw] -> kernel row d over the (kh, kw, c) patch vector
         w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
         return F.linear(x, w, self.proj.bias)
+
+    def forward_train(self, frames: torch.Tensor) -> torch.Tensor:
+        """``forward`` with the master weights cast to the frames' dtype
+        (matmul, then bias), as the JAX ``patch_embed`` runs."""
+        BT, H, W, C = frames.shape
+        ps = self.patch_size
+        gh, gw = H // ps, W // ps
+        x = frames.reshape(BT, gh, ps, gw, ps, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(BT, gh * gw, ps * ps * C)
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        return torch.matmul(x, w.to(x.dtype).t()) + self.proj.bias.to(x.dtype)
 
 
 class Block(nn.Module):
@@ -246,6 +334,57 @@ class Block(nn.Module):
         grid = grid + self.mlp(self._ln(self.norm2, grid))
         return cls, grid
 
+    def _mlp_train(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(F.gelu(linear(x, self.mlp.fc1)), self.mlp.fc2)
+
+    def forward_plain_train(self, cls: torch.Tensor, grid: torch.Tensor,
+                            B: int, T: int, N: int):
+        """Training, plain route: the JAX XLA ``divided_block`` without
+        drop-path in x's dtype, the f32 master weights cast where JAX casts
+        them. cls (B, 1, D); grid (B, N*T, D) in (h w t) order."""
+        D = grid.shape[-1]
+        H = self.num_heads
+        xt = grid.reshape(B * N, T, D)
+        xt = xt + linear(mhsa_train(self._ln(self.temporal_norm1, xt),
+                                    self.temporal_attn, H), self.temporal_fc)
+        xt = xt.reshape(B, N * T, D)
+        cls_rep = cls.expand(B, T, D).reshape(B * T, 1, D)
+        xs = xt.reshape(B, N, T, D).transpose(1, 2).reshape(B * T, N, D)
+        xs = torch.cat([cls_rep, xs], dim=1)
+        res_s = mhsa_train(self._ln(self.norm1, xs), self.attn, H)
+        cls_out = res_s[:, 0, :].reshape(B, T, D).mean(dim=1, keepdim=True)
+        res_sp = res_s[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
+            B, N * T, D)
+        cls = cls + cls_out
+        grid = xt + res_sp
+        cls = cls + self._mlp_train(self._ln(self.norm2, cls))
+        grid = grid + self._mlp_train(self._ln(self.norm2, grid))
+        return cls, grid
+
+    def forward_kernels(self, cls: torch.Tensor, grid: torch.Tensor):
+        """Training, kernel route (the JAX ``divided_block_fused``): cls
+        (B, 1, D) and the frame-major grid (B, T, N, D), both bf16, through
+        the three per-phase autograd Functions; the CLS update stays plain
+        torch."""
+        B, T, N, D = grid.shape
+        H = self.num_heads
+        ta, sa = self.temporal_attn, self.attn
+        grid = fused_block.TemporalPhaseTm.apply(
+            grid, H, self.temporal_norm1.weight, self.temporal_norm1.bias,
+            ta.qkv.weight, ta.qkv.bias, ta.proj.weight, ta.proj.bias,
+            self.temporal_fc.weight, self.temporal_fc.bias)
+        grid, cls_frames = fused_block.SpatialPhase.apply(
+            grid, cls, H, self.norm1.weight, self.norm1.bias, sa.qkv.weight,
+            sa.qkv.bias, sa.proj.weight, sa.proj.bias)
+        cls = cls + cls_frames.mean(dim=1, keepdim=True)
+        mlp = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+               self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        grid = fused_block.MlpPhase.apply(grid.reshape(B * T * N, D), True,
+                                          *mlp).reshape(B, T, N, D)
+        cls = fused_block.MlpPhase.apply(cls.reshape(B, D), True,
+                                         *mlp).reshape(B, 1, D)
+        return cls, grid
+
 
 class TimeSformer(nn.Module):
     """Divided space-time TimeSformer backbone (ref: models/timesformer.py
@@ -270,25 +409,7 @@ class TimeSformer(nn.Module):
         self._kp = None
 
     def load_reference_state_dict(self, sd: Mapping[str, object]) -> None:
-        """Load a reference-layout state dict (numpy arrays or tensors).
-        Every parameter must be present; keys the model has no use for
-        (a classifier head it does not build) are ignored, as the JAX
-        converter ignores them. Values are cast to the parameters' dtype
-        (round to nearest even for bf16)."""
-        own = self.state_dict()
-        missing = sorted(set(own) - set(sd))
-        if missing:
-            raise KeyError(f"state dict lacks {missing[:8]}"
-                           f"{' ...' if len(missing) > 8 else ''}")
-        with torch.no_grad():
-            for k, t in own.items():
-                v = sd[k]
-                if not isinstance(v, torch.Tensor):
-                    v = torch.from_numpy(np.array(v))  # a writable copy
-                if v.shape != t.shape:
-                    raise ValueError(f"{k}: shape {tuple(v.shape)} != "
-                                     f"{tuple(t.shape)}")
-                t.copy_(v)
+        load_reference_state_dict(self, sd)
 
     def kernel_params(self) -> list:
         """Per-block weights in the kernels' layout (bf16 matrices, f32
@@ -354,6 +475,52 @@ class TimeSformer(nn.Module):
         return layer_norm(cls_tok, self.norm.weight, self.norm.bias,
                           cfg.norm_eps)[:, 0]
 
+    def forward_train(self, x: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32,
+                      route: str = "plain") -> torch.Tensor:
+        """Differentiable training forward (the JAX ``forward`` with
+        ``train=False``, as the JAX train step calls it): x (B, C, T, H, W)
+        -> (B, D) CLS features in ``compute_dtype``, the f32 parameters
+        cast where JAX casts them. ``route``: ``"plain"`` or ``"kernels"``
+        (``train_route``)."""
+        if route not in ("plain", "kernels"):
+            raise ValueError(f"route {route!r}: 'plain' or 'kernels'")
+        cfg = self.cfg
+        B, C, T, Himg, Wimg = x.shape
+        W = Wimg // cfg.patch_size
+        N = (Himg // cfg.patch_size) * W
+        D = cfg.embed_dim
+        cd = compute_dtype
+
+        x = x.to(cd)
+        frames = x.permute(0, 2, 3, 4, 1).reshape(B * T, Himg, Wimg, C)
+        tok = self.patch_embed.forward_train(frames)  # (BT, N, D)
+        cls = self.cls_token.to(cd).expand(B * T, 1, D)
+        xt = torch.cat([cls, tok], dim=1)
+        pe = self.pos_embed
+        if xt.shape[1] != pe.shape[1]:
+            pe = resize_pos_embed(pe, xt.shape[1], W)
+        xt = xt + pe.to(cd)
+        te = self.time_embed
+        if T != te.shape[1]:
+            te = interp_nearest_1d(te, T, axis=1)
+        te = te.to(cd)
+        cls_tok = xt[:B, :1, :]  # identical across frames before mixing
+
+        if route == "kernels":
+            grid = (xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]).contiguous()
+            cls_tok = cls_tok.contiguous()
+            for blk in self.blocks:
+                cls_tok, grid = blk.forward_kernels(cls_tok, grid)
+        else:
+            spat = xt[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
+                B * N, T, D)
+            spat = (spat + te).reshape(B, N * T, D)
+            for blk in self.blocks:
+                cls_tok, spat = blk.forward_plain_train(cls_tok, spat, B, T, N)
+        return layer_norm(cls_tok, self.norm.weight, self.norm.bias,
+                          cfg.norm_eps)[:, 0]
+
     def forward(self, x: torch.Tensor, use_head: bool = False) -> torch.Tensor:
         """(ref: models/timesformer.py:347-351)."""
         feats = self.forward_features(x)
@@ -376,3 +543,40 @@ def build_timesformer(cfg: TimeSformerConfig, state_dict: Mapping[str, object],
         model = model.to(dtype)
     model.load_reference_state_dict(state_dict)
     return model.eval()
+
+
+def init_timesformer(cfg: TimeSformerConfig, generator: torch.Generator,
+                     device=None) -> TimeSformer:
+    """Fresh f32 parameters with the JAX package's ``init_timesformer``
+    rules, drawn from ``generator`` on the CPU, then moved to ``device``
+    (default: the CUDA card): truncated normals (std 0.02, cut at 2 std)
+    for the linear kernels, the patch embedding, ``cls_token`` and
+    ``pos_embed``; zero biases and ``time_embed``; LayerNorms at 1 and 0;
+    ``temporal_fc`` zero in blocks after the first (the reference's
+    zero-init quirk, ref: models/timesformer.py:254-263). The numbers
+    differ from JAX's for the same seed; tests that compare the two load
+    ``utils/synthetic.make_numpy_params`` into both."""
+    from ..utils.device import resolve_device
+
+    with torch.device("cpu"):
+        model = TimeSformer(cfg)
+
+    def tn(t):
+        nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                tn(mod.weight)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        tn(model.cls_token)
+        tn(model.pos_embed)
+        model.time_embed.zero_()
+        for blk in list(model.blocks)[1:]:
+            blk.temporal_fc.weight.zero_()
+            blk.temporal_fc.bias.zero_()
+    return model.to(resolve_device(device))

@@ -1,8 +1,8 @@
 """Build the Hopper kernels with nvcc and load them with ctypes.
 
 One shared library with a plain C interface per source in ``csrc/``
-(``fused_block.cu``, ``banded_block.cu``; both include
-``dvst_common.cuh``), compiled for ``sm_90a`` into ``build/torch_kernels/``
+(``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``; each
+includes ``dvst_common.cuh``), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
 import every module on a machine with no nvcc.
@@ -29,7 +29,8 @@ HEADER = os.path.join(_CSRC, "dvst_common.cuh")
 LIB_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 # library name -> source
 SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
-           "banded": os.path.join(_CSRC, "banded_block.cu")}
+           "banded": os.path.join(_CSRC, "banded_block.cu"),
+           "bwd": os.path.join(_CSRC, "fused_block_bwd.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,8 +38,10 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # C entry point -> argtypes (pointers, then sizes, then the stream)
 _SIGNATURES = {
     "fused": {
-        # x, 8 weights, workspace, out | B, T, N, D, H | stream
-        "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 5 + [_p],
+        # x, 8 weights, workspace, out | B, T, N, D, H, out_bf16 | stream
+        "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 6 + [_p],
+        # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H | stream
+        "dvst_spatial_phase": [_p] * 11 + [_i] * 5 + [_p],
         # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
         "dvst_spatial_mlp": [_p] * 18 + [_i] * 6 + [_p],
         # x, 6 weights, workspace, out | M | D, Dh, residual | stream
@@ -51,6 +54,21 @@ _SIGNATURES = {
         "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
         # qkv_cls, qkv, out | C, N, D, H, t_real, eff | stream
         "dvst_cls_band_attn": [_p] * 3 + [_i] * 6 + [_p],
+    },
+    "bwd": {
+        # x, dout, 8 weights, workspace, dx, dln, 6 weight grads
+        # | B, T, N, D, H | stream
+        "dvst_temporal_phase_tm_bwd": [_p] * 19 + [_i] * 5 + [_p],
+        # x, cls, dgo, dco, 6 weights, workspace, dx, dcls, dln, 4 weight
+        # grads | B, T, N, D, H | stream
+        "dvst_spatial_phase_bwd": [_p] * 18 + [_i] * 5 + [_p],
+        # x, do, 6 weights, workspace, dx, dln, 4 weight grads | M | D, Dh,
+        # residual | stream
+        "dvst_mlp_phase_bwd": [_p] * 15 + [_l] + [_i] * 3 + [_p],
+        # workspace bytes of the three (returns long)
+        "dvst_temporal_phase_tm_bwd_ws": [_i] * 5,
+        "dvst_spatial_phase_bwd_ws": [_i] * 5,
+        "dvst_mlp_phase_bwd_ws": [_l] + [_i] * 2,
     },
 }
 
@@ -119,8 +137,8 @@ def build(force: bool = False) -> List[BuildResult]:
 
 
 def load(name: str = "fused") -> ctypes.CDLL:
-    """One kernel library (``"fused"`` or ``"banded"``), built on first
-    use."""
+    """One kernel library (``"fused"``, ``"banded"`` or ``"bwd"``), built
+    on first use."""
     if name in _libs:
         return _libs[name]
     if not _fresh(name):
@@ -128,7 +146,7 @@ def load(name: str = "fused") -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path(name))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _i
+        getattr(lib, fn).restype = _l if fn.endswith("_ws") else _i
     if name == "fused":
         lib.dvst_error_string.argtypes = [_i]
         lib.dvst_error_string.restype = ctypes.c_char_p

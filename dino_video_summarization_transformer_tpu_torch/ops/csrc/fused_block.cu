@@ -1,14 +1,28 @@
-// Hopper (sm_90a) kernels for the whole-block divided space-time pair and
-// the row-wise MLP phase.
+// Hopper (sm_90a) kernels for the whole-block divided space-time pair, the
+// per-phase spatial half and the row-wise MLP phase (forwards; the
+// backwards are in fused_block_bwd.cu).
 //
-// Three C entry points, each a short chain of launches on the caller's
+// Four C entry points, each a short chain of launches on the caller's
 // stream (the building blocks are in dvst_common.cuh):
 //
 //   dvst_temporal_phase_tm  replaces _temporal_phase_tm_kernel
-//       (dino_video_summarization_transformer_tpu/ops/fused_block.py:761,
-//       bf16 in / f32 out, the float tier):
+//       (dino_video_summarization_transformer_tpu/ops/fused_block.py:761):
 //       x (B,T,N,D) bf16 -> x + fc(proj(MHSA over T at each position(LN x)))
+//       in two tiers: f32 out (the whole-block path's carry) or, with
+//       out_bf16, bf16 out = bf16(x + bf16(fc)) (the per-phase training
+//       path, the Pallas kernel's rounding at fused_block.py:855-857)
 //       launches: LN -> GEMM qkv -> attention -> GEMM proj -> GEMM fc+res
+//   dvst_spatial_phase      replaces _spatial_phase_kernel
+//       (ops/fused_block.py:287): per frame on [cls, x_t]: LN -> MHSA ->
+//       proj; grid out = bf16(x + bf16(proj)), raw per-frame CLS rows bf16
+//       launches: LN grid, LN cls -> GEMM qkv grid, GEMM qkv cls ->
+//       attention -> GEMM proj+res grid, GEMM proj cls
+//       Bound by operations: at the training step's global crops (B=16,
+//       T=8, N=196, D=768) B*T*L*(8*D^2 + 4*L*D) = 1.34e11 FLOP (the
+//       Pallas cost estimate) against 0.1 GB of rows, 0.136 ms at the
+//       bf16 peak; the design is the spatial half of dvst_spatial_mlp
+//       without the MLP, so its GEMMs and attention run at that op's
+//       rates (PERF.md).
 //   dvst_spatial_mlp        replaces _spatial_mlp_kernel
 //       (ops/fused_block.py:1556, float tier):
 //       per frame on [cls, x_t]: LN -> MHSA -> proj -> grid residual -> LN ->
@@ -66,14 +80,14 @@ const char* dvst_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (B,T,N,D) bf16 frame-major -> out (B,T,N,D) f32.
+// x (B,T,N,D) bf16 frame-major -> out (B,T,N,D), f32 or (out_bf16) bf16.
 // ws: bf16 workspace of B*T*N*5*D elements.
 int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
                            const void* qkv_w, const void* qkv_b,
                            const void* proj_w, const void* proj_b,
                            const void* fc_w, const void* fc_b, void* ws,
                            void* out, int B, int T, int N, int D, int H,
-                           void* stream) {
+                           int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const bf16* x = static_cast<const bf16*>(x_);
@@ -90,8 +104,44 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
                 N, T, H, st)))
     return e;
   if ((e = gemm<kEpiBf16>(buf2, proj_w, proj_b, nullptr, buf1, M, D, D, st))) return e;
-  if ((e = gemm<kEpiResBf16F32>(buf1, fc_w, fc_b, x, out, M, D, D, st))) return e;
-  return cudaSuccess;
+  if (out_bf16)
+    e = gemm<kEpiAddBf16>(buf1, fc_w, fc_b, x, out, M, D, D, st);
+  else
+    e = gemm<kEpiResBf16F32>(buf1, fc_w, fc_b, x, out, M, D, D, st);
+  return e;
+}
+
+// x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
+// cls_rows (B,T,D) bf16. ws: bf16 workspace of
+// B*T*N*5*D + 4*B*D + B*T*D elements.
+int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
+                       const void* ln_b, const void* qkv_w, const void* qkv_b,
+                       const void* proj_w, const void* proj_b, void* ws,
+                       void* out, void* cls_rows, int B, int T, int N, int D,
+                       int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* cls = static_cast<const bf16*>(cls_);
+  bf16* y = static_cast<bf16*>(ws);          // (M, D)
+  bf16* qkv = y + M * D;                      // (M, 3D)
+  bf16* a = qkv + M * 3 * D;                  // (M, D)
+  bf16* y_cls = a + M * D;                    // (B, D)
+  bf16* qkv_cls = y_cls + (long)B * D;        // (B, 3D)
+  bf16* a_cls = qkv_cls + (long)B * 3 * D;    // (B*T, D)
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
+  cudaError_t e;
+  if ((e = ln_launch<bf16>(x, lw, lb, y, M, D, st))) return e;
+  if ((e = ln_launch<bf16>(cls, lw, lb, y_cls, B, D, st))) return e;
+  if ((e = gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  if ((e = gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, B, 3 * D, D, st))) return e;
+  if ((e = attn(D / H, qkv, qkv_cls, a, a_cls, B * T, T, (long)T * N, N, 1, N,
+                H, st)))
+    return e;
+  if ((e = gemm<kEpiAddBf16>(a, proj_w, proj_b, x, out, M, D, D, st))) return e;
+  return gemm<kEpiBf16>(a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
+                        D, D, st);
 }
 
 // x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,

@@ -1,0 +1,332 @@
+// Hopper (sm_90a) backward kernels of the per-phase training path: each
+// recomputes its phase's forward from the saved inputs, then runs the
+// backward (the Pallas kernels' recompute-in-kernel VJPs, as chains of
+// launches on the caller's stream; the building blocks are in
+// dvst_common.cuh).
+//
+//   dvst_temporal_phase_tm_bwd  replaces _temporal_phase_tm_bwd_kernel
+//       (dino_video_summarization_transformer_tpu/ops/fused_block.py:963):
+//       x, dout (B,T,N,D) bf16 -> dx bf16 and f32 dLN, dWqkv, dbqkv,
+//       dWproj, dbproj, dWfc, dbfc.
+//       recompute: LN -> GEMM qkv -> attention -> GEMM proj
+//       backward: dWfc, dbfc -> dproj -> dWproj, dbproj -> da -> attention
+//       backward -> dWqkv, dbqkv -> dy -> LN backward (+ dout)
+//       Bound by operations: the Pallas cost estimate 3 * B*N*T*(10*D^2 +
+//       4*T*D) is 4.5e11 FLOP at the training step's global crops (B=16,
+//       T=8, N=196, D=768), 0.45 ms at the bf16 peak, against ~0.13 GB
+//       moved (chip_smoke.py counts what these launches do: 4.2e11).
+//   dvst_spatial_phase_bwd      replaces _spatial_phase_bwd_kernel
+//       (ops/fused_block.py:430): x, cls, dgo (B,T,N,D), dco (B,T,D) ->
+//       dx bf16, dcls f32 (B,1,D) (the CLS row's gradient summed over the
+//       T frames it joins) and f32 dLN, dWqkv, dbqkv, dWproj, dbproj.
+//       The per-frame CLS rows are B*T extra rows after the M grid rows in
+//       every row buffer (their LN rows replicated), so each weight
+//       gradient is one GEMM over M + B*T rows.
+//       Bound by operations: the Pallas estimate 3 * B*T*L*(8*D^2 +
+//       4*L*D) is 4.0e11 FLOP at the global crops, 0.41 ms (chip_smoke.py:
+//       3.8e11).
+//   dvst_mlp_phase_bwd          replaces _mlp_phase_bwd_kernel
+//       (ops/fused_block.py:1233): x, do (M,D) bf16 -> dx bf16 and f32
+//       dLN, dW1, db1, dW2, db2; only the M real rows enter the sums (the
+//       Pallas kernel masks its ragged tail, :1254-1259).
+//       recompute: LN -> GEMM fc1 (f32 pre-activation) -> erf GELU (bf16)
+//       backward: dW2, db2 -> dh1 = bf16((do . W2) * gelu'(h1)) -> dW1, db1
+//       -> dy -> LN backward (+ do)
+//       Bound by operations: 10*M*D*Dh = 5.9e11 FLOP at the global grid
+//       (M = 25,088), 0.60 ms.
+//
+// Design, right and simple first: the Pallas kernels carry f32 weight-
+// gradient sums across a sequential grid; Hopper blocks run in no order.
+// So every bf16 operand the Pallas kernels round (dproj, da, ds, dqkv,
+// dh1, the recomputed LN rows and activations) is written to bf16 scratch,
+// and each dW is a transposed-A GEMM over the rows (gemm_dw), its rows cut
+// into up to 16 splits whose f32 partials a second pass adds in a fixed
+// order; bias, LN-scale and LN-bias sums go the same way. No float
+// atomics: two calls give bit-identical gradients. The LN backward's dy
+// stays f32, as in the Pallas kernels (:527-536, :1075-1085). The GEMMs are
+// the wmma tiles of the forwards (~18% of the bf16 peak there), so these
+// ops are expected at a similar share of their bound.
+//
+// Numerics: the XLA-path rules, not the TPU workarounds — the softmax
+// subtracts its row max (no +/-80 clamp, so no |s| < 80 mask on ds), the
+// GELU derivative is the exact erf one, and positions are not packed.
+
+#define DVST_WITH_BACKWARD
+#include "dvst_common.cuh"
+
+namespace {
+
+// Carves 256-byte aligned buffers from one workspace; with a null base it
+// only counts the bytes.
+struct Carve {
+  char* base;
+  size_t off = 0;
+  template <typename T>
+  T* take(size_t n) {
+    off = (off + 255) & ~size_t(255);
+    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += n * sizeof(T);
+    return p;
+  }
+};
+
+size_t max3(size_t a, size_t b, size_t c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// f32 scratch for the split partials of `rows` rows: weight gradients of
+// at most max_w elements, column sums of at most max_cols columns, the LN
+// backward's per-block sums.
+size_t part_floats(long rows, size_t max_w, int max_cols, int D) {
+  const int s = dw_splits(rows);
+  return max3(s > 1 ? (size_t)s * max_w : 0,
+              (size_t)colsum_splits(rows) * max_cols,
+              (size_t)ln_bwd_blocks(rows) * 2 * D);
+}
+
+struct TemporalWs {
+  bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv;
+  float *dy, *part;
+  size_t bytes;
+};
+
+TemporalWs temporal_ws(char* base, long M, int D) {
+  Carve c{base};
+  TemporalWs w;
+  w.y = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.proj = c.take<bf16>(M * D);
+  w.dproj = c.take<bf16>(M * D);
+  w.da = c.take<bf16>(M * D);
+  w.dqkv = c.take<bf16>(M * 3 * D);
+  w.dy = c.take<float>(M * D);
+  w.part = c.take<float>(part_floats(M, (size_t)3 * D * D, 3 * D, D));
+  w.bytes = c.off;
+  return w;
+}
+
+struct SpatialWs {
+  bf16 *y, *y_cls, *qkv, *qkv_cls, *a, *dproj, *da, *dqkv;
+  float *dy, *dx_tail, *part;
+  size_t bytes;
+};
+
+SpatialWs spatial_ws(char* base, long M, long Mc, int B, int D) {
+  Carve c{base};
+  SpatialWs w;
+  const long R = M + Mc;
+  w.y = c.take<bf16>(R * D);
+  w.y_cls = c.take<bf16>((long)B * D);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
+  w.a = c.take<bf16>(R * D);
+  w.dproj = c.take<bf16>(R * D);
+  w.da = c.take<bf16>(R * D);
+  w.dqkv = c.take<bf16>(R * 3 * D);
+  w.dy = c.take<float>(R * D);
+  w.dx_tail = c.take<float>(Mc * D);
+  w.part = c.take<float>(part_floats(R, (size_t)3 * D * D, 3 * D, D));
+  w.bytes = c.off;
+  return w;
+}
+
+struct MlpWs {
+  bf16 *y, *hg, *dh1;
+  float *h1, *dy, *part;
+  size_t bytes;
+};
+
+MlpWs mlp_ws(char* base, long M, int D, int Dh) {
+  Carve c{base};
+  MlpWs w;
+  w.y = c.take<bf16>(M * D);
+  w.hg = c.take<bf16>(M * Dh);
+  w.dh1 = c.take<bf16>(M * Dh);
+  w.h1 = c.take<float>(M * Dh);
+  w.dy = c.take<float>(M * D);
+  w.part = c.take<float>(part_floats(M, (size_t)D * Dh, Dh, D));
+  w.bytes = c.off;
+  return w;
+}
+
+}  // namespace
+
+extern "C" {
+
+long dvst_temporal_phase_tm_bwd_ws(int B, int T, int N, int D, int H) {
+  (void)H;
+  return (long)temporal_ws(nullptr, (long)B * T * N, D).bytes;
+}
+
+// x, dout (B,T,N,D) bf16 -> dx (B,T,N,D) bf16; dln f32 (2, D) (scale |
+// bias); dqkv_w (3D, D), dqkv_b (3D), dproj_w (D, D), dproj_b (D), dfc_w
+// (D, D), dfc_b (D), f32, (out, in) layout. ws: the bytes
+// dvst_temporal_phase_tm_bwd_ws gives.
+int dvst_temporal_phase_tm_bwd(
+    const void* x_, const void* dout_, const void* ln_w, const void* ln_b,
+    const void* qkv_w, const void* qkv_b, const void* proj_w,
+    const void* proj_b, const void* fc_w, const void* fc_b, void* ws,
+    void* dx, void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w,
+    void* dproj_b, void* dfc_w, void* dfc_b, int B, int T, int N, int D,
+    int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* dout = static_cast<const bf16*>(dout_);
+  const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
+  const bf16* Wproj = static_cast<const bf16*>(proj_w);
+  const bf16* Wfc = static_cast<const bf16*>(fc_w);
+  const float* lw = static_cast<const float*>(ln_w);
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D);
+  const int hd = D / H;
+  cudaError_t e;
+  // recompute the forward up to proj
+  if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
+  if ((e = gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  // sequence (b, n) over t: rows (b*T + t)*N + n
+  if ((e = attn(hd, w.qkv, nullptr, w.a, nullptr, B * N, N, (long)T * N, 1, N,
+                T, H, st)))
+    return e;
+  if ((e = gemm<kEpiBf16>(w.a, Wproj, proj_b, nullptr, w.proj, M, D, D, st))) return e;
+  // temporal_fc
+  if ((e = gemm_dw(dout, w.proj, static_cast<float*>(dfc_w), w.part, M, D, D, st))) return e;
+  if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st))) return e;
+  if ((e = gemmx<false, false, kXBf16>(dout, D, Wfc, D, nullptr, w.dproj, M, D,
+                                       D, 1, st)))
+    return e;
+  // proj
+  if ((e = gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, D, st))) return e;
+  if ((e = colsum<bf16>(w.dproj, M, D, w.part, static_cast<float*>(dproj_b), st))) return e;
+  if ((e = gemmx<false, false, kXBf16>(w.dproj, D, Wproj, D, nullptr, w.da, M,
+                                       D, D, 1, st)))
+    return e;
+  // attention
+  if ((e = attn_bwd(hd, w.qkv, nullptr, w.da, nullptr, w.dqkv, nullptr, B * N,
+                    N, (long)T * N, 1, N, T, H, st)))
+    return e;
+  // qkv
+  if ((e = gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, M, 3 * D, D, st))) return e;
+  if ((e = colsum<bf16>(w.dqkv, M, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = gemmx<false, false, kXF32>(w.dqkv, 3 * D, Wqkv, D, nullptr, w.dy, M,
+                                      D, 3 * D, 1, st)))
+    return e;
+  // LN, + the residual's dout
+  return ln_bwd(x, nullptr, 1, w.dy, lw, dout, static_cast<bf16*>(dx), nullptr,
+                M, M, D, w.part, static_cast<float*>(dln), st);
+}
+
+long dvst_spatial_phase_bwd_ws(int B, int T, int N, int D, int H) {
+  (void)H;
+  return (long)spatial_ws(nullptr, (long)B * T * N, (long)B * T, B, D).bytes;
+}
+
+// x (B,T,N,D), cls (B,1,D), dgo (B,T,N,D), dco (B,T,D) bf16 -> dx (B,T,N,D)
+// bf16, dcls (B,1,D) f32; dln f32 (2, D); dqkv_w (3D, D), dqkv_b (3D),
+// dproj_w (D, D), dproj_b (D) f32. ws: dvst_spatial_phase_bwd_ws bytes.
+int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
+                           const void* dco_, const void* ln_w,
+                           const void* ln_b, const void* qkv_w,
+                           const void* qkv_b, const void* proj_w,
+                           const void* proj_b, void* ws, void* dx, void* dcls,
+                           void* dln, void* dqkv_w, void* dqkv_b,
+                           void* dproj_w, void* dproj_b, int B, int T, int N,
+                           int D, int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N, Mc = (long)B * T, R = M + Mc;
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* cls = static_cast<const bf16*>(cls_);
+  const bf16* dgo = static_cast<const bf16*>(dgo_);
+  const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
+  const bf16* Wproj = static_cast<const bf16*>(proj_w);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
+  const SpatialWs w = spatial_ws(static_cast<char*>(ws), M, Mc, B, D);
+  const int hd = D / H;
+  cudaError_t e;
+  // recompute: LN rows of the grid, then of the CLS replicated per frame
+  if ((e = ln_launch<bf16>(x, lw, lb, w.y, M, D, st))) return e;
+  if ((e = ln_launch<bf16>(cls, lw, lb, w.y_cls, B, D, st))) return e;
+  rep_rows_kernel<<<ew_blocks(Mc * D), 256, 0, st>>>(w.y_cls, w.y + M * D, T,
+                                                     D, B);
+  if ((e = cudaGetLastError())) return e;
+  if ((e = gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  if ((e = gemm<kEpiBf16>(w.y_cls, Wqkv, qkv_b, nullptr, w.qkv_cls, B, 3 * D, D, st))) return e;
+  // sequence (b, t) = [cls_b, rows (b*T + t)*N + n]; CLS outputs at rows M + s
+  if ((e = attn(hd, w.qkv, w.qkv_cls, w.a, w.a + M * D, B * T, T, (long)T * N,
+                N, 1, N, H, st)))
+    return e;
+  // proj: the cotangent rows are [dgo; dco]
+  if ((e = cudaMemcpyAsync(w.dproj, dgo, (size_t)M * D * sizeof(bf16),
+                           cudaMemcpyDeviceToDevice, st)))
+    return e;
+  if ((e = cudaMemcpyAsync(w.dproj + M * D, dco_, (size_t)Mc * D * sizeof(bf16),
+                           cudaMemcpyDeviceToDevice, st)))
+    return e;
+  if ((e = gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, D, st))) return e;
+  if ((e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st))) return e;
+  if ((e = gemmx<false, false, kXBf16>(w.dproj, D, Wproj, D, nullptr, w.da, R,
+                                       D, D, 1, st)))
+    return e;
+  // attention: the CLS row's dq/dk/dv per frame go to rows M + (b*T + t)
+  if ((e = attn_bwd(hd, w.qkv, w.qkv_cls, w.da, w.da + M * D, w.dqkv,
+                    w.dqkv + M * 3 * D, B * T, T, (long)T * N, N, 1, N, H, st)))
+    return e;
+  // qkv
+  if ((e = gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, R, 3 * D, D, st))) return e;
+  if ((e = colsum<bf16>(w.dqkv, R, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = gemmx<false, false, kXF32>(w.dqkv, 3 * D, Wqkv, D, nullptr, w.dy, R,
+                                      D, 3 * D, 1, st)))
+    return e;
+  // LN: grid rows + dgo -> dx; CLS rows -> per-frame f32, summed over T
+  if ((e = ln_bwd(x, cls, T, w.dy, lw, dgo, static_cast<bf16*>(dx), w.dx_tail,
+                  M, R, D, w.part, static_cast<float*>(dln), st)))
+    return e;
+  sum_groups_kernel<<<ew_blocks((long)B * D), 256, 0, st>>>(
+      w.dx_tail, T, D, B, static_cast<float*>(dcls));
+  return cudaGetLastError();
+}
+
+long dvst_mlp_phase_bwd_ws(long M, int D, int Dh) {
+  return (long)mlp_ws(nullptr, M, D, Dh).bytes;
+}
+
+// x, do (M,D) bf16 -> dx (M,D) bf16 (+ do when residual); dln f32 (2, D);
+// dfc1_w (Dh, D), dfc1_b (Dh), dfc2_w (D, Dh), dfc2_b (D) f32. ws:
+// dvst_mlp_phase_bwd_ws bytes.
+int dvst_mlp_phase_bwd(const void* x_, const void* do_, const void* ln_w,
+                       const void* ln_b, const void* fc1_w, const void* fc1_b,
+                       const void* fc2_w, const void* fc2_b, void* ws,
+                       void* dx, void* dln, void* dfc1_w, void* dfc1_b,
+                       void* dfc2_w, void* dfc2_b, long M, int D, int Dh,
+                       int residual, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* dout = static_cast<const bf16*>(do_);
+  const bf16* W1 = static_cast<const bf16*>(fc1_w);
+  const bf16* W2 = static_cast<const bf16*>(fc2_w);
+  const float* lw = static_cast<const float*>(ln_w);
+  const MlpWs w = mlp_ws(static_cast<char*>(ws), M, D, Dh);
+  cudaError_t e;
+  if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
+  if ((e = gemm<kEpiF32>(w.y, W1, fc1_b, nullptr, w.h1, M, Dh, D, st))) return e;
+  gelu_bf16_kernel<<<ew_blocks(M * Dh), 256, 0, st>>>(w.h1, w.hg, M * Dh);
+  if ((e = cudaGetLastError())) return e;
+  // fc2
+  if ((e = gemm_dw(dout, w.hg, static_cast<float*>(dfc2_w), w.part, M, D, Dh, st))) return e;
+  if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st))) return e;
+  if ((e = gemmx<false, false, kXGeluGradBf16>(dout, D, W2, Dh, w.h1, w.dh1, M,
+                                               Dh, D, 1, st)))
+    return e;
+  // fc1
+  if ((e = gemm_dw(w.dh1, w.y, static_cast<float*>(dfc1_w), w.part, M, Dh, D, st))) return e;
+  if ((e = colsum<bf16>(w.dh1, M, Dh, w.part, static_cast<float*>(dfc1_b), st))) return e;
+  if ((e = gemmx<false, false, kXF32>(w.dh1, Dh, W1, D, nullptr, w.dy, M, D,
+                                      Dh, 1, st)))
+    return e;
+  return ln_bwd(x, nullptr, 1, w.dy, lw, residual ? dout : nullptr,
+                static_cast<bf16*>(dx), nullptr, M, M, D, w.part,
+                static_cast<float*>(dln), st);
+}
+
+}  // extern "C"

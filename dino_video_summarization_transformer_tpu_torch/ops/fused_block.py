@@ -1,4 +1,4 @@
-"""The whole-block divided space-time kernel pair, for Hopper, with plain twins.
+"""The divided space-time block ops for Hopper, with plain twins.
 
 Counterpart of the JAX package's ``ops/fused_block.py`` whole-block path
 (``fused_divided_block_wb``): a divided block as two ops,
@@ -17,7 +17,28 @@ plain f32 torch (B rows: negligible), as the JAX package does; plus
 * ``mlp_phase``: rows (M, D) bf16 -> [x +] fc2(GELU(fc1(LN x))), bf16 out,
   fc2's output rounded to bf16 before the residual add (the Pallas order) —
   replaces ``_mlp_phase_kernel`` (fused_block.py:1191); the banded block's
-  grid MLP (``models/banded.py``).
+  grid MLP (``models/banded.py``) and the training path's MLP phase.
+
+The per-phase training tier (the counterpart of ``divided_block_fused``)
+runs three ops per block, each a ``torch.autograd.Function`` that saves
+only its inputs and recomputes in its backward, as the JAX custom VJPs do:
+
+* ``TemporalPhaseTm``: ``temporal_phase_tm(..., out_dtype=bf16)``, the
+  bf16 tier of the first op, bf16(x + bf16(fc)) as the Pallas kernel
+  rounds (fused_block.py:855-857); backward ``temporal_phase_tm_bwd`` —
+  replaces ``_temporal_phase_tm_bwd_kernel`` (fused_block.py:963);
+* ``SpatialPhase``: ``spatial_phase``, x (B, T, N, D) and cls (B, 1, D)
+  bf16 -> (x + bf16(proj(MHSA(LN [cls, x_t]))) over the grid rows, the raw
+  per-frame CLS rows in bf16) — replaces ``_spatial_phase_kernel``
+  (fused_block.py:287); backward ``spatial_phase_bwd`` — replaces
+  ``_spatial_phase_bwd_kernel`` (fused_block.py:430);
+* ``MlpPhase``: ``mlp_phase``; backward ``mlp_phase_bwd`` — replaces
+  ``_mlp_phase_bwd_kernel`` (fused_block.py:1233).
+
+Each Function takes the f32 master parameters, casts them to the kernels'
+layout inside (bf16 matrices, f32 vectors) and returns f32 gradients in
+the parameters' (out, in) layout, as JAX's ``f_bwd`` casts them back
+(fused_block.py:629-632). The backwards live in ``csrc/fused_block_bwd.cu``.
 
 Each op's wrapper runs its Hopper kernels (``csrc/fused_block.cu``) on a
 CUDA tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on
@@ -45,8 +66,10 @@ LN_EPS = 1e-6
 SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into on sm_90
 
 # Kernel launches per op wrapper (plain twins do not count).
-launches: Dict[str, int] = {"temporal_phase_tm": 0, "spatial_mlp": 0,
-                             "mlp_phase": 0}
+launches: Dict[str, int] = {
+    "temporal_phase_tm": 0, "spatial_mlp": 0, "mlp_phase": 0,
+    "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
+    "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -59,6 +82,8 @@ TEMPORAL_KEYS = ("ln_w", "ln_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
 SPATIAL_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                 "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 MLP_KEYS = ("ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+SPATIAL_PHASE_KEYS = SPATIAL_KEYS[:6]
+_MATRICES = ("qkv_w", "proj_w", "fc_w", "fc1_w", "fc2_w")
 
 
 def block_params(block) -> dict:
@@ -123,7 +148,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return o.to(torch.bfloat16)
 
 
-def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain twin of ``temporal_phase_tm``."""
     B, T, N, D = x.shape
     H = num_heads
@@ -135,7 +161,10 @@ def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.T
     q, k, v = qkv.reshape(B, T, N, 3, H, hd).permute(3, 0, 2, 4, 1, 5).unbind(0)
     a = _attention(q, k, v).permute(0, 3, 1, 2, 4).reshape(B, T, N, D)
     proj = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
-    return xf + (_mm(proj, p["fc_w"]) + p["fc_b"])
+    fc = _mm(proj, p["fc_w"]) + p["fc_b"]
+    if out_dtype == torch.bfloat16:
+        return (xf + fc.to(torch.bfloat16).float()).to(torch.bfloat16)
+    return xf + fc
 
 
 def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
@@ -169,6 +198,158 @@ def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Te
     if residual:
         out = (xf + out.float()).to(torch.bfloat16)
     return out
+
+
+def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
+                        num_heads: int):
+    """Plain twin of ``spatial_phase``."""
+    B, T, N, D = x.shape
+    H = num_heads
+    hd = D // H
+    L = N + 1
+    seq = torch.cat([cls.reshape(B, 1, 1, D).expand(B, T, 1, D), x],
+                    dim=2).float()  # (B, T, L, D)
+    y = _ln(seq, p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    q, k, v = qkv.reshape(B, T, L, 3, H, hd).permute(3, 0, 1, 4, 2, 5).unbind(0)
+    a = _attention(q, k, v).transpose(2, 3).reshape(B, T, L, D)
+    res = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
+    grid = (x.float() + res[:, :, 1:, :].float()).to(torch.bfloat16)
+    return grid, res[:, :, 0, :].contiguous()
+
+
+# Backward twins: the kernels' arithmetic, rounded at the Pallas backward's
+# bf16 points (dproj, da, ds, dqkv, dh1 and the recomputed activations),
+# f32 sums and an f32 LayerNorm backward; the planted-fault tests replace
+# ``_attention_bwd``, ``_dw`` and ``_sum_frames``.
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The backward's recompute: bf16(softmax(q k^T * scale)), row max
+    subtracted, exact division."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
+
+
+def _attention_bwd(q, k, v, da):
+    """q, k, v, da (..., L, hd) bf16 -> (dq, dk, dv) bf16."""
+    scale = q.shape[-1] ** -0.5
+    pf = _attention_probs(q, k).float()
+    daf = da.float()
+    dv = torch.matmul(pf.transpose(-2, -1), daf).to(torch.bfloat16)
+    dp = torch.matmul(daf, v.float().transpose(-2, -1))
+    ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True)) * scale
+    ds = ds.to(torch.bfloat16).float()
+    dq = torch.matmul(ds, k.float()).to(torch.bfloat16)
+    dk = torch.matmul(ds.transpose(-2, -1), q.float()).to(torch.bfloat16)
+    return dq, dk, dv
+
+
+def _dw(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Weight gradient in the (out, in) layout: dy (rows, out)^T x (rows,
+    in), bf16 operands, f32 sums."""
+    return torch.matmul(dy.float().t(), x.float())
+
+
+def _ln_bwd(xf: torch.Tensor, dy: torch.Tensor, w: torch.Tensor):
+    """f32 LayerNorm backward over the last axis: (dx, dscale, dbias)."""
+    D = xf.shape[-1]
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + LN_EPS)
+    xhat = (xf - mu) * rstd
+    dxh = dy * w
+    dx = rstd * (dxh - dxh.mean(dim=-1, keepdim=True)
+                 - xhat * (dxh * xhat).mean(dim=-1, keepdim=True))
+    return (dx, (dy * xhat).reshape(-1, D).sum(0), dy.reshape(-1, D).sum(0))
+
+
+def _sum_frames(t: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> (B, 1, D): the CLS row's gradient over its frames."""
+    return t.sum(dim=1, keepdim=True)
+
+
+def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """Derivative of the exact erf GELU."""
+    return (0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+            + h * 0.3989422804014327 * torch.exp(-0.5 * h * h))
+
+
+def temporal_phase_tm_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
+                                num_heads: int):
+    """Plain twin of ``temporal_phase_tm_bwd``."""
+    B, T, N, D = x.shape
+    H = num_heads
+    hd = D // H
+    M = B * T * N
+    xf = x.float()
+    y = _ln(xf, p["ln_w"], p["ln_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    q, k, v = qkv.reshape(B, T, N, 3, H, hd).permute(3, 0, 2, 4, 1, 5).unbind(0)
+    a = _attention(q, k, v).permute(0, 3, 1, 2, 4).reshape(M, D)
+    proj = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
+    g = {}
+    dfc = dout.reshape(M, D)
+    g["fc_w"], g["fc_b"] = _dw(dfc, proj), dfc.float().sum(0)
+    dproj = _mm(dfc, p["fc_w"].t()).to(torch.bfloat16)
+    g["proj_w"], g["proj_b"] = _dw(dproj, a), dproj.float().sum(0)
+    da = _mm(dproj, p["proj_w"].t()).to(torch.bfloat16)
+    da = da.reshape(B, T, N, H, hd).permute(0, 2, 3, 1, 4)  # (B, N, H, T, hd)
+    dqkv = torch.stack(_attention_bwd(q, k, v, da))  # (3, B, N, H, T, hd)
+    dqkv = dqkv.permute(1, 4, 2, 0, 3, 5).reshape(M, 3 * D)
+    g["qkv_w"], g["qkv_b"] = _dw(dqkv, y.reshape(M, D)), dqkv.float().sum(0)
+    dy = _mm(dqkv, p["qkv_w"].t())
+    dx, g["ln_w"], g["ln_b"] = _ln_bwd(xf.reshape(M, D), dy, p["ln_w"])
+    dx = (dx + dfc.float()).to(torch.bfloat16).reshape(B, T, N, D)
+    return dx, {k: g[k] for k in TEMPORAL_KEYS}
+
+
+def spatial_phase_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
+                            dgo: torch.Tensor, dco: torch.Tensor, p: dict,
+                            num_heads: int):
+    """Plain twin of ``spatial_phase_bwd``."""
+    B, T, N, D = x.shape
+    H = num_heads
+    hd = D // H
+    L = N + 1
+    seq = torch.cat([cls.reshape(B, 1, 1, D).expand(B, T, 1, D), x],
+                    dim=2).float()
+    y = _ln(seq, p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    q, k, v = qkv.reshape(B, T, L, 3, H, hd).permute(3, 0, 1, 4, 2, 5).unbind(0)
+    a = _attention(q, k, v).transpose(2, 3).reshape(-1, D)
+    g = {}
+    dproj = torch.cat([dco.reshape(B, T, 1, D), dgo], dim=2).reshape(-1, D)
+    g["proj_w"], g["proj_b"] = _dw(dproj, a), dproj.float().sum(0)
+    da = _mm(dproj, p["proj_w"].t()).to(torch.bfloat16)
+    da = da.reshape(B, T, L, H, hd).transpose(2, 3)  # (B, T, H, L, hd)
+    dqkv = torch.stack(_attention_bwd(q, k, v, da))  # (3, B, T, H, L, hd)
+    dqkv = dqkv.permute(1, 2, 4, 0, 3, 5).reshape(-1, 3 * D)
+    g["qkv_w"], g["qkv_b"] = _dw(dqkv, y.reshape(-1, D)), dqkv.float().sum(0)
+    dy = _mm(dqkv, p["qkv_w"].t()).reshape(B, T, L, D)
+    dseq, g["ln1_w"], g["ln1_b"] = _ln_bwd(seq, dy, p["ln1_w"])
+    dx = (dseq[:, :, 1:, :] + dgo.float()).to(torch.bfloat16)
+    dcls = _sum_frames(dseq[:, :, 0, :])
+    return dx, dcls, {k: g[k] for k in SPATIAL_PHASE_KEYS}
+
+
+def mlp_phase_bwd_plain(x: torch.Tensor, do: torch.Tensor, p: dict,
+                        residual: bool = True):
+    """Plain twin of ``mlp_phase_bwd``."""
+    xf = x.float()
+    y = _ln(xf, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
+    h1 = _mm(y, p["fc1_w"]) + p["fc1_b"]
+    hg = F.gelu(h1).to(torch.bfloat16)
+    g = {}
+    g["fc2_w"], g["fc2_b"] = _dw(do, hg), do.float().sum(0)
+    dh1 = (_mm(do, p["fc2_w"].t()) * _gelu_grad(h1)).to(torch.bfloat16)
+    g["fc1_w"], g["fc1_b"] = _dw(dh1, y), dh1.float().sum(0)
+    dy = _mm(dh1, p["fc1_w"].t())
+    dx, g["ln2_w"], g["ln2_b"] = _ln_bwd(xf, dy, p["ln2_w"])
+    if residual:
+        dx = dx + do.float()
+    return dx.to(torch.bfloat16), {k: g[k] for k in MLP_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -226,39 +407,96 @@ def _run(fn, *args) -> None:
             f"CUDA kernel launch failed ({err}): {_build.error_string(err)}")
 
 
-def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+def _check_weights(p: dict, keys, shapes: dict, dev) -> None:
+    for k in keys:
+        _check_tensor(k, p[k], torch.bfloat16 if k in _MATRICES
+                      else torch.float32, shapes[k], dev)
+
+
+def _temporal_shapes(D: int) -> dict:
+    return {"ln_w": (D,), "ln_b": (D,), "qkv_w": (3 * D, D), "qkv_b": (3 * D,),
+            "proj_w": (D, D), "proj_b": (D,), "fc_w": (D, D), "fc_b": (D,)}
+
+
+def _spatial_shapes(D: int, Dh: int = 0) -> dict:
+    return {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
+            "qkv_b": (3 * D,), "proj_w": (D, D), "proj_b": (D,),
+            "ln2_w": (D,), "ln2_b": (D,), "fc1_w": (Dh, D), "fc1_b": (Dh,),
+            "fc2_w": (D, Dh), "fc2_b": (D,)}
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (B, T, N, D) bf16 frame-major -> x + temporal_fc(proj(MHSA over T
-    (LN x))) as (B, T, N, D) f32. Kernel on CUDA, plain twin on CPU."""
+    (LN x))) as (B, T, N, D) ``out_dtype``: f32 (the whole-block tier's
+    carry) or bf16 (the per-phase tier, bf16(x + bf16(fc))). Kernel on
+    CUDA, plain twin on CPU."""
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype}: f32 or bf16")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads, T)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    shapes = {"ln_w": (D,), "ln_b": (D,), "qkv_w": (3 * D, D), "qkv_b": (3 * D,),
-              "proj_w": (D, D), "proj_b": (D,), "fc_w": (D, D), "fc_b": (D,)}
-    for k in TEMPORAL_KEYS:
-        _check_tensor(k, p[k], torch.bfloat16 if k.endswith("_w") and k != "ln_w"
-                      else torch.float32, shapes[k], dev)
+    _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
-        return temporal_phase_tm_plain(x, p, num_heads)
+        return temporal_phase_tm_plain(x, p, num_heads, out_dtype)
 
     from . import _build
 
     lib = _build.load()
     M = B * T * N
-    out = torch.empty((B, T, N, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, T, N, D), dtype=out_dtype, device=dev)
     # Scratch is freed on return while the kernels may still run: the
     # caching allocator hands it out again only to later work on this
     # stream, which is the stream the kernels run on.
     ws = torch.empty(M * 5 * D, dtype=torch.bfloat16, device=dev)
+    bf16_out = out_dtype == torch.bfloat16
     with torch.cuda.device(dev):  # the launch goes to the current device
         _run(lib.dvst_temporal_phase_tm, x.data_ptr(),
              *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
-             out.data_ptr(), B, T, N, D, num_heads,
-             torch.cuda.current_stream(dev).cuda_stream)
-    launches["temporal_phase_tm"] += 1
+             out.data_ptr(), B, T, N, D, num_heads, int(bf16_out),
+             _stream(dev))
+    launches["temporal_phase_tm_bf16" if bf16_out else "temporal_phase_tm"] += 1
     return out
+
+
+def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
+    """x (B, T, N, D) bf16 frame-major, cls (B, 1, D) bf16 -> (grid (B, T,
+    N, D) bf16 = x + bf16(proj(MHSA(LN [cls, x_t])) rows), per-frame CLS
+    rows (B, T, D) bf16), with the ``SPATIAL_PHASE_KEYS`` weights of
+    ``block_params(...)["spatial"]``. Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    B, T, N, D = x.shape
+    dev = _device_of(x)
+    _check_geometry(D, num_heads, N + 1)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
+    _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
+    if dev.type == "cpu":
+        return spatial_phase_plain(x, cls, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load()
+    M = B * T * N
+    out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
+    cls_rows = torch.empty((B, T, D), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(M * 5 * D + B * 4 * D + B * T * D, dtype=torch.bfloat16,
+                     device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_spatial_phase, x.data_ptr(), cls.data_ptr(),
+             *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
+             out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads,
+             _stream(dev))
+    launches["spatial_phase"] += 1
+    return out, cls_rows
 
 
 def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
@@ -273,13 +511,7 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     _check_geometry(D, num_heads, N + 1, Dh)
     _check_tensor("x1", x1, torch.float32, x1.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
-    shapes = {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
-              "qkv_b": (3 * D,), "proj_w": (D, D), "proj_b": (D,),
-              "ln2_w": (D,), "ln2_b": (D,), "fc1_w": (Dh, D), "fc1_b": (Dh,),
-              "fc2_w": (D, Dh), "fc2_b": (D,)}
-    for k in SPATIAL_KEYS:
-        _check_tensor(k, p[k], torch.bfloat16 if k in ("qkv_w", "proj_w", "fc1_w", "fc2_w")
-                      else torch.float32, shapes[k], dev)
+    _check_weights(p, SPATIAL_KEYS, _spatial_shapes(D, Dh), dev)
     if dev.type == "cpu":
         return spatial_mlp_plain(x1, cls, p, num_heads)
 
@@ -331,11 +563,7 @@ def mlp_phase(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    shapes = {"ln2_w": (D,), "ln2_b": (D,), "fc1_w": (Dh, D), "fc1_b": (Dh,),
-              "fc2_w": (D, Dh), "fc2_b": (D,)}
-    for k in MLP_KEYS:
-        _check_tensor(k, p[k], torch.bfloat16 if k in ("fc1_w", "fc2_w")
-                      else torch.float32, shapes[k], dev)
+    _check_weights(p, MLP_KEYS, _spatial_shapes(D, Dh), dev)
     if dev.type == "cpu":
         return mlp_phase_plain(x, p, residual)
 
@@ -351,3 +579,228 @@ def mlp_phase(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
              torch.cuda.current_stream(dev).cuda_stream)
     launches["mlp_phase"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Backward wrappers (``csrc/fused_block_bwd.cu``)
+# ---------------------------------------------------------------------------
+
+def _attn_bwd_smem(L: int, hd: int) -> int:
+    """Shared bytes of the attention backward: q, k, v, da (L x hd bf16),
+    the L x L bf16 probabilities, one f32 row per warp (csrc:
+    attn_bwd_kernel)."""
+    warps = max(1, min(8, L))
+    return 4 * L * hd * 2 + ((L * L + 1) // 2 * 2) * 2 + warps * L * 4
+
+
+def _check_bwd_geometry(D: int, num_heads: int, L: int) -> None:
+    _check_geometry(D, num_heads, L)
+    if _attn_bwd_smem(L, D // num_heads) > SMEM_LIMIT:
+        raise ValueError(f"sequence length {L} at head dim {D // num_heads}: "
+                         f"the attention backward needs "
+                         f"{_attn_bwd_smem(L, D // num_heads)} B of shared "
+                         f"memory (limit {SMEM_LIMIT})")
+
+
+def _grads(dev, shapes: dict, keys):
+    """f32 gradient buffers: the two LayerNorm vectors (``keys[:2]``) share
+    one (2, D) buffer (the kernels write scale | bias), the rest one each."""
+    D = shapes[keys[0]][0]
+    dln = torch.empty((2, D), dtype=torch.float32, device=dev)
+    g = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev)
+         for k in keys[2:]}
+    g[keys[0]], g[keys[1]] = dln[0], dln[1]
+    return dln, g
+
+
+def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
+                          num_heads: int):
+    """Backward of ``temporal_phase_tm``'s bf16 tier: x, dout (B, T, N, D)
+    bf16 -> (dx (B, T, N, D) bf16, f32 gradients keyed as
+    ``TEMPORAL_KEYS``, in the weights' (out, in) layout). Kernel on CUDA,
+    plain twin on CPU."""
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    B, T, N, D = x.shape
+    dev = _device_of(x)
+    _check_bwd_geometry(D, num_heads, T)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("dout", dout, torch.bfloat16, x.shape, dev)
+    shapes = _temporal_shapes(D)
+    _check_weights(p, TEMPORAL_KEYS, shapes, dev)
+    if dev.type == "cpu":
+        return temporal_phase_tm_bwd_plain(x, dout, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load("bwd")
+    dx = torch.empty_like(x)
+    dln, g = _grads(dev, shapes, TEMPORAL_KEYS)
+    ws = torch.empty(lib.dvst_temporal_phase_tm_bwd_ws(B, T, N, D, num_heads),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_temporal_phase_tm_bwd, x.data_ptr(), dout.data_ptr(),
+             *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
+             dx.data_ptr(), dln.data_ptr(),
+             *(g[k].data_ptr() for k in TEMPORAL_KEYS[2:]),
+             B, T, N, D, num_heads, _stream(dev))
+    launches["temporal_phase_tm_bwd"] += 1
+    return dx, g
+
+
+def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
+                      dco: torch.Tensor, p: dict, num_heads: int):
+    """Backward of ``spatial_phase``: x (B, T, N, D), cls (B, 1, D), the
+    cotangents dgo (B, T, N, D) and dco (B, T, D), all bf16 -> (dx bf16,
+    dcls (B, 1, D) f32, f32 gradients keyed as ``SPATIAL_PHASE_KEYS``).
+    Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    B, T, N, D = x.shape
+    dev = _device_of(x)
+    _check_bwd_geometry(D, num_heads, N + 1)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
+    _check_tensor("dgo", dgo, torch.bfloat16, x.shape, dev)
+    _check_tensor("dco", dco, torch.bfloat16, (B, T, D), dev)
+    shapes = _spatial_shapes(D)
+    _check_weights(p, SPATIAL_PHASE_KEYS, shapes, dev)
+    if dev.type == "cpu":
+        return spatial_phase_bwd_plain(x, cls, dgo, dco, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load("bwd")
+    dx = torch.empty_like(x)
+    dcls = torch.empty((B, 1, D), dtype=torch.float32, device=dev)
+    dln, g = _grads(dev, shapes, SPATIAL_PHASE_KEYS)
+    ws = torch.empty(lib.dvst_spatial_phase_bwd_ws(B, T, N, D, num_heads),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_spatial_phase_bwd, x.data_ptr(), cls.data_ptr(),
+             dgo.data_ptr(), dco.data_ptr(),
+             *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
+             dx.data_ptr(), dcls.data_ptr(), dln.data_ptr(),
+             *(g[k].data_ptr() for k in SPATIAL_PHASE_KEYS[2:]),
+             B, T, N, D, num_heads, _stream(dev))
+    launches["spatial_phase_bwd"] += 1
+    return dx, dcls, g
+
+
+def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
+                  residual: bool = True):
+    """Backward of ``mlp_phase``: x, do (M, D) bf16 -> (dx (M, D) bf16,
+    f32 gradients keyed as ``MLP_KEYS``). Kernel on CUDA, plain twin on
+    CPU."""
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
+    M, D = x.shape
+    Dh = p["fc1_w"].shape[0]
+    dev = _device_of(x)
+    if D % 128 or D > 1024 or Dh % 128:
+        raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
+                         "multiples of 128 and D <= 1024")
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("do", do, torch.bfloat16, x.shape, dev)
+    shapes = _spatial_shapes(D, Dh)
+    _check_weights(p, MLP_KEYS, shapes, dev)
+    if dev.type == "cpu":
+        return mlp_phase_bwd_plain(x, do, p, residual)
+
+    from . import _build
+
+    lib = _build.load("bwd")
+    dx = torch.empty_like(x)
+    dln, g = _grads(dev, shapes, MLP_KEYS)
+    ws = torch.empty(lib.dvst_mlp_phase_bwd_ws(M, D, Dh), dtype=torch.uint8,
+                     device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_mlp_phase_bwd, x.data_ptr(), do.data_ptr(),
+             *(p[k].data_ptr() for k in MLP_KEYS), ws.data_ptr(),
+             dx.data_ptr(), dln.data_ptr(),
+             *(g[k].data_ptr() for k in MLP_KEYS[2:]),
+             M, D, Dh, int(residual), _stream(dev))
+    launches["mlp_phase_bwd"] += 1
+    return dx, g
+
+
+# ---------------------------------------------------------------------------
+# Autograd Functions of the per-phase training tier
+# ---------------------------------------------------------------------------
+
+def kernel_weights(params, keys) -> dict:
+    """f32 master parameters (in ``keys`` order) -> the kernels' layout:
+    bf16 matrices, f32 vectors."""
+    return {k: (t.detach().to(torch.bfloat16) if k in _MATRICES
+                else t.detach().float()).contiguous()
+            for k, t in zip(keys, params)}
+
+
+def _cast_grads(g: dict, keys, params):
+    return tuple(g[k].to(p.dtype) for k, p in zip(keys, params))
+
+
+class TemporalPhaseTm(torch.autograd.Function):
+    """``temporal_phase_tm``'s bf16 tier with ``temporal_phase_tm_bwd`` as
+    its backward: ``apply(x, num_heads, *params)``, params the f32 masters
+    in ``TEMPORAL_KEYS`` order."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, *params)
+        return temporal_phase_tm(x, kernel_weights(params, TEMPORAL_KEYS),
+                                 num_heads, out_dtype=torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *params = ctx.saved_tensors
+        dx, g = temporal_phase_tm_bwd(
+            x, dout.contiguous(), kernel_weights(params, TEMPORAL_KEYS),
+            ctx.num_heads)
+        return (dx, None) + _cast_grads(g, TEMPORAL_KEYS, params)
+
+
+class SpatialPhase(torch.autograd.Function):
+    """``spatial_phase`` with ``spatial_phase_bwd`` as its backward:
+    ``apply(x, cls, num_heads, *params)``, params the f32 masters in
+    ``SPATIAL_PHASE_KEYS`` order."""
+
+    @staticmethod
+    def forward(ctx, x, cls, num_heads, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, cls, *params)
+        return spatial_phase(x, cls, kernel_weights(params, SPATIAL_PHASE_KEYS),
+                             num_heads)
+
+    @staticmethod
+    def backward(ctx, dgo, dco):
+        x, cls, *params = ctx.saved_tensors
+        B, T, N, D = x.shape
+        dgo = torch.zeros_like(x) if dgo is None else dgo.contiguous()
+        dco = (torch.zeros((B, T, D), dtype=x.dtype, device=x.device)
+               if dco is None else dco.contiguous())
+        dx, dcls, g = spatial_phase_bwd(
+            x, cls, dgo, dco, kernel_weights(params, SPATIAL_PHASE_KEYS),
+            ctx.num_heads)
+        return ((dx, dcls.to(cls.dtype), None)
+                + _cast_grads(g, SPATIAL_PHASE_KEYS, params))
+
+
+class MlpPhase(torch.autograd.Function):
+    """``mlp_phase`` with ``mlp_phase_bwd`` as its backward:
+    ``apply(x, residual, *params)``, x (M, D) bf16, params the f32 masters
+    in ``MLP_KEYS`` order."""
+
+    @staticmethod
+    def forward(ctx, x, residual, *params):
+        ctx.residual = residual
+        ctx.save_for_backward(x, *params)
+        return mlp_phase(x, kernel_weights(params, MLP_KEYS), residual)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, *params = ctx.saved_tensors
+        dx, g = mlp_phase_bwd(x, do.contiguous(),
+                              kernel_weights(params, MLP_KEYS), ctx.residual)
+        return (dx, None) + _cast_grads(g, MLP_KEYS, params)

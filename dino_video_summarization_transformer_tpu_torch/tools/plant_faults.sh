@@ -1,0 +1,30 @@
+#!/bin/bash
+# Plants each backward-kernel fault in a copy of the tree and runs
+# chip_smoke.py from the copy; each must exit 1 in phase 3 (the training
+# ops against their plain twins). Run from the repository root on a
+# machine with a CUDA card:
+#
+#     bash dino_video_summarization_transformer_tpu_torch/tools/plant_faults.sh
+#
+# Faults: the rowsum(dp * p) term dropped from the attention backward's
+# ds; the proj weight gradient transposed (dY and X swapped in gemm_dw);
+# the CLS row's gradient taken from the first frame only.
+set -u
+SRC=$(pwd)
+CSRC=dino_video_summarization_transformer_tpu_torch/ops/csrc
+run() {
+  name=$1; file=$2; expr=$3
+  dst=$(mktemp -d)
+  (cd "$SRC" && tar --exclude=./build --exclude=./chiprun_out --exclude=./.git -cf - .) \
+    | (cd "$dst" && tar xf -)
+  f=$dst/$CSRC/$file
+  before=$(md5sum < "$f"); sed -i "$expr" "$f"; after=$(md5sum < "$f")
+  if [ "$before" = "$after" ]; then echo "FAULT $name: sed changed nothing"; rm -rf "$dst"; return; fi
+  (cd "$dst" && timeout 600 python3 chip_smoke.py > out.log 2>&1); rc=$?
+  echo "FAULT $name: exit $rc, last phase $(grep -o '^\[[0-9]\]' "$dst/out.log" | tail -1)"
+  grep -E "FAILED|^FAIL" "$dst/out.log" | cut -c1-400 | head -8
+  rm -rf "$dst"
+}
+run no_rowsum dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
+run dw_transposed fused_block_bwd.cu 's/gemm_dw(w.dproj, w.a,/gemm_dw(w.a, w.dproj,/'
+run dcls_frame0 dvst_common.cuh 's/for (int t = 0; t < reps; ++t) s +=/for (int t = 0; t < 1; ++t) s +=/'

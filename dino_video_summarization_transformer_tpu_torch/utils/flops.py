@@ -1,6 +1,7 @@
-"""Analytic FLOP count of a banded pass: the JAX package's
-``utils/flops.py:banded_pass_flops``, with the port's kernel route counted
-as it runs. Multiply-adds count as 2 FLOP."""
+"""Analytic FLOP counts (the JAX package's ``utils/flops.py``): one
+divided space-time forward, one DINO train step, and a banded pass with the
+port's kernel route counted as it runs. Multiply-adds count as 2 FLOP;
+norms, softmax and elementwise work (<1%) are left out."""
 
 from __future__ import annotations
 
@@ -42,3 +43,45 @@ def banded_pass_flops(cfg, n_frames: int, eff: int, block: int = 32,
     # MLP on (1 + N) tokens
     per_block += (N + 1) * (2 * 2 * D * mlp_hidden)
     return C * (per_frame + cfg.depth * per_block)
+
+
+def timesformer_forward_flops(cfg, num_frames: int) -> float:
+    """FLOP of one divided space-time forward, batch 1, T = num_frames:
+    patch embedding, qkv / proj / temporal_fc, the attention products and
+    the MLP (the JAX package's ``timesformer_forward_flops``)."""
+    D = cfg.embed_dim
+    N = cfg.num_patches
+    T = num_frames
+    mlp_hidden = int(D * cfg.mlp_ratio)
+    patch_in = cfg.patch_size * cfg.patch_size * cfg.in_chans
+    flops = 2.0 * T * N * patch_in * D
+    per_block = 0.0
+    if cfg.attention_type == "divided_space_time":
+        per_block += T * N * (2 * 3 * D * D + 2 * D * D)      # qkv + proj
+        per_block += T * N * (4 * T * D)                      # QK^T + PV
+        per_block += T * N * (2 * D * D)                      # temporal_fc
+        per_block += T * (N + 1) * (2 * 3 * D * D + 2 * D * D)
+        per_block += T * (N + 1) * (4 * (N + 1) * D)
+        per_block += (1 + N * T) * (2 * 2 * D * mlp_hidden)
+    else:
+        seq = 1 + N * T if cfg.attention_type == "joint_space_time" else N + 1
+        reps = 1 if cfg.attention_type == "joint_space_time" else T
+        per_block += reps * seq * (2 * 4 * D * D + 4 * seq * D)
+        per_block += reps * seq * (2 * 2 * D * mlp_hidden)
+    return flops + cfg.depth * per_block
+
+
+def train_step_flops(cfg, batch_per_step: int, n_local_crops: int = 8,
+                     local_size_px: int = 96) -> float:
+    """FLOP of one DINO train step: the teacher forward on the 2 global
+    crops, the student forward + backward (3x forward) on the 2 global and
+    the local crops, heads and optimizer left out (the JAX package's
+    ``train_step_flops``)."""
+    import dataclasses
+
+    B = batch_per_step
+    T = cfg.num_frames
+    g = timesformer_forward_flops(cfg, T)
+    loc = timesformer_forward_flops(
+        dataclasses.replace(cfg, img_size=local_size_px), T)
+    return 2 * B * g + 3 * B * (2 * g + n_local_crops * loc)

@@ -56,6 +56,27 @@ def make_numpy_params(cfg, seed: int = 0) -> dict:
     }
 
 
+def make_numpy_head_params(in_dim: int, out_dim: int, seed: int = 0,
+                           nlayers: int = 3, hidden_dim: int = 2048,
+                           bottleneck_dim: int = 256) -> dict:
+    """Deterministic DINO-head params in the JAX package's pytree layout
+    (``models/heads.py:init_dino_head``): kernels (in, out) at std 0.02,
+    biases at std 0.01, ``weight_v`` (bottleneck, out), ``weight_g`` (out,)
+    at 1 + 0.05 N(0, 1) (not all ones, so its gradient shows)."""
+    r = np.random.RandomState(seed)
+    nlayers = max(nlayers, 1)
+    dims = ([in_dim, bottleneck_dim] if nlayers == 1 else
+            [in_dim] + [hidden_dim] * (nlayers - 1) + [bottleneck_dim])
+    mlp = {f"fc{i}": {
+        "kernel": np.asarray(r.randn(dims[i], dims[i + 1]) * 0.02, np.float32),
+        "bias": np.asarray(r.randn(dims[i + 1]) * 0.01, np.float32)}
+        for i in range(nlayers)}
+    return {"mlp": mlp, "last_layer": {
+        "weight_g": np.asarray(1 + 0.05 * r.randn(out_dim), np.float32),
+        "weight_v": np.asarray(r.randn(bottleneck_dim, out_dim) * 0.02,
+                               np.float32)}}
+
+
 def make_video(seed: int, T: int, size: int, events: bool = True) -> np.ndarray:
     """(T, size, size, 3) uint8: smoothed panning textures with hard cuts
     and sparse bright 3-frame events (see the JAX package's module)."""

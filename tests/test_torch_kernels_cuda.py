@@ -208,3 +208,133 @@ def test_banded_forward_kernels_match_twins(cuda_device, t_real, eff):
         want = banded.banded_cls_features(cpu, fr, t_real, eff)
     assert all(bb.launches[k] == before[k] + 2 for k in before)
     _close(got.cpu()[:t_real], want[:t_real])
+
+
+# The per-phase training tier (forwards and backwards): the two crop
+# geometries of the train step at ViT-B widths (global N=196, local N=36,
+# T=8, at a small batch), small shapes, and a ragged row count for the MLP.
+TRAIN_SHAPES = [(2, 4, 6, 128, 2), (2, 8, 196, 768, 12), (4, 8, 36, 768, 12),
+                (1, 3, 16, 256, 4)]
+
+
+def _grads_close(got: dict, want: dict):
+    for k in want:
+        gap = twin_check.twin_gap(got[k], want[k])
+        assert not twin_check.twin_failures(gap), (k, gap)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TRAIN_SHAPES)
+def test_temporal_phase_tm_bf16_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["temporal"]
+    x = _qkv((B, T, N, D), 20, cuda_device)
+    before = fb.launches["temporal_phase_tm_bf16"]
+    got = fb.temporal_phase_tm(x, p, H, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_phase_tm_bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _close(got, fb.temporal_phase_tm_plain(x, p, H, torch.bfloat16), x)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TRAIN_SHAPES)
+def test_spatial_phase_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((B, T, N, D), 21, cuda_device)
+    cls = _qkv((B, 1, D), 22, cuda_device)
+    before = fb.launches["spatial_phase"]
+    grid, rows = fb.spatial_phase(x, cls, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_phase"] == before + 1
+    want_grid, want_rows = fb.spatial_phase_plain(x, cls, p, H)
+    _close(grid, want_grid, x)
+    _close(rows, want_rows)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TRAIN_SHAPES)
+def test_temporal_phase_tm_bwd_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["temporal"]
+    x = _qkv((B, T, N, D), 23, cuda_device)
+    dout = _qkv((B, T, N, D), 24, cuda_device)
+    before = fb.launches["temporal_phase_tm_bwd"]
+    dx, g = fb.temporal_phase_tm_bwd(x, dout, p, H)
+    dx2, g2 = fb.temporal_phase_tm_bwd(x, dout, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_phase_tm_bwd"] == before + 2
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+    want_dx, want_g = fb.temporal_phase_tm_bwd_plain(x, dout, p, H)
+    _close(dx, want_dx, dout)
+    _grads_close(g, want_g)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TRAIN_SHAPES)
+def test_spatial_phase_bwd_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((B, T, N, D), 25, cuda_device)
+    cls = _qkv((B, 1, D), 26, cuda_device)
+    dgo = _qkv((B, T, N, D), 27, cuda_device)
+    dco = _qkv((B, T, D), 28, cuda_device)
+    before = fb.launches["spatial_phase_bwd"]
+    dx, dcls, g = fb.spatial_phase_bwd(x, cls, dgo, dco, p, H)
+    dx2, dcls2, g2 = fb.spatial_phase_bwd(x, cls, dgo, dco, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_phase_bwd"] == before + 2
+    assert torch.equal(dx, dx2) and torch.equal(dcls, dcls2)
+    assert all(torch.equal(g[k], g2[k]) for k in g)
+    want_dx, want_dcls, want_g = fb.spatial_phase_bwd_plain(x, cls, dgo, dco, p, H)
+    _close(dx, want_dx, dgo)
+    _close(dcls, want_dcls)
+    _grads_close(g, want_g)
+
+
+@pytest.mark.parametrize("M,D,Dh,residual", [(200, 128, 512, True),
+                                             (25088, 768, 3072, True),
+                                             (16, 768, 3072, True),
+                                             (77, 256, 1024, False)])
+def test_mlp_phase_bwd_kernel_matches_twin(cuda_device, M, D, Dh, residual):
+    p = _block(D, D // 64, 0, cuda_device)["spatial"]
+    assert p["fc1_w"].shape == (Dh, D)
+    x = _qkv((M, D), 29, cuda_device)
+    do = _qkv((M, D), 30, cuda_device)
+    before = fb.launches["mlp_phase_bwd"]
+    dx, g = fb.mlp_phase_bwd(x, do, p, residual)
+    dx2, g2 = fb.mlp_phase_bwd(x, do, p, residual)
+    torch.cuda.synchronize()
+    assert fb.launches["mlp_phase_bwd"] == before + 2
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+    want_dx, want_g = fb.mlp_phase_bwd_plain(x, do, p, residual)
+    _close(dx, want_dx, do if residual else None)
+    _grads_close(g, want_g)
+
+
+def test_train_step_kernel_route_matches_twins(cuda_device):
+    """The bf16 kernel-route gradients of a whole train step (depth 2,
+    D=128) on the card against the same step on the CPU, where the autograd
+    Functions run the plain twins; same numpy-seeded weights and crops.
+    Around the kernels the step runs plain bf16 torch (patch embedding,
+    head, LayerNorm, casts), which rounds differently on the two devices,
+    so the gradients are held to the step-level bound of the CPU test
+    against JAX: per parameter max|diff| / max|CPU| < 0.15."""
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=128,
+                                depth=2, num_heads=2, num_frames=4,
+                                num_classes=0)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 5), cfg)
+    r = np.random.RandomState(6)
+    g = torch.from_numpy(r.randn(4, 3, 4, 32, 32).astype(np.float32))
+    l = torch.from_numpy(r.randn(8, 3, 4, 32, 32).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        state, core, mask = ssl.init_train_state(cfg, out_dim=64, seed=7,
+                                                 pretrained_backbone=sd,
+                                                 device=dev)
+        step = ssl.make_train_step(cfg, core, mask, n_local_crops=4,
+                                   compute_dtype=torch.bfloat16)
+        assert step.route == "kernels"
+        before = dict(fb.launches)
+        _, _, grads[str(dev)] = step.loss_and_grads(state, g.to(dev), l.to(dev), 0.04)
+        ran = fb.launches["spatial_phase_bwd"] - before["spatial_phase_bwd"]
+        assert ran == (0 if dev == "cpu" else 2 * cfg.depth)
+    for n, want in grads["cpu"].items():
+        got = grads["cuda"][n].cpu()
+        rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
+        assert torch.isfinite(got).all() and rel < 0.15, (n, rel)
