@@ -17,11 +17,18 @@ Imports torch, numpy and the port package
    the three backwards: temporal, spatial, MLP, each gradient held to its
    twin) at the train step's global (B=16 clips, T=8, N=196) and local
    (B=64, T=8, N=36) crops; the banded kernels at the full 512-frame bucket for the teacher (eff=30)
-   and student (eff=3) passes; CUDA-event times of kernel and twin beside
-   the bound computed from the shapes, and for the banded temporal
-   attention the time of ``F.scaled_dot_product_attention`` with the band
-   as a boolean mask (a yardstick the port never calls; the other ops have
-   no single-call PyTorch counterpart).
+   and student (eff=3) passes; the XLA-layout block's two attention
+   phases (``attn_phase`` on the windows' spatial sequences, (240, 197) and
+   (24, 197) rows of 768; ``temporal_phase`` on (1568, 30) and (1568, 3),
+   its branch through its f32-out tier)
+   and the standalone ``fused_attention`` on the attention swap's head
+   sequences (hd 64: (2880, 197), (18816, 30), (288, 197), (18816, 3); pack=4
+   equal to the unpacked call; an f32 check); CUDA-event times of kernel
+   and twin beside the bound computed from the shapes, and for the banded
+   temporal attention and ``fused_attention`` the time of
+   ``F.scaled_dot_product_attention`` on the same tensors (with the band
+   as a boolean mask for the former; a yardstick the port never calls;
+   the other ops have no single-call PyTorch counterpart).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
    numpy-seeded weights over two synthetic clips (64 and 40 frames);
    launch counters read around the run; losses held against the plain
@@ -47,6 +54,23 @@ Imports torch, numpy and the port package
    a profiled step. Before the steps, at batch 2 on the initial weights
    and one set of crops, the gradients of the kernel route against the
    plain bf16 route and the f32 route (TF32 off).
+8. per-phase XLA-layout forward, bf16: ViT-B/16 (numpy-seeded weights)
+   with every block through ``Block.forward(use_fused=True)`` (the
+   model's ``tokens``, then the blocks one by one, then its norm) on B=8
+   windows of 30 and of 3 frames; launches read around each forward (``temporal_phase`` and
+   ``attn_phase`` once per block, ``mlp_phase`` twice, nothing else); CLS
+   features held against the plain bf16 and the f32 forwards. Then one
+   30-frame pass with drop-path (per-block rates linspace(0, 0.1, 12),
+   masks from a seeded generator) against the plain route fed the same
+   masks: ``attn_phase`` once per block (block 0's rate is 0, so its whole
+   block runs the ops).
+9. attention swap: ViT-B/16 with ``attention_kernel=True`` on the same
+   windows, ``fused_attention`` launched twice per block; features held as
+   in phase 8; the f32 forward with the swap against the f32 forward
+   without it.
+10. shared-memory probe: ``tools/smem_probe.probe`` bisects the dynamic
+   shared memory a block may opt into; it must reach the
+   ``fused_block.SMEM_LIMIT`` the attention kernels assume.
 
 Tolerances (stated here, checked below):
 * kernel vs twin (``ops/twin_check.py``, per output): both share every
@@ -57,8 +81,12 @@ Tolerances (stated here, checked below):
   the CLS rows, the qkv buffers and the banded attention outputs.
   rms(err) <= 1e-2 x rms(branch); f32 outputs max|err| <= 2e-2 x
   max|branch|; bf16 outputs within 4 bf16 ulps of max(|want|,
-  rms(branch)) at every element. PERF.md gives the readings they were set
-  from and the planted faults they catch.
+  rms(branch)) at every element. ``temporal_phase``'s bf16 output,
+  bf16(x + bf16(branch)), is held in two parts: the branch through its
+  f32-out tier (the same launches) at those bounds, and the output within
+  2 bf16 ulps of the twin's (of max(|got|, |want|, max|branch|): the two
+  last roundings' flips, ``twin_check.rounding_ulps``). PERF.md gives the readings they were set from and
+  the planted faults they catch.
 * per-frame losses against the f32 path (the oracle), on either path: the
   kernel path's mean absolute error <= 1.5 x the plain bf16 path's +
   1e-3. Both bf16 tiers sit a few % from f32 (the teacher softmax at
@@ -71,6 +99,12 @@ Tolerances (stated here, checked below):
   gradients <= 1.5 x the plain bf16 route's + 1e-6 (the CPU test's
   bounds against JAX); the teacher after a step equals t * m + s * (1 - m)
   of the teacher before and the new student to 1e-6.
+* CLS features of the per-phase and attention-swap forwards (phases 8-9)
+  against the f32 forward: the kernel route's mean absolute error <= 1.5 x
+  the plain bf16 route's + 1e-3, the scoring paths' rule; the f32 forward
+  with the swap within F32_SWAP_MAX (max) of the f32 forward without it,
+  the CPU test's bound (``tests/test_torch_attention.py``), whose only
+  difference is the bf16 rounding of the probabilities.
 * per-frame losses, kernel path vs the plain bf16 path: mean relative
   difference <= 0.06 on the windowed path, about 2x the largest sound
   reading (0.031; kernels with uniform attention read 0.072), and <= 0.04
@@ -82,6 +116,7 @@ Any failed check exits non-zero before the last line, which is
 JSON; the line before that is the card's name and power limit.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -103,6 +138,10 @@ TRAIN_F32_RATIO = 1.5
 LOSS_REL_TOL = 0.06
 BAND_LOSS_REL_TOL = 0.04
 LOSS_F32_RATIO = 1.5
+# the f32 forward with the attention swap against the one without it: the
+# CPU test's bound (tests/test_torch_attention.py; readings 0.5e-3 to
+# 1.4e-3 at D=128, depth 2 to 12)
+F32_SWAP_MAX = 5e-3
 BAND_CLIPS = (64, 40, 600)
 BAND_C = 512  # the full bucket (band_chunk)
 
@@ -243,6 +282,25 @@ def mlp_bwd_cost(M, D, Dh):
             3 * M * D * 2 + 2 * D * Dh * 2 + (2 * D * Dh + Dh + 3 * D) * 4)
 
 
+def attn_phase_cost(S, L, D):
+    """qkv and proj GEMMs (8 D^2 per row) + attention over L (4 L D per
+    row), the Pallas cost estimate; x read, out written (bf16), weights
+    once (bf16)."""
+    return S * L * (8 * D * D + 4 * L * D), 2 * S * L * D * 2 + 4 * D * D * 2
+
+
+def temporal_phase_cost(S, L, D):
+    """qkv, proj, fc GEMMs (10 D^2 per row) + attention over L; x read, out
+    written (bf16), weights once (bf16)."""
+    return S * L * (10 * D * D + 4 * L * D), 2 * S * L * D * 2 + 5 * D * D * 2
+
+
+def attention_cost(BH, L, hd, elem):
+    """Scores and PV over each sequence (4 L^2 hd); q, k, v read, out
+    written, ``elem`` bytes each."""
+    return 4 * BH * L * L * hd, 4 * BH * L * hd * elem
+
+
 def kernel_breakdown(fn):
     """Device time by kernel name over one call of ``fn``
     (torch.profiler, CUDA activity): ([(name, count, ms)] largest first,
@@ -258,6 +316,21 @@ def kernel_breakdown(fn):
     rows = [(e.key, e.count, e.device_time_total / 1e3)
             for e in prof.key_averages() if e.device_time_total > 0]
     return sorted(rows, key=lambda r: -r[2]), wall
+
+
+def print_profile(tag, fn, top=10):
+    """Print one profiled call of ``fn``: wall, device busy and idle share,
+    the share inside the port's kernels, the largest kernels."""
+    rows, wall = kernel_breakdown(fn)
+    busy = sum(r[2] for r in rows)
+    # the port's kernels live in an anonymous namespace; PyTorch's do not
+    ours = sum(r[2] for r in rows if "(anonymous namespace)::" in r[0])
+    print(f"  {tag}, profiled: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle share {1 - busy / wall:.1%}), inside the port's kernels "
+          f"{ours:.1f} ms ({ours / busy:.1%} of device time); by kernel:",
+          flush=True)
+    for k, n, ms in rows[:top]:
+        print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
 
 
 def check_close(name, got, want, base=None):
@@ -284,6 +357,23 @@ def spearman(a, b):
     ra -= ra.mean()
     rb -= rb.mean()
     return float((ra * rb).sum() / math.sqrt((ra * ra).sum() * (rb * rb).sum()))
+
+
+def feature_checks(tag, got, plain, f32):
+    """Hold a kernel route's CLS features against the plain bf16 route's and
+    the f32 route's on the same input: finite, the same shape, and the
+    kernel route's mean |error| against f32 at most LOSS_F32_RATIO x the
+    plain bf16 route's + 1e-3."""
+    if got.shape != f32.shape or not bool(got.isfinite().all()):
+        fail(f"{tag}: features of shape {tuple(got.shape)}, expected "
+             f"{tuple(f32.shape)}, all finite")
+    e_k = float((got.float() - f32).abs().mean())
+    e_p = float((plain.float() - f32).abs().mean())
+    print(f"  {tag}: features vs f32 mean abs: kernel route {e_k:.3e}, plain "
+          f"bf16 {e_p:.3e} (need kernel <= {LOSS_F32_RATIO} x plain + 1e-3)",
+          flush=True)
+    if e_k > LOSS_F32_RATIO * e_p + 1e-3:
+        fail(f"{tag}: the kernel route is further from f32 than allowed")
 
 
 def loss_checks(tag, clips, got, plain, f32, rel_tol):
@@ -330,7 +420,10 @@ def main():
         from dino_video_summarization_transformer_tpu_torch.models import (
             convert, timesformer as tsf)
         from dino_video_summarization_transformer_tpu_torch.ops import (
-            _build, banded_block as bb, fused_block as fb)
+            _build, attention as fa, banded_block as bb, fused_block as fb,
+            twin_check)
+        from dino_video_summarization_transformer_tpu_torch.tools import (
+            smem_probe)
         from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (
             make_numpy_params, make_video)
     except ImportError as e:
@@ -341,7 +434,6 @@ def main():
 
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
     print(f"[1] card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s))",
           flush=True)
@@ -583,7 +675,115 @@ def main():
                 print(f"  {name} C={C} eff={eff}: kernel {ms:.3f} ms, plain "
                       f"{pl:.3f} ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of "
                       f"bound{extra}", flush=True)
-    del qkv, qkv_cls, xg, cls_rows, xm, sdpa_q, sdpa_k, sdpa_v, one_block
+    del qkv, qkv_cls, xg, cls_rows, xm, sdpa_q, sdpa_k, sdpa_v
+
+    # the XLA-layout block's two attention phases and the standalone
+    # attention, at the chunk-8 scorer's teacher and student windows
+    for name in ("attn_phase", "temporal_phase", "fused_attention"):
+        stats[name] = []
+    B = 8
+    for T in (30, 3):
+        r = np.random.RandomState(60 + T)
+        xs = torch.from_numpy(r.randn(B * T, N + 1, D)).to(dev, torch.bfloat16)
+        xt = torch.from_numpy(r.randn(B * N, T, D)).to(dev, torch.bfloat16)
+        ps, pt = p["spatial"], p["temporal"]
+        runs = {
+            "attn_phase": (lambda: fb.attn_phase(xs, ps, H),
+                           lambda: fb.attn_phase_plain(xs, ps, H),
+                           attn_phase_cost(B * T, N + 1, D)),
+            "temporal_phase": (lambda: fb.temporal_phase(xt, pt, H),
+                               lambda: fb.temporal_phase_plain(xt, pt, H),
+                               temporal_phase_cost(B * N, T, D)),
+        }
+        with torch.inference_mode():
+            # row 5's output is the branch itself. Row 6's is bf16(x +
+            # bf16(branch)): the branch is held through the f32-out tier
+            # of the same launches (temporal_phase_tm with N = 1), the bf16
+            # output at two ulps of the twin's (ops/twin_check.py)
+            xt4 = xt.view(B * N, T, 1, D)
+            checks = {
+                "attn_phase": check_close(
+                    f"attn_phase out S={B * T} L={N + 1}",
+                    fb.attn_phase(xs, ps, H), fb.attn_phase_plain(xs, ps, H)),
+                "temporal_phase": check_close(
+                    f"temporal_phase f32-out tier out-x S={B * N} L={T}",
+                    fb.temporal_phase_tm(xt4, pt, H),
+                    fb.temporal_phase_tm_plain(xt4, pt, H), xt4)}
+            got6, want6 = fb.temporal_phase(xt, pt, H), fb.temporal_phase_plain(xt, pt, H)
+            ulps6 = twin_check.rounding_ulps(got6, want6, xt)
+            err6 = float((got6.float() - want6.float()).abs().max())
+            print(f"  temporal_phase bf16 out S={B * N} L={T}: max_abs_err={err6:.3e} "
+                  f"{ulps6:.2f} ulps (<= {twin_check.ROUNDING_ULPS})", flush=True)
+            del got6, want6
+            if not all(ok for ok, _ in checks.values()):
+                fail(f"a per-phase kernel disagrees with its plain twin at T={T}")
+            if ulps6 > twin_check.ROUNDING_ULPS:
+                fail(f"temporal_phase's bf16 output is {ulps6:.2f} ulps from its twin's")
+            for name, (kern, plain, cost) in runs.items():
+                ms = cuda_ms(kern, 10)
+                pl = cuda_ms(plain, 2, warmup=1)
+                b, by = bound_ms(*cost)
+                gap = checks[name][1]
+                row = {"B": B, "T": T, "ms": ms, "plain_ms": pl, "bound_ms": b,
+                       "bound_by": by, "library_ms": None,
+                       "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]}
+                if name == "temporal_phase":  # the bf16 output's gap
+                    row.update(max_abs_err=err6, max_ulps=ulps6,
+                               f32_tier_max_abs_err=gap["max_abs_err"])
+                stats[name].append(row)
+                print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} "
+                      f"ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of bound",
+                      flush=True)
+        del xs, xt
+        # the attention swap's head sequences: spatial (B*T*H, N+1, hd) and
+        # temporal (B*N*H, T, hd)
+        for seq, BH, L in (("spatial", B * T * H, N + 1), ("temporal", B * N * H, T)):
+            q, k, v = (torch.from_numpy(r.randn(BH, L, hd)).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            scale = hd ** -0.5
+            with torch.inference_mode():
+                ok, gap = check_close(f"fused_attention {seq} BH={BH} L={L}",
+                                      fa.fused_attention(q, k, v, scale),
+                                      fa.fused_attention_plain(q, k, v, scale))
+                if not ok:
+                    fail(f"fused_attention disagrees with its plain twin ({seq}, T={T})")
+                if seq == "temporal" and T == 30:
+                    packed = fa.fused_attention(
+                        *(t.view(BH // 4, 4 * L, hd) for t in (q, k, v)), scale,
+                        pack=4).view(BH, L, hd)
+                    same = torch.equal(packed, fa.fused_attention(q, k, v, scale))
+                    print(f"  fused_attention pack=4 (BH={BH // 4}, L={4 * L}) "
+                          f"equals the unpacked call: {same}", flush=True)
+                    if not same:
+                        fail("fused_attention with pack=4 differs from the unpacked call")
+                ms = cuda_ms(lambda: fa.fused_attention(q, k, v, scale), 10)
+                pl = cuda_ms(lambda: fa.fused_attention_plain(q, k, v, scale), 2,
+                             warmup=1)
+                # SDPA on (BH, 1, L, hd) views of the same tensors: its
+                # fused (flash) kernels take 4-D inputs
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], scale=scale), 10)
+            b, by = bound_ms(*attention_cost(BH, L, hd, 2))
+            stats["fused_attention"].append({
+                "B": B, "T": T, "seq": seq, "BH": BH, "L": L, "ms": ms,
+                "plain_ms": pl, "bound_ms": b, "bound_by": by, "library_ms": lib,
+                "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]})
+            print(f"  fused_attention {seq} B={B} T={T} (BH={BH}, L={L}): kernel "
+                  f"{ms:.3f} ms, plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
+                  f"{b / ms:.1%} of bound, SDPA {lib:.3f} ms", flush=True)
+            del q, k, v
+    # the kernel's f32 instance, at small shapes
+    for BH, L in ((96, N + 1), (300, 30)):
+        r = np.random.RandomState(BH)
+        q, k, v = (torch.from_numpy(r.randn(BH, L, hd)).to(dev, torch.float32)
+                   for _ in range(3))
+        with torch.inference_mode():
+            ok, _ = check_close(f"fused_attention f32 BH={BH} L={L}",
+                                fa.fused_attention(q, k, v, hd ** -0.5),
+                                fa.fused_attention_plain(q, k, v, hd ** -0.5))
+        if not ok:
+            fail("fused_attention (f32) disagrees with its plain twin")
+    del one_block
     torch.cuda.empty_cache()
 
     # -- 4. windowed path, bf16, through make_scorers + run_scoring --------------
@@ -615,11 +815,12 @@ def main():
             return json.load(f)
 
     def reset_counts():
-        fb.reset_launches()
-        bb.reset_launches()
+        for mod in (fb, bb, fa, smem_probe):
+            mod.reset_launches()
 
     def counts():
-        return {**fb.launches, **bb.launches}
+        return {**fb.launches, **bb.launches, **fa.launches,
+                **smem_probe.launches}
 
     windowed = ("temporal_phase_tm", "spatial_mlp")
     band_ops = ("banded_temporal_attn", "spatial_phase_pf", "cls_band_attn",
@@ -711,21 +912,10 @@ def main():
 
         # where the time goes: one profiled run of the 600-frame clip
         long = band_items[2]
-        rows, prof_wall = kernel_breakdown(lambda: sc.score_video(
-            long["frames"], long["local_idx"], long["global_idx"],
-            long["eff_global"]))
-        busy = sum(r[2] for r in rows)
-        # the port's kernels live in an anonymous namespace; PyTorch's
-        # (the temporal half's cuBLAS products, casts, the plain CLS rows)
-        # do not
-        ours = sum(r[2] for r in rows if "(anonymous namespace)::" in r[0])
-        print(f"  {long['num_frames']}-frame clip, profiled: wall "
-              f"{prof_wall:.1f} ms, device busy {busy:.1f} ms (idle share "
-              f"{1 - busy / prof_wall:.1%}), inside the port's kernels "
-              f"{ours:.1f} ms ({ours / busy:.1%} of device time); by kernel:",
-              flush=True)
-        for k, n, ms in rows[:14]:
-            print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
+        print_profile(f"{long['num_frames']}-frame clip",
+                      lambda: sc.score_video(long["frames"], long["local_idx"],
+                                             long["global_idx"],
+                                             long["eff_global"]), top=14)
         del scorers, sc
 
         reset_counts()
@@ -892,19 +1082,160 @@ def main():
     if not math.isfinite(losses[-1]) or ema_err > 1e-6:
         fail("the teacher is not the EMA of the student")
 
-    rows, prof_wall = kernel_breakdown(train_step)
-    busy = sum(r[2] for r in rows)
-    ours = sum(r[2] for r in rows if "(anonymous namespace)::" in r[0])
-    print(f"  one step, profiled: wall {prof_wall:.1f} ms, device busy "
-          f"{busy:.1f} ms (idle share {1 - busy / prof_wall:.1%}), inside the "
-          f"port's kernels {ours:.1f} ms ({ours / busy:.1%} of device time); by "
-          "kernel:", flush=True)
-    for k, n, ms in rows[:16]:
-        print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
+    print_profile("one step", train_step, top=16)
     del g, l
 
     del state, step
     torch.cuda.empty_cache()
+
+    # -- 8. per-phase XLA-layout forward, bf16 ------------------------------------
+    print("[8] per-phase XLA-layout forward, bf16: ViT-B/16, every block "
+          "through Block.forward(use_fused=True), B=8 windows of 30 and 3 "
+          "frames", flush=True)
+    bf16_model = tsf.build_timesformer(cfg, sd, device=dev, dtype=torch.bfloat16)
+    f32_model = tsf.build_timesformer(cfg, sd, device=dev)
+    depth = cfg.depth
+    phase_ops = ("temporal_phase", "attn_phase", "mlp_phase")
+    windows, refs = {}, {}
+    for T in (30, 3):
+        windows[T] = torch.from_numpy(np.random.RandomState(80 + T).randn(
+            8, 3, T, 224, 224).astype(np.float32)).to(dev)
+
+    def phase_forward(model, x, use_fused, rates=None, masks=None):
+        """CLS features with every block through Block.forward(use_fused=
+        ...), per-block drop-path rates and masks where given."""
+        cls, grid = model.tokens(x)
+        B_, T_, N_, D_ = grid.shape
+        spat = grid.transpose(1, 2).reshape(B_, N_ * T_, D_)
+        n = len(model.blocks)
+        kps = model.kernel_params() if use_fused else [None] * n
+        for blk, kp_, r_, m_ in zip(model.blocks, kps, rates or [0.0] * n,
+                                    masks or [None] * n):
+            cls, spat = blk(cls, spat, B_, T_, N_, use_fused=use_fused,
+                            kp=kp_, drop_path_rate=r_, masks=m_)
+        return tsf.layer_norm(cls, model.norm.weight, model.norm.bias,
+                              cfg.norm_eps)[:, 0]
+
+    with torch.inference_mode():
+        for T, x in windows.items():
+            phase_forward(bf16_model, x, True)  # warm-up
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = phase_forward(bf16_model, x, True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            seen = counts()
+            want = {k: 0 for k in seen}
+            want.update({"temporal_phase": depth, "attn_phase": depth,
+                         "mlp_phase": 2 * depth})
+            print(f"  T={T}: {wall:.1f} ms per forward; launches {seen}",
+                  flush=True)
+            if seen != want:
+                fail(f"per-phase forward launches {seen}, expected {want}")
+            for k in phase_ops:
+                launches[f"{k}_per_phase"] = launches.get(f"{k}_per_phase", 0) + seen[k]
+            reset_counts()
+            plain = bf16_model.forward_features(x)
+            ref = f32_model.forward_features(x)
+            if any(counts().values()):
+                fail("the plain bf16 and f32 forwards launched a kernel")
+            refs[T] = (plain, ref)
+            feature_checks(f"per-phase forward T={T}", got, plain, ref)
+
+        print_profile("per-phase forward T=30",
+                      lambda: phase_forward(bf16_model, windows[30], True))
+
+        # drop-path: per-block rates linspace(0, 0.1, depth), masks from a
+        # seeded generator, the kernel route and the plain route fed the
+        # same masks
+        x = windows[30]
+        rates = torch.linspace(0, 0.1, depth).tolist()
+        gen = torch.Generator().manual_seed(8)
+        masks = [tsf.drop_path_masks(8, 30, r_, gen, device=dev) for r_ in rates]
+        reset_counts()
+        got = phase_forward(bf16_model, x, True, rates, masks)
+        torch.cuda.synchronize()
+        seen = counts()
+        # block 0's rate is 0: its whole block takes the ops; blocks 1-11
+        # run drop-path, whose only op is the spatial attn_phase
+        want = {k: 0 for k in seen}
+        want.update({"attn_phase": depth, "temporal_phase": 1, "mlp_phase": 2})
+        print(f"  drop-path 0..0.1, T=30: launches {seen}", flush=True)
+        if seen != want:
+            fail(f"drop-path forward launches {seen}, expected {want}")
+        launches["attn_phase_drop_path"] = seen["attn_phase"]
+        kept = sum(float(m_.sum()) for ms_ in masks for m_ in ms_)
+        print(f"  masks: {kept:.0f} of {sum(m_.numel() for ms_ in masks for m_ in ms_)}"
+              " branch entries kept", flush=True)
+        feature_checks("drop-path forward T=30", got,
+                       phase_forward(bf16_model, x, False, rates, masks),
+                       phase_forward(f32_model, x, False, rates, masks))
+
+    # -- 9. attention-swap forward ---------------------------------------------
+    print("[9] attention swap: ViT-B/16 with attention_kernel=True, the plain "
+          "route's MHSA through fused_attention, same windows", flush=True)
+    swap_cfg = dataclasses.replace(cfg, attention_kernel=True)
+    swap_model = tsf.build_timesformer(swap_cfg, sd, device=dev, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        for T, x in windows.items():
+            swap_model.forward_features(x)  # warm-up
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = swap_model.forward_features(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            seen = counts()
+            want = {k: 0 for k in seen}
+            want["fused_attention"] = 2 * depth
+            print(f"  T={T}: {wall:.1f} ms per forward; launches {seen}",
+                  flush=True)
+            if seen != want:
+                fail(f"attention-swap forward launches {seen}, expected {want}")
+            launches["fused_attention"] = (launches.get("fused_attention", 0)
+                                           + seen["fused_attention"])
+            feature_checks(f"attention-swap forward T={T}", got, *refs[T])
+        print_profile("attention-swap forward T=30",
+                lambda: swap_model.forward_features(windows[30]))
+        del swap_model
+        swap32 = tsf.build_timesformer(swap_cfg, sd, device=dev)
+        for T, x in windows.items():
+            gap = float((swap32.forward_features(x) - refs[T][1]).abs().max())
+            print(f"  f32, T={T}: swap vs no swap max |diff| {gap:.3e} (<= "
+                  f"{F32_SWAP_MAX})", flush=True)
+            if not gap <= F32_SWAP_MAX:
+                fail("the f32 forward with the attention swap is too far from "
+                     "the one without it")
+    del swap32, bf16_model, f32_model, windows, refs
+    torch.cuda.empty_cache()
+
+    # -- 10. shared-memory probe ---------------------------------------------------
+    print("[10] shared-memory probe: bisect the dynamic shared memory a block "
+          "may opt into", flush=True)
+    reset_counts()
+    probe = smem_probe.probe(dev)
+    seen = counts()
+    launches["smem_probe"] = seen["smem_probe"]
+    print(f"  budget {probe['budget']} B, cudaDevAttrMaxSharedMemoryPerBlockOptin "
+          f"{probe['optin']} B, the kernels assume {fb.SMEM_LIMIT} B; "
+          f"{probe['steps']} sizes tried, {seen['smem_probe']} launched", flush=True)
+    if probe["budget"] < fb.SMEM_LIMIT:
+        fail(f"the card grants {probe['budget']} B of shared memory, less than "
+             f"the {fb.SMEM_LIMIT} B the kernels assume")
+    if seen["smem_probe"] == 0 or any(v for k, v in seen.items() if k != "smem_probe"):
+        fail(f"probe launches {seen}")
+    row = torch.arange(probe["budget"] // 4, dtype=torch.float32, device=dev)
+    err = float((smem_probe.roundtrip(row) - smem_probe.roundtrip_plain(row)).abs().max())
+    b, by = bound_ms(0, 2 * probe["budget"])
+    stats["smem_probe"] = [{
+        "bytes": probe["budget"], "budget_bytes": probe["budget"],
+        "optin_bytes": probe["optin"],
+        "ms": cuda_ms(lambda: smem_probe.roundtrip(row), 50),
+        "plain_ms": cuda_ms(lambda: smem_probe.roundtrip_plain(row), 50),
+        "bound_ms": b, "bound_by": by, "library_ms": None, "max_abs_err": err}]
+    print(f"  roundtrip of {probe['budget']} B: kernel {stats['smem_probe'][0]['ms']:.4f}"
+          f" ms (with its attribute call), max_abs_err {err}", flush=True)
 
     kernels = []
     sources = {
@@ -919,20 +1250,35 @@ def main():
         "temporal_phase_tm_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:963"),
         "spatial_phase_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:430"),
         "mlp_phase_bwd": ("fused_block_bwd.cu", "ops/fused_block.py:1233"),
+        "attn_phase": ("fused_block.cu", "ops/fused_block.py:188"),
+        "temporal_phase": ("fused_block.cu", "ops/fused_block.py:642"),
+        "fused_attention": ("attention.cu", "ops/attention.py:42"),
+        "smem_probe": ("smem_probe.cu", "tools/vmem_probe.py:31"),
     }
+    for name in ("attn_phase", "temporal_phase"):
+        launches[name] = launches[f"{name}_per_phase"]
     for name, rows in stats.items():
         # per block, the op runs once per window (windowed: the teacher and
-        # the student forward), once per pass (banded: the teacher and the
-        # student pass) or once per crop shape (training: global and
-        # local): ms, plain_ms and bound_ms sum the two rows
+        # the student forward; the per-phase ops), once per pass (banded:
+        # the teacher and the student pass) or once per crop shape
+        # (training: global and local): ms, plain_ms and bound_ms sum the
+        # rows (fused_attention: its spatial and temporal call per window)
         src, tpu = sources[name]
         libs = [r["library_ms"] for r in rows]
-        extra = ({"launches_train_step": launches["mlp_phase_train_step"]}
-                 if name == "mlp_phase" else {})
+        extra = {}
+        if name == "mlp_phase":
+            extra = {"launches_train_step": launches["mlp_phase_train_step"],
+                     "launches_per_phase_forward": launches["mlp_phase_per_phase"]}
+        elif name == "attn_phase":
+            extra = {"launches_drop_path": launches["attn_phase_drop_path"]}
+        elif name == "smem_probe":
+            extra = {"budget_bytes": rows[0]["budget_bytes"],
+                     "optin_bytes": rows[0]["optin_bytes"]}
         kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",
-            "replaces": f"dino_video_summarization_transformer_tpu/{tpu}",
+            "replaces": (tpu if tpu.startswith("tools/")
+                         else f"dino_video_summarization_transformer_tpu/{tpu}"),
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
@@ -945,7 +1291,8 @@ def main():
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}),
         flush=True)
 
 

@@ -16,6 +16,22 @@ Two block routes, chosen per model by ``TimeSformerConfig.use_kernels``:
   intra-block carry) — the counterpart of ``fused_wb``. On a CUDA tensor
   it launches the Hopper kernels; on a CPU tensor their plain twins run.
 
+The plain route also has the XLA-layout block's per-phase dispatch
+(``Block.forward(use_fused=True)``, the JAX ``divided_block(use_fused=
+True)``): the phase functions ``temporal_phase``, ``attn_phase`` and
+``mlp_phase_res`` run the per-phase kernel ops of ``ops/fused_block.py``
+where ``fused_ok`` admits the tensor (bf16; f32 raises, its tier is not
+ported), the plain formula elsewhere. Nothing in the package selects it:
+a caller feeds ``TimeSformer.tokens`` through the blocks. With a
+drop-path rate and masks (``drop_path_masks``), ``Block.forward`` runs the
+JAX drop-path branch: the temporal half plain with a per-sample mask, the
+spatial half through ``attn_phase`` with a per-(sample, frame) mask, the
+MLP plain with one per-sample mask for CLS and grid. There is no
+model-level drop-path forward: its JAX counterpart does not trace
+(ROADMAP §3). ``TimeSformerConfig.attention_kernel`` swaps the plain
+block's MHSA for ``ops/attention.mhsa_fused`` (JAX:
+``use_pallas_attention``).
+
 Patch embedding is patchify + one matmul (as in JAX), which also keeps
 cuDNN's TF32 convolution default out of the f32 tier.
 
@@ -45,7 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_block
+from ..ops import attention, fused_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +84,10 @@ class TimeSformerConfig:
     # Run every block through the whole-block kernel pair (frame-major
     # grid, bf16 activations). The scorer sets it; see the module docstring.
     use_kernels: bool = False
+    # The plain route's MHSA through the standalone attention kernel
+    # (ops/attention.mhsa_fused); the counterpart of JAX's process-wide
+    # use_pallas_attention, per model.
+    attention_kernel: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -186,6 +206,103 @@ def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype) -> str:
     return "kernels" if ok else "plain"
 
 
+# ---------------------------------------------------------------------------
+# The XLA-layout block's phases (JAX models/timesformer.py:266-325)
+# ---------------------------------------------------------------------------
+
+def _fused(x: torch.Tensor, num_heads: Optional[int], use_fused: bool,
+           kp: Optional[dict]) -> bool:
+    """Whether a phase called with ``use_fused`` runs its kernel op: JAX's
+    gate ``fused_ok`` (``fused_block.fused_ok``). It also admits f32 (the
+    "mixed" tier: f32 carries, bf16 matmul operands); the port has no f32
+    tier of these kernels yet, so such a tensor raises instead of running
+    the plain formula. A bf16 geometry the kernels cannot take raises in
+    the kernel op."""
+    if not use_fused or not fused_block.fused_ok(x, num_heads):
+        return False
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            "use_fused on f32 activations is the per-phase kernels' f32 "
+            "('mixed') tier, which is not ported yet (ROADMAP queue 1 item "
+            "5); run use_fused in bf16")
+    if kp is None:
+        raise ValueError("use_fused needs the kernel-layout weights "
+                         "(fused_block.block_params)")
+    return True
+
+
+def attn_phase(norm: nn.LayerNorm, attn: "Attention", x: torch.Tensor,
+               num_heads: int, use_fused: bool = False,
+               kp: Optional[dict] = None, mhsa_fn=mhsa) -> torch.Tensor:
+    """LN -> MHSA over (S, L, D) sequences, no residual (JAX
+    ``attn_phase``). With ``use_fused`` and the gate open, the kernel op
+    ``fused_block.attn_phase`` with ``kp`` (``block_params(...)
+    ["spatial"]``); otherwise ``mhsa_fn`` (``mhsa`` or ``mhsa_fused``)."""
+    if _fused(x, num_heads, use_fused, kp):
+        return fused_block.attn_phase(x.contiguous(), kp, num_heads)
+    return mhsa_fn(layer_norm(x, norm.weight, norm.bias, norm.eps), attn.qkv,
+                   attn.proj, num_heads)
+
+
+def temporal_phase(norm: nn.LayerNorm, attn: "Attention", fc: nn.Linear,
+                   x: torch.Tensor, num_heads: int, use_fused: bool = False,
+                   kp: Optional[dict] = None, mhsa_fn=mhsa) -> torch.Tensor:
+    """x + fc(MHSA(LN x)) over (S, T, D) sequences (JAX
+    ``temporal_phase``). With ``use_fused`` and the gate open, the kernel
+    op ``fused_block.temporal_phase`` with ``kp`` (``block_params(...)
+    ["temporal"]``)."""
+    if _fused(x, num_heads, use_fused, kp):
+        return fused_block.temporal_phase(x.contiguous(), kp, num_heads)
+    return x + fc(mhsa_fn(layer_norm(x, norm.weight, norm.bias, norm.eps),
+                          attn.qkv, attn.proj, num_heads))
+
+
+def _mlp_phase(norm: nn.LayerNorm, mlp: "Mlp", x: torch.Tensor,
+               use_fused: bool, kp: Optional[dict], residual: bool):
+    if _fused(x, None, use_fused, kp):
+        D = x.shape[-1]
+        out = fused_block.mlp_phase(x.reshape(-1, D).contiguous(), kp,
+                                    residual=residual)
+        return out.reshape(x.shape)
+    y = mlp(layer_norm(x, norm.weight, norm.bias, norm.eps))
+    return x + y if residual else y
+
+
+def mlp_phase(norm: nn.LayerNorm, mlp: "Mlp", x: torch.Tensor,
+              use_fused: bool = False, kp: Optional[dict] = None) -> torch.Tensor:
+    """MLP(LN x), the feed-forward branch (JAX ``mlp_phase``); the kernel
+    op ``fused_block.mlp_phase(residual=False)`` with ``use_fused``, ``kp``
+    being ``block_params(...)["spatial"]``."""
+    return _mlp_phase(norm, mlp, x, use_fused, kp, residual=False)
+
+
+def mlp_phase_res(norm: nn.LayerNorm, mlp: "Mlp", x: torch.Tensor,
+                  use_fused: bool = False,
+                  kp: Optional[dict] = None) -> torch.Tensor:
+    """x + MLP(LN x) (JAX ``mlp_phase_res``); the kernel op
+    ``fused_block.mlp_phase(residual=True)`` with ``use_fused``."""
+    return _mlp_phase(norm, mlp, x, use_fused, kp, residual=True)
+
+
+def drop_path_masks(B: int, T: int, rate: float,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> tuple:
+    """One block's stochastic-depth keep masks, 1.0 kept / 0.0 dropped,
+    drawn with probability 1 - ``rate`` on the CPU from ``generator``: (per
+    sample (B,) for the temporal branch, per (sample, frame) (B*T,) for the
+    spatial branch, per sample (B,) for the MLP branch of CLS and grid
+    alike), the shapes of JAX ``divided_block``'s three draws."""
+    keep = torch.full((B + B * T + B,), 1.0 - rate)
+    m = torch.bernoulli(keep, generator=generator).to(device)
+    return m[:B], m[B:B + B * T], m[B + B * T:]
+
+
+def _drop_path(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """x * mask / keep with one mask value per leading index (JAX
+    ``_drop_path``)."""
+    return x * mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1)) / keep
+
+
 def interp_nearest_1d(src: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     """torch F.interpolate(mode='nearest') index rule floor(i*in/out),
     evaluated in float32 as the JAX package evaluates it."""
@@ -301,37 +418,67 @@ class Block(nn.Module):
         self.temporal_fc = nn.Linear(D, D)
         self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
+        self.mhsa_fn = attention.mhsa_fused if cfg.attention_kernel else mhsa
 
     def _ln(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, norm.weight, norm.bias, self.eps)
 
     def forward(self, cls: torch.Tensor, grid: torch.Tensor, B: int, T: int,
-                N: int):
-        """Plain inference route. cls (B, 1, D); grid (B, N*T, D) in
-        (h w t) order. The CLS row and the grid travel separately; every
-        residual and the MLP are position-wise, so values equal the
-        reference's concatenated sequence."""
+                N: int, use_fused: bool = False, kp: Optional[dict] = None,
+                drop_path_rate: float = 0.0, masks: Optional[tuple] = None):
+        """Plain inference route, the JAX XLA ``divided_block``. cls (B, 1,
+        D); grid (B, N*T, D) in (h w t) order. The CLS row and the grid
+        travel separately; every residual and the MLP are position-wise, so
+        values equal the reference's concatenated sequence.
+
+        ``use_fused``: each phase through its kernel op where the gate
+        admits it, with ``kp`` this block's ``block_params`` (built here
+        when not given). ``drop_path_rate`` > 0 with ``masks`` (from
+        ``drop_path_masks``) runs JAX's drop-path branch, whose only kernel
+        op is the spatial ``attn_phase``."""
         D = grid.shape[-1]
         H = self.num_heads
+        mh = self.mhsa_fn
+        if use_fused and kp is None:
+            kp = fused_block.block_params(self)
+        kt, ks = (kp["temporal"], kp["spatial"]) if use_fused else (None, None)
+        dp = drop_path_rate > 0.0
+        if dp and masks is None:
+            raise ValueError("a drop-path rate needs masks (drop_path_masks)")
+        keep = 1.0 - drop_path_rate
         # temporal attention over T at each spatial position
         xt = grid.reshape(B * N, T, D)
-        xt = xt + self.temporal_fc(mhsa(self._ln(self.temporal_norm1, xt),
-                                        self.temporal_attn.qkv,
-                                        self.temporal_attn.proj, H))
-        xt = xt.reshape(B, N * T, D)
+        if not dp:
+            xt = temporal_phase(self.temporal_norm1, self.temporal_attn,
+                                self.temporal_fc, xt, H, use_fused, kt, mh)
+            xt = xt.reshape(B, N * T, D)
+        else:
+            res_t = attn_phase(self.temporal_norm1, self.temporal_attn, xt, H,
+                               mhsa_fn=mh).reshape(B, N * T, D)
+            xt = grid + self.temporal_fc(_drop_path(res_t, masks[0], keep))
         # spatial attention over [CLS, H*W] per frame
         cls_rep = cls.expand(B, T, D).reshape(B * T, 1, D)
         xs = xt.reshape(B, N, T, D).transpose(1, 2).reshape(B * T, N, D)
         xs = torch.cat([cls_rep, xs], dim=1)
-        res_s = mhsa(self._ln(self.norm1, xs), self.attn.qkv, self.attn.proj, H)
+        res_s = attn_phase(self.norm1, self.attn, xs, H, use_fused, ks, mh)
+        if dp:
+            res_s = _drop_path(res_s, masks[1], keep)
         # CLS averaged over frames (ref: models/timesformer.py:161-164)
         cls_out = res_s[:, 0, :].reshape(B, T, D).mean(dim=1, keepdim=True)
         res_sp = res_s[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
             B, N * T, D)
         cls = cls + cls_out
         grid = xt + res_sp
-        cls = cls + self.mlp(self._ln(self.norm2, cls))
-        grid = grid + self.mlp(self._ln(self.norm2, grid))
+        if not dp:
+            cls = mlp_phase_res(self.norm2, self.mlp, cls, use_fused, ks)
+            grid = mlp_phase_res(self.norm2, self.mlp, grid, use_fused, ks)
+        else:
+            # one per-sample mask for CLS and grid, as JAX draws the same
+            # mask for both (masking the concatenated sequence)
+            cls = cls + _drop_path(mlp_phase(self.norm2, self.mlp, cls),
+                                   masks[2], keep)
+            grid = grid + _drop_path(mlp_phase(self.norm2, self.mlp, grid),
+                                     masks[2], keep)
         return cls, grid
 
     def _mlp_train(self, x: torch.Tensor) -> torch.Tensor:
@@ -420,20 +567,17 @@ class TimeSformer(nn.Module):
             self._kp_key = key
         return self._kp
 
-    def forward_features(self, x: torch.Tensor,
-                         get_all: bool = False) -> torch.Tensor:
-        """x (B, C, T, H, W) -> (B, D) CLS features, or (B, 1+N*T, D) in
-        the reference token order [CLS, (h w t)] when ``get_all``. Runs in
-        the dtype of the module's parameters."""
+    def tokens(self, x: torch.Tensor):
+        """x (B, C, T, H, W) -> (cls (B, 1, D), grid (B, T, N, D)
+        frame-major), the blocks' input after the patch, position and time
+        embeddings, in the dtype of the module's parameters."""
         cfg = self.cfg
         B, C, T, Himg, Wimg = x.shape
         ps = cfg.patch_size
         W = Wimg // ps
         N = (Himg // ps) * W
         D = cfg.embed_dim
-        dtype = self.pos_embed.dtype
-
-        x = x.to(dtype)
+        x = x.to(self.pos_embed.dtype)
         frames = x.permute(0, 2, 3, 4, 1).reshape(B * T, Himg, Wimg, C)
         tok = self.patch_embed(frames)  # (BT, N, D)
         cls = self.cls_token.expand(B * T, 1, D)
@@ -445,10 +589,20 @@ class TimeSformer(nn.Module):
         te = self.time_embed
         if T != te.shape[1]:
             te = interp_nearest_1d(te, T, axis=1)
-        cls_tok = xt[:B, :1, :]  # identical across frames before mixing
+        # the CLS row is identical across frames before mixing
+        return xt[:B, :1, :], xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]
+
+    def forward_features(self, x: torch.Tensor,
+                         get_all: bool = False) -> torch.Tensor:
+        """x (B, C, T, H, W) -> (B, D) CLS features, or (B, 1+N*T, D) in
+        the reference token order [CLS, (h w t)] when ``get_all``. Runs in
+        the dtype of the module's parameters."""
+        cfg = self.cfg
+        dtype = self.pos_embed.dtype
+        cls_tok, grid = self.tokens(x)
+        B, T, N, D = grid.shape
 
         if cfg.use_kernels:
-            grid = xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]
             cls_tok = cls_tok.contiguous()
             for p in self.kernel_params():
                 cls_tok, grid = fused_block.divided_block_wb(
@@ -462,10 +616,8 @@ class TimeSformer(nn.Module):
             return layer_norm(cls_tok, self.norm.weight, self.norm.bias,
                               cfg.norm_eps)[:, 0]
 
-        # '(b t) n m -> (b n) t m', + time embedding, -> b (n t) m
-        spat = xt[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
-            B * N, T, D)
-        spat = (spat + te).reshape(B, N * T, D)
+        # 'b t n m -> b (n t) m'
+        spat = grid.transpose(1, 2).reshape(B, N * T, D)
         for blk in self.blocks:
             cls_tok, spat = blk(cls_tok, spat, B, T, N)
         if get_all:

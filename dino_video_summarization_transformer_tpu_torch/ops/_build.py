@@ -1,8 +1,9 @@
 """Build the Hopper kernels with nvcc and load them with ctypes.
 
 One shared library with a plain C interface per source in ``csrc/``
-(``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``; each
-includes ``dvst_common.cuh``), compiled for ``sm_90a`` into ``build/torch_kernels/``
+(``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``,
+``attention.cu``, each including ``dvst_common.cuh``, and the standalone
+``smem_probe.cu``), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
 import every module on a machine with no nvcc.
@@ -30,11 +31,13 @@ LIB_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 # library name -> source
 SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
            "banded": os.path.join(_CSRC, "banded_block.cu"),
-           "bwd": os.path.join(_CSRC, "fused_block_bwd.cu")}
+           "bwd": os.path.join(_CSRC, "fused_block_bwd.cu"),
+           "attention": os.path.join(_CSRC, "attention.cu"),
+           "probe": os.path.join(_CSRC, "smem_probe.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C entry point -> argtypes (pointers, then sizes, then the stream)
 _SIGNATURES = {
     "fused": {
@@ -46,6 +49,10 @@ _SIGNATURES = {
         "dvst_spatial_mlp": [_p] * 18 + [_i] * 6 + [_p],
         # x, 6 weights, workspace, out | M | D, Dh, residual | stream
         "dvst_mlp_phase": [_p] * 9 + [_l] + [_i] * 3 + [_p],
+        # x, 6 weights, workspace, out | S, L, D, H | stream
+        "dvst_attn_phase": [_p] * 9 + [_i] * 4 + [_p],
+        # x, 8 weights, workspace, out | S, L, D, H | stream
+        "dvst_temporal_phase": [_p] * 11 + [_i] * 4 + [_p],
     },
     "banded": {
         # qkv, out | C, N, D, H, t_real, eff | stream
@@ -69,6 +76,17 @@ _SIGNATURES = {
         "dvst_temporal_phase_tm_bwd_ws": [_i] * 5,
         "dvst_spatial_phase_bwd_ws": [_i] * 5,
         "dvst_mlp_phase_bwd_ws": [_l] + [_i] * 2,
+    },
+    "attention": {
+        # q, k, v, out | BH, L, hd | scale | dtype | stream
+        "dvst_fused_attention": [_p] * 4 + [_i] * 3 + [_f, _i, _p],
+        # shared bytes of one block (returns long) | BH, L, hd, dtype
+        "dvst_fused_attention_smem": [_i] * 4,
+    },
+    "probe": {
+        # in, out | nbytes | stream
+        "dvst_smem_roundtrip": [_p] * 2 + [_i, _p],
+        "dvst_smem_optin_max": [],
     },
 }
 
@@ -137,8 +155,7 @@ def build(force: bool = False) -> List[BuildResult]:
 
 
 def load(name: str = "fused") -> ctypes.CDLL:
-    """One kernel library (``"fused"``, ``"banded"`` or ``"bwd"``), built
-    on first use."""
+    """One kernel library (a key of ``SOURCES``), built on first use."""
     if name in _libs:
         return _libs[name]
     if not _fresh(name):
@@ -146,7 +163,7 @@ def load(name: str = "fused") -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path(name))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _l if fn.endswith("_ws") else _i
+        getattr(lib, fn).restype = _l if fn.endswith(("_ws", "_smem")) else _i
     if name == "fused":
         lib.dvst_error_string.argtypes = [_i]
         lib.dvst_error_string.restype = ctypes.c_char_p

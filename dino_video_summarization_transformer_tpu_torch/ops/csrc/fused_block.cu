@@ -1,8 +1,9 @@
 // Hopper (sm_90a) kernels for the whole-block divided space-time pair, the
-// per-phase spatial half and the row-wise MLP phase (forwards; the
-// backwards are in fused_block_bwd.cu).
+// per-phase spatial half, the row-wise MLP phase and the XLA-layout
+// block's two attention phases (forwards; the backwards are in
+// fused_block_bwd.cu).
 //
-// Four C entry points, each a short chain of launches on the caller's
+// Six C entry points, each a short chain of launches on the caller's
 // stream (the building blocks are in dvst_common.cuh):
 //
 //   dvst_temporal_phase_tm  replaces _temporal_phase_tm_kernel
@@ -39,6 +40,22 @@
 //       (~1500 FLOP/B at ViT-B). The fc1 hidden (M, Dh) bf16 goes through
 //       device memory (617 MB at M = 512*196): the simple form; keeping it
 //       on chip means one kernel with both GEMMs, a later step.
+//   dvst_attn_phase         replaces _attn_phase_kernel
+//       (ops/fused_block.py:188): x (S,L,D) bf16 -> bf16(proj(MHSA(LN x)))
+//       over S contiguous sequences of L rows (the XLA-layout block's
+//       spatial half on [CLS, grid] rows, no residual)
+//       launches: LN -> GEMM qkv -> attention -> GEMM proj
+//       Bound by operations: S*L*(8*D^2 + 4*L*D) FLOP (the Pallas cost
+//       estimate) against 4*S*L*D bytes; 2.5e11 FLOP at the teacher window's
+//       spatial sequences (S = 240, L = 197), 0.255 ms at the bf16 peak. The
+//       same building blocks as dvst_spatial_phase, so the same rates.
+//   dvst_temporal_phase     replaces _temporal_phase_kernel
+//       (ops/fused_block.py:642): x (S,L,D) bf16 ->
+//       bf16(x + bf16(fc(proj(MHSA(LN x))))) over S contiguous sequences
+//       (the Pallas rounding at fused_block.py:702-707). It is
+//       dvst_temporal_phase_tm with B = S, T = L, N = 1 in its bf16-out
+//       tier: the sequence rows (b*T + t)*N + n become s*L + l. Bound by
+//       operations: S*L*(10*D^2 + 4*L*D) FLOP.
 //
 // Bound on the card. Both ops are bound by operations, not bytes: at the
 // teacher window (B=8, T=30, N=196, D=768, MLP 3072) the temporal op needs
@@ -209,6 +226,40 @@ int dvst_mlp_phase(const void* x_, const void* ln_w, const void* ln_b,
   else
     e = gemm<kEpiBf16>(hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
   return e;
+}
+
+// x (S,L,D) bf16 -> out (S,L,D) bf16 = proj(MHSA(LN x)).
+// ws: bf16 workspace of S*L*4*D elements.
+int dvst_attn_phase(const void* x_, const void* ln_w, const void* ln_b,
+                    const void* qkv_w, const void* qkv_b, const void* proj_w,
+                    const void* proj_b, void* ws, void* out, int S, int L,
+                    int D, int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)S * L;
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* qkv = static_cast<bf16*>(ws);  // (M, 3D)
+  bf16* buf = qkv + M * 3 * D;          // (M, D): LN rows, then attention out
+  cudaError_t e;
+  if ((e = ln_launch<bf16>(x, static_cast<const float*>(ln_w),
+                           static_cast<const float*>(ln_b), buf, M, D, st)))
+    return e;
+  if ((e = gemm<kEpiBf16>(buf, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  // sequence s: rows s*L + l
+  if ((e = attn(D / H, qkv, nullptr, buf, nullptr, S, 1, (long)L, 0, 1, L, H,
+                st)))
+    return e;
+  return gemm<kEpiBf16>(buf, proj_w, proj_b, nullptr, out, M, D, D, st);
+}
+
+// x (S,L,D) bf16 -> out (S,L,D) bf16 = bf16(x + bf16(fc(proj(MHSA(LN x))))).
+// ws: bf16 workspace of S*L*5*D elements.
+int dvst_temporal_phase(const void* x, const void* ln_w, const void* ln_b,
+                        const void* qkv_w, const void* qkv_b,
+                        const void* proj_w, const void* proj_b,
+                        const void* fc_w, const void* fc_b, void* ws, void* out,
+                        int S, int L, int D, int H, void* stream) {
+  return dvst_temporal_phase_tm(x, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b,
+                                fc_w, fc_b, ws, out, S, L, 1, D, H, 1, stream);
 }
 
 }  // extern "C"

@@ -19,6 +19,17 @@ plain f32 torch (B rows: negligible), as the JAX package does; plus
   replaces ``_mlp_phase_kernel`` (fused_block.py:1191); the banded block's
   grid MLP (``models/banded.py``) and the training path's MLP phase.
 
+The XLA-layout block's per-phase dispatch (the counterpart of JAX
+``divided_block(use_fused=True)``, ``models/timesformer.py:278-325``) runs,
+over (S, L, D) bf16 sequences in the plain layout:
+
+* ``temporal_phase``: x + fc(proj(MHSA(LN x))) as bf16(x + bf16(fc)) —
+  replaces ``_temporal_phase_kernel`` (fused_block.py:642);
+* ``attn_phase``: bf16(proj(MHSA(LN x))), no residual — replaces
+  ``_attn_phase_kernel`` (fused_block.py:188);
+
+and ``mlp_phase`` for the feed-forward half. ``fused_ok`` is the gate.
+
 The per-phase training tier (the counterpart of ``divided_block_fused``)
 runs three ops per block, each a ``torch.autograd.Function`` that saves
 only its inputs and recomputes in its backward, as the JAX custom VJPs do:
@@ -57,7 +68,7 @@ GELU; the tests bound the resulting gap.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +80,8 @@ SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into on sm_90
 launches: Dict[str, int] = {
     "temporal_phase_tm": 0, "spatial_mlp": 0, "mlp_phase": 0,
     "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
-    "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0}
+    "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
+    "attn_phase": 0, "temporal_phase": 0}
 
 
 def reset_launches() -> None:
@@ -137,15 +149,18 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float().t())
 
 
-def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v (..., L, hd) bf16 -> (..., L, hd) bf16: f32 scores, row max
-    subtracted, probabilities rounded to bf16 for PV, f32 denominator."""
-    scale = q.shape[-1] ** -0.5
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v (..., L, hd) -> (..., L, hd) in q's dtype: f32 scores (scale
+    hd^-0.5 unless given), row max subtracted, probabilities rounded to
+    bf16 for PV, f32 denominator."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e.to(torch.bfloat16).float()
     o = torch.matmul(p, v.float()) / e.sum(dim=-1, keepdim=True)
-    return o.to(torch.bfloat16)
+    return o.to(q.dtype)
 
 
 def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int,
@@ -216,6 +231,25 @@ def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
     res = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
     grid = (x.float() + res[:, :, 1:, :].float()).to(torch.bfloat16)
     return grid, res[:, :, 0, :].contiguous()
+
+
+def attn_phase_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """Plain twin of ``attn_phase``."""
+    S, L, D = x.shape
+    H = num_heads
+    y = _ln(x.float(), p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    q, k, v = qkv.reshape(S, L, 3, H, D // H).permute(2, 0, 3, 1, 4).unbind(0)
+    a = _attention(q, k, v).transpose(1, 2).reshape(S, L, D)
+    return (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
+
+
+def temporal_phase_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """Plain twin of ``temporal_phase``: the bf16 tier of
+    ``temporal_phase_tm`` with each sequence as one position (N = 1)."""
+    S, L, D = x.shape
+    return temporal_phase_tm_plain(x.reshape(S, L, 1, D), p, num_heads,
+                                   torch.bfloat16).reshape(S, L, D)
 
 
 # Backward twins: the kernels' arithmetic, rounded at the Pallas backward's
@@ -392,6 +426,19 @@ def _check_geometry(D: int, num_heads: int, L: int, Dh: int = 0) -> None:
                          f"(limit {SMEM_LIMIT})")
 
 
+def fused_ok(x: torch.Tensor, num_heads: Optional[int] = None) -> bool:
+    """The gate of the per-phase dispatch (``models/timesformer.py``'s
+    phase functions with ``use_fused``), exactly the JAX package's
+    ``fused_ok``: bf16 or f32, D % 128 == 0, head dim < 128.
+    ``num_heads=None`` asks for the MLP phase, which has no attention. A
+    tensor it admits goes to the kernel op, which raises for what the
+    kernels cannot take (``_check_geometry``); the f32 ("mixed") tier is
+    not ported, and ``models.timesformer`` raises for it."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.shape[-1] % 128:
+        return False
+    return num_heads is None or x.shape[-1] // num_heads < 128
+
+
 def _device_of(x: torch.Tensor) -> torch.device:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
@@ -497,6 +544,60 @@ def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
              _stream(dev))
     launches["spatial_phase"] += 1
     return out, cls_rows
+
+
+def attn_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """x (S, L, D) bf16, S sequences of L rows -> bf16(proj(MHSA(LN x))) as
+    (S, L, D) bf16, with the ``SPATIAL_PHASE_KEYS`` weights of
+    ``block_params(...)["spatial"]``. Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 3:
+        raise ValueError(f"x: expected (S, L, D), got {tuple(x.shape)}")
+    S, L, D = x.shape
+    dev = _device_of(x)
+    _check_geometry(D, num_heads, L)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
+    if dev.type == "cpu":
+        return attn_phase_plain(x, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((S, L, D), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(S * L * 4 * D, dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_attn_phase, x.data_ptr(),
+             *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
+             out.data_ptr(), S, L, D, num_heads, _stream(dev))
+    launches["attn_phase"] += 1
+    return out
+
+
+def temporal_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """x (S, L, D) bf16, S sequences of L rows -> bf16(x + bf16(fc(proj(
+    MHSA(LN x))))) as (S, L, D) bf16, with the ``TEMPORAL_KEYS`` weights of
+    ``block_params(...)["temporal"]``. Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 3:
+        raise ValueError(f"x: expected (S, L, D), got {tuple(x.shape)}")
+    S, L, D = x.shape
+    dev = _device_of(x)
+    _check_geometry(D, num_heads, L)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
+    if dev.type == "cpu":
+        return temporal_phase_plain(x, p, num_heads)
+
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty((S, L, D), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(S * L * 5 * D, dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_temporal_phase, x.data_ptr(),
+             *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
+             out.data_ptr(), S, L, D, num_heads, _stream(dev))
+    launches["temporal_phase"] += 1
+    return out
 
 
 def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):

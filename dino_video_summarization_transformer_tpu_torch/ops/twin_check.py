@@ -20,6 +20,13 @@ size of the stream would pass a tolerance set on the stream.
   Below the branch's rms an element's ulp shrinks faster than that error,
   so the ulp is taken at the branch's rms there.
 
+An op whose bf16 output is the residual plus its bf16-rounded branch,
+bf16(base + bf16(branch)), is held in two parts instead: its branch
+through the op's f32-out tier (the same launches, out - base at the
+tolerances above), and its bf16 output by ``rounding_ulps`` at most
+``ROUNDING_ULPS``: where the branch is small beside the output's ulp, the
+last roundings' flips alone would read near ``REL_RMS_TOL`` against it.
+
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` hold every
 kernel to these; PERF.md gives the readings they were set from.
 """
@@ -33,6 +40,7 @@ import torch
 REL_RMS_TOL = 1e-2
 REL_MAX_TOL = 2e-2
 BF16_ULPS = 4
+ROUNDING_ULPS = 2
 
 
 def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
@@ -62,6 +70,23 @@ def twin_gap(got: torch.Tensor, want: torch.Tensor,
         mag = torch.maximum(got.abs(), want.abs()).clamp_min(gap["ref_rms"])
         gap["max_ulps"] = float((err / _bf16_ulp(mag)).max())
     return gap
+
+
+def rounding_ulps(got: torch.Tensor, want: torch.Tensor,
+                  base: torch.Tensor) -> float:
+    """The largest gap of a bf16 output bf16(base + bf16(branch)) to its
+    twin's, in bf16 ulps of max(|got|, |want|, max|want - base|) at each
+    element. Kernel and twin round two values. The branch agrees in f32 to
+    well under one ulp of the branch's max (the f32-out tier reads max|err|
+    ~2.4e-3 x max|branch|; one ulp is >= 3.9e-3 x), so its rounding
+    moves the sum by at most one ulp. The sum's rounding then adds at most
+    one more: base has a finer grid, so both sums may sit on a tie, which
+    rounds to even in opposite directions (x.5 -> x, x+1.5 -> x+2). A
+    sound op reads at most 2; a wrong branch reads many."""
+    got, want = got.float(), want.float()
+    ref_max = float((want - base.float()).abs().max())
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(ref_max)
+    return float(((got - want).abs() / _bf16_ulp(mag)).max())
 
 
 def twin_failures(gap: Dict[str, float]) -> List[str]:

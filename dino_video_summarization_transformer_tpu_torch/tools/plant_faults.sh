@@ -8,12 +8,19 @@
 #
 # Faults: the rowsum(dp * p) term dropped from the attention backward's
 # ds; the proj weight gradient transposed (dY and X swapped in gemm_dw);
-# the CLS row's gradient taken from the first frame only.
+# the CLS row's gradient taken from the first frame only; the standalone
+# attention's logit scale dropped; every sequence of a multi-sequence
+# attention block scored against the block's first sequence's keys.
+# Name faults as arguments to run only those:
+#
+#     bash .../plant_faults.sh fa_unscaled fa_first_seq
 set -u
 SRC=$(pwd)
+ONLY="$*"
 CSRC=dino_video_summarization_transformer_tpu_torch/ops/csrc
 run() {
   name=$1; file=$2; expr=$3
+  if [ -n "$ONLY" ] && [[ " $ONLY " != *" $name "* ]]; then return; fi
   dst=$(mktemp -d)
   (cd "$SRC" && tar --exclude=./build --exclude=./chiprun_out --exclude=./.git -cf - .) \
     | (cd "$dst" && tar xf -)
@@ -28,3 +35,5 @@ run() {
 run no_rowsum dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
 run dw_transposed fused_block_bwd.cu 's/gemm_dw(w.dproj, w.a,/gemm_dw(w.a, w.dproj,/'
 run dcls_frame0 dvst_common.cuh 's/for (int t = 0; t < reps; ++t) s +=/for (int t = 0; t < 1; ++t) s +=/'
+run fa_unscaled attention.cu 's/acc \*= scale;/acc *= 1.f;/'
+run fa_first_seq attention.cu 's/const int g = r \/ L;/const int g = 0;/'

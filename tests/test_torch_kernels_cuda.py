@@ -338,3 +338,157 @@ def test_train_step_kernel_route_matches_twins(cuda_device):
         got = grads["cuda"][n].cpu()
         rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
         assert torch.isfinite(got).all() and rel < 0.15, (n, rel)
+
+
+# The XLA-layout block's two attention phases (rows 5, 6): the spatial
+# [CLS, grid] sequences and the temporal sequences of the chunk-8 scorer's
+# teacher (B=8, T=30) and student (T=3) windows at ViT-B widths, and small
+# shapes.
+PHASE_SHAPES = [(240, 197, 768, 12), (24, 197, 768, 12), (1568, 30, 768, 12),
+                (1568, 3, 768, 12), (6, 5, 128, 2), (3, 17, 256, 4)]
+
+
+@pytest.mark.parametrize("S,L,D,H", PHASE_SHAPES)
+def test_attn_phase_kernel_matches_twin(cuda_device, S, L, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((S, L, D), 40, cuda_device)
+    before = fb.launches["attn_phase"]
+    got = fb.attn_phase(x, p, H)
+    again = fb.attn_phase(x, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["attn_phase"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, again)
+    _close(got, fb.attn_phase_plain(x, p, H))
+
+
+# Row 6's output is bf16(x + bf16(branch)): where the branch is small
+# beside the output's ulp (L = 197: branch rms 0.018 beside x of rms 1),
+# the last rounding's flips alone read ~1e-2 of the branch's rms. So the
+# branch is held through the f32-out tier of the same launches
+# (temporal_phase_tm with N = 1), and the bf16 output at two ulps of the
+# twin's, the two last roundings' flips (ops/twin_check.py).
+@pytest.mark.parametrize("S,L,D,H", PHASE_SHAPES)
+def test_temporal_phase_kernel_matches_twin(cuda_device, S, L, D, H):
+    p = _block(D, H, 0, cuda_device)["temporal"]
+    x = _qkv((S, L, D), 41, cuda_device)
+    before = fb.launches["temporal_phase"]
+    got = fb.temporal_phase(x, p, H)
+    again = fb.temporal_phase(x, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_phase"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, again)
+    ulps = twin_check.rounding_ulps(got, fb.temporal_phase_plain(x, p, H), x)
+    assert ulps <= twin_check.ROUNDING_ULPS, ulps
+    x4 = x.view(S, L, 1, D)
+    _close(fb.temporal_phase_tm(x4, p, H), fb.temporal_phase_tm_plain(x4, p, H), x4)
+
+
+# The standalone attention (row 13): the attention swap's head sequences at
+# ViT-B (hd 64) for the teacher and student windows, every head dim the
+# kernel takes, and f32 beside bf16.
+ATTN_SHAPES = [(2880, 197, 64, "bf16"), (18816, 30, 64, "bf16"),
+               (288, 197, 64, "bf16"), (18816, 3, 64, "bf16"),
+               (96, 197, 64, "f32"), (300, 30, 64, "f32"), (7, 5, 16, "bf16"),
+               (5, 33, 128, "bf16"), (9, 65, 32, "f32"), (11, 64, 48, "bf16"),
+               (4, 100, 80, "bf16"), (6, 20, 96, "f32"), (3, 50, 112, "bf16")]
+
+
+@pytest.mark.parametrize("BH,L,hd,dtype", ATTN_SHAPES)
+def test_fused_attention_kernel_matches_twin(cuda_device, BH, L, hd, dtype):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    r = np.random.RandomState(BH + L)
+    q, k, v = (torch.from_numpy(r.randn(BH, L, hd)).to(cuda_device, td)
+               for _ in range(3))
+    before = at.launches["fused_attention"]
+    got = at.fused_attention(q, k, v, hd ** -0.5)
+    again = at.fused_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert at.launches["fused_attention"] == before + 2
+    assert got.dtype == td and got.shape == q.shape
+    assert torch.equal(got, again)
+    _close(got, at.fused_attention_plain(q, k, v, hd ** -0.5))
+
+
+def test_fused_attention_pack_equals_unpacked(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    r = np.random.RandomState(42)
+    q, k, v = (torch.from_numpy(r.randn(18816, 30, 64)).to(cuda_device, torch.bfloat16)
+               for _ in range(3))
+    packed = at.fused_attention(*(t.view(4704, 120, 64) for t in (q, k, v)),
+                                0.125, pack=4)
+    assert torch.equal(packed.view(18816, 30, 64),
+                       at.fused_attention(q, k, v, 0.125))
+
+
+def test_fused_attention_refuses_what_shared_memory_cannot_hold(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    big = torch.zeros(1, 197, 128, device=cuda_device)  # f32 at hd 128: 306 KB
+    before = at.launches["fused_attention"]
+    with pytest.raises(ValueError, match="shared memory"):
+        at.fused_attention(big, big, big, 1.0)
+    assert at.launches["fused_attention"] == before
+
+
+def test_smem_probe_budget(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.tools import smem_probe
+
+    before = smem_probe.launches["smem_probe"]
+    r = smem_probe.probe(cuda_device)
+    assert r["budget"] >= fb.SMEM_LIMIT, r
+    assert r["budget"] <= r["optin"], r
+    assert smem_probe.launches["smem_probe"] > before
+
+
+def _small_model(cuda_device, **kw):
+    cfg = tsf.TimeSformerConfig(img_size=64, patch_size=16, embed_dim=128,
+                                depth=2, num_heads=2, num_frames=4,
+                                num_classes=0, **kw)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 13), cfg)
+    return (tsf.build_timesformer(cfg, sd, device=cuda_device, dtype=torch.bfloat16),
+            tsf.build_timesformer(cfg, sd, device="cpu", dtype=torch.bfloat16))
+
+
+def _per_phase_forward(model, x):
+    """CLS features with every block through Block.forward(use_fused=True)."""
+    cls, grid = model.tokens(x)
+    B, T, N, D = grid.shape
+    spat = grid.transpose(1, 2).reshape(B, N * T, D)
+    for blk, kp in zip(model.blocks, model.kernel_params()):
+        cls, spat = blk(cls, spat, B, T, N, use_fused=True, kp=kp)
+    return tsf.layer_norm(cls, model.norm.weight, model.norm.bias,
+                          model.cfg.norm_eps)[:, 0]
+
+
+def test_use_fused_forward_kernels_match_twins(cuda_device):
+    """A whole bf16 forward with every block on the per-phase ops, on the
+    kernels against the CPU twins: each phase kernel once per block, the
+    MLP one twice (CLS and grid rows)."""
+    gpu, cpu = _small_model(cuda_device)
+    x = torch.from_numpy(np.random.RandomState(14).randn(2, 3, 6, 64, 64))
+    before = dict(fb.launches)
+    with torch.inference_mode():
+        got = _per_phase_forward(gpu, x.to(cuda_device)).cpu()
+        want = _per_phase_forward(cpu, x)
+    ran = {k: fb.launches[k] - before[k] for k in before}
+    assert ran == {**{k: 0 for k in ran}, "temporal_phase": 2,
+                   "attn_phase": 2, "mlp_phase": 4}, ran
+    _close(got.float(), want.float())
+
+
+def test_attention_swap_forward_kernels_match_twins(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    gpu, cpu = _small_model(cuda_device, attention_kernel=True)
+    x = torch.from_numpy(np.random.RandomState(15).randn(2, 3, 6, 64, 64))
+    before = at.launches["fused_attention"]
+    with torch.inference_mode():
+        got = gpu.forward_features(x.to(cuda_device)).cpu()
+        want = cpu.forward_features(x)
+    assert at.launches["fused_attention"] == before + 4
+    _close(got.float(), want.float())
