@@ -22,13 +22,17 @@ Imports torch, numpy and the port package
    (24, 197) rows of 768; ``temporal_phase`` on (1568, 30) and (1568, 3),
    its branch through its f32-out tier)
    and the standalone ``fused_attention`` on the attention swap's head
-   sequences (hd 64: (2880, 197), (18816, 30), (288, 197), (18816, 3); pack=4
-   equal to the unpacked call; an f32 check); CUDA-event times of kernel
+   sequences (hd 64: (2880, 197), (18816, 30), (288, 197), (18816, 3), each
+   on the tensor-core instance, which it prints; pack=4 equal to the
+   unpacked call; an f32 check on the CUDA-core instance); CUDA-event times of kernel
    and twin beside the bound computed from the shapes, and for the banded
    temporal attention and ``fused_attention`` the time of
    ``F.scaled_dot_product_attention`` on the same tensors (with the band
    as a boolean mask for the former; a yardstick the port never calls;
-   the other ops have no single-call PyTorch counterpart).
+   the other ops have no single-call PyTorch counterpart); for these two
+   also the device time per call from a CUDA graph of ten calls, which
+   the CUDA-event time of the wrapper calls exceeds where the wrapper's
+   host time is longer than the kernel (the 3-row sequences).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
    numpy-seeded weights over two synthetic clips (64 and 40 frames);
    launch counters read around the run; losses held against the plain
@@ -81,8 +85,9 @@ Tolerances (stated here, checked below):
   the CLS rows, the qkv buffers and the banded attention outputs.
   rms(err) <= 1e-2 x rms(branch); f32 outputs max|err| <= 2e-2 x
   max|branch|; bf16 outputs within 4 bf16 ulps of max(|want|,
-  rms(branch)) at every element. ``temporal_phase``'s bf16 output,
-  bf16(x + bf16(branch)), is held in two parts: the branch through its
+  rms(branch)) at every element. The bf16 outputs of ``temporal_phase``
+  and of ``temporal_phase_tm``'s bf16 tier, bf16(x + bf16(branch)), are
+  held in two parts: the branch through its
   f32-out tier (the same launches) at those bounds, and the output within
   2 bf16 ulps of the twin's (of max(|got|, |want|, max|branch|): the two
   last roundings' flips, ``twin_check.rounding_ulps``). PERF.md gives the readings they were set from and
@@ -173,6 +178,25 @@ def cuda_ms(fn, iters, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, reps=10, iters=10):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, replayed ``iters`` times between two events, so no host time
+    falls between the launches (``cuda_ms`` of a wrapper whose host time
+    exceeds its kernel's reads the host's rate)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters) / reps
 
 
 def bound_ms(flops, nbytes):
@@ -558,7 +582,20 @@ def main():
                 got, want = kern(), plain()
                 lbl = f"{name} {tag}"
                 if name == "temporal_phase_tm_bf16":
-                    checks[name] = [check_close(f"{lbl} out-x", got, want, x)]
+                    # bf16(x + bf16(branch)), as row 6: the branch through
+                    # the f32-out tier of the same launches, the bf16
+                    # output at two ulps of the twin's (ops/twin_check.py)
+                    ulps1b = twin_check.rounding_ulps(got, want, x)
+                    err1b = float((got.float() - want.float()).abs().max())
+                    print(f"  {lbl} bf16 out: max_abs_err={err1b:.3e} "
+                          f"{ulps1b:.2f} ulps (<= {twin_check.ROUNDING_ULPS})",
+                          flush=True)
+                    if ulps1b > twin_check.ROUNDING_ULPS:
+                        fail(f"{lbl}: the bf16 output is {ulps1b:.2f} ulps from "
+                             "its twin's")
+                    checks[name] = [check_close(
+                        f"{lbl} f32-out tier out-x", fb.temporal_phase_tm(x, pt, H),
+                        fb.temporal_phase_tm_plain(x, pt, H), x)]
                 elif name == "spatial_phase":
                     checks[name] = [check_close(f"{lbl} grid-x", got[0], want[0], x),
                                     check_close(f"{lbl} cls rows", got[1], want[1])]
@@ -578,12 +615,16 @@ def main():
                 pl = cuda_ms(plain, 1, warmup=1)
                 b, by = bound_ms(*cost)
                 gaps = [gap for _, gap in checks[name]]
-                stats[name].append({
+                row = {
                     "crops": tag, "B": B, "T": T, "N": Np, "ms": ms,
                     "plain_ms": pl, "bound_ms": b, "bound_by": by,
                     "library_ms": None,
                     "max_abs_err": max(g["max_abs_err"] for g in gaps),
-                    "rel_rms": max(g["rel_rms"] for g in gaps)})
+                    "rel_rms": max(g["rel_rms"] for g in gaps)}
+                if name == "temporal_phase_tm_bf16":  # the bf16 output's gap
+                    row.update(max_abs_err=err1b, max_ulps=ulps1b,
+                               f32_tier_max_abs_err=gaps[0]["max_abs_err"])
+                stats[name].append(row)
                 print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms, "
                       f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
                       f"{b / ms:.1%} of bound", flush=True)
@@ -669,9 +710,12 @@ def main():
                        "library_ms": lib if name == "banded_temporal_attn" else None,
                        "max_abs_err": max(g["max_abs_err"] for g in gaps),
                        "rel_rms": max(g["rel_rms"] for g in gaps)}
+                extra = ""
+                if name == "banded_temporal_attn":
+                    row["device_ms"] = graph_ms(kern)
+                    extra = (f", device {row['device_ms']:.3f} ms, SDPA with the "
+                             f"band mask {lib:.3f} ms")
                 stats[name].append(row)
-                extra = (f", SDPA with the band mask {lib:.3f} ms"
-                         if row["library_ms"] is not None else "")
                 print(f"  {name} C={C} eff={eff}: kernel {ms:.3f} ms, plain "
                       f"{pl:.3f} ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of "
                       f"bound{extra}", flush=True)
@@ -741,6 +785,9 @@ def main():
             q, k, v = (torch.from_numpy(r.randn(BH, L, hd)).to(dev, torch.bfloat16)
                        for _ in range(3))
             scale = hd ** -0.5
+            inst = fa.kernel_instance(q.dtype, hd)
+            if inst != "tensor_core":
+                fail(f"fused_attention takes the {inst} instance for bf16")
             with torch.inference_mode():
                 ok, gap = check_close(f"fused_attention {seq} BH={BH} L={L}",
                                       fa.fused_attention(q, k, v, scale),
@@ -763,13 +810,17 @@ def main():
                 # fused (flash) kernels take 4-D inputs
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, None], k[:, None], v[:, None], scale=scale), 10)
+                # at L = 3 the event time above is the wrapper's host time
+                dms = graph_ms(lambda: fa.fused_attention(q, k, v, scale))
             b, by = bound_ms(*attention_cost(BH, L, hd, 2))
             stats["fused_attention"].append({
-                "B": B, "T": T, "seq": seq, "BH": BH, "L": L, "ms": ms,
-                "plain_ms": pl, "bound_ms": b, "bound_by": by, "library_ms": lib,
+                "B": B, "T": T, "seq": seq, "BH": BH, "L": L, "instance": inst,
+                "ms": ms, "device_ms": dms, "plain_ms": pl, "bound_ms": b,
+                "bound_by": by, "library_ms": lib,
                 "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]})
-            print(f"  fused_attention {seq} B={B} T={T} (BH={BH}, L={L}): kernel "
-                  f"{ms:.3f} ms, plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
+            print(f"  fused_attention {seq} B={B} T={T} (BH={BH}, L={L}), {inst} "
+                  f"instance: kernel {ms:.3f} ms (device {dms:.4f} ms), "
+                  f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
                   f"{b / ms:.1%} of bound, SDPA {lib:.3f} ms", flush=True)
             del q, k, v
     # the kernel's f32 instance, at small shapes
@@ -777,8 +828,11 @@ def main():
         r = np.random.RandomState(BH)
         q, k, v = (torch.from_numpy(r.randn(BH, L, hd)).to(dev, torch.float32)
                    for _ in range(3))
+        inst = fa.kernel_instance(q.dtype, hd)
+        if inst != "cuda_core":
+            fail(f"fused_attention takes the {inst} instance for f32")
         with torch.inference_mode():
-            ok, _ = check_close(f"fused_attention f32 BH={BH} L={L}",
+            ok, _ = check_close(f"fused_attention f32 BH={BH} L={L} ({inst})",
                                 fa.fused_attention(q, k, v, hd ** -0.5),
                                 fa.fused_attention_plain(q, k, v, hd ** -0.5))
         if not ok:

@@ -2,7 +2,8 @@
 
 One shared library with a plain C interface per source in ``csrc/``
 (``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``,
-``attention.cu``, each including ``dvst_common.cuh``, and the standalone
+``attention.cu``, each including ``dvst_common.cuh``, the last two also
+the tensor-core attention tile ``tc_attention.cuh``, and the standalone
 ``smem_probe.cu``), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
@@ -26,7 +27,7 @@ from typing import Dict, List
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(os.path.dirname(_OPS_DIR))
 _CSRC = os.path.join(_OPS_DIR, "csrc")
-HEADER = os.path.join(_CSRC, "dvst_common.cuh")
+HEADERS = [os.path.join(_CSRC, h) for h in ("dvst_common.cuh", "tc_attention.cuh")]
 LIB_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 # library name -> source
 SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "banded": {
         # qkv, out | C, N, D, H, t_real, eff | stream
         "dvst_banded_temporal_attn": [_p] * 2 + [_i] * 6 + [_p],
+        # shared bytes of one block (returns long) | D, H, eff
+        "dvst_banded_temporal_attn_smem": [_i] * 3,
         # x, cls, 6 weights, workspace, out, qkv, qkv_cls | C, N, D, H | stream
         "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
         # qkv_cls, qkv, out | C, N, D, H, t_real, eff | stream
@@ -82,6 +85,9 @@ _SIGNATURES = {
         "dvst_fused_attention": [_p] * 4 + [_i] * 3 + [_f, _i, _p],
         # shared bytes of one block (returns long) | BH, L, hd, dtype
         "dvst_fused_attention_smem": [_i] * 4,
+        # the instance a call takes (0 tensor cores, 1 CUDA cores, -1 none)
+        # | hd, dtype
+        "dvst_fused_attention_instance": [_i] * 2,
     },
     "probe": {
         # in, out | nbytes | stream
@@ -118,7 +124,7 @@ def nvcc_path() -> str:
 def _fresh(name: str) -> bool:
     path = lib_path(name)
     return (os.path.exists(path) and os.path.getmtime(path)
-            >= max(os.path.getmtime(SOURCES[name]), os.path.getmtime(HEADER)))
+            >= max(os.path.getmtime(p) for p in [SOURCES[name], *HEADERS]))
 
 
 def build(force: bool = False) -> List[BuildResult]:

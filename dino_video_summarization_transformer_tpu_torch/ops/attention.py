@@ -21,7 +21,10 @@ Training keeps ``mhsa_train``: ``mhsa_pallas`` has no VJP.
 
 The kernel (``csrc/attention.cu``) runs on a CUDA tensor, the twin
 (``fused_attention_plain``) on a CPU tensor; any other device raises and
-nothing falls back. ``launches`` counts kernel launches.
+nothing falls back. ``launches`` counts kernel launches. The kernel has
+two instances, fixed by dtype (``kernel_instance``): bf16 runs on the
+tensor cores (``csrc/tc_attention.cuh``'s tile), f32 on the CUDA cores
+(the tensor cores would take its scores in TF32).
 
 Numerics, shared by kernel and twin: f32 scores, the row max subtracted,
 probabilities rounded to bf16 before the PV product (for f32 inputs too,
@@ -45,6 +48,8 @@ from .fused_block import (SMEM_LIMIT, _attention, _check_tensor, _device_of,
 launches: Dict[str, int] = {"fused_attention": 0}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# csrc: dvst_fused_attention_instance's codes
+INSTANCES = {0: "tensor_core", 1: "cuda_core"}
 
 
 def reset_launches() -> None:
@@ -82,10 +87,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     from . import _build
 
+    # the bf16 instance copies 16-byte chunks, the f32 one element pairs
+    align = 16 if q.dtype == torch.bfloat16 else 2 * q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name}: the kernel reads element pairs and "
-                             "needs a pair-aligned start")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel needs a {align}-byte "
+                             "aligned start")
     lib = _build.load("attention")
     smem = lib.dvst_fused_attention_smem(BH, L, hd, _DTYPES[q.dtype])
     if smem > SMEM_LIMIT:
@@ -98,6 +105,19 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              _DTYPES[q.dtype], _stream(dev))
     launches["fused_attention"] += 1
     return out
+
+
+def kernel_instance(dtype: torch.dtype, hd: int) -> str:
+    """The kernel instance ``fused_attention`` launches on a CUDA tensor of
+    ``dtype`` at head dim ``hd``, as the library reports it:
+    "tensor_core" (bf16) or "cuda_core" (f32)."""
+    from . import _build
+
+    code = _build.load("attention").dvst_fused_attention_instance(
+        hd, _DTYPES.get(dtype, -1))
+    if code not in INSTANCES:
+        raise ValueError(f"no kernel instance takes {dtype} at head dim {hd}")
+    return INSTANCES[code]
 
 
 def mhsa_fused(x: torch.Tensor, qkv: torch.nn.Linear, proj: torch.nn.Linear,

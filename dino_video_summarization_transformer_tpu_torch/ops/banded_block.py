@@ -48,8 +48,6 @@ launches: Dict[str, int] = {"banded_temporal_attn": 0, "spatial_phase_pf": 0,
                             "cls_band_attn": 0}
 
 PF_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b")
-BAND_TQ = 32  # query frames per block of the temporal kernel (csrc: kBandTq)
-BAND_WARPS = 4
 CLS_TQ = 16  # query frames per block of the CLS-band kernel (csrc: kClsTq)
 CLS_WARPS = 8
 
@@ -64,14 +62,6 @@ def band_starts(idx: torch.Tensor, eff: int, t_real: int) -> torch.Tensor:
     ``data/windows.window_indices`` (windows shift at the edges and never
     shrink): window(i) = [lo_i, lo_i + eff)."""
     return torch.clamp(idx - eff // 2, 0, max(int(t_real) - eff, 0))
-
-
-def _band_temporal_smem(eff: int, hd: int) -> int:
-    """Shared bytes of the banded temporal kernel (csrc:
-    band_temporal_launch): the tile's queries, the keys and values its
-    windows cover, one score row per warp."""
-    return (BAND_TQ * hd * 2 + (BAND_TQ + eff - 1) * (2 * hd + 2) * 2
-            + BAND_WARPS * eff * 4)
 
 
 def _cls_band_smem(N: int, hd: int) -> int:
@@ -209,17 +199,20 @@ def banded_temporal_attn(qkv: torch.Tensor, t_real: int, eff: int,
     fb._check_geometry(D, num_heads, 1)
     fb._check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     _check_band(C, t_real, eff)
-    need = _band_temporal_smem(eff, D // num_heads)
-    if need > fb.SMEM_LIMIT:
-        raise ValueError(f"a {eff}-frame window at head dim {D // num_heads} "
-                         f"needs {need} B of shared memory (limit "
-                         f"{fb.SMEM_LIMIT})")
     if dev.type == "cpu":
         return banded_temporal_attn_plain(qkv, t_real, eff, num_heads)
 
     from . import _build
 
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv: the kernel copies 16-byte chunks and needs a "
+                         "16-byte aligned start")
     lib = _build.load("banded")
+    need = lib.dvst_banded_temporal_attn_smem(D, num_heads, eff)
+    if need > fb.SMEM_LIMIT:
+        raise ValueError(f"a {eff}-frame window at head dim {D // num_heads} "
+                         f"needs {need} B of shared memory (limit "
+                         f"{fb.SMEM_LIMIT})")
     out = torch.empty((C, N, D), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         fb._run(lib.dvst_banded_temporal_attn, qkv.data_ptr(), out.data_ptr(),

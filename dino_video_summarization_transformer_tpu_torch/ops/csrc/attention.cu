@@ -24,36 +24,36 @@
 // teacher window's spatial sequences (2880 x 197 rows, hd 64) move 2.9e8 B,
 // 0.087 ms at 3.35 TB/s.
 //
-// Design, right and simple first (attn_kernel's shape in dvst_common.cuh,
-// with a loader for three separate tensors): a block of up to 8 warps
-// holds G whole sequences in dynamic shared memory (Q, K with each row
-// padded by one element pair so lane j's reads of row j are conflict-free,
-// V, all in the input's type) and one f32 score row per warp. A warp takes
-// one query row at a time: scores on the CUDA cores (lane j takes keys j,
-// j+32, ...), warp max and sum, bf16 probabilities, then PV with lane c
+// Two instances, chosen by dtype:
+//
+// bf16: the tensor-core kernel (tc_attn_block, on tc_attention.cuh's
+// tile). A block stages G contiguous sequences of Q, K and V (one
+// coalesced run per tensor, 16-byte cp.async, XOR-swizzled rows) in
+// shared memory; each warp takes 16-row strips: a sequence of L >= 16 rows
+// has ceil(L / 16) strips (13 at L = 197, 2 at L = 30), and where L < 16
+// one strip holds P = 16 / L whole sequences, each row's keys masked to
+// its own sequence (5 sequences in 15 rows at L = 3; a masked key's
+// probability is an exact 0, so the packed arithmetic equals the
+// unpacked). G is chosen so a block has ~7 strips where sequences are
+// short (G = 3 at L = 30, 35 at L = 3) and one sequence at L = 197
+// (76 KB at hd 64; its 13 strips on 7 warps in two rounds, so three blocks
+// share an SM and one's copy overlaps the others' compute). K and V come
+// in two copy groups, V arriving while the max pass runs. Scores and PV
+// run on mma.sync; rows past L are never written.
+//
+// f32: the CUDA-core kernel (fused_attn_kernel): tensor
+// cores would compute its scores in TF32. A block of up to 8 warps holds
+// G = max(1, 64 / L) whole sequences in shared memory (K rows padded by
+// one element pair), one f32 score row per warp; a warp takes one query
+// row at a time, lane j scoring keys j, j+32, ..., then PV with lane c
 // owning output pairs c, c+32, ...
-// Several sequences per block where L is small: G = max(1, 64 / L), so a
-// block holds ~64 query rows (G = 1 at L = 197, 2 at L = 30, 21 at L = 3)
-// and the short temporal sequences do not leave most of its warps idle.
-// The G sequences are contiguous in memory, so each block loads one
-// coalesced run of each tensor. The products run on the CUDA cores: a
-// tensor-core (wgmma) attention is the later step.
 
-#include "dvst_common.cuh"
+#include "tc_attention.cuh"
 
 namespace {
 
 template <typename T>
 struct Pair2;
-
-template <>
-struct Pair2<bf16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ float2 f2(type p) { return __bfloat1622float2(p); }
-  static __device__ __forceinline__ type make(float a, float b) {
-    return __floats2bfloat162_rn(a, b);
-  }
-};
 
 template <>
 struct Pair2<float> {
@@ -200,24 +200,219 @@ cudaError_t fused_attn(int hd, const void* q, const void* k, const void* v,
 #undef DVST_FA_CASE
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core instance. Grid: ceil(BH / G) blocks.
+// ---------------------------------------------------------------------------
+
+// Strips per block where sequences are short, and warps per block at
+// most: 7, so three blocks of the 13 strips of L = 197 (two rounds of 7
+// warps, 76 KB each at hd 64) fit an SM's shared memory and, at <= 97
+// registers a thread, its register file.
+constexpr int kTcStrips = 7;
+
+// Warps of a block of `strips` strips: at most kTcStrips, each taking the
+// same number of strips but for the last round.
+inline int tc_warps(int strips) {
+  const int rounds = (strips + kTcStrips - 1) / kTcStrips;
+  return (strips + rounds - 1) / rounds;
+}
+
+// Sequences per block.
+inline int tc_group(int BH, int L) {
+  int g;
+  if (L < 16) {
+    g = kTcStrips * (16 / L);
+  } else {
+    const int sps = (L + 15) / 16;
+    g = sps < kTcStrips ? kTcStrips / sps : 1;
+  }
+  return g < BH ? g : (BH > 0 ? BH : 1);
+}
+
+// Strips of a block of `nseq` sequences.
+__host__ __device__ inline int tc_strips(int nseq, int L) {
+  if (L < 16) {
+    const int P = 16 / L;
+    return (nseq + P - 1) / P;
+  }
+  return nseq * ((L + 15) / 16);
+}
+
+// Shared bytes: a 16-byte zero row, then G sequences of Q, K and V. The
+// wrapper reads it through dvst_fused_attention_smem.
+inline size_t tc_smem(int G, int L, int hd) {
+  return 16 + (size_t)3 * G * L * hd * 2;
+}
+
+template <int HD>
+__device__ __forceinline__ void tc_attn_block(const bf16* __restrict__ q,
+                                              const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v,
+                                              bf16* __restrict__ out, int BH,
+                                              int L, int G, float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int s0 = blockIdx.x * G;  // the block's first sequence
+  const int nseq = BH - s0 < G ? BH - s0 : G;
+  const int R = nseq * L;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{qs, CH, swz, 0, 0};
+  const TcRows K{qs + (long)G * L * HD, CH, swz, 0, 0};
+  const TcRows V{qs + (long)2 * G * L * HD, CH, swz, 0, 0};
+  const long base = (long)s0 * L * HD;
+  // two copy groups: Q and K, which the max pass reads, then V, which
+  // arrives while it runs
+  for (int idx = threadIdx.x; idx < R * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const long off = base + (long)idx * 8;
+    cp_async16(Q.at(r, c), q + off, 16);
+    cp_async16(K.at(r, c), k + off, 16);
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < R * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    cp_async16(V.at(r, c), v + base + (long)idx * 8, 16);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int P = L < 16 ? 16 / L : 1;   // sequences per strip
+  const int sps = (L + 15) / 16;       // strips per sequence (L >= 16)
+  const int nstrips = tc_strips(nseq, L);
+  // rounds of one strip per warp; every warp meets the first round's
+  // barrier, with or without a strip
+  for (int st = warp; st - warp < nstrips; st += nw) {
+    const bool has = st < nstrips;
+    int r0 = 0, nrows = 0, kb = 0, ke = 0;  // rows [r0, r0 + nrows), keys [kb, ke)
+    if (L < 16) {
+      r0 = st * P * L;
+      nrows = (nseq - st * P < P ? nseq - st * P : P) * L;
+      kb = r0;
+      ke = r0 + nrows;
+    } else {
+      const int sq = st / sps;
+      kb = sq * L;
+      ke = kb + L;
+      r0 = kb + 16 * (st - sq * sps);
+      nrows = ke - r0 < 16 ? ke - r0 : 16;
+    }
+    // each row sees its own sequence's keys
+    const int lo0 = (r0 + g) / L * L, lo1 = (r0 + g + 8) / L * L;
+    TcStrip<HD> s;
+    float mx0 = 0.f, mx1 = 0.f;
+    if (has) {
+      s.load_q(Q, r0, nrows, zero);
+      s.max_pass(K, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+    }
+    if (st == warp) {  // V has arrived
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (has) {
+      s.exp_pass(K, V, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+      s.store(out + base + (long)r0 * HD, HD, nrows);
+    }
+  }
+}
+
+// The kernel: at hd <= 64 capped at 96 registers a thread, so three
+// 7-warp blocks (L = 197) share an SM (at 97 only two do); above, where a
+// strip's fragments alone take ~100, uncapped.
+template <int HD>
+__global__ void __maxnreg__(96)
+tc_attn_kernel_narrow(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                      int BH, int L, int G, float scale) {
+  tc_attn_block<HD>(q, k, v, out, BH, L, G, scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcStrips * 32)
+tc_attn_kernel_wide(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                    int BH, int L, int G, float scale) {
+  tc_attn_block<HD>(q, k, v, out, BH, L, G, scale);
+}
+
+template <int HD>
+auto tc_attn_kernel() {
+  if constexpr (HD <= 64) {
+    return tc_attn_kernel_narrow<HD>;
+  } else {
+    return tc_attn_kernel_wide<HD>;
+  }
+}
+
+template <int HD>
+cudaError_t tc_attn_launch(const void* q, const void* k, const void* v,
+                           void* out, int BH, int L, float scale,
+                           cudaStream_t st) {
+  if (BH <= 0) return cudaSuccess;
+  const int G = tc_group(BH, L);
+  const int warps = tc_warps(tc_strips(G, L));
+  const size_t smem = tc_smem(G, L, HD);
+  static SmemGrant grant;
+  const auto kernel = tc_attn_kernel<HD>();
+  const cudaError_t e = smem_opt_in(kernel, smem, grant);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((BH + G - 1) / G);
+  kernel<<<blocks, warps * 32, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), BH, L, G, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t tc_attn(int hd, const void* q, const void* k, const void* v,
+                    void* out, int BH, int L, float scale, cudaStream_t st) {
+#define DVST_TC_CASE(HDV) \
+  case HDV:               \
+    return tc_attn_launch<HDV>(q, k, v, out, BH, L, scale, st);
+  switch (hd) {
+    DVST_TC_CASE(16)
+    DVST_TC_CASE(32)
+    DVST_TC_CASE(48)
+    DVST_TC_CASE(64)
+    DVST_TC_CASE(80)
+    DVST_TC_CASE(96)
+    DVST_TC_CASE(112)
+    DVST_TC_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_TC_CASE
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out (BH, L, hd) contiguous, all bf16 (dtype 0) or all f32
-// (dtype 1).
+// q, k, v, out (BH, L, hd) contiguous, all bf16 (dtype 0: the tensor-core
+// instance; 16-byte aligned) or all f32 (dtype 1: the CUDA-core instance).
 int dvst_fused_attention(const void* q, const void* k, const void* v,
                          void* out, int BH, int L, int hd, float scale,
                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fused_attn<bf16>(hd, q, k, v, out, BH, L, scale, st);
+  if (dtype == 0) return tc_attn(hd, q, k, v, out, BH, L, scale, st);
   if (dtype == 1) return fused_attn<float>(hd, q, k, v, out, BH, L, scale, st);
   return cudaErrorInvalidValue;
 }
 
 // Dynamic shared bytes one block of dvst_fused_attention needs.
 long dvst_fused_attention_smem(int BH, int L, int hd, int dtype) {
-  return (long)fa_smem(fa_group(BH, L), L, hd, dtype == 0 ? 2 : 4);
+  if (dtype == 0) return (long)tc_smem(tc_group(BH, L), L, hd);
+  return (long)fa_smem(fa_group(BH, L), L, hd, 4);
+}
+
+// The instance a call takes: 0 the tensor-core kernel (bf16), 1 the
+// CUDA-core kernel (f32), -1 none (another dtype, or a head dim other
+// than 16, 32, ..., 128).
+int dvst_fused_attention_instance(int hd, int dtype) {
+  if (hd % 16 || hd < 16 || hd > 128) return -1;
+  return dtype == 0 ? 0 : dtype == 1 ? 1 : -1;
 }
 
 }  // extern "C"

@@ -13,13 +13,20 @@
 //       head h, softmax over the query frame's eff window.
 //       Bound by bytes: 4*eff*D FLOP per row against 8*D bytes (qkv read,
 //       o written): ~15 FLOP/B at eff = 30, far below the ~295 FLOP/B ridge.
-//       Design: one block per (tile of kBandTq query frames, position,
-//       head). It loads the tile's q rows and only the keys its windows
-//       cover, frames [lo(first), lo(last) + eff) (<= kBandTq + eff - 1
-//       rows), read at a stride of N rows from the frame-major qkv buffer,
-//       so no transpose goes through memory and no slab of out-of-band keys
-//       is read or scored (the TPU kernel's 3P-frame slab and P >= eff - 1
-//       are its block geometry, not carried over). One warp per query row.
+//       Design (tensor cores, tc_attention.cuh's tile): one block per
+//       (chunk of kBandChunk = 128 query frames, position n, group of HG
+//       heads; HG = 4 at ViT-B's hd 64), one warp per head. Each frame row
+//       gives the block one contiguous run of HG * hd elements (512 bytes)
+//       of q, k and v, copied with 16-byte cp.async. The block walks its
+//       chunk in steps of 16 query frames: a step's keys are frames
+//       [lo(first), lo(last) + eff) (<= 15 + eff rows), kept in a ring of
+//       eff + 31 rows, so each key row is copied once per block (K and V
+//       read 1.23x at C = 512, eff = 30) and the next step's rows are in
+//       flight while the current step computes. A warp scores its head's
+//       16 queries against the step's keys with mma.sync, each row
+//       masked to its own window; its output goes out as 16-byte stores.
+//       No slab of out-of-band keys is read or scored (the TPU kernel's
+//       3P-frame slab and P >= eff - 1 are its block geometry).
 //   dvst_spatial_pf             replaces _spatial_pf_kernel
 //       (ops/banded_block.py:174): per frame on [cls_i, x_i]: LN -> qkv ->
 //       MHSA -> proj -> bf16 grid residual. Its exports (the patch K/V, the
@@ -55,12 +62,14 @@
 // +/-80 logit clamp, ones-column denominators and group-matrix sums are TPU
 // workarounds and are not copied.
 
-#include "dvst_common.cuh"
+#include "tc_attention.cuh"
 
 namespace {
 
-constexpr int kBandTq = 32;      // query frames per temporal block
-constexpr int kBandThreads = 128;
+constexpr int kBandStrip = 16;   // query frames per step of the temporal kernel
+constexpr int kBandChunk = 128;  // query frames per temporal block
+constexpr int kBandRun = 256;    // elements of a temporal block's head group, at most
+constexpr size_t kSmemBudget = 232448;  // sm_90's opt-in maximum (SMEM_LIMIT)
 constexpr int kClsTq = 16;       // query frames per CLS-band block
 constexpr int kClsThreads = 256;
 
@@ -69,104 +78,117 @@ __device__ __forceinline__ int band_lo(int i, int eff, int hi) {
   return l < 0 ? 0 : (l > hi ? hi : l);
 }
 
+// Key rows the temporal kernel's ring holds: one step's keys (<= 15 + eff)
+// and the next step's new ones (<= 16), so the next copies never overwrite
+// a key the current step reads.
+__host__ __device__ inline int band_ring(int eff) { return eff + 2 * kBandStrip - 1; }
+
 // ---------------------------------------------------------------------------
-// Banded temporal attention: grid (ceil(C / kBandTq), N, H).
+// Banded temporal attention: grid (H / HG, N, ceil(C / kBandChunk)).
 // ---------------------------------------------------------------------------
+
+// Shared bytes at a head group of W elements: a 16-byte zero row, one
+// strip of queries, and the key and value rings.
+inline size_t band_smem(int W, int eff) {
+  return 16 + (size_t)kBandStrip * W * 2 + (size_t)2 * band_ring(eff) * W * 2;
+}
+
+// Heads per block: the largest divisor of H whose group is at most
+// kBandRun elements wide and whose shared memory fits.
+inline int band_heads(int H, int hd, int eff) {
+  for (int hg = H; hg > 1; --hg)
+    if (H % hg == 0 && hg * hd <= kBandRun && band_smem(hg * hd, eff) <= kSmemBudget)
+      return hg;
+  return 1;
+}
 
 template <int HD>
-__global__ void __launch_bounds__(kBandThreads)
+__global__ void __launch_bounds__(kBandRun / 16 * 32)
 band_temporal_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     int C, int N, int H, int t_real, int eff, float scale) {
-  constexpr int HD2 = HD / 2;
-  constexpr int KST = HD2 + 1;
+                     int C, int N, int H, int HG, int t_real, int eff,
+                     float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks of one head
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int i0 = blockIdx.x * kBandTq, n = blockIdx.y, h = blockIdx.z;
-  const int nq = min(kBandTq, C - i0);
+  const int W = HG * HD, WC = HG * CH;  // the group's width: elements, chunks
+  const int ring = band_ring(eff);
+  const int i0 = blockIdx.z * kBandChunk, n = blockIdx.y;
+  const int i1 = min(C, i0 + kBandChunk);
   const int hi = max(t_real - eff, 0);
-  const int k0 = band_lo(i0, eff, hi);
-  const int span = band_lo(i0 + nq - 1, eff, hi) + eff - k0;
   const int D = H * HD;
-  const long row_w = 3L * D;
+  const long frame = (long)N * 3 * D;  // elements between frames
+  const bf16* src = qkv + (long)n * 3 * D + (long)blockIdx.x * W;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qbuf = zero + 8;
+  bf16* kbuf = qbuf + kBandStrip * W;
+  bf16* vbuf = kbuf + (long)ring * W;
+  const int swz = tc_swizzle(WC);
+  const TcRows Qg{qbuf, WC, swz, 0, 0};
+  const TcRows Kg{kbuf, WC, swz, ring, 0};
+  const TcRows Vg{vbuf, WC, swz, ring, 0};
+  const int nsteps = (i1 - i0 + kBandStrip - 1) / kBandStrip;
 
-  __nv_bfloat162* q_s = reinterpret_cast<__nv_bfloat162*>(smem_raw);
-  __nv_bfloat162* k_s = q_s + kBandTq * HD2;
-  __nv_bfloat162* v_s = k_s + (kBandTq + eff - 1) * KST;
-  float* p_all = reinterpret_cast<float*>(v_s + (kBandTq + eff - 1) * HD2);
+  // step t: query frames [i0 + 16 t, ...) against keys [klo(t), khi(t))
+  auto klo = [&](int t) { return band_lo(i0 + t * kBandStrip, eff, hi); };
+  auto khi = [&](int t) {
+    return band_lo(min(i0 + t * kBandStrip + kBandStrip, i1) - 1, eff, hi) + eff;
+  };
+  // copies step t's query rows and key / value rows [ka, kz): one
+  // W-element run of each frame row, 16 bytes a thread
+  // (each thread copies one chunk column: the block's HG warps are 32 / CH
+  // rows of WC chunks)
+  const int lc = threadIdx.x % WC, lr = threadIdx.x / WC, rstep = blockDim.x / WC;
+  auto load = [&](int t, int ka, int kz) {
+    const int q0 = i0 + t * kBandStrip;
+    const int nq = min(kBandStrip, i1 - q0);
+    for (int r = lr; r < nq; r += rstep)
+      cp_async16(Qg.at(r, lc), src + (q0 + r) * frame + lc * 8, 16);
+    for (int r = lr; r < kz - ka; r += rstep) {
+      const bf16* row = src + (ka + r) * frame + D + lc * 8;
+      cp_async16(Kg.at(ka + r, lc), row, 16);
+      cp_async16(Vg.at(ka + r, lc), row + D, 16);
+    }
+    cp_async_commit();
+  };
 
-  for (int idx = threadIdx.x; idx < nq * HD2; idx += blockDim.x) {
-    const int l = idx / HD2, c = idx - l * HD2;
-    const bf16* row = qkv + ((long)(i0 + l) * N + n) * row_w + h * HD;
-    q_s[l * HD2 + c] = reinterpret_cast<const __nv_bfloat162*>(row)[c];
-  }
-  for (int idx = threadIdx.x; idx < span * HD2; idx += blockDim.x) {
-    const int l = idx / HD2, c = idx - l * HD2;
-    const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(
-        qkv + ((long)(k0 + l) * N + n) * row_w + h * HD);
-    k_s[l * KST + c] = r2[D / 2 + c];
-    v_s[l * HD2 + c] = r2[D + c];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  float* p_w = p_all + warp * eff;
-  for (int qi = warp; qi < nq; qi += nw) {
-    const int kb = band_lo(i0 + qi, eff, hi) - k0;  // first key row in k_s
-    __nv_bfloat162 qr[HD2];
-#pragma unroll
-    for (int c = 0; c < HD2; ++c) qr[c] = q_s[qi * HD2 + c];
-    float mx = -INFINITY;
-    for (int j = lane; j < eff; j += 32) {
-      const __nv_bfloat162* kr = k_s + (kb + j) * KST;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD2; ++c) {
-        const float2 a = __bfloat1622float2(qr[c]);
-        const float2 b = __bfloat1622float2(kr[c]);
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-      }
-      acc *= scale;
-      p_w[j] = acc;
-      mx = fmaxf(mx, acc);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < eff; j += 32) {
-      const float e = expf(p_w[j] - mx);
-      sum += e;
-      p_w[j] = __bfloat162float(__float2bfloat16(e));  // bf16 probabilities
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
-        out + ((long)(i0 + qi) * N + n) * D + h * HD);
-    for (int c = lane; c < HD2; c += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int j = 0; j < eff; ++j) {
-        const float pj = p_w[j];
-        const float2 vf = __bfloat1622float2(v_s[(kb + j) * HD2 + c]);
-        ax = fmaf(pj, vf.x, ax);
-        ay = fmaf(pj, vf.y, ay);
-      }
-      o2[c] = __floats2bfloat162_rn(ax / sum, ay / sum);
-    }
-    __syncwarp();  // p_w is rewritten by the warp's next row
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  load(0, klo(0), khi(0));
+  const int warp = threadIdx.x >> 5;  // the warp's head within the group
+  const int g = (threadIdx.x & 31) >> 2;
+  const TcRows Qh{qbuf, WC, swz, 0, warp * CH};
+  const TcRows Kh{kbuf, WC, swz, ring, warp * CH};
+  const TcRows Vh{vbuf, WC, swz, ring, warp * CH};
+  for (int t = 0; t < nsteps; ++t) {
+    const int q0 = i0 + t * kBandStrip;
+    const int nq = min(kBandStrip, i1 - q0);
+    cp_async_wait<0>();
+    __syncthreads();
+    TcStrip<HD> s;
+    s.load_q(Qh, 0, nq, zero);
+    // the query strip is in registers; step t + 1's copies run while it
+    // computes (they overwrite only keys before klo(t): the ring holds
+    // eff + 31 rows)
+    __syncthreads();
+    if (t + 1 < nsteps) load(t + 1, khi(t), khi(t + 1));
+    const int lo0 = band_lo(q0 + g, eff, hi), lo1 = band_lo(q0 + g + 8, eff, hi);
+    s.attend(Kh, Vh, klo(t), khi(t), lo0, lo0 + eff, lo1, lo1 + eff, scale, zero);
+    s.store(out + ((long)q0 * N + n) * D + ((long)blockIdx.x * HG + warp) * HD,
+            (long)N * D, nq);
   }
 }
 
 template <int HD>
 cudaError_t band_temporal_launch(const bf16* qkv, bf16* out, int C, int N,
                                  int H, int t_real, int eff, cudaStream_t st) {
-  const int rows = kBandTq + eff - 1;
-  const size_t smem = (size_t)kBandTq * HD * 2 + (size_t)rows * (2 * HD + 2) * 2 +
-                      (size_t)(kBandThreads / 32) * eff * 4;
+  const int HG = band_heads(H, HD, eff);
+  const size_t smem = band_smem(HG * HD, eff);
   static SmemGrant grant;
   cudaError_t e = smem_opt_in(band_temporal_kernel<HD>, smem, grant);
   if (e != cudaSuccess) return e;
-  const dim3 grid((C + kBandTq - 1) / kBandTq, N, H);
-  band_temporal_kernel<HD><<<grid, kBandThreads, smem, st>>>(
-      qkv, out, C, N, H, t_real, eff, 1.0f / sqrtf((float)HD));
+  // head groups fastest, then positions: the blocks in flight together
+  // read whole qkv rows of neighbouring positions
+  const dim3 grid(H / HG, N, (C + kBandChunk - 1) / kBandChunk);
+  band_temporal_kernel<HD><<<grid, HG * 32, smem, st>>>(
+      qkv, out, C, N, H, HG, t_real, eff, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -326,6 +348,12 @@ int dvst_banded_temporal_attn(const void* qkv, void* out, int C, int N, int D,
       return cudaErrorInvalidValue;
   }
 #undef DVST_CASE
+}
+
+// Dynamic shared bytes one block of dvst_banded_temporal_attn needs.
+long dvst_banded_temporal_attn_smem(int D, int H, int eff) {
+  const int hd = D / H;
+  return (long)band_smem(band_heads(H, hd, eff) * hd, eff);
 }
 
 // x (C,N,D) bf16, cls (C,D) bf16 -> out (C,N,D) bf16 = x + proj(MHSA), and

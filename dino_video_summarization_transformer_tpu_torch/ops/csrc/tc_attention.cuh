@@ -1,0 +1,301 @@
+// The tensor-core attention tile: one warp computes a 16-query strip
+// against a range of keys held in shared memory, with mma.sync
+// (m16n8k16, bf16 in, f32 accumulate) fed by ldmatrix. Used by the
+// standalone attention (attention.cu, bf16) and the banded temporal
+// attention (banded_block.cu); the other attention kernels of the port
+// (attn_kernel / attn_bwd_kernel in dvst_common.cuh) are meant to move onto
+// it.
+//
+// Numerics are the CUDA-core kernels' and the plain twins': f32 scores
+// (q . k accumulated in f32, times the scale), the max of the row's whole
+// valid key set subtracted before any exponential, an f32 denominator of
+// the unrounded exponentials, probabilities rounded to bf16 for the PV
+// product, the quotient (times the denominator's reciprocal) rounded to
+// bf16. So the strip makes two
+// passes over its keys: the first takes the row max, the second recomputes
+// the scores (the kernels that use the tile are bound by bytes, so the
+// extra Q K^T costs little), exponentiates, sums and runs P V. There is no
+// online softmax: it would rescale probabilities already rounded to bf16.
+//
+// Why mma.sync and not wgmma: the strips are 16 rows over 3-48 keys
+// (banded) or up to a few hundred (spatial); a 64-row wgmma tile would pad
+// the band's strips 4x and 30-row sequences 2x.
+//
+// Shared-memory layout: a "row" of the tile is a run of 16-byte chunks
+// (8 bf16). Rows are stored without padding; chunk c of stored row r sits
+// at chunk position c ^ (r & swz), where swz + 1 (a power of two <= 8)
+// divides the chunks per row, so ldmatrix's eight row addresses fall in
+// distinct banks when a row holds 8 or more chunks. A row may be a ring
+// slot (key j in stored row j % ring). Rows the strip must not read (keys
+// past its range, queries past its last row) are served by a zero row.
+
+#pragma once
+
+#include "dvst_common.cuh"
+
+namespace {
+
+// The largest power of two <= 8 dividing `chunks`, less one: the XOR
+// swizzle mask of a stored row of `chunks` 16-byte chunks.
+__host__ __device__ __forceinline__ int tc_swizzle(int chunks) {
+  return (chunks & 7) == 0 ? 7 : (chunks & 3) == 0 ? 3 : (chunks & 1) == 0 ? 1 : 0;
+}
+
+// A set of stored rows in shared memory: `chunks` 16-byte chunks per row,
+// an optional ring of `ring` rows (0: none), columns starting at chunk
+// `col0` (a head's slice of a row holding several heads).
+struct TcRows {
+  bf16* base;
+  int chunks;
+  int swz;
+  int ring;
+  int col0;
+
+  // Shared-memory address of chunk c (of this view's columns) of row r.
+  __device__ __forceinline__ bf16* at(int r, int c) const {
+    const int pr = ring ? r % ring : r;
+    return base + ((long)pr * chunks + ((col0 + c) ^ (pr & swz))) * 8;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// One warp's strip: 16 query rows. Lane l holds rows g = l / 4 and g + 8
+// of the m16n8 fragments (columns 2 (l % 4) and 2 (l % 4) + 1 of each
+// 8-column tile).
+template <int HD>
+struct TcStrip {
+  static constexpr int KC = HD / 16;  // k16 chunks of the head dim
+  static constexpr int NT = HD / 8;   // n8 tiles of the output
+  static constexpr int KB = 16;       // keys per block of the two passes
+  uint32_t qa[KC][4];  // Q as A fragments
+  float o[NT][4];      // P V accumulators
+  float sum[2];        // denominators of rows g and g + 8
+
+  // Q rows q0 .. q0 + 15 of `q`; rows at or past q0 + nrows read zeros.
+  __device__ __forceinline__ void load_q(const TcRows& q, int q0, int nrows,
+                                         const bf16* zero) {
+    const int lane = threadIdx.x & 31;
+    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const int c = 2 * kc + (lane >> 4);
+      const bf16* p = r < nrows ? q.at(q0 + r, c) : zero;
+      ldsm_x4(smem_u32(p), qa[kc][0], qa[kc][1], qa[kc][2], qa[kc][3]);
+    }
+  }
+
+  // q . k of keys j0 .. j0 + 15 (two n8 tiles), unscaled; keys at or past
+  // `ke` read zeros.
+  __device__ __forceinline__ void scores(const TcRows& k, int j0, int ke,
+                                         const bf16* zero,
+                                         float (&s)[2][4]) const {
+    const int lane = threadIdx.x & 31;
+    const int j = j0 + (lane & 7) + (lane >> 4) * 8;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const int c = 2 * kc + ((lane >> 3) & 1);
+      const bf16* p = j < ke ? k.at(j, c) : zero;
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(smem_u32(p), b0, b1, b2, b3);
+      mma_bf16(s[0], qa[kc], b0, b1);
+      mma_bf16(s[1], qa[kc], b2, b3);
+    }
+  }
+
+  // The strip against keys [kb, ke) of `k` / `v`, in blocks of 16 keys (a
+  // wider block of 32 or 64 keys measured no faster: its scores' registers
+  // cost the SM a resident block). Row g may see keys [lo0, hi0), row g + 8
+  // keys [lo1, hi1) (both within [kb, ke)); every other key is -inf. A key
+  // block inside both rows' ranges skips the per-key mask. The scale is
+  // applied after the max (max(x * scale) = max(x) * scale for scale > 0:
+  // rounding is monotonic), and each exponential takes fma(qk, scale, -max).
+
+  // Pass 1: the scaled max over each row's whole key set (0 for a row with
+  // no key, one the caller does not write, so it stays finite).
+  __device__ __forceinline__ void max_pass(const TcRows& k, int kb, int ke,
+                                           int lo0, int hi0, int lo1, int hi1,
+                                           float scale, const bf16* zero,
+                                           float& m0, float& m1) const {
+    const int col = 2 * (threadIdx.x & 3);
+    const int lo = lo0 > lo1 ? lo0 : lo1, hi = hi0 < hi1 ? hi0 : hi1;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    for (int j0 = kb; j0 < ke; j0 += KB) {
+      float s[2][4];
+      scores(k, j0, ke, zero, s);
+      if (j0 >= lo && j0 + KB <= hi) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 8 * t + col + e;
+            if (j >= lo0 && j < hi0) mx0 = fmaxf(mx0, s[t][e]);
+            if (j >= lo1 && j < hi1) mx1 = fmaxf(mx1, s[t][2 + e]);
+          }
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    m0 = mx0 == -INFINITY ? 0.f : mx0 * scale;
+    m1 = mx1 == -INFINITY ? 0.f : mx1 * scale;
+  }
+
+  // Pass 2: exponentials, their f32 sum, bf16 P, P V. Leaves o and sum,
+  // both unnormalised.
+  __device__ __forceinline__ void exp_pass(const TcRows& k, const TcRows& v,
+                                           int kb, int ke, int lo0, int hi0,
+                                           int lo1, int hi1, float scale,
+                                           const bf16* zero, float mx0, float mx1) {
+    const int lane = threadIdx.x & 31;
+    const int col = 2 * (lane & 3);
+    const int lo = lo0 > lo1 ? lo0 : lo1, hi = hi0 < hi1 ? hi0 : hi1;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+    float s0 = 0.f, s1 = 0.f;
+    const int vr = (lane & 7) + ((lane >> 3) & 1) * 8;  // V row of this lane
+    for (int j0 = kb; j0 < ke; j0 += KB) {
+      float s[2][4];
+      scores(k, j0, ke, zero, s);
+      if (j0 >= lo && j0 + KB <= hi) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[t][e] = __expf(fmaf(s[t][e], scale, -mx0));
+            s[t][2 + e] = __expf(fmaf(s[t][2 + e], scale, -mx1));
+          }
+      } else {
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 8 * t + col + e;
+            s[t][e] = (j >= lo0 && j < hi0) ? __expf(fmaf(s[t][e], scale, -mx0)) : 0.f;
+            s[t][2 + e] =
+                (j >= lo1 && j < hi1) ? __expf(fmaf(s[t][2 + e], scale, -mx1)) : 0.f;
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        s0 += s[t][0] + s[t][1];
+        s1 += s[t][2] + s[t][3];
+      }
+      // the two n8 score tiles are one m16k16 A fragment of P
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const int j = j0 + vr;
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        const int c = t + (lane >> 4);
+        const bf16* p = j < ke ? v.at(j, c) : zero;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(smem_u32(p), b0, b1, b2, b3);
+        mma_bf16(o[t], pa, b0, b1);
+        mma_bf16(o[t + 1], pa, b2, b3);
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o_);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o_);
+    }
+    sum[0] = s0;
+    sum[1] = s1;
+  }
+
+  // Both passes.
+  __device__ __forceinline__ void attend(const TcRows& k, const TcRows& v,
+                                         int kb, int ke, int lo0, int hi0,
+                                         int lo1, int hi1, float scale,
+                                         const bf16* zero) {
+    float mx0, mx1;
+    max_pass(k, kb, ke, lo0, hi0, lo1, hi1, scale, zero, mx0, mx1);
+    exp_pass(k, v, kb, ke, lo0, hi0, lo1, hi1, scale, zero, mx0, mx1);
+  }
+
+
+  // Writes o / sum, rounded to bf16, as 16-byte stores: row r of the strip
+  // (r < nrows) to dst + r * stride .. + HD. The quad of lanes holding a
+  // row transposes its 2-column pairs in two butterfly rounds, so lane q
+  // owns the 8 columns of tile j0 + q of each group of four tiles.
+  __device__ __forceinline__ void store(bf16* dst, long stride, int nrows) const {
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3, g = lane >> 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const float inv = 1.f / sum[h];
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        uint32_t x[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          x[t] = j0 + t < NT ? pack_bf16(o[j0 + t][2 * h] * inv, o[j0 + t][2 * h + 1] * inv)
+                             : 0u;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int m = 1 << b;
+          const bool up = (q >> b) & 1;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            if (t & m) continue;
+            const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? x[t] : x[t | m], m);
+            if (up) x[t] = got;
+            else x[t | m] = got;
+          }
+        }
+        if (r < nrows && j0 + q < NT)
+          *reinterpret_cast<uint4*>(dst + r * stride + (j0 + q) * 8) =
+              make_uint4(x[0], x[1], x[2], x[3]);
+      }
+    }
+  }
+};
+
+}  // namespace

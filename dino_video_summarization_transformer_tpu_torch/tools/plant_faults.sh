@@ -1,19 +1,22 @@
 #!/bin/bash
-# Plants each backward-kernel fault in a copy of the tree and runs
-# chip_smoke.py from the copy; each must exit 1 in phase 3 (the training
-# ops against their plain twins). Run from the repository root on a
-# machine with a CUDA card:
+# Plants each kernel fault in a copy of the tree and runs chip_smoke.py
+# from the copy; each must exit 1 in phase 3 (the kernels against their
+# plain twins). Run from the repository root on a machine with a CUDA
+# card:
 #
 #     bash dino_video_summarization_transformer_tpu_torch/tools/plant_faults.sh
 #
 # Faults: the rowsum(dp * p) term dropped from the attention backward's
 # ds; the proj weight gradient transposed (dY and X swapped in gemm_dw);
 # the CLS row's gradient taken from the first frame only; the standalone
-# attention's logit scale dropped; every sequence of a multi-sequence
-# attention block scored against the block's first sequence's keys.
-# Name faults as arguments to run only those:
+# attention's logit scale dropped; every strip of a multi-sequence
+# attention block scored against the block's first sequence's keys; the
+# banded temporal attention's windows shifted by one frame; its rows'
+# keys left unmasked past the window (the rest of the step's keys and the
+# zero keys that pad its last 16-key block). Name faults as arguments to
+# run only those:
 #
-#     bash .../plant_faults.sh fa_unscaled fa_first_seq
+#     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -35,5 +38,7 @@ run() {
 run no_rowsum dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
 run dw_transposed fused_block_bwd.cu 's/gemm_dw(w.dproj, w.a,/gemm_dw(w.a, w.dproj,/'
 run dcls_frame0 dvst_common.cuh 's/for (int t = 0; t < reps; ++t) s +=/for (int t = 0; t < 1; ++t) s +=/'
-run fa_unscaled attention.cu 's/acc \*= scale;/acc *= 1.f;/'
-run fa_first_seq attention.cu 's/const int g = r \/ L;/const int g = 0;/'
+run fa_unscaled attention.cu 's/static_cast<bf16\*>(out), BH, L, G, scale);/static_cast<bf16*>(out), BH, L, G, 1.f);/'
+run fa_first_seq attention.cu 's/kb, ke, lo0, lo0 + L, lo1, lo1 + L,/0, L, 0, L, 0, L,/g'
+run band_shifted banded_block.cu 's/lo0 = band_lo(q0 + g, eff, hi), lo1 = band_lo(q0 + g + 8, eff, hi);/lo0 = band_lo(q0 + g, eff, hi) + 1, lo1 = band_lo(q0 + g + 8, eff, hi) + 1;/'
+run band_pad_unmasked banded_block.cu 's/lo0, lo0 + eff, lo1, lo1 + eff,/lo0, 1 << 30, lo1, 1 << 30,/'

@@ -62,10 +62,8 @@ def _qkv(dtype, B=4, L=12, hd=32, seed=0):
     return out
 
 
-@pytest.mark.parametrize("pack", [1, 3])
-@pytest.mark.parametrize("dtype", ["bf16", "f32"])
-def test_fused_attention_matches_pallas(dtype, pack):
-    (qj, qt), (kj, kt), (vj, vt) = _qkv(dtype)
+def _check_against_pallas(dtype, pack, **shape):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(dtype, **shape)
     B, L, hd = qt.shape
     scale = hd ** -0.5
     want = _f32(jat.fused_attention(qj, kj, vj, scale, block_b=2, pack=pack))
@@ -81,6 +79,20 @@ def test_fused_attention_matches_pallas(dtype, pack):
     p = np.exp(s - s.max(-1, keepdims=True))
     oracle = np.einsum("bnm,bmd->bnd", p / p.sum(-1, keepdims=True), v)
     _no_further(got, want, oracle.reshape(B, L, hd))
+
+
+@pytest.mark.parametrize("pack", [1, 3])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_fused_attention_matches_pallas(dtype, pack):
+    _check_against_pallas(dtype, pack)
+
+
+@pytest.mark.parametrize("L", [15, 16, 17, 63, 64, 65])
+def test_fused_attention_bf16_matches_pallas_at_strip_edges(L):
+    """The bf16 kernel cuts each sequence into 16-row strips (and puts
+    16 // L whole sequences in one strip where L < 16): the twin it is held
+    to on the card, against the Pallas kernel, at the strips' edges."""
+    _check_against_pallas("bf16", 1, B=3, L=L, hd=64, seed=L)
 
 
 def test_pack_is_a_view_of_more_sequences():
@@ -202,6 +214,63 @@ def test_twin_tolerance_rejects_planted_fault(monkeypatch, fault):
     monkeypatch.setattr(at, "fused_attention_plain", fault)
     gap = twin_check.twin_gap(at.fused_attention(q, k, v, 0.125), sound)
     assert twin_check.twin_failures(gap), gap
+
+
+# Faults the tensor-core kernel's design could make (16-row strips over
+# keys in 16-key blocks, the keys past L read as zero rows), simulated in
+# torch at chip_smoke.py's input scale (unit-variance q, k, v, hd 64).
+
+def _pad_keys_scored_zero(q, k, v, scale):
+    """Planted fault: the zero keys that fill the last 16-key block scored
+    0 instead of -inf (they add exp(-max) each to the denominator)."""
+    pad = -k.shape[-2] % 16
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    return at.fused_attention_plain(q, kp, vp, scale)
+
+
+def _last_strip_unwritten(q, k, v, scale):
+    """Planted fault: the last 16-row strip of each sequence not written
+    (the output buffer is uninitialised; zeros here)."""
+    out = at.fused_attention_plain(q, k, v, scale)
+    out[:, 16 * ((q.shape[-2] - 1) // 16):] = 0
+    return out
+
+
+def _max_of_first_block(q, k, v, scale):
+    """Planted fault: the row max taken over the first 16-key block only."""
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
+    e = torch.exp(s - s[..., :16].amax(-1, keepdim=True))
+    o = torch.matmul(e.to(torch.bfloat16).float(), v.float())
+    return (o / e.sum(-1, keepdim=True)).to(q.dtype)
+
+
+@pytest.mark.parametrize("L", [30, 197])
+@pytest.mark.parametrize("fault", [_pad_keys_scored_zero, _last_strip_unwritten],
+                         ids=["pad_keys_scored_zero", "last_strip_unwritten"])
+def test_twin_tolerance_rejects_tensor_core_faults(fault, L):
+    """The kernel-vs-twin bound (ops/twin_check.py) rejects each fault of the
+    strip design at the attention swap's sequence lengths."""
+    (_, q), (_, k), (_, v) = _qkv("bf16", B=8, L=L, hd=64, seed=L)
+    want = at.fused_attention(q, k, v, 0.125)
+    gap = twin_check.twin_gap(fault(q, k, v, 0.125), want)
+    assert twin_check.twin_failures(gap), gap
+
+
+@pytest.mark.parametrize("L", [30, 197])
+def test_twin_tolerance_and_the_first_block_max(L):
+    """A row max taken from the first key block only is invisible at
+    chip_smoke.py's logits: softmax is shift-invariant and the partial max
+    only rescales the exponentials, which bf16 rounds to the same relative
+    precision, so the bound cannot see it there (as it cannot see a dropped
+    max). It shows where the logits spread past exp's range: scores 64x
+    chip_smoke's overflow exp and the output is not finite."""
+    (_, q), (_, k), (_, v) = _qkv("bf16", B=8, L=L, hd=64, seed=L)
+    gap = twin_check.twin_gap(_max_of_first_block(q, k, v, 0.125),
+                              at.fused_attention(q, k, v, 0.125))
+    assert not twin_check.twin_failures(gap), gap
+    gap = twin_check.twin_gap(_max_of_first_block(q, k, v, 8.0),
+                              at.fused_attention(q, k, v, 8.0))
+    assert not gap["finite"] and twin_check.twin_failures(gap), gap
 
 
 def test_smem_probe_plain_side():

@@ -44,6 +44,9 @@ HD = D // H
 TOL = 5e-2
 # (C, t_real, eff): teacher and student windows, full and padded chunks
 BANDS = [(64, 64, 30), (64, 50, 30), (64, 64, 3), (64, 50, 3)]
+# chunks that are no multiple of the temporal kernel's 16-frame steps or
+# 128-frame blocks (the Pallas kernel needs a divisor of C >= eff - 1)
+OFF_TILE = [(90, 77, 30), (90, 77, 3), (150, 131, 30), (150, 131, 3)]
 
 
 def _params(seed, std=0.05):
@@ -153,7 +156,7 @@ def _qkv_inputs(C, seed):
     return _bf16(1.5 * r.randn(C, N, 3 * D)), _bf16(1.5 * r.randn(C, 3 * D))
 
 
-@pytest.mark.parametrize("C,t_real,eff", BANDS)
+@pytest.mark.parametrize("C,t_real,eff", BANDS + OFF_TILE)
 def test_banded_temporal_attn_twin_matches_pallas(C, t_real, eff):
     (qkv_j, qkv_t), _ = _qkv_inputs(C, eff + t_real)
     want = _f32(jbb.banded_temporal_attn(qkv_j[..., :D], qkv_j[..., D:],
@@ -350,3 +353,81 @@ def test_twin_tolerance_rejects_planted_banded_fault(fault):
         gap = twin_check.twin_gap(
             _window_plus_one_temporal(qkv, t_real, eff, H), t_want)
         assert twin_check.twin_failures(gap), gap
+
+
+# Faults the tensor-core temporal kernel's design could make (steps of 16
+# query frames inside blocks of 128, each step's keys [lo(first),
+# lo(last) + eff) scanned in 16-key blocks, the keys past them read as
+# zero rows), simulated in torch at chip_smoke.py's input scale
+# (unit-variance qkv).
+
+def _temporal_faulty(qkv, t_real, eff, num_heads, fault, scale=HD ** -0.5):
+    C = qkv.shape[0]
+    q, k, v = (bb._split_heads(qkv[..., i * D:(i + 1) * D], num_heads).float()
+               for i in range(3))  # (C, N, H, hd)
+    idx = torch.arange(C)
+    lo = bb.band_starts(idx, eff, t_real)
+    # each row's step: its first row, its block's end, its keys [kb, ke)
+    q0 = idx // 16 * 16
+    i1 = torch.clamp((idx // 128 + 1) * 128, max=C)
+    kb = bb.band_starts(q0, eff, t_real)
+    ke = bb.band_starts(torch.minimum(q0 + 16, i1) - 1, eff, t_real) + eff
+    win = lo + 1 if fault == "shifted" else lo
+    kj = torch.arange(C)
+    band = (kj[None] >= win[:, None]) & (kj[None] < win[:, None] + eff)
+    s = torch.einsum("inhd,jnhd->nhij", q, k) * scale
+    s = s.masked_fill(~band, float("-inf"))
+    if fault == "max_first_block":
+        first = band & (kj[None] < kb[:, None] + 16)
+        m = s.masked_fill(~first, float("-inf")).amax(-1, keepdim=True)
+    else:
+        m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    if fault == "pad_keys_scored_zero":  # (-(ke - kb)) % 16 zero keys per row
+        den = den + ((-(ke - kb)) % 16)[:, None] * torch.exp(-m)
+    o = torch.einsum("nhij,jnhd->inhd", e.to(torch.bfloat16).float(), v)
+    o = o / den.permute(2, 0, 1, 3)
+    if fault == "last_strip_unwritten":
+        o[q0 == (i1 - 1) // 16 * 16] = 0
+    return o.reshape(C, -1, D).to(torch.bfloat16)
+
+
+def _unit_qkv(C, seed):
+    r = np.random.RandomState(seed)
+    return torch.from_numpy(r.randn(C, N, 3 * D)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("eff", [30, 3])
+@pytest.mark.parametrize("fault", ["shifted", "pad_keys_scored_zero",
+                                   "last_strip_unwritten"])
+def test_twin_tolerance_rejects_tensor_core_band_faults(fault, eff):
+    """The kernel-vs-twin bound rejects each fault of the temporal kernel's
+    steps, over two 128-frame blocks with padding frames; the fault-free
+    simulation passes it."""
+    C, t_real = 150, 131
+    qkv = _unit_qkv(C, eff)
+    want = bb.banded_temporal_attn_plain(qkv, t_real, eff, H)
+    sound = _temporal_faulty(qkv, t_real, eff, H, None)
+    assert not twin_check.twin_failures(twin_check.twin_gap(sound, want))
+    gap = twin_check.twin_gap(_temporal_faulty(qkv, t_real, eff, H, fault), want)
+    assert twin_check.twin_failures(gap), gap
+
+
+@pytest.mark.parametrize("eff", [30, 3])
+def test_twin_tolerance_and_the_first_block_max_of_a_band(eff):
+    """A row max taken from the step's first 16-key block only is invisible
+    at chip_smoke.py's logits (softmax is shift-invariant; the partial max
+    only rescales the exponentials) and shows where the logits spread past
+    exp's range (scores 64x chip_smoke's): the output is not finite."""
+    C, t_real = 150, 131
+    qkv = _unit_qkv(C, 7 + eff)
+    want = bb.banded_temporal_attn_plain(qkv, t_real, eff, H)
+    gap = twin_check.twin_gap(
+        _temporal_faulty(qkv, t_real, eff, H, "max_first_block"), want)
+    assert not twin_check.twin_failures(gap), gap
+    big = _temporal_faulty(qkv, t_real, eff, H, "max_first_block",
+                           scale=64 * HD ** -0.5)
+    gap = twin_check.twin_gap(big, _temporal_faulty(
+        qkv, t_real, eff, H, None, scale=64 * HD ** -0.5))
+    assert not gap["finite"] and twin_check.twin_failures(gap), gap

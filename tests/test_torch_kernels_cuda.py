@@ -137,16 +137,38 @@ def _qkv(shape, seed, device):
         device, torch.bfloat16)
 
 
-@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES)
+# The tensor-core temporal kernel's edges: chunks that are no multiple of
+# its 16-frame steps or 128-frame blocks, windows of 1, 2, 30 and 64
+# frames, t_real < eff (every window starts at frame 0), and a head group
+# of 3 (H = 6 at hd 64).
+BAND_TC_SHAPES = [(C, t_real, eff, 5, 384, 6) for C, t_real, eff in [
+    (16, 16, 1), (16, 9, 2), (17, 17, 1), (17, 12, 2), (48, 48, 1),
+    (48, 40, 2), (48, 20, 30), (100, 100, 1), (100, 77, 2), (100, 90, 30),
+    (100, 50, 64)]]
+
+
+@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES + BAND_TC_SHAPES)
 def test_banded_temporal_attn_kernel_matches_twin(cuda_device, C, t_real, eff,
                                                   N, D, H):
     qkv = _qkv((C, N, 3 * D), 5, cuda_device)
     before = bb.launches["banded_temporal_attn"]
     got = bb.banded_temporal_attn(qkv, t_real, eff, H)
+    again = bb.banded_temporal_attn(qkv, t_real, eff, H)
     torch.cuda.synchronize()
-    assert bb.launches["banded_temporal_attn"] == before + 1
+    assert bb.launches["banded_temporal_attn"] == before + 2
     assert got.dtype == torch.bfloat16 and got.shape == (C, N, D)
+    assert torch.equal(got, again)
     _close(got, bb.banded_temporal_attn_plain(qkv, t_real, eff, H))
+
+
+def test_banded_temporal_attn_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """The wrapper reads the kernel's shared-memory need from the library:
+    a 450-frame window at hd 128 needs a 481-row key / value ring (250 KB)."""
+    qkv = torch.zeros(500, 2, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    before = bb.launches["banded_temporal_attn"]
+    with pytest.raises(ValueError, match="shared memory"):
+        bb.banded_temporal_attn(qkv, 500, 450, 1)
+    assert bb.launches["banded_temporal_attn"] == before
 
 
 @pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES)
@@ -232,7 +254,12 @@ def test_temporal_phase_tm_bf16_kernel_matches_twin(cuda_device, B, T, N, D, H):
     torch.cuda.synchronize()
     assert fb.launches["temporal_phase_tm_bf16"] == before + 1
     assert got.dtype == torch.bfloat16
-    _close(got, fb.temporal_phase_tm_plain(x, p, H, torch.bfloat16), x)
+    # bf16(x + bf16(branch)), as row 6: the branch through the f32-out tier
+    # of the same launches, the bf16 output at two ulps of the twin's
+    _close(fb.temporal_phase_tm(x, p, H), fb.temporal_phase_tm_plain(x, p, H), x)
+    ulps = twin_check.rounding_ulps(
+        got, fb.temporal_phase_tm_plain(x, p, H, torch.bfloat16), x)
+    assert ulps <= twin_check.ROUNDING_ULPS, ulps
 
 
 @pytest.mark.parametrize("B,T,N,D,H", TRAIN_SHAPES)
@@ -413,6 +440,39 @@ def test_fused_attention_kernel_matches_twin(cuda_device, BH, L, hd, dtype):
     _close(got, at.fused_attention_plain(q, k, v, hd ** -0.5))
 
 
+# The bf16 instance's strips at their edges: sequences of 1 to 15 rows
+# packed 16 // L to a strip, 16-row strips around 16, 32, 64 and 256, the
+# teacher's 197, at every head dim; BH = 131, a prime, is no multiple of
+# the sequences a block holds (1 to 128).
+TC_LENGTHS = [1, 2, 3, 5, 15, 16, 17, 30, 31, 33, 63, 64, 65, 197, 256, 257]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("L", TC_LENGTHS)
+def test_fused_attention_tensor_core_instance_matches_twin(cuda_device, L, hd):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    assert at.kernel_instance(torch.bfloat16, hd) == "tensor_core"
+    r = np.random.RandomState(1000 * L + hd)
+    q, k, v = (torch.from_numpy(r.randn(131, L, hd)).to(cuda_device, torch.bfloat16)
+               for _ in range(3))
+    before = at.launches["fused_attention"]
+    got = at.fused_attention(q, k, v, hd ** -0.5)
+    again = at.fused_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert at.launches["fused_attention"] == before + 2
+    assert torch.equal(got, again)
+    _close(got, at.fused_attention_plain(q, k, v, hd ** -0.5))
+
+
+def test_fused_attention_f32_takes_the_cuda_core_instance(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    assert at.kernel_instance(torch.float32, 64) == "cuda_core"
+    with pytest.raises(ValueError):
+        at.kernel_instance(torch.float16, 64)
+
+
 def test_fused_attention_pack_equals_unpacked(cuda_device):
     from dino_video_summarization_transformer_tpu_torch.ops import attention as at
 
@@ -429,6 +489,16 @@ def test_fused_attention_refuses_what_shared_memory_cannot_hold(cuda_device):
     from dino_video_summarization_transformer_tpu_torch.ops import attention as at
 
     big = torch.zeros(1, 197, 128, device=cuda_device)  # f32 at hd 128: 306 KB
+    before = at.launches["fused_attention"]
+    with pytest.raises(ValueError, match="shared memory"):
+        at.fused_attention(big, big, big, 1.0)
+    assert at.launches["fused_attention"] == before
+
+
+def test_fused_attention_bf16_refuses_what_shared_memory_cannot_hold(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    big = torch.zeros(1, 400, 128, dtype=torch.bfloat16, device=cuda_device)  # 307 KB
     before = at.launches["fused_attention"]
     with pytest.raises(ValueError, match="shared memory"):
         at.fused_attention(big, big, big, 1.0)
