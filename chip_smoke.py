@@ -32,11 +32,21 @@ Imports torch, numpy and the port package
    the other ops have no single-call PyTorch counterpart); for these two
    also the device time per call from a CUDA graph of ten calls, which
    the CUDA-event time of the wrapper calls exceeds where the wrapper's
-   host time is longer than the kernel (the 3-row sequences).
+   host time is longer than the kernel (the 3-row sequences). Rows 2
+   (``spatial_mlp``) and 11 (``spatial_phase_pf``): their device time split
+   into attention, GEMMs and LN (torch.profiler), and their two blocks
+   alone against their twins: the wgmma GEMM (``fused_block.gemm``) at
+   each of their grid products with its epilogue, in TFLOP/s beside
+   ``torch.matmul`` on the same operands, and the spatial attention
+   (``fused_block.spatial_attention``) at their head-sequences beside SDPA
+   (yardsticks the port never calls).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
    numpy-seeded weights over two synthetic clips (64 and 40 frames);
    launch counters read around the run; losses held against the plain
-   bf16 path and the f32 path.
+   bf16 path and the f32 path; a profiled run of the 40-frame clip whose
+   kernel launches by family must match the ops' counters: gemm_kernel
+   and attn_kernel only for the temporal op (row 1), the wgmma GEMM and
+   the tile's prefix attention for row 2.
 5. windowed path, f32: the reference-compat path (TF32 off) on one clip.
 6. banded path, bf16: ``make_scorers(band_mode="both")`` + ``run_scoring``
    over clips of 64, 40 and 600 frames (the last in two segments at
@@ -44,7 +54,10 @@ Imports torch, numpy and the port package
    around the run (each banded kernel once per block of each pass, no
    windowed kernel); losses held against the plain bf16 and the f32 banded
    paths; a profiled run of the 600-frame clip for the device time inside
-   the kernels and the device's idle share; the "teacher" hybrid on the
+   the kernels and the device's idle share, its launches by kernel family
+   held to the ops' counters as in phase 4 (gemm_kernel only for the MLP
+   phase, row 3; no attn_kernel; row 11 on the wgmma GEMM and the tile);
+   the "teacher" hybrid on the
    64-frame clip with both kernel sets counted; frames/s beside the
    windowed path's, and the rank correlation of banded against exact
    losses (information only).
@@ -325,14 +338,24 @@ def attention_cost(BH, L, hd, elem):
     return 4 * BH * L * L * hd, 4 * BH * L * hd * elem
 
 
-def kernel_breakdown(fn):
+def kernel_breakdown(fn, on_record=None):
     """Device time by kernel name over one call of ``fn``
     (torch.profiler, CUDA activity): ([(name, count, ms)] largest first,
-    wall ms of the call)."""
+    wall ms of the call). A first call of ``fn`` runs in the profiler's
+    warm-up step and is not recorded: kernels launched just after tracing
+    starts can go unrecorded (seen on the card: a single op's first
+    kernels missing from its profile). ``on_record`` runs between the two
+    calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        if on_record is not None:
+            on_record()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -342,10 +365,57 @@ def kernel_breakdown(fn):
     return sorted(rows, key=lambda r: -r[2]), wall
 
 
-def print_profile(tag, fn, top=10):
+# kernel families by name in a profile: the port's building blocks
+# (dvst_common.cuh: gemm_kernel, attn_kernel, ln_kernel; wgmma_gemm.cuh:
+# wg_gemm_kernel; tc_attention.cuh: tc_prefix_attn_kernel_*)
+FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
+            "wg_gemm_kernel": "::wg_gemm_kernel<",
+            "tc_prefix_attn": "::tc_prefix_attn_kernel_", "ln_kernel": "::ln_kernel<"}
+# launches of each family per call of the ops that use them
+FAMILY_PER_OP = {
+    "temporal_phase_tm": {"ln_kernel": 1, "gemm_kernel": 3, "attn_kernel": 1},
+    "spatial_mlp": {"ln_kernel": 3, "wg_gemm_kernel": 6, "tc_prefix_attn": 1},
+    "spatial_phase_pf": {"ln_kernel": 2, "wg_gemm_kernel": 3, "tc_prefix_attn": 1},
+    "mlp_phase": {"ln_kernel": 1, "gemm_kernel": 2},
+}
+
+
+def family_counts(rows):
+    return {f: sum(n for k, n, _ in rows if pat in k) for f, pat in FAMILIES.items()}
+
+
+def split_ms(rows):
+    """Device ms of one op's profile by block: attention, GEMMs, LN, rest."""
+    out = {"attention": 0.0, "gemm": 0.0, "ln": 0.0, "other": 0.0}
+    for k, _, ms in rows:
+        part = ("attention" if "attn" in k else "gemm" if "gemm" in k
+                else "ln" if "::ln_kernel<" in k else "other")
+        out[part] += ms
+    return out
+
+
+def check_families(tag, rows, ops):
+    """The profiled run's launches by kernel family against what the ops'
+    launch counters say they launched: gemm_kernel and attn_kernel only
+    where the ops that keep them (rows 1 and 3) ran, so rows 2 and 11 ran
+    none for their grid rows."""
+    seen = family_counts(rows)
+    want = {f: sum(n * FAMILY_PER_OP.get(op, {}).get(f, 0) for op, n in ops.items())
+            for f in FAMILIES}
+    print(f"  {tag}: kernel launches by family {seen}, expected from the ops' "
+          f"counters {want}", flush=True)
+    if seen != want:
+        for k, n, ms in rows:
+            if any(pat in k for pat in FAMILIES.values()):
+                print(f"    {ms:8.3f} ms {n:5d}x {k[:100]}", flush=True)
+        fail(f"{tag}: kernel families {seen}, expected {want}")
+
+
+def print_profile(tag, fn, top=10, on_record=None):
     """Print one profiled call of ``fn``: wall, device busy and idle share,
-    the share inside the port's kernels, the largest kernels."""
-    rows, wall = kernel_breakdown(fn)
+    the share inside the port's kernels, the largest kernels; returns the
+    rows by kernel."""
+    rows, wall = kernel_breakdown(fn, on_record)
     busy = sum(r[2] for r in rows)
     # the port's kernels live in an anonymous namespace; PyTorch's do not
     ours = sum(r[2] for r in rows if "(anonymous namespace)::" in r[0])
@@ -355,6 +425,7 @@ def print_profile(tag, fn, top=10):
           flush=True)
     for k, n, ms in rows[:top]:
         print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
+    return rows
 
 
 def check_close(name, got, want, base=None):
@@ -477,6 +548,9 @@ def main():
                 fn = line.split("'")[1]
             elif "Used" in line and fn:
                 print(f"  {fn}: {line.split(':', 1)[1].strip()}", flush=True)
+            elif "warning" in line.lower() and "wgmma" in line.lower():
+                print(f"  {os.path.basename(res.path)}: {line.strip()[:200]}",
+                      flush=True)
     for name in _build.SOURCES:
         _build.load(name)
 
@@ -527,18 +601,27 @@ def main():
                 "rel_rms": max(g["rel_rms"] for g in op_gaps)})
             print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} ms,"
                   f" bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
-        if T > 8:  # where the time goes inside each op, teacher window
-            for name, fn in [
-                    ("temporal_phase_tm",
-                     lambda: fb.temporal_phase_tm(x, p["temporal"], H)),
-                    ("spatial_mlp",
-                     lambda: fb.spatial_mlp(x1, cls, p["spatial"], H))]:
-                rows, _ = kernel_breakdown(fn)
-                total = sum(r[2] for r in rows)
-                print(f"  {name} B={B} T={T} by kernel (torch.profiler, "
-                      f"{total:.3f} ms device time):", flush=True)
-                for k, n, ms in rows:
-                    print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
+        # where the time goes inside each op: the temporal op at the
+        # teacher window, row 2 at both, split into attention, GEMMs, LN
+        for name, fn in [
+                ("temporal_phase_tm",
+                 lambda: fb.temporal_phase_tm(x, p["temporal"], H)),
+                ("spatial_mlp",
+                 lambda: fb.spatial_mlp(x1, cls, p["spatial"], H))]:
+            if name == "temporal_phase_tm" and T <= 8:
+                continue
+            rows, _ = kernel_breakdown(fn)
+            total = sum(r[2] for r in rows)
+            print(f"  {name} B={B} T={T} by kernel (torch.profiler, "
+                  f"{total:.3f} ms device time):", flush=True)
+            for k, n, ms in rows:
+                print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
+            if name == "spatial_mlp":
+                split = split_ms(rows)
+                stats[name][-1]["device_ms"] = total
+                stats[name][-1]["split_ms"] = split
+                print(f"  spatial_mlp B={B} T={T} split: " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
     del x, x1, cls
 
     # the training ops at the train step's global and local crop shapes
@@ -715,11 +798,100 @@ def main():
                     row["device_ms"] = graph_ms(kern)
                     extra = (f", device {row['device_ms']:.3f} ms, SDPA with the "
                              f"band mask {lib:.3f} ms")
+                if name == "spatial_phase_pf":
+                    rows, _ = kernel_breakdown(kern)
+                    row["device_ms"] = sum(r_[2] for r_ in rows)
+                    row["split_ms"] = split_ms(rows)
+                    extra = (f"; device {row['device_ms']:.3f} ms: " + ", ".join(
+                        f"{k} {v:.3f} ms" for k, v in row["split_ms"].items()))
                 stats[name].append(row)
                 print(f"  {name} C={C} eff={eff}: kernel {ms:.3f} ms, plain "
                       f"{pl:.3f} ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of "
                       f"bound{extra}", flush=True)
     del qkv, qkv_cls, xg, cls_rows, xm, sdpa_q, sdpa_k, sdpa_v
+
+    # rows 2 and 11's blocks alone: the wgmma GEMM at each of their grid
+    # products (row 2's teacher window, M = 8 * 30 * 196; row 11's bucket,
+    # M = 512 * 196) with its epilogue there, and the spatial attention at
+    # their head-sequences, each against its twin; torch.matmul on the
+    # same operands (bf16 out) and SDPA on (BH, 1, L, hd) tensors of the
+    # same shape as yardsticks the port never calls
+    print("  rows 2 and 11's blocks alone: the wgmma GEMM and the spatial "
+          "attention", flush=True)
+    blocks = {"spatial_mlp": {"gemm": [], "attention": []},
+              "spatial_phase_pf": {"gemm": [], "attention": []}}
+    Mw, Mb = 8 * 30 * N, BAND_C * N
+    for op, M_, Nn, K_, epi in [
+            ("spatial_mlp", Mw, 3 * D, D, "bf16"),
+            ("spatial_mlp", Mw, D, D, "res_f32_f32"),
+            ("spatial_mlp", Mw, Dh, D, "gelu_bf16"),
+            ("spatial_mlp", Mw, D, Dh, "res_f32_bf16"),
+            ("spatial_phase_pf", Mb, 3 * D, D, "bf16"),
+            ("spatial_phase_pf", Mb, D, D, "add_bf16")]:
+        r = np.random.RandomState(M_ + Nn + K_)
+        a = torch.from_numpy(r.randn(M_, K_).astype(np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy((r.randn(Nn, K_) * K_ ** -0.5).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        bias = torch.from_numpy(r.randn(Nn).astype(np.float32)).to(dev)
+        rd = fb.GEMM_EPILOGUES[epi][1]
+        res = (None if rd is None else torch.from_numpy(
+            r.randn(M_, Nn).astype(np.float32)).to(dev, rd))
+        ok, gap = check_close(f"gemm {epi} M={M_} N={Nn} K={K_}",
+                              fb.gemm(a, w, bias, epi, res),
+                              fb.gemm_plain(a, w, bias, epi, res), res)
+        if not ok:
+            fail(f"the wgmma GEMM disagrees with its twin ({epi}, N={Nn}, K={K_})")
+        ms = cuda_ms(lambda: fb.gemm(a, w, bias, epi, res), 10)
+        # the same product with the plainest epilogue (bias, bf16 store):
+        # what the shape's own epilogue adds
+        ms_bf16 = cuda_ms(lambda: fb.gemm(a, w, bias, "bf16"), 10)
+        mm = cuda_ms(lambda: torch.matmul(a, w.t()), 10)
+        flops = 2 * M_ * Nn * K_
+        nbytes = (M_ * K_ + Nn * K_) * 2 + M_ * Nn * (
+            fb.GEMM_EPILOGUES[epi][2].itemsize + (0 if rd is None else rd.itemsize))
+        b, by = bound_ms(flops, nbytes)
+        blocks[op]["gemm"].append({
+            "M": M_, "N": Nn, "K": K_, "epilogue": epi, "ms": ms,
+            "tflops": flops / ms / 1e9, "bf16_epilogue_ms": ms_bf16, "matmul_ms": mm,
+            "matmul_tflops": flops / mm / 1e9, "bound_ms": b, "bound_by": by,
+            "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]})
+        print(f"  gemm {epi} M={M_} N={Nn} K={K_}: {ms:.3f} ms, "
+              f"{flops / ms / 1e9:.0f} TFLOP/s ({flops / ms / 1e9 / 989:.1%} of "
+              f"989), bound {b:.4f} ms ({by}); with the bf16 epilogue {ms_bf16:.3f} "
+              f"ms, {flops / ms_bf16 / 1e9:.0f} TFLOP/s; torch.matmul {mm:.3f} ms, "
+              f"{flops / mm / 1e9:.0f} TFLOP/s", flush=True)
+        del a, w, bias, res
+    for op, S_, P_, po in [("spatial_mlp", 8 * 30, 8, True),
+                           ("spatial_mlp", 8 * 3, 8, True),
+                           ("spatial_phase_pf", BAND_C, BAND_C, False)]:
+        r = np.random.RandomState(S_)
+        sq = torch.from_numpy(r.randn(S_, N, 3 * D).astype(np.float32)).to(dev, torch.bfloat16)
+        sp = torch.from_numpy(r.randn(P_, 3 * D).astype(np.float32)).to(dev, torch.bfloat16)
+        got, got_pre = fb.spatial_attention(sq, sp, H, prefix_out=po)
+        want, want_pre = fb.spatial_attention_plain(sq, sp, H)
+        oks = [check_close(f"spatial_attention S={S_} P={P_}", got, want)]
+        if po:
+            oks.append(check_close(f"spatial_attention S={S_} P={P_} prefix rows",
+                                   got_pre, want_pre))
+        if not all(ok for ok, _ in oks):
+            fail(f"the spatial attention disagrees with its twin (S={S_})")
+        del got, got_pre, want, want_pre
+        ms = cuda_ms(lambda: fb.spatial_attention(sq, sp, H, prefix_out=po), 10)
+        dms = graph_ms(lambda: fb.spatial_attention(sq, sp, H, prefix_out=po))
+        BH, L = S_ * H, N + 1
+        q, k, v = (torch.randn(BH, 1, L, hd, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+        del q, k, v, sq, sp
+        b, by = bound_ms(*attention_cost(BH, L, hd, 2))
+        blocks[op]["attention"].append({
+            "S": S_, "BH": BH, "L": L, "prefix_out": po, "ms": ms, "device_ms": dms,
+            "sdpa_ms": lib, "bound_ms": b, "bound_by": by,
+            "max_abs_err": max(g["max_abs_err"] for _, g in oks)})
+        print(f"  spatial_attention S={S_} ({BH} x {L} rows, hd {hd}): {ms:.3f} ms "
+              f"(device {dms:.3f} ms), bound {b:.4f} ms ({by}), SDPA {lib:.3f} ms",
+              flush=True)
+    torch.cuda.empty_cache()
 
     # the XLA-layout block's two attention phases and the standalone
     # attention, at the chunk-8 scorer's teacher and student windows
@@ -909,6 +1081,11 @@ def main():
         print(f"  frames_per_s={fps_windowed:.2f} ms_per_chunk="
               f"{wall * 1e3 / chunks:.1f} ({n_frames} frames, {chunks} chunks) "
               f"on {card}", flush=True)
+        # which kernels the path launched: one profiled run of the 40-frame clip
+        rows = print_profile(f"{items[1]['num_frames']}-frame clip",
+                             lambda: run(scorers, items[1:], "profiled"), top=8,
+                             on_record=reset_counts)
+        check_families("windowed path", rows, counts())
         del scorers
         reset_counts()
         plain = run(scorers_for(torch.bfloat16, False), items, "plain")
@@ -966,10 +1143,12 @@ def main():
 
         # where the time goes: one profiled run of the 600-frame clip
         long = band_items[2]
-        print_profile(f"{long['num_frames']}-frame clip",
-                      lambda: sc.score_video(long["frames"], long["local_idx"],
-                                             long["global_idx"],
-                                             long["eff_global"]), top=14)
+        rows = print_profile(f"{long['num_frames']}-frame clip",
+                             lambda: sc.score_video(long["frames"], long["local_idx"],
+                                                    long["global_idx"],
+                                                    long["eff_global"]), top=14,
+                             on_record=reset_counts)
+        check_families("banded path", rows, counts())
         del scorers, sc
 
         reset_counts()
@@ -1328,6 +1507,8 @@ def main():
         elif name == "smem_probe":
             extra = {"budget_bytes": rows[0]["budget_bytes"],
                      "optin_bytes": rows[0]["optin_bytes"]}
+        elif name in blocks:  # rows 2 and 11: their GEMMs and attention alone
+            extra = {"blocks": blocks[name]}
         kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",

@@ -2,8 +2,9 @@
 
 One shared library with a plain C interface per source in ``csrc/``
 (``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``,
-``attention.cu``, each including ``dvst_common.cuh``, the last two also
-the tensor-core attention tile ``tc_attention.cuh``, and the standalone
+``attention.cu``, each including ``dvst_common.cuh``; all but the
+backwards also the tensor-core attention tile ``tc_attention.cuh``, the
+first two the wgmma + TMA GEMM ``wgmma_gemm.cuh``; and the standalone
 ``smem_probe.cu``), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
@@ -27,7 +28,8 @@ from typing import Dict, List
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(os.path.dirname(_OPS_DIR))
 _CSRC = os.path.join(_OPS_DIR, "csrc")
-HEADERS = [os.path.join(_CSRC, h) for h in ("dvst_common.cuh", "tc_attention.cuh")]
+HEADERS = [os.path.join(_CSRC, h)
+           for h in ("dvst_common.cuh", "tc_attention.cuh", "wgmma_gemm.cuh")]
 LIB_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 # library name -> source
 SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
@@ -54,6 +56,12 @@ _SIGNATURES = {
         "dvst_attn_phase": [_p] * 9 + [_i] * 4 + [_p],
         # x, 8 weights, workspace, out | S, L, D, H | stream
         "dvst_temporal_phase": [_p] * 11 + [_i] * 4 + [_p],
+        # qkv, qkv_pre, out, out_pre | S, S_lo, N, D, H | scale | stream
+        "dvst_spatial_attn": [_p] * 4 + [_i] * 5 + [_f, _p],
+        # shared bytes of one block (returns long) | L, hd
+        "dvst_spatial_attn_smem": [_i] * 2,
+        # A, W, bias, res, out | M | N, K, epilogue | stream
+        "dvst_gemm": [_p] * 5 + [_l] + [_i] * 3 + [_p],
     },
     "banded": {
         # qkv, out | C, N, D, H, t_real, eff | stream
@@ -64,6 +72,9 @@ _SIGNATURES = {
         "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
         # qkv_cls, qkv, out | C, N, D, H, t_real, eff | stream
         "dvst_cls_band_attn": [_p] * 3 + [_i] * 6 + [_p],
+        # shared bytes of one block of dvst_spatial_pf's attention (returns
+        # long) | L, hd
+        "dvst_spatial_attn_smem": [_i] * 2,
     },
     "bwd": {
         # x, dout, 8 weights, workspace, dx, dln, 6 weight grads

@@ -11,7 +11,9 @@ owns a CLS row of its own (``models/banded.py``). Three ops:
 * ``spatial_phase_pf``: per frame on [cls_i, x_i]: LN -> qkv -> MHSA ->
   proj -> bf16 grid residual; returns the new grid and the two bf16 qkv
   buffers (grid rows, CLS rows), whose K/V and CLS-query columns are the
-  TPU kernel's exports — replaces ``_spatial_pf_kernel`` (:174);
+  TPU kernel's exports — replaces ``_spatial_pf_kernel`` (:174); its
+  products run on the wgmma GEMM and its attention on the tensor-core
+  tile, as ``fused_block.spatial_mlp``'s;
 * ``cls_band_attn``: for each frame i, the mean over t in its window of
   softmax(q_cls_i . [k_cls_i, K_t]) [v_cls_i; V_t], one softmax per (i, t)
   pair, read straight from those qkv buffers — replaces ``_cls_band_kernel``
@@ -72,7 +74,9 @@ def _cls_band_smem(N: int, hd: int) -> int:
 
 def banded_problems(D: int, num_heads: int, N: int, Dh: int) -> List[str]:
     """What keeps the banded kernels from a model geometry; empty when they
-    take it."""
+    take it. The spatial attention's shared memory is not among them:
+    ``spatial_phase_pf`` reads it from the library on the card and raises
+    there."""
     bad = []
     if num_heads <= 0 or D % num_heads:
         return [f"D={D} is not divisible by num_heads={num_heads}"]
@@ -82,11 +86,10 @@ def banded_problems(D: int, num_heads: int, N: int, Dh: int) -> List[str]:
     if D % 128 or D > 1024 or Dh % 128:
         bad.append(f"D={D}, MLP width {Dh}: the kernels need multiples of 128 "
                    "and D <= 1024")
-    for what, need in [("spatial attention", fb._attn_smem(N + 1, hd)),
-                       ("CLS window aggregation", _cls_band_smem(N, hd))]:
-        if need > fb.SMEM_LIMIT:
-            bad.append(f"{what} over {N} patches at head dim {hd} needs "
-                       f"{need} B of shared memory (limit {fb.SMEM_LIMIT})")
+    need = _cls_band_smem(N, hd)
+    if need > fb.SMEM_LIMIT:
+        bad.append(f"CLS window aggregation over {N} patches at head dim {hd} "
+                   f"needs {need} B of shared memory (limit {fb.SMEM_LIMIT})")
     return bad
 
 
@@ -233,7 +236,7 @@ def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
         raise ValueError(f"x: expected (C, N, D), got {tuple(x.shape)}")
     C, N, D = x.shape
     dev = fb._device_of(x)
-    fb._check_geometry(D, num_heads, N + 1)
+    fb._check_geometry(D, num_heads, None)
     fb._check_tensor("x", x, torch.bfloat16, x.shape, dev)
     fb._check_tensor("cls", cls, torch.bfloat16, (C, D), dev)
     shapes = {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
@@ -247,6 +250,7 @@ def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
     from . import _build
 
     lib = _build.load("banded")
+    fb.check_spatial_attn_smem(lib, N + 1, D // num_heads)
     out = torch.empty((C, N, D), dtype=torch.bfloat16, device=dev)
     qkv = torch.empty((C, N, 3 * D), dtype=torch.bfloat16, device=dev)
     qkv_cls = torch.empty((C, 3 * D), dtype=torch.bfloat16, device=dev)

@@ -37,7 +37,10 @@
 //       only caller, models/banded.py:193, drops it) and is not computed.
 //       launches: LN grid, LN cls -> GEMM qkv grid, GEMM qkv cls ->
 //       attention (CLS row as the per-frame prefix key) -> GEMM proj+res.
-//       Bound by operations, like dvst_spatial_mlp's first half.
+//       Bound by operations, like dvst_spatial_mlp's first half, and on
+//       the same blocks: the wgmma + TMA GEMM (wgmma_gemm.cuh) and the
+//       tensor-core tile's prefix attention (tc_prefix_attn), here
+//       without the CLS queries' output.
 //   dvst_cls_band_attn          replaces _cls_band_kernel
 //       (ops/banded_block.py:291): for each frame i,
 //       (1/eff) * sum over t in win(i) of softmax(q_i . [k_cls_i, K_t]) [v_cls_i; V_t]
@@ -63,6 +66,7 @@
 // workarounds and are not copied.
 
 #include "tc_attention.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -378,14 +382,21 @@ int dvst_spatial_pf(const void* x_, const void* cls_, const void* ln_w,
   cudaError_t e;
   if ((e = ln_launch<bf16>(x, lw, lb, y, M, D, st))) return e;
   if ((e = ln_launch<bf16>(cls, lw, lb, y_cls, C, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, C, 3 * D, D, st)))
+  if ((e = wg_gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, C, 3 * D, D, st)))
     return e;
   // sequence c = [cls row c, grid rows c*N + n for n < N]
-  if ((e = attn(D / H, qkv, qkv_cls, a, nullptr, C, 1, N, 0, 1, N, H, st))) return e;
-  if ((e = gemm<kEpiAddBf16>(a, proj_w, proj_b, x, out, M, D, D, st))) return e;
+  const int hd = D / H;
+  if ((e = tc_prefix_attn(hd, qkv, qkv_cls, a, nullptr, C, 1, N, H,
+                          1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = wg_gemm<kEpiAddBf16>(a, proj_w, proj_b, x, out, M, D, D, st))) return e;
   return cudaSuccess;
 }
+
+// Dynamic shared bytes one block of dvst_spatial_pf's attention needs at L
+// rows.
+long dvst_spatial_attn_smem(int L, int hd) { return (long)tc_prefix_smem(L, hd); }
 
 // qkv_cls (C,3D), qkv (C,N,3D) bf16 (dvst_spatial_pf's) -> out (C,D) bf16.
 int dvst_cls_band_attn(const void* qkv_cls, const void* qkv, void* out, int C,

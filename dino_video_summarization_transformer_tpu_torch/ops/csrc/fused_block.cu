@@ -31,6 +31,10 @@
 //       launches: LN grid, LN cls -> GEMM qkv grid, GEMM qkv cls ->
 //       attention -> GEMM proj+res grid, GEMM proj cls -> LN ->
 //       GEMM fc1+GELU -> GEMM fc2+res
+//       Its GEMMs are the wgmma + TMA kernel (wgmma_gemm.cuh), its
+//       attention the tensor-core tile with the CLS row as prefix key
+//       (tc_attention.cuh's tc_prefix_attn); the other ops keep
+//       gemm_kernel and attn_kernel.
 //   dvst_mlp_phase          replaces _mlp_phase_kernel
 //       (ops/fused_block.py:1191): rows (M,D) bf16 -> LN -> fc1 -> erf GELU
 //       -> fc2, optionally + x, bf16 out; fc2's output is rounded to bf16
@@ -70,8 +74,9 @@
 //   f32 accumulate), 128x128x32 tiles, a 2-stage cp.async pipeline, the
 //   ragged M edge zero-filled on load and masked on store, and fused
 //   epilogues (bias, erf GELU, f32 or bf16 residual, f32 or bf16 store).
-//   It uses mma.sync-class wmma, not wgmma/TMA: a persistent warp-
-//   specialised wgmma GEMM is the later step to the card's peak.
+//   It runs at ~18% of the bf16 peak; dvst_spatial_mlp uses the
+//   persistent warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) instead,
+//   with the same epilogues.
 // * attn_kernel: one block per (sequence, head); Q, K, V of the sequence in
 //   dynamic shared memory (L=197, hd=64: ~80 KB, opted in), one warp per
 //   query row, f32 scores with the row max subtracted, probabilities rounded
@@ -89,7 +94,8 @@
 // logit clamp, ones-column denominator and tanh GELU are TPU workarounds and
 // are not copied.
 
-#include "dvst_common.cuh"
+#include "tc_attention.cuh"
+#include "wgmma_gemm.cuh"
 
 extern "C" {
 
@@ -188,21 +194,23 @@ int dvst_spatial_mlp(const void* x1_, const void* cls_, const void* ln1_w,
   cudaError_t e;
   if ((e = ln_launch<float>(x1, l1w, l1b, y, M, D, st))) return e;
   if ((e = ln_launch<bf16>(cls, l1w, l1b, y_cls, B, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, B, 3 * D, D, st))) return e;
-  // sequence (b, t) = [cls_b, rows (b*T + t)*N + n for n < N]
-  if ((e = attn(D / H, qkv, qkv_cls, a, a_cls, B * T, T, (long)T * N, N, 1, N,
-                H, st)))
+  if ((e = wg_gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, B, 3 * D, D, st)))
     return e;
-  if ((e = gemm<kEpiResF32F32>(a, proj_w, proj_b, x1, x2, M, D, D, st))) return e;
-  if ((e = gemm<kEpiF32>(a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
-                         D, D, st)))
+  // sequence s = b*T + t: [cls row b, grid rows s*N + n for n < N]
+  const int hd = D / H;
+  if ((e = tc_prefix_attn(hd, qkv, qkv_cls, a, a_cls, B * T, T, N, H,
+                          1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = wg_gemm<kEpiResF32F32>(a, proj_w, proj_b, x1, x2, M, D, D, st))) return e;
+  if ((e = wg_gemm<kEpiF32>(a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
+                            D, D, st)))
     return e;
   if ((e = ln_launch<float>(x2, static_cast<const float*>(ln2_w),
                             static_cast<const float*>(ln2_b), y, M, D, st)))
     return e;
-  if ((e = gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
-  if ((e = gemm<kEpiResF32Bf16>(hid, fc2_w, fc2_b, x2, out, M, D, Dh, st))) return e;
+  if ((e = wg_gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
+  if ((e = wg_gemm<kEpiResF32Bf16>(hid, fc2_w, fc2_b, x2, out, M, D, Dh, st))) return e;
   return cudaSuccess;
 }
 
@@ -260,6 +268,40 @@ int dvst_temporal_phase(const void* x, const void* ln_w, const void* ln_b,
                         int S, int L, int D, int H, void* stream) {
   return dvst_temporal_phase_tm(x, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b,
                                 fc_w, fc_b, ws, out, S, L, 1, D, H, 1, stream);
+}
+
+// The spatial attention of dvst_spatial_mlp alone: qkv (S, N, 3D) grid
+// rows and qkv_pre (S / S_lo, 3D) prefix rows, bf16 -> out (S, N, D) and,
+// unless null, out_pre (S, D), at logit scale `scale`.
+int dvst_spatial_attn(const void* qkv, const void* qkv_pre, void* out, void* out_pre,
+                      int S, int S_lo, int N, int D, int H, float scale,
+                      void* stream) {
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
+  return tc_prefix_attn(D / H, static_cast<const bf16*>(qkv),
+                        static_cast<const bf16*>(qkv_pre), static_cast<bf16*>(out),
+                        static_cast<bf16*>(out_pre), S, S_lo, N, H, scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared bytes one block of the spatial attention needs at L rows.
+long dvst_spatial_attn_smem(int L, int hd) { return (long)tc_prefix_smem(L, hd); }
+
+// The GEMM of dvst_spatial_mlp alone: out = epi(A (M, K) . W (N, K)^T +
+// bias), epi one of kEpiBf16, kEpiGeluBf16, kEpiResF32F32, kEpiF32,
+// kEpiResF32Bf16, kEpiAddBf16.
+int dvst_gemm(const void* A, const void* W, const void* bias, const void* res,
+              void* out, long M, int N, int K, int epi, void* stream) {
+  const bf16* a = static_cast<const bf16*>(A);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case kEpiBf16: return wg_gemm<kEpiBf16>(a, W, bias, res, out, M, N, K, st);
+    case kEpiGeluBf16: return wg_gemm<kEpiGeluBf16>(a, W, bias, res, out, M, N, K, st);
+    case kEpiResF32F32: return wg_gemm<kEpiResF32F32>(a, W, bias, res, out, M, N, K, st);
+    case kEpiF32: return wg_gemm<kEpiF32>(a, W, bias, res, out, M, N, K, st);
+    case kEpiResF32Bf16: return wg_gemm<kEpiResF32Bf16>(a, W, bias, res, out, M, N, K, st);
+    case kEpiAddBf16: return wg_gemm<kEpiAddBf16>(a, W, bias, res, out, M, N, K, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 // The tensor-core attention tile: one warp computes a 16-query strip
 // against a range of keys held in shared memory, with mma.sync
 // (m16n8k16, bf16 in, f32 accumulate) fed by ldmatrix. Used by the
-// standalone attention (attention.cu, bf16) and the banded temporal
-// attention (banded_block.cu); the other attention kernels of the port
-// (attn_kernel / attn_bwd_kernel in dvst_common.cuh) are meant to move onto
-// it.
+// standalone attention (attention.cu, bf16), the banded temporal
+// attention (banded_block.cu) and, through tc_prefix_attn below, the
+// spatial attention of dvst_spatial_mlp (fused_block.cu) and
+// dvst_spatial_pf (banded_block.cu); the other attention kernels of the
+// port (attn_kernel / attn_bwd_kernel in dvst_common.cuh) are meant to
+// move onto it.
 //
 // Numerics are the CUDA-core kernels' and the plain twins': f32 scores
 // (q . k accumulated in f32, times the scale), the max of the row's whole
@@ -261,10 +263,12 @@ struct TcStrip {
 
 
   // Writes o / sum, rounded to bf16, as 16-byte stores: row r of the strip
-  // (r < nrows) to dst + r * stride .. + HD. The quad of lanes holding a
-  // row transposes its 2-column pairs in two butterfly rounds, so lane q
-  // owns the 8 columns of tile j0 + q of each group of four tiles.
-  __device__ __forceinline__ void store(bf16* dst, long stride, int nrows) const {
+  // (r < nrows) to row(r) .. + HD, skipped where row(r) is null. The quad
+  // of lanes holding a row transposes its 2-column pairs in two butterfly
+  // rounds, so lane q owns the 8 columns of tile j0 + q of each group of
+  // four tiles.
+  template <typename RowPtr>
+  __device__ __forceinline__ void store_rows(RowPtr row, int nrows) const {
     const int lane = threadIdx.x & 31;
     const int q = lane & 3, g = lane >> 2;
 #pragma unroll
@@ -290,12 +294,180 @@ struct TcStrip {
             else x[t | m] = got;
           }
         }
-        if (r < nrows && j0 + q < NT)
-          *reinterpret_cast<uint4*>(dst + r * stride + (j0 + q) * 8) =
-              make_uint4(x[0], x[1], x[2], x[3]);
+        bf16* dst = r < nrows ? row(r) : nullptr;
+        if (dst != nullptr && j0 + q < NT)
+          *reinterpret_cast<uint4*>(dst + (j0 + q) * 8) = make_uint4(x[0], x[1], x[2], x[3]);
       }
     }
   }
+
+  // store_rows to dst + r * stride.
+  __device__ __forceinline__ void store(bf16* dst, long stride, int nrows) const {
+    store_rows([=](int r) { return dst + r * stride; }, nrows);
+  }
 };
+
+// ---------------------------------------------------------------------------
+// Spatial attention with a prefix key: sequence s is [prefix row s / S_lo,
+// grid rows s*N .. s*N + N - 1], read straight from the (rows, 3D) qkv
+// buffers (q | k | v, heads contiguous inside each): no [cls, x_t] buffer
+// is built. Query row 0 (the prefix's) goes to out_prefix row s (skipped
+// when out_prefix is null), grid query n to out row s*N + n. Grid (H, S):
+// one block per (head, sequence), heads fastest, so neighbouring blocks
+// read neighbouring 128-byte runs of the same rows. The block copies the
+// sequence's head slice of Q, K and V into shared memory as tile rows (the
+// prefix as row 0; two cp.async groups, V arriving while the max pass
+// runs) and takes its ceil(L / 16) strips over the whole key set [0, L)
+// on at most kTcPrefixWarps warps (13 strips at L = 197: two rounds of 7).
+// The tile's numerics: f32 scores, the whole row's max first, bf16 P, an
+// f32 sum of the unrounded exponentials.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcPrefixWarps = 7;
+
+// Warps of a block: at most kTcPrefixWarps, each taking the same number of
+// strips but for the last round.
+__host__ __device__ inline int tc_prefix_warps(int L) {
+  const int strips = (L + 15) / 16;
+  const int rounds = (strips + kTcPrefixWarps - 1) / kTcPrefixWarps;
+  return (strips + rounds - 1) / rounds;
+}
+
+// Shared bytes: a 16-byte zero row, then L rows each of Q, K and V.
+__host__ __device__ inline size_t tc_prefix_smem(int L, int hd) {
+  return 16 + (size_t)3 * L * hd * 2;
+}
+
+template <int HD>
+__device__ __forceinline__ void tc_prefix_attn_block(const bf16* __restrict__ qkv,
+                                                     const bf16* __restrict__ qkv_pre,
+                                                     bf16* __restrict__ out,
+                                                     bf16* __restrict__ out_pre, int N,
+                                                     int S_lo, int H, float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per head row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, s = blockIdx.y;
+  const int L = N + 1, D = H * HD;
+  const long row_w = 3L * D;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{qs, CH, swz, 0, 0};
+  const TcRows K{qs + (long)L * HD, CH, swz, 0, 0};
+  const TcRows V{qs + (long)2 * L * HD, CH, swz, 0, 0};
+  // sequence row r: the prefix row (r = 0) or grid row r - 1, this head
+  auto src = [&](int r) {
+    return (r == 0 ? qkv_pre + (long)(s / S_lo) * row_w
+                   : qkv + ((long)s * N + r - 1) * row_w) + h * HD;
+  };
+  for (int idx = threadIdx.x; idx < L * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bf16* p = src(r) + c * 8;
+    cp_async16(Q.at(r, c), p, 16);
+    cp_async16(K.at(r, c), p + D, 16);
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < L * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    cp_async16(V.at(r, c), src(r) + 2 * D + c * 8, 16);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int nstrips = (L + 15) / 16;
+  const int k0 = 0;  // the first key: the prefix row
+  // rounds of one strip per warp; every warp meets the first round's
+  // barrier, with or without a strip
+  for (int st = warp; st - warp < nstrips; st += nw) {
+    const bool has = st < nstrips;
+    const int r0 = 16 * st;
+    const int nrows = L - r0 < 16 ? L - r0 : 16;
+    TcStrip<HD> t;
+    float mx0 = 0.f, mx1 = 0.f;
+    if (has) {
+      t.load_q(Q, r0, nrows, zero);
+      t.max_pass(K, k0, L, k0, L, k0, L, scale, zero, mx0, mx1);
+    }
+    if (st == warp) {  // V has arrived
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (has) {
+      t.exp_pass(K, V, k0, L, k0, L, k0, L, scale, zero, mx0, mx1);
+      t.store_rows(
+          [&](int r) -> bf16* {
+            const int l = r0 + r;
+            if (l == 0) return out_pre != nullptr ? out_pre + (long)s * D + h * HD : nullptr;
+            return out + ((long)s * N + l - 1) * D + h * HD;
+          },
+          nrows);
+    }
+  }
+}
+
+// At hd <= 64 capped at 96 registers a thread, so three 7-warp blocks (L =
+// 197, 76 KB each) share an SM, as the standalone attention's bf16
+// instance (attention.cu); above, uncapped.
+template <int HD>
+__global__ void __maxnreg__(96)
+tc_prefix_attn_kernel_narrow(const bf16* qkv, const bf16* qkv_pre, bf16* out,
+                             bf16* out_pre, int N, int S_lo, int H, float scale) {
+  tc_prefix_attn_block<HD>(qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcPrefixWarps * 32)
+tc_prefix_attn_kernel_wide(const bf16* qkv, const bf16* qkv_pre, bf16* out,
+                           bf16* out_pre, int N, int S_lo, int H, float scale) {
+  tc_prefix_attn_block<HD>(qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
+}
+
+template <int HD>
+cudaError_t tc_prefix_attn_launch(const bf16* qkv, const bf16* qkv_pre, bf16* out,
+                                  bf16* out_pre, int S, int S_lo, int N, int H,
+                                  float scale, cudaStream_t st) {
+  if (S <= 0) return cudaSuccess;
+  if (S > 65535 || S_lo <= 0 || S % S_lo) return cudaErrorInvalidValue;
+  const int L = N + 1;
+  const size_t smem = tc_prefix_smem(L, HD);
+  static SmemGrant grant;
+  cudaError_t e;
+  if constexpr (HD <= 64) {
+    if ((e = smem_opt_in(tc_prefix_attn_kernel_narrow<HD>, smem, grant))) return e;
+    tc_prefix_attn_kernel_narrow<HD><<<dim3(H, S), tc_prefix_warps(L) * 32, smem, st>>>(
+        qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
+  } else {
+    if ((e = smem_opt_in(tc_prefix_attn_kernel_wide<HD>, smem, grant))) return e;
+    tc_prefix_attn_kernel_wide<HD><<<dim3(H, S), tc_prefix_warps(L) * 32, smem, st>>>(
+        qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
+  }
+  return cudaGetLastError();
+}
+
+// S sequences [qkv_pre row s / S_lo, qkv rows s*N ..] at head dim hd and
+// logit scale `scale`.
+inline cudaError_t tc_prefix_attn(int hd, const bf16* qkv, const bf16* qkv_pre, bf16* out,
+                                  bf16* out_pre, int S, int S_lo, int N, int H,
+                                  float scale, cudaStream_t st) {
+#define DVST_TCP_CASE(HDV) \
+  case HDV:                \
+    return tc_prefix_attn_launch<HDV>(qkv, qkv_pre, out, out_pre, S, S_lo, N, H, scale, st);
+  switch (hd) {
+    DVST_TCP_CASE(16)
+    DVST_TCP_CASE(32)
+    DVST_TCP_CASE(48)
+    DVST_TCP_CASE(64)
+    DVST_TCP_CASE(80)
+    DVST_TCP_CASE(96)
+    DVST_TCP_CASE(112)
+    DVST_TCP_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_TCP_CASE
+}
 
 }  // namespace

@@ -1,0 +1,568 @@
+// The Hopper GEMM of the port's spatial ops: out[M, N] = epilogue(A[M, K] .
+// W[N, K]^T + bias[N]), A row-major bf16, W an nn.Linear weight (out, in)
+// bf16, f32 accumulation, with gemm_kernel's epilogues (dvst_common.cuh's
+// Epi) at its rounding points. Used by dvst_spatial_mlp (fused_block.cu)
+// and dvst_spatial_pf (banded_block.cu) for all their products; the other
+// ops keep gemm_kernel.
+//
+// Bound by operations at the port's shapes (K = 768 or 3072: ~250-600 FLOP
+// per byte moved), except where an f32 residual is read and an f32 sum
+// written (the spatial op's proj: ~150 FLOP/B, bound by bytes).
+//
+// Design (warp-specialised, persistent):
+// * Tiles of 128 x BN outputs, BN = 256 where N allows it, else 128 (N is
+//   a multiple of 128). Grid: one block per SM (at most the tile count);
+//   block b takes tiles b, b + grid, ..., N-tiles fastest, so the blocks in
+//   flight together share their A rows in L2 (W fits L2 whole).
+// * A ring of 64-deep K stages in shared memory (4 at BN 256, 6 at 128;
+//   192 KB), each stage one TMA load of A (128 x 64) and one of W (BN x
+//   64), 128-byte swizzled as wgmma reads them. The ragged M edge: TMA
+//   fills rows past M with zeros on load, and the epilogue masks them.
+// * mbarriers per stage: "full" (the producer's expected bytes, completed
+//   by TMA) and "empty" (one arrival per consumer warpgroup).
+// * Warpgroup 2 is the producer: one thread issues the loads, its
+//   warpgroup keeps 40 registers a thread. Warpgroups 0 and 1 are the
+//   consumers (232 registers): each issues wgmma.mma_async m64nBNk16 on
+//   its 64 rows of the tile, keeps one group of four in flight, frees a
+//   stage when its group has retired, and at the tile's end applies the
+//   epilogue from registers straight to device memory: the quad of lanes
+//   holding a row trades its column pairs (two shuffle rounds) so each
+//   lane loads its residual and stores its output 8 columns (16 bytes of
+//   bf16) at a time; a residual is prefetched into L2 when the tile
+//   begins and read in batches of four loads ahead of their stores
+//   (2-element stores, eight rows a warp instruction, and one residual
+//   load at a time behind each store left the tensor cores idle for most
+//   of an epilogue-heavy tile: PERF.md).
+// * Tensor maps come from cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint (no -lcuda), and go to the kernel as
+//   __grid_constant__ parameters.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the encode function's types (header only)
+
+#include "dvst_common.cuh"
+
+namespace {
+
+constexpr int kWgBM = 128;       // rows per tile: two consumer warpgroups of 64
+constexpr int kWgBK = 64;        // K per stage: one 128-byte swizzled row of bf16
+constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int kWgRing = 196608;  // bytes of the stage ring
+
+template <int BN>
+struct WgShape {
+  static constexpr int kA = kWgBM * kWgBK * 2;  // A bytes of a stage
+  static constexpr int kB = BN * kWgBK * 2;     // W bytes of a stage
+  static constexpr int kStage = kA + kB;
+  static constexpr int kStages = kWgRing / kStage;
+  // the ring, its barriers, and slack to align the ring to 1024 bytes
+  // (the 128-byte swizzle's period)
+  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t wg_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spins until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA load of the box at (c0, c1) (K, row) of `map` into `dst`,
+// completing `bar`'s expected bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzled
+// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups 1024 bytes apart. The
+// next 16-deep K slice starts 32 bytes on (+2 in the address field).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// wgmma issue / retire points.
+template <int R>
+__device__ __forceinline__ void wg_fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x n, f32) += A (64 x 16, descriptor da) . B (16 x n, descriptor db)
+__device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wg_mma(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t wg_pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A quad's 4 x 4 words transposed in two butterfly rounds: lane q's x[t]
+// (column pair q of n8 tile t) becomes column pair t of tile q, so each
+// lane then owns 8 consecutive columns of its row.
+__device__ __forceinline__ void wg_quad_transpose(uint32_t (&x)[4], int q) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const int m = 1 << b;
+    const bool up = (q >> b) & 1;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (t & m) continue;
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? x[t] : x[t | m], m);
+      if (up) x[t] = got;
+      else x[t | m] = got;
+    }
+  }
+}
+
+template <int EPI>
+struct WgEpi {
+  // the residual's bytes per element (0: none)
+  static constexpr int kRes = EPI == kEpiResBf16F32 || EPI == kEpiAddBf16 ? 2
+                              : EPI == kEpiResF32F32 || EPI == kEpiResF32Bf16 ? 4
+                                                                              : 0;
+  static constexpr bool kF32Out = EPI == kEpiResBf16F32 || EPI == kEpiResF32F32 || EPI == kEpiF32;
+  // rounded to bf16 before anything else (kEpiAddBf16: the branch, before the add)
+  static constexpr bool kRoundFirst = EPI == kEpiBf16 || EPI == kEpiGeluBf16 || EPI == kEpiAddBf16;
+};
+
+// Epilogue, first pass, of one row's 32 columns held by a quad: lo[t],
+// hi[t] are the f32 sums acc + bias at columns 8 t + 2 q and 8 t + 2 q + 1
+// of the group; after the transpose the lane owns columns 8 q .. 8 q + 7
+// (row-major index o). An epilogue without a residual stores them
+// (16 bytes of bf16, or 32 of f32); one with a residual leaves them in
+// v[8] for the second pass. gemm_kernel's rounding points.
+template <int EPI>
+__device__ __forceinline__ void wg_epilogue8(void* out, size_t o, bool live, float (&lo)[4],
+                                             float (&hi)[4], int q, float (&v)[8]) {
+  if constexpr (EPI == kEpiGeluBf16) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      lo[t] = gelu_erf(lo[t]);
+      hi[t] = gelu_erf(hi[t]);
+    }
+  }
+  if constexpr (WgEpi<EPI>::kRoundFirst) {
+    uint32_t x[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) x[t] = wg_pack(lo[t], hi[t]);
+    wg_quad_transpose(x, q);
+    if constexpr (WgEpi<EPI>::kRes == 0) {
+      if (live)
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = make_uint4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[t]));
+        v[2 * t] = f.x;
+        v[2 * t + 1] = f.y;
+      }
+    }
+  } else {
+    uint32_t xl[4], xh[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      xl[t] = __float_as_uint(lo[t]);
+      xh[t] = __float_as_uint(hi[t]);
+    }
+    wg_quad_transpose(xl, q);
+    wg_quad_transpose(xh, q);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      v[2 * t] = __uint_as_float(xl[t]);
+      v[2 * t + 1] = __uint_as_float(xh[t]);
+    }
+    if constexpr (WgEpi<EPI>::kRes == 0) {
+      if (live) store8(static_cast<float*>(out) + o, v);
+    }
+  }
+}
+
+// Second pass: v += the residual's 8 elements at o, stored in the output's
+// type.
+template <int EPI>
+__device__ __forceinline__ void wg_load_res8(const void* res, size_t o, float (&r)[8]) {
+  if constexpr (WgEpi<EPI>::kRes == 2)
+    load8(static_cast<const bf16*>(res) + o, r);
+  else
+    load8(static_cast<const float*>(res) + o, r);
+}
+
+template <int EPI>
+__device__ __forceinline__ void wg_store_res8(void* out, size_t o, const float (&v)[8],
+                                              const float (&r)[8]) {
+  float s[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] = r[e] + v[e];
+  if constexpr (WgEpi<EPI>::kF32Out)
+    store8(static_cast<float*>(out) + o, s);
+  else
+    store8(static_cast<bf16*>(out) + o, s);
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kWgThreads, 1)
+wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
+               const __grid_constant__ CUtensorMap tmW, const float* __restrict__ bias,
+               const void* __restrict__ res, void* __restrict__ out, int M, int N,
+               int K) {
+  using S = WgShape<BN>;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  const uint32_t ring = (wg_smem_u32(wg_smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + S::kStages * S::kStage;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (S::kStages + s); };
+  const int n_tiles = N / BN;
+  const int tiles = (M + kWgBM - 1) / kWgBM * n_tiles;
+  const int nk = K / kWgBK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full, across tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / n_tiles * kWgBM, n0 = t % n_tiles * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty(s), ph ^ 1u);
+          const uint32_t a = ring + s * S::kStage;
+          const int k0 = kt * kWgBK;
+          mbar_expect_tx(full(s), S::kStage);
+          tma_load_2d(a, &tmA, full(s), k0, m0);
+          tma_load_2d(a + S::kA, &tmW, full(s), k0, n0);
+          if (++s == S::kStages) {
+            s = 0;
+            ph ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x & 127;
+    const int g = (tid & 31) >> 2, q = tid & 3;
+    float acc[BN / 2];
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / n_tiles * kWgBM, n0 = t % n_tiles * BN;
+      const int row0 = m0 + wg * 64 + (tid >> 5) * 16 + g;
+      if constexpr (WgEpi<EPI>::kRes != 0) {
+        // the residual lines of this lane's two rows, into L2 while the
+        // mainloop runs: the quad's lanes take every fourth 128-byte line
+        constexpr int kLines = BN * WgEpi<EPI>::kRes / 128;
+        const char* rb = static_cast<const char*>(res);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int l = q; l < kLines; l += 4)
+            if (row0 + 8 * h < M)
+              asm volatile("prefetch.L2 [%0];\n" ::"l"(
+                  rb + ((size_t)(row0 + 8 * h) * N + n0) * WgEpi<EPI>::kRes + l * 128));
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      wg_fence_operands(acc);
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full(s), ph);
+        const uint32_t a = ring + s * S::kStage;
+        const uint64_t da = wg_desc(a + wg * (64 * 128)), db = wg_desc(a + S::kA);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < kWgBK / 16; ++k) wg_mma(acc, da + 2 * k, db + 2 * k);
+        wg_commit();
+        wg_wait<1>();  // the previous stage's group has retired: free it
+        if (kt > 0 && tid == 0) mbar_arrive(empty(prev));
+        prev = s;
+        if (++s == S::kStages) {
+          s = 0;
+          ph ^= 1u;
+        }
+      }
+      wg_wait<0>();
+      wg_fence_operands(acc);
+      if (tid == 0) mbar_arrive(empty(prev));
+
+      // acc[4 j + 2 h + e]: row 16 warp + g + 8 h, column 8 j + 2 q + e;
+      // taken 32 columns (four n8 tiles) at a time. With a residual, the
+      // transposed sums go back into acc (group (j0, h)'s eight slots) and
+      // the residual is read in batches of four 16- or 32-byte loads, all
+      // issued before the batch's stores (the tile's lines were prefetched
+      // into L2 when the tile began).
+      constexpr int kRes = WgEpi<EPI>::kRes;
+#pragma unroll
+      for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+        float2 b[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          b[t] = *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t) + 2 * q);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          float lo[4], hi[4], v[8];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            lo[t] = acc[4 * (j0 + t) + 2 * h] + b[t].x;
+            hi[t] = acc[4 * (j0 + t) + 2 * h + 1] + b[t].y;
+          }
+          wg_epilogue8<EPI>(out, (size_t)row * N + n0 + 8 * (j0 + q), row < M, lo, hi, q, v);
+          if constexpr (kRes != 0) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              acc[4 * (j0 + t) + 2 * h] = v[2 * t];
+              acc[4 * (j0 + t) + 2 * h + 1] = v[2 * t + 1];
+            }
+          }
+        }
+      }
+      if constexpr (kRes != 0) {
+        constexpr int kGroups = BN / 16;  // (j0, h) pairs
+#pragma unroll
+        for (int b0 = 0; b0 < kGroups; b0 += 4) {
+          float r[4][8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j0 = (b0 + i) / 2 * 4, h = (b0 + i) % 2;
+            const int row = row0 + 8 * h;
+            if (row < M) wg_load_res8<EPI>(res, (size_t)row * N + n0 + 8 * (j0 + q), r[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j0 = (b0 + i) / 2 * 4, h = (b0 + i) % 2;
+            const int row = row0 + 8 * h;
+            float v[8];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              v[2 * t] = acc[4 * (j0 + t) + 2 * h];
+              v[2 * t + 1] = acc[4 * (j0 + t) + 2 * h + 1];
+            }
+            if (row < M) wg_store_res8<EPI>(out, (size_t)row * N + n0 + 8 * (j0 + q), v, r[i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+using WgEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*,
+                                   const cuuint32_t*, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once (null if missing).
+inline WgEncodeTiled wg_encode_tiled() {
+  static const WgEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<WgEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a (rows, K) row-major bf16 matrix, boxes of box_rows x 64
+// (K), 128-byte swizzled; rows past `rows` read as zeros.
+inline cudaError_t wg_tensor_map(CUtensorMap* map, const void* ptr, long rows, int K,
+                                 int box_rows) {
+  const WgEncodeTiled encode = wg_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, int EPI>
+cudaError_t wg_gemm_launch(const bf16* A, const bf16* W, const float* bias,
+                           const void* res, void* out, long M, int N, int K,
+                           cudaStream_t st) {
+  using S = WgShape<BN>;
+  CUtensorMap ta, tw;
+  cudaError_t e;
+  if ((e = wg_tensor_map(&ta, A, M, K, kWgBM))) return e;
+  if ((e = wg_tensor_map(&tw, W, N, K, BN))) return e;
+  static SmemGrant grant;
+  if ((e = smem_opt_in(wg_gemm_kernel<BN, EPI>, S::kSmem, grant))) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev))) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return e;
+  const long tiles = (M + kWgBM - 1) / kWgBM * (N / BN);
+  wg_gemm_kernel<BN, EPI><<<(unsigned)(tiles < sms ? tiles : sms), kWgThreads, S::kSmem, st>>>(
+      ta, tw, bias, res, out, (int)M, N, K);
+  return cudaGetLastError();
+}
+
+// gemm<EPI>'s interface on the wgmma kernel. Requires N % 128 == 0, K % 64
+// == 0 and 16-byte aligned A and W (the wrappers check); M is ragged.
+template <int EPI>
+cudaError_t wg_gemm(const bf16* A, const void* W, const void* bias, const void* res,
+                    void* out, long M, int N, int K, cudaStream_t st) {
+  if (M <= 0) return cudaSuccess;
+  if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
+    return cudaErrorInvalidValue;
+  const bf16* w = static_cast<const bf16*>(W);
+  const float* b = static_cast<const float*>(bias);
+  if (N % 256 == 0) return wg_gemm_launch<256, EPI>(A, w, b, res, out, M, N, K, st);
+  return wg_gemm_launch<128, EPI>(A, w, b, res, out, M, N, K, st);
+}
+
+}  // namespace

@@ -30,6 +30,14 @@ over (S, L, D) bf16 sequences in the plain layout:
 
 and ``mlp_phase`` for the feed-forward half. ``fused_ok`` is the gate.
 
+``spatial_mlp`` and the banded ``spatial_phase_pf`` run their products on
+the wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``) and their attention on the
+tensor-core tile with the CLS row as prefix key (``csrc/tc_attention.cuh``).
+Both blocks also have wrappers of their own, ``gemm`` and
+``spatial_attention`` (plain twins ``gemm_plain``,
+``spatial_attention_plain``), through which the card tests and
+``chip_smoke.py`` hold and time them alone; the model never calls them.
+
 The per-phase training tier (the counterpart of ``divided_block_fused``)
 runs three ops per block, each a ``torch.autograd.Function`` that saves
 only its inputs and recomputes in its backward, as the JAX custom VJPs do:
@@ -81,7 +89,18 @@ launches: Dict[str, int] = {
     "temporal_phase_tm": 0, "spatial_mlp": 0, "mlp_phase": 0,
     "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
     "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
-    "attn_phase": 0, "temporal_phase": 0}
+    "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0}
+
+# The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
+# the residual's dtype or None, the output's dtype).
+GEMM_EPILOGUES = {
+    "bf16": (0, None, torch.bfloat16),                     # bf16(acc + b)
+    "gelu_bf16": (1, None, torch.bfloat16),                # bf16(gelu(acc + b))
+    "res_f32_f32": (3, torch.float32, torch.float32),      # res + (acc + b)
+    "f32": (4, None, torch.float32),                       # acc + b
+    "res_f32_bf16": (5, torch.float32, torch.bfloat16),    # bf16(res + (acc + b))
+    "add_bf16": (6, torch.bfloat16, torch.bfloat16),       # bf16(res + bf16(acc + b))
+}
 
 
 def reset_launches() -> None:
@@ -202,6 +221,34 @@ def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
     h = F.gelu(_mm(y2, p["fc1_w"]) + p["fc1_b"]).to(torch.bfloat16)
     out = x2 + (_mm(h, p["fc2_w"]) + p["fc2_b"])
     return out.to(torch.bfloat16), cls_rows.contiguous()
+
+
+def spatial_attention_plain(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
+                            num_heads: int, scale: Optional[float] = None):
+    """Plain twin of ``spatial_attention``: sequence s is [qkv_prefix row
+    s // (S / P), qkv[s]]; returns (grid outputs (S, N, D), prefix outputs
+    (S, D))."""
+    S, N, D3 = qkv.shape
+    D, H = D3 // 3, num_heads
+    pre = qkv_prefix.repeat_interleave(S // qkv_prefix.shape[0], dim=0)
+    seq = torch.cat([pre[:, None], qkv], dim=1)  # (S, 1 + N, 3D)
+    q, k, v = seq.reshape(S, N + 1, 3, H, D // H).permute(2, 0, 3, 1, 4).unbind(0)
+    a = _attention(q, k, v, scale).transpose(1, 2).reshape(S, N + 1, D)
+    return a[:, 1:].contiguous(), a[:, 0].contiguous()
+
+
+def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
+               res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of ``gemm``: ``epi`` of GEMM_EPILOGUES applied to a @ w^T +
+    bias (bf16 operands, f32 accumulation)."""
+    v = _mm(a, w) + bias
+    if epi == "gelu_bf16":
+        return F.gelu(v).to(torch.bfloat16)
+    if epi == "add_bf16":
+        return (res.float() + v.to(torch.bfloat16).float()).to(torch.bfloat16)
+    if epi in ("res_f32_f32", "res_f32_bf16"):
+        v = res + v
+    return v.to(GEMM_EPILOGUES[epi][2])
 
 
 def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
@@ -410,7 +457,11 @@ def _attn_smem(L: int, hd: int) -> int:
     return L * (3 * hd + 2) * 2 + warps * L * 4
 
 
-def _check_geometry(D: int, num_heads: int, L: int, Dh: int = 0) -> None:
+def _check_geometry(D: int, num_heads: int, L: Optional[int], Dh: int = 0) -> None:
+    """The shapes the kernels take; ``L`` the sequence length of
+    ``attn_kernel`` (its shared memory, ``_attn_smem``), None for the ops
+    whose attention is elsewhere (their wrappers read its need from the
+    library)."""
     if num_heads <= 0 or D % num_heads:
         raise ValueError(f"D={D} is not divisible by num_heads={num_heads}")
     hd = D // num_heads
@@ -420,7 +471,7 @@ def _check_geometry(D: int, num_heads: int, L: int, Dh: int = 0) -> None:
     if D % 128 or D > 1024 or Dh % 128:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
-    if _attn_smem(L, hd) > SMEM_LIMIT:
+    if L is not None and _attn_smem(L, hd) > SMEM_LIMIT:
         raise ValueError(f"sequence length {L} at head dim {hd} needs "
                          f"{_attn_smem(L, hd)} B of shared memory "
                          f"(limit {SMEM_LIMIT})")
@@ -474,6 +525,106 @@ def _spatial_shapes(D: int, Dh: int = 0) -> dict:
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_spatial_attn_smem(lib, L: int, hd: int) -> None:
+    """Raise if the tile's spatial attention (``lib``'s
+    ``dvst_spatial_attn_smem``) cannot hold L rows at head dim hd."""
+    need = lib.dvst_spatial_attn_smem(L, hd)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"sequence length {L} at head dim {hd} needs {need} B "
+                         f"of shared memory (limit {SMEM_LIMIT})")
+
+
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel needs a 16-byte aligned start")
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
+         res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The wgmma GEMM of ``spatial_mlp`` and ``spatial_phase_pf`` alone:
+    a (M, K) bf16, w (N, K) bf16, bias (N,) f32 -> ``epi`` (a key of
+    GEMM_EPILOGUES) of a @ w^T + bias, (M, N); ``res`` (M, N) for the
+    residual epilogues. N % 128 == 0, K % 64 == 0. Kernel on CUDA, plain
+    twin on CPU."""
+    if epi not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue {epi!r}: one of {sorted(GEMM_EPILOGUES)}")
+    code, res_dtype, out_dtype = GEMM_EPILOGUES[epi]
+    if a.dim() != 2 or w.dim() != 2:
+        raise ValueError("a and w: expected (M, K) and (N, K)")
+    (M, K), N = a.shape, w.shape[0]
+    dev = _device_of(a)
+    if N % 128 or K % 64:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+                         "K % 64 == 0")
+    _check_tensor("a", a, torch.bfloat16, (M, K), dev)
+    _check_tensor("w", w, torch.bfloat16, (N, K), dev)
+    _check_tensor("bias", bias, torch.float32, (N,), dev)
+    if res_dtype is None:
+        if res is not None:
+            raise ValueError(f"epilogue {epi!r} takes no residual")
+    else:
+        _check_tensor("res", res, res_dtype, (M, N), dev)
+    if dev.type == "cpu":
+        return gemm_plain(a, w, bias, epi, res)
+
+    from . import _build
+
+    _check_aligned(a=a, w=w)
+    lib = _build.load()
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_gemm, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+             None if res is None else res.data_ptr(), out.data_ptr(), M, N, K,
+             code, _stream(dev))
+    launches["gemm"] += 1
+    return out
+
+
+def spatial_attention(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
+                      num_heads: int, scale: Optional[float] = None,
+                      prefix_out: bool = True):
+    """The spatial attention of ``spatial_mlp`` and ``spatial_phase_pf``
+    alone: qkv (S, N, 3D) bf16 grid rows, qkv_prefix (P, 3D) bf16 with S % P
+    == 0; sequence s is [qkv_prefix row s // (S / P), qkv[s]] -> (grid
+    outputs (S, N, D) bf16, prefix outputs (S, D) bf16, or None without
+    ``prefix_out``), at logit scale ``scale`` (hd^-0.5 unless given).
+    Kernel on CUDA, plain twin on CPU."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (S, N, 3D), got {tuple(qkv.shape)}")
+    S, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = _device_of(qkv)
+    _check_geometry(D, num_heads, None)
+    _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    P = qkv_prefix.shape[0] if qkv_prefix.dim() == 2 else 0
+    if P == 0 or S % P:
+        raise ValueError(f"qkv_prefix: expected (P, {D3}) with {S} % P == 0, "
+                         f"got {tuple(qkv_prefix.shape)}")
+    _check_tensor("qkv_prefix", qkv_prefix, torch.bfloat16, (P, D3), dev)
+    hd = D // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    if dev.type == "cpu":
+        out, out_pre = spatial_attention_plain(qkv, qkv_prefix, num_heads, scale)
+        return out, (out_pre if prefix_out else None)
+
+    from . import _build
+
+    _check_aligned(qkv=qkv, qkv_prefix=qkv_prefix)
+    lib = _build.load()
+    check_spatial_attn_smem(lib, N + 1, hd)
+    out = torch.empty((S, N, D), dtype=torch.bfloat16, device=dev)
+    out_pre = (torch.empty((S, D), dtype=torch.bfloat16, device=dev)
+               if prefix_out else None)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_spatial_attn, qkv.data_ptr(), qkv_prefix.data_ptr(),
+             out.data_ptr(), None if out_pre is None else out_pre.data_ptr(),
+             S, S // P, N, D, num_heads, float(scale), _stream(dev))
+    launches["spatial_attention"] += 1
+    return out, out_pre
 
 
 def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
@@ -609,7 +760,7 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     B, T, N, D = x1.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x1)
-    _check_geometry(D, num_heads, N + 1, Dh)
+    _check_geometry(D, num_heads, None, Dh)
     _check_tensor("x1", x1, torch.float32, x1.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_weights(p, SPATIAL_KEYS, _spatial_shapes(D, Dh), dev)
@@ -619,6 +770,7 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     from . import _build
 
     lib = _build.load()
+    check_spatial_attn_smem(lib, N + 1, D // num_heads)
     M = B * T * N
     out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
     cls_rows = torch.empty((B, T, D), dtype=torch.float32, device=dev)

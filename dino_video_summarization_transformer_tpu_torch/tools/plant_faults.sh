@@ -13,10 +13,13 @@
 # attention block scored against the block's first sequence's keys; the
 # banded temporal attention's windows shifted by one frame; its rows'
 # keys left unmasked past the window (the rest of the step's keys and the
-# zero keys that pad its last 16-key block). Name faults as arguments to
-# run only those:
+# zero keys that pad its last 16-key block); the spatial attention of rows
+# 2 and 11 without its CLS prefix key; the wgmma GEMM's second K stage of
+# every tile replaced by its third (one stage of the ring skipped). Name
+# faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
+#     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -42,3 +45,5 @@ run fa_unscaled attention.cu 's/static_cast<bf16\*>(out), BH, L, G, scale);/stat
 run fa_first_seq attention.cu 's/kb, ke, lo0, lo0 + L, lo1, lo1 + L,/0, L, 0, L, 0, L,/g'
 run band_shifted banded_block.cu 's/lo0 = band_lo(q0 + g, eff, hi), lo1 = band_lo(q0 + g + 8, eff, hi);/lo0 = band_lo(q0 + g, eff, hi) + 1, lo1 = band_lo(q0 + g + 8, eff, hi) + 1;/'
 run band_pad_unmasked banded_block.cu 's/lo0, lo0 + eff, lo1, lo1 + eff,/lo0, 1 << 30, lo1, 1 << 30,/'
+run cls_key_dropped tc_attention.cuh 's/const int k0 = 0;  \/\/ the first key: the prefix row/const int k0 = 1;/'
+run gemm_stage_skipped wgmma_gemm.cuh 's/const int k0 = kt \* kWgBK;/const int k0 = (kt + (kt == 1)) * kWgBK;/'

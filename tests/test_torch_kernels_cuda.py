@@ -562,3 +562,136 @@ def test_attention_swap_forward_kernels_match_twins(cuda_device):
         want = cpu.forward_features(x)
     assert at.launches["fused_attention"] == before + 4
     _close(got.float(), want.float())
+
+
+# The wgmma + TMA GEMM of rows 2 and 11 (csrc/wgmma_gemm.cuh), through its
+# own wrapper: every epilogue the two ops use, at every N = 3D of SHAPES
+# (K = D; 384, 1152, 1920 and 2688 take the 128-wide tiles, the rest the
+# 256-wide ones), at row 2's teacher shapes (M = 8 * 30 * 196 grid rows)
+# and its CLS rows (M = 8), and at ragged M: 1 and 8 (less than one
+# 128-row tile), 65, 77, 127 and 129 (no multiple of 64 or 128), with K of
+# one to twelve 64-deep stages and 48 (fc2's K = 3072).
+GEMM_SHAPES = [(300, 384, 128), (77, 768, 256), (47040, 2304, 768),
+               (129, 1152, 384), (65, 1920, 640), (1, 2688, 896),
+               (8, 2304, 768), (47040, 768, 768), (47040, 3072, 768),
+               (47040, 768, 3072), (127, 256, 64), (129, 128, 192)]
+
+
+@pytest.mark.parametrize("epi", sorted(fb.GEMM_EPILOGUES))
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+def test_gemm_kernel_matches_twin(cuda_device, epi, M, N, K):
+    r = np.random.RandomState(M + N + K)
+    a = torch.from_numpy(r.randn(M, K)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(r.randn(N, K) * K ** -0.5).to(cuda_device, torch.bfloat16)
+    bias = torch.from_numpy(r.randn(N)).to(cuda_device, torch.float32)
+    res_dtype = fb.GEMM_EPILOGUES[epi][1]
+    res = (None if res_dtype is None else
+           torch.from_numpy(r.randn(M, N) * 4).to(cuda_device, res_dtype))
+    before = fb.launches["gemm"]
+    got = fb.gemm(a, w, bias, epi, res)
+    again = fb.gemm(a, w, bias, epi, res)
+    torch.cuda.synchronize()
+    assert fb.launches["gemm"] == before + 2
+    assert got.dtype == fb.GEMM_EPILOGUES[epi][2] and got.shape == (M, N)
+    assert torch.equal(got, again)
+    _close(got, fb.gemm_plain(a, w, bias, epi, res), res)
+
+
+# The tensor-core spatial attention of rows 2 and 11
+# (tc_attention.cuh's tc_prefix_attn), through its own wrapper: (S, P, N,
+# D, H, prefix_out), sequence s = [prefix row s // (S / P), grid rows of
+# s]. Row 2's teacher and student windows (S = B*T sequences, the B
+# samples' CLS rows as prefixes, their outputs kept) and row 11's
+# 512-frame bucket (each frame its own CLS row, its output dropped) at
+# ViT-B widths; every head dim at N = 196; sequences of one strip (L = 5,
+# 16) and one row past a strip (L = 17, 33).
+SPATIAL_ATTN_SHAPES = [(240, 8, 196, 768, 12, True), (24, 8, 196, 768, 12, True),
+                       (512, 512, 196, 768, 12, False), (6, 2, 16, 128, 2, True),
+                       (5, 5, 4, 256, 4, False), (4, 1, 15, 256, 4, True),
+                       (4, 2, 32, 256, 4, True)] + [
+    (3, 1, 196, D, H, True) for D, H in [(128, 8), (128, 4), (384, 8), (640, 8),
+                                         (384, 4), (896, 8), (256, 2)]]
+
+
+def _spatial_qkv(S, P, N, D, seed, device, q_scale=1.0):
+    r = np.random.RandomState(seed)
+    qkv = r.randn(S, N, 3 * D)
+    pre = r.randn(P, 3 * D)
+    qkv[..., :D] *= q_scale
+    pre[:, :D] *= q_scale
+    return (torch.from_numpy(qkv).to(device, torch.bfloat16),
+            torch.from_numpy(pre).to(device, torch.bfloat16))
+
+
+@pytest.mark.parametrize("S,P,N,D,H,prefix_out", SPATIAL_ATTN_SHAPES)
+def test_spatial_attention_kernel_matches_twin(cuda_device, S, P, N, D, H,
+                                               prefix_out):
+    qkv, pre = _spatial_qkv(S, P, N, D, S + N, cuda_device)
+    before = fb.launches["spatial_attention"]
+    got, got_pre = fb.spatial_attention(qkv, pre, H, prefix_out=prefix_out)
+    again, again_pre = fb.spatial_attention(qkv, pre, H, prefix_out=prefix_out)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_attention"] == before + 2
+    assert got.shape == (S, N, D) and torch.equal(got, again)
+    want, want_pre = fb.spatial_attention_plain(qkv, pre, H)
+    _close(got, want)
+    if prefix_out:
+        assert torch.equal(got_pre, again_pre)
+        _close(got_pre, want_pre)
+    else:
+        assert got_pre is None
+
+
+def test_spatial_attention_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """The wrapper reads the tile's shared-memory need from the library: 401
+    rows at hd 128 need 308 KB."""
+    qkv = torch.zeros(2, 400, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    pre = torch.zeros(2, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    before = fb.launches["spatial_attention"]
+    with pytest.raises(ValueError, match="shared memory"):
+        fb.spatial_attention(qkv, pre, 1)
+    assert fb.launches["spatial_attention"] == before
+
+
+# Logits past exp's range. The tensor-core tile takes each row's max over
+# its whole key set before any exponential; a max from the first key block
+# alone would overflow exp here (scores 64x the unit-variance inputs' at
+# hd 64: the CPU tests in tests/test_torch_attention.py and
+# tests/test_torch_banded_ops.py show that fault non-finite at this scale
+# and invisible at scale hd^-0.5). Rows 13, 10 and the spatial attention
+# of rows 2 and 11 at their main-path shapes, held to the same bounds.
+@pytest.mark.parametrize("BH,L", [(2880, 197), (288, 197), (18816, 30), (18816, 3)])
+def test_fused_attention_at_overflowing_logits(cuda_device, BH, L):
+    from dino_video_summarization_transformer_tpu_torch.ops import attention as at
+
+    r = np.random.RandomState(BH + L)
+    q, k, v = (torch.from_numpy(r.randn(BH, L, 64)).to(cuda_device, torch.bfloat16)
+               for _ in range(3))
+    got = at.fused_attention(q, k, v, 8.0)
+    want = at.fused_attention_plain(q, k, v, 8.0)
+    assert bool(want.isfinite().all())
+    _close(got, want)
+
+
+@pytest.mark.parametrize("t_real,eff", [(512, 30), (500, 3)])
+def test_banded_temporal_attn_at_overflowing_logits(cuda_device, t_real, eff):
+    r = np.random.RandomState(eff)
+    qkv = r.randn(512, 196, 3 * 768)
+    qkv[..., :768] *= 64  # scores 64x: an exact power of two in bf16
+    qkv = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    got = bb.banded_temporal_attn(qkv, t_real, eff, 12)
+    want = bb.banded_temporal_attn_plain(qkv, t_real, eff, 12)
+    assert bool(want.isfinite().all())
+    _close(got, want)
+
+
+@pytest.mark.parametrize("S,P,prefix_out", [(240, 8, True), (512, 512, False)])
+def test_spatial_attention_at_overflowing_logits(cuda_device, S, P, prefix_out):
+    qkv, pre = _spatial_qkv(S, P, 196, 768, S, cuda_device)
+    got, got_pre = fb.spatial_attention(qkv, pre, 12, scale=8.0,
+                                        prefix_out=prefix_out)
+    want, want_pre = fb.spatial_attention_plain(qkv, pre, 12, scale=8.0)
+    assert bool(want.isfinite().all()) and bool(want_pre.isfinite().all())
+    _close(got, want)
+    if prefix_out:
+        _close(got_pre, want_pre)
