@@ -32,21 +32,25 @@ Imports torch, numpy and the port package
    the other ops have no single-call PyTorch counterpart); for these two
    also the device time per call from a CUDA graph of ten calls, which
    the CUDA-event time of the wrapper calls exceeds where the wrapper's
-   host time is longer than the kernel (the 3-row sequences). Rows 2
-   (``spatial_mlp``) and 11 (``spatial_phase_pf``): their device time split
-   into attention, GEMMs and LN (torch.profiler), and their two blocks
+   host time is longer than the kernel (the 3-row sequences). Rows 1
+   (``temporal_phase_tm``, and its bf16-out tier 1b), 2 (``spatial_mlp``),
+   3 (``mlp_phase``, also at the train step's crops), 6
+   (``temporal_phase``) and 11 (``spatial_phase_pf``): their device time
+   split into attention, GEMMs and LN (torch.profiler), and their blocks
    alone against their twins: the wgmma GEMM (``fused_block.gemm``) at
-   each of their grid products with its epilogue, in TFLOP/s beside
-   ``torch.matmul`` on the same operands, and the spatial attention
-   (``fused_block.spatial_attention``) at their head-sequences beside SDPA
-   (yardsticks the port never calls).
+   each of their products with its epilogue, in TFLOP/s beside
+   ``torch.matmul`` on the same operands, the spatial attention
+   (``fused_block.spatial_attention``) at rows 2 and 11's head-sequences
+   and the temporal attention (``fused_block.temporal_attention``, the
+   tile at stride N) at rows 1, 1b and 6's, beside SDPA (yardsticks the
+   port never calls).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
    numpy-seeded weights over two synthetic clips (64 and 40 frames);
    launch counters read around the run; losses held against the plain
    bf16 path and the f32 path; a profiled run of the 40-frame clip whose
-   kernel launches by family must match the ops' counters: gemm_kernel
-   and attn_kernel only for the temporal op (row 1), the wgmma GEMM and
-   the tile's prefix attention for row 2.
+   kernel launches by family must match the ops' counters: the wgmma GEMM
+   and the tile (at stride N for row 1, with the CLS prefix for row 2),
+   no gemm_kernel and no attn_kernel.
 5. windowed path, f32: the reference-compat path (TF32 off) on one clip.
 6. banded path, bf16: ``make_scorers(band_mode="both")`` + ``run_scoring``
    over clips of 64, 40 and 600 frames (the last in two segments at
@@ -55,8 +59,8 @@ Imports torch, numpy and the port package
    windowed kernel); losses held against the plain bf16 and the f32 banded
    paths; a profiled run of the 600-frame clip for the device time inside
    the kernels and the device's idle share, its launches by kernel family
-   held to the ops' counters as in phase 4 (gemm_kernel only for the MLP
-   phase, row 3; no attn_kernel; row 11 on the wgmma GEMM and the tile);
+   held to the ops' counters as in phase 4 (rows 3 and 11 on the wgmma
+   GEMM, row 11 on the tile; no gemm_kernel, no attn_kernel);
    the "teacher" hybrid on the
    64-frame clip with both kernel sets counted; frames/s beside the
    windowed path's, and the rank correlation of banded against exact
@@ -68,15 +72,19 @@ Imports torch, numpy and the port package
    each backward once per block of the two student passes, no scoring
    kernel); ms per step and TFLOP/s from ``train_step_flops``; the loss
    finite at every step; the teacher equal to the EMA of the new student;
-   a profiled step. Before the steps, at batch 2 on the initial weights
-   and one set of crops, the gradients of the kernel route against the
-   plain bf16 route and the f32 route (TF32 off).
+   a profiled step, its launches by family held to the ops' counters
+   (rows 1b and 3 on the wgmma GEMM and the tile, gemm_kernel and
+   attn_kernel only in row 4 and the backwards). Before the steps, at
+   batch 2 on the initial weights and one set of crops, the gradients of
+   the kernel route against the plain bf16 route and the f32 route (TF32
+   off).
 8. per-phase XLA-layout forward, bf16: ViT-B/16 (numpy-seeded weights)
    with every block through ``Block.forward(use_fused=True)`` (the
    model's ``tokens``, then the blocks one by one, then its norm) on B=8
    windows of 30 and of 3 frames; launches read around each forward (``temporal_phase`` and
    ``attn_phase`` once per block, ``mlp_phase`` twice, nothing else); CLS
-   features held against the plain bf16 and the f32 forwards. Then one
+   features held against the plain bf16 and the f32 forwards; a profiled
+   T=30 forward, its launches by family held to the counters. Then one
    30-frame pass with drop-path (per-block rates linspace(0, 0.1, 12),
    masks from a seeded generator) against the plain route fed the same
    masks: ``attn_phase`` once per block (block 0's rate is 0, so its whole
@@ -367,16 +375,30 @@ def kernel_breakdown(fn, on_record=None):
 
 # kernel families by name in a profile: the port's building blocks
 # (dvst_common.cuh: gemm_kernel, attn_kernel, ln_kernel; wgmma_gemm.cuh:
-# wg_gemm_kernel; tc_attention.cuh: tc_prefix_attn_kernel_*)
+# wg_gemm_kernel; tc_attention.cuh: tc_prefix_attn_kernel_*,
+# tc_strided_attn_kernel_*)
 FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "wg_gemm_kernel": "::wg_gemm_kernel<",
-            "tc_prefix_attn": "::tc_prefix_attn_kernel_", "ln_kernel": "::ln_kernel<"}
-# launches of each family per call of the ops that use them
+            "tc_prefix_attn": "::tc_prefix_attn_kernel_",
+            "tc_strided_attn": "::tc_strided_attn_kernel_", "ln_kernel": "::ln_kernel<"}
+# launches of each family per call of the ops that use them: rows 1 (its
+# bf16-out tier 1b and row 6 the same entry point), 2, 3 and 11 on the
+# wgmma GEMM and the tile; rows 4, 5 and the backwards' recomputes on
+# gemm_kernel and attn_kernel (the backwards' own kernels, gemmx_kernel,
+# attn_bwd_kernel, ln_bwd_kernel, are no family here)
+TEMPORAL_FAMILIES = {"ln_kernel": 1, "wg_gemm_kernel": 3, "tc_strided_attn": 1}
 FAMILY_PER_OP = {
-    "temporal_phase_tm": {"ln_kernel": 1, "gemm_kernel": 3, "attn_kernel": 1},
+    "temporal_phase_tm": TEMPORAL_FAMILIES,
+    "temporal_phase_tm_bf16": TEMPORAL_FAMILIES,
+    "temporal_phase": TEMPORAL_FAMILIES,
     "spatial_mlp": {"ln_kernel": 3, "wg_gemm_kernel": 6, "tc_prefix_attn": 1},
     "spatial_phase_pf": {"ln_kernel": 2, "wg_gemm_kernel": 3, "tc_prefix_attn": 1},
-    "mlp_phase": {"ln_kernel": 1, "gemm_kernel": 2},
+    "mlp_phase": {"ln_kernel": 1, "wg_gemm_kernel": 2},
+    "spatial_phase": {"ln_kernel": 2, "gemm_kernel": 4, "attn_kernel": 1},
+    "attn_phase": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1},
+    "temporal_phase_tm_bwd": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1},
+    "spatial_phase_bwd": {"ln_kernel": 2, "gemm_kernel": 2, "attn_kernel": 1},
+    "mlp_phase_bwd": {"ln_kernel": 1, "gemm_kernel": 1},
 }
 
 
@@ -394,11 +416,25 @@ def split_ms(rows):
     return out
 
 
+def record_split(tag, fn, row, top=None):
+    """Profile one call of ``fn``: print its kernels, and add its device
+    time and the split of ``split_ms`` to ``row``."""
+    rows, _ = kernel_breakdown(fn)
+    total = sum(r[2] for r in rows)
+    print(f"  {tag} by kernel (torch.profiler, {total:.3f} ms device time):",
+          flush=True)
+    for k, n, ms in rows[:top]:
+        print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
+    row["device_ms"], row["split_ms"] = total, split_ms(rows)
+    print(f"  {tag} split: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in row["split_ms"].items()), flush=True)
+
+
 def check_families(tag, rows, ops):
     """The profiled run's launches by kernel family against what the ops'
     launch counters say they launched: gemm_kernel and attn_kernel only
-    where the ops that keep them (rows 1 and 3) ran, so rows 2 and 11 ran
-    none for their grid rows."""
+    where the ops that keep them (rows 4, 5 and the backwards) ran, so
+    rows 1-3, 6 and 11 ran none."""
     seen = family_counts(rows)
     want = {f: sum(n * FAMILY_PER_OP.get(op, {}).get(f, 0) for op, n in ops.items())
             for f in FAMILIES}
@@ -601,33 +637,20 @@ def main():
                 "rel_rms": max(g["rel_rms"] for g in op_gaps)})
             print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} ms,"
                   f" bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
-        # where the time goes inside each op: the temporal op at the
-        # teacher window, row 2 at both, split into attention, GEMMs, LN
+        # where the time goes inside each op, split into attention, GEMMs, LN
         for name, fn in [
                 ("temporal_phase_tm",
                  lambda: fb.temporal_phase_tm(x, p["temporal"], H)),
                 ("spatial_mlp",
                  lambda: fb.spatial_mlp(x1, cls, p["spatial"], H))]:
-            if name == "temporal_phase_tm" and T <= 8:
-                continue
-            rows, _ = kernel_breakdown(fn)
-            total = sum(r[2] for r in rows)
-            print(f"  {name} B={B} T={T} by kernel (torch.profiler, "
-                  f"{total:.3f} ms device time):", flush=True)
-            for k, n, ms in rows:
-                print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
-            if name == "spatial_mlp":
-                split = split_ms(rows)
-                stats[name][-1]["device_ms"] = total
-                stats[name][-1]["split_ms"] = split
-                print(f"  spatial_mlp B={B} T={T} split: " + ", ".join(
-                    f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
+            record_split(f"{name} B={B} T={T}", fn, stats[name][-1])
     del x, x1, cls
 
     # the training ops at the train step's global and local crop shapes
     bf16 = torch.bfloat16
     for k in TRAIN_OPS:
         stats[k] = []
+    mlp_crops = []
     for tag, (B, T, Np) in [("global", (16, 8, N)), ("local", (64, 8, 36))]:
         r = np.random.RandomState(40 + Np)
 
@@ -711,6 +734,24 @@ def main():
                 print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms, "
                       f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
                       f"{b / ms:.1%} of bound", flush=True)
+                if name == "temporal_phase_tm_bf16":
+                    record_split(f"{name} {tag}", kern, row)
+            # row 3 at the crop's rows, as the train step's forwards run it
+            Mx = B * T * Np
+            ok, gap = check_close(f"mlp_phase {tag} out-x M={Mx}", fb.mlp_phase(xm, ps),
+                                  fb.mlp_phase_plain(xm, ps), xm)
+            if not ok:
+                fail(f"mlp_phase disagrees with its plain twin ({tag} crops)")
+            ms = cuda_ms(lambda: fb.mlp_phase(xm, ps), 5)
+            pl = cuda_ms(lambda: fb.mlp_phase_plain(xm, ps), 1, warmup=1)
+            b, by = bound_ms(*mlp_cost(Mx, D, Dh))
+            row = {"crops": tag, "M": Mx, "ms": ms, "plain_ms": pl, "bound_ms": b,
+                   "bound_by": by, "max_abs_err": gap["max_abs_err"],
+                   "rel_rms": gap["rel_rms"]}
+            print(f"  mlp_phase {tag} M={Mx}: kernel {ms:.3f} ms, plain {pl:.3f} ms, "
+                  f"bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
+            record_split(f"mlp_phase {tag}", lambda: fb.mlp_phase(xm, ps), row)
+            mlp_crops.append(row)
         if tag == "global":  # where the time goes inside each backward
             for name in ("temporal_phase_tm_bwd", "spatial_phase_bwd", "mlp_phase_bwd"):
                 rows, _ = kernel_breakdown(runs[name][0])
@@ -798,7 +839,7 @@ def main():
                     row["device_ms"] = graph_ms(kern)
                     extra = (f", device {row['device_ms']:.3f} ms, SDPA with the "
                              f"band mask {lib:.3f} ms")
-                if name == "spatial_phase_pf":
+                if name in ("spatial_phase_pf", "mlp_phase"):
                     rows, _ = kernel_breakdown(kern)
                     row["device_ms"] = sum(r_[2] for r_ in rows)
                     row["split_ms"] = split_ms(rows)
@@ -810,16 +851,19 @@ def main():
                       f"bound{extra}", flush=True)
     del qkv, qkv_cls, xg, cls_rows, xm, sdpa_q, sdpa_k, sdpa_v
 
-    # rows 2 and 11's blocks alone: the wgmma GEMM at each of their grid
-    # products (row 2's teacher window, M = 8 * 30 * 196; row 11's bucket,
-    # M = 512 * 196) with its epilogue there, and the spatial attention at
-    # their head-sequences, each against its twin; torch.matmul on the
-    # same operands (bf16 out) and SDPA on (BH, 1, L, hd) tensors of the
-    # same shape as yardsticks the port never calls
-    print("  rows 2 and 11's blocks alone: the wgmma GEMM and the spatial "
-          "attention", flush=True)
+    # rows 1-3, 6 and 11's blocks alone: the wgmma GEMM at each of their
+    # products (rows 1, 2 and 6 at the teacher window, M = 8 * 30 * 196
+    # rows; rows 3 and 11 at the bucket, M = 512 * 196) with its epilogue
+    # there, the spatial attention at rows 2 and 11's head-sequences and
+    # the temporal attention at rows 1 and 6's, each against its twin;
+    # torch.matmul on the same operands (bf16 out) and SDPA on (BH, 1, L,
+    # hd) tensors of the same shape as yardsticks the port never calls
+    print("  rows 1-3, 6 and 11's blocks alone: the wgmma GEMM, the spatial "
+          "and the temporal attention", flush=True)
     blocks = {"spatial_mlp": {"gemm": [], "attention": []},
-              "spatial_phase_pf": {"gemm": [], "attention": []}}
+              "spatial_phase_pf": {"gemm": [], "attention": []},
+              "temporal_phase_tm": {"gemm": [], "attention": []},
+              "temporal_phase": {"attention": []}, "mlp_phase": {"gemm": []}}
     Mw, Mb = 8 * 30 * N, BAND_C * N
     for op, M_, Nn, K_, epi in [
             ("spatial_mlp", Mw, 3 * D, D, "bf16"),
@@ -827,7 +871,13 @@ def main():
             ("spatial_mlp", Mw, Dh, D, "gelu_bf16"),
             ("spatial_mlp", Mw, D, Dh, "res_f32_bf16"),
             ("spatial_phase_pf", Mb, 3 * D, D, "bf16"),
-            ("spatial_phase_pf", Mb, D, D, "add_bf16")]:
+            ("spatial_phase_pf", Mb, D, D, "add_bf16"),
+            # row 6's products are row 1's (M = 1568 * 30 rows)
+            ("temporal_phase_tm", Mw, 3 * D, D, "bf16"),
+            ("temporal_phase_tm", Mw, D, D, "bf16"),
+            ("temporal_phase_tm", Mw, D, D, "res_bf16_f32"),
+            ("mlp_phase", Mb, Dh, D, "gelu_bf16"),
+            ("mlp_phase", Mb, D, Dh, "add_bf16")]:
         r = np.random.RandomState(M_ + Nn + K_)
         a = torch.from_numpy(r.randn(M_, K_).astype(np.float32)).to(dev, torch.bfloat16)
         w = torch.from_numpy((r.randn(Nn, K_) * K_ ** -0.5).astype(np.float32)).to(
@@ -891,6 +941,33 @@ def main():
         print(f"  spatial_attention S={S_} ({BH} x {L} rows, hd {hd}): {ms:.3f} ms "
               f"(device {dms:.3f} ms), bound {b:.4f} ms ({by}), SDPA {lib:.3f} ms",
               flush=True)
+    # the temporal attention: rows 1 and 1b's sequences (B clips x N
+    # positions of T rows at stride N), row 6's (S contiguous sequences)
+    for op, B_, T_, N_ in [("temporal_phase_tm", 8, 30, N), ("temporal_phase_tm", 8, 3, N),
+                           ("temporal_phase_tm", 16, 8, N),
+                           ("temporal_phase", 8 * N, 30, 1), ("temporal_phase", 8 * N, 3, 1)]:
+        r = np.random.RandomState(B_ * T_ + N_)
+        tq = torch.from_numpy(r.randn(B_, T_, N_, 3 * D).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        ok, gap = check_close(f"temporal_attention B={B_} T={T_} N={N_}",
+                              fb.temporal_attention(tq, H), fb.temporal_attention_plain(tq, H))
+        if not ok:
+            fail(f"the temporal attention disagrees with its twin (B={B_}, T={T_}, N={N_})")
+        ms = cuda_ms(lambda: fb.temporal_attention(tq, H), 10)
+        dms = graph_ms(lambda: fb.temporal_attention(tq, H))
+        BH, L = B_ * N_ * H, T_
+        q, k, v = (torch.randn(BH, 1, L, hd, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+        del q, k, v, tq
+        b, by = bound_ms(*attention_cost(BH, L, hd, 2))
+        blocks[op]["attention"].append({
+            "B": B_, "T": T_, "N": N_, "BH": BH, "L": L, "ms": ms, "device_ms": dms,
+            "sdpa_ms": lib, "bound_ms": b, "bound_by": by,
+            "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]})
+        print(f"  temporal_attention B={B_} T={T_} N={N_} ({BH} x {L} rows, hd {hd}): "
+              f"{ms:.3f} ms (device {dms:.3f} ms), bound {b:.4f} ms ({by}), SDPA "
+              f"{lib:.3f} ms", flush=True)
     torch.cuda.empty_cache()
 
     # the XLA-layout block's two attention phases and the standalone
@@ -950,6 +1027,8 @@ def main():
                 print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} "
                       f"ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of bound",
                       flush=True)
+                if name == "temporal_phase":
+                    record_split(f"{name} S={B * N} L={T}", kern, row)
         del xs, xt
         # the attention swap's head sequences: spatial (B*T*H, N+1, hd) and
         # temporal (B*N*H, T, hd)
@@ -1315,7 +1394,8 @@ def main():
     if not math.isfinite(losses[-1]) or ema_err > 1e-6:
         fail("the teacher is not the EMA of the student")
 
-    print_profile("one step", train_step, top=16)
+    rows = print_profile("one step", train_step, top=16, on_record=reset_counts)
+    check_families("train step", rows, counts())
     del g, l
 
     del state, step
@@ -1376,8 +1456,10 @@ def main():
             refs[T] = (plain, ref)
             feature_checks(f"per-phase forward T={T}", got, plain, ref)
 
-        print_profile("per-phase forward T=30",
-                      lambda: phase_forward(bf16_model, windows[30], True))
+        rows = print_profile("per-phase forward T=30",
+                             lambda: phase_forward(bf16_model, windows[30], True),
+                             on_record=reset_counts)
+        check_families("per-phase forward", rows, counts())
 
         # drop-path: per-block rates linspace(0, 0.1, depth), masks from a
         # seeded generator, the kernel route and the plain route fed the
@@ -1501,14 +1583,15 @@ def main():
         extra = {}
         if name == "mlp_phase":
             extra = {"launches_train_step": launches["mlp_phase_train_step"],
-                     "launches_per_phase_forward": launches["mlp_phase_per_phase"]}
+                     "launches_per_phase_forward": launches["mlp_phase_per_phase"],
+                     "per_crop": mlp_crops}
         elif name == "attn_phase":
             extra = {"launches_drop_path": launches["attn_phase_drop_path"]}
         elif name == "smem_probe":
             extra = {"budget_bytes": rows[0]["budget_bytes"],
                      "optin_bytes": rows[0]["optin_bytes"]}
-        elif name in blocks:  # rows 2 and 11: their GEMMs and attention alone
-            extra = {"blocks": blocks[name]}
+        if name in blocks:  # rows 1-3, 6 and 11: their GEMMs and attention alone
+            extra["blocks"] = blocks[name]
         kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",

@@ -60,6 +60,10 @@ _SIGNATURES = {
         "dvst_spatial_attn": [_p] * 4 + [_i] * 5 + [_f, _p],
         # shared bytes of one block (returns long) | L, hd
         "dvst_spatial_attn_smem": [_i] * 2,
+        # qkv, out | B, T, N, D, H | scale | stream
+        "dvst_temporal_attn": [_p] * 2 + [_i] * 5 + [_f, _p],
+        # shared bytes of one block (returns long) | S, L, hd
+        "dvst_temporal_attn_smem": [_i] * 3,
         # A, W, bias, res, out | M | N, K, epilogue | stream
         "dvst_gemm": [_p] * 5 + [_l] + [_i] * 3 + [_p],
     },

@@ -204,45 +204,9 @@ cudaError_t fused_attn(int hd, const void* q, const void* k, const void* v,
 // bf16: the tensor-core instance. Grid: ceil(BH / G) blocks.
 // ---------------------------------------------------------------------------
 
-// Strips per block where sequences are short, and warps per block at
-// most: 7, so three blocks of the 13 strips of L = 197 (two rounds of 7
-// warps, 76 KB each at hd 64) fit an SM's shared memory and, at <= 97
-// registers a thread, its register file.
-constexpr int kTcStrips = 7;
-
-// Warps of a block of `strips` strips: at most kTcStrips, each taking the
-// same number of strips but for the last round.
-inline int tc_warps(int strips) {
-  const int rounds = (strips + kTcStrips - 1) / kTcStrips;
-  return (strips + rounds - 1) / rounds;
-}
-
-// Sequences per block.
-inline int tc_group(int BH, int L) {
-  int g;
-  if (L < 16) {
-    g = kTcStrips * (16 / L);
-  } else {
-    const int sps = (L + 15) / 16;
-    g = sps < kTcStrips ? kTcStrips / sps : 1;
-  }
-  return g < BH ? g : (BH > 0 ? BH : 1);
-}
-
-// Strips of a block of `nseq` sequences.
-__host__ __device__ inline int tc_strips(int nseq, int L) {
-  if (L < 16) {
-    const int P = 16 / L;
-    return (nseq + P - 1) / P;
-  }
-  return nseq * ((L + 15) / 16);
-}
-
-// Shared bytes: a 16-byte zero row, then G sequences of Q, K and V. The
-// wrapper reads it through dvst_fused_attention_smem.
-inline size_t tc_smem(int G, int L, int hd) {
-  return 16 + (size_t)3 * G * L * hd * 2;
-}
+// The block shape (kTcStrips, tc_warps, tc_group, tc_strips, tc_smem) and
+// the strip loop (tc_seq_strips) are tc_attention.cuh's, shared with the
+// strided temporal instance.
 
 template <int HD>
 __device__ __forceinline__ void tc_attn_block(const bf16* __restrict__ q,
@@ -280,45 +244,8 @@ __device__ __forceinline__ void tc_attn_block(const bf16* __restrict__ q,
   cp_async_wait<1>();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int P = L < 16 ? 16 / L : 1;   // sequences per strip
-  const int sps = (L + 15) / 16;       // strips per sequence (L >= 16)
-  const int nstrips = tc_strips(nseq, L);
-  // rounds of one strip per warp; every warp meets the first round's
-  // barrier, with or without a strip
-  for (int st = warp; st - warp < nstrips; st += nw) {
-    const bool has = st < nstrips;
-    int r0 = 0, nrows = 0, kb = 0, ke = 0;  // rows [r0, r0 + nrows), keys [kb, ke)
-    if (L < 16) {
-      r0 = st * P * L;
-      nrows = (nseq - st * P < P ? nseq - st * P : P) * L;
-      kb = r0;
-      ke = r0 + nrows;
-    } else {
-      const int sq = st / sps;
-      kb = sq * L;
-      ke = kb + L;
-      r0 = kb + 16 * (st - sq * sps);
-      nrows = ke - r0 < 16 ? ke - r0 : 16;
-    }
-    // each row sees its own sequence's keys
-    const int lo0 = (r0 + g) / L * L, lo1 = (r0 + g + 8) / L * L;
-    TcStrip<HD> s;
-    float mx0 = 0.f, mx1 = 0.f;
-    if (has) {
-      s.load_q(Q, r0, nrows, zero);
-      s.max_pass(K, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
-    }
-    if (st == warp) {  // V has arrived
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    if (has) {
-      s.exp_pass(K, V, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
-      s.store(out + base + (long)r0 * HD, HD, nrows);
-    }
-  }
+  tc_seq_strips<HD>(Q, K, V, zero, nseq, L, scale,
+                    [&](int r) { return out + base + (long)r * HD; });
 }
 
 // The kernel: at hd <= 64 capped at 96 registers a thread, so three

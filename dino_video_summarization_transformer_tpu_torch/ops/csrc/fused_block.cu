@@ -13,6 +13,10 @@
 //       out_bf16, bf16 out = bf16(x + bf16(fc)) (the per-phase training
 //       path, the Pallas kernel's rounding at fused_block.py:855-857)
 //       launches: LN -> GEMM qkv -> attention -> GEMM proj -> GEMM fc+res
+//       Its GEMMs are the wgmma + TMA kernel (wgmma_gemm.cuh), its
+//       attention the tensor-core tile reading the T rows of each
+//       sequence at stride N straight from the qkv buffer (tc_attention.cuh's
+//       tc_strided_attn).
 //   dvst_spatial_phase      replaces _spatial_phase_kernel
 //       (ops/fused_block.py:287): per frame on [cls, x_t]: LN -> MHSA ->
 //       proj; grid out = bf16(x + bf16(proj)), raw per-frame CLS rows bf16
@@ -39,7 +43,8 @@
 //       (ops/fused_block.py:1191): rows (M,D) bf16 -> LN -> fc1 -> erf GELU
 //       -> fc2, optionally + x, bf16 out; fc2's output is rounded to bf16
 //       before the residual add, as the Pallas kernel rounds it
-//       launches: LN -> GEMM fc1+GELU -> GEMM fc2(+res)
+//       launches: LN -> GEMM fc1+GELU -> GEMM fc2(+res), both GEMMs the
+//       wgmma + TMA kernel
 //       Bound by operations: 4*M*D*Dh FLOP against 4*M*D bytes of rows
 //       (~1500 FLOP/B at ViT-B). The fc1 hidden (M, Dh) bf16 goes through
 //       device memory (617 MB at M = 512*196): the simple form; keeping it
@@ -74,18 +79,19 @@
 //   f32 accumulate), 128x128x32 tiles, a 2-stage cp.async pipeline, the
 //   ragged M edge zero-filled on load and masked on store, and fused
 //   epilogues (bias, erf GELU, f32 or bf16 residual, f32 or bf16 store).
-//   It runs at ~18% of the bf16 peak; dvst_spatial_mlp uses the
-//   persistent warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) instead,
-//   with the same epilogues.
+//   It runs at ~18% of the bf16 peak and is left in dvst_spatial_phase and
+//   dvst_attn_phase; the other entry points use the persistent
+//   warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) instead, with the
+//   same epilogues.
 // * attn_kernel: one block per (sequence, head); Q, K, V of the sequence in
 //   dynamic shared memory (L=197, hd=64: ~80 KB, opted in), one warp per
 //   query row, f32 scores with the row max subtracted, probabilities rounded
-//   to bf16 before PV. The temporal op reads its T rows at stride N straight
-//   from the frame-major qkv buffer — the TPU kernel's in-VMEM transpose
-//   without an HBM transpose; the spatial op indexes the CLS row from its
-//   own per-sample qkv row instead of building [cls, x_t] in memory (the
-//   CLS row is identical for every frame of a sample, so its LN and qkv
-//   run once per sample).
+//   to bf16 before PV. Left in dvst_spatial_phase and dvst_attn_phase: the
+//   spatial op indexes the CLS row from its own per-sample qkv row instead
+//   of building [cls, x_t] in memory (the CLS row is identical for every
+//   frame of a sample, so its LN and qkv run once per sample). The
+//   temporal ops' tile reads its rows at stride N the same way, by
+//   address: the TPU kernel's in-VMEM transpose without an HBM transpose.
 // * ln_kernel: one warp per row, f32 statistics, bf16 rows out.
 //
 // Numerics (the XLA-path rules): LN in f32 (eps 1e-6); bf16 operands with
@@ -121,16 +127,16 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
   const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
   if ((e = ln_launch<bf16>(x, lw, lb, buf1, M, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(buf1, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(buf1, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
   // sequence (b, n) over t: rows (b*T + t)*N + n
-  if ((e = attn(D / H, qkv, nullptr, buf2, nullptr, B * N, N, (long)T * N, 1,
-                N, T, H, st)))
+  const int hd = D / H;
+  if ((e = tc_strided_attn(hd, qkv, buf2, B, T, N, H, 1.0f / sqrtf((float)hd), st)))
     return e;
-  if ((e = gemm<kEpiBf16>(buf2, proj_w, proj_b, nullptr, buf1, M, D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(buf2, proj_w, proj_b, nullptr, buf1, M, D, D, st))) return e;
   if (out_bf16)
-    e = gemm<kEpiAddBf16>(buf1, fc_w, fc_b, x, out, M, D, D, st);
+    e = wg_gemm<kEpiAddBf16>(buf1, fc_w, fc_b, x, out, M, D, D, st);
   else
-    e = gemm<kEpiResBf16F32>(buf1, fc_w, fc_b, x, out, M, D, D, st);
+    e = wg_gemm<kEpiResBf16F32>(buf1, fc_w, fc_b, x, out, M, D, D, st);
   return e;
 }
 
@@ -228,11 +234,11 @@ int dvst_mlp_phase(const void* x_, const void* ln_w, const void* ln_b,
   if ((e = ln_launch<bf16>(x, static_cast<const float*>(ln_w),
                            static_cast<const float*>(ln_b), y, M, D, st)))
     return e;
-  if ((e = gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
+  if ((e = wg_gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
   if (residual)
-    e = gemm<kEpiAddBf16>(hid, fc2_w, fc2_b, x, out, M, D, Dh, st);
+    e = wg_gemm<kEpiAddBf16>(hid, fc2_w, fc2_b, x, out, M, D, Dh, st);
   else
-    e = gemm<kEpiBf16>(hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
+    e = wg_gemm<kEpiBf16>(hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
   return e;
 }
 
@@ -286,9 +292,24 @@ int dvst_spatial_attn(const void* qkv, const void* qkv_pre, void* out, void* out
 // Dynamic shared bytes one block of the spatial attention needs at L rows.
 long dvst_spatial_attn_smem(int L, int hd) { return (long)tc_prefix_smem(L, hd); }
 
-// The GEMM of dvst_spatial_mlp alone: out = epi(A (M, K) . W (N, K)^T +
-// bias), epi one of kEpiBf16, kEpiGeluBf16, kEpiResF32F32, kEpiF32,
-// kEpiResF32Bf16, kEpiAddBf16.
+// The temporal attention of dvst_temporal_phase_tm alone: qkv (B*T*N, 3D)
+// bf16, sequence (b, n) the rows (b*T + t)*N + n -> out (B*T*N, D) bf16, at
+// logit scale `scale`.
+int dvst_temporal_attn(const void* qkv, void* out, int B, int T, int N, int D, int H,
+                       float scale, void* stream) {
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
+  return tc_strided_attn(D / H, static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+                         B, T, N, H, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared bytes one block of the temporal attention needs over S
+// sequences of L rows.
+long dvst_temporal_attn_smem(int S, int L, int hd) {
+  return S <= 0 || L <= 0 ? 0 : (long)tc_smem(tc_group(S, L), L, hd);
+}
+
+// The wgmma GEMM alone: out = epi(A (M, K) . W (N, K)^T + bias), epi one
+// of dvst_common.cuh's Epi.
 int dvst_gemm(const void* A, const void* W, const void* bias, const void* res,
               void* out, long M, int N, int K, int epi, void* stream) {
   const bf16* a = static_cast<const bf16*>(A);
@@ -296,6 +317,7 @@ int dvst_gemm(const void* A, const void* W, const void* bias, const void* res,
   switch (epi) {
     case kEpiBf16: return wg_gemm<kEpiBf16>(a, W, bias, res, out, M, N, K, st);
     case kEpiGeluBf16: return wg_gemm<kEpiGeluBf16>(a, W, bias, res, out, M, N, K, st);
+    case kEpiResBf16F32: return wg_gemm<kEpiResBf16F32>(a, W, bias, res, out, M, N, K, st);
     case kEpiResF32F32: return wg_gemm<kEpiResF32F32>(a, W, bias, res, out, M, N, K, st);
     case kEpiF32: return wg_gemm<kEpiF32>(a, W, bias, res, out, M, N, K, st);
     case kEpiResF32Bf16: return wg_gemm<kEpiResF32Bf16>(a, W, bias, res, out, M, N, K, st);

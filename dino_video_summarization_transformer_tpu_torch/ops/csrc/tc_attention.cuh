@@ -2,11 +2,12 @@
 // against a range of keys held in shared memory, with mma.sync
 // (m16n8k16, bf16 in, f32 accumulate) fed by ldmatrix. Used by the
 // standalone attention (attention.cu, bf16), the banded temporal
-// attention (banded_block.cu) and, through tc_prefix_attn below, the
-// spatial attention of dvst_spatial_mlp (fused_block.cu) and
-// dvst_spatial_pf (banded_block.cu); the other attention kernels of the
-// port (attn_kernel / attn_bwd_kernel in dvst_common.cuh) are meant to
-// move onto it.
+// attention (banded_block.cu), through tc_prefix_attn below the spatial
+// attention of dvst_spatial_mlp (fused_block.cu) and dvst_spatial_pf
+// (banded_block.cu), and through tc_strided_attn the temporal attention
+// of dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu); the
+// other attention kernels of the port (attn_kernel / attn_bwd_kernel in
+// dvst_common.cuh) are meant to move onto it.
 //
 // Numerics are the CUDA-core kernels' and the plain twins': f32 scores
 // (q . k accumulated in f32, times the scale), the max of the row's whole
@@ -308,6 +309,105 @@ struct TcStrip {
 };
 
 // ---------------------------------------------------------------------------
+// The block shape of the instances over whole sequences (attention.cu's
+// standalone attention, the strided temporal attention below, the prefix
+// attention's warps). A sequence of L >= 16 rows has ceil(L / 16) strips;
+// where L < 16, one strip holds P = 16 / L whole sequences, each row's keys
+// masked to its own sequence (a masked key's probability is an exact 0,
+// so the packed arithmetic equals the unpacked).
+// ---------------------------------------------------------------------------
+
+// Strips per block where sequences are short, and warps per block at
+// most: 7, so three blocks of the 13 strips of L = 197 (two rounds of 7
+// warps, 76 KB each at hd 64) fit an SM's shared memory and, at <= 97
+// registers a thread, its register file.
+constexpr int kTcStrips = 7;
+
+// Warps of a block of `strips` strips: at most kTcStrips, each taking the
+// same number of strips but for the last round.
+__host__ __device__ inline int tc_warps(int strips) {
+  const int rounds = (strips + kTcStrips - 1) / kTcStrips;
+  return (strips + rounds - 1) / rounds;
+}
+
+// Sequences per block.
+inline int tc_group(int BH, int L) {
+  int g;
+  if (L < 16) {
+    g = kTcStrips * (16 / L);
+  } else {
+    const int sps = (L + 15) / 16;
+    g = sps < kTcStrips ? kTcStrips / sps : 1;
+  }
+  return g < BH ? g : (BH > 0 ? BH : 1);
+}
+
+// Strips of a block of `nseq` sequences.
+__host__ __device__ inline int tc_strips(int nseq, int L) {
+  if (L < 16) {
+    const int P = 16 / L;
+    return (nseq + P - 1) / P;
+  }
+  return nseq * ((L + 15) / 16);
+}
+
+// Shared bytes: a 16-byte zero row, then G sequences of Q, K and V (the
+// wrappers read it through the libraries' *_smem exports).
+inline size_t tc_smem(int G, int L, int hd) {
+  return 16 + (size_t)3 * G * L * hd * 2;
+}
+
+// The strips of a block of nseq whole sequences of L rows, stored
+// sequence-major in Q, K and V (sequence g's row l at g*L + l), in rounds
+// of one strip per warp, each row against its own sequence's keys. The
+// caller has committed two cp.async groups (Q and K, then V) and waited
+// for the first: V is waited for after the first round's max pass. dst(r)
+// is the output address of stored row r.
+template <int HD, typename Dst>
+__device__ __forceinline__ void tc_seq_strips(const TcRows& Q, const TcRows& K,
+                                              const TcRows& V, const bf16* zero,
+                                              int nseq, int L, float scale, Dst dst) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int P = L < 16 ? 16 / L : 1;   // sequences per strip
+  const int sps = (L + 15) / 16;       // strips per sequence (L >= 16)
+  const int nstrips = tc_strips(nseq, L);
+  // every warp meets the first round's barrier, with or without a strip
+  for (int st = warp; st - warp < nstrips; st += nw) {
+    const bool has = st < nstrips;
+    int r0 = 0, nrows = 0, kb = 0, ke = 0;  // rows [r0, r0 + nrows), keys [kb, ke)
+    if (L < 16) {
+      r0 = st * P * L;
+      nrows = (nseq - st * P < P ? nseq - st * P : P) * L;
+      kb = r0;
+      ke = r0 + nrows;
+    } else {
+      const int sq = st / sps;
+      kb = sq * L;
+      ke = kb + L;
+      r0 = kb + 16 * (st - sq * sps);
+      nrows = ke - r0 < 16 ? ke - r0 : 16;
+    }
+    // each row sees its own sequence's keys
+    const int lo0 = (r0 + g) / L * L, lo1 = (r0 + g + 8) / L * L;
+    TcStrip<HD> s;
+    float mx0 = 0.f, mx1 = 0.f;
+    if (has) {
+      s.load_q(Q, r0, nrows, zero);
+      s.max_pass(K, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+    }
+    if (st == warp) {  // V has arrived
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (has) {
+      s.exp_pass(K, V, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+      s.store_rows([&](int r) { return dst(r0 + r); }, nrows);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Spatial attention with a prefix key: sequence s is [prefix row s / S_lo,
 // grid rows s*N .. s*N + N - 1], read straight from the (rows, 3D) qkv
 // buffers (q | k | v, heads contiguous inside each): no [cls, x_t] buffer
@@ -318,20 +418,10 @@ struct TcStrip {
 // sequence's head slice of Q, K and V into shared memory as tile rows (the
 // prefix as row 0; two cp.async groups, V arriving while the max pass
 // runs) and takes its ceil(L / 16) strips over the whole key set [0, L)
-// on at most kTcPrefixWarps warps (13 strips at L = 197: two rounds of 7).
+// on at most kTcStrips warps (13 strips at L = 197: two rounds of 7).
 // The tile's numerics: f32 scores, the whole row's max first, bf16 P, an
 // f32 sum of the unrounded exponentials.
 // ---------------------------------------------------------------------------
-
-constexpr int kTcPrefixWarps = 7;
-
-// Warps of a block: at most kTcPrefixWarps, each taking the same number of
-// strips but for the last round.
-__host__ __device__ inline int tc_prefix_warps(int L) {
-  const int strips = (L + 15) / 16;
-  const int rounds = (strips + kTcPrefixWarps - 1) / kTcPrefixWarps;
-  return (strips + rounds - 1) / rounds;
-}
 
 // Shared bytes: a 16-byte zero row, then L rows each of Q, K and V.
 __host__ __device__ inline size_t tc_prefix_smem(int L, int hd) {
@@ -419,7 +509,7 @@ tc_prefix_attn_kernel_narrow(const bf16* qkv, const bf16* qkv_pre, bf16* out,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kTcPrefixWarps * 32)
+__global__ void __launch_bounds__(kTcStrips * 32)
 tc_prefix_attn_kernel_wide(const bf16* qkv, const bf16* qkv_pre, bf16* out,
                            bf16* out_pre, int N, int S_lo, int H, float scale) {
   tc_prefix_attn_block<HD>(qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
@@ -437,11 +527,11 @@ cudaError_t tc_prefix_attn_launch(const bf16* qkv, const bf16* qkv_pre, bf16* ou
   cudaError_t e;
   if constexpr (HD <= 64) {
     if ((e = smem_opt_in(tc_prefix_attn_kernel_narrow<HD>, smem, grant))) return e;
-    tc_prefix_attn_kernel_narrow<HD><<<dim3(H, S), tc_prefix_warps(L) * 32, smem, st>>>(
+    tc_prefix_attn_kernel_narrow<HD><<<dim3(H, S), tc_warps(tc_strips(1, L)) * 32, smem, st>>>(
         qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
   } else {
     if ((e = smem_opt_in(tc_prefix_attn_kernel_wide<HD>, smem, grant))) return e;
-    tc_prefix_attn_kernel_wide<HD><<<dim3(H, S), tc_prefix_warps(L) * 32, smem, st>>>(
+    tc_prefix_attn_kernel_wide<HD><<<dim3(H, S), tc_warps(tc_strips(1, L)) * 32, smem, st>>>(
         qkv, qkv_pre, out, out_pre, N, S_lo, H, scale);
   }
   return cudaGetLastError();
@@ -468,6 +558,135 @@ inline cudaError_t tc_prefix_attn(int hd, const bf16* qkv, const bf16* qkv_pre, 
       return cudaErrorInvalidValue;
   }
 #undef DVST_TCP_CASE
+}
+
+// ---------------------------------------------------------------------------
+// Temporal attention at stride N (dvst_temporal_phase_tm's, fused_block.cu):
+// sequence s = b*N + n at head h is the T rows (b*T + t)*N + n of the
+// (B*T*N, 3D) qkv buffer (q | k | v, heads contiguous inside each), and
+// its output row t goes to the same row of the (B*T*N, D) output. N = 1
+// is S contiguous sequences of T rows (dvst_temporal_phase). Q, K and V
+// are read straight from the qkv buffer by address (cp.async, 16 bytes a
+// thread): no transpose in device memory, no copy to a buffer. One block
+// per (head, group of G consecutive sequences), heads fastest; the group
+// and its strips are the standalone attention's (tc_group, tc_strips
+// above): G = 3 at T = 30 (6 strips), 35 at T = 3 (7 strips of 5
+// sequences each, every row's keys masked to its own sequence), 1 at T =
+// 197. G consecutive sequences of one b read, at each t, one contiguous
+// run of G rows. The tile's numerics: f32 scores, the whole row's max
+// first, bf16 P, an f32 sum of the unrounded exponentials. Bound by bytes
+// (qkv read once, out written once: 0.086 ms at the teacher window).
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__device__ __forceinline__ void tc_strided_attn_block(const bf16* __restrict__ qkv,
+                                                      bf16* __restrict__ out, int S,
+                                                      int T, int N, int H, int G,
+                                                      float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per head row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x % H;
+  const int s0 = blockIdx.x / H * G;  // the block's first sequence
+  const int nseq = S - s0 < G ? S - s0 : G;
+  const int L = T, R = nseq * L;
+  const int D = H * HD;
+  const long row_w = 3L * D;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{qs, CH, swz, 0, 0};
+  const TcRows K{qs + (long)G * L * HD, CH, swz, 0, 0};
+  const TcRows V{qs + (long)2 * G * L * HD, CH, swz, 0, 0};
+  // stored row r = g*L + t: sequence s0 + g at time t, buffer row
+  // (b*T + t)*N + n
+  auto row = [&](int r) -> long {
+    const int g = r / L, t = r - g * L;
+    const int s = s0 + g, b = s / N;
+    return ((long)b * T + t) * N + (s - b * N);
+  };
+  // two copy groups: Q and K, which the max pass reads, then V, which
+  // arrives while it runs
+  for (int idx = threadIdx.x; idx < R * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bf16* p = qkv + row(r) * row_w + h * HD + c * 8;
+    cp_async16(Q.at(r, c), p, 16);
+    cp_async16(K.at(r, c), p + D, 16);
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < R * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    cp_async16(V.at(r, c), qkv + row(r) * row_w + 2 * D + h * HD + c * 8, 16);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  tc_seq_strips<HD>(Q, K, V, zero, nseq, L, scale,
+                    [&](int r) { return out + row(r) * D + h * HD; });
+}
+
+// At hd <= 64 capped at 96 registers a thread (row 13's measured optimum:
+// three 7-warp blocks an SM at L = 197); above, uncapped.
+template <int HD>
+__global__ void __maxnreg__(96)
+tc_strided_attn_kernel_narrow(const bf16* qkv, bf16* out, int S, int T, int N, int H,
+                              int G, float scale) {
+  tc_strided_attn_block<HD>(qkv, out, S, T, N, H, G, scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcStrips * 32)
+tc_strided_attn_kernel_wide(const bf16* qkv, bf16* out, int S, int T, int N, int H,
+                            int G, float scale) {
+  tc_strided_attn_block<HD>(qkv, out, S, T, N, H, G, scale);
+}
+
+template <int HD>
+cudaError_t tc_strided_attn_launch(const bf16* qkv, bf16* out, int B, int T, int N,
+                                   int H, float scale, cudaStream_t st) {
+  const long S = (long)B * N;
+  if (S <= 0 || T <= 0) return cudaSuccess;
+  if (S > (1L << 30)) return cudaErrorInvalidValue;
+  const int G = tc_group((int)S, T);
+  const long blocks = (S + G - 1) / G * H;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  const int warps = tc_warps(tc_strips(G, T));
+  const size_t smem = tc_smem(G, T, HD);
+  static SmemGrant grant;
+  cudaError_t e;
+  if constexpr (HD <= 64) {
+    if ((e = smem_opt_in(tc_strided_attn_kernel_narrow<HD>, smem, grant))) return e;
+    tc_strided_attn_kernel_narrow<HD><<<(unsigned)blocks, warps * 32, smem, st>>>(
+        qkv, out, (int)S, T, N, H, G, scale);
+  } else {
+    if ((e = smem_opt_in(tc_strided_attn_kernel_wide<HD>, smem, grant))) return e;
+    tc_strided_attn_kernel_wide<HD><<<(unsigned)blocks, warps * 32, smem, st>>>(
+        qkv, out, (int)S, T, N, H, G, scale);
+  }
+  return cudaGetLastError();
+}
+
+// The B*N sequences of T rows at stride N of qkv (B*T*N, 3D) at head dim
+// hd and logit scale `scale` -> out (B*T*N, D).
+inline cudaError_t tc_strided_attn(int hd, const bf16* qkv, bf16* out, int B, int T,
+                                   int N, int H, float scale, cudaStream_t st) {
+#define DVST_TCS_CASE(HDV) \
+  case HDV:                \
+    return tc_strided_attn_launch<HDV>(qkv, out, B, T, N, H, scale, st);
+  switch (hd) {
+    DVST_TCS_CASE(16)
+    DVST_TCS_CASE(32)
+    DVST_TCS_CASE(48)
+    DVST_TCS_CASE(64)
+    DVST_TCS_CASE(80)
+    DVST_TCS_CASE(96)
+    DVST_TCS_CASE(112)
+    DVST_TCS_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_TCS_CASE
 }
 
 }  // namespace

@@ -1,13 +1,15 @@
 // The Hopper GEMM of the port's spatial ops: out[M, N] = epilogue(A[M, K] .
 // W[N, K]^T + bias[N]), A row-major bf16, W an nn.Linear weight (out, in)
 // bf16, f32 accumulation, with gemm_kernel's epilogues (dvst_common.cuh's
-// Epi) at its rounding points. Used by dvst_spatial_mlp (fused_block.cu)
-// and dvst_spatial_pf (banded_block.cu) for all their products; the other
-// ops keep gemm_kernel.
+// Epi) at its rounding points. Used by dvst_spatial_mlp,
+// dvst_temporal_phase_tm (and dvst_temporal_phase) and dvst_mlp_phase
+// (fused_block.cu) and dvst_spatial_pf (banded_block.cu) for all their
+// products; dvst_spatial_phase and dvst_attn_phase keep gemm_kernel.
 //
 // Bound by operations at the port's shapes (K = 768 or 3072: ~250-600 FLOP
-// per byte moved), except where an f32 residual is read and an f32 sum
-// written (the spatial op's proj: ~150 FLOP/B, bound by bytes).
+// per byte moved), except where a K = 768 product reads a residual and
+// writes an f32 sum (the spatial op's proj, f32 residual: ~150 FLOP/B; the
+// temporal op's fc, bf16 residual: ~190 FLOP/B): bound by bytes.
 //
 // Design (warp-specialised, persistent):
 // * Tiles of 128 x BN outputs, BN = 256 where N allows it, else 128 (N is

@@ -30,12 +30,15 @@ over (S, L, D) bf16 sequences in the plain layout:
 
 and ``mlp_phase`` for the feed-forward half. ``fused_ok`` is the gate.
 
-``spatial_mlp`` and the banded ``spatial_phase_pf`` run their products on
-the wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``) and their attention on the
-tensor-core tile with the CLS row as prefix key (``csrc/tc_attention.cuh``).
-Both blocks also have wrappers of their own, ``gemm`` and
-``spatial_attention`` (plain twins ``gemm_plain``,
-``spatial_attention_plain``), through which the card tests and
+``spatial_mlp``, ``temporal_phase_tm`` (so ``temporal_phase``),
+``mlp_phase`` and the banded ``spatial_phase_pf`` run their products on the
+wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``); the two spatial ops' attention
+runs on the tensor-core tile with the CLS row as prefix key, the temporal
+ops' on the same tile reading its rows at stride N
+(``csrc/tc_attention.cuh``). The three blocks also have wrappers of their
+own, ``gemm``, ``spatial_attention`` and ``temporal_attention`` (plain
+twins ``gemm_plain``, ``spatial_attention_plain``,
+``temporal_attention_plain``), through which the card tests and
 ``chip_smoke.py`` hold and time them alone; the model never calls them.
 
 The per-phase training tier (the counterpart of ``divided_block_fused``)
@@ -89,13 +92,15 @@ launches: Dict[str, int] = {
     "temporal_phase_tm": 0, "spatial_mlp": 0, "mlp_phase": 0,
     "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
     "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
-    "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0}
+    "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0,
+    "temporal_attention": 0}
 
 # The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
 # the residual's dtype or None, the output's dtype).
 GEMM_EPILOGUES = {
     "bf16": (0, None, torch.bfloat16),                     # bf16(acc + b)
     "gelu_bf16": (1, None, torch.bfloat16),                # bf16(gelu(acc + b))
+    "res_bf16_f32": (2, torch.bfloat16, torch.float32),    # res + (acc + b)
     "res_f32_f32": (3, torch.float32, torch.float32),      # res + (acc + b)
     "f32": (4, None, torch.float32),                       # acc + b
     "res_f32_bf16": (5, torch.float32, torch.bfloat16),    # bf16(res + (acc + b))
@@ -185,20 +190,28 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int,
                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain twin of ``temporal_phase_tm``."""
-    B, T, N, D = x.shape
-    H = num_heads
-    hd = D // H
     xf = x.float()
     y = _ln(xf, p["ln_w"], p["ln_b"]).to(torch.bfloat16)
     qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
-    # (B, T, N, 3, H, hd) -> (3, B, N, H, T, hd): sequences over T per position
-    q, k, v = qkv.reshape(B, T, N, 3, H, hd).permute(3, 0, 2, 4, 1, 5).unbind(0)
-    a = _attention(q, k, v).permute(0, 3, 1, 2, 4).reshape(B, T, N, D)
+    a = temporal_attention_plain(qkv, num_heads)
     proj = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
     fc = _mm(proj, p["fc_w"]) + p["fc_b"]
     if out_dtype == torch.bfloat16:
         return (xf + fc.to(torch.bfloat16).float()).to(torch.bfloat16)
     return xf + fc
+
+
+def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``temporal_attention``: qkv (B, T, N, 3D) -> (B, T, N,
+    D), sequence (b, n) the T rows qkv[b, :, n]."""
+    B, T, N, D3 = qkv.shape
+    H = num_heads
+    # (B, T, N, 3, H, hd) -> (3, B, N, H, T, hd): sequences over T per position
+    q, k, v = qkv.reshape(B, T, N, 3, H, D3 // 3 // H).permute(
+        3, 0, 2, 4, 1, 5).unbind(0)
+    a = _attention(q, k, v) if scale is None else _attention(q, k, v, scale)
+    return a.permute(0, 3, 1, 2, 4).reshape(B, T, N, D3 // 3)
 
 
 def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
@@ -246,8 +259,8 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
         return F.gelu(v).to(torch.bfloat16)
     if epi == "add_bf16":
         return (res.float() + v.to(torch.bfloat16).float()).to(torch.bfloat16)
-    if epi in ("res_f32_f32", "res_f32_bf16"):
-        v = res + v
+    if res is not None:  # res_f32_f32, res_f32_bf16, res_bf16_f32
+        v = res.float() + v
     return v.to(GEMM_EPILOGUES[epi][2])
 
 
@@ -536,6 +549,30 @@ def check_spatial_attn_smem(lib, L: int, hd: int) -> None:
                          f"of shared memory (limit {SMEM_LIMIT})")
 
 
+def temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> int:
+    """Shared bytes one block of the temporal attention (the tile at stride
+    N) needs over S sequences of L rows at head dim hd: ``lib``'s
+    ``dvst_temporal_attn_smem`` where given, else its mirror here
+    (tc_attention.cuh's tc_group and tc_smem), so that the plain twins on
+    the CPU refuse what the kernel refuses (a card test holds the two
+    equal)."""
+    if lib is not None:
+        return lib.dvst_temporal_attn_smem(S, L, hd)
+    if S <= 0 or L <= 0:
+        return 0
+    group = 7 * (16 // L) if L < 16 else max(1, 7 // -(-L // 16))
+    return 16 + 6 * min(group, S) * L * hd
+
+
+def check_temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> None:
+    """Raise if one block of the temporal attention cannot hold its
+    sequences of L rows at head dim hd (``temporal_attn_smem``)."""
+    need = temporal_attn_smem(S, L, hd, lib)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"sequence length {L} at head dim {hd} needs {need} B "
+                         f"of shared memory (limit {SMEM_LIMIT})")
+
+
 def _check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
@@ -627,6 +664,40 @@ def spatial_attention(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
     return out, out_pre
 
 
+def temporal_attention(qkv: torch.Tensor, num_heads: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """The temporal attention of ``temporal_phase_tm`` and
+    ``temporal_phase`` alone: qkv (B, T, N, 3D) bf16 -> (B, T, N, D) bf16,
+    sequence (b, n) the T rows qkv[b, :, n] (rows (b*T + t)*N + n of the
+    flat buffer), at logit scale ``scale`` (hd^-0.5 unless given). Kernel
+    on CUDA, plain twin on CPU."""
+    if qkv.dim() != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (B, T, N, 3D), got {tuple(qkv.shape)}")
+    B, T, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = _device_of(qkv)
+    _check_geometry(D, num_heads, None)
+    _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    hd = D // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    if dev.type == "cpu":
+        check_temporal_attn_smem(B * N, T, hd)
+        return temporal_attention_plain(qkv, num_heads, scale)
+
+    from . import _build
+
+    _check_aligned(qkv=qkv)
+    lib = _build.load()
+    check_temporal_attn_smem(B * N, T, hd, lib)
+    out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_temporal_attn, qkv.data_ptr(), out.data_ptr(), B, T, N, D,
+             num_heads, float(scale), _stream(dev))
+    launches["temporal_attention"] += 1
+    return out
+
+
 def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (B, T, N, D) bf16 frame-major -> x + temporal_fc(proj(MHSA over T
@@ -639,15 +710,17 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
         raise TypeError(f"out_dtype {out_dtype}: f32 or bf16")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, T)
+    _check_geometry(D, num_heads, None)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
+        check_temporal_attn_smem(B * N, T, D // num_heads)
         return temporal_phase_tm_plain(x, p, num_heads, out_dtype)
 
     from . import _build
 
     lib = _build.load()
+    check_temporal_attn_smem(B * N, T, D // num_heads, lib)
     M = B * T * N
     out = torch.empty((B, T, N, D), dtype=out_dtype, device=dev)
     # Scratch is freed on return while the kernels may still run: the
@@ -732,15 +805,17 @@ def temporal_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
         raise ValueError(f"x: expected (S, L, D), got {tuple(x.shape)}")
     S, L, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, L)
+    _check_geometry(D, num_heads, None)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
+        check_temporal_attn_smem(S, L, D // num_heads)
         return temporal_phase_plain(x, p, num_heads)
 
     from . import _build
 
     lib = _build.load()
+    check_temporal_attn_smem(S, L, D // num_heads, lib)
     out = torch.empty((S, L, D), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(S * L * 5 * D, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):

@@ -1,7 +1,8 @@
-"""Times the standalone attention (``ops/attention.fused_attention``, bf16)
-and the banded temporal attention (``ops/banded_block.banded_temporal_attn``)
-at the shapes of the port's main paths, beside their one-call PyTorch
-yardsticks, on one CUDA card.
+"""Times the standalone attention (``ops/attention.fused_attention``, bf16),
+the temporal attention of rows 1 and 6 (``ops/fused_block.
+temporal_attention``) and the banded temporal attention
+(``ops/banded_block.banded_temporal_attn``) at the shapes of the port's
+main paths, beside their one-call PyTorch yardsticks, on one CUDA card.
 
     python3 -m dino_video_summarization_transformer_tpu_torch.tools.attn_bench
     python3 dino_video_summarization_transformer_tpu_torch/tools/attn_bench.py \\
@@ -101,6 +102,26 @@ def main():
                      "L": L, **kern, "library_ms": lib["ms"],
                      "library_device_ms": lib["device_ms"]})
         del q, k, v
+    from dino_video_summarization_transformer_tpu_torch.ops import fused_block as fb
+
+    # rows 1 and 6's temporal attention (the tile at stride N), where the
+    # checkout has it: the windows' sequences at stride N = 196 and row 6's
+    # contiguous ones (N = 1), beside SDPA on (BH, 1, T, hd) tensors
+    for Bt, T, Nt in ((B, 30, N), (B, 3, N), (B * N, 30, 1), (B * N, 3, 1)):
+        if not hasattr(fb, "temporal_attention"):
+            break
+        tq = torch.from_numpy(np.random.RandomState(T + Nt).randn(
+            Bt, T, Nt, 3 * D)).to(dev, torch.bfloat16)
+        BH = Bt * Nt * H
+        q, k, v = (torch.randn(BH, 1, T, hd, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        with torch.inference_mode():
+            kern = timed(lambda: fb.temporal_attention(tq, H), args.iters)
+            lib = timed(lambda: F.scaled_dot_product_attention(q, k, v), args.iters)
+        rows.append({"op": "temporal_attention", "B": Bt, "T": T, "N": Nt, "BH": BH,
+                     **kern, "library_ms": lib["ms"],
+                     "library_device_ms": lib["device_ms"]})
+        del tq, q, k, v
     C = 512
     qkv = torch.from_numpy(np.random.RandomState(5).randn(C, N, 3 * D)).to(
         dev, torch.bfloat16)

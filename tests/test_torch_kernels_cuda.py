@@ -200,7 +200,10 @@ def test_spatial_phase_pf_kernel_matches_twin(cuda_device, C, N, D, H):
     _close(got[2], want[2])
 
 
-@pytest.mark.parametrize("M,D,H", [(200, 256, 4), (512 * 196, 768, 12)])
+# Row 3: a ragged small M, the banded 512-frame bucket, and the train
+# step's global (16 clips x 8 frames x 196) and local (64 x 8 x 36) crops.
+@pytest.mark.parametrize("M,D,H", [(200, 256, 4), (512 * 196, 768, 12),
+                                   (16 * 8 * 196, 768, 12), (64 * 8 * 36, 768, 12)])
 def test_mlp_phase_kernel_matches_twin(cuda_device, M, D, H):
     p = _block(D, H, 0, cuda_device)["spatial"]
     x = _qkv((M, D), 10, cuda_device)
@@ -564,8 +567,8 @@ def test_attention_swap_forward_kernels_match_twins(cuda_device):
     _close(got.float(), want.float())
 
 
-# The wgmma + TMA GEMM of rows 2 and 11 (csrc/wgmma_gemm.cuh), through its
-# own wrapper: every epilogue the two ops use, at every N = 3D of SHAPES
+# The wgmma + TMA GEMM of rows 1-3, 6 and 11 (csrc/wgmma_gemm.cuh), through
+# its own wrapper: every epilogue the ops use, at every N = 3D of SHAPES
 # (K = D; 384, 1152, 1920 and 2688 take the 128-wide tiles, the rest the
 # 256-wide ones), at row 2's teacher shapes (M = 8 * 30 * 196 grid rows)
 # and its CLS rows (M = 8), and at ragged M: 1 and 8 (less than one
@@ -695,3 +698,62 @@ def test_spatial_attention_at_overflowing_logits(cuda_device, S, P, prefix_out):
     _close(got, want)
     if prefix_out:
         _close(got_pre, want_pre)
+
+
+# The tensor-core temporal attention of rows 1 and 6 (tc_attention.cuh's
+# tc_strided_attn), through its own wrapper: qkv (B, T, N, 3D), sequence
+# (b, n) the T rows at stride N. Every SHAPES window (the main path's
+# teacher and student at ViT-B, every head dim) and every PHASE_SHAPES
+# sequence set at N = 1 (row 6: S contiguous sequences of up to 197 rows).
+TEMPORAL_ATTN_SHAPES = ([(B, T, N, D, H) for B, T, N, D, H in SHAPES]
+                        + [(S, L, 1, D, H) for S, L, D, H in PHASE_SHAPES])
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TEMPORAL_ATTN_SHAPES)
+def test_temporal_attention_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    qkv = _qkv((B, T, N, 3 * D), B + T + N, cuda_device)
+    before = fb.launches["temporal_attention"]
+    got = fb.temporal_attention(qkv, H)
+    again = fb.temporal_attention(qkv, H)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_attention"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, N, D)
+    assert torch.equal(got, again)
+    _close(got, fb.temporal_attention_plain(qkv, H))
+
+
+@pytest.mark.parametrize("B,T,N", [(8, 30, 196), (8, 3, 196), (1568, 30, 1)])
+def test_temporal_attention_at_overflowing_logits(cuda_device, B, T, N):
+    qkv = _qkv((B, T, N, 3 * 768), T + N, cuda_device)
+    got = fb.temporal_attention(qkv, 12, scale=8.0)
+    want = fb.temporal_attention_plain(qkv, 12, scale=8.0)
+    assert bool(want.isfinite().all())
+    _close(got, want)
+
+
+def test_temporal_attention_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """The wrappers read the tile's shared-memory need from the library: one
+    700-row sequence at hd 64 needs 263 KB."""
+    qkv = torch.zeros(1, 700, 1, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    p = _block(128, 2, 0, cuda_device)["temporal"]
+    before = dict(fb.launches)
+    for call in (lambda: fb.temporal_attention(qkv, 2),
+                 lambda: fb.temporal_phase_tm(qkv[..., :128].contiguous(), p, 2),
+                 lambda: fb.temporal_phase(qkv[:, :, 0, :128].contiguous(), p, 2)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert fb.launches == before
+
+
+def test_temporal_attention_shared_memory_mirror_is_the_librarys(cuda_device):
+    """fused_block.temporal_attn_smem's mirror, by which the CPU twins
+    refuse, equals the library's dvst_temporal_attn_smem."""
+    from dino_video_summarization_transformer_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for S in (1, 2, 5, 34, 35, 36, 1568, 100352):
+        for L in (1, 2, 3, 5, 8, 15, 16, 17, 30, 31, 33, 48, 64, 96, 97, 112, 113, 197,
+                  400, 700):
+            for hd in (16, 64, 128):
+                assert fb.temporal_attn_smem(S, L, hd) == fb.temporal_attn_smem(
+                    S, L, hd, lib), (S, L, hd)

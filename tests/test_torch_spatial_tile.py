@@ -233,8 +233,8 @@ def _xla_epilogue(epi, a, w, b, res):
     if epi == "add_bf16":
         return (res.astype(jnp.float32) + v.astype(jnp.bfloat16).astype(jnp.float32)
                 ).astype(jnp.bfloat16)
-    if epi in ("res_f32_f32", "res_f32_bf16"):
-        v = res + v
+    if epi in ("res_f32_f32", "res_f32_bf16", "res_bf16_f32"):
+        v = res.astype(jnp.float32) + v
     return v.astype(jnp.bfloat16 if epi.endswith("bf16") else jnp.float32)
 
 
