@@ -9,7 +9,8 @@ Imports torch, numpy and the port package
 1. card: require CUDA; print ``nvidia-smi``'s name and power limit.
 2. build: compile the Hopper kernels from ``ops/csrc/`` with nvcc, one
    process per source, all started together; print each library's build
-   time and ptxas's register / shared-memory lines.
+   time and ptxas's register / shared-memory lines (and its stack and
+   spill lines where they are not zero).
 3. kernels: each kernel against its plain twin on the card at ViT-B/16
    widths (N=196, D=768, H=12, MLP 3072): the windowed pair at the teacher
    (B=8, T=30) and student (B=8, T=3) windows of the chunk-8 scorer; the
@@ -43,7 +44,16 @@ Imports torch, numpy and the port package
    (``fused_block.spatial_attention``) at rows 2 and 11's head-sequences
    and the temporal attention (``fused_block.temporal_attention``, the
    tile at stride N) at rows 1, 1b and 6's, beside SDPA (yardsticks the
-   port never calls).
+   port never calls). Rows 8 (``spatial_phase_bwd``) and 9
+   (``mlp_phase_bwd``) at both crops: their device time split into
+   attention (forward recompute), attention backward, GEMMs, LN (with
+   its backward, held to its bytes bound) and the rest; their blocks
+   alone against their twins: the tile's attention backward
+   (``fused_block.spatial_attention_bwd``) beside SDPA's backward on the
+   same q, k, v and dA, every dX and dW product (``gemm_dx``, ``gemm_dw``,
+   with the dW split count) and row 9's fc1 recompute with its two outputs
+   (``gemm_gelu_grad``) in TFLOP/s beside ``torch.matmul``; row 9 also at
+   the CLS-row calls of the train step (M = 16 and 64).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
    numpy-seeded weights over two synthetic clips (64 and 40 frames);
    launch counters read around the run; losses held against the plain
@@ -73,8 +83,10 @@ Imports torch, numpy and the port package
    kernel); ms per step and TFLOP/s from ``train_step_flops``; the loss
    finite at every step; the teacher equal to the EMA of the new student;
    a profiled step, its launches by family held to the ops' counters
-   (rows 1b and 3 on the wgmma GEMM and the tile, gemm_kernel and
-   attn_kernel only in row 4 and the backwards). Before the steps, at
+   (rows 1b, 3, 8 and 9 on the wgmma GEMM and the tiles, gemm_kernel and
+   attn_kernel only in row 4 and row 7, gemmx_kernel and attn_bwd_kernel
+   only in row 7); row 9's launches of the counted step by row count
+   (grid and CLS rows). Before the steps, at
    batch 2 on the initial weights and one set of crops, the gradients of
    the kernel route against the plain bf16 route and the f32 route (TF32
    off).
@@ -327,6 +339,20 @@ def mlp_bwd_cost(M, D, Dh):
             3 * M * D * 2 + 2 * D * Dh * 2 + (2 * D * Dh + Dh + 3 * D) * 4)
 
 
+def ln_bwd_cost(M, R, D, residual):
+    """ln_bwd_kernel over R rows: dy read (f32), x read (bf16), the
+    residual read and dx written (bf16) over the M grid rows, the R - M
+    CLS rows' dx written (f32); ~10 FLOP per element."""
+    return 10 * R * D, R * D * 6 + M * D * 2 * (1 + int(residual)) + (R - M) * D * 4
+
+
+def attention_bwd_cost(BH, L, hd):
+    """The attention backward's five products (S = Q K^T, dP, dV, dQ, dK:
+    10 L^2 hd per sequence); q, k, v, da read, dq, dk, dv written
+    (bf16)."""
+    return 10 * BH * L * L * hd, 7 * BH * L * hd * 2
+
+
 def attn_phase_cost(S, L, D):
     """qkv and proj GEMMs (8 D^2 per row) + attention over L (4 L D per
     row), the Pallas cost estimate; x read, out written (bf16), weights
@@ -374,18 +400,23 @@ def kernel_breakdown(fn, on_record=None):
 
 
 # kernel families by name in a profile: the port's building blocks
-# (dvst_common.cuh: gemm_kernel, attn_kernel, ln_kernel; wgmma_gemm.cuh:
+# (dvst_common.cuh: gemm_kernel, attn_kernel, ln_kernel and the
+# backwards' gemmx_kernel, attn_bwd_kernel, ln_bwd_kernel; wgmma_gemm.cuh:
 # wg_gemm_kernel; tc_attention.cuh: tc_prefix_attn_kernel_*,
-# tc_strided_attn_kernel_*)
+# tc_strided_attn_kernel_*, tc_prefix_attn_bwd_kernel)
 FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "wg_gemm_kernel": "::wg_gemm_kernel<",
             "tc_prefix_attn": "::tc_prefix_attn_kernel_",
-            "tc_strided_attn": "::tc_strided_attn_kernel_", "ln_kernel": "::ln_kernel<"}
+            "tc_strided_attn": "::tc_strided_attn_kernel_", "ln_kernel": "::ln_kernel<",
+            "gemmx_kernel": "::gemmx_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
+            "tc_prefix_attn_bwd": "::tc_prefix_attn_bwd_kernel<",
+            "ln_bwd_kernel": "::ln_bwd_kernel("}
 # launches of each family per call of the ops that use them: rows 1 (its
-# bf16-out tier 1b and row 6 the same entry point), 2, 3 and 11 on the
-# wgmma GEMM and the tile; rows 4, 5 and the backwards' recomputes on
-# gemm_kernel and attn_kernel (the backwards' own kernels, gemmx_kernel,
-# attn_bwd_kernel, ln_bwd_kernel, are no family here)
+# bf16-out tier 1b and row 6 the same entry point), 2, 3, 8, 9 and 11 on
+# the wgmma GEMM and the tiles (row 8: qkv, two dX, two dW; row 9: fc1,
+# two dX, two dW); rows 4, 5 and row 7's recompute on gemm_kernel and
+# attn_kernel, row 7's dX and dW on gemmx_kernel (three each) and its
+# attention backward on attn_bwd_kernel
 TEMPORAL_FAMILIES = {"ln_kernel": 1, "wg_gemm_kernel": 3, "tc_strided_attn": 1}
 FAMILY_PER_OP = {
     "temporal_phase_tm": TEMPORAL_FAMILIES,
@@ -396,9 +427,11 @@ FAMILY_PER_OP = {
     "mlp_phase": {"ln_kernel": 1, "wg_gemm_kernel": 2},
     "spatial_phase": {"ln_kernel": 2, "gemm_kernel": 4, "attn_kernel": 1},
     "attn_phase": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1},
-    "temporal_phase_tm_bwd": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1},
-    "spatial_phase_bwd": {"ln_kernel": 2, "gemm_kernel": 2, "attn_kernel": 1},
-    "mlp_phase_bwd": {"ln_kernel": 1, "gemm_kernel": 1},
+    "temporal_phase_tm_bwd": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1,
+                              "gemmx_kernel": 6, "attn_bwd_kernel": 1, "ln_bwd_kernel": 1},
+    "spatial_phase_bwd": {"ln_kernel": 2, "wg_gemm_kernel": 5, "tc_prefix_attn": 1,
+                          "tc_prefix_attn_bwd": 1, "ln_bwd_kernel": 1},
+    "mlp_phase_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1},
 }
 
 
@@ -407,12 +440,16 @@ def family_counts(rows):
 
 
 def split_ms(rows):
-    """Device ms of one op's profile by block: attention, GEMMs, LN, rest."""
-    out = {"attention": 0.0, "gemm": 0.0, "ln": 0.0, "other": 0.0}
+    """Device ms of one op's profile by block: attention, the attention
+    backward (where the op has one), GEMMs, LN (and its backward), rest."""
+    out = {"attention": 0.0, "attention_bwd": 0.0, "gemm": 0.0, "ln": 0.0, "other": 0.0}
     for k, _, ms in rows:
-        part = ("attention" if "attn" in k else "gemm" if "gemm" in k
-                else "ln" if "::ln_kernel<" in k else "other")
+        part = ("attention_bwd" if "attn_bwd" in k else "attention" if "attn" in k
+                else "gemm" if "gemm" in k
+                else "ln" if "::ln_kernel<" in k or "::ln_bwd_kernel(" in k else "other")
         out[part] += ms
+    if not out["attention_bwd"]:
+        del out["attention_bwd"]
     return out
 
 
@@ -428,6 +465,7 @@ def record_split(tag, fn, row, top=None):
     row["device_ms"], row["split_ms"] = total, split_ms(rows)
     print(f"  {tag} split: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in row["split_ms"].items()), flush=True)
+    return rows
 
 
 def check_families(tag, rows, ops):
@@ -584,6 +622,8 @@ def main():
                 fn = line.split("'")[1]
             elif "Used" in line and fn:
                 print(f"  {fn}: {line.split(':', 1)[1].strip()}", flush=True)
+            elif "spill stores" in line and fn and not line.strip().startswith("0 bytes stack"):
+                print(f"  {fn}: {line.strip()}", flush=True)
             elif "warning" in line.lower() and "wgmma" in line.lower():
                 print(f"  {os.path.basename(res.path)}: {line.strip()[:200]}",
                       flush=True)
@@ -752,14 +792,24 @@ def main():
                   f"bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
             record_split(f"mlp_phase {tag}", lambda: fb.mlp_phase(xm, ps), row)
             mlp_crops.append(row)
-        if tag == "global":  # where the time goes inside each backward
-            for name in ("temporal_phase_tm_bwd", "spatial_phase_bwd", "mlp_phase_bwd"):
-                rows, _ = kernel_breakdown(runs[name][0])
-                total = sum(r_[2] for r_ in rows)
-                print(f"  {name} {tag} by kernel (torch.profiler, {total:.3f} ms "
-                      "device time):", flush=True)
-                for k, n, ms in rows[:8]:
-                    print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
+        # where the time goes inside each backward: rows 8 and 9 split by
+        # block, ln_bwd_kernel beside its bytes bound; row 7 by kernel
+        for name, R_ in (("spatial_phase_bwd", B * T * Np + B * T),
+                         ("mlp_phase_bwd", B * T * Np)):
+            row = stats[name][-1]
+            rows = record_split(f"{name} {tag}", runs[name][0], row, top=14)
+            lb_ms = sum(ms for k, _, ms in rows if "::ln_bwd_kernel(" in k)
+            lb_bound, _ = bound_ms(*ln_bwd_cost(B * T * Np, R_, D, True))
+            row["ln_bwd"] = {"ms": lb_ms, "bound_ms": lb_bound, "bound_by": "bytes"}
+            print(f"  {name} {tag}: ln_bwd_kernel {lb_ms:.4f} ms, bytes bound "
+                  f"{lb_bound:.4f} ms ({lb_bound / max(lb_ms, 1e-9):.1%})", flush=True)
+        if tag == "global":
+            rows, _ = kernel_breakdown(runs["temporal_phase_tm_bwd"][0])
+            total = sum(r_[2] for r_ in rows)
+            print(f"  temporal_phase_tm_bwd {tag} by kernel (torch.profiler, "
+                  f"{total:.3f} ms device time):", flush=True)
+            for k, n, ms in rows[:8]:
+                print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
         del x, cls, dout, dco, xm, dm, runs
         torch.cuda.empty_cache()
 
@@ -968,6 +1018,149 @@ def main():
         print(f"  temporal_attention B={B_} T={T_} N={N_} ({BH} x {L} rows, hd {hd}): "
               f"{ms:.3f} ms (device {dms:.3f} ms), bound {b:.4f} ms ({by}), SDPA "
               f"{lib:.3f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+    # rows 8 and 9's blocks alone, at both crops: the tile's attention
+    # backward beside SDPA's backward on (BH, 1, L, hd) tensors of the same
+    # shape; each dX and dW product (row 8 over R = grid + per-frame CLS
+    # rows, row 9 over the grid rows) and row 9's fc1 recompute with its
+    # two outputs, in TFLOP/s beside torch.matmul on the same operands
+    # (bf16 out; yardsticks the port never calls); row 9 whole at the train
+    # step's CLS-row calls (M = 16 global, 64 local clips)
+    print("  rows 8 and 9's blocks alone: the attention backward tile, the dX and "
+          "dW GEMMs, the fc1 recompute; row 9 at the CLS rows", flush=True)
+    blocks["spatial_phase_bwd"] = {"attention_bwd": [], "gemm_dx": [], "gemm_dw": []}
+    blocks["mlp_phase_bwd"] = {"gemm_gelu_grad": [], "gemm_dx": [], "gemm_dw": []}
+    mlp_cls_calls = []
+    for tag, B_, T_, N_ in (("global", 16, 8, N), ("local", 64, 8, 36)):
+        S_, L = B_ * T_, N_ + 1
+        M8, M9 = S_ * N_ + S_, S_ * N_
+        r = np.random.RandomState(S_ + N_)
+        sq = torch.from_numpy(r.randn(S_, N_, 3 * D).astype(np.float32)).to(dev, torch.bfloat16)
+        sp = torch.from_numpy(r.randn(B_, 3 * D).astype(np.float32)).to(dev, torch.bfloat16)
+        sda = torch.from_numpy(r.randn(S_, N_, D).astype(np.float32)).to(dev, torch.bfloat16)
+        sdp = torch.from_numpy(r.randn(S_, D).astype(np.float32)).to(dev, torch.bfloat16)
+        got, got_pre = fb.spatial_attention_bwd(sq, sp, sda, sdp, H)
+        want, want_pre = fb.spatial_attention_bwd_plain(sq, sp, sda, sdp, H)
+        # dq, dk, dv are sums whose coefficients sum to zero (sum_j ds_ij =
+        # 0): held by twin_check's f32 rules, not elementwise in ulps
+        # (tests/test_torch_kernels_cuda.py, _close_sums)
+        oks = [check_close(f"spatial_attention_bwd {tag} S={S_} L={L} d{nm}{part}",
+                           g_[..., i * D:(i + 1) * D].float(), w_[..., i * D:(i + 1) * D].float())
+               for i, nm in enumerate("qkv")
+               for part, g_, w_ in (("", got, want), (" prefix rows", got_pre, want_pre))]
+        if not all(ok for ok, _ in oks):
+            fail(f"the attention backward tile disagrees with its twin ({tag} crops)")
+        del got, got_pre, want, want_pre
+        ms = cuda_ms(lambda: fb.spatial_attention_bwd(sq, sp, sda, sdp, H), 10)
+        dms = graph_ms(lambda: fb.spatial_attention_bwd(sq, sp, sda, sdp, H))
+        pl = cuda_ms(lambda: fb.spatial_attention_bwd_plain(sq, sp, sda, sdp, H), 1, warmup=1)
+        BH = S_ * H
+        q, k, v = (torch.randn(BH, 1, L, hd, device=dev, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(3))
+        o = F.scaled_dot_product_attention(q, k, v)
+        go = torch.randn_like(o)
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True), 10)
+        del q, k, v, o, go, sq, sp, sda, sdp
+        b, by = bound_ms(*attention_bwd_cost(BH, L, hd))
+        blocks["spatial_phase_bwd"]["attention_bwd"].append({
+            "crops": tag, "S": S_, "BH": BH, "L": L, "ms": ms, "device_ms": dms,
+            "plain_ms": pl, "library_ms": lib, "bound_ms": b, "bound_by": by,
+            "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks),
+            "rel_rms": max(g_["rel_rms"] for _, g_ in oks)})
+        print(f"  spatial_attention_bwd {tag} ({BH} x {L} rows, hd {hd}): {ms:.3f} ms "
+              f"(device {dms:.3f} ms), bound {b:.4f} ms ({by}), SDPA's backward "
+              f"{lib:.3f} ms", flush=True)
+        for op, kind, M_, Nn, K_, epi in [
+                ("spatial_phase_bwd", "gemm_dx", M8, D, D, "bf16"),        # da
+                ("spatial_phase_bwd", "gemm_dx", M8, D, 3 * D, "f32"),     # dy
+                ("spatial_phase_bwd", "gemm_dw", M8, D, D, None),          # dWproj
+                ("spatial_phase_bwd", "gemm_dw", M8, 3 * D, D, None),      # dWqkv
+                ("mlp_phase_bwd", "gemm_gelu_grad", M9, Dh, D, None),      # fc1
+                ("mlp_phase_bwd", "gemm_dx", M9, Dh, D, "mul_f32_bf16"),  # dh1
+                ("mlp_phase_bwd", "gemm_dx", M9, D, Dh, "f32"),            # dy
+                ("mlp_phase_bwd", "gemm_dw", M9, D, Dh, None),             # dW2
+                ("mlp_phase_bwd", "gemm_dw", M9, Dh, D, None)]:            # dW1
+            r = np.random.RandomState(M_ + Nn + K_)
+            extra, mm_args = {}, None
+            if kind == "gemm_dw":  # rows M_, out Nn (n_out), in K_ (k_in)
+                dy_ = torch.from_numpy(r.randn(M_, Nn).astype(np.float32)).to(dev, torch.bfloat16)
+                x_ = torch.from_numpy(r.randn(M_, K_).astype(np.float32)).to(dev, torch.bfloat16)
+                kern = lambda: fb.gemm_dw(dy_, x_)  # noqa: E731
+                plain = lambda: fb.gemm_dw_plain(dy_, x_)  # noqa: E731
+                mm = lambda: torch.matmul(dy_.t(), x_)  # noqa: E731
+                extra["splits"] = fb.gemm_dw_splits(M_, Nn, K_)
+                flops = 2 * M_ * Nn * K_
+                nbytes = (M_ * Nn + M_ * K_) * 2 + Nn * K_ * 4
+                shape = {"rows": M_, "n_out": Nn, "k_in": K_}
+            elif kind == "gemm_dx":  # dY (M_, K_) . W (K_, Nn)
+                dy_ = torch.from_numpy(r.randn(M_, K_).astype(np.float32)).to(dev, torch.bfloat16)
+                w_ = torch.from_numpy((r.randn(K_, Nn) * K_ ** -0.5).astype(np.float32)).to(
+                    dev, torch.bfloat16)
+                aux_ = (torch.from_numpy(r.rand(M_, Nn).astype(np.float32)).to(dev)
+                        if epi == "mul_f32_bf16" else None)
+                kern = lambda: fb.gemm_dx(dy_, w_, epi, aux_)  # noqa: E731
+                plain = lambda: fb.gemm_dx_plain(dy_, w_, epi, aux_)  # noqa: E731
+                mm = lambda: torch.matmul(dy_, w_)  # noqa: E731
+                flops = 2 * M_ * Nn * K_
+                nbytes = ((M_ * K_ + K_ * Nn) * 2 + M_ * Nn * fb.GEMM_DX_EPILOGUES[epi][2].itemsize
+                          + (0 if aux_ is None else M_ * Nn * 4))
+                shape = {"M": M_, "N": Nn, "K": K_, "epilogue": epi}
+            else:  # fc1: a (M_, K_) . W (Nn, K_)^T + bias -> bf16 GELU, f32 GELU'
+                a_ = torch.from_numpy(r.randn(M_, K_).astype(np.float32)).to(dev, torch.bfloat16)
+                w_ = torch.from_numpy((r.randn(Nn, K_) * K_ ** -0.5).astype(np.float32)).to(
+                    dev, torch.bfloat16)
+                b_ = torch.from_numpy(r.randn(Nn).astype(np.float32)).to(dev)
+                kern = lambda: fb.gemm_gelu_grad(a_, w_, b_)  # noqa: E731
+                plain = lambda: fb.gemm_gelu_grad_plain(a_, w_, b_)  # noqa: E731
+                mm = lambda: torch.matmul(a_, w_.t())  # noqa: E731
+                flops = 2 * M_ * Nn * K_
+                nbytes = (M_ * K_ + Nn * K_) * 2 + M_ * Nn * 6
+                shape = {"M": M_, "N": Nn, "K": K_}
+            got, want = kern(), plain()
+            if kind == "gemm_gelu_grad":
+                oks = [check_close(f"gemm_gelu_grad {tag} M={M_} N={Nn} K={K_} {nm}", g_, w2)
+                       for nm, g_, w2 in (("gelu", got[0], want[0]), ("gelu'", got[1], want[1]))]
+            else:
+                oks = [check_close(f"{kind} {tag} {shape}", got, want)]
+            del got, want
+            if not all(ok for ok, _ in oks):
+                fail(f"{kind} disagrees with its twin ({tag} crops, {shape})")
+            ms = cuda_ms(kern, 10)
+            mm_ms = cuda_ms(mm, 10)
+            b, by = bound_ms(flops, nbytes)
+            blocks[op][kind].append({
+                "crops": tag, **shape, **extra, "ms": ms, "tflops": flops / ms / 1e9,
+                "matmul_ms": mm_ms, "matmul_tflops": flops / mm_ms / 1e9, "bound_ms": b,
+                "bound_by": by, "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks),
+                "rel_rms": max(g_["rel_rms"] for _, g_ in oks)})
+            print(f"  {kind} {tag} {shape}{' ' + str(extra) if extra else ''}: {ms:.3f} ms, "
+                  f"{flops / ms / 1e9:.0f} TFLOP/s ({flops / ms / 1e9 / 989:.1%} of 989), "
+                  f"bound {b:.4f} ms ({by}); torch.matmul {mm_ms:.3f} ms, "
+                  f"{flops / mm_ms / 1e9:.0f} TFLOP/s", flush=True)
+            del kern, plain, mm
+            torch.cuda.empty_cache()
+        # row 9 at the CLS rows: one call per block of each student pass
+        r = np.random.RandomState(B_)
+        xc = torch.from_numpy(r.randn(B_, D).astype(np.float32)).to(dev, torch.bfloat16)
+        dc = torch.from_numpy(r.randn(B_, D).astype(np.float32)).to(dev, torch.bfloat16)
+        ps = p["spatial"]
+        got, want = fb.mlp_phase_bwd(xc, dc, ps), fb.mlp_phase_bwd_plain(xc, dc, ps)
+        oks = [check_close(f"mlp_phase_bwd {tag} CLS rows M={B_} dx-dout", got[0], want[0], dc)]
+        oks += [check_close(f"mlp_phase_bwd {tag} CLS rows M={B_} d{k_}", got[1][k_], want[1][k_])
+                for k_ in want[1]]
+        if not all(ok for ok, _ in oks):
+            fail(f"mlp_phase_bwd disagrees with its twin at the CLS rows (M={B_})")
+        ms = cuda_ms(lambda: fb.mlp_phase_bwd(xc, dc, ps), 10)
+        dms = graph_ms(lambda: fb.mlp_phase_bwd(xc, dc, ps))
+        pl = cuda_ms(lambda: fb.mlp_phase_bwd_plain(xc, dc, ps), 2, warmup=1)
+        b, by = bound_ms(*mlp_bwd_cost(B_, D, Dh))
+        mlp_cls_calls.append({"crops": tag, "M": B_, "ms": ms, "device_ms": dms, "plain_ms": pl,
+                              "bound_ms": b, "bound_by": by,
+                              "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks)})
+        print(f"  mlp_phase_bwd {tag} CLS rows M={B_}: kernel {ms:.3f} ms (device "
+              f"{dms:.3f} ms), plain {pl:.3f} ms, bound {b:.4f} ms ({by})", flush=True)
+        del xc, dc, got, want
     torch.cuda.empty_cache()
 
     # the XLA-layout block's two attention phases and the standalone
@@ -1345,10 +1538,24 @@ def main():
     train_step()  # first-call allocations
     torch.cuda.synchronize()
     reset_counts()
-    train_step()
+    # row 9's calls of the counted step by row count (grid and CLS rows),
+    # read through a shim around the op (the counters stay the op's own)
+    mlp_rows = {}
+    mlp_bwd = fb.mlp_phase_bwd
+
+    def mlp_bwd_shim(x, *a, **k):
+        mlp_rows[x.shape[0]] = mlp_rows.get(x.shape[0], 0) + 1
+        return mlp_bwd(x, *a, **k)
+
+    fb.mlp_phase_bwd = mlp_bwd_shim
+    try:
+        train_step()
+    finally:
+        fb.mlp_phase_bwd = mlp_bwd
     torch.cuda.synchronize()
     seen = counts()
     depth = tcfg.depth
+    print(f"  mlp_phase_bwd calls in one step by row count: {mlp_rows}", flush=True)
     want = {k: 0 for k in seen}
     want.update({"temporal_phase_tm_bf16": 3 * depth, "spatial_phase": 3 * depth,
                  "mlp_phase": 6 * depth, "temporal_phase_tm_bwd": 2 * depth,
@@ -1364,6 +1571,7 @@ def main():
         fail(f"train step launches {seen}, expected {want}")
     launches.update({k: seen[k] for k in TRAIN_OPS})
     launches["mlp_phase_train_step"] = seen["mlp_phase"]
+    launches["mlp_phase_bwd_by_rows"] = {str(k): v for k, v in sorted(mlp_rows.items())}
     n_steps = 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1587,10 +1795,13 @@ def main():
                      "per_crop": mlp_crops}
         elif name == "attn_phase":
             extra = {"launches_drop_path": launches["attn_phase_drop_path"]}
+        elif name == "mlp_phase_bwd":
+            extra = {"launches_by_rows": launches["mlp_phase_bwd_by_rows"],
+                     "per_cls_call": mlp_cls_calls}
         elif name == "smem_probe":
             extra = {"budget_bytes": rows[0]["budget_bytes"],
                      "optin_bytes": rows[0]["optin_bytes"]}
-        if name in blocks:  # rows 1-3, 6 and 11: their GEMMs and attention alone
+        if name in blocks:  # rows 1-3, 6, 8, 9 and 11: their blocks alone
             extra["blocks"] = blocks[name]
         kernels.append({**extra,
             "name": name, "route": "cuda",

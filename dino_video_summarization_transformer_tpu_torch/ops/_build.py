@@ -2,9 +2,9 @@
 
 One shared library with a plain C interface per source in ``csrc/``
 (``fused_block.cu``, ``banded_block.cu``, ``fused_block_bwd.cu``,
-``attention.cu``, each including ``dvst_common.cuh``; all but the
-backwards also the tensor-core attention tile ``tc_attention.cuh``, the
-first two the wgmma + TMA GEMM ``wgmma_gemm.cuh``; and the standalone
+``attention.cu``, each including ``dvst_common.cuh``; all also the
+tensor-core attention tile ``tc_attention.cuh``, all but ``attention.cu``
+the wgmma + TMA GEMM ``wgmma_gemm.cuh``; and the standalone
 ``smem_probe.cu``), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
@@ -94,6 +94,20 @@ _SIGNATURES = {
         "dvst_temporal_phase_tm_bwd_ws": [_i] * 5,
         "dvst_spatial_phase_bwd_ws": [_i] * 5,
         "dvst_mlp_phase_bwd_ws": [_l] + [_i] * 2,
+        # qkv, qkv_pre, da, da_pre, dqkv, dqkv_pre | S, S_lo, N, D, H | scale
+        # | stream
+        "dvst_spatial_attn_bwd": [_p] * 6 + [_i] * 5 + [_f, _p],
+        # shared bytes of one block (returns long) | L, hd
+        "dvst_spatial_attn_bwd_smem": [_i] * 2,
+        # dY, W, aux, out | M | N, K, epilogue | stream
+        "dvst_gemm_dx": [_p] * 4 + [_l] + [_i] * 3 + [_p],
+        # dY, X, out, partials | rows | n_out, k_in | stream
+        "dvst_gemm_dw": [_p] * 4 + [_l] + [_i] * 2 + [_p],
+        # bytes of partials (returns long), splits | rows | n_out, k_in
+        "dvst_gemm_dw_ws": [_l] + [_i] * 2,
+        "dvst_gemm_dw_splits": [_l] + [_i] * 2,
+        # A, W, bias, hg, gp | M | N, K | stream
+        "dvst_gemm_gelu_grad": [_p] * 5 + [_l] + [_i] * 2 + [_p],
     },
     "attention": {
         # q, k, v, out | BH, L, hd | scale | dtype | stream

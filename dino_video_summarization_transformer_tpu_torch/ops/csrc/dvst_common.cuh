@@ -108,6 +108,10 @@ enum Epi {
   kEpiResF32Bf16 = 5,  // bf16(res_f32 + (acc + bias))
   kEpiAddBf16 = 6,     // bf16(res_bf16 + bf16(acc + bias)): bf16 residual
                        // stream, branch rounded first (the Pallas order)
+  // the backwards' (wgmma_gemm.cuh only; bias may be null there):
+  kEpiMulF32Bf16 = 7,       // bf16(res_f32 * (acc + bias)): dh1 = dhg * gelu'(h1)
+  kEpiGeluBf16GradF32 = 8,  // bf16(gelu_erf(acc + bias)) to out and
+                            // f32 gelu_erf'(acc + bias) to res (an output)
 };
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
@@ -132,6 +136,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float x) {
+  // d/dx [x * Phi(x)] = Phi(x) + x * phi(x)
+  return 0.5f * (1.f + erff(x * 0.70710678118654752f)) +
+         x * 0.39894228040143268f * expf(-0.5f * x * x);
 }
 
 __device__ __forceinline__ void load8(const bf16* src, float* v) {
@@ -463,12 +473,6 @@ cudaError_t attn(int hd, const bf16* qkv, const bf16* qkv_prefix, bf16* out,
 // ===========================================================================
 
 #ifdef DVST_WITH_BACKWARD
-
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  // d/dx [x * Phi(x)] = Phi(x) + x * phi(x)
-  return 0.5f * (1.f + erff(x * 0.70710678118654752f)) +
-         x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
 
 // out[i] = sum over z = 0 .. splits-1, in that order, of part[z * n + i].
 __global__ void reduce_splits_kernel(const float* __restrict__ part, int splits,
@@ -839,14 +843,6 @@ inline cudaError_t ln_bwd(const bf16* x, const bf16* x_tail, int tail_div,
 // ---------------------------------------------------------------------------
 // Small elementwise passes of the backwards (bound by bytes).
 // ---------------------------------------------------------------------------
-
-// hg = bf16(gelu_erf(h1)) over n elements.
-__global__ void gelu_bf16_kernel(const float* __restrict__ h, bf16* __restrict__ g,
-                                 long n) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x)
-    g[i] = __float2bfloat16(gelu_erf(h[i]));
-}
 
 // dst row g*reps + t = src row g, for t < reps (bf16 rows of width D).
 __global__ void rep_rows_kernel(const bf16* __restrict__ src, bf16* __restrict__ dst,

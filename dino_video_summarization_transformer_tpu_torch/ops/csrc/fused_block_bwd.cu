@@ -2,7 +2,7 @@
 // recomputes its phase's forward from the saved inputs, then runs the
 // backward (the Pallas kernels' recompute-in-kernel VJPs, as chains of
 // launches on the caller's stream; the building blocks are in
-// dvst_common.cuh).
+// dvst_common.cuh, wgmma_gemm.cuh and tc_attention.cuh).
 //
 //   dvst_temporal_phase_tm_bwd  replaces _temporal_phase_tm_bwd_kernel
 //       (dino_video_summarization_transformer_tpu/ops/fused_block.py:963):
@@ -29,23 +29,33 @@
 //       (ops/fused_block.py:1233): x, do (M,D) bf16 -> dx bf16 and f32
 //       dLN, dW1, db1, dW2, db2; only the M real rows enter the sums (the
 //       Pallas kernel masks its ragged tail, :1254-1259).
-//       recompute: LN -> GEMM fc1 (f32 pre-activation) -> erf GELU (bf16)
+//       recompute: LN -> GEMM fc1 + erf GELU (bf16) and its derivative (f32)
 //       backward: dW2, db2 -> dh1 = bf16((do . W2) * gelu'(h1)) -> dW1, db1
 //       -> dy -> LN backward (+ do)
 //       Bound by operations: 10*M*D*Dh = 5.9e11 FLOP at the global grid
 //       (M = 25,088), 0.60 ms.
 //
-// Design, right and simple first: the Pallas kernels carry f32 weight-
-// gradient sums across a sequential grid; Hopper blocks run in no order.
-// So every bf16 operand the Pallas kernels round (dproj, da, ds, dqkv,
-// dh1, the recomputed LN rows and activations) is written to bf16 scratch,
-// and each dW is a transposed-A GEMM over the rows (gemm_dw), its rows cut
-// into up to 16 splits whose f32 partials a second pass adds in a fixed
-// order; bias, LN-scale and LN-bias sums go the same way. No float
-// atomics: two calls give bit-identical gradients. The LN backward's dy
-// stays f32, as in the Pallas kernels (:527-536, :1075-1085). The GEMMs are
-// the wmma tiles of the forwards (~18% of the bf16 peak there), so these
-// ops are expected at a similar share of their bound.
+// Design: the Pallas kernels carry f32 weight-gradient sums across a
+// sequential grid; Hopper blocks run in no order. So every bf16 operand
+// the Pallas kernels round (dproj, da, ds, dqkv, dh1, the recomputed LN
+// rows and activations) is written to bf16 scratch, and each dW is a GEMM
+// over the rows whose reduction is cut into splits, their f32 partials
+// added in a fixed order by a second pass; bias, LN-scale and LN-bias sums
+// go the same way. No float atomics: two calls give bit-identical
+// gradients. The LN backward's dy stays f32, as in the Pallas kernels
+// (:527-536, :1075-1085).
+// * dvst_spatial_phase_bwd and dvst_mlp_phase_bwd run every product on the
+//   wgmma + TMA GEMM (wgmma_gemm.cuh): the recomputes as the forwards run
+//   them (row 9's fc1 with an epilogue that writes both bf16 GELU and f32
+//   GELU', so no separate pass reads the f32 pre-activation back), dX =
+//   dY . W with the weight read as stored (wg_gemm_dx, MN-major B), dW =
+//   dY^T . X with both operands read as stored (wg_gemm_dw, MN-major A and
+//   B, split over the rows). Row 8's attention recompute is the tile with
+//   the CLS prefix (tc_prefix_attn), its backward the tile's backward
+//   (tc_prefix_attn_bwd, tc_attention.cuh): no L x L matrix in memory.
+// * dvst_temporal_phase_tm_bwd keeps the first design's blocks: the wmma GEMMs
+//   (gemm_kernel, gemmx_kernel with gemm_dw's splits) and the CUDA-core
+//   attention and attention backward (attn_kernel, attn_bwd_kernel).
 //
 // Numerics: the XLA-path rules, not the TPU workarounds — the softmax
 // subtracts its row max (no +/-80 clamp, so no |s| < 80 mask on ds), the
@@ -53,6 +63,8 @@
 
 #define DVST_WITH_BACKWARD
 #include "dvst_common.cuh"
+#include "tc_attention.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -106,8 +118,27 @@ TemporalWs temporal_ws(char* base, long M, int D) {
   return w;
 }
 
+// f32 scratch of the wgmma backwards over `rows` rows: the split partials
+// of the weight gradients (n_out, k_in) in dw[0 .. n_dw) (wg_dw_splits'
+// choice on this device; kWgMaxSplits where the device cannot be asked),
+// the column sums of at most max_cols columns, the LN backward's per-block
+// sums.
+size_t wg_part_floats(long rows, const int (*dw)[2], int n_dw, int max_cols, int D) {
+  size_t n = max3(0, (size_t)colsum_splits(rows) * max_cols,
+                  (size_t)ln_bwd_blocks(rows) * 2 * D);
+  for (int i = 0; i < n_dw; ++i) {
+    size_t p = 0;
+    if (wg_dw_part_floats(rows, dw[i][0], dw[i][1], &p) != cudaSuccess)
+      p = (size_t)kWgMaxSplits * dw[i][0] * dw[i][1];
+    n = p > n ? p : n;
+  }
+  return n;
+}
+
+// Row buffers over R = M + B*T rows: the M grid rows, then the per-frame
+// CLS rows (sequence s = b*T + t at row M + s).
 struct SpatialWs {
-  bf16 *y, *y_cls, *qkv, *qkv_cls, *a, *dproj, *da, *dqkv;
+  bf16 *y, *y_cls, *qkv, *a, *dproj, *da, *dqkv;
   float *dy, *dx_tail, *part;
   size_t bytes;
 };
@@ -116,36 +147,37 @@ SpatialWs spatial_ws(char* base, long M, long Mc, int B, int D) {
   Carve c{base};
   SpatialWs w;
   const long R = M + Mc;
+  const int dw[2][2] = {{D, D}, {3 * D, D}};
   w.y = c.take<bf16>(R * D);
   w.y_cls = c.take<bf16>((long)B * D);
-  w.qkv = c.take<bf16>(M * 3 * D);
-  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
+  w.qkv = c.take<bf16>(R * 3 * D);
   w.a = c.take<bf16>(R * D);
   w.dproj = c.take<bf16>(R * D);
   w.da = c.take<bf16>(R * D);
   w.dqkv = c.take<bf16>(R * 3 * D);
   w.dy = c.take<float>(R * D);
   w.dx_tail = c.take<float>(Mc * D);
-  w.part = c.take<float>(part_floats(R, (size_t)3 * D * D, 3 * D, D));
+  w.part = c.take<float>(wg_part_floats(R, dw, 2, 3 * D, D));
   w.bytes = c.off;
   return w;
 }
 
 struct MlpWs {
   bf16 *y, *hg, *dh1;
-  float *h1, *dy, *part;
+  float *gp, *dy, *part;  // gp: gelu_erf'(h1), f32
   size_t bytes;
 };
 
 MlpWs mlp_ws(char* base, long M, int D, int Dh) {
   Carve c{base};
   MlpWs w;
+  const int dw[2][2] = {{D, Dh}, {Dh, D}};
   w.y = c.take<bf16>(M * D);
   w.hg = c.take<bf16>(M * Dh);
   w.dh1 = c.take<bf16>(M * Dh);
-  w.h1 = c.take<float>(M * Dh);
+  w.gp = c.take<float>(M * Dh);
   w.dy = c.take<float>(M * D);
-  w.part = c.take<float>(part_floats(M, (size_t)D * Dh, Dh, D));
+  w.part = c.take<float>(wg_part_floats(M, dw, 2, Dh, D));
   w.bytes = c.off;
   return w;
 }
@@ -243,18 +275,19 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   const float* lb = static_cast<const float*>(ln_b);
   const SpatialWs w = spatial_ws(static_cast<char*>(ws), M, Mc, B, D);
   const int hd = D / H;
+  const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
-  // recompute: LN rows of the grid, then of the CLS replicated per frame
+  // recompute: LN rows of the grid, then of the CLS replicated per frame;
+  // qkv over all R rows (the CLS rows are sequence s's prefix at M + s)
   if ((e = ln_launch<bf16>(x, lw, lb, w.y, M, D, st))) return e;
   if ((e = ln_launch<bf16>(cls, lw, lb, w.y_cls, B, D, st))) return e;
   rep_rows_kernel<<<ew_blocks(Mc * D), 256, 0, st>>>(w.y_cls, w.y + M * D, T,
                                                      D, B);
   if ((e = cudaGetLastError())) return e;
-  if ((e = gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(w.y_cls, Wqkv, qkv_b, nullptr, w.qkv_cls, B, 3 * D, D, st))) return e;
-  // sequence (b, t) = [cls_b, rows (b*T + t)*N + n]; CLS outputs at rows M + s
-  if ((e = attn(hd, w.qkv, w.qkv_cls, w.a, w.a + M * D, B * T, T, (long)T * N,
-                N, 1, N, H, st)))
+  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, R, 3 * D, D, st))) return e;
+  // sequence s = b*T + t: [row M + s, grid rows s*N + n]; CLS outputs at M + s
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv + M * 3 * D, w.a, w.a + M * D, (int)Mc, 1, N, H,
+                          scale, st)))
     return e;
   // proj: the cotangent rows are [dgo; dco]
   if ((e = cudaMemcpyAsync(w.dproj, dgo, (size_t)M * D * sizeof(bf16),
@@ -263,21 +296,19 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   if ((e = cudaMemcpyAsync(w.dproj + M * D, dco_, (size_t)Mc * D * sizeof(bf16),
                            cudaMemcpyDeviceToDevice, st)))
     return e;
-  if ((e = gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, D, st))) return e;
-  if ((e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st))) return e;
-  if ((e = gemmx<false, false, kXBf16>(w.dproj, D, Wproj, D, nullptr, w.da, R,
-                                       D, D, 1, st)))
+  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, D, st)))
     return e;
+  if ((e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st))) return e;
+  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, R, D, D, st))) return e;
   // attention: the CLS row's dq/dk/dv per frame go to rows M + (b*T + t)
-  if ((e = attn_bwd(hd, w.qkv, w.qkv_cls, w.da, w.da + M * D, w.dqkv,
-                    w.dqkv + M * 3 * D, B * T, T, (long)T * N, N, 1, N, H, st)))
+  if ((e = tc_prefix_attn_bwd(hd, w.qkv, w.qkv + M * 3 * D, w.da, w.da + M * D, w.dqkv,
+                              w.dqkv + M * 3 * D, (int)Mc, 1, N, H, scale, st)))
     return e;
   // qkv
-  if ((e = gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, R, 3 * D, D, st))) return e;
-  if ((e = colsum<bf16>(w.dqkv, R, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
-  if ((e = gemmx<false, false, kXF32>(w.dqkv, 3 * D, Wqkv, D, nullptr, w.dy, R,
-                                      D, 3 * D, 1, st)))
+  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, R, 3 * D, D, st)))
     return e;
+  if ((e = colsum<bf16>(w.dqkv, R, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, R, D, 3 * D, st))) return e;
   // LN: grid rows + dgo -> dx; CLS rows -> per-frame f32, summed over T
   if ((e = ln_bwd(x, cls, T, w.dy, lw, dgo, static_cast<bf16*>(dx), w.dx_tail,
                   M, R, D, w.part, static_cast<float*>(dln), st)))
@@ -309,24 +340,87 @@ int dvst_mlp_phase_bwd(const void* x_, const void* do_, const void* ln_w,
   const MlpWs w = mlp_ws(static_cast<char*>(ws), M, D, Dh);
   cudaError_t e;
   if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
-  if ((e = gemm<kEpiF32>(w.y, W1, fc1_b, nullptr, w.h1, M, Dh, D, st))) return e;
-  gelu_bf16_kernel<<<ew_blocks(M * Dh), 256, 0, st>>>(w.h1, w.hg, M * Dh);
-  if ((e = cudaGetLastError())) return e;
+  // fc1: hg = bf16(gelu(h1)) and gp = gelu'(h1) from the f32 accumulator
+  if ((e = wg_gemm<kEpiGeluBf16GradF32>(w.y, W1, fc1_b, w.gp, w.hg, M, Dh, D, st))) return e;
   // fc2
-  if ((e = gemm_dw(dout, w.hg, static_cast<float*>(dfc2_w), w.part, M, D, Dh, st))) return e;
+  if ((e = wg_gemm_dw(dout, w.hg, static_cast<float*>(dfc2_w), w.part, M, D, Dh, st))) return e;
   if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st))) return e;
-  if ((e = gemmx<false, false, kXGeluGradBf16>(dout, D, W2, Dh, w.h1, w.dh1, M,
-                                               Dh, D, 1, st)))
-    return e;
+  // dh1 = bf16((do . W2) * gelu'(h1)), both factors f32
+  if ((e = wg_gemm_dx<kEpiMulF32Bf16>(dout, W2, w.gp, w.dh1, M, Dh, D, st))) return e;
   // fc1
-  if ((e = gemm_dw(w.dh1, w.y, static_cast<float*>(dfc1_w), w.part, M, Dh, D, st))) return e;
+  if ((e = wg_gemm_dw(w.dh1, w.y, static_cast<float*>(dfc1_w), w.part, M, Dh, D, st))) return e;
   if ((e = colsum<bf16>(w.dh1, M, Dh, w.part, static_cast<float*>(dfc1_b), st))) return e;
-  if ((e = gemmx<false, false, kXF32>(w.dh1, Dh, W1, D, nullptr, w.dy, M, D,
-                                      Dh, 1, st)))
-    return e;
+  if ((e = wg_gemm_dx<kEpiF32>(w.dh1, W1, nullptr, w.dy, M, D, Dh, st))) return e;
   return ln_bwd(x, nullptr, 1, w.dy, lw, residual ? dout : nullptr,
                 static_cast<bf16*>(dx), nullptr, M, M, D, w.part,
                 static_cast<float*>(dln), st);
+}
+
+// The building blocks of the two alone, for the card tests and
+// chip_smoke.py.
+
+// The attention backward tile: qkv (S*N, 3D) and qkv_pre (S / S_lo, 3D),
+// da (S*N, D) and da_pre (S, D) bf16 -> dqkv (S*N, 3D), dqkv_pre (S, 3D)
+// bf16, at logit scale `scale`.
+int dvst_spatial_attn_bwd(const void* qkv, const void* qkv_pre, const void* da,
+                          const void* da_pre, void* dqkv, void* dqkv_pre, int S, int S_lo,
+                          int N, int D, int H, float scale, void* stream) {
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
+  return tc_prefix_attn_bwd(D / H, static_cast<const bf16*>(qkv),
+                            static_cast<const bf16*>(qkv_pre), static_cast<const bf16*>(da),
+                            static_cast<const bf16*>(da_pre), static_cast<bf16*>(dqkv),
+                            static_cast<bf16*>(dqkv_pre), S, S_lo, N, H, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared bytes one block of the attention backward needs at L rows.
+long dvst_spatial_attn_bwd_smem(int L, int hd) { return (long)tc_prefix_bwd_smem(L, hd); }
+
+// dX = epi(dY (M, K) . W (K, N)): epi kEpiBf16, kEpiF32, or
+// kEpiMulF32Bf16 with aux (M, N) f32.
+int dvst_gemm_dx(const void* dY, const void* W, const void* aux, void* out, long M, int N,
+                 int K, int epi, void* stream) {
+  const bf16* a = static_cast<const bf16*>(dY);
+  const bf16* w = static_cast<const bf16*>(W);
+  const float* x = static_cast<const float*>(aux);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case kEpiBf16: return wg_gemm_dx<kEpiBf16>(a, w, x, out, M, N, K, st);
+    case kEpiF32: return wg_gemm_dx<kEpiF32>(a, w, x, out, M, N, K, st);
+    case kEpiMulF32Bf16: return wg_gemm_dx<kEpiMulF32Bf16>(a, w, x, out, M, N, K, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dW (n_out, k_in) f32 = dY (rows, n_out)^T . X (rows, k_in); part: the
+// bytes dvst_gemm_dw_ws gives.
+int dvst_gemm_dw(const void* dY, const void* X, void* out, void* part, long rows, int n_out,
+                 int k_in, void* stream) {
+  return wg_gemm_dw(static_cast<const bf16*>(dY), static_cast<const bf16*>(X),
+                    static_cast<float*>(out), static_cast<float*>(part), rows, n_out, k_in,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of split partials dvst_gemm_dw needs (-1 if the device cannot be
+// asked), and the split count it takes.
+long dvst_gemm_dw_ws(long rows, int n_out, int k_in) {
+  size_t n = 0;
+  return wg_dw_part_floats(rows, n_out, k_in, &n) == cudaSuccess ? (long)(n * sizeof(float))
+                                                                 : -1;
+}
+
+int dvst_gemm_dw_splits(long rows, int n_out, int k_in) {
+  int sms = 0, kchunk = 0;
+  if (wg_sms(&sms) != cudaSuccess || rows <= 0) return rows <= 0 ? 1 : -1;
+  return wg_dw_splits(rows, n_out, k_in, sms, &kchunk);
+}
+
+// Row 9's fc1 recompute alone: hg (M, N) bf16 = bf16(gelu_erf(A . W^T +
+// bias)) and gp (M, N) f32 = gelu_erf'(A . W^T + bias), W (N, K).
+int dvst_gemm_gelu_grad(const void* A, const void* W, const void* bias, void* hg, void* gp,
+                        long M, int N, int K, void* stream) {
+  return wg_gemm<kEpiGeluBf16GradF32>(static_cast<const bf16*>(A), W, bias, gp, hg, M, N, K,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -4,10 +4,12 @@
 // standalone attention (attention.cu, bf16), the banded temporal
 // attention (banded_block.cu), through tc_prefix_attn below the spatial
 // attention of dvst_spatial_mlp (fused_block.cu) and dvst_spatial_pf
-// (banded_block.cu), and through tc_strided_attn the temporal attention
-// of dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu); the
+// (banded_block.cu) and the recompute of dvst_spatial_phase_bwd
+// (fused_block_bwd.cu), through tc_prefix_attn_bwd that op's attention
+// backward, and through tc_strided_attn the temporal attention of
+// dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu); the
 // other attention kernels of the port (attn_kernel / attn_bwd_kernel in
-// dvst_common.cuh) are meant to move onto it.
+// dvst_common.cuh: rows 4, 5 and 7) are meant to move onto it.
 //
 // Numerics are the CUDA-core kernels' and the plain twins': f32 scores
 // (q . k accumulated in f32, times the scale), the max of the row's whole
@@ -94,6 +96,113 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// Fragment helpers of a warp's 16-row strip (KC = HD / 16 k16 chunks of
+// the head dim, NT = HD / 8 n8 tiles).
+
+// Rows r0 .. r0 + 15 of `x` as m16k16 A fragments; rows at or past r0 +
+// nrows read zeros.
+template <int KC>
+__device__ __forceinline__ void tc_load_a(const TcRows& x, int r0, int nrows, const bf16* zero,
+                                          uint32_t (&a)[KC][4]) {
+  const int lane = threadIdx.x & 31;
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int c = 2 * kc + (lane >> 4);
+    const bf16* p = r < nrows ? x.at(r0 + r, c) : zero;
+    ldsm_x4(smem_u32(p), a[kc][0], a[kc][1], a[kc][2], a[kc][3]);
+  }
+}
+
+// s = a . b^T against rows j0 .. j0 + 15 of `b` (two n8 tiles); rows at
+// or past `je` read zeros.
+template <int KC>
+__device__ __forceinline__ void tc_dot_rows(const uint32_t (&a)[KC][4], const TcRows& b,
+                                            int j0, int je, const bf16* zero,
+                                            float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const int j = j0 + (lane & 7) + (lane >> 4) * 8;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int c = 2 * kc + ((lane >> 3) & 1);
+    const bf16* p = j < je ? b.at(j, c) : zero;
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4(smem_u32(p), b0, b1, b2, b3);
+    mma_bf16(s[0], a[kc], b0, b1);
+    mma_bf16(s[1], a[kc], b2, b3);
+  }
+}
+
+// o += p (m16k16 A fragment over rows j0 .. j0 + 15) . rows j0 .. j0 + 15
+// of `v`; rows at or past `je` read zeros.
+template <int NT>
+__device__ __forceinline__ void tc_acc_rows(const uint32_t (&p)[4], const TcRows& v, int j0,
+                                            int je, const bf16* zero, float (&o)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int j = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;  // the row this lane addresses
+#pragma unroll
+  for (int t = 0; t < NT; t += 2) {
+    const int c = t + (lane >> 4);
+    const bf16* a = j < je ? v.at(j, c) : zero;
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_t(smem_u32(a), b0, b1, b2, b3);
+    mma_bf16(o[t], p, b0, b1);
+    mma_bf16(o[t + 1], p, b2, b3);
+  }
+}
+
+// The two n8 tiles of a 16 x 16 C fragment as one m16k16 A fragment.
+__device__ __forceinline__ void tc_c_to_a(const float (&s)[2][4], uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[0][0], s[0][1]);
+  a[1] = pack_bf16(s[0][2], s[0][3]);
+  a[2] = pack_bf16(s[1][0], s[1][1]);
+  a[3] = pack_bf16(s[1][2], s[1][3]);
+}
+
+// Writes o (rows g, times inv0, and g + 8, times inv1), rounded to bf16,
+// as 16-byte stores: row r of the strip (r < nrows) to row(r) .. + NT * 8,
+// skipped where row(r) is null. The quad of lanes holding a row transposes
+// its 2-column pairs in two butterfly rounds, so lane q owns the 8 columns
+// of tile j0 + q of each group of four tiles.
+template <int NT, typename RowPtr>
+__device__ __forceinline__ void tc_store_rows(const float (&o)[NT][4], float inv0, float inv1,
+                                              RowPtr row, int nrows) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3, g = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    const float inv = h ? inv1 : inv0;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += 4) {
+      uint32_t x[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        x[t] = j0 + t < NT ? pack_bf16(o[j0 + t][2 * h] * inv, o[j0 + t][2 * h + 1] * inv)
+                           : 0u;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int m = 1 << b;
+        const bool up = (q >> b) & 1;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (t & m) continue;
+          const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? x[t] : x[t | m], m);
+          if (up) x[t] = got;
+          else x[t | m] = got;
+        }
+      }
+      bf16* dst = r < nrows ? row(r) : nullptr;
+      if (dst != nullptr && j0 + q < NT)
+        *reinterpret_cast<uint4*>(dst + (j0 + q) * 8) = make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
 // One warp's strip: 16 query rows. Lane l holds rows g = l / 4 and g + 8
 // of the m16n8 fragments (columns 2 (l % 4) and 2 (l % 4) + 1 of each
 // 8-column tile).
@@ -109,14 +218,7 @@ struct TcStrip {
   // Q rows q0 .. q0 + 15 of `q`; rows at or past q0 + nrows read zeros.
   __device__ __forceinline__ void load_q(const TcRows& q, int q0, int nrows,
                                          const bf16* zero) {
-    const int lane = threadIdx.x & 31;
-    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = 2 * kc + (lane >> 4);
-      const bf16* p = r < nrows ? q.at(q0 + r, c) : zero;
-      ldsm_x4(smem_u32(p), qa[kc][0], qa[kc][1], qa[kc][2], qa[kc][3]);
-    }
+    tc_load_a(q, q0, nrows, zero, qa);
   }
 
   // q . k of keys j0 .. j0 + 15 (two n8 tiles), unscaled; keys at or past
@@ -124,21 +226,7 @@ struct TcStrip {
   __device__ __forceinline__ void scores(const TcRows& k, int j0, int ke,
                                          const bf16* zero,
                                          float (&s)[2][4]) const {
-    const int lane = threadIdx.x & 31;
-    const int j = j0 + (lane & 7) + (lane >> 4) * 8;
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = 2 * kc + ((lane >> 3) & 1);
-      const bf16* p = j < ke ? k.at(j, c) : zero;
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(smem_u32(p), b0, b1, b2, b3);
-      mma_bf16(s[0], qa[kc], b0, b1);
-      mma_bf16(s[1], qa[kc], b2, b3);
-    }
+    tc_dot_rows(qa, k, j0, ke, zero, s);
   }
 
   // The strip against keys [kb, ke) of `k` / `v`, in blocks of 16 keys (a
@@ -201,7 +289,6 @@ struct TcStrip {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
     float s0 = 0.f, s1 = 0.f;
-    const int vr = (lane & 7) + ((lane >> 3) & 1) * 8;  // V row of this lane
     for (int j0 = kb; j0 < ke; j0 += KB) {
       float s[2][4];
       scores(k, j0, ke, zero, s);
@@ -230,18 +317,9 @@ struct TcStrip {
         s1 += s[t][2] + s[t][3];
       }
       // the two n8 score tiles are one m16k16 A fragment of P
-      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-      const int j = j0 + vr;
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        const int c = t + (lane >> 4);
-        const bf16* p = j < ke ? v.at(j, c) : zero;
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(smem_u32(p), b0, b1, b2, b3);
-        mma_bf16(o[t], pa, b0, b1);
-        mma_bf16(o[t + 1], pa, b2, b3);
-      }
+      uint32_t pa[4];
+      tc_c_to_a(s, pa);
+      tc_acc_rows(pa, v, j0, ke, zero, o);
     }
 #pragma unroll
     for (int o_ = 1; o_ < 4; o_ <<= 1) {
@@ -263,43 +341,11 @@ struct TcStrip {
   }
 
 
-  // Writes o / sum, rounded to bf16, as 16-byte stores: row r of the strip
-  // (r < nrows) to row(r) .. + HD, skipped where row(r) is null. The quad
-  // of lanes holding a row transposes its 2-column pairs in two butterfly
-  // rounds, so lane q owns the 8 columns of tile j0 + q of each group of
-  // four tiles.
+  // Writes o / sum, rounded to bf16 (tc_store_rows): row r of the strip
+  // (r < nrows) to row(r) .. + HD, skipped where row(r) is null.
   template <typename RowPtr>
   __device__ __forceinline__ void store_rows(RowPtr row, int nrows) const {
-    const int lane = threadIdx.x & 31;
-    const int q = lane & 3, g = lane >> 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      const float inv = 1.f / sum[h];
-#pragma unroll
-      for (int j0 = 0; j0 < NT; j0 += 4) {
-        uint32_t x[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          x[t] = j0 + t < NT ? pack_bf16(o[j0 + t][2 * h] * inv, o[j0 + t][2 * h + 1] * inv)
-                             : 0u;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int m = 1 << b;
-          const bool up = (q >> b) & 1;
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            if (t & m) continue;
-            const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? x[t] : x[t | m], m);
-            if (up) x[t] = got;
-            else x[t | m] = got;
-          }
-        }
-        bf16* dst = r < nrows ? row(r) : nullptr;
-        if (dst != nullptr && j0 + q < NT)
-          *reinterpret_cast<uint4*>(dst + (j0 + q) * 8) = make_uint4(x[0], x[1], x[2], x[3]);
-      }
-    }
+    tc_store_rows(o, 1.f / sum[0], 1.f / sum[1], row, nrows);
   }
 
   // store_rows to dst + r * stride.
@@ -558,6 +604,340 @@ inline cudaError_t tc_prefix_attn(int hd, const bf16* qkv, const bf16* qkv_pre, 
       return cudaErrorInvalidValue;
   }
 #undef DVST_TCP_CASE
+}
+
+// ---------------------------------------------------------------------------
+// The backward of tc_prefix_attn, with its addressing: sequence s is
+// [prefix row s / S_lo, grid rows s*N .. s*N + N - 1] of the (rows, 3D) qkv
+// buffers, its cotangent rows [da_pre row s, da rows s*N ..] (D wide), its
+// gradient rows [dqkv_pre row s, dqkv rows s*N ..] (3D wide: dq | dk |
+// dv): the prefix row's dq, dk and dv go to one row per sequence, which
+// the caller sums. For each (sequence, head), the contract of
+// attn_bwd_kernel (dvst_common.cuh) and the plain twin:
+//   pn = bf16(softmax(q k^T * scale)) (the whole row's max subtracted, an
+//   f32 denominator), dv = pn^T da, dp = da v^T,
+//   ds = bf16(pn * (dp - rowsum(dp * pn)) * scale), dq = ds k, dk = ds^T q,
+// each rounded to bf16, f32 sums.
+// One block per (head, sequence), heads fastest; the block copies the
+// sequence's head slices of Q, K, V and dA into shared memory as tile rows
+// (the prefix as row 0) and runs two passes on the tensor cores, so no L x
+// L matrix is ever stored:
+// * query strips: a warp owns 16 query rows and sweeps the keys in blocks
+//   of 16 three times: the row max of the scores with the f32 sum of the
+//   exponentials (each lane's running sum rescaled as its max grows, the
+//   quad's four sums then rescaled to the row's max), the row term delta =
+//   rowsum(dp * pn) (pn the bf16 probabilities, dp = dA V^T), then ds and
+//   dq += ds K. It writes dq and keeps the row's max, 1 / sum and delta
+//   in shared memory.
+// * key strips: a warp owns 16 keys and sweeps the query rows: S^T = K
+//   Q^T, pn^T from the stored max and 1 / sum, dp^T = V dA^T, ds^T from
+//   the stored delta; dv += pn^T dA and dk += ds^T Q in registers. Each dk
+//   and dv row has one owner: no atomics, one summation order.
+// The two passes compute pn from S and from S^T (the operands swapped in
+// mma.sync); each pass's delta and ds use its own pn. The exponentials
+// are the forward tile's (__expf of fma(s, scale, -max), times 1 / sum):
+// the twin's exact expf(fl(s * scale) - max) / sum read the same largest
+// gap to the twin on the card (PERF.md).
+// Shared memory: a zero row, Q, K, V, dA (L rows of hd bf16 each) and
+// three floats per row padded to 16 rows: 103 KB at L = 197, hd = 64, so
+// two blocks an SM (attn_bwd_kernel's L x L probabilities took 185 KB,
+// one block). Bound by operations: ~14 L^2 hd FLOP per sequence and head
+// on the tensor cores (the passes compute S four times and dp three);
+// the K, V, Q and dA fragments each product reads through ldmatrix make
+// shared memory as busy as the tensor cores. Full blocks of 16 keys (or
+// queries) skip the per-element mask.
+// ---------------------------------------------------------------------------
+
+// Shared bytes of one block at L rows, head dim hd.
+__host__ __device__ inline size_t tc_prefix_bwd_smem(int L, int hd) {
+  return 16 + (size_t)4 * L * hd * 2 + (size_t)3 * ((L + 15) / 16 * 16) * 4;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// ds before its bf16 rounding, in both passes: pn * (dp - delta) * scale.
+__device__ __forceinline__ float tc_ds(float p, float dp, float delta, float scale) {
+  return p * (dp - delta) * scale;
+}
+
+
+template <int HD>
+__device__ __forceinline__ void tc_prefix_attn_bwd_block(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_pre,
+    const bf16* __restrict__ da, const bf16* __restrict__ da_pre, bf16* __restrict__ dqkv,
+    bf16* __restrict__ dqkv_pre, int N, int S_lo, int H, float scale) {
+  constexpr int CH = HD / 8;   // 16-byte chunks per head row
+  constexpr int KC = HD / 16;  // k16 chunks of the head dim
+  constexpr int NT = HD / 8;   // n8 tiles of a head row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, s = blockIdx.y;
+  const int L = N + 1, D = H * HD;
+  const int Lp = (L + 15) / 16 * 16;
+  const long row_w = 3L * D;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* base = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{base, CH, swz, 0, 0};
+  const TcRows K{base + (long)L * HD, CH, swz, 0, 0};
+  const TcRows V{base + (long)2 * L * HD, CH, swz, 0, 0};
+  const TcRows dA{base + (long)3 * L * HD, CH, swz, 0, 0};
+  float* row_max = reinterpret_cast<float*>(base + (long)4 * L * HD);
+  float* row_inv = row_max + Lp;
+  float* row_delta = row_inv + Lp;
+  // sequence row r: the prefix row (r = 0) or grid row r - 1, this head
+  auto src = [&](int r) {
+    return (r == 0 ? qkv_pre + (long)(s / S_lo) * row_w
+                   : qkv + ((long)s * N + r - 1) * row_w) + h * HD;
+  };
+  auto dsrc = [&](int r) {
+    return (r == 0 ? da_pre + (long)s * D : da + ((long)s * N + r - 1) * D) + h * HD;
+  };
+  auto dst = [&](int r) -> bf16* {  // row r's gradient row, at this head's dq
+    return (r == 0 ? dqkv_pre + (long)s * row_w : dqkv + ((long)s * N + r - 1) * row_w) +
+           h * HD;
+  };
+  for (int idx = threadIdx.x; idx < L * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bf16* p = src(r) + c * 8;
+    cp_async16(Q.at(r, c), p, 16);
+    cp_async16(K.at(r, c), p + D, 16);
+    cp_async16(V.at(r, c), p + 2 * D, 16);
+    cp_async16(dA.at(r, c), dsrc(r) + c * 8, 16);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, col = 2 * (lane & 3);
+  const int nstrips = Lp / 16;
+
+  // the key (or query) blocks of 16: the full ones unmasked, then the
+  // ragged last one masked (rows past L count nothing)
+  auto blocks16 = [&](auto body) {
+    int j0 = 0;
+    for (; j0 + 16 <= L; j0 += 16) body(j0, std::false_type{});
+    if (j0 < L) body(j0, std::true_type{});
+  };
+
+  // -- query strips: rows r0 .. r0 + 15 against every key -----------------
+  for (int st = warp; st < nstrips; st += nw) {
+    const int r0 = 16 * st;
+    const int nrows = L - r0 < 16 ? L - r0 : 16;
+    uint32_t qa[KC][4], dfa[KC][4];
+    tc_load_a(Q, r0, nrows, zero, qa);
+    tc_load_a(dA, r0, nrows, zero, dfa);
+    // 1. the row max and the f32 sum of the unrounded exponentials in one
+    // sweep: each lane keeps its keys' running max and its sum at that
+    // max, rescaled when the max grows; the quad then rescales its four
+    // sums to the row's max
+    float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    blocks16([&](int j0, auto masked) {
+      float sc[2][4];
+      tc_dot_rows(qa, K, j0, L, zero, sc);
+      float b0 = -INFINITY, b1 = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!decltype(masked)::value || j0 + 8 * t + col + e < L) {
+            b0 = fmaxf(b0, sc[t][e]);
+            b1 = fmaxf(b1, sc[t][2 + e]);
+          }
+      const float n0 = fmaxf(mx0, b0), n1 = fmaxf(mx1, b1);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!decltype(masked)::value || j0 + 8 * t + col + e < L) {
+            s0 += __expf((sc[t][e] - n0) * scale);
+            s1 += __expf((sc[t][2 + e] - n1) * scale);
+          }
+      // a lane with no key yet (its max -inf) has nothing to rescale
+      l0 = (mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - n0) * scale)) + s0;
+      l1 = (mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - n1) * scale)) + s1;
+      mx0 = n0;
+      mx1 = n1;
+    });
+    float m0 = mx0, m1 = mx1;
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o_));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o_));
+    }
+    l0 = mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - m0) * scale);
+    l1 = mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - m1) * scale);
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
+    m0 *= scale;  // the scaled row max (key 0 is every row's: finite)
+    m1 *= scale;
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    // pn (bf16, 0 past the keys) and dp = dA V^T of keys j0 .. j0 + 15
+    auto pn_dp = [&](int j0, auto masked, float (&pn)[2][4], float (&dp)[2][4]) {
+      tc_dot_rows(qa, K, j0, L, zero, pn);
+      tc_dot_rows(dfa, V, j0, L, zero, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = !decltype(masked)::value || j0 + 8 * t + col + e < L;
+          pn[t][e] = ok ? bf16_round(__expf(fmaf(pn[t][e], scale, -m0)) * inv0) : 0.f;
+          pn[t][2 + e] = ok ? bf16_round(__expf(fmaf(pn[t][2 + e], scale, -m1)) * inv1) : 0.f;
+        }
+    };
+    // 2. delta = rowsum(dp * pn)
+    float d0 = 0.f, d1 = 0.f;
+    blocks16([&](int j0, auto masked) {
+      float pn[2][4], dp[2][4];
+      pn_dp(j0, masked, pn, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          d0 += dp[t][e] * pn[t][e];
+          d1 += dp[t][2 + e] * pn[t][2 + e];
+        }
+    });
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
+    }
+    // 3. ds = bf16(pn * (dp - delta) * scale), dq += ds K
+    float dq[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
+    blocks16([&](int j0, auto masked) {
+      float pn[2][4], dp[2][4];
+      pn_dp(j0, masked, pn, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pn[t][e] = tc_ds(pn[t][e], dp[t][e], d0, scale);
+          pn[t][2 + e] = tc_ds(pn[t][2 + e], dp[t][2 + e], d1, scale);
+        }
+      uint32_t dsa[4];
+      tc_c_to_a(pn, dsa);
+      tc_acc_rows(dsa, K, j0, L, zero, dq);
+    });
+    tc_store_rows(dq, 1.f, 1.f, [&](int r) { return dst(r0 + r); }, nrows);
+    if ((lane & 3) == 0) {  // rows past L too: the key pass reads them, masked
+      row_max[r0 + g] = m0;
+      row_max[r0 + g + 8] = m1;
+      row_inv[r0 + g] = inv0;
+      row_inv[r0 + g + 8] = inv1;
+      row_delta[r0 + g] = d0;
+      row_delta[r0 + g + 8] = d1;
+    }
+  }
+  __syncthreads();
+
+  // -- key strips: keys k0 .. k0 + 15 against every query row ---------------
+  for (int st = warp; st < nstrips; st += nw) {
+    const int k0 = 16 * st;
+    const int nkeys = L - k0 < 16 ? L - k0 : 16;
+    uint32_t ka[KC][4], va[KC][4];
+    tc_load_a(K, k0, nkeys, zero, ka);
+    tc_load_a(V, k0, nkeys, zero, va);
+    float dk[NT][4], dv[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+    blocks16([&](int i0, auto masked) {
+      // pt[t][e]: key row g (+ 8 for e >= 2), query i0 + 8 t + col + (e & 1)
+      float pt[2][4], dpt[2][4];
+      tc_dot_rows(ka, Q, i0, L, zero, pt);
+      tc_dot_rows(va, dA, i0, L, zero, dpt);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = i0 + 8 * t + col;
+        const float2 m = *reinterpret_cast<const float2*>(row_max + i);
+        const float2 inv = *reinterpret_cast<const float2*>(row_inv + i);
+        const float2 dl = *reinterpret_cast<const float2*>(row_delta + i);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool x = e & 1;
+          const bool ok = !decltype(masked)::value || i + x < L;
+          const float p =
+              ok ? bf16_round(__expf(fmaf(pt[t][e], scale, -(x ? m.y : m.x))) * (x ? inv.y : inv.x))
+                 : 0.f;
+          pt[t][e] = p;
+          dpt[t][e] = tc_ds(p, dpt[t][e], x ? dl.y : dl.x, scale);
+        }
+      }
+      uint32_t pa[4], dsa[4];
+      tc_c_to_a(pt, pa);
+      tc_c_to_a(dpt, dsa);
+      tc_acc_rows(pa, dA, i0, L, zero, dv);
+      tc_acc_rows(dsa, Q, i0, L, zero, dk);
+    });
+    tc_store_rows(dk, 1.f, 1.f, [&](int r) { return dst(k0 + r) + D; }, nkeys);
+    tc_store_rows(dv, 1.f, 1.f, [&](int r) { return dst(k0 + r) + 2 * D; }, nkeys);
+  }
+}
+
+// Two blocks an SM at L = 197, hd 64 (103 KB each): at most 144 registers
+// a thread for seven warps.
+template <int HD>
+__global__ void __launch_bounds__(kTcStrips * 32, 2)
+tc_prefix_attn_bwd_kernel(const bf16* qkv, const bf16* qkv_pre, const bf16* da,
+                          const bf16* da_pre, bf16* dqkv, bf16* dqkv_pre, int N, int S_lo,
+                          int H, float scale) {
+  tc_prefix_attn_bwd_block<HD>(qkv, qkv_pre, da, da_pre, dqkv, dqkv_pre, N, S_lo, H, scale);
+}
+
+template <int HD>
+cudaError_t tc_prefix_attn_bwd_launch(const bf16* qkv, const bf16* qkv_pre, const bf16* da,
+                                      const bf16* da_pre, bf16* dqkv, bf16* dqkv_pre, int S,
+                                      int S_lo, int N, int H, float scale, cudaStream_t st) {
+  if (S <= 0) return cudaSuccess;
+  if (S > 65535 || S_lo <= 0 || S % S_lo) return cudaErrorInvalidValue;
+  const int L = N + 1;
+  const size_t smem = tc_prefix_bwd_smem(L, HD);
+  static SmemGrant grant;
+  cudaError_t e;
+  if ((e = smem_opt_in(tc_prefix_attn_bwd_kernel<HD>, smem, grant))) return e;
+  tc_prefix_attn_bwd_kernel<HD><<<dim3(H, S), tc_warps(tc_strips(1, L)) * 32, smem, st>>>(
+      qkv, qkv_pre, da, da_pre, dqkv, dqkv_pre, N, S_lo, H, scale);
+  return cudaGetLastError();
+}
+
+// The backward of tc_prefix_attn over its S sequences: qkv, qkv_pre as
+// there, da (S*N, D) and da_pre (S, D) -> dqkv (S*N, 3D) and dqkv_pre (S,
+// 3D), at head dim hd and logit scale `scale`.
+inline cudaError_t tc_prefix_attn_bwd(int hd, const bf16* qkv, const bf16* qkv_pre,
+                                      const bf16* da, const bf16* da_pre, bf16* dqkv,
+                                      bf16* dqkv_pre, int S, int S_lo, int N, int H,
+                                      float scale, cudaStream_t st) {
+#define DVST_TCB_CASE(HDV)                                                                 \
+  case HDV:                                                                                \
+    return tc_prefix_attn_bwd_launch<HDV>(qkv, qkv_pre, da, da_pre, dqkv, dqkv_pre, S, S_lo, \
+                                          N, H, scale, st);
+  switch (hd) {
+    DVST_TCB_CASE(16)
+    DVST_TCB_CASE(32)
+    DVST_TCB_CASE(48)
+    DVST_TCB_CASE(64)
+    DVST_TCB_CASE(80)
+    DVST_TCB_CASE(96)
+    DVST_TCB_CASE(112)
+    DVST_TCB_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_TCB_CASE
 }
 
 // ---------------------------------------------------------------------------

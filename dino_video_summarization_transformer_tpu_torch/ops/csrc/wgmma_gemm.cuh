@@ -6,6 +6,14 @@
 // (fused_block.cu) and dvst_spatial_pf (banded_block.cu) for all their
 // products; dvst_spatial_phase and dvst_attn_phase keep gemm_kernel.
 //
+// The backwards' products run on the same kernel (fused_block_bwd.cu's
+// dvst_spatial_phase_bwd and dvst_mlp_phase_bwd, under
+// DVST_WITH_BACKWARD): dX = dY . W reads the weight (out, in) as it is
+// stored, an MN-major B operand (wg_gemm_dx); dW = dY^T . X reads both
+// operands as stored, (rows, out) and (rows, in), MN-major A and B, its
+// reduction over the rows cut into splits whose f32 partials
+// reduce_splits adds in index order (wg_gemm_dw).
+//
 // Bound by operations at the port's shapes (K = 768 or 3072: ~250-600 FLOP
 // per byte moved), except where a K = 768 product reads a residual and
 // writes an f32 sum (the spatial op's proj, f32 residual: ~150 FLOP/B; the
@@ -38,6 +46,14 @@
 // * Tensor maps come from cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint (no -lcuda), and go to the kernel as
 //   __grid_constant__ parameters.
+// * MN-major operands (AMN, BMN): an operand stored with the reduction as
+//   its row index, (K, M) or (K, N), loads as boxes of 64 columns x 64 K
+//   rows, one 128-byte swizzle atom of MN per box and the boxes of a stage
+//   8 KB apart; wgmma reads them with its transpose bit and the MN-major
+//   descriptor (wg_desc_mn). Work items are (split, tile) pairs, tiles
+//   fastest: split z reduces K stages [z * kchunk, (z + 1) * kchunk) and
+//   writes partial z, whichever block takes it, so the sums are the same
+//   on every call.
 
 #pragma once
 
@@ -114,6 +130,19 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// wgmma descriptor of an MN-major tile (TMA boxes of 64 MN columns x 64 K
+// rows, 128-byte swizzled): the leading byte offset is the stride between
+// 64-wide MN atoms (the next box, kWgMnLbo), the stride byte offset that
+// between groups of 8 K rows (kWgMnSbo). The next 16-deep K slice starts
+// 16 rows on: 2048 bytes (+128 in the address field).
+constexpr uint32_t kWgMnLbo = 8192;  // one box: 64 K rows x 128 bytes
+constexpr uint32_t kWgMnSbo = 1024;  // 8 K rows x 128 bytes
+
+__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kWgMnLbo >> 4) << 16) | ((uint64_t)(kWgMnSbo >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -135,7 +164,9 @@ __device__ __forceinline__ void wg_fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x n, f32) += A (64 x 16, descriptor da) . B (16 x n, descriptor db)
+// d (64 x n, f32) += A (64 x 16, descriptor da) . B (16 x n, descriptor db);
+// TA / TB: 1 where that operand is MN-major (wgmma's transpose bits).
+template <int TA, int TB>
 __device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -148,7 +179,7 @@ __device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t da, uint64_t db)
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -166,9 +197,10 @@ __device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t da, uint64_t db)
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
 __device__ __forceinline__ void wg_mma(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -189,7 +221,7 @@ __device__ __forceinline__ void wg_mma(float (&d)[128], uint64_t da, uint64_t db
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n}\n"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -223,7 +255,7 @@ __device__ __forceinline__ void wg_mma(float (&d)[128], uint64_t da, uint64_t db
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ uint32_t wg_pack(float lo, float hi) {
@@ -253,8 +285,10 @@ template <int EPI>
 struct WgEpi {
   // the residual's bytes per element (0: none)
   static constexpr int kRes = EPI == kEpiResBf16F32 || EPI == kEpiAddBf16 ? 2
-                              : EPI == kEpiResF32F32 || EPI == kEpiResF32Bf16 ? 4
-                                                                              : 0;
+                              : EPI == kEpiResF32F32 || EPI == kEpiResF32Bf16 ||
+                                        EPI == kEpiMulF32Bf16
+                                  ? 4
+                                  : 0;
   static constexpr bool kF32Out = EPI == kEpiResBf16F32 || EPI == kEpiResF32F32 || EPI == kEpiF32;
   // rounded to bf16 before anything else (kEpiAddBf16: the branch, before the add)
   static constexpr bool kRoundFirst = EPI == kEpiBf16 || EPI == kEpiGeluBf16 || EPI == kEpiAddBf16;
@@ -266,9 +300,34 @@ struct WgEpi {
 // (row-major index o). An epilogue without a residual stores them
 // (16 bytes of bf16, or 32 of f32); one with a residual leaves them in
 // v[8] for the second pass. gemm_kernel's rounding points.
+// kEpiGeluBf16GradF32 stores two outputs: the bf16 GELU to out, its f32
+// derivative to res.
 template <int EPI>
-__device__ __forceinline__ void wg_epilogue8(void* out, size_t o, bool live, float (&lo)[4],
-                                             float (&hi)[4], int q, float (&v)[8]) {
+__device__ __forceinline__ void wg_epilogue8(void* out, const void* res, size_t o, bool live,
+                                             float (&lo)[4], float (&hi)[4], int q,
+                                             float (&v)[8]) {
+  if constexpr (EPI == kEpiGeluBf16GradF32) {
+    uint32_t x[4], gl[4], gh[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      x[t] = wg_pack(gelu_erf(lo[t]), gelu_erf(hi[t]));
+      gl[t] = __float_as_uint(gelu_erf_grad(lo[t]));
+      gh[t] = __float_as_uint(gelu_erf_grad(hi[t]));
+    }
+    wg_quad_transpose(x, q);
+    wg_quad_transpose(gl, q);
+    wg_quad_transpose(gh, q);
+    if (live) {
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = make_uint4(x[0], x[1], x[2], x[3]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        v[2 * t] = __uint_as_float(gl[t]);
+        v[2 * t + 1] = __uint_as_float(gh[t]);
+      }
+      store8(const_cast<float*>(static_cast<const float*>(res)) + o, v);
+    }
+    return;
+  }
   if constexpr (EPI == kEpiGeluBf16) {
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -312,8 +371,8 @@ __device__ __forceinline__ void wg_epilogue8(void* out, size_t o, bool live, flo
   }
 }
 
-// Second pass: v += the residual's 8 elements at o, stored in the output's
-// type.
+// Second pass: v += the residual's 8 elements at o (kEpiMulF32Bf16: v *=),
+// stored in the output's type.
 template <int EPI>
 __device__ __forceinline__ void wg_load_res8(const void* res, size_t o, float (&r)[8]) {
   if constexpr (WgEpi<EPI>::kRes == 2)
@@ -327,28 +386,33 @@ __device__ __forceinline__ void wg_store_res8(void* out, size_t o, const float (
                                               const float (&r)[8]) {
   float s[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) s[e] = r[e] + v[e];
+  for (int e = 0; e < 8; ++e) s[e] = EPI == kEpiMulF32Bf16 ? r[e] * v[e] : r[e] + v[e];
   if constexpr (WgEpi<EPI>::kF32Out)
     store8(static_cast<float*>(out) + o, s);
   else
     store8(static_cast<bf16*>(out) + o, s);
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, bool AMN, bool BMN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                const __grid_constant__ CUtensorMap tmW, const float* __restrict__ bias,
                const void* __restrict__ res, void* __restrict__ out, int M, int N,
-               int K) {
+               int K, int kchunk, int splits, long split_stride) {
   using S = WgShape<BN>;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
   const uint32_t ring = (wg_smem_u32(wg_smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = ring + S::kStages * S::kStage;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (S::kStages + s); };
+  // Only dW (MN-major A) splits its reduction, and only the products
+  // with a K-major weight (the forwards' and row 9's fc1) have a bias: the
+  // other instances carry neither through their mainloop.
+  constexpr bool kSplit = AMN, kBias = !BMN;
   const int n_tiles = N / BN;
   const int tiles = (M + kWgBM - 1) / kWgBM * n_tiles;
-  const int nk = K / kWgBK;
+  const int work = kSplit ? tiles * splits : tiles;  // (split, tile) items, tiles fastest
+  const int nk = (K + kWgBK - 1) / kWgBK;
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
@@ -366,15 +430,28 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     if (threadIdx.x == 256) {
       int s = 0;
       uint32_t ph = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int w = blockIdx.x; w < work; w += gridDim.x) {
+        const int t = kSplit ? w % tiles : w, z = kSplit ? w / tiles : 0;
         const int m0 = t / n_tiles * kWgBM, n0 = t % n_tiles * BN;
-        for (int kt = 0; kt < nk; ++kt) {
+        const int k1 = kSplit && (z + 1) * kchunk < nk ? (z + 1) * kchunk : nk;
+        for (int kt = z * kchunk; kt < k1; ++kt) {
           mbar_wait(empty(s), ph ^ 1u);
           const uint32_t a = ring + s * S::kStage;
           const int k0 = kt * kWgBK;
           mbar_expect_tx(full(s), S::kStage);
-          tma_load_2d(a, &tmA, full(s), k0, m0);
-          tma_load_2d(a + S::kA, &tmW, full(s), k0, n0);
+          if constexpr (AMN) {  // two boxes of 64 rows of M
+            tma_load_2d(a, &tmA, full(s), m0, k0);
+            tma_load_2d(a + kWgMnLbo, &tmA, full(s), m0 + 64, k0);
+          } else {
+            tma_load_2d(a, &tmA, full(s), k0, m0);
+          }
+          if constexpr (BMN) {  // BN / 64 boxes of 64 columns of N
+#pragma unroll
+            for (int i = 0; i < BN / 64; ++i)
+              tma_load_2d(a + S::kA + i * kWgMnLbo, &tmW, full(s), n0 + 64 * i, k0);
+          } else {
+            tma_load_2d(a + S::kA, &tmW, full(s), k0, n0);
+          }
           if (++s == S::kStages) {
             s = 0;
             ph ^= 1u;
@@ -387,11 +464,16 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int tid = threadIdx.x & 127;
     const int g = (tid & 31) >> 2, q = tid & 3;
+    // K-major: the next 16-deep slice is 32 bytes on; MN-major: 16 rows on
+    constexpr uint64_t kStepA = AMN ? 128 : 2, kStepB = BMN ? 128 : 2;
     float acc[BN / 2];
     int s = 0;
     uint32_t ph = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int w = blockIdx.x; w < work; w += gridDim.x) {
+      const int t = kSplit ? w % tiles : w, z = kSplit ? w / tiles : 0;
       const int m0 = t / n_tiles * kWgBM, n0 = t % n_tiles * BN;
+      const int k0t = z * kchunk;
+      const int k1 = kSplit && (z + 1) * kchunk < nk ? (z + 1) * kchunk : nk;
       const int row0 = m0 + wg * 64 + (tid >> 5) * 16 + g;
       if constexpr (WgEpi<EPI>::kRes != 0) {
         // the residual lines of this lane's two rows, into L2 while the
@@ -410,16 +492,18 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       wg_fence_operands(acc);
       int prev = 0;
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = k0t; kt < k1; ++kt) {
         mbar_wait(full(s), ph);
         const uint32_t a = ring + s * S::kStage;
-        const uint64_t da = wg_desc(a + wg * (64 * 128)), db = wg_desc(a + S::kA);
+        const uint64_t da = AMN ? wg_desc_mn(a + wg * kWgMnLbo) : wg_desc(a + wg * (64 * 128));
+        const uint64_t db = BMN ? wg_desc_mn(a + S::kA) : wg_desc(a + S::kA);
         wg_fence();
 #pragma unroll
-        for (int k = 0; k < kWgBK / 16; ++k) wg_mma(acc, da + 2 * k, db + 2 * k);
+        for (int k = 0; k < kWgBK / 16; ++k)
+          wg_mma<AMN, BMN>(acc, da + kStepA * k, db + kStepB * k);
         wg_commit();
         wg_wait<1>();  // the previous stage's group has retired: free it
-        if (kt > 0 && tid == 0) mbar_arrive(empty(prev));
+        if (kt > k0t && tid == 0) mbar_arrive(empty(prev));
         prev = s;
         if (++s == S::kStages) {
           s = 0;
@@ -435,29 +519,35 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       // transposed sums go back into acc (group (j0, h)'s eight slots) and
       // the residual is read in batches of four 16- or 32-byte loads, all
       // issued before the batch's stores (the tile's lines were prefetched
-      // into L2 when the tile began).
+      // into L2 when the tile began). Split z writes its partial at z *
+      // split_stride.
       constexpr int kRes = WgEpi<EPI>::kRes;
+      void* outz = kSplit && splits > 1
+                       ? static_cast<void*>(static_cast<float*>(out) + (size_t)z * split_stride)
+                       : out;
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += 4) {
         float2 b[4];
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          b[t] = *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t) + 2 * q);
+        for (int t_ = 0; t_ < 4; ++t_)
+          b[t_] = kBias ? *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t_) + 2 * q)
+                        : make_float2(0.f, 0.f);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
           float lo[4], hi[4], v[8];
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            lo[t] = acc[4 * (j0 + t) + 2 * h] + b[t].x;
-            hi[t] = acc[4 * (j0 + t) + 2 * h + 1] + b[t].y;
+          for (int t_ = 0; t_ < 4; ++t_) {
+            lo[t_] = acc[4 * (j0 + t_) + 2 * h] + b[t_].x;
+            hi[t_] = acc[4 * (j0 + t_) + 2 * h + 1] + b[t_].y;
           }
-          wg_epilogue8<EPI>(out, (size_t)row * N + n0 + 8 * (j0 + q), row < M, lo, hi, q, v);
+          wg_epilogue8<EPI>(outz, res, (size_t)row * N + n0 + 8 * (j0 + q), row < M, lo, hi, q,
+                            v);
           if constexpr (kRes != 0) {
 #pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              acc[4 * (j0 + t) + 2 * h] = v[2 * t];
-              acc[4 * (j0 + t) + 2 * h + 1] = v[2 * t + 1];
+            for (int t_ = 0; t_ < 4; ++t_) {
+              acc[4 * (j0 + t_) + 2 * h] = v[2 * t_];
+              acc[4 * (j0 + t_) + 2 * h + 1] = v[2 * t_ + 1];
             }
           }
         }
@@ -479,11 +569,11 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
             const int row = row0 + 8 * h;
             float v[8];
 #pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              v[2 * t] = acc[4 * (j0 + t) + 2 * h];
-              v[2 * t + 1] = acc[4 * (j0 + t) + 2 * h + 1];
+            for (int t_ = 0; t_ < 4; ++t_) {
+              v[2 * t_] = acc[4 * (j0 + t_) + 2 * h];
+              v[2 * t_ + 1] = acc[4 * (j0 + t_) + 2 * h + 1];
             }
-            if (row < M) wg_store_res8<EPI>(out, (size_t)row * N + n0 + 8 * (j0 + q), v, r[i]);
+            if (row < M) wg_store_res8<EPI>(outz, (size_t)row * N + n0 + 8 * (j0 + q), v, r[i]);
           }
         }
       }
@@ -516,14 +606,16 @@ inline WgEncodeTiled wg_encode_tiled() {
   return fn;
 }
 
-// Tensor map of a (rows, K) row-major bf16 matrix, boxes of box_rows x 64
-// (K), 128-byte swizzled; rows past `rows` read as zeros.
-inline cudaError_t wg_tensor_map(CUtensorMap* map, const void* ptr, long rows, int K,
+// Tensor map of a (rows, cols) row-major bf16 matrix, boxes of box_rows x
+// 64 (cols), 128-byte swizzled; rows past `rows` read as zeros. A K-major
+// operand is (M or N, K) in boxes of the tile's rows; an MN-major one
+// (K, M or N) in boxes of 64 K rows.
+inline cudaError_t wg_tensor_map(CUtensorMap* map, const void* ptr, long rows, int cols,
                                  int box_rows) {
   const WgEncodeTiled encode = wg_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
@@ -533,24 +625,50 @@ inline cudaError_t wg_tensor_map(CUtensorMap* map, const void* ptr, long rows, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, int EPI>
+inline cudaError_t wg_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev))) return e;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// out (M, N) = epi(op(A) . op(W) + bias) over K: A (M, K) or, AMN, (K, M);
+// W (N, K) or, BMN, (K, N); row-major bf16; bias only where W is K-major
+// (!BMN). With AMN and splits > 1 (kEpiF32 only), split z reduces K
+// stages [z * kchunk, (z + 1) * kchunk) into out + z * split_stride.
+template <int BN, int EPI, bool AMN, bool BMN>
 cudaError_t wg_gemm_launch(const bf16* A, const bf16* W, const float* bias,
-                           const void* res, void* out, long M, int N, int K,
-                           cudaStream_t st) {
+                           const void* res, void* out, long M, int N, long K, int splits,
+                           int kchunk, long split_stride, cudaStream_t st) {
   using S = WgShape<BN>;
   CUtensorMap ta, tw;
   cudaError_t e;
-  if ((e = wg_tensor_map(&ta, A, M, K, kWgBM))) return e;
-  if ((e = wg_tensor_map(&tw, W, N, K, BN))) return e;
+  if ((e = AMN ? wg_tensor_map(&ta, A, K, (int)M, 64) : wg_tensor_map(&ta, A, M, (int)K, kWgBM)))
+    return e;
+  if ((e = BMN ? wg_tensor_map(&tw, W, K, N, 64) : wg_tensor_map(&tw, W, N, (int)K, BN)))
+    return e;
   static SmemGrant grant;
-  if ((e = smem_opt_in(wg_gemm_kernel<BN, EPI>, S::kSmem, grant))) return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev))) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return e;
-  const long tiles = (M + kWgBM - 1) / kWgBM * (N / BN);
-  wg_gemm_kernel<BN, EPI><<<(unsigned)(tiles < sms ? tiles : sms), kWgThreads, S::kSmem, st>>>(
-      ta, tw, bias, res, out, (int)M, N, K);
+  if ((e = smem_opt_in(wg_gemm_kernel<BN, EPI, AMN, BMN>, S::kSmem, grant))) return e;
+  int sms = 0;
+  if ((e = wg_sms(&sms))) return e;
+  const long work = (M + kWgBM - 1) / kWgBM * (N / BN) * splits;
+  wg_gemm_kernel<BN, EPI, AMN, BMN>
+      <<<(unsigned)(work < sms ? work : sms), kWgThreads, S::kSmem, st>>>(
+          ta, tw, bias, res, out, (int)M, N, (int)K, kchunk, splits, split_stride);
   return cudaGetLastError();
+}
+
+template <int EPI, bool AMN, bool BMN>
+cudaError_t wg_gemm_any(const bf16* A, const void* W, const void* bias, const void* res,
+                        void* out, long M, int N, long K, int splits, int kchunk,
+                        long split_stride, cudaStream_t st) {
+  const bf16* w = static_cast<const bf16*>(W);
+  const float* b = static_cast<const float*>(bias);
+  if (N % 256 == 0)
+    return wg_gemm_launch<256, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
+                                              split_stride, st);
+  return wg_gemm_launch<128, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
+                                            split_stride, st);
 }
 
 // gemm<EPI>'s interface on the wgmma kernel. Requires N % 128 == 0, K % 64
@@ -561,10 +679,88 @@ cudaError_t wg_gemm(const bf16* A, const void* W, const void* bias, const void* 
   if (M <= 0) return cudaSuccess;
   if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
     return cudaErrorInvalidValue;
-  const bf16* w = static_cast<const bf16*>(W);
-  const float* b = static_cast<const float*>(bias);
-  if (N % 256 == 0) return wg_gemm_launch<256, EPI>(A, w, b, res, out, M, N, K, st);
-  return wg_gemm_launch<128, EPI>(A, w, b, res, out, M, N, K, st);
+  return wg_gemm_any<EPI, false, false>(A, W, bias, res, out, M, N, K, 1, K / kWgBK, 0, st);
 }
+
+#ifdef DVST_WITH_BACKWARD
+
+// dX (M, N) = epi(dY (M, K) . W (K, N)), W an (out, in) weight read as
+// stored (out = K, in = N): kEpiBf16, kEpiF32, or kEpiMulF32Bf16 with aux
+// (M, N) f32 (bf16(acc * aux)). No bias. Requires N % 128 == 0, K % 64 ==
+// 0, 16-byte aligned dY and W; M is ragged.
+template <int EPI>
+cudaError_t wg_gemm_dx(const bf16* dY, const bf16* W, const float* aux, void* out, long M,
+                       int N, int K, cudaStream_t st) {
+  if (M <= 0) return cudaSuccess;
+  if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
+    return cudaErrorInvalidValue;
+  return wg_gemm_any<EPI, false, true>(dY, W, nullptr, aux, out, M, N, K, 1, K / kWgBK, 0,
+                                       st);
+}
+
+constexpr int kWgMaxSplits = 16;
+
+// Splits of a weight gradient's reduction over `rows` rows for an (n_out,
+// k_in) output: the count in [1, kWgMaxSplits] that minimises a model of
+// the time, the rounds of (split, tile) items over the SMs times each
+// item's K stages (~0.84 us a 128 x 256 x 64 stage at ~640 TFLOP/s a
+// card) plus the f32 partials' write and reduce_splits' read (3.35 TB/s);
+// ties go to fewer splits. *kchunk: K stages per split, every split
+// non-empty.
+inline int wg_dw_splits(long rows, int n_out, int k_in, int sms, int* kchunk) {
+  const long nk = (rows + kWgBK - 1) / kWgBK;
+  const int bn = k_in % 256 == 0 ? 256 : 128;
+  const long tiles = (long)(n_out + kWgBM - 1) / kWgBM * (k_in / bn);
+  const double stage_ns = 0.84e3 * bn / 256, byte_ns = 1.0 / 3350.0;
+  int best = 1;
+  double best_ns = 0.0;
+  for (int s = 1; s <= kWgMaxSplits && s <= nk; ++s) {
+    const long chunk = (nk + s - 1) / s;
+    if ((nk + chunk - 1) / chunk != s) continue;  // an empty split
+    const long rounds = (tiles * s + sms - 1) / sms;
+    const double ns = stage_ns * rounds * chunk +
+                      (s > 1 ? byte_ns * 8.0 * s * n_out * (double)k_in : 0.0);
+    if (s == 1 || ns < best_ns) {
+      best = s;
+      best_ns = ns;
+    }
+  }
+  *kchunk = (int)((nk + best - 1) / best);
+  return best;
+}
+
+// Floats of split partials wg_gemm_dw needs for `rows` rows of an (n_out,
+// k_in) gradient on this device (0 with one split).
+inline cudaError_t wg_dw_part_floats(long rows, int n_out, int k_in, size_t* n) {
+  int sms = 0, kchunk = 0;
+  const cudaError_t e = wg_sms(&sms);
+  if (e != cudaSuccess) return e;
+  const int s = wg_dw_splits(rows, n_out, k_in, sms, &kchunk);
+  *n = s > 1 ? (size_t)s * n_out * k_in : 0;
+  return cudaSuccess;
+}
+
+// dW (n_out, k_in) f32 = dY^T . X over `rows` rows: dY (rows, n_out) and X
+// (rows, k_in) bf16 row-major, both read as stored (MN-major). The rows
+// past `rows` of the last stage are TMA's zero fill. part: the floats
+// wg_dw_part_floats gives. Requires n_out % 128 == 0 (the wrappers check),
+// k_in % 128 == 0, 16-byte aligned dY and X.
+inline cudaError_t wg_gemm_dw(const bf16* dY, const bf16* X, float* out, float* part,
+                              long rows, int n_out, int k_in, cudaStream_t st) {
+  if (n_out <= 0 || n_out % 128 || k_in <= 0 || k_in % 128 || rows > (1L << 30))
+    return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaMemsetAsync(out, 0, (size_t)n_out * k_in * sizeof(float), st);
+  int sms = 0, kchunk = 0;
+  cudaError_t e = wg_sms(&sms);
+  if (e != cudaSuccess) return e;
+  const int splits = wg_dw_splits(rows, n_out, k_in, sms, &kchunk);
+  const long n = (long)n_out * k_in;
+  e = wg_gemm_any<kEpiF32, true, true>(dY, X, nullptr, nullptr, splits > 1 ? part : out,
+                                       n_out, k_in, rows, splits, kchunk, n, st);
+  if (e != cudaSuccess || splits == 1) return e;
+  return reduce_splits(part, splits, n, out, st);
+}
+
+#endif  // DVST_WITH_BACKWARD
 
 }  // namespace

@@ -61,6 +61,12 @@ Each Function takes the f32 master parameters, casts them to the kernels'
 layout inside (bf16 matrices, f32 vectors) and returns f32 gradients in
 the parameters' (out, in) layout, as JAX's ``f_bwd`` casts them back
 (fused_block.py:629-632). The backwards live in ``csrc/fused_block_bwd.cu``.
+``spatial_phase_bwd`` and ``mlp_phase_bwd`` run every product on the wgmma
+GEMM (the dX and dW products read their operands as stored) and row 8's
+attention backward on the tensor-core tile's backward; those blocks have
+wrappers of their own for the card tests and ``chip_smoke.py``:
+``spatial_attention_bwd``, ``gemm_dx``, ``gemm_dw`` and ``gemm_gelu_grad``
+(plain twins ``*_plain``).
 
 Each op's wrapper runs its Hopper kernels (``csrc/fused_block.cu``) on a
 CUDA tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on
@@ -93,7 +99,8 @@ launches: Dict[str, int] = {
     "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
     "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
     "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0,
-    "temporal_attention": 0}
+    "temporal_attention": 0, "spatial_attention_bwd": 0, "gemm_dx": 0,
+    "gemm_dw": 0, "gemm_gelu_grad": 0}
 
 # The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
 # the residual's dtype or None, the output's dtype).
@@ -105,6 +112,14 @@ GEMM_EPILOGUES = {
     "f32": (4, None, torch.float32),                       # acc + b
     "res_f32_bf16": (5, torch.float32, torch.bfloat16),    # bf16(res + (acc + b))
     "add_bf16": (6, torch.bfloat16, torch.bfloat16),       # bf16(res + bf16(acc + b))
+}
+
+# The dX GEMM's epilogues (no bias): name -> (code, the aux's dtype or None,
+# the output's dtype).
+GEMM_DX_EPILOGUES = {
+    "bf16": (0, None, torch.bfloat16),                     # bf16(acc)
+    "f32": (4, None, torch.float32),                       # acc
+    "mul_f32_bf16": (7, torch.float32, torch.bfloat16),    # bf16(aux * acc)
 }
 
 
@@ -317,19 +332,23 @@ def temporal_phase_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tens
 # f32 sums and an f32 LayerNorm backward; the planted-fault tests replace
 # ``_attention_bwd``, ``_dw`` and ``_sum_frames``.
 
-def _attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The backward's recompute: bf16(softmax(q k^T * scale)), row max
-    subtracted, exact division."""
-    scale = q.shape[-1] ** -0.5
+def _attention_probs(q: torch.Tensor, k: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The backward's recompute: bf16(softmax(q k^T * scale)) (scale
+    hd^-0.5 unless given), row max subtracted, exact division."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
 
 
-def _attention_bwd(q, k, v, da):
-    """q, k, v, da (..., L, hd) bf16 -> (dq, dk, dv) bf16."""
-    scale = q.shape[-1] ** -0.5
-    pf = _attention_probs(q, k).float()
+def _attention_bwd(q, k, v, da, scale: Optional[float] = None):
+    """q, k, v, da (..., L, hd) bf16 -> (dq, dk, dv) bf16, at logit scale
+    ``scale`` (hd^-0.5 unless given)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    pf = _attention_probs(q, k, scale).float()
     daf = da.float()
     dv = torch.matmul(pf.transpose(-2, -1), daf).to(torch.bfloat16)
     dp = torch.matmul(daf, v.float().transpose(-2, -1))
@@ -344,6 +363,47 @@ def _dw(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Weight gradient in the (out, in) layout: dy (rows, out)^T x (rows,
     in), bf16 operands, f32 sums."""
     return torch.matmul(dy.float().t(), x.float())
+
+
+def spatial_attention_bwd_plain(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
+                                da: torch.Tensor, da_prefix: torch.Tensor,
+                                num_heads: int, scale: Optional[float] = None):
+    """Plain twin of ``spatial_attention_bwd``: sequence s is [qkv_prefix row
+    s // (S / P), qkv[s]] with cotangent rows [da_prefix[s], da[s]];
+    returns (dqkv (S, N, 3D), dqkv_prefix (S, 3D)), dq | dk | dv, bf16."""
+    S, N, D3 = qkv.shape
+    D, H = D3 // 3, num_heads
+    pre = qkv_prefix.repeat_interleave(S // qkv_prefix.shape[0], dim=0)
+    seq = torch.cat([pre[:, None], qkv], dim=1)  # (S, L, 3D)
+    q, k, v = seq.reshape(S, N + 1, 3, H, D // H).permute(2, 0, 3, 1, 4).unbind(0)
+    dseq = torch.cat([da_prefix[:, None], da], dim=1)
+    da_h = dseq.reshape(S, N + 1, H, D // H).transpose(1, 2)  # (S, H, L, hd)
+    g = torch.stack(_attention_bwd(q, k, v, da_h) if scale is None
+                    else _attention_bwd(q, k, v, da_h, scale))  # (3, S, H, L, hd)
+    g = g.permute(1, 3, 0, 2, 4).reshape(S, N + 1, D3)
+    return g[:, 1:].contiguous(), g[:, 0].contiguous()
+
+
+def gemm_dx_plain(dy: torch.Tensor, w: torch.Tensor, epi: str,
+                  aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of ``gemm_dx``: ``epi`` of GEMM_DX_EPILOGUES applied to dy
+    @ w, w an (out, in) weight (bf16 operands, f32 accumulation)."""
+    v = _mm(dy, w.t())
+    if epi == "mul_f32_bf16":
+        v = v * aux
+    return v.to(GEMM_DX_EPILOGUES[epi][2])
+
+
+def gemm_dw_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``gemm_dw``: dy^T x in f32."""
+    return _dw(dy, x)
+
+
+def gemm_gelu_grad_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Plain twin of ``gemm_gelu_grad``: (bf16(gelu(h)), gelu'(h)) of h = a
+    @ w^T + bias in f32."""
+    h = _mm(a, w) + bias
+    return F.gelu(h).to(torch.bfloat16), _gelu_grad(h)
 
 
 def _ln_bwd(xf: torch.Tensor, dy: torch.Tensor, w: torch.Tensor):
@@ -433,11 +493,10 @@ def mlp_phase_bwd_plain(x: torch.Tensor, do: torch.Tensor, p: dict,
     """Plain twin of ``mlp_phase_bwd``."""
     xf = x.float()
     y = _ln(xf, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
-    h1 = _mm(y, p["fc1_w"]) + p["fc1_b"]
-    hg = F.gelu(h1).to(torch.bfloat16)
+    hg, gp = gemm_gelu_grad_plain(y, p["fc1_w"], p["fc1_b"])
     g = {}
     g["fc2_w"], g["fc2_b"] = _dw(do, hg), do.float().sum(0)
-    dh1 = (_mm(do, p["fc2_w"].t()) * _gelu_grad(h1)).to(torch.bfloat16)
+    dh1 = gemm_dx_plain(do, p["fc2_w"], "mul_f32_bf16", gp)
     g["fc1_w"], g["fc1_b"] = _dw(dh1, y), dh1.float().sum(0)
     dy = _mm(dh1, p["fc1_w"].t())
     dx, g["ln2_w"], g["ln2_b"] = _ln_bwd(xf, dy, p["ln2_w"])
@@ -930,6 +989,195 @@ def _check_bwd_geometry(D: int, num_heads: int, L: int) -> None:
                          f"memory (limit {SMEM_LIMIT})")
 
 
+def spatial_attn_bwd_smem(L: int, hd: int, lib=None) -> int:
+    """Shared bytes one block of the spatial attention backward (the tile's
+    backward, ``tc_prefix_attn_bwd``) needs at L rows and head dim hd:
+    ``lib``'s ``dvst_spatial_attn_bwd_smem`` where given, else its mirror
+    here (a zero row, Q, K, V and dA, three floats per row padded to 16
+    rows), so that the plain twins on the CPU refuse what the kernel
+    refuses (a card test holds the two equal)."""
+    if lib is not None:
+        return lib.dvst_spatial_attn_bwd_smem(L, hd)
+    return 16 + 8 * L * hd + 12 * (-(-L // 16) * 16)
+
+
+def check_spatial_attn_bwd_smem(L: int, hd: int, lib=None) -> None:
+    """Raise if one block of the spatial attention backward cannot hold L
+    rows at head dim hd (``spatial_attn_bwd_smem``)."""
+    need = spatial_attn_bwd_smem(L, hd, lib)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"sequence length {L} at head dim {hd}: the attention "
+                         f"backward needs {need} B of shared memory (limit "
+                         f"{SMEM_LIMIT})")
+
+
+def _ws(nbytes: int, dev) -> torch.Tensor:
+    if nbytes < 0:
+        raise RuntimeError("the kernel library could not size its workspace")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def spatial_attention_bwd(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
+                          da: torch.Tensor, da_prefix: torch.Tensor,
+                          num_heads: int, scale: Optional[float] = None):
+    """The attention backward of ``spatial_phase_bwd`` alone (the tile's
+    backward): qkv (S, N, 3D) and qkv_prefix (P, 3D) bf16 as
+    ``spatial_attention`` takes them, the cotangents da (S, N, D) and
+    da_prefix (S, D) bf16 -> (dqkv (S, N, 3D), dqkv_prefix (S, 3D)) bf16
+    (dq | dk | dv; the prefix row's gradient once per sequence), at logit
+    scale ``scale`` (hd^-0.5 unless given). Kernel on CUDA, plain twin on
+    CPU."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (S, N, 3D), got {tuple(qkv.shape)}")
+    S, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = _device_of(qkv)
+    _check_geometry(D, num_heads, None)
+    _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    P = qkv_prefix.shape[0] if qkv_prefix.dim() == 2 else 0
+    if P == 0 or S % P:
+        raise ValueError(f"qkv_prefix: expected (P, {D3}) with {S} % P == 0, "
+                         f"got {tuple(qkv_prefix.shape)}")
+    _check_tensor("qkv_prefix", qkv_prefix, torch.bfloat16, (P, D3), dev)
+    _check_tensor("da", da, torch.bfloat16, (S, N, D), dev)
+    _check_tensor("da_prefix", da_prefix, torch.bfloat16, (S, D), dev)
+    hd = D // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    if dev.type == "cpu":
+        check_spatial_attn_bwd_smem(N + 1, hd)
+        return spatial_attention_bwd_plain(qkv, qkv_prefix, da, da_prefix, num_heads,
+                                           scale)
+
+    from . import _build
+
+    _check_aligned(qkv=qkv, qkv_prefix=qkv_prefix, da=da, da_prefix=da_prefix)
+    lib = _build.load("bwd")
+    check_spatial_attn_bwd_smem(N + 1, hd, lib)
+    dqkv = torch.empty_like(qkv)
+    dqkv_pre = torch.empty((S, D3), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_spatial_attn_bwd, qkv.data_ptr(), qkv_prefix.data_ptr(),
+             da.data_ptr(), da_prefix.data_ptr(), dqkv.data_ptr(),
+             dqkv_pre.data_ptr(), S, S // P, N, D, num_heads, float(scale),
+             _stream(dev))
+    launches["spatial_attention_bwd"] += 1
+    return dqkv, dqkv_pre
+
+
+def gemm_dx(dy: torch.Tensor, w: torch.Tensor, epi: str,
+            aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dX GEMM of ``spatial_phase_bwd`` and ``mlp_phase_bwd`` alone: dy
+    (M, K) bf16, w (K, N) bf16 (an (out, in) weight, read as stored) ->
+    ``epi`` (a key of GEMM_DX_EPILOGUES) of dy @ w, (M, N); ``aux`` (M, N)
+    f32 for ``mul_f32_bf16``. N % 128 == 0, K % 64 == 0. Kernel on CUDA,
+    plain twin on CPU."""
+    if epi not in GEMM_DX_EPILOGUES:
+        raise ValueError(f"epilogue {epi!r}: one of {sorted(GEMM_DX_EPILOGUES)}")
+    code, aux_dtype, out_dtype = GEMM_DX_EPILOGUES[epi]
+    if dy.dim() != 2 or w.dim() != 2:
+        raise ValueError("dy and w: expected (M, K) and (K, N)")
+    (M, K), N = dy.shape, w.shape[1]
+    dev = _device_of(dy)
+    if N % 128 or K % 64:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+                         "K % 64 == 0")
+    _check_tensor("dy", dy, torch.bfloat16, (M, K), dev)
+    _check_tensor("w", w, torch.bfloat16, (K, N), dev)
+    if aux_dtype is None:
+        if aux is not None:
+            raise ValueError(f"epilogue {epi!r} takes no aux")
+    else:
+        _check_tensor("aux", aux, aux_dtype, (M, N), dev)
+    if dev.type == "cpu":
+        return gemm_dx_plain(dy, w, epi, aux)
+
+    from . import _build
+
+    _check_aligned(dy=dy, w=w)
+    lib = _build.load("bwd")
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_gemm_dx, dy.data_ptr(), w.data_ptr(),
+             None if aux is None else aux.data_ptr(), out.data_ptr(), M, N, K,
+             code, _stream(dev))
+    launches["gemm_dx"] += 1
+    return out
+
+
+def gemm_dw(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The weight-gradient GEMM of ``spatial_phase_bwd`` and
+    ``mlp_phase_bwd`` alone: dy (rows, n_out), x (rows, k_in) bf16 -> dW =
+    dy^T x (n_out, k_in) f32, in the weights' (out, in) layout, summed over
+    the rows in splits added in a fixed order. n_out % 128 == 0, k_in % 128
+    == 0. Kernel on CUDA, plain twin on CPU."""
+    if dy.dim() != 2 or x.dim() != 2 or dy.shape[0] != x.shape[0]:
+        raise ValueError("dy and x: expected (rows, n_out) and (rows, k_in)")
+    (R, n_out), k_in = dy.shape, x.shape[1]
+    dev = _device_of(dy)
+    if n_out % 128 or k_in % 128:
+        raise ValueError(f"n_out={n_out}, k_in={k_in}: the kernel needs "
+                         "multiples of 128")
+    _check_tensor("dy", dy, torch.bfloat16, (R, n_out), dev)
+    _check_tensor("x", x, torch.bfloat16, (R, k_in), dev)
+    if dev.type == "cpu":
+        return gemm_dw_plain(dy, x)
+
+    from . import _build
+
+    _check_aligned(dy=dy, x=x)
+    lib = _build.load("bwd")
+    out = torch.empty((n_out, k_in), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        part = _ws(lib.dvst_gemm_dw_ws(R, n_out, k_in), dev)
+        _run(lib.dvst_gemm_dw, dy.data_ptr(), x.data_ptr(), out.data_ptr(),
+             part.data_ptr(), R, n_out, k_in, _stream(dev))
+    launches["gemm_dw"] += 1
+    return out
+
+
+def gemm_dw_splits(rows: int, n_out: int, k_in: int) -> int:
+    """The split count ``gemm_dw`` takes on the current card for these
+    shapes (the library's choice; ``chip_smoke.py`` prints it)."""
+    from . import _build
+
+    n = _build.load("bwd").dvst_gemm_dw_splits(rows, n_out, k_in)
+    if n < 1:
+        raise RuntimeError("the kernel library could not ask the device")
+    return n
+
+
+def gemm_gelu_grad(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Row 9's fc1 recompute alone: a (M, K) bf16, w (N, K) bf16, bias (N,)
+    f32 -> (bf16(gelu(h)) (M, N) bf16, gelu'(h) (M, N) f32) of h = a @ w^T
+    + bias, one GEMM with both outputs from its f32 accumulator. N % 128 ==
+    0, K % 64 == 0. Kernel on CUDA, plain twin on CPU."""
+    if a.dim() != 2 or w.dim() != 2:
+        raise ValueError("a and w: expected (M, K) and (N, K)")
+    (M, K), N = a.shape, w.shape[0]
+    dev = _device_of(a)
+    if N % 128 or K % 64:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+                         "K % 64 == 0")
+    _check_tensor("a", a, torch.bfloat16, (M, K), dev)
+    _check_tensor("w", w, torch.bfloat16, (N, K), dev)
+    _check_tensor("bias", bias, torch.float32, (N,), dev)
+    if dev.type == "cpu":
+        return gemm_gelu_grad_plain(a, w, bias)
+
+    from . import _build
+
+    _check_aligned(a=a, w=w)
+    lib = _build.load("bwd")
+    hg = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    gp = torch.empty((M, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_gemm_gelu_grad, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+             hg.data_ptr(), gp.data_ptr(), M, N, K, _stream(dev))
+    launches["gemm_gelu_grad"] += 1
+    return hg, gp
+
+
 def _grads(dev, shapes: dict, keys):
     """f32 gradient buffers: the two LayerNorm vectors (``keys[:2]``) share
     one (2, D) buffer (the kernels write scale | bias), the rest one each."""
@@ -986,25 +1234,28 @@ def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_bwd_geometry(D, num_heads, N + 1)
+    _check_geometry(D, num_heads, None)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_tensor("dgo", dgo, torch.bfloat16, x.shape, dev)
     _check_tensor("dco", dco, torch.bfloat16, (B, T, D), dev)
     shapes = _spatial_shapes(D)
     _check_weights(p, SPATIAL_PHASE_KEYS, shapes, dev)
+    hd = D // num_heads
     if dev.type == "cpu":
+        check_spatial_attn_bwd_smem(N + 1, hd)
         return spatial_phase_bwd_plain(x, cls, dgo, dco, p, num_heads)
 
     from . import _build
 
+    _check_aligned(qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load("bwd")
+    check_spatial_attn_bwd_smem(N + 1, hd, lib)
     dx = torch.empty_like(x)
     dcls = torch.empty((B, 1, D), dtype=torch.float32, device=dev)
     dln, g = _grads(dev, shapes, SPATIAL_PHASE_KEYS)
-    ws = torch.empty(lib.dvst_spatial_phase_bwd_ws(B, T, N, D, num_heads),
-                     dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
+        ws = _ws(lib.dvst_spatial_phase_bwd_ws(B, T, N, D, num_heads), dev)
         _run(lib.dvst_spatial_phase_bwd, x.data_ptr(), cls.data_ptr(),
              dgo.data_ptr(), dco.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
@@ -1037,12 +1288,12 @@ def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
 
     from . import _build
 
+    _check_aligned(do=do, fc1_w=p["fc1_w"], fc2_w=p["fc2_w"])
     lib = _build.load("bwd")
     dx = torch.empty_like(x)
     dln, g = _grads(dev, shapes, MLP_KEYS)
-    ws = torch.empty(lib.dvst_mlp_phase_bwd_ws(M, D, Dh), dtype=torch.uint8,
-                     device=dev)
     with torch.cuda.device(dev):
+        ws = _ws(lib.dvst_mlp_phase_bwd_ws(M, D, Dh), dev)
         _run(lib.dvst_mlp_phase_bwd, x.data_ptr(), do.data_ptr(),
              *(p[k].data_ptr() for k in MLP_KEYS), ws.data_ptr(),
              dx.data_ptr(), dln.data_ptr(),

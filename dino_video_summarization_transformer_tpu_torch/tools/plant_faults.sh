@@ -7,8 +7,12 @@
 #     bash dino_video_summarization_transformer_tpu_torch/tools/plant_faults.sh
 #
 # Faults: the rowsum(dp * p) term dropped from the attention backward's
-# ds; the proj weight gradient transposed (dY and X swapped in gemm_dw);
-# the CLS row's gradient taken from the first frame only; the standalone
+# ds, in row 8's tensor-core tile (both passes) and in row 7's CUDA-core
+# kernel; the proj weight gradient transposed (dY and X swapped), in row
+# 8's wgmma dW and row 7's wmma one; row 8's tile leaving the CLS key's dk
+# and dv unwritten; its dk summed over the first query strip only; the
+# MN-major wgmma descriptor's two byte offsets swapped (every dX and dW of
+# rows 8 and 9); the CLS row's gradient taken from the first frame only; the standalone
 # attention's logit scale dropped; every strip of a multi-sequence
 # attention block (the standalone attention's and the temporal
 # attention's) scored against the block's first sequence's keys; the
@@ -23,6 +27,7 @@
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
+#     bash .../plant_faults.sh no_rowsum dw_transposed bwd_cls_key_dropped bwd_dk_first_strip dw_desc_offsets_swapped
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -41,8 +46,13 @@ run() {
   grep -E "FAILED|^FAIL" "$dst/out.log" | cut -c1-400 | head -8
   rm -rf "$dst"
 }
-run no_rowsum dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
-run dw_transposed fused_block_bwd.cu 's/gemm_dw(w.dproj, w.a,/gemm_dw(w.a, w.dproj,/'
+run no_rowsum tc_attention.cuh 's/return p \* (dp - delta) \* scale;/return p * dp * scale;/'
+run no_rowsum_row7 dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
+run dw_transposed fused_block_bwd.cu 's/wg_gemm_dw(w.dproj, w.a,/wg_gemm_dw(w.a, w.dproj,/'
+run dw_transposed_row7 fused_block_bwd.cu 's/(e = gemm_dw(w.dproj, w.a,/(e = gemm_dw(w.a, w.dproj,/'
+run bwd_cls_key_dropped tc_attention.cuh 's/return dst(k0 + r) + \(2 \* \)\?D; }/return k0 + r == 0 ? nullptr : dst(k0 + r) + \1D; }/'
+run bwd_dk_first_strip tc_attention.cuh 's/      tc_acc_rows(dsa, Q, i0, L, zero, dk);/      if (i0 == 0) tc_acc_rows(dsa, Q, i0, L, zero, dk);/'
+run dw_desc_offsets_swapped wgmma_gemm.cuh 's/((uint64_t)(kWgMnLbo >> 4) << 16) | ((uint64_t)(kWgMnSbo >> 4) << 32)/((uint64_t)(kWgMnSbo >> 4) << 16) | ((uint64_t)(kWgMnLbo >> 4) << 32)/'
 run dcls_frame0 dvst_common.cuh 's/for (int t = 0; t < reps; ++t) s +=/for (int t = 0; t < 1; ++t) s +=/'
 run fa_unscaled attention.cu 's/static_cast<bf16\*>(out), BH, L, G, scale);/static_cast<bf16*>(out), BH, L, G, 1.f);/'
 run fa_first_seq tc_attention.cuh 's/kb, ke, lo0, lo0 + L, lo1, lo1 + L,/0, L, 0, L, 0, L,/g'

@@ -318,7 +318,10 @@ def test_spatial_phase_bwd_kernel_matches_twin(cuda_device, B, T, N, D, H):
 @pytest.mark.parametrize("M,D,Dh,residual", [(200, 128, 512, True),
                                              (25088, 768, 3072, True),
                                              (16, 768, 3072, True),
-                                             (77, 256, 1024, False)])
+                                             (77, 256, 1024, False),
+                                             (18432, 768, 3072, True),
+                                             (64, 768, 3072, True),
+                                             (100, 768, 3072, True)])
 def test_mlp_phase_bwd_kernel_matches_twin(cuda_device, M, D, Dh, residual):
     p = _block(D, D // 64, 0, cuda_device)["spatial"]
     assert p["fc1_w"].shape == (Dh, D)
@@ -757,3 +760,175 @@ def test_temporal_attention_shared_memory_mirror_is_the_librarys(cuda_device):
             for hd in (16, 64, 128):
                 assert fb.temporal_attn_smem(S, L, hd) == fb.temporal_attn_smem(
                     S, L, hd, lib), (S, L, hd)
+
+
+# Rows 8 and 9's blocks alone (csrc/fused_block_bwd.cu's exports): the
+# tensor-core attention backward over [CLS, grid] sequences
+# (tc_attention.cuh's tc_prefix_attn_bwd) at the train step's global (S =
+# 16 x 8 frames, N = 196) and local (S = 64 x 8, N = 36) crops, with one
+# prefix per sample (P = S / 8) as the wrapper takes it and one per
+# sequence (P = S) as row 8 runs it; sequences of one strip or less (L =
+# 5, 16), one row past a strip (L = 17, 33) and every head dim at N = 196.
+SPATIAL_BWD_SHAPES = [(128, 16, 196, 768, 12), (128, 128, 196, 768, 12),
+                      (512, 64, 36, 768, 12), (6, 2, 16, 128, 2), (5, 5, 4, 256, 4),
+                      (4, 1, 15, 256, 4), (4, 2, 32, 256, 4)] + [
+    (3, 1, 196, D, H) for D, H in [(128, 8), (128, 4), (384, 8), (640, 8),
+                                   (384, 4), (896, 8), (256, 2)]]
+
+
+def _close_sums(got, want):
+    """The attention backward's dq, dk and dv held by twin_check's f32 rules
+    (rms <= 1e-2 x rms, max <= 2e-2 x max), not elementwise in bf16 ulps:
+    each element is a sum whose coefficients sum to zero (sum_j ds_ij = 0,
+    ds = pn * (dp - rowsum(dp * pn))), so a bf16 flip of one probability
+    moves it by a share of dp that no ulp of the element bounds. Read on
+    the card: rel_rms ~1e-4 and 5 ulps at the global crops, with the
+    forward tile's exponentials or the twin's exact ones alike. Row 8's
+    outputs, which sum these over rows, are held elementwise as before."""
+    _close(got.float(), want.float())
+
+
+def _spatial_bwd_inputs(S, P, N, D, seed, device, q_scale=1.0):
+    qkv, pre = _spatial_qkv(S, P, N, D, seed, device, q_scale)
+    r = np.random.RandomState(seed + 1)
+    da = torch.from_numpy(r.randn(S, N, D)).to(device, torch.bfloat16)
+    dap = torch.from_numpy(r.randn(S, D)).to(device, torch.bfloat16)
+    return qkv, pre, da, dap
+
+
+@pytest.mark.parametrize("S,P,N,D,H", SPATIAL_BWD_SHAPES)
+def test_spatial_attention_bwd_kernel_matches_twin(cuda_device, S, P, N, D, H):
+    args = _spatial_bwd_inputs(S, P, N, D, S + N, cuda_device)
+    before = fb.launches["spatial_attention_bwd"]
+    got, got_pre = fb.spatial_attention_bwd(*args, H)
+    again, again_pre = fb.spatial_attention_bwd(*args, H)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_attention_bwd"] == before + 2
+    assert got.shape == (S, N, 3 * D) and got_pre.shape == (S, 3 * D)
+    assert torch.equal(got, again) and torch.equal(got_pre, again_pre)
+    want, want_pre = fb.spatial_attention_bwd_plain(*args, H)
+    for i in range(3):  # dq, dk, dv: each held against its own size
+        _close_sums(got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D])
+        _close_sums(got_pre[:, i * D:(i + 1) * D], want_pre[:, i * D:(i + 1) * D])
+
+
+@pytest.mark.parametrize("S,P,N", [(128, 16, 196), (512, 512, 36)])
+def test_spatial_attention_bwd_at_overflowing_logits(cuda_device, S, P, N):
+    """Scores 64x the unit-variance inputs' (scale 8 at hd 64): exp
+    overflows unless each row's max over its whole key set comes first."""
+    args = _spatial_bwd_inputs(S, P, N, 768, S, cuda_device)
+    got, got_pre = fb.spatial_attention_bwd(*args, 12, scale=8.0)
+    want, want_pre = fb.spatial_attention_bwd_plain(*args, 12, scale=8.0)
+    assert bool(want.isfinite().all()) and bool(want_pre.isfinite().all())
+    for i in range(3):
+        _close_sums(got[..., i * 768:(i + 1) * 768], want[..., i * 768:(i + 1) * 768])
+        _close_sums(got_pre[:, i * 768:(i + 1) * 768], want_pre[:, i * 768:(i + 1) * 768])
+
+
+def test_spatial_attention_bwd_shared_memory_mirror_is_the_librarys(cuda_device):
+    from dino_video_summarization_transformer_tpu_torch.ops import _build
+
+    lib = _build.load("bwd")
+    for L in (1, 2, 5, 15, 16, 17, 33, 37, 64, 197, 300):
+        for hd in (16, 64, 128):
+            assert fb.spatial_attn_bwd_smem(L, hd) == fb.spatial_attn_bwd_smem(L, hd, lib)
+
+
+def test_spatial_attention_bwd_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """301 rows at hd 128 need 309 KB: the wrapper and row 8 refuse them."""
+    args = [torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+            for shape in [(2, 300, 384), (2, 384), (2, 300, 128), (2, 128)]]
+    p = _block(128, 1, 0, cuda_device)["spatial"]
+    x, cls, dco = (torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+                   for shape in [(1, 2, 300, 128), (1, 1, 128), (1, 2, 128)])
+    before = dict(fb.launches)
+    for call in (lambda: fb.spatial_attention_bwd(*args, 1),
+                 lambda: fb.spatial_phase_bwd(x, cls, x, dco, p, 1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert fb.launches == before
+
+
+# The dX and dW products of rows 8 and 9 on the wgmma GEMM: (M, N, K) of
+# dX = dY (M, K) . W (K, N) at row 8's R = 16*8*196 + 128 rows (da: K = N =
+# 768; dy: K = 2304) and row 9's M = 25088 (dh1: N = 3072; dy: K = 3072),
+# the CLS-row calls (M = 16, 64) and ragged M (1, 100, 129); dW (n_out,
+# k_in) over rows, non-square (dWqkv is 2304 x 768), at both crops' row
+# counts and the CLS rows' (16, 64), and at 100 and 1 rows (a ragged last
+# K stage: TMA's zero fill).
+GEMM_DX_SHAPES = [(25216, 768, 768), (25216, 768, 2304), (25088, 3072, 768),
+                  (25088, 768, 3072), (18944, 768, 2304), (16, 3072, 768),
+                  (64, 768, 3072), (100, 768, 2304), (1, 128, 128), (129, 384, 128),
+                  (300, 256, 192)]
+GEMM_DW_SHAPES = [(25216, 768, 768), (25216, 2304, 768), (25088, 768, 3072),
+                  (25088, 3072, 768), (18944, 2304, 768), (18432, 3072, 768),
+                  (16, 768, 3072), (64, 3072, 768), (100, 2304, 768), (1, 128, 128),
+                  (300, 384, 128), (4096, 256, 512)]
+
+
+@pytest.mark.parametrize("epi", sorted(fb.GEMM_DX_EPILOGUES))
+@pytest.mark.parametrize("M,N,K", GEMM_DX_SHAPES)
+def test_gemm_dx_kernel_matches_twin(cuda_device, epi, M, N, K):
+    r = np.random.RandomState(M + N + K)
+    dy = torch.from_numpy(r.randn(M, K)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(r.randn(K, N) * K ** -0.5).to(cuda_device, torch.bfloat16)
+    aux = (torch.from_numpy(r.rand(M, N) * 1.2 - 0.1).to(cuda_device, torch.float32)
+           if fb.GEMM_DX_EPILOGUES[epi][1] is not None else None)
+    before = fb.launches["gemm_dx"]
+    got = fb.gemm_dx(dy, w, epi, aux)
+    again = fb.gemm_dx(dy, w, epi, aux)
+    torch.cuda.synchronize()
+    assert fb.launches["gemm_dx"] == before + 2
+    assert got.dtype == fb.GEMM_DX_EPILOGUES[epi][2] and got.shape == (M, N)
+    assert torch.equal(got, again)
+    _close(got, fb.gemm_dx_plain(dy, w, epi, aux))
+
+
+@pytest.mark.parametrize("R,n_out,k_in", GEMM_DW_SHAPES)
+def test_gemm_dw_kernel_matches_twin(cuda_device, R, n_out, k_in):
+    r = np.random.RandomState(R + n_out + k_in)
+    dy = torch.from_numpy(r.randn(R, n_out)).to(cuda_device, torch.bfloat16)
+    x = torch.from_numpy(r.randn(R, k_in)).to(cuda_device, torch.bfloat16)
+    before = fb.launches["gemm_dw"]
+    got = fb.gemm_dw(dy, x)
+    again = fb.gemm_dw(dy, x)
+    torch.cuda.synchronize()
+    assert fb.launches["gemm_dw"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n_out, k_in)
+    assert torch.equal(got, again)  # the split partials in a fixed order
+    _close(got, fb.gemm_dw_plain(dy, x))
+    assert fb.gemm_dw_splits(R, n_out, k_in) >= 1
+
+
+@pytest.mark.parametrize("M,N,K", [(25088, 3072, 768), (18432, 3072, 768),
+                                   (16, 3072, 768), (77, 512, 128)])
+def test_gemm_gelu_grad_kernel_matches_twin(cuda_device, M, N, K):
+    r = np.random.RandomState(M + N)
+    a = torch.from_numpy(r.randn(M, K)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(r.randn(N, K) * K ** -0.5).to(cuda_device, torch.bfloat16)
+    bias = torch.from_numpy(r.randn(N)).to(cuda_device, torch.float32)
+    before = fb.launches["gemm_gelu_grad"]
+    hg, gp = fb.gemm_gelu_grad(a, w, bias)
+    torch.cuda.synchronize()
+    assert fb.launches["gemm_gelu_grad"] == before + 1
+    want_hg, want_gp = fb.gemm_gelu_grad_plain(a, w, bias)
+    _close(hg, want_hg)
+    _close(gp, want_gp)
+
+
+def test_backward_blocks_refuse_bad_inputs(cuda_device):
+    bf16 = torch.bfloat16
+    dy = torch.zeros(64, 256, dtype=bf16, device=cuda_device)
+    w = torch.zeros(256, 128, dtype=bf16, device=cuda_device)
+    before = dict(fb.launches)
+    with pytest.raises(ValueError):  # N = 96 is no multiple of 128
+        fb.gemm_dx(dy, w[:, :96].contiguous(), "bf16")
+    with pytest.raises(ValueError):  # aux for an epilogue without one
+        fb.gemm_dx(dy, w, "f32", torch.zeros(64, 128, device=cuda_device))
+    with pytest.raises(ValueError):  # an unaligned start (TMA needs 16 bytes)
+        fb.gemm_dx(dy.view(-1)[1:1 + 63 * 256].view(63, 256), w, "bf16")
+    with pytest.raises(ValueError):  # rows differ
+        fb.gemm_dw(dy, torch.zeros(63, 128, dtype=bf16, device=cuda_device))
+    with pytest.raises(TypeError):
+        fb.gemm_dw(dy.float(), dy)
+    assert fb.launches == before
