@@ -44,14 +44,19 @@ Imports torch, numpy and the port package
    (``fused_block.spatial_attention``) at rows 2 and 11's head-sequences
    and the temporal attention (``fused_block.temporal_attention``, the
    tile at stride N) at rows 1, 1b and 6's, beside SDPA (yardsticks the
-   port never calls). Rows 8 (``spatial_phase_bwd``) and 9
+   port never calls). Row 4 (``spatial_phase``) at both crops: its device
+   time split into attention, GEMMs and LN. Rows 7
+   (``temporal_phase_tm_bwd``), 8 (``spatial_phase_bwd``) and 9
    (``mlp_phase_bwd``) at both crops: their device time split into
    attention (forward recompute), attention backward, GEMMs, LN (with
    its backward, held to its bytes bound) and the rest; their blocks
-   alone against their twins: the tile's attention backward
-   (``fused_block.spatial_attention_bwd``) beside SDPA's backward on the
-   same q, k, v and dA, every dX and dW product (``gemm_dx``, ``gemm_dw``,
-   with the dW split count) and row 9's fc1 recompute with its two outputs
+   alone against their twins: the tile's attention backward with the CLS
+   prefix (``fused_block.spatial_attention_bwd``) and at stride N
+   (``temporal_attention_bwd``) beside SDPA's backward on tensors of the
+   same shape, the LayerNorm backward of the three (``layer_norm_bwd``)
+   beside its bytes bound and autograd of ``F.layer_norm``, every dX and
+   dW product of rows 8 and 9 (``gemm_dx``, ``gemm_dw``, with the dW split
+   count) and row 9's fc1 recompute with its two outputs
    (``gemm_gelu_grad``) in TFLOP/s beside ``torch.matmul``; row 9 also at
    the CLS-row calls of the train step (M = 16 and 64).
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
@@ -83,10 +88,10 @@ Imports torch, numpy and the port package
    kernel); ms per step and TFLOP/s from ``train_step_flops``; the loss
    finite at every step; the teacher equal to the EMA of the new student;
    a profiled step, its launches by family held to the ops' counters
-   (rows 1b, 3, 8 and 9 on the wgmma GEMM and the tiles, gemm_kernel and
-   attn_kernel only in row 4 and row 7, gemmx_kernel and attn_bwd_kernel
-   only in row 7); row 9's launches of the counted step by row count
-   (grid and CLS rows). Before the steps, at
+   (every op on the wgmma GEMM and the tiles; no gemm_kernel,
+   attn_kernel, gemmx_kernel or attn_bwd_kernel; the dW partial sums
+   counted from the backward calls' shapes); the backwards' launches of
+   the counted step by row count. Before the steps, at
    batch 2 on the initial weights and one set of crops, the gradients of
    the kernel route against the plain bf16 route and the f32 route (TF32
    off).
@@ -401,22 +406,31 @@ def kernel_breakdown(fn, on_record=None):
 
 # kernel families by name in a profile: the port's building blocks
 # (dvst_common.cuh: gemm_kernel, attn_kernel, ln_kernel and the
-# backwards' gemmx_kernel, attn_bwd_kernel, ln_bwd_kernel; wgmma_gemm.cuh:
-# wg_gemm_kernel; tc_attention.cuh: tc_prefix_attn_kernel_*,
-# tc_strided_attn_kernel_*, tc_prefix_attn_bwd_kernel)
+# backwards' ln_bwd_kernel, colsum_kernel and the two reduce_splits
+# kernels; wgmma_gemm.cuh: wg_gemm_kernel; tc_attention.cuh:
+# tc_prefix_attn_kernel_*, tc_strided_attn_kernel_*,
+# tc_prefix_attn_bwd_kernel, tc_strided_attn_bwd_kernel), and the first
+# design's gemmx_kernel and attn_bwd_kernel, which no op launches any more
+# (so any launch of them fails the check)
 FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "wg_gemm_kernel": "::wg_gemm_kernel<",
             "tc_prefix_attn": "::tc_prefix_attn_kernel_",
             "tc_strided_attn": "::tc_strided_attn_kernel_", "ln_kernel": "::ln_kernel<",
             "gemmx_kernel": "::gemmx_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
             "tc_prefix_attn_bwd": "::tc_prefix_attn_bwd_kernel<",
-            "ln_bwd_kernel": "::ln_bwd_kernel("}
-# launches of each family per call of the ops that use them: rows 1 (its
-# bf16-out tier 1b and row 6 the same entry point), 2, 3, 8, 9 and 11 on
-# the wgmma GEMM and the tiles (row 8: qkv, two dX, two dW; row 9: fc1,
-# two dX, two dW); rows 4, 5 and row 7's recompute on gemm_kernel and
-# attn_kernel, row 7's dX and dW on gemmx_kernel (three each) and its
-# attention backward on attn_bwd_kernel
+            "tc_strided_attn_bwd": "::tc_strided_attn_bwd_kernel<",
+            "ln_bwd_kernel": "::ln_bwd_kernel<", "colsum_kernel": "::colsum_kernel<",
+            "reduce_splits_narrow": "::reduce_splits_narrow_kernel(",
+            "reduce_splits": "::reduce_splits_kernel("}
+# launches of each family per call of the ops that use them: every row but
+# 5 on the wgmma GEMM and the tiles (row 4: qkv of the grid and of the CLS
+# rows, proj of each; row 7: qkv and proj recomputed, three dX, three dW;
+# row 8: qkv, two dX, two dW; row 9: fc1, two dX, two dW); row 5 on
+# gemm_kernel and attn_kernel. The backwards' column sums and LN backward
+# add their partials with reduce_splits_narrow (one each); the dW partial
+# sums (reduce_splits, where a weight gradient takes more than one split:
+# the split count depends on the shape and the card) are counted from the
+# calls' shapes (dw_reduces).
 TEMPORAL_FAMILIES = {"ln_kernel": 1, "wg_gemm_kernel": 3, "tc_strided_attn": 1}
 FAMILY_PER_OP = {
     "temporal_phase_tm": TEMPORAL_FAMILIES,
@@ -425,14 +439,28 @@ FAMILY_PER_OP = {
     "spatial_mlp": {"ln_kernel": 3, "wg_gemm_kernel": 6, "tc_prefix_attn": 1},
     "spatial_phase_pf": {"ln_kernel": 2, "wg_gemm_kernel": 3, "tc_prefix_attn": 1},
     "mlp_phase": {"ln_kernel": 1, "wg_gemm_kernel": 2},
-    "spatial_phase": {"ln_kernel": 2, "gemm_kernel": 4, "attn_kernel": 1},
+    "spatial_phase": {"ln_kernel": 2, "wg_gemm_kernel": 4, "tc_prefix_attn": 1},
     "attn_phase": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1},
-    "temporal_phase_tm_bwd": {"ln_kernel": 1, "gemm_kernel": 2, "attn_kernel": 1,
-                              "gemmx_kernel": 6, "attn_bwd_kernel": 1, "ln_bwd_kernel": 1},
+    "temporal_phase_tm_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 8, "tc_strided_attn": 1,
+                              "tc_strided_attn_bwd": 1, "ln_bwd_kernel": 1,
+                              "colsum_kernel": 3, "reduce_splits_narrow": 4},
     "spatial_phase_bwd": {"ln_kernel": 2, "wg_gemm_kernel": 5, "tc_prefix_attn": 1,
-                          "tc_prefix_attn_bwd": 1, "ln_bwd_kernel": 1},
-    "mlp_phase_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1},
+                          "tc_prefix_attn_bwd": 1, "ln_bwd_kernel": 1,
+                          "colsum_kernel": 2, "reduce_splits_narrow": 3},
+    "mlp_phase_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1,
+                      "colsum_kernel": 2, "reduce_splits_narrow": 3},
 }
+
+
+def dw_reduces(fb, calls, D, Dh):
+    """reduce_splits launches of the backward calls ``calls`` ({(op, rows):
+    count}): one for each weight gradient the card splits (row 7: fc, proj,
+    qkv; row 8: proj, qkv; row 9: fc2, fc1)."""
+    shapes = {"temporal_phase_tm_bwd": [(D, D), (D, D), (3 * D, D)],
+              "spatial_phase_bwd": [(D, D), (3 * D, D)],
+              "mlp_phase_bwd": [(D, Dh), (Dh, D)]}
+    return sum(n * sum(fb.gemm_dw_splits(rows, o, i) > 1 for o, i in shapes[op])
+               for (op, rows), n in calls.items())
 
 
 def family_counts(rows):
@@ -446,7 +474,7 @@ def split_ms(rows):
     for k, _, ms in rows:
         part = ("attention_bwd" if "attn_bwd" in k else "attention" if "attn" in k
                 else "gemm" if "gemm" in k
-                else "ln" if "::ln_kernel<" in k or "::ln_bwd_kernel(" in k else "other")
+                else "ln" if "::ln_kernel<" in k or "::ln_bwd_kernel<" in k else "other")
         out[part] += ms
     if not out["attention_bwd"]:
         del out["attention_bwd"]
@@ -468,14 +496,21 @@ def record_split(tag, fn, row, top=None):
     return rows
 
 
-def check_families(tag, rows, ops):
-    """The profiled run's launches by kernel family against what the ops'
-    launch counters say they launched: gemm_kernel and attn_kernel only
-    where the ops that keep them (rows 4, 5 and the backwards) ran, so
-    rows 1-3, 6 and 11 ran none."""
-    seen = family_counts(rows)
+def expected_families(ops, reduces=0):
+    """Launches by kernel family that the ops' launch counters ``ops`` (and
+    ``reduces`` dW partial sums) account for."""
     want = {f: sum(n * FAMILY_PER_OP.get(op, {}).get(f, 0) for op, n in ops.items())
             for f in FAMILIES}
+    want["reduce_splits"] += reduces
+    return want
+
+
+def check_families(tag, rows, ops, reduces=0):
+    """The profiled run's launches by kernel family against what the ops'
+    launch counters say they launched (and ``reduces`` dW partial sums):
+    gemm_kernel and attn_kernel only where row 5 ran, gemmx_kernel and
+    attn_bwd_kernel nowhere."""
+    seen, want = family_counts(rows), expected_families(ops, reduces)
     print(f"  {tag}: kernel launches by family {seen}, expected from the ops' "
           f"counters {want}", flush=True)
     if seen != want:
@@ -499,6 +534,26 @@ def print_profile(tag, fn, top=10, on_record=None):
           flush=True)
     for k, n, ms in rows[:top]:
         print(f"    {ms:8.3f} ms {n:4d}x {k[:90]}", flush=True)
+    return rows
+
+
+def checked_profile(tag, family_tag, fn, reset, counts, top=10, reduces=0):
+    """``print_profile`` of one call of ``fn`` (``reset`` zeroes the ops'
+    counters before the recorded call), then ``check_families`` against the
+    counters. The card's profiler has dropped the first kernels of a
+    recorded call even after the warm-up call (the first 22 of a train
+    step, once in six runs on the H100): a profile that saw fewer launches
+    of some family than the counters say, and of none more, is taken once
+    more before the check. Returns the rows by kernel."""
+    for attempt in range(2):
+        rows = print_profile(tag, fn, top, on_record=reset)
+        seen, want = family_counts(rows), expected_families(counts(), reduces)
+        if seen == want or attempt or any(seen[f] > want[f] for f in FAMILIES):
+            break
+        missed = {f: want[f] - seen[f] for f in FAMILIES if seen[f] != want[f]}
+        print(f"  {family_tag}: the profile missed launches {missed}; profiling again",
+              flush=True)
+    check_families(family_tag, rows, counts(), reduces)
     return rows
 
 
@@ -774,7 +829,7 @@ def main():
                 print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms, "
                       f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
                       f"{b / ms:.1%} of bound", flush=True)
-                if name == "temporal_phase_tm_bf16":
+                if name in ("temporal_phase_tm_bf16", "spatial_phase"):
                     record_split(f"{name} {tag}", kern, row)
             # row 3 at the crop's rows, as the train step's forwards run it
             Mx = B * T * Np
@@ -792,24 +847,18 @@ def main():
                   f"bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
             record_split(f"mlp_phase {tag}", lambda: fb.mlp_phase(xm, ps), row)
             mlp_crops.append(row)
-        # where the time goes inside each backward: rows 8 and 9 split by
-        # block, ln_bwd_kernel beside its bytes bound; row 7 by kernel
-        for name, R_ in (("spatial_phase_bwd", B * T * Np + B * T),
+        # where the time goes inside each backward: rows 7, 8 and 9 split by
+        # block, ln_bwd_kernel beside its bytes bound
+        for name, R_ in (("temporal_phase_tm_bwd", B * T * Np),
+                         ("spatial_phase_bwd", B * T * Np + B * T),
                          ("mlp_phase_bwd", B * T * Np)):
             row = stats[name][-1]
-            rows = record_split(f"{name} {tag}", runs[name][0], row, top=14)
-            lb_ms = sum(ms for k, _, ms in rows if "::ln_bwd_kernel(" in k)
+            rows = record_split(f"{name} {tag}", runs[name][0], row, top=16)
+            lb_ms = sum(ms for k, _, ms in rows if "::ln_bwd_kernel<" in k)
             lb_bound, _ = bound_ms(*ln_bwd_cost(B * T * Np, R_, D, True))
             row["ln_bwd"] = {"ms": lb_ms, "bound_ms": lb_bound, "bound_by": "bytes"}
             print(f"  {name} {tag}: ln_bwd_kernel {lb_ms:.4f} ms, bytes bound "
                   f"{lb_bound:.4f} ms ({lb_bound / max(lb_ms, 1e-9):.1%})", flush=True)
-        if tag == "global":
-            rows, _ = kernel_breakdown(runs["temporal_phase_tm_bwd"][0])
-            total = sum(r_[2] for r_ in rows)
-            print(f"  temporal_phase_tm_bwd {tag} by kernel (torch.profiler, "
-                  f"{total:.3f} ms device time):", flush=True)
-            for k, n, ms in rows[:8]:
-                print(f"    {ms:8.3f} ms {n:3d}x {k[:90]}", flush=True)
         del x, cls, dout, dco, xm, dm, runs
         torch.cuda.empty_cache()
 
@@ -1163,6 +1212,89 @@ def main():
         del xc, dc, got, want
     torch.cuda.empty_cache()
 
+    # row 7's blocks alone, at both crops: the strided attention-backward
+    # tile beside SDPA's backward on (BH, 1, T, hd) tensors of the same
+    # shape, and the LayerNorm backward of rows 7-9 (row 7's and 9's grid
+    # rows with the residual; row 8's grid rows and per-frame CLS rows)
+    # beside autograd of F.layer_norm on the same rows (f32; yardsticks the
+    # port never calls), each against its twin
+    print("  row 7's blocks alone: the strided attention-backward tile; the LayerNorm "
+          "backward of rows 7-9", flush=True)
+    blocks["temporal_phase_tm_bwd"] = {"attention_bwd": [], "layer_norm_bwd": []}
+    for tag, B_, T_, N_ in (("global", 16, 8, N), ("local", 64, 8, 36)):
+        r = np.random.RandomState(B_ * T_ + N_)
+        tq = torch.from_numpy(r.randn(B_, T_, N_, 3 * D).astype(np.float32)).to(dev, torch.bfloat16)
+        td = torch.from_numpy(r.randn(B_, T_, N_, D).astype(np.float32)).to(dev, torch.bfloat16)
+        got, want = fb.temporal_attention_bwd(tq, td, H), fb.temporal_attention_bwd_plain(tq, td, H)
+        # dq, dk, dv: sums whose coefficients sum to zero, held by
+        # twin_check's f32 rules (tests/test_torch_kernels_cuda.py, _close_sums)
+        oks = [check_close(f"temporal_attention_bwd {tag} B={B_} T={T_} N={N_} d{nm}",
+                           got[..., i * D:(i + 1) * D].float(), want[..., i * D:(i + 1) * D].float())
+               for i, nm in enumerate("qkv")]
+        if not all(ok for ok, _ in oks):
+            fail(f"the strided attention backward tile disagrees with its twin ({tag} crops)")
+        del got, want
+        ms = cuda_ms(lambda: fb.temporal_attention_bwd(tq, td, H), 10)
+        dms = graph_ms(lambda: fb.temporal_attention_bwd(tq, td, H))
+        pl = cuda_ms(lambda: fb.temporal_attention_bwd_plain(tq, td, H), 1, warmup=1)
+        BH = B_ * N_ * H
+        q, k, v = (torch.randn(BH, 1, T_, hd, device=dev, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(3))
+        o = F.scaled_dot_product_attention(q, k, v)
+        go = torch.randn_like(o)
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True), 10)
+        del q, k, v, o, go, tq, td
+        b, by = bound_ms(*attention_bwd_cost(BH, T_, hd))
+        blocks["temporal_phase_tm_bwd"]["attention_bwd"].append({
+            "crops": tag, "B": B_, "T": T_, "N": N_, "BH": BH, "ms": ms, "device_ms": dms,
+            "plain_ms": pl, "library_ms": lib, "bound_ms": b, "bound_by": by,
+            "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks),
+            "rel_rms": max(g_["rel_rms"] for _, g_ in oks)})
+        print(f"  temporal_attention_bwd {tag} ({BH} x {T_} rows, hd {hd}): {ms:.3f} ms "
+              f"(device {dms:.3f} ms), bound {b:.4f} ms ({by}), plain {pl:.3f} ms, "
+              f"SDPA's backward {lib:.3f} ms", flush=True)
+        M_ = B_ * T_ * N_
+        for what, P_, div in (("rows 7 and 9", 0, 1), ("row 8", B_, T_)):
+            R_ = M_ + P_ * div
+            lx = torch.from_numpy(r.randn(M_, D).astype(np.float32)).to(dev, torch.bfloat16)
+            lt = (torch.from_numpy(r.randn(P_, D).astype(np.float32)).to(dev, torch.bfloat16)
+                  if P_ else None)
+            ldy = torch.from_numpy(r.randn(R_, D).astype(np.float32)).to(dev)
+            lw = torch.from_numpy((1 + 0.1 * r.randn(D)).astype(np.float32)).to(dev)
+            lres = torch.from_numpy(r.randn(M_, D).astype(np.float32)).to(dev, torch.bfloat16)
+            args = (lx, ldy, lw, lres, lt, div)
+            got, want = fb.layer_norm_bwd(*args), fb.layer_norm_bwd_plain(*args)
+            oks = [check_close(f"layer_norm_bwd {tag} {what} R={R_} dx-res", got[0], want[0], lres)]
+            if P_:
+                oks.append(check_close(f"layer_norm_bwd {tag} {what} R={R_} tail dx",
+                                       got[1], want[1]))
+            oks += [check_close(f"layer_norm_bwd {tag} {what} R={R_} d{nm}", got[i], want[i])
+                    for i, nm in ((2, "scale"), (3, "bias"))]
+            if not all(ok for ok, _ in oks):
+                fail(f"the LayerNorm backward disagrees with its twin ({tag}, {what})")
+            del got, want
+            ms = cuda_ms(lambda: fb.layer_norm_bwd(*args), 10)
+            dms = graph_ms(lambda: fb.layer_norm_bwd(*args))
+            pl = cuda_ms(lambda: fb.layer_norm_bwd_plain(*args), 2, warmup=1)
+            xf = torch.cat([lx, lt.repeat_interleave(div, 0)]) if P_ else lx
+            xf = xf.float().requires_grad_(True)
+            lwq = lw.clone().requires_grad_(True)
+            lb_ = torch.zeros_like(lw, requires_grad=True)
+            lo = F.layer_norm(xf, (D,), lwq, lb_, 1e-6)
+            lib = cuda_ms(lambda: torch.autograd.grad(lo, (xf, lwq, lb_), ldy, retain_graph=True),
+                          10)
+            del xf, lwq, lb_, lo
+            b, by = bound_ms(*ln_bwd_cost(M_, R_, D, True))
+            blocks["temporal_phase_tm_bwd"]["layer_norm_bwd"].append({
+                "crops": tag, "rows_of": what, "M": M_, "R": R_, "ms": ms, "device_ms": dms,
+                "plain_ms": pl, "library_ms": lib, "bound_ms": b, "bound_by": by,
+                "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks)})
+            print(f"  layer_norm_bwd {tag} {what} (M={M_}, R={R_}, D={D}): {ms:.3f} ms "
+                  f"(device {dms:.4f} ms), bound {b:.4f} ms ({by}), {b / dms:.1%} of bound, "
+                  f"plain {pl:.3f} ms, torch's layer-norm backward {lib:.3f} ms", flush=True)
+            del lx, lt, ldy, lw, lres, args
+    torch.cuda.empty_cache()
+
     # the XLA-layout block's two attention phases and the standalone
     # attention, at the chunk-8 scorer's teacher and student windows
     for name in ("attn_phase", "temporal_phase", "fused_attention"):
@@ -1354,10 +1486,9 @@ def main():
               f"{wall * 1e3 / chunks:.1f} ({n_frames} frames, {chunks} chunks) "
               f"on {card}", flush=True)
         # which kernels the path launched: one profiled run of the 40-frame clip
-        rows = print_profile(f"{items[1]['num_frames']}-frame clip",
-                             lambda: run(scorers, items[1:], "profiled"), top=8,
-                             on_record=reset_counts)
-        check_families("windowed path", rows, counts())
+        checked_profile(f"{items[1]['num_frames']}-frame clip", "windowed path",
+                        lambda: run(scorers, items[1:], "profiled"), reset_counts, counts,
+                        top=8)
         del scorers
         reset_counts()
         plain = run(scorers_for(torch.bfloat16, False), items, "plain")
@@ -1415,12 +1546,10 @@ def main():
 
         # where the time goes: one profiled run of the 600-frame clip
         long = band_items[2]
-        rows = print_profile(f"{long['num_frames']}-frame clip",
-                             lambda: sc.score_video(long["frames"], long["local_idx"],
-                                                    long["global_idx"],
-                                                    long["eff_global"]), top=14,
-                             on_record=reset_counts)
-        check_families("banded path", rows, counts())
+        checked_profile(f"{long['num_frames']}-frame clip", "banded path",
+                        lambda: sc.score_video(long["frames"], long["local_idx"],
+                                               long["global_idx"], long["eff_global"]),
+                        reset_counts, counts, top=14)
         del scorers, sc
 
         reset_counts()
@@ -1538,24 +1667,36 @@ def main():
     train_step()  # first-call allocations
     torch.cuda.synchronize()
     reset_counts()
-    # row 9's calls of the counted step by row count (grid and CLS rows),
-    # read through a shim around the op (the counters stay the op's own)
-    mlp_rows = {}
-    mlp_bwd = fb.mlp_phase_bwd
+    # the backwards' calls of the counted step by row count (row 7: grid
+    # rows; row 8: grid and per-frame CLS rows; row 9: grid or CLS rows),
+    # read through shims around the ops (the counters stay the ops' own)
+    bwd_calls = {}
+    rows_of = {"temporal_phase_tm_bwd": lambda x: x.numel() // x.shape[-1],
+               "spatial_phase_bwd": lambda x: x.numel() // x.shape[-1] + x.shape[0] * x.shape[1],
+               "mlp_phase_bwd": lambda x: x.shape[0]}
+    sound = {op: getattr(fb, op) for op in rows_of}
 
-    def mlp_bwd_shim(x, *a, **k):
-        mlp_rows[x.shape[0]] = mlp_rows.get(x.shape[0], 0) + 1
-        return mlp_bwd(x, *a, **k)
+    def shim(op):
+        def call(x, *a, **k):
+            key = (op, rows_of[op](x))
+            bwd_calls[key] = bwd_calls.get(key, 0) + 1
+            return sound[op](x, *a, **k)
+        return call
 
-    fb.mlp_phase_bwd = mlp_bwd_shim
+    for op in rows_of:
+        setattr(fb, op, shim(op))
     try:
         train_step()
     finally:
-        fb.mlp_phase_bwd = mlp_bwd
+        for op, fn in sound.items():
+            setattr(fb, op, fn)
     torch.cuda.synchronize()
     seen = counts()
     depth = tcfg.depth
-    print(f"  mlp_phase_bwd calls in one step by row count: {mlp_rows}", flush=True)
+    mlp_rows = {rows: n for (op, rows), n in bwd_calls.items() if op == "mlp_phase_bwd"}
+    reduces = dw_reduces(fb, bwd_calls, tcfg.embed_dim, int(tcfg.embed_dim * tcfg.mlp_ratio))
+    print(f"  backward calls in one step by row count: {bwd_calls}; dW partial sums "
+          f"(reduce_splits) expected per step: {reduces}", flush=True)
     want = {k: 0 for k in seen}
     want.update({"temporal_phase_tm_bf16": 3 * depth, "spatial_phase": 3 * depth,
                  "mlp_phase": 6 * depth, "temporal_phase_tm_bwd": 2 * depth,
@@ -1602,8 +1743,10 @@ def main():
     if not math.isfinite(losses[-1]) or ema_err > 1e-6:
         fail("the teacher is not the EMA of the student")
 
-    rows = print_profile("one step", train_step, top=16, on_record=reset_counts)
-    check_families("train step", rows, counts())
+    # no train op accounts for gemm_kernel, attn_kernel, gemmx_kernel or
+    # attn_bwd_kernel: the check fails if the step launches any of them
+    checked_profile("one step", "train step", train_step, reset_counts, counts, top=16,
+                    reduces=reduces)
     del g, l
 
     del state, step
@@ -1664,10 +1807,9 @@ def main():
             refs[T] = (plain, ref)
             feature_checks(f"per-phase forward T={T}", got, plain, ref)
 
-        rows = print_profile("per-phase forward T=30",
-                             lambda: phase_forward(bf16_model, windows[30], True),
-                             on_record=reset_counts)
-        check_families("per-phase forward", rows, counts())
+        checked_profile("per-phase forward T=30", "per-phase forward",
+                        lambda: phase_forward(bf16_model, windows[30], True),
+                        reset_counts, counts)
 
         # drop-path: per-block rates linspace(0, 0.1, depth), masks from a
         # seeded generator, the kernel route and the plain route fed the

@@ -48,6 +48,8 @@ _SIGNATURES = {
         "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 6 + [_p],
         # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H | stream
         "dvst_spatial_phase": [_p] * 11 + [_i] * 5 + [_p],
+        # its workspace bytes (returns long) | B, T, N, D
+        "dvst_spatial_phase_ws": [_i] * 4,
         # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
         "dvst_spatial_mlp": [_p] * 18 + [_i] * 6 + [_p],
         # x, 6 weights, workspace, out | M | D, Dh, residual | stream
@@ -99,6 +101,15 @@ _SIGNATURES = {
         "dvst_spatial_attn_bwd": [_p] * 6 + [_i] * 5 + [_f, _p],
         # shared bytes of one block (returns long) | L, hd
         "dvst_spatial_attn_bwd_smem": [_i] * 2,
+        # qkv, da, dqkv | B, T, N, D, H | scale | stream
+        "dvst_temporal_attn_bwd": [_p] * 3 + [_i] * 5 + [_f, _p],
+        # shared bytes of one block (returns long) | S, L, hd
+        "dvst_temporal_attn_bwd_smem": [_i] * 3,
+        # x, x_tail, dy, w, res, dx, dx_tail, partials, dgb | M, R | D,
+        # tail_div | stream
+        "dvst_layer_norm_bwd": [_p] * 9 + [_l] * 2 + [_i] * 2 + [_p],
+        # bytes of partials (returns long) | R | D
+        "dvst_layer_norm_bwd_ws": [_l, _i],
         # dY, W, aux, out | M | N, K, epilogue | stream
         "dvst_gemm_dx": [_p] * 4 + [_l] + [_i] * 3 + [_p],
         # dY, X, out, partials | rows | n_out, k_in | stream

@@ -1,9 +1,10 @@
 // Building blocks shared by the port's Hopper kernel libraries
 // (fused_block.cu, banded_block.cu, fused_block_bwd.cu): LayerNorm, the
-// wmma GEMM with its epilogues, the short-sequence attention, the
-// shared-memory opt-in, and for the backwards the LayerNorm backward, the
-// attention backward, the GEMM with transposable operands (dX = dY . W,
-// dW = dY^T . X) and the fixed-order reductions.
+// wmma GEMM with its epilogues and the short-sequence attention (the
+// per-phase attention dvst_attn_phase's, row 5), the shared-memory
+// opt-in, the workspace carver, and for the backwards the LayerNorm
+// backward, the column sums, the fixed-order reductions and two small
+// row passes.
 // Each library includes this file once; everything here has internal
 // linkage.
 
@@ -16,7 +17,6 @@
 #include <stdint.h>
 
 #include <mutex>
-#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
@@ -463,18 +463,41 @@ cudaError_t attn(int hd, const bf16* qkv, const bf16* qkv_prefix, bf16* out,
 #undef DVST_ATTN_CASE
 }
 
+// Carves 256-byte aligned buffers from one workspace (so every TMA operand
+// starts 16-byte aligned); with a null base it only counts the bytes.
+struct Carve {
+  char* base;
+  size_t off = 0;
+  template <typename T>
+  T* take(size_t n) {
+    off = (off + 255) & ~size_t(255);
+    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += n * sizeof(T);
+    return p;
+  }
+};
+
 // ===========================================================================
 // Backward building blocks, compiled only where DVST_WITH_BACKWARD is
 // defined before this file is included (fused_block_bwd.cu), so the
 // forward libraries do not build them. Every reduction across rows runs in
 // a fixed order (per-block partial sums, then reduce_splits over the
-// blocks in index order): no float atomics, so two calls give
+// blocks in a fixed order): no float atomics, so two calls give
 // bit-identical gradients.
 // ===========================================================================
 
 #ifdef DVST_WITH_BACKWARD
 
-// out[i] = sum over z = 0 .. splits-1, in that order, of part[z * n + i].
+// out[i] = the sum over z = 0 .. splits-1 of part[z * n + i], in a fixed
+// order. A wide output (a weight gradient's split partials) takes one
+// thread per element, adding z in order. A narrow one (column sums, the
+// LayerNorm scale and bias: a few thousand elements over up to a few
+// hundred partials) takes a block of kRedWarps warps per 32 elements:
+// warp w adds z = w, w + kRedWarps, ... in order, then the warps' sums
+// are added in warp order. One thread per element there would leave the
+// card a few blocks, each a chain of hundreds of dependent loads.
+constexpr int kRedWarps = 32;
+
 __global__ void reduce_splits_kernel(const float* __restrict__ part, int splits,
                                      long n, float* __restrict__ out) {
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -485,12 +508,35 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, int splits,
   }
 }
 
+__global__ void __launch_bounds__(kRedWarps * 32)
+reduce_splits_narrow_kernel(const float* __restrict__ part, int splits, long n,
+                            float* __restrict__ out) {
+  __shared__ float acc[kRedWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long i = (long)blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (i < n)
+    for (int z = warp; z < splits; z += kRedWarps) s += part[(long)z * n + i];
+  acc[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float t = 0.f;
+    for (int w = 0; w < kRedWarps; ++w) t += acc[w][lane];
+    out[i] = t;
+  }
+}
+
 inline cudaError_t reduce_splits(const float* part, int splits, long n,
                                  float* out, cudaStream_t st) {
   if (n <= 0) return cudaSuccess;
-  long blocks = (n + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  reduce_splits_kernel<<<(unsigned)blocks, 256, 0, st>>>(part, splits, n, out);
+  if (n < 65536) {
+    reduce_splits_narrow_kernel<<<(unsigned)((n + 31) / 32), kRedWarps * 32, 0, st>>>(
+        part, splits, n, out);
+  } else {
+    long blocks = (n + 255) / 256;
+    if (blocks > 4096) blocks = 4096;
+    reduce_splits_kernel<<<(unsigned)blocks, 256, 0, st>>>(part, splits, n, out);
+  }
   return cudaGetLastError();
 }
 
@@ -533,289 +579,186 @@ cudaError_t colsum(const T* x, long rows, int cols, float* part, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM with transposable operands, for dX = dY . W and dW = dY^T . X:
-//   C[M, N] = sum_k opA[m, k] opB[k, n], bf16 operands, f32 accumulation
-//   A_T false: A stored (M, K) row-major (ld lda); true: stored (K, M)
-//   B_T false: B stored (K, N) row-major (ld ldb) — an (out, in) weight W
-//              read as K = out rows, so dY . W; true: stored (N, K)
-// The reduction over [0, K) is cut into gridDim.z chunks of kchunk (a
-// multiple of kBK); block z writes its own f32 partial to out + z*M*N
-// (EPI kXF32), and reduce_splits adds the partials in order. Reduction
-// rows past K are zero-filled on load (K ragged where the operand stored
-// with K as its row index is transposed); M is ragged where A is not
-// transposed. Same tiles, pipeline and wmma fragments as gemm_kernel.
+// LayerNorm backward, f32 throughout (the JAX kernels' f32 dy): dx = rstd *
+// (dxh - mean(dxh) - xhat * mean(dxh * xhat)), dxh = dy * w. Rows r < M
+// read x[r] and write dx[r] = bf16(dx + res[r]) (res may be null); rows M
+// <= r < R read x_tail[(r - M) / tail_div] (a row shared by tail_div rows,
+// the spatial op's per-frame CLS) and write dx_tail[r - M] in f32. The
+// column sums of dy * xhat and dy (the scale and bias gradients) go to one
+// partial per block, its warps' sums added in warp order, which
+// reduce_splits adds in a fixed order.
+// Bound by bytes: dy (f32), x, the residual read once, dx written once
+// (193 MB at R = 25216, D = 768: 0.058 ms).
+// Design: the row width D = 32 V is a template parameter, so a lane holds
+// exactly its V values of a row (24 at ViT-B), x as packed bf16 pairs (its
+// f32 values are recomputed where used, so the lane's dy, dxh and the two
+// column sums fit 128 registers without spilling); a lane reads 8
+// consecutive values at once (16-byte loads of x and the residual, two of
+// dy; 4 where V % 8 != 0) and writes them at once; a warp takes one row at
+// a time; a
+// grid of at most kLnBwdBlocks blocks of kLnBwdWarps warps, two blocks an
+// SM, each over a contiguous run of rows (block b of G: rows [b R / G, (b
+// + 1) R / G)), so the partials stay few.
 // ---------------------------------------------------------------------------
 
-enum XEpi {
-  kXF32 = 0,           // f32(acc), to partial z
-  kXBf16 = 1,          // bf16(acc)
-  kXGeluGradBf16 = 2,  // bf16(acc * gelu_erf'(aux[m, n])), aux f32 (M, N)
-};
+constexpr int kLnBwdWarps = 8;
+constexpr int kLnBwdBlocks = 264;  // two on each of the H100's 132 SMs
 
-constexpr int kXTile = kBM * (kBK + 8);  // one operand stage, either layout
+// Blocks (and partials) of the LayerNorm backward over `rows` rows.
+inline long ln_bwd_blocks(long rows) {
+  const long b = (rows + kLnBwdWarps - 1) / kLnBwdWarps;
+  return b < kLnBwdBlocks ? b : kLnBwdBlocks;
+}
 
-template <bool A_T, bool B_T, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-gemmx_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ B,
-             long ldb, const float* __restrict__ aux, void* __restrict__ out,
-             int M, int N, long K, long kchunk) {
-  constexpr int LDA = A_T ? kBM + 8 : kBK + 8;
-  constexpr int LDB = B_T ? kBK + 8 : kBN + 8;
-  using LayA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LayB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  __shared__ __align__(128) bf16 smem[2 * 2 * kXTile];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const long kbeg = (long)blockIdx.z * kchunk;
-  const long kend = kbeg + kchunk < K ? kbeg + kchunk : K;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto load_tile = [&](int stage, long k0) {
-    bf16* as = smem + stage * 2 * kXTile;
-    bf16* bs = as + kXTile;
-#pragma unroll
-    for (int c = tid; c < kBM * kBK / 8; c += kGemmThreads) {
-      if constexpr (A_T) {  // tile rows are k, columns m
-        const int r = c / (kBM / 8), cc = (c % (kBM / 8)) * 8;
-        const long gk = k0 + r;
-        const bool ok = gk < kend;
-        cp_async16(as + r * LDA + cc, A + (ok ? gk : kbeg) * lda + m0 + cc,
-                   ok ? 16 : 0);
-      } else {  // tile rows are m, columns k
-        const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-        const int gm = m0 + r;
-        const bool ok = gm < M;
-        cp_async16(as + r * LDA + kc, A + (long)(ok ? gm : M - 1) * lda + k0 + kc,
-                   ok ? 16 : 0);
-      }
-    }
-#pragma unroll
-    for (int c = tid; c < kBN * kBK / 8; c += kGemmThreads) {
-      if constexpr (B_T) {  // tile rows are n, columns k
-        const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-        cp_async16(bs + r * LDB + kc, B + (long)(n0 + r) * ldb + k0 + kc, 16);
-      } else {  // tile rows are k, columns n
-        const int r = c / (kBN / 8), cc = (c % (kBN / 8)) * 8;
-        const long gk = k0 + r;
-        const bool ok = gk < kend;
-        cp_async16(bs + r * LDB + cc, B + (ok ? gk : kbeg) * ldb + n0 + cc,
-                   ok ? 16 : 0);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const long nk = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
-  if (nk > 0) load_tile(0, kbeg);
-  for (long kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_tile((int)((kt + 1) & 1), kbeg + (kt + 1) * kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = smem + (kt & 1) * 2 * kXTile;
-    const bf16* bs = as + kXTile;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if constexpr (A_T)
-          wmma::load_matrix_sync(fa[i], as + kk * LDA + wm * 32 + i * 16, LDA);
-        else
-          wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDA + kk, LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (B_T)
-          wmma::load_matrix_sync(fb[j], bs + (wn * 64 + j * 16) * LDB + kk, LDB);
-        else
-          wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * 64 + j * 16, LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* scr = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 32 + i * 16 + r;
-      const int gn = n0 + wn * 64 + j * 16 + c0;
-      if (gm < M) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = scr[r * 16 + c0 + e];
-        const size_t o = (size_t)gm * N + gn;
-        if constexpr (EPI == kXF32) {
-          store8(static_cast<float*>(out) + (size_t)blockIdx.z * M * N + o, v);
-        } else if constexpr (EPI == kXBf16) {
-          store8(static_cast<bf16*>(out) + o, v);
-        } else {
-          float av[8];
-          load8(aux + o, av);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] *= gelu_erf_grad(av[e]);
-          store8(static_cast<bf16*>(out) + o, v);
-        }
-      }
-      __syncwarp();
-    }
+// CW consecutive values (CW 8 or 4) of a bf16 or f32 row, to or from f32;
+// of a bf16 row also as CW / 2 packed pairs.
+template <int CW>
+__device__ __forceinline__ void ln_load(const bf16* src, float* v) {
+  if constexpr (CW == 8) {
+    load8(src, v);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
   }
 }
 
-template <bool A_T, bool B_T, int EPI>
-cudaError_t gemmx(const bf16* A, long lda, const bf16* B, long ldb,
-                  const float* aux, void* out, long M, int N, long K,
-                  int splits, cudaStream_t st) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  if (N % kBN || ((!A_T || B_T) && K % kBK) || (A_T && M % kBM))
-    return cudaErrorInvalidValue;
-  if (splits < 1 || EPI != kXF32) splits = 1;
-  long kchunk = ((K + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  if (kchunk < kBK) kchunk = kBK;
-  const dim3 grid(N / kBN, (unsigned)((M + kBM - 1) / kBM), splits);
-  gemmx_kernel<A_T, B_T, EPI><<<grid, kGemmThreads, 0, st>>>(
-      A, lda, B, ldb, aux, out, (int)M, N, K, kchunk);
-  return cudaGetLastError();
+template <int CW>
+__device__ __forceinline__ void ln_load_packed(const bf16* src, uint32_t* p) {
+  if constexpr (CW == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    p[0] = u.x; p[1] = u.y; p[2] = u.z; p[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    p[0] = u.x; p[1] = u.y;
+  }
 }
 
-// Reduction rows per split of a weight gradient: enough output tiles x
-// splits to fill the card several times at the training shapes.
-constexpr int kDwMaxSplits = 16;
-
-inline int dw_splits(long rows) {
-  long s = (rows + 2047) / 2048;
-  return s < 1 ? 1 : (s > kDwMaxSplits ? kDwMaxSplits : (int)s);
+// Value i of bf16 pairs p (the low half first) in f32: bf16 is f32's top 16
+// bits.
+__device__ __forceinline__ float bf16_of(const uint32_t* p, int i) {
+  const uint32_t w = p[i >> 1];
+  return __uint_as_float((i & 1) ? w & 0xffff0000u : w << 16);
 }
 
-// dW (n_out, k_in) f32 = dY^T . X over `rows` rows: dY (rows, n_out) and
-// X (rows, k_in) bf16 row-major. part: dw_splits(rows) * n_out * k_in
-// floats of scratch (unused with one split).
-inline cudaError_t gemm_dw(const bf16* dy, const bf16* x, float* out,
-                           float* part, long rows, int n_out, int k_in,
-                           cudaStream_t st) {
-  const int splits = dw_splits(rows);
-  if (splits == 1)
-    return gemmx<true, false, kXF32>(dy, n_out, x, k_in, nullptr, out, n_out,
-                                     k_in, rows, 1, st);
-  const cudaError_t e = gemmx<true, false, kXF32>(dy, n_out, x, k_in, nullptr,
-                                                  part, n_out, k_in, rows,
-                                                  splits, st);
-  if (e != cudaSuccess) return e;
-  return reduce_splits(part, splits, (long)n_out * k_in, out, st);
+template <int CW>
+__device__ __forceinline__ void ln_load(const float* src, float* v) {
+  if constexpr (CW == 8) {
+    load8(src, v);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
 }
 
-// ---------------------------------------------------------------------------
-// LayerNorm backward, one warp per row, f32 throughout (the JAX kernels'
-// f32 dy): dx = rstd * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),
-// dxh = dy * w. Rows r < M read x[r] and write dx[r] = bf16(dx + res[r])
-// (res may be null); rows M <= r < R read x_tail[(r - M) / tail_div] (a
-// row shared by tail_div rows, the spatial op's CLS) and write dx_tail
-// [r - M] in f32. Each block of kLnBwdRows rows writes its sums of
-// dy * xhat and dy, reduced over its warps in order, to part[block][2D].
-// Bound by bytes (dy f32 read once, x read once, dx written once).
-// ---------------------------------------------------------------------------
+template <int CW>
+__device__ __forceinline__ void ln_store(bf16* dst, const float* v) {
+  if constexpr (CW == 8) {
+    store8(dst, v);
+  } else {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                                *reinterpret_cast<const uint32_t*>(&b));
+  }
+}
 
-constexpr int kLnBwdRows = 64;
+template <int CW>
+__device__ __forceinline__ void ln_store(float* dst, const float* v) {
+  if constexpr (CW == 8) {
+    store8(dst, v);
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
 
-inline long ln_bwd_blocks(long rows) { return (rows + kLnBwdRows - 1) / kLnBwdRows; }
-
-__global__ void __launch_bounds__(kLnThreads)
-ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail,
-              int tail_div, const float* __restrict__ dy,
-              const float* __restrict__ w, const bf16* __restrict__ res,
-              bf16* __restrict__ dx, float* __restrict__ dx_tail, long M,
-              long R, int D, float* __restrict__ part) {
-  constexpr int kWarps = kLnThreads / 32;
-  __shared__ float sg[32 * kLnMaxV], sb[32 * kLnMaxV];
+template <int V>
+__global__ void __launch_bounds__(kLnBwdWarps * 32, 2)
+ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int tail_div,
+              const float* __restrict__ dy, const float* __restrict__ w,
+              const bf16* __restrict__ res, bf16* __restrict__ dx, float* __restrict__ dx_tail,
+              long M, long R, float* __restrict__ part) {
+  constexpr int D = 32 * V;
+  constexpr int CW = V % 8 == 0 ? 8 : 4;  // values a lane reads at once
+  constexpr int NC = V / CW;              // its chunks of a row: columns CW (lane + 32 c) ..
+  __shared__ float sg[D], sb[D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float ag[kLnMaxV], ab[kLnMaxV];
+  float ag[V], ab[V];
 #pragma unroll
-  for (int i = 0; i < kLnMaxV; ++i) ag[i] = ab[i] = 0.f;
-  const long r0 = (long)blockIdx.x * kLnBwdRows;
-  for (int rr = warp; rr < kLnBwdRows; rr += kWarps) {
-    const long r = r0 + rr;
-    if (r >= R) break;  // uniform per warp
-    const bf16* xr = r < M ? x + r * D : x_tail + ((r - M) / tail_div) * D;
+  for (int i = 0; i < V; ++i) ag[i] = ab[i] = 0.f;
+  const long G = gridDim.x;
+  const long rb = blockIdx.x * R / G, re = (blockIdx.x + 1) * R / G;
+  for (long r = rb + warp; r < re; r += kLnBwdWarps) {
+    const bf16* xr = r < M ? x + r * D : x_tail + (r - M) / tail_div * D;
     const float* dyr = dy + r * D;
-    float v[kLnMaxV], g[kLnMaxV];
+    uint32_t xp[V / 2];  // x as bf16 pairs
+    float g[V];          // dy, then dxh
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = CW * (lane + 32 * c);
+      ln_load_packed<CW>(xr + d, xp + CW / 2 * c);
+      ln_load<CW>(dyr + d, g + CW * c);
+    }
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLnMaxV; ++i) {
-      const int d = lane + 32 * i;
-      v[i] = d < D ? __bfloat162float(xr[d]) : 0.f;
-      s += v[i];
-    }
+    for (int i = 0; i < V; ++i) s += bf16_of(xp, i);
     const float mu = warp_sum(s) / (float)D;
     float q = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLnMaxV; ++i) {
-      const int d = lane + 32 * i;
-      const float c = d < D ? v[i] - mu : 0.f;
-      q += c * c;
-    }
+    for (int i = 0; i < V; ++i) q += (bf16_of(xp, i) - mu) * (bf16_of(xp, i) - mu);
     const float rs = rsqrtf(warp_sum(q) / (float)D + kLnEps);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLnMaxV; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) {
-        const float xh = (v[i] - mu) * rs;
-        const float gy = dyr[d];
-        ag[i] += gy * xh;
-        ab[i] += gy;
-        const float dxh = gy * w[d];
+    for (int c = 0; c < NC; ++c) {
+      float wv[CW];
+      ln_load<CW>(w + CW * (lane + 32 * c), wv);
+#pragma unroll
+      for (int e = 0; e < CW; ++e) {
+        const int i = CW * c + e;
+        const float xh = (bf16_of(xp, i) - mu) * rs;
+        ag[i] += g[i] * xh;
+        ab[i] += g[i];
+        const float dxh = g[i] * wv[e];
         s1 += dxh;
         s2 += dxh * xh;
-        v[i] = xh;
         g[i] = dxh;
       }
     }
     const float m1 = warp_sum(s1) / (float)D, m2 = warp_sum(s2) / (float)D;
 #pragma unroll
-    for (int i = 0; i < kLnMaxV; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) {
-        float val = rs * (g[i] - m1 - v[i] * m2);
-        if (r < M) {
-          if (res) val += __bfloat162float(res[r * D + d]);
-          dx[r * D + d] = __float2bfloat16(val);
-        } else {
-          dx_tail[(r - M) * D + d] = val;
+    for (int c = 0; c < NC; ++c) {
+      const int d = CW * (lane + 32 * c);
+      float o[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) {
+        const float xh = (bf16_of(xp, CW * c + e) - mu) * rs;
+        o[e] = rs * (g[CW * c + e] - m1 - xh * m2);
+      }
+      if (r < M) {
+        if (res) {
+          float rv[CW];
+          ln_load<CW>(res + r * D + d, rv);
+#pragma unroll
+          for (int e = 0; e < CW; ++e) o[e] += rv[e];
         }
+        ln_store<CW>(dx + r * D + d, o);
+      } else {
+        ln_store<CW>(dx_tail + (r - M) * D + d, o);
       }
     }
   }
   // the block's column sums, warp by warp in order
-  for (int wi = 0; wi < kWarps; ++wi) {
+  for (int wi = 0; wi < kLnBwdWarps; ++wi) {
     if (warp == wi) {
 #pragma unroll
-      for (int i = 0; i < kLnMaxV; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) {
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < CW; ++e) {
+          const int d = CW * (lane + 32 * c) + e, i = CW * c + e;
           sg[d] = wi == 0 ? ag[i] : sg[d] + ag[i];
           sb[d] = wi == 0 ? ab[i] : sb[d] + ab[i];
         }
-      }
     }
     __syncthreads();
   }
@@ -826,15 +769,33 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail,
   }
 }
 
-// dgb: 2D floats, (dw | db). part: ln_bwd_blocks(R) * 2D floats.
+// dgb: 2D floats, (dw | db). part: ln_bwd_blocks(R) * 2D floats. D a
+// multiple of 128 up to 1024; x, x_tail, dy, res, dx, dx_tail and w
+// 16-byte aligned.
 inline cudaError_t ln_bwd(const bf16* x, const bf16* x_tail, int tail_div,
                           const float* dy, const float* w, const bf16* res,
                           bf16* dx, float* dx_tail, long M, long R, int D,
                           float* part, float* dgb, cudaStream_t st) {
   if (R <= 0) return cudaSuccess;
   const long blocks = ln_bwd_blocks(R);
-  ln_bwd_kernel<<<(unsigned)blocks, kLnThreads, 0, st>>>(
-      x, x_tail, tail_div, dy, w, res, dx, dx_tail, M, R, D, part);
+#define DVST_LNB_CASE(VV)                                                                   \
+  case 32 * VV:                                                                             \
+    ln_bwd_kernel<VV><<<(unsigned)blocks, kLnBwdWarps * 32, 0, st>>>(                       \
+        x, x_tail, tail_div, dy, w, res, dx, dx_tail, M, R, part);                          \
+    break;
+  switch (D) {
+    DVST_LNB_CASE(4)
+    DVST_LNB_CASE(8)
+    DVST_LNB_CASE(12)
+    DVST_LNB_CASE(16)
+    DVST_LNB_CASE(20)
+    DVST_LNB_CASE(24)
+    DVST_LNB_CASE(28)
+    DVST_LNB_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_LNB_CASE
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return reduce_splits(part, (int)blocks, 2L * D, dgb, st);
@@ -871,226 +832,6 @@ __global__ void sum_groups_kernel(const float* __restrict__ src, int reps, int D
 inline unsigned ew_blocks(long n) {
   long b = (n + 255) / 256;
   return (unsigned)(b < 1 ? 1 : (b > 8192 ? 8192 : b));
-}
-
-// ---------------------------------------------------------------------------
-// Attention backward over short sequences: one block per (sequence s, head
-// h), with attn_kernel's sequence and prefix addressing. Recomputes
-// pn = bf16(softmax(q k^T * scale)) (row max subtracted, exact division),
-// then dv = pn^T da, dp = da v^T, ds = bf16(pn * (dp - rowsum(dp * pn)) *
-// scale), dq = ds k, dk = ds^T q, each rounded to bf16 into dqkv (rows of
-// width 3D, the qkv layout; f32 sums). With a prefix, row 0 of sequence s
-// is prefix row s_hi; its da row is da_prefix row s and its dq/dk/dv go to
-// dqkv_prefix row s (one per sequence: the caller sums them). Shared
-// memory: q, k, v, da (L x hd bf16 each), pn then ds (L x L bf16), one f32
-// row per warp — 185 KB at L = 197, hd = 64. Bound by operations on the
-// CUDA cores (~8 L^2 hd FLOP per sequence and head, a few % of the op).
-// ---------------------------------------------------------------------------
-
-inline size_t attn_bwd_smem(int L, int hd) {
-  const int warps = L < 8 ? L : 8;
-  return (size_t)4 * L * hd * 2 + (size_t)((L * L + 1) & ~1) * 2 +
-         (size_t)warps * L * 4;
-}
-
-template <int HD>
-__global__ void attn_bwd_kernel(const bf16* __restrict__ qkv,
-                                const bf16* __restrict__ qkv_prefix,
-                                const bf16* __restrict__ da,
-                                const bf16* __restrict__ da_prefix,
-                                bf16* __restrict__ dqkv,
-                                bf16* __restrict__ dqkv_prefix, int S_lo,
-                                long hi_stride, long lo_stride, long l_stride,
-                                int n_main, int H, float scale) {
-  constexpr int HD2 = HD / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pre = qkv_prefix != nullptr ? 1 : 0;
-  const int L = n_main + pre;
-  const int s = blockIdx.x, h = blockIdx.y;
-  const int D = H * HD;
-  const long row_w = 3L * D;
-  const int s_hi = s / S_lo, s_lo = s - s_hi * S_lo;
-  const long base = (long)s_hi * hi_stride + (long)s_lo * lo_stride;
-
-  __nv_bfloat162* q_s = reinterpret_cast<__nv_bfloat162*>(smem_raw);
-  __nv_bfloat162* k_s = q_s + L * HD2;
-  __nv_bfloat162* v_s = k_s + L * HD2;
-  __nv_bfloat162* d_s = v_s + L * HD2;
-  bf16* P = reinterpret_cast<bf16*>(d_s + L * HD2);  // (L, L): pn, then ds
-  float* p_all = reinterpret_cast<float*>(P + ((L * L + 1) & ~1));
-
-  auto qkv_row = [&](int l) -> const bf16* {
-    return l < pre ? qkv_prefix + (long)s_hi * row_w
-                   : qkv + (base + (long)(l - pre) * l_stride) * row_w;
-  };
-  auto dqkv_row = [&](int l) -> bf16* {
-    return l < pre ? dqkv_prefix + (long)s * row_w
-                   : dqkv + (base + (long)(l - pre) * l_stride) * row_w;
-  };
-
-  for (int idx = threadIdx.x; idx < L * HD2; idx += blockDim.x) {
-    const int l = idx / HD2, c = idx - l * HD2;
-    const __nv_bfloat162* r2 =
-        reinterpret_cast<const __nv_bfloat162*>(qkv_row(l) + h * HD);
-    q_s[idx] = r2[c];
-    k_s[idx] = r2[D / 2 + c];
-    v_s[idx] = r2[D + c];
-    const bf16* dr = l < pre ? da_prefix + (long)s * D
-                             : da + (base + (long)(l - pre) * l_stride) * D;
-    d_s[idx] = reinterpret_cast<const __nv_bfloat162*>(dr + h * HD)[c];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  float* p_w = p_all + warp * L;
-
-  // 1. pn rows
-  for (int i = warp; i < L; i += nw) {
-    __nv_bfloat162 qr[HD2];
-#pragma unroll
-    for (int c = 0; c < HD2; ++c) qr[c] = q_s[i * HD2 + c];
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const __nv_bfloat162* kr = k_s + j * HD2;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD2; ++c) {
-        const float2 a = __bfloat1622float2(qr[c]);
-        const float2 b = __bfloat1622float2(kr[c]);
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-      }
-      acc *= scale;
-      p_w[j] = acc;
-      mx = fmaxf(mx, acc);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(p_w[j] - mx);
-      p_w[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) P[i * L + j] = __float2bfloat16(p_w[j] / sum);
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // 2a. dv_j = sum_i pn_ij da_i
-  for (int idx = threadIdx.x; idx < L * HD2; idx += blockDim.x) {
-    const int j = idx / HD2, c = idx - j * HD2;
-    float ax = 0.f, ay = 0.f;
-    for (int i = 0; i < L; ++i) {
-      const float p = __bfloat162float(P[i * L + j]);
-      const float2 d = __bfloat1622float2(d_s[i * HD2 + c]);
-      ax = fmaf(p, d.x, ax);
-      ay = fmaf(p, d.y, ay);
-    }
-    reinterpret_cast<__nv_bfloat162*>(dqkv_row(j) + D + D + h * HD)[c] =
-        __floats2bfloat162_rn(ax, ay);
-  }
-  __syncthreads();
-
-  // 2b. ds rows, written over pn (each row by the warp that owns it)
-  for (int i = warp; i < L; i += nw) {
-    __nv_bfloat162 dr[HD2];
-#pragma unroll
-    for (int c = 0; c < HD2; ++c) dr[c] = d_s[i * HD2 + c];
-    float t = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const __nv_bfloat162* vr = v_s + j * HD2;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD2; ++c) {
-        const float2 a = __bfloat1622float2(dr[c]);
-        const float2 b = __bfloat1622float2(vr[c]);
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-      }
-      p_w[j] = acc;
-      t += acc * __bfloat162float(P[i * L + j]);
-    }
-    t = warp_sum(t);
-    for (int j = lane; j < L; j += 32) {
-      const float pf = __bfloat162float(P[i * L + j]);
-      P[i * L + j] = __float2bfloat16(pf * (p_w[j] - t) * scale);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // 3. dq_i = sum_j ds_ij k_j, dk_j = sum_i ds_ij q_i
-  for (int idx = threadIdx.x; idx < L * HD2; idx += blockDim.x) {
-    const int i = idx / HD2, c = idx - i * HD2;
-    float ax = 0.f, ay = 0.f;
-    for (int j = 0; j < L; ++j) {
-      const float d = __bfloat162float(P[i * L + j]);
-      const float2 k = __bfloat1622float2(k_s[j * HD2 + c]);
-      ax = fmaf(d, k.x, ax);
-      ay = fmaf(d, k.y, ay);
-    }
-    reinterpret_cast<__nv_bfloat162*>(dqkv_row(i) + h * HD)[c] =
-        __floats2bfloat162_rn(ax, ay);
-  }
-  for (int idx = threadIdx.x; idx < L * HD2; idx += blockDim.x) {
-    const int j = idx / HD2, c = idx - j * HD2;
-    float ax = 0.f, ay = 0.f;
-    for (int i = 0; i < L; ++i) {
-      const float d = __bfloat162float(P[i * L + j]);
-      const float2 q = __bfloat1622float2(q_s[i * HD2 + c]);
-      ax = fmaf(d, q.x, ax);
-      ay = fmaf(d, q.y, ay);
-    }
-    reinterpret_cast<__nv_bfloat162*>(dqkv_row(j) + D + h * HD)[c] =
-        __floats2bfloat162_rn(ax, ay);
-  }
-}
-
-template <int HD>
-cudaError_t attn_bwd_launch(const bf16* qkv, const bf16* qkv_prefix,
-                            const bf16* da, const bf16* da_prefix, bf16* dqkv,
-                            bf16* dqkv_prefix, int S, int S_lo, long hi_stride,
-                            long lo_stride, long l_stride, int n_main, int H,
-                            cudaStream_t st) {
-  if (S <= 0) return cudaSuccess;
-  const int L = n_main + (qkv_prefix != nullptr ? 1 : 0);
-  const int warps = L < 8 ? L : 8;
-  const size_t smem = attn_bwd_smem(L, HD);
-  static SmemGrant grant;
-  const cudaError_t e = smem_opt_in(attn_bwd_kernel<HD>, smem, grant);
-  if (e != cudaSuccess) return e;
-  const float scale = 1.0f / sqrtf((float)HD);
-  attn_bwd_kernel<HD><<<dim3(S, H), warps * 32, smem, st>>>(
-      qkv, qkv_prefix, da, da_prefix, dqkv, dqkv_prefix, S_lo, hi_stride,
-      lo_stride, l_stride, n_main, H, scale);
-  return cudaGetLastError();
-}
-
-inline cudaError_t attn_bwd(int hd, const bf16* qkv, const bf16* qkv_prefix,
-                     const bf16* da, const bf16* da_prefix, bf16* dqkv,
-                     bf16* dqkv_prefix, int S, int S_lo, long hi_stride,
-                     long lo_stride, long l_stride, int n_main, int H,
-                     cudaStream_t st) {
-#define DVST_ATTN_BWD_CASE(HDV)                                                \
-  case HDV:                                                                    \
-    return attn_bwd_launch<HDV>(qkv, qkv_prefix, da, da_prefix, dqkv,          \
-                                dqkv_prefix, S, S_lo, hi_stride, lo_stride,    \
-                                l_stride, n_main, H, st);
-  switch (hd) {
-    DVST_ATTN_BWD_CASE(16)
-    DVST_ATTN_BWD_CASE(32)
-    DVST_ATTN_BWD_CASE(48)
-    DVST_ATTN_BWD_CASE(64)
-    DVST_ATTN_BWD_CASE(80)
-    DVST_ATTN_BWD_CASE(96)
-    DVST_ATTN_BWD_CASE(112)
-    DVST_ATTN_BWD_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DVST_ATTN_BWD_CASE
 }
 
 #endif  // DVST_WITH_BACKWARD

@@ -25,9 +25,10 @@
 //       Bound by operations: at the training step's global crops (B=16,
 //       T=8, N=196, D=768) B*T*L*(8*D^2 + 4*L*D) = 1.34e11 FLOP (the
 //       Pallas cost estimate) against 0.1 GB of rows, 0.136 ms at the
-//       bf16 peak; the design is the spatial half of dvst_spatial_mlp
-//       without the MLP, so its GEMMs and attention run at that op's
-//       rates (PERF.md).
+//       bf16 peak. The design is the first half of dvst_spatial_mlp: its
+//       GEMMs the wgmma + TMA kernel, its attention the tensor-core tile
+//       with the CLS row as prefix key (tc_prefix_attn, one CLS row per
+//       clip read for all its frames, so no per-frame copy is built).
 //   dvst_spatial_mlp        replaces _spatial_mlp_kernel
 //       (ops/fused_block.py:1556, float tier):
 //       per frame on [cls, x_t]: LN -> MHSA -> proj -> grid residual -> LN ->
@@ -37,8 +38,7 @@
 //       GEMM fc1+GELU -> GEMM fc2+res
 //       Its GEMMs are the wgmma + TMA kernel (wgmma_gemm.cuh), its
 //       attention the tensor-core tile with the CLS row as prefix key
-//       (tc_attention.cuh's tc_prefix_attn); the other ops keep
-//       gemm_kernel and attn_kernel.
+//       (tc_attention.cuh's tc_prefix_attn).
 //   dvst_mlp_phase          replaces _mlp_phase_kernel
 //       (ops/fused_block.py:1191): rows (M,D) bf16 -> LN -> fc1 -> erf GELU
 //       -> fc2, optionally + x, bf16 out; fc2's output is rounded to bf16
@@ -56,8 +56,8 @@
 //       launches: LN -> GEMM qkv -> attention -> GEMM proj
 //       Bound by operations: S*L*(8*D^2 + 4*L*D) FLOP (the Pallas cost
 //       estimate) against 4*S*L*D bytes; 2.5e11 FLOP at the teacher window's
-//       spatial sequences (S = 240, L = 197), 0.255 ms at the bf16 peak. The
-//       same building blocks as dvst_spatial_phase, so the same rates.
+//       spatial sequences (S = 240, L = 197), 0.255 ms at the bf16 peak. It
+//       keeps the first design's gemm_kernel and attn_kernel (below).
 //   dvst_temporal_phase     replaces _temporal_phase_kernel
 //       (ops/fused_block.py:642): x (S,L,D) bf16 ->
 //       bf16(x + bf16(fc(proj(MHSA(LN x))))) over S contiguous sequences
@@ -74,25 +74,19 @@
 // FLOP are the dense GEMMs; the attention over 30 (temporal) or 197
 // (spatial) rows is ~1-4% of them.
 //
-// Design, right and simple first:
-// * gemm_kernel: one tiled bf16 GEMM on the tensor cores (wmma 16x16x16,
-//   f32 accumulate), 128x128x32 tiles, a 2-stage cp.async pipeline, the
-//   ragged M edge zero-filled on load and masked on store, and fused
-//   epilogues (bias, erf GELU, f32 or bf16 residual, f32 or bf16 store).
-//   It runs at ~18% of the bf16 peak and is left in dvst_spatial_phase and
-//   dvst_attn_phase; the other entry points use the persistent
-//   warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) instead, with the
-//   same epilogues.
-// * attn_kernel: one block per (sequence, head); Q, K, V of the sequence in
-//   dynamic shared memory (L=197, hd=64: ~80 KB, opted in), one warp per
-//   query row, f32 scores with the row max subtracted, probabilities rounded
-//   to bf16 before PV. Left in dvst_spatial_phase and dvst_attn_phase: the
-//   spatial op indexes the CLS row from its own per-sample qkv row instead
-//   of building [cls, x_t] in memory (the CLS row is identical for every
-//   frame of a sample, so its LN and qkv run once per sample). The
-//   temporal ops' tile reads its rows at stride N the same way, by
-//   address: the TPU kernel's in-VMEM transpose without an HBM transpose.
-// * ln_kernel: one warp per row, f32 statistics, bf16 rows out.
+// Design: every entry point but dvst_attn_phase runs its products on the
+// persistent warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) and its
+// attention on the tensor-core tile (tc_attention.cuh): with the CLS row
+// as prefix key for the spatial ops (the CLS row is the same for every
+// frame of a clip, so its LN and qkv run once per clip and the tile reads
+// it by address), at stride N straight from the qkv buffer for the
+// temporal ops (the TPU kernel's in-VMEM transpose without an HBM
+// transpose). dvst_attn_phase (row 5) keeps the first design's blocks
+// (dvst_common.cuh): gemm_kernel, a wmma GEMM with 128x128x32 tiles and a
+// 2-stage cp.async pipeline at ~18% of the bf16 peak, and attn_kernel,
+// one block per (sequence, head) with the sequence in shared memory, one
+// warp per query row on the CUDA cores. ln_kernel: one warp per row, f32
+// statistics, bf16 rows out.
 //
 // Numerics (the XLA-path rules): LN in f32 (eps 1e-6); bf16 operands with
 // f32 accumulation; qkv rounded to bf16 after the bias; max-subtracted f32
@@ -102,6 +96,33 @@
 
 #include "tc_attention.cuh"
 #include "wgmma_gemm.cuh"
+
+namespace {
+
+// dvst_spatial_phase's workspace: the LN rows, qkv and attention output of
+// the M grid rows, of the B CLS rows, and the B*T per-frame CLS attention
+// outputs, each 256-byte aligned (Carve): every TMA operand starts 16-byte
+// aligned.
+struct SpatialPhaseWs {
+  bf16 *y, *qkv, *a, *y_cls, *qkv_cls, *a_cls;
+  size_t bytes;
+};
+
+SpatialPhaseWs spatial_phase_ws(char* base, int B, int T, int N, int D) {
+  const long M = (long)B * T * N;
+  Carve c{base};
+  SpatialPhaseWs w;
+  w.y = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.y_cls = c.take<bf16>((long)B * D);
+  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
+  w.a_cls = c.take<bf16>((long)B * T * D);
+  w.bytes = c.off;
+  return w;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -141,8 +162,11 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
 }
 
 // x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
-// cls_rows (B,T,D) bf16. ws: bf16 workspace of
-// B*T*N*5*D + 4*B*D + B*T*D elements.
+// cls_rows (B,T,D) bf16. ws: the bytes dvst_spatial_phase_ws gives.
+long dvst_spatial_phase_ws(int B, int T, int N, int D) {
+  return (long)spatial_phase_ws(nullptr, B, T, N, D).bytes;
+}
+
 int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
                        const void* ln_b, const void* qkv_w, const void* qkv_b,
                        const void* proj_w, const void* proj_b, void* ws,
@@ -151,26 +175,22 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* cls = static_cast<const bf16*>(cls_);
-  bf16* y = static_cast<bf16*>(ws);          // (M, D)
-  bf16* qkv = y + M * D;                      // (M, 3D)
-  bf16* a = qkv + M * 3 * D;                  // (M, D)
-  bf16* y_cls = a + M * D;                    // (B, D)
-  bf16* qkv_cls = y_cls + (long)B * D;        // (B, 3D)
-  bf16* a_cls = qkv_cls + (long)B * 3 * D;    // (B*T, D)
+  const SpatialPhaseWs w = spatial_phase_ws(static_cast<char*>(ws), B, T, N, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
+  const int hd = D / H;
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, lw, lb, y, M, D, st))) return e;
-  if ((e = ln_launch<bf16>(cls, lw, lb, y_cls, B, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, B, 3 * D, D, st))) return e;
-  if ((e = attn(D / H, qkv, qkv_cls, a, a_cls, B * T, T, (long)T * N, N, 1, N,
-                H, st)))
+  if ((e = ln_launch<bf16>(x, lw, lb, w.y, M, D, st))) return e;
+  if ((e = ln_launch<bf16>(static_cast<const bf16*>(cls_), lw, lb, w.y_cls, B, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y_cls, qkv_w, qkv_b, nullptr, w.qkv_cls, B, 3 * D, D, st)))
     return e;
-  if ((e = gemm<kEpiAddBf16>(a, proj_w, proj_b, x, out, M, D, D, st))) return e;
-  return gemm<kEpiBf16>(a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
-                        D, D, st);
+  // sequence s = b*T + t: [cls row b, grid rows s*N + n for n < N]
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
+                          1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x, out, M, D, D, st))) return e;
+  return wg_gemm<kEpiBf16>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
 }
 
 // x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,

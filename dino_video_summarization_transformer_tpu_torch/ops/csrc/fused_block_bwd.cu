@@ -8,9 +8,11 @@
 //       (dino_video_summarization_transformer_tpu/ops/fused_block.py:963):
 //       x, dout (B,T,N,D) bf16 -> dx bf16 and f32 dLN, dWqkv, dbqkv,
 //       dWproj, dbproj, dWfc, dbfc.
-//       recompute: LN -> GEMM qkv -> attention -> GEMM proj
-//       backward: dWfc, dbfc -> dproj -> dWproj, dbproj -> da -> attention
-//       backward -> dWqkv, dbqkv -> dy -> LN backward (+ dout)
+//       recompute: LN -> GEMM qkv -> strided attention -> GEMM proj, as
+//       dvst_temporal_phase_tm runs them
+//       backward: dWfc, dbfc -> dproj -> dWproj, dbproj -> da -> the
+//       strided attention backward (tc_strided_attn_bwd) -> dWqkv, dbqkv ->
+//       dy -> LN backward (+ dout)
 //       Bound by operations: the Pallas cost estimate 3 * B*N*T*(10*D^2 +
 //       4*T*D) is 4.5e11 FLOP at the training step's global crops (B=16,
 //       T=8, N=196, D=768), 0.45 ms at the bf16 peak, against ~0.13 GB
@@ -44,18 +46,17 @@
 // go the same way. No float atomics: two calls give bit-identical
 // gradients. The LN backward's dy stays f32, as in the Pallas kernels
 // (:527-536, :1075-1085).
-// * dvst_spatial_phase_bwd and dvst_mlp_phase_bwd run every product on the
-//   wgmma + TMA GEMM (wgmma_gemm.cuh): the recomputes as the forwards run
-//   them (row 9's fc1 with an epilogue that writes both bf16 GELU and f32
-//   GELU', so no separate pass reads the f32 pre-activation back), dX =
-//   dY . W with the weight read as stored (wg_gemm_dx, MN-major B), dW =
-//   dY^T . X with both operands read as stored (wg_gemm_dw, MN-major A and
-//   B, split over the rows). Row 8's attention recompute is the tile with
-//   the CLS prefix (tc_prefix_attn), its backward the tile's backward
-//   (tc_prefix_attn_bwd, tc_attention.cuh): no L x L matrix in memory.
-// * dvst_temporal_phase_tm_bwd keeps the first design's blocks: the wmma GEMMs
-//   (gemm_kernel, gemmx_kernel with gemm_dw's splits) and the CUDA-core
-//   attention and attention backward (attn_kernel, attn_bwd_kernel).
+// * All three run every product on the wgmma + TMA GEMM (wgmma_gemm.cuh):
+//   the recomputes as the forwards run them (row 9's fc1 with an epilogue
+//   that writes both bf16 GELU and f32 GELU', so no separate pass reads
+//   the f32 pre-activation back), dX = dY . W with the weight read as
+//   stored (wg_gemm_dx, MN-major B), dW = dY^T . X with both operands read
+//   as stored (wg_gemm_dw, MN-major A and B, split over the rows). Their
+//   attention recomputes are the forwards' tiles (tc_strided_attn at
+//   stride N for row 7, tc_prefix_attn with the CLS prefix for row 8), the
+//   backwards the tile's backward over the same sequences
+//   (tc_strided_attn_bwd, tc_prefix_attn_bwd; tc_attention.cuh): no L x L
+//   matrix in memory. The LN backward is dvst_common.cuh's ln_bwd.
 //
 // Numerics: the XLA-path rules, not the TPU workarounds — the softmax
 // subtracts its row max (no +/-80 clamp, so no |s| < 80 mask on ds), the
@@ -68,54 +69,8 @@
 
 namespace {
 
-// Carves 256-byte aligned buffers from one workspace; with a null base it
-// only counts the bytes.
-struct Carve {
-  char* base;
-  size_t off = 0;
-  template <typename T>
-  T* take(size_t n) {
-    off = (off + 255) & ~size_t(255);
-    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
-    off += n * sizeof(T);
-    return p;
-  }
-};
-
 size_t max3(size_t a, size_t b, size_t c) {
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
-
-// f32 scratch for the split partials of `rows` rows: weight gradients of
-// at most max_w elements, column sums of at most max_cols columns, the LN
-// backward's per-block sums.
-size_t part_floats(long rows, size_t max_w, int max_cols, int D) {
-  const int s = dw_splits(rows);
-  return max3(s > 1 ? (size_t)s * max_w : 0,
-              (size_t)colsum_splits(rows) * max_cols,
-              (size_t)ln_bwd_blocks(rows) * 2 * D);
-}
-
-struct TemporalWs {
-  bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv;
-  float *dy, *part;
-  size_t bytes;
-};
-
-TemporalWs temporal_ws(char* base, long M, int D) {
-  Carve c{base};
-  TemporalWs w;
-  w.y = c.take<bf16>(M * D);
-  w.qkv = c.take<bf16>(M * 3 * D);
-  w.a = c.take<bf16>(M * D);
-  w.proj = c.take<bf16>(M * D);
-  w.dproj = c.take<bf16>(M * D);
-  w.da = c.take<bf16>(M * D);
-  w.dqkv = c.take<bf16>(M * 3 * D);
-  w.dy = c.take<float>(M * D);
-  w.part = c.take<float>(part_floats(M, (size_t)3 * D * D, 3 * D, D));
-  w.bytes = c.off;
-  return w;
 }
 
 // f32 scratch of the wgmma backwards over `rows` rows: the split partials
@@ -133,6 +88,29 @@ size_t wg_part_floats(long rows, const int (*dw)[2], int n_dw, int max_cols, int
     n = p > n ? p : n;
   }
   return n;
+}
+
+struct TemporalWs {
+  bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv;
+  float *dy, *part;
+  size_t bytes;
+};
+
+TemporalWs temporal_ws(char* base, long M, int D) {
+  Carve c{base};
+  TemporalWs w;
+  const int dw[2][2] = {{D, D}, {3 * D, D}};  // dWfc and dWproj, dWqkv
+  w.y = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.proj = c.take<bf16>(M * D);
+  w.dproj = c.take<bf16>(M * D);
+  w.da = c.take<bf16>(M * D);
+  w.dqkv = c.take<bf16>(M * 3 * D);
+  w.dy = c.take<float>(M * D);
+  w.part = c.take<float>(wg_part_floats(M, dw, 2, 3 * D, D));
+  w.bytes = c.off;
+  return w;
 }
 
 // Row buffers over R = M + B*T rows: the M grid rows, then the per-frame
@@ -212,37 +190,29 @@ int dvst_temporal_phase_tm_bwd(
   const float* lw = static_cast<const float*>(ln_w);
   const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D);
   const int hd = D / H;
+  const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
-  // recompute the forward up to proj
+  // recompute the forward up to proj, as dvst_temporal_phase_tm runs it
   if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
-  if ((e = gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
   // sequence (b, n) over t: rows (b*T + t)*N + n
-  if ((e = attn(hd, w.qkv, nullptr, w.a, nullptr, B * N, N, (long)T * N, 1, N,
-                T, H, st)))
-    return e;
-  if ((e = gemm<kEpiBf16>(w.a, Wproj, proj_b, nullptr, w.proj, M, D, D, st))) return e;
+  if ((e = tc_strided_attn(hd, w.qkv, w.a, B, T, N, H, scale, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.a, Wproj, proj_b, nullptr, w.proj, M, D, D, st))) return e;
   // temporal_fc
-  if ((e = gemm_dw(dout, w.proj, static_cast<float*>(dfc_w), w.part, M, D, D, st))) return e;
+  if ((e = wg_gemm_dw(dout, w.proj, static_cast<float*>(dfc_w), w.part, M, D, D, st))) return e;
   if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st))) return e;
-  if ((e = gemmx<false, false, kXBf16>(dout, D, Wfc, D, nullptr, w.dproj, M, D,
-                                       D, 1, st)))
-    return e;
+  if ((e = wg_gemm_dx<kEpiBf16>(dout, Wfc, nullptr, w.dproj, M, D, D, st))) return e;
   // proj
-  if ((e = gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, D, st))) return e;
+  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, D, st))) return e;
   if ((e = colsum<bf16>(w.dproj, M, D, w.part, static_cast<float*>(dproj_b), st))) return e;
-  if ((e = gemmx<false, false, kXBf16>(w.dproj, D, Wproj, D, nullptr, w.da, M,
-                                       D, D, 1, st)))
-    return e;
-  // attention
-  if ((e = attn_bwd(hd, w.qkv, nullptr, w.da, nullptr, w.dqkv, nullptr, B * N,
-                    N, (long)T * N, 1, N, T, H, st)))
-    return e;
+  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, M, D, D, st))) return e;
+  // attention, over the same sequences at stride N
+  if ((e = tc_strided_attn_bwd(hd, w.qkv, w.da, w.dqkv, B, T, N, H, scale, st))) return e;
   // qkv
-  if ((e = gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, M, 3 * D, D, st))) return e;
-  if ((e = colsum<bf16>(w.dqkv, M, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
-  if ((e = gemmx<false, false, kXF32>(w.dqkv, 3 * D, Wqkv, D, nullptr, w.dy, M,
-                                      D, 3 * D, 1, st)))
+  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, M, 3 * D, D, st)))
     return e;
+  if ((e = colsum<bf16>(w.dqkv, M, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, M, D, 3 * D, st))) return e;
   // LN, + the residual's dout
   return ln_bwd(x, nullptr, 1, w.dy, lw, dout, static_cast<bf16*>(dx), nullptr,
                 M, M, D, w.part, static_cast<float*>(dln), st);
@@ -356,7 +326,7 @@ int dvst_mlp_phase_bwd(const void* x_, const void* do_, const void* ln_w,
                 static_cast<float*>(dln), st);
 }
 
-// The building blocks of the two alone, for the card tests and
+// The building blocks of the three alone, for the card tests and
 // chip_smoke.py.
 
 // The attention backward tile: qkv (S*N, 3D) and qkv_pre (S / S_lo, 3D),
@@ -375,6 +345,43 @@ int dvst_spatial_attn_bwd(const void* qkv, const void* qkv_pre, const void* da,
 
 // Dynamic shared bytes one block of the attention backward needs at L rows.
 long dvst_spatial_attn_bwd_smem(int L, int hd) { return (long)tc_prefix_bwd_smem(L, hd); }
+
+// The attention backward of dvst_temporal_phase_tm_bwd alone: qkv (B*T*N,
+// 3D) and da (B*T*N, D) bf16, sequence (b, n) the rows (b*T + t)*N + n ->
+// dqkv (B*T*N, 3D) bf16 (dq | dk | dv), at logit scale `scale`.
+int dvst_temporal_attn_bwd(const void* qkv, const void* da, void* dqkv, int B, int T, int N,
+                           int D, int H, float scale, void* stream) {
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
+  return tc_strided_attn_bwd(D / H, static_cast<const bf16*>(qkv), static_cast<const bf16*>(da),
+                             static_cast<bf16*>(dqkv), B, T, N, H, scale,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared bytes one block of the temporal attention backward needs
+// over S sequences of L rows.
+long dvst_temporal_attn_bwd_smem(int S, int L, int hd) {
+  return S <= 0 || L <= 0 ? 0 : (long)tc_bwd_smem(tc_group(S, L), L, hd);
+}
+
+// The LayerNorm backward of the three alone: x (M, D) bf16 and, for the R
+// - M tail rows, x_tail ((R - M) / tail_div, D) bf16 (null when R == M);
+// dy (R, D) f32, w (D) f32, res (M, D) bf16 or null -> dx (M, D) bf16 =
+// bf16(dx + res), dx_tail (R - M, D) f32, dgb (2, D) f32 (scale | bias).
+// part: the bytes dvst_layer_norm_bwd_ws gives.
+int dvst_layer_norm_bwd(const void* x, const void* x_tail, const void* dy, const void* w,
+                        const void* res, void* dx, void* dx_tail, void* part, void* dgb,
+                        long M, long R, int D, int tail_div, void* stream) {
+  if (M < 0 || R < M || tail_div <= 0) return cudaErrorInvalidValue;
+  return ln_bwd(static_cast<const bf16*>(x), static_cast<const bf16*>(x_tail), tail_div,
+                static_cast<const float*>(dy), static_cast<const float*>(w),
+                static_cast<const bf16*>(res), static_cast<bf16*>(dx),
+                static_cast<float*>(dx_tail), M, R, D, static_cast<float*>(part),
+                static_cast<float*>(dgb), static_cast<cudaStream_t>(stream));
+}
+
+long dvst_layer_norm_bwd_ws(long R, int D) {
+  return (long)(ln_bwd_blocks(R) * 2 * D * sizeof(float));
+}
 
 // dX = epi(dY (M, K) . W (K, N)): epi kEpiBf16, kEpiF32, or
 // kEpiMulF32Bf16 with aux (M, N) f32.

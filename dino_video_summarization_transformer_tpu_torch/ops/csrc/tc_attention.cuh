@@ -4,12 +4,15 @@
 // standalone attention (attention.cu, bf16), the banded temporal
 // attention (banded_block.cu), through tc_prefix_attn below the spatial
 // attention of dvst_spatial_mlp (fused_block.cu) and dvst_spatial_pf
-// (banded_block.cu) and the recompute of dvst_spatial_phase_bwd
+// (banded_block.cu), the per-frame attention of dvst_spatial_phase
+// (fused_block.cu) and its recompute in dvst_spatial_phase_bwd
 // (fused_block_bwd.cu), through tc_prefix_attn_bwd that op's attention
-// backward, and through tc_strided_attn the temporal attention of
-// dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu); the
-// other attention kernels of the port (attn_kernel / attn_bwd_kernel in
-// dvst_common.cuh: rows 4, 5 and 7) are meant to move onto it.
+// backward, through tc_strided_attn the temporal attention of
+// dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu) and its
+// recompute in dvst_temporal_phase_tm_bwd (fused_block_bwd.cu), and
+// through tc_strided_attn_bwd that op's attention backward. Only the
+// per-phase attention dvst_attn_phase (row 5) keeps dvst_common.cuh's
+// CUDA-core attn_kernel.
 //
 // Numerics are the CUDA-core kernels' and the plain twins': f32 scores
 // (q . k accumulated in f32, times the scale), the max of the row's whole
@@ -35,6 +38,8 @@
 // past its range, queries past its last row) are served by a zero row.
 
 #pragma once
+
+#include <type_traits>
 
 #include "dvst_common.cuh"
 
@@ -403,52 +408,63 @@ inline size_t tc_smem(int G, int L, int hd) {
   return 16 + (size_t)3 * G * L * hd * 2;
 }
 
+// Strip st of nseq whole sequences of L rows stored sequence-major
+// (sequence g's row l at g*L + l): its rows [r0, r0 + nrows) and the keys
+// [kb, ke) they may see, the sequences the strip holds.
+struct TcSpan {
+  int r0, nrows, kb, ke;
+};
+
+__host__ __device__ inline TcSpan tc_seq_span(int st, int nseq, int L) {
+  TcSpan sp;
+  if (L < 16) {
+    const int P = 16 / L;  // sequences per strip
+    sp.r0 = st * P * L;
+    sp.nrows = (nseq - st * P < P ? nseq - st * P : P) * L;
+    sp.kb = sp.r0;
+    sp.ke = sp.r0 + sp.nrows;
+  } else {
+    const int sps = (L + 15) / 16, sq = st / sps;  // strips per sequence, its sequence
+    sp.kb = sq * L;
+    sp.ke = sp.kb + L;
+    sp.r0 = sp.kb + 16 * (st - sq * sps);
+    sp.nrows = sp.ke - sp.r0 < 16 ? sp.ke - sp.r0 : 16;
+  }
+  return sp;
+}
+
 // The strips of a block of nseq whole sequences of L rows, stored
-// sequence-major in Q, K and V (sequence g's row l at g*L + l), in rounds
-// of one strip per warp, each row against its own sequence's keys. The
-// caller has committed two cp.async groups (Q and K, then V) and waited
-// for the first: V is waited for after the first round's max pass. dst(r)
-// is the output address of stored row r.
+// sequence-major in Q, K and V, in rounds of one strip per warp, each row
+// against its own sequence's keys. The caller has committed two cp.async
+// groups (Q and K, then V) and waited for the first: V is waited for
+// after the first round's max pass. dst(r) is the output address of
+// stored row r.
 template <int HD, typename Dst>
 __device__ __forceinline__ void tc_seq_strips(const TcRows& Q, const TcRows& K,
                                               const TcRows& V, const bf16* zero,
                                               int nseq, int L, float scale, Dst dst) {
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
-  const int P = L < 16 ? 16 / L : 1;   // sequences per strip
-  const int sps = (L + 15) / 16;       // strips per sequence (L >= 16)
   const int nstrips = tc_strips(nseq, L);
   // every warp meets the first round's barrier, with or without a strip
   for (int st = warp; st - warp < nstrips; st += nw) {
     const bool has = st < nstrips;
-    int r0 = 0, nrows = 0, kb = 0, ke = 0;  // rows [r0, r0 + nrows), keys [kb, ke)
-    if (L < 16) {
-      r0 = st * P * L;
-      nrows = (nseq - st * P < P ? nseq - st * P : P) * L;
-      kb = r0;
-      ke = r0 + nrows;
-    } else {
-      const int sq = st / sps;
-      kb = sq * L;
-      ke = kb + L;
-      r0 = kb + 16 * (st - sq * sps);
-      nrows = ke - r0 < 16 ? ke - r0 : 16;
-    }
+    const TcSpan sp = tc_seq_span(has ? st : 0, nseq, L);
     // each row sees its own sequence's keys
-    const int lo0 = (r0 + g) / L * L, lo1 = (r0 + g + 8) / L * L;
+    const int lo0 = (sp.r0 + g) / L * L, lo1 = (sp.r0 + g + 8) / L * L;
     TcStrip<HD> s;
     float mx0 = 0.f, mx1 = 0.f;
     if (has) {
-      s.load_q(Q, r0, nrows, zero);
-      s.max_pass(K, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+      s.load_q(Q, sp.r0, sp.nrows, zero);
+      s.max_pass(K, sp.kb, sp.ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
     }
     if (st == warp) {  // V has arrived
       cp_async_wait<0>();
       __syncthreads();
     }
     if (has) {
-      s.exp_pass(K, V, kb, ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
-      s.store_rows([&](int r) { return dst(r0 + r); }, nrows);
+      s.exp_pass(K, V, sp.kb, sp.ke, lo0, lo0 + L, lo1, lo1 + L, scale, zero, mx0, mx1);
+      s.store_rows([&](int r) { return dst(sp.r0 + r); }, sp.nrows);
     }
   }
 }
@@ -606,51 +622,56 @@ inline cudaError_t tc_prefix_attn(int hd, const bf16* qkv, const bf16* qkv_pre, 
 #undef DVST_TCP_CASE
 }
 
+// The backward tiles compile only where DVST_WITH_BACKWARD is defined before
+// this file is included (fused_block_bwd.cu), as dvst_common.cuh's backward
+// blocks.
+#ifdef DVST_WITH_BACKWARD
+
 // ---------------------------------------------------------------------------
-// The backward of tc_prefix_attn, with its addressing: sequence s is
-// [prefix row s / S_lo, grid rows s*N .. s*N + N - 1] of the (rows, 3D) qkv
-// buffers, its cotangent rows [da_pre row s, da rows s*N ..] (D wide), its
-// gradient rows [dqkv_pre row s, dqkv rows s*N ..] (3D wide: dq | dk |
-// dv): the prefix row's dq, dk and dv go to one row per sequence, which
-// the caller sums. For each (sequence, head), the contract of
-// attn_bwd_kernel (dvst_common.cuh) and the plain twin:
+// The tile's backward. For each (sequence, head), the contract of the plain
+// twin (fused_block._attention_bwd):
 //   pn = bf16(softmax(q k^T * scale)) (the whole row's max subtracted, an
 //   f32 denominator), dv = pn^T da, dp = da v^T,
 //   ds = bf16(pn * (dp - rowsum(dp * pn)) * scale), dq = ds k, dk = ds^T q,
-// each rounded to bf16, f32 sums.
-// One block per (head, sequence), heads fastest; the block copies the
-// sequence's head slices of Q, K, V and dA into shared memory as tile rows
-// (the prefix as row 0) and runs two passes on the tensor cores, so no L x
-// L matrix is ever stored:
-// * query strips: a warp owns 16 query rows and sweeps the keys in blocks
-//   of 16 three times: the row max of the scores with the f32 sum of the
-//   exponentials (each lane's running sum rescaled as its max grows, the
-//   quad's four sums then rescaled to the row's max), the row term delta =
-//   rowsum(dp * pn) (pn the bf16 probabilities, dp = dA V^T), then ds and
-//   dq += ds K. It writes dq and keeps the row's max, 1 / sum and delta
-//   in shared memory.
-// * key strips: a warp owns 16 keys and sweeps the query rows: S^T = K
-//   Q^T, pn^T from the stored max and 1 / sum, dp^T = V dA^T, ds^T from
-//   the stored delta; dv += pn^T dA and dk += ds^T Q in registers. Each dk
-//   and dv row has one owner: no atomics, one summation order.
+// each rounded to bf16, f32 sums. A block copies the head slices of Q, K,
+// V and dA of nseq whole sequences of L rows into shared memory as tile
+// rows, sequence-major, and runs two passes on the tensor cores, so no L
+// x L matrix is ever stored:
+// * query strips (the forward's, tc_seq_span): a warp owns a strip's query
+//   rows and sweeps their keys in blocks of 16 three times: the row max of
+//   the scores with the f32 sum of the exponentials (each lane's running
+//   sum rescaled as its max grows, the quad's four sums then rescaled to
+//   the row's max), the row term delta = rowsum(dp * pn) (pn the bf16
+//   probabilities, dp = dA V^T), then ds and dq += ds K. It writes dq and
+//   keeps the row's max, 1 / sum and delta in shared memory.
+// * key strips: a warp owns the same strip's rows as keys and sweeps the
+//   query rows that see them: S^T = K Q^T, pn^T from the stored max and 1
+//   / sum, dp^T = V dA^T, ds^T from the stored delta; dv += pn^T dA and dk
+//   += ds^T Q in registers. Each dk and dv row has one owner: no atomics,
+//   one summation order.
+// Each row sees its own sequence only, in both passes: where a strip packs
+// several short sequences (L < 16, the temporal sequences of T = 8 two to
+// a strip), a query's keys and a key's queries are masked to its
+// sequence, so the key pass never adds another sequence's queries into dk
+// or dv. Where a strip's rows are one sequence's, its full blocks of 16
+// columns skip the per-element mask (tc_blocks16).
 // The two passes compute pn from S and from S^T (the operands swapped in
 // mma.sync); each pass's delta and ds use its own pn. The exponentials
 // are the forward tile's (__expf of fma(s, scale, -max), times 1 / sum):
 // the twin's exact expf(fl(s * scale) - max) / sum read the same largest
 // gap to the twin on the card (PERF.md).
-// Shared memory: a zero row, Q, K, V, dA (L rows of hd bf16 each) and
-// three floats per row padded to 16 rows: 103 KB at L = 197, hd = 64, so
-// two blocks an SM (attn_bwd_kernel's L x L probabilities took 185 KB,
-// one block). Bound by operations: ~14 L^2 hd FLOP per sequence and head
-// on the tensor cores (the passes compute S four times and dp three);
-// the K, V, Q and dA fragments each product reads through ldmatrix make
-// shared memory as busy as the tensor cores. Full blocks of 16 keys (or
-// queries) skip the per-element mask.
+// Bound by operations over long sequences (~14 L^2 hd FLOP per sequence
+// and head on the tensor cores: S four times, dp three; the K, V, Q and dA
+// fragments each product reads through ldmatrix make shared memory as
+// busy as the tensor cores), by bytes over short ones (at T = 8, qkv and
+// dA read once, dqkv written once).
 // ---------------------------------------------------------------------------
 
-// Shared bytes of one block at L rows, head dim hd.
-__host__ __device__ inline size_t tc_prefix_bwd_smem(int L, int hd) {
-  return 16 + (size_t)4 * L * hd * 2 + (size_t)3 * ((L + 15) / 16 * 16) * 4;
+// Shared bytes of a block of G sequences of L rows at head dim hd: a
+// 16-byte zero row, Q, K, V and dA (G L rows of hd bf16 each), three
+// floats per row of its strips (16 rows a strip).
+__host__ __device__ inline size_t tc_bwd_smem(int G, int L, int hd) {
+  return 16 + (size_t)8 * G * L * hd + (size_t)3 * 16 * tc_strips(G, L) * 4;
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -662,19 +683,271 @@ __device__ __forceinline__ float tc_ds(float p, float dp, float delta, float sca
   return p * (dp - delta) * scale;
 }
 
+// How a backward block's rows sit in its strips (tc_seq_span's): one
+// sequence (the prefix tile's: every row sees [0, L), strips 16 rows
+// apart); whole-sequence strips (L >= 16: a strip's rows are one
+// sequence's); packed strips (L < 16: several sequences a strip, each row
+// masked to its own).
+enum TcBwdRows { kOneSeq, kSeqStrips, kPackedStrips };
+
+// The 16-column blocks [c0, c0 + 16) of [cb, ce): body(c0, masked), masked
+// a compile-time false for a block wholly inside [cb, ce) of a strip whose
+// rows all see it (one sequence, or whole-sequence strips: no per-element
+// mask), true for the ragged last block and in packed strips. The choice
+// is the same for every lane: mma.sync and ldmatrix need the whole warp.
+template <int kRows, typename Body>
+__device__ __forceinline__ void tc_blocks16(int cb, int ce, Body body) {
+  for (int c0 = cb; c0 < ce; c0 += 16) {
+    if constexpr (kRows == kPackedStrips) {
+      body(c0, std::true_type{});
+    } else {
+      if (c0 + 16 <= ce) body(c0, std::false_type{});
+      else body(c0, std::true_type{});
+    }
+  }
+}
+
+// The two passes over nseq whole sequences of L rows stored sequence-major
+// in Q, K, V and dA, laid out in strips as kRows says. stats: three floats
+// per row of the strips (the layout tc_bwd_smem counts). dst(r): stored
+// row r's gradient row, at this head's dq (its dk at + D, its dv at + 2
+// D). The caller has filled shared memory and synchronised.
+template <int HD, int kRows, typename Dst>
+__device__ __forceinline__ void tc_bwd_strips(const TcRows& Q, const TcRows& K, const TcRows& V,
+                                              const TcRows& dA, const bf16* zero, float* stats,
+                                              int nseq, int L, int D, float scale, Dst dst) {
+  constexpr int KC = HD / 16;  // k16 chunks of the head dim
+  constexpr int NT = HD / 8;   // n8 tiles of a head row
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, col = 2 * (lane & 3);
+  constexpr bool kOne = kRows == kOneSeq;
+  const int nstrips = kOne ? (L + 15) / 16 : tc_strips(nseq, L);
+  float* row_max = stats;
+  float* row_inv = row_max + 16 * nstrips;
+  float* row_delta = row_inv + 16 * nstrips;
+  auto span = [&](int st) -> TcSpan {
+    if constexpr (kRows == kOneSeq) return TcSpan{16 * st, L - 16 * st < 16 ? L - 16 * st : 16, 0, L};
+    else return tc_seq_span(st, nseq, L);
+  };
+
+  // -- query strips: their rows against their keys ----------------------------
+  for (int st = warp; st < nstrips; st += nw) {
+    const TcSpan sp = span(st);
+    int lo0 = 0, lo1 = 0, hi0 = L, hi1 = L;  // one sequence: every row sees [0, L)
+    if constexpr (!kOne) {  // the keys of rows r0 + g and r0 + g + 8: their sequence's
+      lo0 = (sp.r0 + g) / L * L; lo1 = (sp.r0 + g + 8) / L * L; hi0 = lo0 + L; hi1 = lo1 + L;
+    }
+    uint32_t qa[KC][4], dfa[KC][4];
+    tc_load_a(Q, sp.r0, sp.nrows, zero, qa);
+    tc_load_a(dA, sp.r0, sp.nrows, zero, dfa);
+    // 1. the row max and the f32 sum of the unrounded exponentials in one
+    // sweep: each lane keeps its keys' running max and its sum at that
+    // max, rescaled when the max grows; the quad then rescales its four
+    // sums to the row's max
+    float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    tc_blocks16<kRows>(sp.kb, sp.ke, [&](int j0, auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      float sc[2][4];
+      tc_dot_rows(qa, K, j0, sp.ke, zero, sc);
+      float b0 = -INFINITY, b1 = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + 8 * t + col + e;
+          if (!kMasked || (j >= lo0 && j < hi0)) b0 = fmaxf(b0, sc[t][e]);
+          if (!kMasked || (j >= lo1 && j < hi1)) b1 = fmaxf(b1, sc[t][2 + e]);
+        }
+      const float n0 = fmaxf(mx0, b0), n1 = fmaxf(mx1, b1);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + 8 * t + col + e;
+          if (!kMasked || (j >= lo0 && j < hi0)) s0 += __expf((sc[t][e] - n0) * scale);
+          if (!kMasked || (j >= lo1 && j < hi1)) s1 += __expf((sc[t][2 + e] - n1) * scale);
+        }
+      // a lane with no key yet (its max -inf) has nothing to rescale
+      l0 = (mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - n0) * scale)) + s0;
+      l1 = (mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - n1) * scale)) + s1;
+      mx0 = n0;
+      mx1 = n1;
+    });
+    float m0 = mx0, m1 = mx1;
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o_));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o_));
+    }
+    l0 = mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - m0) * scale);
+    l1 = mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - m1) * scale);
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
+    // the scaled row max and 1 / sum; a row with no key (past the strip's
+    // rows) takes 0 and 0, so nothing it computes is infinite
+    m0 = m0 == -INFINITY ? 0.f : m0 * scale;
+    m1 = m1 == -INFINITY ? 0.f : m1 * scale;
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    // pn (bf16, 0 past the row's keys) and dp = dA V^T of keys j0 .. j0 + 15
+    auto pn_dp = [&](int j0, auto masked, float (&pn)[2][4], float (&dp)[2][4]) {
+      constexpr bool kMasked = decltype(masked)::value;
+      tc_dot_rows(qa, K, j0, sp.ke, zero, pn);
+      tc_dot_rows(dfa, V, j0, sp.ke, zero, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + 8 * t + col + e;
+          const bool ok0 = !kMasked || (j >= lo0 && j < hi0);
+          const bool ok1 = !kMasked || (j >= lo1 && j < hi1);
+          pn[t][e] = ok0 ? bf16_round(__expf(fmaf(pn[t][e], scale, -m0)) * inv0) : 0.f;
+          pn[t][2 + e] = ok1 ? bf16_round(__expf(fmaf(pn[t][2 + e], scale, -m1)) * inv1) : 0.f;
+        }
+    };
+    // 2. delta = rowsum(dp * pn)
+    float d0 = 0.f, d1 = 0.f;
+    tc_blocks16<kRows>(sp.kb, sp.ke, [&](int j0, auto masked) {
+      float pn[2][4], dp[2][4];
+      pn_dp(j0, masked, pn, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          d0 += dp[t][e] * pn[t][e];
+          d1 += dp[t][2 + e] * pn[t][2 + e];
+        }
+    });
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
+    }
+    // 3. ds = bf16(pn * (dp - delta) * scale), dq += ds K
+    float dq[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
+    tc_blocks16<kRows>(sp.kb, sp.ke, [&](int j0, auto masked) {
+      float pn[2][4], dp[2][4];
+      pn_dp(j0, masked, pn, dp);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pn[t][e] = tc_ds(pn[t][e], dp[t][e], d0, scale);
+          pn[t][2 + e] = tc_ds(pn[t][2 + e], dp[t][2 + e], d1, scale);
+        }
+      uint32_t dsa[4];
+      tc_c_to_a(pn, dsa);
+      tc_acc_rows(dsa, K, j0, sp.ke, zero, dq);
+    });
+    tc_store_rows(dq, 1.f, 1.f, [&](int r) { return dst(sp.r0 + r); }, sp.nrows);
+    // the strip's own rows (with one sequence, its 16: the key pass reads
+    // them, masked); where strips pack sequences and one holds fewer than
+    // 16 rows, the rows after them are the next strip's
+    if ((lane & 3) == 0) {
+      if (kOne || g < sp.nrows) {
+        row_max[sp.r0 + g] = m0;
+        row_inv[sp.r0 + g] = inv0;
+        row_delta[sp.r0 + g] = d0;
+      }
+      if (kOne || g + 8 < sp.nrows) {
+        row_max[sp.r0 + g + 8] = m1;
+        row_inv[sp.r0 + g + 8] = inv1;
+        row_delta[sp.r0 + g + 8] = d1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // -- key strips: the strip's rows as keys against their queries [kb, ke) --
+  for (int st = warp; st < nstrips; st += nw) {
+    const TcSpan sp = span(st);
+    const int k0 = sp.r0, nkeys = sp.nrows;
+    int lo0 = 0, lo1 = 0, hi0 = L, hi1 = L;  // one sequence: every key meets [0, L)
+    if constexpr (!kOne) {  // the queries of keys k0 + g and k0 + g + 8: their sequence's
+      lo0 = (sp.r0 + g) / L * L; lo1 = (sp.r0 + g + 8) / L * L; hi0 = lo0 + L; hi1 = lo1 + L;
+    }
+    uint32_t ka[KC][4], va[KC][4];
+    tc_load_a(K, k0, nkeys, zero, ka);
+    tc_load_a(V, k0, nkeys, zero, va);
+    float dk[NT][4], dv[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+    tc_blocks16<kRows>(sp.kb, sp.ke, [&](int i0, auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      // pt[t][e]: key row g (+ 8 for e >= 2), query i0 + 8 t + col + (e & 1)
+      float pt[2][4], dpt[2][4];
+      tc_dot_rows(ka, Q, i0, sp.ke, zero, pt);
+      tc_dot_rows(va, dA, i0, sp.ke, zero, dpt);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = i0 + 8 * t + col;  // queries i and i + 1
+        float m[2], inv[2], dl[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          // with one sequence every row of the strips was written; else
+          // the query strips wrote [kb, ke)
+          const int ir = kRows == kOneSeq || i + x < sp.ke ? i + x : sp.ke - 1;
+          m[x] = row_max[ir];
+          inv[x] = row_inv[ir];
+          dl[x] = row_delta[ir];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e & 1;
+          const bool ok = !kMasked || (e < 2 ? i + x >= lo0 && i + x < hi0
+                                             : i + x >= lo1 && i + x < hi1);
+          const float p = ok ? bf16_round(__expf(fmaf(pt[t][e], scale, -m[x])) * inv[x]) : 0.f;
+          pt[t][e] = p;
+          dpt[t][e] = ok ? tc_ds(p, dpt[t][e], dl[x], scale) : 0.f;
+        }
+      }
+      uint32_t pa[4], dsa[4];
+      tc_c_to_a(pt, pa);
+      tc_c_to_a(dpt, dsa);
+      tc_acc_rows(pa, dA, i0, sp.ke, zero, dv);
+      tc_acc_rows(dsa, Q, i0, sp.ke, zero, dk);
+    });
+    tc_store_rows(dk, 1.f, 1.f, [&](int r) { return dst(k0 + r) + D; }, nkeys);
+    tc_store_rows(dv, 1.f, 1.f, [&](int r) { return dst(k0 + r) + 2 * D; }, nkeys);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward of tc_prefix_attn, with its addressing: sequence s is
+// [prefix row s / S_lo, grid rows s*N .. s*N + N - 1] of the (rows, 3D) qkv
+// buffers, its cotangent rows [da_pre row s, da rows s*N ..] (D wide), its
+// gradient rows [dqkv_pre row s, dqkv rows s*N ..] (3D wide: dq | dk |
+// dv): the prefix row's dq, dk and dv go to one row per sequence, which
+// the caller sums. One block per (head, sequence), heads fastest: one
+// sequence of L = N + 1 rows (the prefix as row 0) through tc_bwd_strips,
+// 103 KB at L = 197, hd 64, so two blocks an SM (attn_bwd_kernel's L x L
+// probabilities took 185 KB, one block).
+// ---------------------------------------------------------------------------
+
+// Shared bytes of one block at L rows, head dim hd.
+__host__ __device__ inline size_t tc_prefix_bwd_smem(int L, int hd) {
+  return tc_bwd_smem(1, L, hd);
+}
 
 template <int HD>
 __device__ __forceinline__ void tc_prefix_attn_bwd_block(
     const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_pre,
     const bf16* __restrict__ da, const bf16* __restrict__ da_pre, bf16* __restrict__ dqkv,
     bf16* __restrict__ dqkv_pre, int N, int S_lo, int H, float scale) {
-  constexpr int CH = HD / 8;   // 16-byte chunks per head row
-  constexpr int KC = HD / 16;  // k16 chunks of the head dim
-  constexpr int NT = HD / 8;   // n8 tiles of a head row
+  constexpr int CH = HD / 8;  // 16-byte chunks per head row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x, s = blockIdx.y;
   const int L = N + 1, D = H * HD;
-  const int Lp = (L + 15) / 16 * 16;
   const long row_w = 3L * D;
   bf16* zero = reinterpret_cast<bf16*>(smem_raw);
   bf16* base = zero + 8;
@@ -683,9 +956,6 @@ __device__ __forceinline__ void tc_prefix_attn_bwd_block(
   const TcRows K{base + (long)L * HD, CH, swz, 0, 0};
   const TcRows V{base + (long)2 * L * HD, CH, swz, 0, 0};
   const TcRows dA{base + (long)3 * L * HD, CH, swz, 0, 0};
-  float* row_max = reinterpret_cast<float*>(base + (long)4 * L * HD);
-  float* row_inv = row_max + Lp;
-  float* row_delta = row_inv + Lp;
   // sequence row r: the prefix row (r = 0) or grid row r - 1, this head
   auto src = [&](int r) {
     return (r == 0 ? qkv_pre + (long)(s / S_lo) * row_w
@@ -710,182 +980,8 @@ __device__ __forceinline__ void tc_prefix_attn_bwd_block(
   if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
   cp_async_wait<0>();
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, col = 2 * (lane & 3);
-  const int nstrips = Lp / 16;
-
-  // the key (or query) blocks of 16: the full ones unmasked, then the
-  // ragged last one masked (rows past L count nothing)
-  auto blocks16 = [&](auto body) {
-    int j0 = 0;
-    for (; j0 + 16 <= L; j0 += 16) body(j0, std::false_type{});
-    if (j0 < L) body(j0, std::true_type{});
-  };
-
-  // -- query strips: rows r0 .. r0 + 15 against every key -----------------
-  for (int st = warp; st < nstrips; st += nw) {
-    const int r0 = 16 * st;
-    const int nrows = L - r0 < 16 ? L - r0 : 16;
-    uint32_t qa[KC][4], dfa[KC][4];
-    tc_load_a(Q, r0, nrows, zero, qa);
-    tc_load_a(dA, r0, nrows, zero, dfa);
-    // 1. the row max and the f32 sum of the unrounded exponentials in one
-    // sweep: each lane keeps its keys' running max and its sum at that
-    // max, rescaled when the max grows; the quad then rescales its four
-    // sums to the row's max
-    float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    blocks16([&](int j0, auto masked) {
-      float sc[2][4];
-      tc_dot_rows(qa, K, j0, L, zero, sc);
-      float b0 = -INFINITY, b1 = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (!decltype(masked)::value || j0 + 8 * t + col + e < L) {
-            b0 = fmaxf(b0, sc[t][e]);
-            b1 = fmaxf(b1, sc[t][2 + e]);
-          }
-      const float n0 = fmaxf(mx0, b0), n1 = fmaxf(mx1, b1);
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (!decltype(masked)::value || j0 + 8 * t + col + e < L) {
-            s0 += __expf((sc[t][e] - n0) * scale);
-            s1 += __expf((sc[t][2 + e] - n1) * scale);
-          }
-      // a lane with no key yet (its max -inf) has nothing to rescale
-      l0 = (mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - n0) * scale)) + s0;
-      l1 = (mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - n1) * scale)) + s1;
-      mx0 = n0;
-      mx1 = n1;
-    });
-    float m0 = mx0, m1 = mx1;
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o_));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o_));
-    }
-    l0 = mx0 == -INFINITY ? 0.f : l0 * __expf((mx0 - m0) * scale);
-    l1 = mx1 == -INFINITY ? 0.f : l1 * __expf((mx1 - m1) * scale);
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-    }
-    m0 *= scale;  // the scaled row max (key 0 is every row's: finite)
-    m1 *= scale;
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    // pn (bf16, 0 past the keys) and dp = dA V^T of keys j0 .. j0 + 15
-    auto pn_dp = [&](int j0, auto masked, float (&pn)[2][4], float (&dp)[2][4]) {
-      tc_dot_rows(qa, K, j0, L, zero, pn);
-      tc_dot_rows(dfa, V, j0, L, zero, dp);
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = !decltype(masked)::value || j0 + 8 * t + col + e < L;
-          pn[t][e] = ok ? bf16_round(__expf(fmaf(pn[t][e], scale, -m0)) * inv0) : 0.f;
-          pn[t][2 + e] = ok ? bf16_round(__expf(fmaf(pn[t][2 + e], scale, -m1)) * inv1) : 0.f;
-        }
-    };
-    // 2. delta = rowsum(dp * pn)
-    float d0 = 0.f, d1 = 0.f;
-    blocks16([&](int j0, auto masked) {
-      float pn[2][4], dp[2][4];
-      pn_dp(j0, masked, pn, dp);
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          d0 += dp[t][e] * pn[t][e];
-          d1 += dp[t][2 + e] * pn[t][2 + e];
-        }
-    });
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      d0 += __shfl_xor_sync(0xffffffffu, d0, o_);
-      d1 += __shfl_xor_sync(0xffffffffu, d1, o_);
-    }
-    // 3. ds = bf16(pn * (dp - delta) * scale), dq += ds K
-    float dq[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[t][e] = 0.f;
-    blocks16([&](int j0, auto masked) {
-      float pn[2][4], dp[2][4];
-      pn_dp(j0, masked, pn, dp);
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          pn[t][e] = tc_ds(pn[t][e], dp[t][e], d0, scale);
-          pn[t][2 + e] = tc_ds(pn[t][2 + e], dp[t][2 + e], d1, scale);
-        }
-      uint32_t dsa[4];
-      tc_c_to_a(pn, dsa);
-      tc_acc_rows(dsa, K, j0, L, zero, dq);
-    });
-    tc_store_rows(dq, 1.f, 1.f, [&](int r) { return dst(r0 + r); }, nrows);
-    if ((lane & 3) == 0) {  // rows past L too: the key pass reads them, masked
-      row_max[r0 + g] = m0;
-      row_max[r0 + g + 8] = m1;
-      row_inv[r0 + g] = inv0;
-      row_inv[r0 + g + 8] = inv1;
-      row_delta[r0 + g] = d0;
-      row_delta[r0 + g + 8] = d1;
-    }
-  }
-  __syncthreads();
-
-  // -- key strips: keys k0 .. k0 + 15 against every query row ---------------
-  for (int st = warp; st < nstrips; st += nw) {
-    const int k0 = 16 * st;
-    const int nkeys = L - k0 < 16 ? L - k0 : 16;
-    uint32_t ka[KC][4], va[KC][4];
-    tc_load_a(K, k0, nkeys, zero, ka);
-    tc_load_a(V, k0, nkeys, zero, va);
-    float dk[NT][4], dv[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
-    blocks16([&](int i0, auto masked) {
-      // pt[t][e]: key row g (+ 8 for e >= 2), query i0 + 8 t + col + (e & 1)
-      float pt[2][4], dpt[2][4];
-      tc_dot_rows(ka, Q, i0, L, zero, pt);
-      tc_dot_rows(va, dA, i0, L, zero, dpt);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int i = i0 + 8 * t + col;
-        const float2 m = *reinterpret_cast<const float2*>(row_max + i);
-        const float2 inv = *reinterpret_cast<const float2*>(row_inv + i);
-        const float2 dl = *reinterpret_cast<const float2*>(row_delta + i);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool x = e & 1;
-          const bool ok = !decltype(masked)::value || i + x < L;
-          const float p =
-              ok ? bf16_round(__expf(fmaf(pt[t][e], scale, -(x ? m.y : m.x))) * (x ? inv.y : inv.x))
-                 : 0.f;
-          pt[t][e] = p;
-          dpt[t][e] = tc_ds(p, dpt[t][e], x ? dl.y : dl.x, scale);
-        }
-      }
-      uint32_t pa[4], dsa[4];
-      tc_c_to_a(pt, pa);
-      tc_c_to_a(dpt, dsa);
-      tc_acc_rows(pa, dA, i0, L, zero, dv);
-      tc_acc_rows(dsa, Q, i0, L, zero, dk);
-    });
-    tc_store_rows(dk, 1.f, 1.f, [&](int r) { return dst(k0 + r) + D; }, nkeys);
-    tc_store_rows(dv, 1.f, 1.f, [&](int r) { return dst(k0 + r) + 2 * D; }, nkeys);
-  }
+  tc_bwd_strips<HD, kOneSeq>(Q, K, V, dA, zero, reinterpret_cast<float*>(base + (long)4 * L * HD),
+                          1, L, D, scale, dst);
 }
 
 // Two blocks an SM at L = 197, hd 64 (103 KB each): at most 144 registers
@@ -939,6 +1035,8 @@ inline cudaError_t tc_prefix_attn_bwd(int hd, const bf16* qkv, const bf16* qkv_p
   }
 #undef DVST_TCB_CASE
 }
+
+#endif  // DVST_WITH_BACKWARD
 
 // ---------------------------------------------------------------------------
 // Temporal attention at stride N (dvst_temporal_phase_tm's, fused_block.cu):
@@ -1068,5 +1166,126 @@ inline cudaError_t tc_strided_attn(int hd, const bf16* qkv, bf16* out, int B, in
   }
 #undef DVST_TCS_CASE
 }
+
+#ifdef DVST_WITH_BACKWARD
+
+// ---------------------------------------------------------------------------
+// The backward of tc_strided_attn (dvst_temporal_phase_tm_bwd's,
+// fused_block_bwd.cu): sequence s = b*N + n at head h is the T rows (b*T +
+// t)*N + n of the (B*T*N, 3D) qkv buffer; its cotangent rows are the same
+// rows of da (B*T*N, D), its gradient rows (dq | dk | dv) the same rows of
+// dqkv (B*T*N, 3D). One block per (head, group of G consecutive
+// sequences), numbered as the forward's (heads fastest, a flat
+// blockIdx.x; tc_group's G: 14 sequences of T = 8, two to a strip, seven
+// strips), through tc_bwd_strips with every row masked to its own
+// sequence in both passes. 58.7 KB a block at T = 8, hd 64; two blocks an
+// SM by registers, as the prefix backward (the key strips hold dk and dv,
+// 64 floats a thread). Bound by bytes at T = 8: qkv and da read once,
+// dqkv written once, 0.08 ms at the train step's global crops.
+// ---------------------------------------------------------------------------
+
+template <int HD, int kRows>
+__device__ __forceinline__ void tc_strided_attn_bwd_block(const bf16* __restrict__ qkv,
+                                                          const bf16* __restrict__ da,
+                                                          bf16* __restrict__ dqkv, int S, int T,
+                                                          int N, int H, int G, float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per head row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x % H;
+  const int s0 = blockIdx.x / H * G;  // the block's first sequence
+  const int nseq = S - s0 < G ? S - s0 : G;
+  const int L = T, R = nseq * L, D = H * HD;
+  const long row_w = 3L * D;
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* base = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{base, CH, swz, 0, 0};
+  const TcRows K{base + (long)G * L * HD, CH, swz, 0, 0};
+  const TcRows V{base + (long)2 * G * L * HD, CH, swz, 0, 0};
+  const TcRows dA{base + (long)3 * G * L * HD, CH, swz, 0, 0};
+  // stored row r: sequence s0 + r / L at time r % L
+  auto row = [&](int r) -> long {
+    const int s = s0 + r / L, b = s / N;
+    return ((long)b * T + r % L) * N + s % N;
+  };
+  for (int idx = threadIdx.x; idx < R * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const long rr = row(r);
+    const bf16* p = qkv + rr * row_w + h * HD + c * 8;
+    cp_async16(Q.at(r, c), p, 16);
+    cp_async16(K.at(r, c), p + D, 16);
+    cp_async16(V.at(r, c), p + 2 * D, 16);
+    cp_async16(dA.at(r, c), da + rr * D + h * HD + c * 8, 16);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait<0>();
+  __syncthreads();
+  tc_bwd_strips<HD, kRows>(Q, K, V, dA, zero, reinterpret_cast<float*>(base + (long)4 * G * L * HD),
+                           nseq, L, D, scale, [&](int r) { return dqkv + row(r) * row_w + h * HD; });
+}
+
+// kRows: kPackedStrips where T < 16, kSeqStrips otherwise.
+template <int HD, int kRows>
+__global__ void __launch_bounds__(kTcStrips * 32, 2)
+tc_strided_attn_bwd_kernel(const bf16* qkv, const bf16* da, bf16* dqkv, int S, int T, int N,
+                           int H, int G, float scale) {
+  tc_strided_attn_bwd_block<HD, kRows>(qkv, da, dqkv, S, T, N, H, G, scale);
+}
+
+template <int HD, int kRows>
+cudaError_t tc_strided_attn_bwd_go(const bf16* qkv, const bf16* da, bf16* dqkv, int S, int T,
+                                   int N, int H, int G, long blocks, float scale,
+                                   cudaStream_t st) {
+  const size_t smem = tc_bwd_smem(G, T, HD);
+  static SmemGrant grant;
+  cudaError_t e;
+  if ((e = smem_opt_in(tc_strided_attn_bwd_kernel<HD, kRows>, smem, grant))) return e;
+  tc_strided_attn_bwd_kernel<HD, kRows>
+      <<<(unsigned)blocks, tc_warps(tc_strips(G, T)) * 32, smem, st>>>(qkv, da, dqkv, S, T, N,
+                                                                          H, G, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t tc_strided_attn_bwd_launch(const bf16* qkv, const bf16* da, bf16* dqkv, int B, int T,
+                                       int N, int H, float scale, cudaStream_t st) {
+  const long S = (long)B * N;
+  if (S <= 0 || T <= 0) return cudaSuccess;
+  if (S > (1L << 30)) return cudaErrorInvalidValue;
+  const int G = tc_group((int)S, T);
+  const long blocks = (S + G - 1) / G * H;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  return T < 16 ? tc_strided_attn_bwd_go<HD, kPackedStrips>(qkv, da, dqkv, (int)S, T, N, H, G,
+                                                             blocks, scale, st)
+                : tc_strided_attn_bwd_go<HD, kSeqStrips>(qkv, da, dqkv, (int)S, T, N, H, G,
+                                                          blocks, scale, st);
+}
+
+// The backward of tc_strided_attn over the B*N sequences of T rows at
+// stride N: qkv (B*T*N, 3D) and da (B*T*N, D) -> dqkv (B*T*N, 3D), at head
+// dim hd and logit scale `scale`.
+inline cudaError_t tc_strided_attn_bwd(int hd, const bf16* qkv, const bf16* da, bf16* dqkv,
+                                       int B, int T, int N, int H, float scale,
+                                       cudaStream_t st) {
+#define DVST_TCSB_CASE(HDV) \
+  case HDV:                 \
+    return tc_strided_attn_bwd_launch<HDV>(qkv, da, dqkv, B, T, N, H, scale, st);
+  switch (hd) {
+    DVST_TCSB_CASE(16)
+    DVST_TCSB_CASE(32)
+    DVST_TCSB_CASE(48)
+    DVST_TCSB_CASE(64)
+    DVST_TCSB_CASE(80)
+    DVST_TCSB_CASE(96)
+    DVST_TCSB_CASE(112)
+    DVST_TCSB_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_TCSB_CASE
+}
+
+#endif  // DVST_WITH_BACKWARD
 
 }  // namespace

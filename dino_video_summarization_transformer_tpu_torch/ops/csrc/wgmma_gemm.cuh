@@ -2,17 +2,17 @@
 // W[N, K]^T + bias[N]), A row-major bf16, W an nn.Linear weight (out, in)
 // bf16, f32 accumulation, with gemm_kernel's epilogues (dvst_common.cuh's
 // Epi) at its rounding points. Used by dvst_spatial_mlp,
-// dvst_temporal_phase_tm (and dvst_temporal_phase) and dvst_mlp_phase
-// (fused_block.cu) and dvst_spatial_pf (banded_block.cu) for all their
-// products; dvst_spatial_phase and dvst_attn_phase keep gemm_kernel.
+// dvst_temporal_phase_tm (and dvst_temporal_phase), dvst_spatial_phase and
+// dvst_mlp_phase (fused_block.cu) and dvst_spatial_pf (banded_block.cu)
+// for all their products; only dvst_attn_phase keeps gemm_kernel.
 //
 // The backwards' products run on the same kernel (fused_block_bwd.cu's
-// dvst_spatial_phase_bwd and dvst_mlp_phase_bwd, under
-// DVST_WITH_BACKWARD): dX = dY . W reads the weight (out, in) as it is
-// stored, an MN-major B operand (wg_gemm_dx); dW = dY^T . X reads both
-// operands as stored, (rows, out) and (rows, in), MN-major A and B, its
-// reduction over the rows cut into splits whose f32 partials
-// reduce_splits adds in index order (wg_gemm_dw).
+// dvst_temporal_phase_tm_bwd, dvst_spatial_phase_bwd and
+// dvst_mlp_phase_bwd, under DVST_WITH_BACKWARD): dX = dY . W reads the
+// weight (out, in) as it is stored, an MN-major B operand (wg_gemm_dx);
+// dW = dY^T . X reads both operands as stored, (rows, out) and (rows, in),
+// MN-major A and B, its reduction over the rows cut into splits whose f32
+// partials reduce_splits adds in a fixed order (wg_gemm_dw).
 //
 // Bound by operations at the port's shapes (K = 768 or 3072: ~250-600 FLOP
 // per byte moved), except where a K = 768 product reads a residual and

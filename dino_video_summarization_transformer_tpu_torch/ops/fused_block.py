@@ -30,11 +30,11 @@ over (S, L, D) bf16 sequences in the plain layout:
 
 and ``mlp_phase`` for the feed-forward half. ``fused_ok`` is the gate.
 
-``spatial_mlp``, ``temporal_phase_tm`` (so ``temporal_phase``),
-``mlp_phase`` and the banded ``spatial_phase_pf`` run their products on the
-wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``); the two spatial ops' attention
-runs on the tensor-core tile with the CLS row as prefix key, the temporal
-ops' on the same tile reading its rows at stride N
+``spatial_mlp``, ``spatial_phase``, ``temporal_phase_tm`` (so
+``temporal_phase``), ``mlp_phase`` and the banded ``spatial_phase_pf`` run
+their products on the wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``); the
+spatial ops' attention runs on the tensor-core tile with the CLS row as
+prefix key, the temporal ops' on the same tile reading its rows at stride N
 (``csrc/tc_attention.cuh``). The three blocks also have wrappers of their
 own, ``gemm``, ``spatial_attention`` and ``temporal_attention`` (plain
 twins ``gemm_plain``, ``spatial_attention_plain``,
@@ -61,12 +61,13 @@ Each Function takes the f32 master parameters, casts them to the kernels'
 layout inside (bf16 matrices, f32 vectors) and returns f32 gradients in
 the parameters' (out, in) layout, as JAX's ``f_bwd`` casts them back
 (fused_block.py:629-632). The backwards live in ``csrc/fused_block_bwd.cu``.
-``spatial_phase_bwd`` and ``mlp_phase_bwd`` run every product on the wgmma
-GEMM (the dX and dW products read their operands as stored) and row 8's
-attention backward on the tensor-core tile's backward; those blocks have
-wrappers of their own for the card tests and ``chip_smoke.py``:
-``spatial_attention_bwd``, ``gemm_dx``, ``gemm_dw`` and ``gemm_gelu_grad``
-(plain twins ``*_plain``).
+All three run every product on the wgmma GEMM (the dX and dW products read
+their operands as stored), rows 7 and 8 their attention backward on the
+tensor-core tile's backward (at stride N for row 7, with the CLS prefix
+for row 8), and all three their LayerNorm backward on one kernel; those
+blocks have wrappers of their own for the card tests and ``chip_smoke.py``:
+``temporal_attention_bwd``, ``spatial_attention_bwd``, ``layer_norm_bwd``,
+``gemm_dx``, ``gemm_dw`` and ``gemm_gelu_grad`` (plain twins ``*_plain``).
 
 Each op's wrapper runs its Hopper kernels (``csrc/fused_block.cu``) on a
 CUDA tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on
@@ -100,7 +101,8 @@ launches: Dict[str, int] = {
     "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
     "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0,
     "temporal_attention": 0, "spatial_attention_bwd": 0, "gemm_dx": 0,
-    "gemm_dw": 0, "gemm_gelu_grad": 0}
+    "gemm_dw": 0, "gemm_gelu_grad": 0, "temporal_attention_bwd": 0,
+    "layer_norm_bwd": 0}
 
 # The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
 # the residual's dtype or None, the output's dtype).
@@ -419,6 +421,23 @@ def _ln_bwd(xf: torch.Tensor, dy: torch.Tensor, w: torch.Tensor):
     return (dx, (dy * xhat).reshape(-1, D).sum(0), dy.reshape(-1, D).sum(0))
 
 
+def layer_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                         res: Optional[torch.Tensor] = None,
+                         x_tail: Optional[torch.Tensor] = None, tail_div: int = 1):
+    """Plain twin of ``layer_norm_bwd``: ``_ln_bwd`` over the M rows of x and
+    then each x_tail row tail_div times; returns (dx (M, D) bf16 = bf16(dx
+    + res), the tail rows' dx (P * tail_div, D) f32 or None, dscale, dbias
+    f32)."""
+    M = x.shape[0]
+    xf = x.float()
+    if x_tail is not None:
+        xf = torch.cat([xf, x_tail.float().repeat_interleave(tail_div, dim=0)])
+    dx, dscale, dbias = _ln_bwd(xf, dy, w)
+    grid = dx[:M] if res is None else dx[:M] + res.float()
+    return (grid.to(torch.bfloat16), None if x_tail is None else dx[M:].contiguous(),
+            dscale, dbias)
+
+
 def _sum_frames(t: torch.Tensor) -> torch.Tensor:
     """(B, T, D) -> (B, 1, D): the CLS row's gradient over its frames."""
     return t.sum(dim=1, keepdim=True)
@@ -430,33 +449,43 @@ def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
             + h * 0.3989422804014327 * torch.exp(-0.5 * h * h))
 
 
+def temporal_attention_bwd_plain(qkv: torch.Tensor, da: torch.Tensor, num_heads: int,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``temporal_attention_bwd``: qkv (B, T, N, 3D) and da (B,
+    T, N, D) -> dqkv (B, T, N, 3D) bf16 (dq | dk | dv), sequence (b, n) the
+    T rows at qkv[b, :, n], through ``_attention_bwd``."""
+    B, T, N, D3 = qkv.shape
+    H = num_heads
+    hd = D3 // 3 // H
+    # (B, T, N, 3, H, hd) -> (3, B, N, H, T, hd): sequences over T per position
+    q, k, v = qkv.reshape(B, T, N, 3, H, hd).permute(3, 0, 2, 4, 1, 5).unbind(0)
+    da = da.reshape(B, T, N, H, hd).permute(0, 2, 3, 1, 4)  # (B, N, H, T, hd)
+    g = torch.stack(_attention_bwd(q, k, v, da) if scale is None
+                    else _attention_bwd(q, k, v, da, scale))  # (3, B, N, H, T, hd)
+    return g.permute(1, 4, 2, 0, 3, 5).reshape(B, T, N, D3)
+
+
 def temporal_phase_tm_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
                                 num_heads: int):
-    """Plain twin of ``temporal_phase_tm_bwd``."""
+    """Plain twin of ``temporal_phase_tm_bwd``: its blocks' twins chained, as
+    the kernel chains the blocks."""
     B, T, N, D = x.shape
-    H = num_heads
-    hd = D // H
     M = B * T * N
-    xf = x.float()
-    y = _ln(xf, p["ln_w"], p["ln_b"]).to(torch.bfloat16)
+    y = _ln(x.float(), p["ln_w"], p["ln_b"]).to(torch.bfloat16)
     qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
-    q, k, v = qkv.reshape(B, T, N, 3, H, hd).permute(3, 0, 2, 4, 1, 5).unbind(0)
-    a = _attention(q, k, v).permute(0, 3, 1, 2, 4).reshape(M, D)
+    a = temporal_attention_plain(qkv, num_heads).reshape(M, D)
     proj = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
     g = {}
     dfc = dout.reshape(M, D)
-    g["fc_w"], g["fc_b"] = _dw(dfc, proj), dfc.float().sum(0)
-    dproj = _mm(dfc, p["fc_w"].t()).to(torch.bfloat16)
-    g["proj_w"], g["proj_b"] = _dw(dproj, a), dproj.float().sum(0)
-    da = _mm(dproj, p["proj_w"].t()).to(torch.bfloat16)
-    da = da.reshape(B, T, N, H, hd).permute(0, 2, 3, 1, 4)  # (B, N, H, T, hd)
-    dqkv = torch.stack(_attention_bwd(q, k, v, da))  # (3, B, N, H, T, hd)
-    dqkv = dqkv.permute(1, 4, 2, 0, 3, 5).reshape(M, 3 * D)
-    g["qkv_w"], g["qkv_b"] = _dw(dqkv, y.reshape(M, D)), dqkv.float().sum(0)
-    dy = _mm(dqkv, p["qkv_w"].t())
-    dx, g["ln_w"], g["ln_b"] = _ln_bwd(xf.reshape(M, D), dy, p["ln_w"])
-    dx = (dx + dfc.float()).to(torch.bfloat16).reshape(B, T, N, D)
-    return dx, {k: g[k] for k in TEMPORAL_KEYS}
+    g["fc_w"], g["fc_b"] = gemm_dw_plain(dfc, proj), dfc.float().sum(0)
+    dproj = gemm_dx_plain(dfc, p["fc_w"], "bf16")
+    g["proj_w"], g["proj_b"] = gemm_dw_plain(dproj, a), dproj.float().sum(0)
+    da = gemm_dx_plain(dproj, p["proj_w"], "bf16")
+    dqkv = temporal_attention_bwd_plain(qkv, da.reshape(B, T, N, D), num_heads).reshape(M, 3 * D)
+    g["qkv_w"], g["qkv_b"] = gemm_dw_plain(dqkv, y.reshape(M, D)), dqkv.float().sum(0)
+    dy = gemm_dx_plain(dqkv, p["qkv_w"], "f32")
+    dx, _, g["ln_w"], g["ln_b"] = layer_norm_bwd_plain(x.reshape(M, D), dy, p["ln_w"], dfc)
+    return dx.reshape(B, T, N, D), {k: g[k] for k in TEMPORAL_KEYS}
 
 
 def spatial_phase_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
@@ -608,6 +637,19 @@ def check_spatial_attn_smem(lib, L: int, hd: int) -> None:
                          f"of shared memory (limit {SMEM_LIMIT})")
 
 
+def _tc_group(S: int, L: int) -> int:
+    """Sequences of L rows a block of the tile takes (tc_attention.cuh's
+    tc_group: seven 16-row strips, short sequences packed 16 // L to a
+    strip), at most S."""
+    group = 7 * (16 // L) if L < 16 else max(1, 7 // -(-L // 16))
+    return min(group, S)
+
+
+def _tc_strips(G: int, L: int) -> int:
+    """16-row strips of a block of G sequences of L rows (tc_strips)."""
+    return -(-G // (16 // L)) if L < 16 else G * -(-L // 16)
+
+
 def temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> int:
     """Shared bytes one block of the temporal attention (the tile at stride
     N) needs over S sequences of L rows at head dim hd: ``lib``'s
@@ -619,8 +661,7 @@ def temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> int:
         return lib.dvst_temporal_attn_smem(S, L, hd)
     if S <= 0 or L <= 0:
         return 0
-    group = 7 * (16 // L) if L < 16 else max(1, 7 // -(-L // 16))
-    return 16 + 6 * min(group, S) * L * hd
+    return 16 + 6 * _tc_group(S, L) * L * hd
 
 
 def check_temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> None:
@@ -805,7 +846,7 @@ def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, N + 1)
+    _check_geometry(D, num_heads, None)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
@@ -814,12 +855,12 @@ def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
 
     from . import _build
 
+    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load()
-    M = B * T * N
+    check_spatial_attn_smem(lib, N + 1, D // num_heads)
     out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
     cls_rows = torch.empty((B, T, D), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(M * 5 * D + B * 4 * D + B * T * D, dtype=torch.bfloat16,
-                     device=dev)
+    ws = _ws(lib.dvst_spatial_phase_ws(B, T, N, D), dev)
     with torch.cuda.device(dev):
         _run(lib.dvst_spatial_phase, x.data_ptr(), cls.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
@@ -972,21 +1013,30 @@ def mlp_phase(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
 # Backward wrappers (``csrc/fused_block_bwd.cu``)
 # ---------------------------------------------------------------------------
 
-def _attn_bwd_smem(L: int, hd: int) -> int:
-    """Shared bytes of the attention backward: q, k, v, da (L x hd bf16),
-    the L x L bf16 probabilities, one f32 row per warp (csrc:
-    attn_bwd_kernel)."""
-    warps = max(1, min(8, L))
-    return 4 * L * hd * 2 + ((L * L + 1) // 2 * 2) * 2 + warps * L * 4
+def temporal_attn_bwd_smem(S: int, L: int, hd: int, lib=None) -> int:
+    """Shared bytes one block of the temporal attention backward (the tile's
+    backward at stride N, ``tc_strided_attn_bwd``) needs over S sequences
+    of L rows at head dim hd: ``lib``'s ``dvst_temporal_attn_bwd_smem``
+    where given, else its mirror here (tc_group's sequences; a zero row, Q,
+    K, V and dA, three floats per row of its 16-row strips), so that the
+    plain twins on the CPU refuse what the kernel refuses (a card test
+    holds the two equal)."""
+    if lib is not None:
+        return lib.dvst_temporal_attn_bwd_smem(S, L, hd)
+    if S <= 0 or L <= 0:
+        return 0
+    G = _tc_group(S, L)
+    return 16 + 8 * G * L * hd + 192 * _tc_strips(G, L)
 
 
-def _check_bwd_geometry(D: int, num_heads: int, L: int) -> None:
-    _check_geometry(D, num_heads, L)
-    if _attn_bwd_smem(L, D // num_heads) > SMEM_LIMIT:
-        raise ValueError(f"sequence length {L} at head dim {D // num_heads}: "
-                         f"the attention backward needs "
-                         f"{_attn_bwd_smem(L, D // num_heads)} B of shared "
-                         f"memory (limit {SMEM_LIMIT})")
+def check_temporal_attn_bwd_smem(S: int, L: int, hd: int, lib=None) -> None:
+    """Raise if one block of the temporal attention backward cannot hold its
+    sequences of L rows at head dim hd (``temporal_attn_bwd_smem``)."""
+    need = temporal_attn_bwd_smem(S, L, hd, lib)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"sequence length {L} at head dim {hd}: the attention "
+                         f"backward needs {need} B of shared memory (limit "
+                         f"{SMEM_LIMIT})")
 
 
 def spatial_attn_bwd_smem(L: int, hd: int, lib=None) -> int:
@@ -1063,6 +1113,90 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
              _stream(dev))
     launches["spatial_attention_bwd"] += 1
     return dqkv, dqkv_pre
+
+
+def temporal_attention_bwd(qkv: torch.Tensor, da: torch.Tensor, num_heads: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The attention backward of ``temporal_phase_tm_bwd`` alone (the tile's
+    backward at stride N): qkv (B, T, N, 3D) bf16 as ``temporal_attention``
+    takes it and the cotangent da (B, T, N, D) bf16 -> dqkv (B, T, N, 3D)
+    bf16 (dq | dk | dv), sequence (b, n) the T rows at qkv[b, :, n], at
+    logit scale ``scale`` (hd^-0.5 unless given). Kernel on CUDA, plain
+    twin on CPU."""
+    if qkv.dim() != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv: expected (B, T, N, 3D), got {tuple(qkv.shape)}")
+    B, T, N, D3 = qkv.shape
+    D = D3 // 3
+    dev = _device_of(qkv)
+    _check_geometry(D, num_heads, None)
+    _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
+    _check_tensor("da", da, torch.bfloat16, (B, T, N, D), dev)
+    hd = D // num_heads
+    if scale is None:
+        scale = hd ** -0.5
+    if dev.type == "cpu":
+        check_temporal_attn_bwd_smem(B * N, T, hd)
+        return temporal_attention_bwd_plain(qkv, da, num_heads, scale)
+
+    from . import _build
+
+    _check_aligned(qkv=qkv, da=da)
+    lib = _build.load("bwd")
+    check_temporal_attn_bwd_smem(B * N, T, hd, lib)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_temporal_attn_bwd, qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(),
+             B, T, N, D, num_heads, float(scale), _stream(dev))
+    launches["temporal_attention_bwd"] += 1
+    return dqkv
+
+
+def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                   res: Optional[torch.Tensor] = None,
+                   x_tail: Optional[torch.Tensor] = None, tail_div: int = 1):
+    """The LayerNorm backward of the three backward ops alone: x (M, D) bf16
+    rows and, for P * tail_div tail rows, x_tail (P, D) bf16 (each row
+    shared by tail_div rows: row 8's per-frame CLS rows); dy (M + P *
+    tail_div, D) f32, the scale w (D,) f32, the residual res (M, D) bf16 or
+    None -> (dx (M, D) bf16 = bf16(dx + res), the tail rows' dx (P *
+    tail_div, D) f32 or None, dscale (D,), dbias (D,) f32). D % 128 == 0,
+    D <= 1024. Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
+    M, D = x.shape
+    dev = _device_of(x)
+    if D % 128 or D > 1024:
+        raise ValueError(f"D={D}: the kernel needs a multiple of 128, at most 1024")
+    if tail_div < 1:
+        raise ValueError(f"tail_div={tail_div}: at least 1")
+    P = 0 if x_tail is None else x_tail.shape[0]
+    R = M + P * tail_div
+    _check_tensor("x", x, torch.bfloat16, (M, D), dev)
+    if x_tail is not None:
+        _check_tensor("x_tail", x_tail, torch.bfloat16, (P, D), dev)
+    _check_tensor("dy", dy, torch.float32, (R, D), dev)
+    _check_tensor("w", w, torch.float32, (D,), dev)
+    if res is not None:
+        _check_tensor("res", res, torch.bfloat16, (M, D), dev)
+    if dev.type == "cpu":
+        return layer_norm_bwd_plain(x, dy, w, res, x_tail, tail_div)
+
+    from . import _build
+
+    _check_aligned(x=x, x_tail=x_tail, dy=dy, w=w, res=res)
+    lib = _build.load("bwd")
+    dx = torch.empty_like(x)
+    dx_tail = None if x_tail is None else torch.empty((R - M, D), dtype=torch.float32, device=dev)
+    dgb = torch.empty((2, D), dtype=torch.float32, device=dev)
+    part = _ws(lib.dvst_layer_norm_bwd_ws(R, D), dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_layer_norm_bwd, x.data_ptr(),
+             None if x_tail is None else x_tail.data_ptr(), dy.data_ptr(), w.data_ptr(),
+             None if res is None else res.data_ptr(), dx.data_ptr(),
+             None if dx_tail is None else dx_tail.data_ptr(), part.data_ptr(),
+             dgb.data_ptr(), M, R, D, tail_div, _stream(dev))
+    launches["layer_norm_bwd"] += 1
+    return dx, dx_tail, dgb[0], dgb[1]
 
 
 def gemm_dx(dy: torch.Tensor, w: torch.Tensor, epi: str,
@@ -1199,22 +1333,25 @@ def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_bwd_geometry(D, num_heads, T)
+    _check_geometry(D, num_heads, None)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("dout", dout, torch.bfloat16, x.shape, dev)
     shapes = _temporal_shapes(D)
     _check_weights(p, TEMPORAL_KEYS, shapes, dev)
+    hd = D // num_heads
     if dev.type == "cpu":
+        check_temporal_attn_bwd_smem(B * N, T, hd)
         return temporal_phase_tm_bwd_plain(x, dout, p, num_heads)
 
     from . import _build
 
+    _check_aligned(x=x, dout=dout, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc_w=p["fc_w"])
     lib = _build.load("bwd")
+    check_temporal_attn_bwd_smem(B * N, T, hd, lib)
     dx = torch.empty_like(x)
     dln, g = _grads(dev, shapes, TEMPORAL_KEYS)
-    ws = torch.empty(lib.dvst_temporal_phase_tm_bwd_ws(B, T, N, D, num_heads),
-                     dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
+        ws = _ws(lib.dvst_temporal_phase_tm_bwd_ws(B, T, N, D, num_heads), dev)
         _run(lib.dvst_temporal_phase_tm_bwd, x.data_ptr(), dout.data_ptr(),
              *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
              dx.data_ptr(), dln.data_ptr(),
@@ -1248,7 +1385,7 @@ def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
 
     from . import _build
 
-    _check_aligned(qkv_w=p["qkv_w"], proj_w=p["proj_w"])
+    _check_aligned(x=x, cls=cls, dgo=dgo, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load("bwd")
     check_spatial_attn_bwd_smem(N + 1, hd, lib)
     dx = torch.empty_like(x)
@@ -1288,7 +1425,7 @@ def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
 
     from . import _build
 
-    _check_aligned(do=do, fc1_w=p["fc1_w"], fc2_w=p["fc2_w"])
+    _check_aligned(x=x, do=do, fc1_w=p["fc1_w"], fc2_w=p["fc2_w"])
     lib = _build.load("bwd")
     dx = torch.empty_like(x)
     dln, g = _grads(dev, shapes, MLP_KEYS)

@@ -7,12 +7,18 @@
 #     bash dino_video_summarization_transformer_tpu_torch/tools/plant_faults.sh
 #
 # Faults: the rowsum(dp * p) term dropped from the attention backward's
-# ds, in row 8's tensor-core tile (both passes) and in row 7's CUDA-core
-# kernel; the proj weight gradient transposed (dY and X swapped), in row
-# 8's wgmma dW and row 7's wmma one; row 8's tile leaving the CLS key's dk
-# and dv unwritten; its dk summed over the first query strip only; the
+# ds, in the tensor-core backward tile that rows 7 and 8 share (both
+# passes), and in its key pass alone where a strip packs several
+# sequences (row 7's temporal sequences, two to a strip at T = 8); the
+# proj weight gradient transposed (dY and X swapped), in row 8's wgmma dW
+# and in row 7's; row 8's tile leaving the CLS key's dk and dv unwritten;
+# its dk summed over the first query strip only; row 7's strided tile with
+# each row's keys (and each key's queries) masked to its strip, not its
+# sequence, and reading (and writing) each sequence's rows at stride 1
+# instead of N; the LayerNorm backward of rows 7-9 without its
+# mean(dxh * xhat) term; the
 # MN-major wgmma descriptor's two byte offsets swapped (every dX and dW of
-# rows 8 and 9); the CLS row's gradient taken from the first frame only; the standalone
+# rows 7-9); the CLS row's gradient taken from the first frame only; the standalone
 # attention's logit scale dropped; every strip of a multi-sequence
 # attention block (the standalone attention's and the temporal
 # attention's) scored against the block's first sequence's keys; the
@@ -28,6 +34,7 @@
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
 #     bash .../plant_faults.sh no_rowsum dw_transposed bwd_cls_key_dropped bwd_dk_first_strip dw_desc_offsets_swapped
+#     bash .../plant_faults.sh no_rowsum_row7 dw_transposed_row7 bwd_strided_seq_unmasked bwd_temporal_stride_one ln_bwd_mean_term_dropped
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -47,15 +54,18 @@ run() {
   rm -rf "$dst"
 }
 run no_rowsum tc_attention.cuh 's/return p \* (dp - delta) \* scale;/return p * dp * scale;/'
-run no_rowsum_row7 dvst_common.cuh 's/pf \* (p_w\[j\] - t) \* scale/pf * p_w[j] * scale/'
-run dw_transposed fused_block_bwd.cu 's/wg_gemm_dw(w.dproj, w.a,/wg_gemm_dw(w.a, w.dproj,/'
-run dw_transposed_row7 fused_block_bwd.cu 's/(e = gemm_dw(w.dproj, w.a,/(e = gemm_dw(w.a, w.dproj,/'
+run no_rowsum_row7 tc_attention.cuh 's/dpt\[t\]\[e\] = ok ? tc_ds(p, dpt\[t\]\[e\], dl\[x\], scale) : 0.f;/dpt[t][e] = ok ? tc_ds(p, dpt[t][e], L < 16 ? 0.f : dl[x], scale) : 0.f;/'
+run dw_transposed fused_block_bwd.cu 's/wg_gemm_dw(w.dproj, w.a, static_cast<float\*>(dproj_w), w.part, R,/wg_gemm_dw(w.a, w.dproj, static_cast<float*>(dproj_w), w.part, R,/'
+run dw_transposed_row7 fused_block_bwd.cu 's/wg_gemm_dw(w.dproj, w.a, static_cast<float\*>(dproj_w), w.part, M,/wg_gemm_dw(w.a, w.dproj, static_cast<float*>(dproj_w), w.part, M,/'
 run bwd_cls_key_dropped tc_attention.cuh 's/return dst(k0 + r) + \(2 \* \)\?D; }/return k0 + r == 0 ? nullptr : dst(k0 + r) + \1D; }/'
-run bwd_dk_first_strip tc_attention.cuh 's/      tc_acc_rows(dsa, Q, i0, L, zero, dk);/      if (i0 == 0) tc_acc_rows(dsa, Q, i0, L, zero, dk);/'
+run bwd_dk_first_strip tc_attention.cuh 's/      tc_acc_rows(dsa, Q, i0, sp.ke, zero, dk);/      if (i0 == sp.kb) tc_acc_rows(dsa, Q, i0, sp.ke, zero, dk);/'
+run bwd_strided_seq_unmasked tc_attention.cuh 's/lo0 = (sp.r0 + g) \/ L \* L; lo1 = (sp.r0 + g + 8) \/ L \* L; hi0 = lo0 + L; hi1 = lo1 + L;/lo0 = sp.kb; lo1 = sp.kb; hi0 = sp.ke; hi1 = sp.ke;/'
+run bwd_temporal_stride_one tc_attention.cuh 's/return ((long)b \* T + r % L) \* N + s % N;/return (long)s * T + r % L;/'
+run ln_bwd_mean_term_dropped dvst_common.cuh 's/o\[e\] = rs \* (g\[CW \* c + e\] - m1 - xh \* m2);/o[e] = rs * (g[CW * c + e] - m1);/'
 run dw_desc_offsets_swapped wgmma_gemm.cuh 's/((uint64_t)(kWgMnLbo >> 4) << 16) | ((uint64_t)(kWgMnSbo >> 4) << 32)/((uint64_t)(kWgMnSbo >> 4) << 16) | ((uint64_t)(kWgMnLbo >> 4) << 32)/'
 run dcls_frame0 dvst_common.cuh 's/for (int t = 0; t < reps; ++t) s +=/for (int t = 0; t < 1; ++t) s +=/'
 run fa_unscaled attention.cu 's/static_cast<bf16\*>(out), BH, L, G, scale);/static_cast<bf16*>(out), BH, L, G, 1.f);/'
-run fa_first_seq tc_attention.cuh 's/kb, ke, lo0, lo0 + L, lo1, lo1 + L,/0, L, 0, L, 0, L,/g'
+run fa_first_seq tc_attention.cuh 's/sp.kb, sp.ke, lo0, lo0 + L, lo1, lo1 + L,/0, L, 0, L, 0, L,/g'
 run band_shifted banded_block.cu 's/lo0 = band_lo(q0 + g, eff, hi), lo1 = band_lo(q0 + g + 8, eff, hi);/lo0 = band_lo(q0 + g, eff, hi) + 1, lo1 = band_lo(q0 + g + 8, eff, hi) + 1;/'
 run band_pad_unmasked banded_block.cu 's/lo0, lo0 + eff, lo1, lo1 + eff,/lo0, 1 << 30, lo1, 1 << 30,/'
 run cls_key_dropped tc_attention.cuh 's/const int k0 = 0;  \/\/ the first key: the prefix row/const int k0 = 1;/'

@@ -239,7 +239,12 @@ def test_banded_forward_kernels_match_twins(cuda_device, t_real, eff):
 # geometries of the train step at ViT-B widths (global N=196, local N=36,
 # T=8, at a small batch), small shapes, and a ragged row count for the MLP.
 TRAIN_SHAPES = [(2, 4, 6, 128, 2), (2, 8, 196, 768, 12), (4, 8, 36, 768, 12),
-                (1, 3, 16, 256, 4)]
+                (1, 3, 16, 256, 4),
+                # the train step's global and local crops whole; rows 4 and
+                # 7's tiles at N = 4 (12 sequences: one ragged group of the
+                # 14 the temporal tiles take at T = 8) and N = 1
+                (16, 8, 196, 768, 12), (64, 8, 36, 768, 12), (3, 8, 4, 256, 4),
+                (5, 8, 1, 128, 2)]
 
 
 def _grads_close(got: dict, want: dict):
@@ -932,3 +937,112 @@ def test_backward_blocks_refuse_bad_inputs(cuda_device):
     with pytest.raises(TypeError):
         fb.gemm_dw(dy.float(), dy)
     assert fb.launches == before
+
+
+# Row 7's blocks alone (csrc/fused_block_bwd.cu's exports). The temporal
+# attention backward (tc_attention.cuh's tc_strided_attn_bwd) over (B, T,
+# N): the train step's global (16 clips x 196 positions) and local (64 x
+# 36) crops at T = 8, a ragged last group (S = B * N not a multiple of the
+# 14 sequences a block takes at T = 8), N = 4 and 1, other lengths (3, 5:
+# several sequences a strip; 17, 30: strips of one sequence) and every
+# head dim at T = 8.
+TEMPORAL_BWD_SHAPES = [(16, 8, 196, 768, 12), (64, 8, 36, 768, 12), (1, 8, 13, 128, 2),
+                       (2, 8, 15, 256, 4), (3, 8, 4, 256, 4), (5, 8, 1, 128, 2),
+                       (2, 3, 16, 128, 2), (2, 5, 9, 256, 4), (1, 30, 4, 768, 12),
+                       (1, 17, 3, 256, 2)] + [
+    (1, 8, 7, D, H) for D, H in [(128, 8), (128, 4), (384, 8), (640, 8), (384, 4),
+                                 (896, 8), (256, 2)]]
+
+
+@pytest.mark.parametrize("B,T,N,D,H", TEMPORAL_BWD_SHAPES)
+def test_temporal_attention_bwd_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    qkv = _qkv((B, T, N, 3 * D), B + T + N, cuda_device)
+    da = _qkv((B, T, N, D), B + T + N + 1, cuda_device)
+    before = fb.launches["temporal_attention_bwd"]
+    got = fb.temporal_attention_bwd(qkv, da, H)
+    again = fb.temporal_attention_bwd(qkv, da, H)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_attention_bwd"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, N, 3 * D)
+    assert torch.equal(got, again)
+    want = fb.temporal_attention_bwd_plain(qkv, da, H)
+    for i in range(3):  # dq, dk, dv: each held against its own size
+        _close_sums(got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D])
+
+
+@pytest.mark.parametrize("B,N", [(16, 196), (64, 36)])
+def test_temporal_attention_bwd_at_overflowing_logits(cuda_device, B, N):
+    """Scores 64x the unit-variance inputs' (scale 8 at hd 64): exp
+    overflows unless each row's max over its own sequence comes first."""
+    qkv = _qkv((B, 8, N, 3 * 768), N, cuda_device)
+    da = _qkv((B, 8, N, 768), N + 1, cuda_device)
+    got = fb.temporal_attention_bwd(qkv, da, 12, scale=8.0)
+    want = fb.temporal_attention_bwd_plain(qkv, da, 12, scale=8.0)
+    assert bool(want.isfinite().all())
+    for i in range(3):
+        _close_sums(got[..., i * 768:(i + 1) * 768], want[..., i * 768:(i + 1) * 768])
+
+
+def test_temporal_attention_bwd_shared_memory_mirror_is_the_librarys(cuda_device):
+    """fused_block.temporal_attn_bwd_smem's mirror, by which the CPU twins
+    refuse, equals the library's dvst_temporal_attn_bwd_smem."""
+    from dino_video_summarization_transformer_tpu_torch.ops import _build
+
+    lib = _build.load("bwd")
+    for S in (1, 2, 5, 13, 14, 15, 34, 35, 36, 3136, 2304):
+        for L in (1, 2, 3, 5, 8, 15, 16, 17, 30, 31, 33, 48, 64, 97, 112, 113, 197, 300):
+            for hd in (16, 64, 128):
+                assert fb.temporal_attn_bwd_smem(S, L, hd) == fb.temporal_attn_bwd_smem(
+                    S, L, hd, lib), (S, L, hd)
+
+
+def test_temporal_attention_bwd_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """One 300-row sequence at hd 128 needs 304 KB: the wrapper and row 7
+    refuse it."""
+    qkv = torch.zeros(1, 300, 1, 3 * 128, dtype=torch.bfloat16, device=cuda_device)
+    da = torch.zeros(1, 300, 1, 128, dtype=torch.bfloat16, device=cuda_device)
+    p = _block(128, 1, 0, cuda_device)["temporal"]
+    before = dict(fb.launches)
+    for call in (lambda: fb.temporal_attention_bwd(qkv, da, 1),
+                 lambda: fb.temporal_phase_tm_bwd(da, da, p, 1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert fb.launches == before
+
+
+# The LayerNorm backward of rows 7-9 (dvst_common.cuh's ln_bwd) alone: (M,
+# tail rows P, tail_div, D, residual): row 8's R = M + B*T rows at both
+# crops (the per-frame CLS rows each read one clip's row), rows 7 and 9's
+# grid rows, row 9's CLS-row calls (16, 64), ragged counts, and every width
+# the kernel takes (D = 128 .. 1024: 4 .. 32 values a lane, 4 or 8 at once).
+LN_BWD_SHAPES = [(25088, 16, 8, 768, True), (18432, 64, 8, 768, True), (25088, 0, 1, 768, True),
+                 (16, 0, 1, 768, True), (64, 0, 1, 768, False), (100, 3, 5, 768, True),
+                 (1, 0, 1, 768, True)] + [
+    (77, 2, 3, D, True) for D in (128, 256, 384, 512, 640, 896, 1024)]
+
+
+@pytest.mark.parametrize("M,P,tail_div,D,residual", LN_BWD_SHAPES)
+def test_layer_norm_bwd_kernel_matches_twin(cuda_device, M, P, tail_div, D, residual):
+    r = np.random.RandomState(M + P + D)
+    x = torch.from_numpy(r.randn(M, D) * 2 + 0.5).to(cuda_device, torch.bfloat16)
+    x_tail = (torch.from_numpy(r.randn(P, D)).to(cuda_device, torch.bfloat16)
+              if P else None)
+    dy = torch.from_numpy(r.randn(M + P * tail_div, D)).to(cuda_device, torch.float32)
+    w = torch.from_numpy(1 + 0.2 * r.randn(D)).to(cuda_device, torch.float32)
+    res = torch.from_numpy(r.randn(M, D)).to(cuda_device, torch.bfloat16) if residual else None
+    before = fb.launches["layer_norm_bwd"]
+    got = fb.layer_norm_bwd(x, dy, w, res, x_tail, tail_div)
+    again = fb.layer_norm_bwd(x, dy, w, res, x_tail, tail_div)
+    torch.cuda.synchronize()
+    assert fb.launches["layer_norm_bwd"] == before + 2
+    assert all(g is None and a is None or torch.equal(g, a) for g, a in zip(got, again))
+    want = fb.layer_norm_bwd_plain(x, dy, w, res, x_tail, tail_div)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (M, D)
+    _close(got[0], want[0], res)  # dx held against its branch, dx + res - res
+    if P:
+        assert got[1].shape == (P * tail_div, D)
+        _close(got[1], want[1])
+    else:
+        assert got[1] is None
+    _close(got[2], want[2])
+    _close(got[3], want[3])
