@@ -46,8 +46,9 @@ _SIGNATURES = {
     "fused": {
         # x, 8 weights, workspace, out | B, T, N, D, H, out_bf16 | stream
         "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 6 + [_p],
-        # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H | stream
-        "dvst_spatial_phase": [_p] * 11 + [_i] * 5 + [_p],
+        # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H,
+        # out_f32 | stream
+        "dvst_spatial_phase": [_p] * 11 + [_i] * 6 + [_p],
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_spatial_phase_ws": [_i] * 4,
         # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
@@ -76,8 +77,17 @@ _SIGNATURES = {
         "dvst_banded_temporal_attn_smem": [_i] * 3,
         # x, cls, 6 weights, workspace, out, qkv, qkv_cls | C, N, D, H | stream
         "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
-        # qkv_cls, qkv, out | C, N, D, H, t_real, eff | stream
-        "dvst_cls_band_attn": [_p] * 3 + [_i] * 6 + [_p],
+        # qkv_cls, qkv, out, workspace | C, N, D, H, t_real, eff | stream
+        "dvst_cls_band_attn": [_p] * 4 + [_i] * 6 + [_p],
+        # its workspace bytes (returns long) | C, N, D, H, eff
+        "dvst_cls_band_attn_ws": [_i] * 5,
+        # tests and tools only: the same in a given block shape | ... |
+        # strips, warps a strip, splits | stream; the shape a call takes
+        # | C, N, D, H, eff | int[3] out
+        "dvst_cls_band_attn_shaped": [_p] * 4 + [_i] * 9 + [_p],
+        "dvst_cls_band_shape": [_i] * 5 + [_p],
+        # shared bytes of one block (returns long) | N, hd
+        "dvst_cls_band_smem": [_i] * 2,
         # shared bytes of one block of dvst_spatial_pf's attention (returns
         # long) | L, hd
         "dvst_spatial_attn_smem": [_i] * 2,

@@ -50,8 +50,10 @@ launches: Dict[str, int] = {"banded_temporal_attn": 0, "spatial_phase_pf": 0,
                             "cls_band_attn": 0}
 
 PF_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b")
-CLS_TQ = 16  # query frames per block of the CLS-band kernel (csrc: kClsTq)
-CLS_WARPS = 8
+# the CLS-band kernel's blocks (csrc: kClsStrips, kClsKeyRuns): at most
+# four strips of 16 query frames, each on four warps
+CLS_STRIPS = 4
+CLS_KEY_RUNS = 4
 
 
 def reset_launches() -> None:
@@ -66,10 +68,31 @@ def band_starts(idx: torch.Tensor, eff: int, t_real: int) -> torch.Tensor:
     return torch.clamp(idx - eff // 2, 0, max(int(t_real) - eff, 0))
 
 
-def _cls_band_smem(N: int, hd: int) -> int:
-    """Shared bytes of the CLS-band kernel (csrc: cls_band_launch)."""
-    return (N * (2 * hd + 2) * 2 + CLS_TQ * hd * 2 * 3 + CLS_TQ * hd * 4
-            + CLS_WARPS * N * 4)
+def _cls_smem(N: int, hd: int, qs: int, ks: int) -> int:
+    """Shared bytes of a CLS-band block of qs strips on ks warps each
+    (csrc: cls_smem): a zero row; the tile's queries, own keys and own
+    values; the strips' max and sum exchange; two frame stages of K and V,
+    which later hold the warps' f32 sums."""
+    return (16 + 96 * qs * hd + 128 * qs * ks
+            + max(8 * N * hd, 64 * ks * qs * hd))
+
+
+def cls_band_smem(N: int, hd: int, lib=None) -> int:
+    """Shared bytes one block of the CLS-band kernel needs at least (one
+    strip) at N patches a frame and head dim hd: ``lib``'s
+    ``dvst_cls_band_smem`` where given, else its mirror here, so that the
+    plain twin on the CPU refuses what the kernel refuses (a card test holds
+    the two equal)."""
+    if lib is not None:
+        return lib.dvst_cls_band_smem(N, hd)
+    return _cls_smem(N, hd, 1, CLS_KEY_RUNS)
+
+
+def _check_cls_band_smem(N: int, hd: int, lib=None) -> None:
+    need = cls_band_smem(N, hd, lib)
+    if need > fb.SMEM_LIMIT:
+        raise ValueError(f"{N} patches at head dim {hd} need {need} B of shared "
+                         f"memory (limit {fb.SMEM_LIMIT})")
 
 
 def banded_problems(D: int, num_heads: int, N: int, Dh: int) -> List[str]:
@@ -86,7 +109,7 @@ def banded_problems(D: int, num_heads: int, N: int, Dh: int) -> List[str]:
     if D % 128 or D > 1024 or Dh % 128:
         bad.append(f"D={D}, MLP width {Dh}: the kernels need multiples of 128 "
                    "and D <= 1024")
-    need = _cls_band_smem(N, hd)
+    need = cls_band_smem(N, hd)
     if need > fb.SMEM_LIMIT:
         bad.append(f"CLS window aggregation over {N} patches at head dim {hd} "
                    f"needs {need} B of shared memory (limit {fb.SMEM_LIMIT})")
@@ -199,7 +222,7 @@ def banded_temporal_attn(qkv: torch.Tensor, t_real: int, eff: int,
     C, N, D3 = qkv.shape
     D = D3 // 3
     dev = fb._device_of(qkv)
-    fb._check_geometry(D, num_heads, 1)
+    fb._check_geometry(D, num_heads)
     fb._check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     _check_band(C, t_real, eff)
     if dev.type == "cpu":
@@ -236,7 +259,7 @@ def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
         raise ValueError(f"x: expected (C, N, D), got {tuple(x.shape)}")
     C, N, D = x.shape
     dev = fb._device_of(x)
-    fb._check_geometry(D, num_heads, None)
+    fb._check_geometry(D, num_heads)
     fb._check_tensor("x", x, torch.bfloat16, x.shape, dev)
     fb._check_tensor("cls", cls, torch.bfloat16, (C, D), dev)
     shapes = {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
@@ -268,31 +291,32 @@ def cls_band_attn(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
                   eff: int, num_heads: int) -> torch.Tensor:
     """qkv_cls (C, 3D), qkv (C, N, 3D) bf16 (``spatial_phase_pf``'s) ->
     (C, D) bf16 pre-projection CLS outputs, each frame's averaged over its
-    window. Kernel on CUDA, plain twin on CPU."""
+    window. Kernel on CUDA (in the block shape the library picks for the
+    card), plain twin on CPU."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv: expected (C, N, 3D), got {tuple(qkv.shape)}")
     C, N, D3 = qkv.shape
     D = D3 // 3
     dev = fb._device_of(qkv)
-    fb._check_geometry(D, num_heads, 1)
+    fb._check_geometry(D, num_heads)
     fb._check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     fb._check_tensor("qkv_cls", qkv_cls, torch.bfloat16, (C, D3), dev)
     _check_band(C, t_real, eff)
-    need = _cls_band_smem(N, D // num_heads)
-    if need > fb.SMEM_LIMIT:
-        raise ValueError(f"{N} patches at head dim {D // num_heads} need "
-                         f"{need} B of shared memory (limit {fb.SMEM_LIMIT})")
     if dev.type == "cpu":
+        _check_cls_band_smem(N, D // num_heads)
         return cls_band_attn_plain(qkv_cls, qkv, t_real, eff, num_heads)
 
     from . import _build
 
+    fb._check_aligned(qkv=qkv, qkv_cls=qkv_cls)
     lib = _build.load("banded")
+    _check_cls_band_smem(N, D // num_heads, lib)
     out = torch.empty((C, D), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
+        ws = fb._ws(lib.dvst_cls_band_attn_ws(C, N, D, num_heads, eff), dev)
         fb._run(lib.dvst_cls_band_attn, qkv_cls.data_ptr(), qkv.data_ptr(),
-                out.data_ptr(), C, N, D, num_heads, int(t_real), eff,
-                torch.cuda.current_stream(dev).cuda_stream)
+                out.data_ptr(), ws.data_ptr(), C, N, D, num_heads, int(t_real),
+                eff, torch.cuda.current_stream(dev).cuda_stream)
     launches["cls_band_attn"] += 1
     return out
 

@@ -49,15 +49,44 @@
 //       the window's keys).
 //       Bound by bytes at its floor (each patch K/V read once: 4*D bytes a
 //       row against 4*eff*D FLOP a row: ~30 FLOP/B at eff = 30).
-//       Design: one block per (tile of kClsTq query frames, head). The TPU
+//       Design (tensor cores, tc_attention.cuh's strip layout): one block
+//       per (tile of Tq query frames, head, run of target frames). The TPU
 //       kernel sums over t across sequential grid steps in a VMEM scratch;
-//       Hopper blocks carry nothing between them, so the block loops over
-//       the tile's target frames [lo(first), lo(last) + eff) itself: frame
-//       t's K/V (N x hd) is loaded into shared memory once per tile and
-//       every query whose window holds t adds its normalised pair result
-//       to a per-query f32 sum in shared memory (owned by one warp: no
-//       atomics). Each patch K/V row is read ceil(C/kClsTq) * (kClsTq +
-//       eff - 1) / C times per head, not once per query.
+//       Hopper blocks carry nothing between them, so the block walks the
+//       tile's target frames [lo(first), lo(last) + eff) itself, frame
+//       t + 1's K and V rows (N runs of hd elements, 16-byte cp.async) in
+//       flight while frame t computes (two stages of 2 N hd bf16). The
+//       tile's queries are strips of 16 frames; a strip takes a frame only
+//       where one of its rows has it in its window (a choice its warps
+//       make together) and runs two passes on mma.sync: S = Q K_t^T for
+//       each row's max over the self key (a per-row q . k_self) and the N
+//       keys, then recomputed, exponentiated, summed, rounded to bf16 and
+//       multiplied into V_t, the self key's p_self v_self added, divided by
+//       the row's sum and added, where the row's window holds t, into f32
+//       registers that persist across the frames. No online softmax: the
+//       pair's whole max comes first, as in the tile. Each strip's 13 key
+//       blocks are cut into four runs on four warps, which trade their
+//       rows' maxima and sums through shared memory (a named barrier per
+//       strip); the passes (ClsPass) take two whole key blocks a loop
+//       iteration from precomputed swizzled addresses, the exponentials as
+//       2^(s scale log2 e - m), and mask only the frame's ragged last block.
+//       Bound at C = 512 by the latency of each frame step, not by bytes or
+//       the tensor cores (H100, tools/cls_band_bench.py): a strip meets
+//       16 + eff - 1 frames, so the SM's warps idle on the frames their
+//       strips skip, and one warp a strip ran 2-3x slower than four.
+//       Choice, from that sweep: Tq = 64 (four strips, 16 warps, 124 KB at
+//       hd 64: one block an SM) at eff 30, where each patch K/V row is
+//       read 1.40x (Tq = 16: 2.76x) and the frames split four ways so 384
+//       blocks fill the SMs;
+//       Tq = 16 (four warps, 105 KB: two blocks an SM) at eff 3, where the
+//       re-read is 1.12x and the short windows leave a wider tile's strips
+//       mostly idle. In general ceil((eff - 1) / 8) strips, at most four.
+//       Where the tiles leave SMs idle (C = 64: one tile per head), the
+//       target frames are cut into up to 16 runs, each block's f32 partial
+//       sums written apart and added in run order by
+//       cls_band_reduce_kernel, so two calls give bit-identical outputs
+//       (cls_config: the run count with the fewest modelled block waves).
+//       A third frame stage (two frames in flight) measured no faster.
 //
 // Numerics, shared with the plain twins in ops/banded_block.py: f32 scores
 // with the row max subtracted, f32 denominators, probabilities rounded to
@@ -74,8 +103,6 @@ constexpr int kBandStrip = 16;   // query frames per step of the temporal kernel
 constexpr int kBandChunk = 128;  // query frames per temporal block
 constexpr int kBandRun = 256;    // elements of a temporal block's head group, at most
 constexpr size_t kSmemBudget = 232448;  // sm_90's opt-in maximum (SMEM_LIMIT)
-constexpr int kClsTq = 16;       // query frames per CLS-band block
-constexpr int kClsThreads = 256;
 
 __device__ __forceinline__ int band_lo(int i, int eff, int hi) {
   const int l = i - eff / 2;
@@ -197,136 +224,477 @@ cudaError_t band_temporal_launch(const bf16* qkv, bf16* out, int C, int N,
 }
 
 // ---------------------------------------------------------------------------
-// CLS window aggregation: grid (ceil(C / kClsTq), H).
+// CLS window aggregation on the tensor cores: grid (ceil(C / Tq) * H,
+// splits), heads fastest. Block (query tile, head h, split z) holds the
+// tile's Tq = 16 qs query frames as qs strips of 16, each strip on ks
+// warps (its N keys cut into ks runs of whole 16-key blocks), and walks
+// its share of the tile's target frames [lo(first), lo(last) + eff), cut
+// into `splits` runs of consecutive frames.
 // ---------------------------------------------------------------------------
 
+constexpr int kClsStrips = 4;     // strips per block at most (Tq = 64)
+constexpr int kClsKeyRuns = 4;    // warps per strip
+constexpr int kClsMaxSplits = 16;
+constexpr size_t kSmemSm = 233472;  // an SM's shared memory (228 KB)
+
+// A call's shape on the card: strips per block, warps per strip (key
+// runs), splits of the target frames.
+struct ClsCfg {
+  int qs, ks, z;
+};
+
+// Warps a block may have: at hd <= 64 sixteen (128 registers a thread for
+// the strip's Q fragments, its P V tile and its running sums), above eight.
+__host__ __device__ inline int cls_max_warps(int hd) { return hd <= 64 ? 16 : 8; }
+
+// Shared bytes of a block of qs strips on ks warps each, N keys a frame,
+// at head dim hd: a 16-byte zero row; the tile's CLS queries, own keys and
+// own values (16 qs rows each); the strips' max and sum exchange (2 qs ks
+// 16 floats); two frame stages of K and V (N rows each), which after the
+// last frame hold the warps' f32 sums (ks x 16 qs rows of hd) for the
+// fixed-order add.
+__host__ __device__ inline size_t cls_smem(int N, int hd, int qs, int ks) {
+  const size_t ring = (size_t)8 * N * hd;
+  const size_t red = (size_t)64 * ks * qs * hd;
+  return 16 + (size_t)96 * qs * hd + (size_t)128 * qs * ks + (ring > red ? ring : red);
+}
+
+// The config at these shapes on a card of `sms` SMs. Strips: enough that
+// the patch K / V re-read, (16 qs + eff - 1) / 16 qs, stays near 1.5 or
+// under (four at eff 30, one at eff 3), fewer where the warp cap or the
+// shared memory forbids. Splits: the count with the least modelled time,
+// waves of blocks (as many resident an SM as shared memory and threads
+// allow) times a block's frames plus a fixed cost of four frames (its
+// queries' load and its output's write).
+inline ClsCfg cls_config(int C, int N, int H, int hd, int eff, int sms) {
+  ClsCfg c{(eff + 6) / 8, kClsKeyRuns, 1};
+  if (c.qs < 1) c.qs = 1;
+  if (c.qs > kClsStrips) c.qs = kClsStrips;
+  while (c.qs > 1 && (c.qs * c.ks > cls_max_warps(hd) ||
+                      cls_smem(N, hd, c.qs, c.ks) > kSmemBudget))
+    --c.qs;
+  const int Tq = 16 * c.qs;
+  const long blocks = (long)((C + Tq - 1) / Tq) * H;
+  long per_sm = (long)(kSmemSm / (cls_smem(N, hd, c.qs, c.ks) + 1024));
+  const long by_threads = 2048 / (32L * c.qs * c.ks);
+  if (by_threads < per_sm) per_sm = by_threads;
+  const long slots = (long)sms * (per_sm > 1 ? per_sm : 1);
+  const int frames = (Tq < C ? Tq : C) + eff - 1;
+  double best = 0.0;
+  for (int z = 1; z <= kClsMaxSplits && z <= frames; ++z) {
+    const double t = (double)((blocks * z + slots - 1) / slots) * ((double)frames / z + 4.0);
+    if (z == 1 || t < best) {
+      best = t;
+      c.z = z;
+    }
+  }
+  return c;
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The CLS kernel's strip passes over a run of one frame's keys, stored as
+// tile rows (tc_attention.cuh's layout) from shared address k (keys) and v
+// (values). The run's whole 16-key blocks go through cls_scores / cls_pv:
+// a block starts at a multiple of 16, so each lane's swizzled chunk is the
+// same in every block and its ldmatrix address is the block's offset plus
+// a constant; two blocks a loop iteration, so their product chains
+// overlap. The frame's ragged last block (N % 16 keys) takes the tile's
+// masked path (tc_dot_rows, tc_acc_rows: keys past the frame read the
+// zero row).
 template <int HD>
-__global__ void __launch_bounds__(kClsThreads)
-cls_band_kernel(const bf16* __restrict__ qkv_cls, const bf16* __restrict__ qkv,
-                bf16* __restrict__ out, int C, int N, int H, int t_real,
-                int eff, float scale) {
-  constexpr int HD2 = HD / 2;
-  constexpr int KST = HD2 + 1;
+struct ClsPass {
+  static constexpr int KC = HD / 16, NT = HD / 8, CH = HD / 8;
+  static constexpr int kSwz = (CH & 7) == 0 ? 7 : (CH & 3) == 0 ? 3 : (CH & 1) == 0 ? 1 : 0;
+
+  // s = q . k over keys j0 .. j0 + 15, unscaled
+  static __device__ __forceinline__ void scores(const uint32_t (&qa)[KC][4], unsigned k, int j0,
+                                                float (&s)[2][4]) {
+    const int lane = threadIdx.x & 31;
+    const unsigned row = k + (unsigned)((j0 + (lane & 7) + (lane >> 4) * 8) * CH * 16);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const int c = (2 * kc + ((lane >> 3) & 1)) ^ ((lane & 7) & kSwz);
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(row + c * 16, b0, b1, b2, b3);
+      mma_bf16(s[0], qa[kc], b0, b1);
+      mma_bf16(s[1], qa[kc], b2, b3);
+    }
+  }
+
+  // o += p . values j0 .. j0 + 15
+  static __device__ __forceinline__ void pv(const uint32_t (&p)[4], unsigned v, int j0,
+                                            float (&o)[NT][4]) {
+    const int lane = threadIdx.x & 31;
+    const unsigned row = v + (unsigned)((j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * CH * 16);
+#pragma unroll
+    for (int t = 0; t < NT; t += 2) {
+      const int c = (t + (lane >> 4)) ^ ((lane & 7) & kSwz);
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(row + c * 16, b0, b1, b2, b3);
+      mma_bf16(o[t], p, b0, b1);
+      mma_bf16(o[t + 1], p, b2, b3);
+    }
+  }
+
+  // Pass 1: the rows' max over keys [kb, ke) (whole blocks up to kf), in
+  // the exponent's base-2 domain (times sl = scale * log2 e); -inf for an
+  // empty run.
+  static __device__ __forceinline__ void max_pass(const uint32_t (&qa)[KC][4], const TcRows& K,
+                                             unsigned k, int kb, int kf, int ke, float sl,
+                                             const bf16* zero, float& m0, float& m1) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll 2
+    for (int j0 = kb; j0 < kf; j0 += 16) {
+      float s[2][4];
+      scores(qa, k, j0, s);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
+      }
+    }
+    if (kf < ke) {
+      const int col = 2 * (threadIdx.x & 3);
+      float s[2][4];
+      tc_dot_rows(qa, K, kf, ke, zero, s);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (kf + 8 * t + col + e < ke) {
+            mx0 = fmaxf(mx0, s[t][e]);
+            mx1 = fmaxf(mx1, s[t][2 + e]);
+          }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    m0 = mx0 * sl;
+    m1 = mx1 * sl;
+  }
+
+  // Pass 2: e = 2^(s sl - m) over keys [kb, ke), their f32 sums l0 / l1
+  // (quad-reduced), bf16 P, o = P V (o starts at zero).
+  static __device__ __forceinline__ void exp_pass(const uint32_t (&qa)[KC][4], const TcRows& K,
+                                             const TcRows& V, unsigned k, unsigned v, int kb,
+                                             int kf, int ke, float sl, const bf16* zero,
+                                             float m0, float m1, float (&o)[NT][4], float& l0,
+                                             float& l1) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 2
+    for (int j0 = kb; j0 < kf; j0 += 16) {
+      float s[2][4];
+      scores(qa, k, j0, s);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        s[t][0] = ex2(fmaf(s[t][0], sl, -m0));
+        s[t][1] = ex2(fmaf(s[t][1], sl, -m0));
+        s[t][2] = ex2(fmaf(s[t][2], sl, -m1));
+        s[t][3] = ex2(fmaf(s[t][3], sl, -m1));
+        s0 += s[t][0] + s[t][1];
+        s1 += s[t][2] + s[t][3];
+      }
+      uint32_t pa[4];
+      tc_c_to_a(s, pa);
+      pv(pa, v, j0, o);
+    }
+    if (kf < ke) {
+      const int col = 2 * (threadIdx.x & 3);
+      float s[2][4];
+      tc_dot_rows(qa, K, kf, ke, zero, s);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = kf + 8 * t + col + e < ke;
+          s[t][e] = ok ? ex2(fmaf(s[t][e], sl, -m0)) : 0.f;
+          s[t][2 + e] = ok ? ex2(fmaf(s[t][2 + e], sl, -m1)) : 0.f;
+          s0 += s[t][e];
+          s1 += s[t][2 + e];
+        }
+      uint32_t pa[4];
+      tc_c_to_a(s, pa);
+      tc_acc_rows(pa, V, kf, ke, zero, o);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o_);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o_);
+    }
+    l0 = s0;
+    l1 = s1;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(HD <= 64 ? 512 : 256)
+cls_band_tc_kernel(const bf16* __restrict__ qkv_cls, const bf16* __restrict__ qkv,
+                   bf16* __restrict__ out, float* __restrict__ part, int C, int N,
+                   int H, int t_real, int eff, int qs, int ks, float scale) {
+  constexpr int CH = HD / 8;  // 16-byte chunks of a head row, n8 tiles of an output row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int i0 = blockIdx.x * kClsTq, h = blockIdx.y;
-  const int nq = min(kClsTq, C - i0);
+  const int Tq = 16 * qs;
+  const int h = blockIdx.x % H, i0 = blockIdx.x / H * Tq;
+  const int nq = min(Tq, C - i0);
   const int hi = max(t_real - eff, 0);
-  const int t0 = band_lo(i0, eff, hi);
-  const int t1 = band_lo(i0 + nq - 1, eff, hi) + eff;
   const int D = H * HD;
   const long row_w = 3L * D;
+  // the tile's target frames [fa, fb), cut into gridDim.y runs: this
+  // block's [ta, tb)
+  const int fa = band_lo(i0, eff, hi), fb = band_lo(i0 + nq - 1, eff, hi) + eff;
+  const int per = (fb - fa + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int ta = min(fb, fa + (int)blockIdx.y * per), tb = min(fb, ta + per);
 
-  __nv_bfloat162* k_s = reinterpret_cast<__nv_bfloat162*>(smem_raw);  // N x KST
-  __nv_bfloat162* v_s = k_s + N * KST;                                 // N x HD2
-  __nv_bfloat162* q_s = v_s + N * HD2;              // kClsTq x HD2: CLS queries
-  __nv_bfloat162* ks_s = q_s + kClsTq * HD2;        // the CLS rows' own keys
-  __nv_bfloat162* vs_s = ks_s + kClsTq * HD2;       // ... and values
-  float* acc_s = reinterpret_cast<float*>(vs_s + kClsTq * HD2);  // kClsTq x HD
-  float* p_all = acc_s + kClsTq * HD;                // one N-row per warp
+  bf16* zero = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qbuf = zero + 8;
+  const int swz = tc_swizzle(CH);
+  const TcRows Q{qbuf, CH, swz, 0, 0};
+  const TcRows KS{qbuf + (long)Tq * HD, CH, swz, 0, 0};
+  const TcRows VS{qbuf + (long)2 * Tq * HD, CH, swz, 0, 0};
+  float* xmax = reinterpret_cast<float*>(qbuf + (long)3 * Tq * HD);  // [qs][ks][16]
+  float* xsum = xmax + qs * ks * 16;
+  bf16* ring = reinterpret_cast<bf16*>(xsum + qs * ks * 16);
+  const long stage = (long)2 * N * HD;  // one frame's K, then its V
+  auto frame_rows = [&](int t, int v) {
+    return TcRows{ring + ((t - ta) & 1) * stage + v * (long)N * HD, CH, swz, 0, 0};
+  };
 
-  for (int idx = threadIdx.x; idx < nq * HD2; idx += blockDim.x) {
-    const int l = idx / HD2, c = idx - l * HD2;
-    const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(
-        qkv_cls + (long)(i0 + l) * row_w + h * HD);
-    q_s[idx] = r2[c];
-    ks_s[idx] = r2[D / 2 + c];
-    vs_s[idx] = r2[D + c];
+  // the tile's CLS queries, own keys and own values (rows past nq are
+  // never read: the strips serve them the zero row)
+  for (int idx = threadIdx.x; idx < nq * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bf16* p = qkv_cls + (long)(i0 + r) * row_w + h * HD + c * 8;
+    cp_async16(Q.at(r, c), p, 16);
+    cp_async16(KS.at(r, c), p + D, 16);
+    cp_async16(VS.at(r, c), p + 2 * D, 16);
   }
-  for (int idx = threadIdx.x; idx < kClsTq * HD; idx += blockDim.x) acc_s[idx] = 0.f;
+  // frame t's patch K and V rows of head h: N runs of HD elements at
+  // stride 3D, 16 bytes a thread
+  auto load = [&](int t) {
+    const TcRows K = frame_rows(t, 0), V = frame_rows(t, 1);
+    const bf16* src = qkv + (long)t * N * row_w + D + h * HD;
+    for (int idx = threadIdx.x; idx < N * CH; idx += blockDim.x) {
+      const int n = idx / CH, c = idx - n * CH;
+      const bf16* p = src + n * row_w + c * 8;
+      cp_async16(K.at(n, c), p, 16);
+      cp_async16(V.at(n, c), p + D, 16);
+    }
+  };
+  if (ta < tb) load(ta);
+  cp_async_commit();
+  if (threadIdx.x == 0) *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  float* p_w = p_all + warp * N;
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();  // the previous frame's K/V are no longer read
-    for (int idx = threadIdx.x; idx < N * HD2; idx += blockDim.x) {
-      const int l = idx / HD2, c = idx - l * HD2;
-      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(
-          qkv + ((long)t * N + l) * row_w + h * HD);
-      k_s[l * KST + c] = r2[D / 2 + c];
-      v_s[l * HD2 + c] = r2[D + c];
+  const int g = lane >> 2, col = 2 * (lane & 3);
+  const int s = warp / ks, k = warp - s * ks;  // the warp's strip and key run
+  const int r0 = 16 * s, nr = min(16, nq - r0);
+  const bool live = nr > 0;  // a block's last strips may have no rows
+  // the strip's target frames, its rows' windows
+  const int sa = live ? band_lo(i0 + r0, eff, hi) : 0;
+  const int sb = live ? band_lo(i0 + r0 + nr - 1, eff, hi) + eff : 0;
+  const bool ok0 = g < nr, ok1 = g + 8 < nr;
+  const int lo0 = band_lo(i0 + r0 + g, eff, hi), lo1 = band_lo(i0 + r0 + g + 8, eff, hi);
+  // the warp's keys: 16-key blocks [k nb / ks, (k + 1) nb / ks)
+  const int nb = (N + 15) / 16;
+  const int kb = 16 * (k * nb / ks), ke = min(N, 16 * ((k + 1) * nb / ks));
+  const int kf = kb + (ke - kb) / 16 * 16;  // whole 16-key blocks end here
+  float* xm = xmax + s * ks * 16;
+  float* xs = xsum + s * ks * 16;
+  using P = ClsPass<HD>;
+  const float sl = scale * 1.4426950408889634f;  // exponentials as 2^(s sl - m)
+  uint32_t qa[P::KC][4];  // the strip's queries as A fragments
+  float o[CH][4];         // a frame's P V over the warp's keys
+  float self0 = 0.f, self1 = 0.f;  // q . k_self of rows g and g + 8, unscaled
+  float acc[CH][4];                // the rows' running sums over their frames
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  // q . k_self of strip row r (zero where !ok): the quad's four lanes sum
+  // every fourth chunk, then each other's sums
+  auto self_dot = [&](int r, bool ok) {
+    float d = 0.f;
+    for (int c = lane & 3; c < CH; c += 4) {
+      const uint4 a = *reinterpret_cast<const uint4*>(ok ? Q.at(r, c) : zero);
+      const uint4 b = *reinterpret_cast<const uint4*>(ok ? KS.at(r, c) : zero);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+        d = fmaf(x.x, y.x, d);
+        d = fmaf(x.y, y.y, d);
+      }
     }
-    __syncthreads();
-    for (int qi = warp; qi < nq; qi += nw) {
-      const int lo = band_lo(i0 + qi, eff, hi);
-      if (t < lo || t >= lo + eff) continue;  // uniform across the warp
-      __nv_bfloat162 qr[HD2];
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    return d + __shfl_xor_sync(0xffffffffu, d, 2);
+  };
+
+  for (int t = ta; t < tb; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // frame t (at ta, the queries too) has landed; frame t - 1's stage is free
+    if (t == ta && live) {
+      tc_load_a(Q, r0, nr, zero, qa);
+      self0 = self_dot(r0 + g, ok0);
+      self1 = self_dot(r0 + g + 8, ok1);
+    }
+    if (t + 1 < tb) load(t + 1);  // in flight while frame t computes
+    cp_async_commit();
+    if (!live || t < sa || t >= sb) continue;  // no row of the strip has t in its window
+    const TcRows K = frame_rows(t, 0), V = frame_rows(t, 1);
+    const unsigned ka = smem_u32(K.base), va = smem_u32(V.base);
+    // pass 1: each row's max over its self key and the frame's N keys
+    float m0, m1;
+    P::max_pass(qa, K, ka, kb, kf, ke, sl, zero, m0, m1);
+    if (ks > 1) {
+      if ((lane & 3) == 0) {
+        xm[k * 16 + g] = m0;
+        xm[k * 16 + g + 8] = m1;
+      }
+      named_bar(1 + s, ks * 32);
+      m0 = m1 = -INFINITY;
+      for (int j = 0; j < ks; ++j) {
+        m0 = fmaxf(m0, xm[j * 16 + g]);
+        m1 = fmaxf(m1, xm[j * 16 + g + 8]);
+      }
+    }
+    const float mx0 = fmaxf(m0, self0 * sl), mx1 = fmaxf(m1, self1 * sl);
+    // pass 2: the run's exponentials, their f32 sum, bf16 P, P V
+    float l0, l1;
+    P::exp_pass(qa, K, V, ka, va, kb, kf, ke, sl, zero, mx0, mx1, o, l0, l1);
+    const float e0 = ex2(fmaf(self0, sl, -mx0)), e1 = ex2(fmaf(self1, sl, -mx1));
+    if (ks > 1) {  // the runs' sums, added in run order by every warp of the strip
+      if ((lane & 3) == 0) {
+        xs[k * 16 + g] = l0;
+        xs[k * 16 + g + 8] = l1;
+      }
+      named_bar(1 + s, ks * 32);
+      l0 = l1 = 0.f;
+      for (int j = 0; j < ks; ++j) {
+        l0 += xs[j * 16 + g];
+        l1 += xs[j * 16 + g + 8];
+      }
+    }
+    const float inv0 = 1.f / (l0 + e0), inv1 = 1.f / (l1 + e1);
+    if (k == 0) {  // the self key's bf16 probability times the row's own value
+      const float p0 = __bfloat162float(__float2bfloat16(e0));
+      const float p1 = __bfloat162float(__float2bfloat16(e1));
 #pragma unroll
-      for (int c = 0; c < HD2; ++c) qr[c] = q_s[qi * HD2 + c];
-      float ps = 0.f;  // the self key's score
-      for (int c = lane; c < HD2; c += 32) {
-        const float2 a = __bfloat1622float2(q_s[qi * HD2 + c]);
-        const float2 b = __bfloat1622float2(ks_s[qi * HD2 + c]);
-        ps = fmaf(a.x, b.x, ps);
-        ps = fmaf(a.y, b.y, ps);
+      for (int c = 0; c < CH; ++c) {
+        const float2 v0 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>((ok0 ? VS.at(r0 + g, c) : zero) + col));
+        const float2 v1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>((ok1 ? VS.at(r0 + g + 8, c) : zero) + col));
+        o[c][0] = fmaf(p0, v0.x, o[c][0]);
+        o[c][1] = fmaf(p0, v0.y, o[c][1]);
+        o[c][2] = fmaf(p1, v1.x, o[c][2]);
+        o[c][3] = fmaf(p1, v1.y, o[c][3]);
       }
-      const float s_self = warp_sum(ps) * scale;
-      float mx = s_self;
-      for (int j = lane; j < N; j += 32) {
-        const __nv_bfloat162* kr = k_s + j * KST;
-        float acc = 0.f;
+    }
+    // the pair's normalised result, for the rows whose window holds t
+    const bool in0 = ok0 && t >= lo0 && t < lo0 + eff;
+    const bool in1 = ok1 && t >= lo1 && t < lo1 + eff;
 #pragma unroll
-        for (int c = 0; c < HD2; ++c) {
-          const float2 a = __bfloat1622float2(qr[c]);
-          const float2 b = __bfloat1622float2(kr[c]);
-          acc = fmaf(a.x, b.x, acc);
-          acc = fmaf(a.y, b.y, acc);
-        }
-        acc *= scale;
-        p_w[j] = acc;
-        mx = fmaxf(mx, acc);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(p_w[j] - mx);
-        sum += e;
-        p_w[j] = __bfloat162float(__float2bfloat16(e));
-      }
-      const float e_self = expf(s_self - mx);
-      sum = warp_sum(sum) + e_self;
-      const float p_self = __bfloat162float(__float2bfloat16(e_self));
-      __syncwarp();
-      float* acc_q = acc_s + qi * HD;
-      for (int c = lane; c < HD2; c += 32) {
-        const float2 vo = __bfloat1622float2(vs_s[qi * HD2 + c]);
-        float ax = p_self * vo.x, ay = p_self * vo.y;
-        for (int j = 0; j < N; ++j) {
-          const float pj = p_w[j];
-          const float2 vf = __bfloat1622float2(v_s[j * HD2 + c]);
-          ax = fmaf(pj, vf.x, ax);
-          ay = fmaf(pj, vf.y, ay);
-        }
-        acc_q[2 * c] += ax / sum;
-        acc_q[2 * c + 1] += ay / sum;
-      }
-      __syncwarp();  // p_w is rewritten by the warp's next query
+    for (int c = 0; c < CH; ++c) {
+      acc[c][0] += in0 ? o[c][0] * inv0 : 0.f;
+      acc[c][1] += in0 ? o[c][1] * inv0 : 0.f;
+      acc[c][2] += in1 ? o[c][2] * inv1 : 0.f;
+      acc[c][3] += in1 ? o[c][3] * inv1 : 0.f;
     }
   }
-  // each query's sum was written only by the warp that owns the query
+  cp_async_wait<0>();
+  __syncthreads();  // the frames are done: the ring takes the warps' sums
+  float* red = reinterpret_cast<float*>(ring);  // [ks][Tq][HD]
+  if (live) {
+    float* rw = red + ((long)k * Tq + r0) * HD;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      *reinterpret_cast<float2*>(rw + g * HD + 8 * c + col) = make_float2(acc[c][0], acc[c][1]);
+      *reinterpret_cast<float2*>(rw + (g + 8) * HD + 8 * c + col) =
+          make_float2(acc[c][2], acc[c][3]);
+    }
+  }
+  __syncthreads();
+  // the key runs' sums added in run order; then the mean, rounded to bf16
+  // (one split) or the split's f32 partial
   const float inv_eff = 1.f / (float)eff;
-  for (int qi = warp; qi < nq; qi += nw) {
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(
-        out + (long)(i0 + qi) * D + h * HD);
-    const float* acc_q = acc_s + qi * HD;
-    for (int c = lane; c < HD2; c += 32)
-      o2[c] = __floats2bfloat162_rn(acc_q[2 * c] * inv_eff,
-                                    acc_q[2 * c + 1] * inv_eff);
+  for (int idx = threadIdx.x; idx < nq * (HD / 2); idx += blockDim.x) {
+    const int r = idx / (HD / 2), c = 2 * (idx - r * (HD / 2));
+    float2 v = make_float2(0.f, 0.f);
+    for (int j = 0; j < ks; ++j) {
+      const float2 w = *reinterpret_cast<const float2*>(red + ((long)j * Tq + r) * HD + c);
+      v.x += w.x;
+      v.y += w.y;
+    }
+    const long off = (long)(i0 + r) * D + h * HD + c;
+    if (part == nullptr)
+      *reinterpret_cast<__nv_bfloat162*>(out + off) =
+          __floats2bfloat162_rn(v.x * inv_eff, v.y * inv_eff);
+    else
+      *reinterpret_cast<float2*>(part + (long)blockIdx.y * C * D + off) = v;
+  }
+}
+
+// out = bf16(inv_eff * the sum over z of part[z * n + i], z in order): the
+// splits' partials, two elements a thread.
+__global__ void cls_band_reduce_kernel(const float* __restrict__ part, int splits, long n,
+                                       float inv_eff, bf16* __restrict__ out) {
+  for (long i = 2 * ((long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 2L * gridDim.x * blockDim.x) {
+    float2 v = make_float2(0.f, 0.f);
+    for (int z = 0; z < splits; ++z) {
+      const float2 w = *reinterpret_cast<const float2*>(part + (long)z * n + i);
+      v.x += w.x;
+      v.y += w.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + i) =
+        __floats2bfloat162_rn(v.x * inv_eff, v.y * inv_eff);
   }
 }
 
 template <int HD>
-cudaError_t cls_band_launch(const bf16* qkv_cls, const bf16* qkv, bf16* out,
-                            int C, int N, int H, int t_real, int eff,
+cudaError_t cls_band_launch(const bf16* qkv_cls, const bf16* qkv, bf16* out, float* part,
+                            int C, int N, int H, int t_real, int eff, ClsCfg cfg,
                             cudaStream_t st) {
-  const size_t smem = (size_t)N * (2 * HD + 2) * 2 + (size_t)kClsTq * HD * 2 * 3 +
-                      (size_t)kClsTq * HD * 4 + (size_t)(kClsThreads / 32) * N * 4;
+  const size_t smem = cls_smem(N, HD, cfg.qs, cfg.ks);
+  const long tiles = (C + 16L * cfg.qs - 1) / (16L * cfg.qs);
+  if (cfg.qs < 1 || cfg.ks < 1 || cfg.qs > 15 || cfg.ks > 16 ||
+      cfg.qs * cfg.ks > cls_max_warps(HD) ||
+      cfg.z < 1 || cfg.z > 65535 || (cfg.z > 1 && part == nullptr) || smem > kSmemBudget ||
+      tiles * H > 0x7fffffffL)
+    return cudaErrorInvalidValue;
   static SmemGrant grant;
-  cudaError_t e = smem_opt_in(cls_band_kernel<HD>, smem, grant);
+  cudaError_t e = smem_opt_in(cls_band_tc_kernel<HD>, smem, grant);
   if (e != cudaSuccess) return e;
-  const dim3 grid((C + kClsTq - 1) / kClsTq, H);
-  cls_band_kernel<HD><<<grid, kClsThreads, smem, st>>>(
-      qkv_cls, qkv, out, C, N, H, t_real, eff, 1.0f / sqrtf((float)HD));
+  cls_band_tc_kernel<HD><<<dim3((unsigned)(tiles * H), cfg.z), cfg.qs * cfg.ks * 32, smem, st>>>(
+      qkv_cls, qkv, out, cfg.z > 1 ? part : nullptr, C, N, H, t_real, eff, cfg.qs, cfg.ks,
+      1.0f / sqrtf((float)HD));
+  if ((e = cudaGetLastError()) != cudaSuccess || cfg.z == 1) return e;
+  const long n = (long)C * H * HD;
+  long blocks = (n / 2 + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  cls_band_reduce_kernel<<<(unsigned)blocks, 256, 0, st>>>(part, cfg.z, n, 1.f / (float)eff,
+                                                           out);
   return cudaGetLastError();
 }
 
@@ -398,16 +766,22 @@ int dvst_spatial_pf(const void* x_, const void* cls_, const void* ln_w,
 // rows.
 long dvst_spatial_attn_smem(int L, int hd) { return (long)tc_prefix_smem(L, hd); }
 
-// qkv_cls (C,3D), qkv (C,N,3D) bf16 (dvst_spatial_pf's) -> out (C,D) bf16.
-int dvst_cls_band_attn(const void* qkv_cls, const void* qkv, void* out, int C,
-                       int N, int D, int H, int t_real, int eff, void* stream) {
+// For tests and tools/cls_band_bench.py only: dvst_cls_band_attn in a
+// block shape of qs strips, ks warps a strip and z splits of the target
+// frames (ws: z * C * D f32 where z > 1).
+int dvst_cls_band_attn_shaped(const void* qkv_cls, const void* qkv, void* out, void* ws,
+                              int C, int N, int D, int H, int t_real, int eff, int qs,
+                              int ks, int z, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qc = static_cast<const bf16*>(qkv_cls);
   const bf16* q = static_cast<const bf16*>(qkv);
   bf16* o = static_cast<bf16*>(out);
+  float* part = static_cast<float*>(ws);
+  const ClsCfg c{qs, ks, z};
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
 #define DVST_CASE(HDV) \
   case HDV:            \
-    return cls_band_launch<HDV>(qc, q, o, C, N, H, t_real, eff, st);
+    return cls_band_launch<HDV>(qc, q, o, part, C, N, H, t_real, eff, c, st);
   switch (D / H) {
     DVST_HD_CASES(DVST_CASE)
     default:
@@ -415,5 +789,48 @@ int dvst_cls_band_attn(const void* qkv_cls, const void* qkv, void* out, int C,
   }
 #undef DVST_CASE
 }
+
+// For tests and tools only: the block shape dvst_cls_band_attn takes at
+// these shapes on the current card, written to shape[0..2] (strips, warps
+// a strip, splits).
+int dvst_cls_band_shape(int C, int N, int D, int H, int eff, int* shape) {
+  int sms = 0;
+  if (H <= 0 || D % H || C <= 0 || eff <= 0) return cudaErrorInvalidValue;
+  const cudaError_t e = wg_sms(&sms);
+  if (e != cudaSuccess) return e;
+  const ClsCfg c = cls_config(C, N, H, D / H, eff, sms);
+  shape[0] = c.qs;
+  shape[1] = c.ks;
+  shape[2] = c.z;
+  return cudaSuccess;
+}
+
+// qkv_cls (C,3D), qkv (C,N,3D) bf16 (dvst_spatial_pf's) -> out (C,D) bf16,
+// in the block shape cls_config picks for this card. ws: the bytes
+// dvst_cls_band_attn_ws gives (the split partials, f32).
+int dvst_cls_band_attn(const void* qkv_cls, const void* qkv, void* out, void* ws, int C,
+                       int N, int D, int H, int t_real, int eff, void* stream) {
+  int sms = 0;
+  if (H <= 0 || D % H || C <= 0 || eff <= 0) return cudaErrorInvalidValue;
+  const cudaError_t e = wg_sms(&sms);
+  if (e != cudaSuccess) return e;
+  const ClsCfg c = cls_config(C, N, H, D / H, eff, sms);
+  return dvst_cls_band_attn_shaped(qkv_cls, qkv, out, ws, C, N, D, H, t_real, eff, c.qs,
+                                   c.ks, c.z, stream);
+}
+
+// Bytes of split partials dvst_cls_band_attn needs at these shapes on
+// the current card (-1 if the device cannot be asked).
+long dvst_cls_band_attn_ws(int C, int N, int D, int H, int eff) {
+  int sms = 0;
+  if (H <= 0 || D % H || C <= 0 || eff <= 0 || wg_sms(&sms) != cudaSuccess) return -1;
+  const ClsCfg c = cls_config(C, N, H, D / H, eff, sms);
+  return c.z > 1 ? (long)c.z * C * D * (long)sizeof(float) : 0;
+}
+
+// Dynamic shared bytes one block of dvst_cls_band_attn needs at least at
+// N keys a frame and head dim hd (one strip): above the budget, no block
+// shape fits.
+long dvst_cls_band_smem(int N, int hd) { return (long)cls_smem(N, hd, 1, kClsKeyRuns); }
 
 }  // extern "C"

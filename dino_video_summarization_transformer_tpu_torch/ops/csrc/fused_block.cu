@@ -52,12 +52,16 @@
 //   dvst_attn_phase         replaces _attn_phase_kernel
 //       (ops/fused_block.py:188): x (S,L,D) bf16 -> bf16(proj(MHSA(LN x)))
 //       over S contiguous sequences of L rows (the XLA-layout block's
-//       spatial half on [CLS, grid] rows, no residual)
+//       spatial half on [CLS, grid] rows, no residual; the CLS row is a
+//       query of its sequence like any other row)
 //       launches: LN -> GEMM qkv -> attention -> GEMM proj
 //       Bound by operations: S*L*(8*D^2 + 4*L*D) FLOP (the Pallas cost
 //       estimate) against 4*S*L*D bytes; 2.5e11 FLOP at the teacher window's
-//       spatial sequences (S = 240, L = 197), 0.255 ms at the bf16 peak. It
-//       keeps the first design's gemm_kernel and attn_kernel (below).
+//       spatial sequences (S = 240, L = 197), 0.255 ms at the bf16 peak.
+//       Its GEMMs are the wgmma + TMA kernel, its attention the tile over
+//       S contiguous sequences (tc_strided_attn at N = 1, as
+//       dvst_temporal_phase runs it: one sequence a block at L = 197, 35
+//       at L = 3).
 //   dvst_temporal_phase     replaces _temporal_phase_kernel
 //       (ops/fused_block.py:642): x (S,L,D) bf16 ->
 //       bf16(x + bf16(fc(proj(MHSA(LN x))))) over S contiguous sequences
@@ -74,19 +78,15 @@
 // FLOP are the dense GEMMs; the attention over 30 (temporal) or 197
 // (spatial) rows is ~1-4% of them.
 //
-// Design: every entry point but dvst_attn_phase runs its products on the
-// persistent warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) and its
-// attention on the tensor-core tile (tc_attention.cuh): with the CLS row
-// as prefix key for the spatial ops (the CLS row is the same for every
-// frame of a clip, so its LN and qkv run once per clip and the tile reads
-// it by address), at stride N straight from the qkv buffer for the
-// temporal ops (the TPU kernel's in-VMEM transpose without an HBM
-// transpose). dvst_attn_phase (row 5) keeps the first design's blocks
-// (dvst_common.cuh): gemm_kernel, a wmma GEMM with 128x128x32 tiles and a
-// 2-stage cp.async pipeline at ~18% of the bf16 peak, and attn_kernel,
-// one block per (sequence, head) with the sequence in shared memory, one
-// warp per query row on the CUDA cores. ln_kernel: one warp per row, f32
-// statistics, bf16 rows out.
+// Design: every entry point runs its products on the persistent
+// warp-specialised wgmma + TMA GEMM (wgmma_gemm.cuh) and its attention on
+// the tensor-core tile (tc_attention.cuh): with the CLS row as prefix key
+// for the spatial ops (the CLS row is the same for every frame of a clip,
+// so its LN and qkv run once per clip and the tile reads it by address),
+// at stride N straight from the qkv buffer for the temporal ops (the TPU
+// kernel's in-VMEM transpose without an HBM transpose), over contiguous
+// sequences (stride 1) for the XLA-layout block's two phases. ln_kernel
+// (dvst_common.cuh): one warp per row, f32 statistics, bf16 rows out.
 //
 // Numerics (the XLA-path rules): LN in f32 (eps 1e-6); bf16 operands with
 // f32 accumulation; qkv rounded to bf16 after the bias; max-subtracted f32
@@ -161,8 +161,11 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
   return e;
 }
 
-// x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
-// cls_rows (B,T,D) bf16. ws: the bytes dvst_spatial_phase_ws gives.
+// x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16 =
+// bf16(x + bf16(proj)) or, with out_f32, f32 x + proj (the branch
+// unrounded: the card's checks hold the branch through this tier of the
+// same launches), cls_rows (B,T,D) bf16. ws: the bytes
+// dvst_spatial_phase_ws gives.
 long dvst_spatial_phase_ws(int B, int T, int N, int D) {
   return (long)spatial_phase_ws(nullptr, B, T, N, D).bytes;
 }
@@ -171,7 +174,7 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
                        const void* ln_b, const void* qkv_w, const void* qkv_b,
                        const void* proj_w, const void* proj_b, void* ws,
                        void* out, void* cls_rows, int B, int T, int N, int D,
-                       int H, void* stream) {
+                       int H, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const bf16* x = static_cast<const bf16*>(x_);
@@ -189,7 +192,9 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
   if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
                           1.0f / sqrtf((float)hd), st)))
     return e;
-  if ((e = wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x, out, M, D, D, st))) return e;
+  e = out_f32 ? wg_gemm<kEpiResBf16F32>(w.a, proj_w, proj_b, x, out, M, D, D, st)
+              : wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x, out, M, D, D, st);
+  if (e) return e;
   return wg_gemm<kEpiBf16>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
 }
 
@@ -277,12 +282,11 @@ int dvst_attn_phase(const void* x_, const void* ln_w, const void* ln_b,
   if ((e = ln_launch<bf16>(x, static_cast<const float*>(ln_w),
                            static_cast<const float*>(ln_b), buf, M, D, st)))
     return e;
-  if ((e = gemm<kEpiBf16>(buf, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  // sequence s: rows s*L + l
-  if ((e = attn(D / H, qkv, nullptr, buf, nullptr, S, 1, (long)L, 0, 1, L, H,
-                st)))
-    return e;
-  return gemm<kEpiBf16>(buf, proj_w, proj_b, nullptr, out, M, D, D, st);
+  if ((e = wg_gemm<kEpiBf16>(buf, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  // sequence s: rows s*L + l, the tile at stride N = 1
+  const int hd = D / H;
+  if ((e = tc_strided_attn(hd, qkv, buf, S, L, 1, H, 1.0f / sqrtf((float)hd), st))) return e;
+  return wg_gemm<kEpiBf16>(buf, proj_w, proj_b, nullptr, out, M, D, D, st);
 }
 
 // x (S,L,D) bf16 -> out (S,L,D) bf16 = bf16(x + bf16(fc(proj(MHSA(LN x))))).

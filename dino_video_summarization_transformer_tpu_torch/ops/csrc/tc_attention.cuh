@@ -2,19 +2,19 @@
 // against a range of keys held in shared memory, with mma.sync
 // (m16n8k16, bf16 in, f32 accumulate) fed by ldmatrix. Used by the
 // standalone attention (attention.cu, bf16), the banded temporal
-// attention (banded_block.cu), through tc_prefix_attn below the spatial
+// attention and, strip by strip over each frame's keys, the CLS window
+// aggregation (banded_block.cu), through tc_prefix_attn below the spatial
 // attention of dvst_spatial_mlp (fused_block.cu) and dvst_spatial_pf
 // (banded_block.cu), the per-frame attention of dvst_spatial_phase
 // (fused_block.cu) and its recompute in dvst_spatial_phase_bwd
 // (fused_block_bwd.cu), through tc_prefix_attn_bwd that op's attention
 // backward, through tc_strided_attn the temporal attention of
 // dvst_temporal_phase_tm and dvst_temporal_phase (fused_block.cu) and its
-// recompute in dvst_temporal_phase_tm_bwd (fused_block_bwd.cu), and
-// through tc_strided_attn_bwd that op's attention backward. Only the
-// per-phase attention dvst_attn_phase (row 5) keeps dvst_common.cuh's
-// CUDA-core attn_kernel.
+// recompute in dvst_temporal_phase_tm_bwd (fused_block_bwd.cu), and the
+// per-phase attention of dvst_attn_phase over contiguous sequences (N =
+// 1), and through tc_strided_attn_bwd that op's attention backward.
 //
-// Numerics are the CUDA-core kernels' and the plain twins': f32 scores
+// Numerics are the plain twins': f32 scores
 // (q . k accumulated in f32, times the scale), the max of the row's whole
 // valid key set subtracted before any exponential, an f32 denominator of
 // the unrounded exponentials, probabilities rounded to bf16 for the PV
@@ -1076,8 +1076,10 @@ __device__ __forceinline__ void tc_strided_attn_block(const bf16* __restrict__ q
   const TcRows K{qs + (long)G * L * HD, CH, swz, 0, 0};
   const TcRows V{qs + (long)2 * G * L * HD, CH, swz, 0, 0};
   // stored row r = g*L + t: sequence s0 + g at time t, buffer row
-  // (b*T + t)*N + n
+  // (b*T + t)*N + n; at N = 1 (contiguous sequences) that is s0*T + r,
+  // with no division on the copy and store paths
   auto row = [&](int r) -> long {
+    if (N == 1) return (long)s0 * T + r;
     const int g = r / L, t = r - g * L;
     const int s = s0 + g, b = s / N;
     return ((long)b * T + t) * N + (s - b * N);

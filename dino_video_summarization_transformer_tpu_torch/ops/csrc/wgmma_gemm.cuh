@@ -1,10 +1,10 @@
 // The Hopper GEMM of the port's spatial ops: out[M, N] = epilogue(A[M, K] .
 // W[N, K]^T + bias[N]), A row-major bf16, W an nn.Linear weight (out, in)
-// bf16, f32 accumulation, with gemm_kernel's epilogues (dvst_common.cuh's
-// Epi) at its rounding points. Used by dvst_spatial_mlp,
-// dvst_temporal_phase_tm (and dvst_temporal_phase), dvst_spatial_phase and
-// dvst_mlp_phase (fused_block.cu) and dvst_spatial_pf (banded_block.cu)
-// for all their products; only dvst_attn_phase keeps gemm_kernel.
+// bf16, f32 accumulation, with dvst_common.cuh's epilogues (Epi) at the
+// twins' rounding points. Used by dvst_spatial_mlp, dvst_temporal_phase_tm
+// (and dvst_temporal_phase), dvst_spatial_phase, dvst_mlp_phase and
+// dvst_attn_phase (fused_block.cu) and dvst_spatial_pf (banded_block.cu)
+// for all their products.
 //
 // The backwards' products run on the same kernel (fused_block_bwd.cu's
 // dvst_temporal_phase_tm_bwd, dvst_spatial_phase_bwd and
@@ -299,7 +299,7 @@ struct WgEpi {
 // of the group; after the transpose the lane owns columns 8 q .. 8 q + 7
 // (row-major index o). An epilogue without a residual stores them
 // (16 bytes of bf16, or 32 of f32); one with a residual leaves them in
-// v[8] for the second pass. gemm_kernel's rounding points.
+// v[8] for the second pass. The twins' rounding points.
 // kEpiGeluBf16GradF32 stores two outputs: the bf16 GELU to out, its f32
 // derivative to res.
 template <int EPI>

@@ -30,16 +30,16 @@ over (S, L, D) bf16 sequences in the plain layout:
 
 and ``mlp_phase`` for the feed-forward half. ``fused_ok`` is the gate.
 
-``spatial_mlp``, ``spatial_phase``, ``temporal_phase_tm`` (so
-``temporal_phase``), ``mlp_phase`` and the banded ``spatial_phase_pf`` run
-their products on the wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``); the
-spatial ops' attention runs on the tensor-core tile with the CLS row as
-prefix key, the temporal ops' on the same tile reading its rows at stride N
-(``csrc/tc_attention.cuh``). The three blocks also have wrappers of their
-own, ``gemm``, ``spatial_attention`` and ``temporal_attention`` (plain
-twins ``gemm_plain``, ``spatial_attention_plain``,
-``temporal_attention_plain``), through which the card tests and
-``chip_smoke.py`` hold and time them alone; the model never calls them.
+Every op here and the banded ``spatial_phase_pf`` run their products on
+the wgmma + TMA GEMM (``csrc/wgmma_gemm.cuh``); the spatial ops' attention
+runs on the tensor-core tile with the CLS row as prefix key, the temporal
+ops' on the same tile reading its rows at stride N, ``attn_phase``'s on it
+over contiguous sequences (``csrc/tc_attention.cuh``). The three blocks
+also have wrappers of their own, ``gemm``, ``spatial_attention`` and
+``temporal_attention`` (plain twins ``gemm_plain``,
+``spatial_attention_plain``, ``temporal_attention_plain``), through which
+the card tests and ``chip_smoke.py`` hold and time them alone; the model
+never calls them.
 
 The per-phase training tier (the counterpart of ``divided_block_fused``)
 runs three ops per block, each a ``torch.autograd.Function`` that saves
@@ -293,8 +293,8 @@ def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Te
 
 
 def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
-                        num_heads: int):
-    """Plain twin of ``spatial_phase``."""
+                        num_heads: int, out_dtype: torch.dtype = torch.bfloat16):
+    """Plain twin of ``spatial_phase`` (both grid tiers)."""
     B, T, N, D = x.shape
     H = num_heads
     hd = D // H
@@ -305,9 +305,12 @@ def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
     qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
     q, k, v = qkv.reshape(B, T, L, 3, H, hd).permute(3, 0, 1, 4, 2, 5).unbind(0)
     a = _attention(q, k, v).transpose(2, 3).reshape(B, T, L, D)
-    res = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
-    grid = (x.float() + res[:, :, 1:, :].float()).to(torch.bfloat16)
-    return grid, res[:, :, 0, :].contiguous()
+    res = _mm(a, p["proj_w"]) + p["proj_b"]
+    cls_rows = res[:, :, 0, :].to(torch.bfloat16).contiguous()
+    if out_dtype == torch.float32:
+        return x.float() + res[:, :, 1:, :], cls_rows
+    grid = (x.float() + res[:, :, 1:, :].to(torch.bfloat16).float()).to(torch.bfloat16)
+    return grid, cls_rows
 
 
 def attn_phase_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
@@ -551,18 +554,11 @@ def _check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _attn_smem(L: int, hd: int) -> int:
-    """Shared bytes of the attention kernel: Q, K (row padded by one bf16
-    pair), V in bf16 and one f32 score row per warp (csrc: attn_kernel)."""
-    warps = max(1, min(8, L))
-    return L * (3 * hd + 2) * 2 + warps * L * 4
-
-
-def _check_geometry(D: int, num_heads: int, L: Optional[int], Dh: int = 0) -> None:
-    """The shapes the kernels take; ``L`` the sequence length of
-    ``attn_kernel`` (its shared memory, ``_attn_smem``), None for the ops
-    whose attention is elsewhere (their wrappers read its need from the
-    library)."""
+def _check_geometry(D: int, num_heads: int, Dh: int = 0) -> None:
+    """The widths the kernels take. Each op's attention checks its own
+    shared memory (the tile's, ``check_spatial_attn_smem`` and
+    ``check_temporal_attn_smem``; the banded kernels' in
+    ``banded_block``)."""
     if num_heads <= 0 or D % num_heads:
         raise ValueError(f"D={D} is not divisible by num_heads={num_heads}")
     hd = D // num_heads
@@ -572,10 +568,6 @@ def _check_geometry(D: int, num_heads: int, L: Optional[int], Dh: int = 0) -> No
     if D % 128 or D > 1024 or Dh % 128:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
-    if L is not None and _attn_smem(L, hd) > SMEM_LIMIT:
-        raise ValueError(f"sequence length {L} at head dim {hd} needs "
-                         f"{_attn_smem(L, hd)} B of shared memory "
-                         f"(limit {SMEM_LIMIT})")
 
 
 def fused_ok(x: torch.Tensor, num_heads: Optional[int] = None) -> bool:
@@ -734,7 +726,7 @@ def spatial_attention(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
     S, N, D3 = qkv.shape
     D = D3 // 3
     dev = _device_of(qkv)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     P = qkv_prefix.shape[0] if qkv_prefix.dim() == 2 else 0
     if P == 0 or S % P:
@@ -776,7 +768,7 @@ def temporal_attention(qkv: torch.Tensor, num_heads: int,
     B, T, N, D3 = qkv.shape
     D = D3 // 3
     dev = _device_of(qkv)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     hd = D // num_heads
     if scale is None:
@@ -810,7 +802,7 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
         raise TypeError(f"out_dtype {out_dtype}: f32 or bf16")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
@@ -837,35 +829,41 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     return out
 
 
-def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
+def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int,
+                  out_dtype: torch.dtype = torch.bfloat16):
     """x (B, T, N, D) bf16 frame-major, cls (B, 1, D) bf16 -> (grid (B, T,
     N, D) bf16 = x + bf16(proj(MHSA(LN [cls, x_t])) rows), per-frame CLS
     rows (B, T, D) bf16), with the ``SPATIAL_PHASE_KEYS`` weights of
-    ``block_params(...)["spatial"]``. Kernel on CUDA, plain twin on CPU."""
+    ``block_params(...)["spatial"]``. ``out_dtype=torch.float32`` is the
+    grid's f32 tier, x + proj with the branch unrounded, from the same
+    launches (through which the card's checks hold the branch). Kernel on
+    CUDA, plain twin on CPU."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: bfloat16 or float32")
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
     if dev.type == "cpu":
-        return spatial_phase_plain(x, cls, p, num_heads)
+        return spatial_phase_plain(x, cls, p, num_heads, out_dtype)
 
     from . import _build
 
     _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load()
     check_spatial_attn_smem(lib, N + 1, D // num_heads)
-    out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, T, N, D), dtype=out_dtype, device=dev)
     cls_rows = torch.empty((B, T, D), dtype=torch.bfloat16, device=dev)
     ws = _ws(lib.dvst_spatial_phase_ws(B, T, N, D), dev)
     with torch.cuda.device(dev):
         _run(lib.dvst_spatial_phase, x.data_ptr(), cls.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
              out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads,
-             _stream(dev))
+             int(out_dtype == torch.float32), _stream(dev))
     launches["spatial_phase"] += 1
     return out, cls_rows
 
@@ -878,15 +876,18 @@ def attn_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
         raise ValueError(f"x: expected (S, L, D), got {tuple(x.shape)}")
     S, L, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, L)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
     if dev.type == "cpu":
+        check_temporal_attn_smem(S, L, D // num_heads)
         return attn_phase_plain(x, p, num_heads)
 
     from . import _build
 
+    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load()
+    check_temporal_attn_smem(S, L, D // num_heads, lib)
     out = torch.empty((S, L, D), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(S * L * 4 * D, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
@@ -905,7 +906,7 @@ def temporal_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
         raise ValueError(f"x: expected (S, L, D), got {tuple(x.shape)}")
     S, L, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
@@ -935,7 +936,7 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     B, T, N, D = x1.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x1)
-    _check_geometry(D, num_heads, None, Dh)
+    _check_geometry(D, num_heads, Dh)
     _check_tensor("x1", x1, torch.float32, x1.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_weights(p, SPATIAL_KEYS, _spatial_shapes(D, Dh), dev)
@@ -1082,7 +1083,7 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
     S, N, D3 = qkv.shape
     D = D3 // 3
     dev = _device_of(qkv)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     P = qkv_prefix.shape[0] if qkv_prefix.dim() == 2 else 0
     if P == 0 or S % P:
@@ -1128,7 +1129,7 @@ def temporal_attention_bwd(qkv: torch.Tensor, da: torch.Tensor, num_heads: int,
     B, T, N, D3 = qkv.shape
     D = D3 // 3
     dev = _device_of(qkv)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("qkv", qkv, torch.bfloat16, qkv.shape, dev)
     _check_tensor("da", da, torch.bfloat16, (B, T, N, D), dev)
     hd = D // num_heads
@@ -1333,7 +1334,7 @@ def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("dout", dout, torch.bfloat16, x.shape, dev)
     shapes = _temporal_shapes(D)
@@ -1371,7 +1372,7 @@ def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
-    _check_geometry(D, num_heads, None)
+    _check_geometry(D, num_heads)
     _check_tensor("x", x, torch.bfloat16, x.shape, dev)
     _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
     _check_tensor("dgo", dgo, torch.bfloat16, x.shape, dev)

@@ -28,13 +28,18 @@
 # 2 and 11 without its CLS prefix key; the wgmma GEMM's second K stage of
 # every tile replaced by its third (one stage of the ring skipped); the
 # temporal attention of rows 1 and 6 reading (and writing) each
-# sequence's rows at stride 1 instead of N. Name faults as arguments to
-# run only those:
+# sequence's rows at stride 1 instead of N; row 12's CLS window
+# aggregation without the self key (its probability and its value), with
+# every row's window shifted by one frame, and with each frame's P V
+# divided by the sum of the exponentials over the strip's frames so far
+# instead of its own pair's; row 5's attention over sequences of L - 1
+# rows. Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
 #     bash .../plant_faults.sh no_rowsum dw_transposed bwd_cls_key_dropped bwd_dk_first_strip dw_desc_offsets_swapped
 #     bash .../plant_faults.sh no_rowsum_row7 dw_transposed_row7 bwd_strided_seq_unmasked bwd_temporal_stride_one ln_bwd_mean_term_dropped
+#     bash .../plant_faults.sh cls_self_dropped cls_window_shifted cls_norm_over_frames attn_phase_seq_short
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -71,3 +76,7 @@ run band_pad_unmasked banded_block.cu 's/lo0, lo0 + eff, lo1, lo1 + eff,/lo0, 1 
 run cls_key_dropped tc_attention.cuh 's/const int k0 = 0;  \/\/ the first key: the prefix row/const int k0 = 1;/'
 run gemm_stage_skipped wgmma_gemm.cuh 's/const int k0 = kt \* kWgBK;/const int k0 = (kt + (kt == 1)) * kWgBK;/'
 run temporal_stride_one tc_attention.cuh 's/return ((long)b \* T + t) \* N + (s - b \* N);/return (long)s * T + t;/'
+run cls_self_dropped banded_block.cu 's/const float e0 = ex2(fmaf(self0, sl, -mx0)), e1 = ex2(fmaf(self1, sl, -mx1));/const float e0 = 0.f, e1 = 0.f;/'
+run cls_window_shifted banded_block.cu 's/const int lo0 = band_lo(i0 + r0 + g, eff, hi), lo1 = band_lo(i0 + r0 + g + 8, eff, hi);/const int lo0 = band_lo(i0 + r0 + g, eff, hi) + 1, lo1 = band_lo(i0 + r0 + g + 8, eff, hi) + 1;/'
+run cls_norm_over_frames banded_block.cu 's/  float acc\[CH\]\[4\];                \/\/ the rows. running sums over their frames/  float acc[CH][4], lt0 = 0.f, lt1 = 0.f;/; s/const float inv0 = 1.f \/ (l0 + e0), inv1 = 1.f \/ (l1 + e1);/lt0 += l0 + e0; lt1 += l1 + e1; const float inv0 = 1.f \/ lt0, inv1 = 1.f \/ lt1;/'
+run attn_phase_seq_short fused_block.cu 's/tc_strided_attn(hd, qkv, buf, S, L, 1, H,/tc_strided_attn(hd, qkv, buf, S, L - 1, 1, H,/'

@@ -32,7 +32,9 @@ from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E40
 from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E402
     banded)
 from dino_video_summarization_transformer_tpu_torch.ops import (  # noqa: E402
-    banded_block as bb, fused_block as fb, twin_check)
+    _build, banded_block as bb, fused_block as fb, twin_check)
+from dino_video_summarization_transformer_tpu_torch.tools import (  # noqa: E402
+    cls_band_bench)
 from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (  # noqa: E402
     make_numpy_params)
 
@@ -171,17 +173,93 @@ def test_banded_temporal_attn_refuses_what_shared_memory_cannot_hold(cuda_device
     assert bb.launches["banded_temporal_attn"] == before
 
 
-@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES)
+# Row 12's tensor-core design at every head dim it takes (16..128), at the
+# buckets 64, 256 and 512, t_real below C and eff 1, 2, 3, 30 and 64:
+# (C, t_real, eff, N, D, H).
+CLS_TC_SHAPES = [(64, 64, 30, 196, 128, 8), (256, 200, 3, 16, 128, 4),
+                 (512, 450, 30, 36, 384, 8), (64, 40, 3, 196, 128, 2),
+                 (256, 256, 30, 12, 640, 8), (512, 512, 3, 20, 384, 4),
+                 (64, 50, 64, 24, 896, 8), (256, 130, 30, 196, 256, 2),
+                 (64, 64, 1, 8, 128, 2), (100, 77, 2, 33, 256, 4)]
+
+
+@pytest.mark.parametrize("C,t_real,eff,N,D,H", BAND_SHAPES + CLS_TC_SHAPES)
 def test_cls_band_attn_kernel_matches_twin(cuda_device, C, t_real, eff, N, D,
                                            H):
     qkv = _qkv((C, N, 3 * D), 6, cuda_device)
     qkv_cls = _qkv((C, 3 * D), 7, cuda_device)
     before = bb.launches["cls_band_attn"]
     got = bb.cls_band_attn(qkv_cls, qkv, t_real, eff, H)
+    again = bb.cls_band_attn(qkv_cls, qkv, t_real, eff, H)
     torch.cuda.synchronize()
-    assert bb.launches["cls_band_attn"] == before + 1
+    assert bb.launches["cls_band_attn"] == before + 2
     assert got.dtype == torch.bfloat16 and got.shape == (C, D)
+    assert torch.equal(got, again)  # split partials are added in a fixed order
     _close(got, bb.cls_band_attn_plain(qkv_cls, qkv, t_real, eff, H))
+
+
+# Every block shape the kernel takes gives the twin's result, each
+# bit-identical over two calls: (strips, warps a strip, splits), through
+# the library's test entry (tools/cls_band_bench.run_shaped).
+CLS_CONFIGS = [(4, 4, 1), (4, 4, 4), (1, 1, 1), (2, 4, 16), (3, 2, 2), (4, 1, 5),
+               (1, 16, 1), (2, 8, 2), (1, 4, 2)]
+
+
+@pytest.mark.parametrize("config", CLS_CONFIGS)
+@pytest.mark.parametrize("C,t_real,eff", [(512, 512, 30), (64, 40, 3)])
+def test_cls_band_attn_configs_match_twin(cuda_device, C, t_real, eff, config):
+    N, D, H = 196, 768, 12
+    qkv = _qkv((C, N, 3 * D), 8, cuda_device)
+    qkv_cls = _qkv((C, 3 * D), 9, cuda_device)
+    lib = _build.load("banded")
+    got = cls_band_bench.run_shaped(lib, qkv_cls, qkv, t_real, eff, H, config)
+    again = cls_band_bench.run_shaped(lib, qkv_cls, qkv, t_real, eff, H, config)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, bb.cls_band_attn_plain(qkv_cls, qkv, t_real, eff, H))
+
+
+def test_cls_band_attn_refuses_bad_configs(cuda_device):
+    """More warps than the block may have (16 at hd 64, 8 at hd 128), no
+    strip or split, or more shared memory than a block may opt into: the
+    library's test entry refuses."""
+    lib = _build.load("banded")
+    qkv = torch.zeros(64, 196, 3 * 768, dtype=torch.bfloat16, device=cuda_device)
+    qkv_cls = torch.zeros(64, 3 * 768, dtype=torch.bfloat16, device=cuda_device)
+    for cfg in [(4, 5, 1), (0, 4, 1), (4, 4, 0), (2, 16, 1), (2, 1 << 30, 1)]:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cls_band_bench.run_shaped(lib, qkv_cls, qkv, 64, 30, 12, cfg)
+    qkv2 = torch.zeros(64, 196, 3 * 256, dtype=torch.bfloat16, device=cuda_device)
+    for cfg in [(3, 4, 1), (1, 9, 1)]:  # hd 128: 8 warps at most
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cls_band_bench.run_shaped(lib, qkv2[:, 0].contiguous(), qkv2, 64, 30, 2, cfg)
+    qkv3 = torch.zeros(64, 214, 3 * 256, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):  # 214 patches: one strip only
+        cls_band_bench.run_shaped(lib, qkv3[:, 0].contiguous(), qkv3, 64, 30, 2, (2, 4, 1))
+
+
+def test_cls_band_shared_memory_mirror_is_the_librarys(cuda_device):
+    """banded_block.cls_band_smem's mirror, by which the CPU twin refuses,
+    equals the library's dvst_cls_band_smem; the library's block shape is
+    ceil((eff - 1) / 8) strips of four warps, fewer where the warp cap (16
+    at hd <= 64, else 8) or the shared memory forbids (banded_block.cu's
+    cls_config)."""
+    lib = _build.load("banded")
+    for N in (8, 16, 36, 196, 256, 400):
+        for hd in (16, 32, 48, 64, 80, 96, 112, 128):
+            assert bb.cls_band_smem(N, hd) == bb.cls_band_smem(N, hd, lib), (N, hd)
+            if bb.cls_band_smem(N, hd) > fb.SMEM_LIMIT:
+                continue
+            for eff in (1, 3, 17, 30):
+                qs = min(max(-(-(eff - 1) // 8), 1), bb.CLS_STRIPS)
+                while qs > 1 and (qs * bb.CLS_KEY_RUNS > (16 if hd <= 64 else 8) or
+                                  bb._cls_smem(N, hd, qs, bb.CLS_KEY_RUNS) > fb.SMEM_LIMIT):
+                    qs -= 1
+                got = cls_band_bench.library_shape(lib, 512, N, hd * 8, 8, eff)
+                assert got[:2] == (qs, bb.CLS_KEY_RUNS), (N, hd, eff, got)
+                assert 1 <= got[2] <= 16
+                ws = lib.dvst_cls_band_attn_ws(512, N, hd * 8, 8, eff)
+                assert ws == (got[2] * 512 * hd * 8 * 4 if got[2] > 1 else 0)
 
 
 @pytest.mark.parametrize("C,N,D,H", [(64, 16, 256, 4), (50, 196, 256, 2),
@@ -280,7 +358,14 @@ def test_spatial_phase_kernel_matches_twin(cuda_device, B, T, N, D, H):
     torch.cuda.synchronize()
     assert fb.launches["spatial_phase"] == before + 1
     want_grid, want_rows = fb.spatial_phase_plain(x, cls, p, H)
-    _close(grid, want_grid, x)
+    # the grid is bf16(x + bf16(branch)), as rows 6 and 1b: the branch
+    # through the f32-out tier of the same launches, the bf16 grid at two
+    # ulps of the twin's
+    grid32, rows32 = fb.spatial_phase(x, cls, p, H, out_dtype=torch.float32)
+    assert grid32.dtype == torch.float32 and torch.equal(rows32, rows)
+    _close(grid32, fb.spatial_phase_plain(x, cls, p, H, torch.float32)[0], x)
+    ulps = twin_check.rounding_ulps(grid, want_grid, x)
+    assert ulps <= twin_check.ROUNDING_ULPS, ulps
     _close(rows, want_rows)
 
 
@@ -382,8 +467,11 @@ def test_train_step_kernel_route_matches_twins(cuda_device):
 # [CLS, grid] sequences and the temporal sequences of the chunk-8 scorer's
 # teacher (B=8, T=30) and student (T=3) windows at ViT-B widths, and small
 # shapes.
+# S = 37 at L = 3 and S = 1568 leave the tile's last group of 35
+# sequences ragged; S = 5 at L = 197 is one sequence a block.
 PHASE_SHAPES = [(240, 197, 768, 12), (24, 197, 768, 12), (1568, 30, 768, 12),
-                (1568, 3, 768, 12), (6, 5, 128, 2), (3, 17, 256, 4)]
+                (1568, 3, 768, 12), (6, 5, 128, 2), (3, 17, 256, 4),
+                (37, 3, 768, 12), (5, 197, 768, 12), (9, 197, 1024, 8)]
 
 
 @pytest.mark.parametrize("S,L,D,H", PHASE_SHAPES)
@@ -398,6 +486,26 @@ def test_attn_phase_kernel_matches_twin(cuda_device, S, L, D, H):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert torch.equal(got, again)
     _close(got, fb.attn_phase_plain(x, p, H))
+
+
+def test_attn_phase_refuses_unaligned_weights(cuda_device):
+    """Row 5's GEMMs read qkv_w and proj_w through TMA, which needs a
+    16-byte aligned start: a weight view one element in raises a
+    ValueError before any launch, not a CUDA error."""
+    D, H = 256, 4
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _qkv((8, 197, D), 42, cuda_device)
+    before = fb.launches["attn_phase"]
+    for k in ("qkv_w", "proj_w"):
+        w = p[k]
+        flat = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda_device)
+        flat[1:] = w.reshape(-1)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fb.attn_phase(x, {**p, k: flat[1:].view(w.shape)}, H)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        fb.attn_phase(flat[1:].view(x.shape), p, H)
+    assert fb.launches["attn_phase"] == before
 
 
 # Row 6's output is bf16(x + bf16(branch)): where the branch is small
