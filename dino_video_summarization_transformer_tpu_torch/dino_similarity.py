@@ -12,9 +12,13 @@
 ``engine/scoring.py``): "both" scores every frame from one banded teacher
 and one banded student pass per segment, "teacher" keeps the exact windowed
 students against banded teacher rows; in bf16 on the card both run the
-banded Hopper kernels. The other approximation flags of the JAX CLI are
-accepted but not ported yet: any of them away from its default raises
-NotImplementedError naming the ROADMAP item. ``--device`` defaults to
+banded Hopper kernels. ``--teacher_precision float32`` runs the teacher
+forward in f32 while the students keep ``--precision`` (the mixed teacher,
+``teacher_dtype=torch.float32``: with ``--precision bfloat16`` on the card,
+through the kernels' f32 tiers; exact windows only, so with ``--band`` it
+raises NotImplementedError). The other approximation flags of the JAX
+CLI are accepted but not ported yet: any of them away from its default
+raises NotImplementedError naming the ROADMAP item. ``--device`` defaults to
 ``cuda``. Without ``--pretrained_weights`` the model gets numpy-seeded
 random weights (``utils/synthetic.py``, seed ``RNG_SEED``).
 """
@@ -33,7 +37,6 @@ UNPORTED_FLAGS = {
     "teacher_refine": (0.0, "scorer approximation knobs"),
     "score_stride": (1, "scorer approximation knobs"),
     "score_refine": (0.0, "scorer approximation knobs"),
-    "teacher_precision": ("same", "mixed teacher (teacher_dtype=f32)"),
     "student_quant": ("none", "int8 tiers"),
     "teacher_quant": ("none", "int8 tiers"),
     "wire_format": ("rgb8", "yuv420 wire"),
@@ -75,7 +78,11 @@ def get_args_parser():
     p.add_argument("--teacher_interp", default="linear",
                    choices=["linear", "catmullrom"])
     p.add_argument("--teacher_precision", default="same",
-                   choices=["same", "float32"])
+                   choices=["same", "float32"],
+                   help="float32 runs the teacher forward with f32 "
+                        "activations while the students keep --precision "
+                        "(the mixed teacher; exact windows only, not with "
+                        "--band)")
     p.add_argument("--teacher_adaptive", default=0.0, type=float)
     p.add_argument("--teacher_refine", default=0.0, type=float)
     p.add_argument("--score_stride", default=1, type=int)
@@ -134,7 +141,9 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
         chunk=cli.batch_size_per_gpu,
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         precision=None if bf16 else "highest",
-        band_mode=None if cli.band == "none" else cli.band)
+        band_mode=None if cli.band == "none" else cli.band,
+        teacher_dtype=(torch.float32 if cli.teacher_precision == "float32"
+                       else None))
     run_scoring(dataset, scorer, file_path, num_workers=cli.num_workers,
                 shard_id=cli.shard_id, num_shards=cli.num_shards)
 

@@ -23,10 +23,15 @@ Numerics: f32 (``precision="highest"``, TF32 off) is the reference-compat
 tier and reproduces the JAX package's f32 golden scores; bf16 is the
 production tier and runs every block through the Hopper kernels on a CUDA
 device (``use_kernels="auto"``): the whole-block pair on the windowed path,
-the banded kernels and the MLP-phase kernel on the banded path.
+the banded kernels and the MLP-phase kernel on the banded path. The mixed
+teacher (``teacher_dtype=torch.float32`` with bf16 students, exact windows)
+runs the teacher forward on its own f32 model, built from the original
+weights: f32 activations and block boundaries, bf16 matmul operands,
+through the kernels' f32 tiers on the card. With ``band_mode`` it raises
+(ROADMAP §3).
 
 The approximation knobs of the JAX scorer (teacher/score strides, int8
-tiers, the mixed teacher, the yuv wire) are not ported yet (ROADMAP).
+tiers, the yuv wire) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -68,6 +73,16 @@ class ScorerConfig:
       keep their full CLS window (band_halo >= global_size // 2).
     band_block: query frames per block of the plain route's slab-blocked
       banded attention.
+    teacher_dtype: the teacher forward's dtype; None means
+      ``compute_dtype``. ``torch.float32`` with ``compute_dtype=bfloat16``
+      is the mixed-teacher tier (JAX ``ScorerConfig.teacher_dtype``): the
+      teacher runs with f32 activations on weights cast from the ORIGINAL
+      state dict (not the students' bf16 copy), on f32 views of the
+      frames, and on the card through the kernels' f32 tiers (bf16 matmul
+      operands, f32 LN weights, f32 carries); the students stay bf16. At
+      teacher_temp 0.02 the teacher softmax is the score's sharpest noise
+      amplifier, so teacher precision buys score fidelity. Exact windows
+      only: with ``band_mode`` it raises NotImplementedError.
     """
 
     local_size: int = 3
@@ -83,6 +98,7 @@ class ScorerConfig:
     band_chunk: int = 512
     band_halo: int = 32
     band_block: int = 32
+    teacher_dtype: Optional[torch.dtype] = None
 
 
 class FrameScorer:
@@ -122,9 +138,25 @@ class FrameScorer:
             raise ValueError(f"use_kernels={use!r}")
         if use and self.compute_dtype != torch.bfloat16:
             raise NotImplementedError(
-                "the kernels take bf16 activations; the f32-in temporal "
-                "kernel of the mixed teacher is not ported yet (ROADMAP)")
+                "the kernels run bf16 students (their f32 tiers serve only "
+                "the mixed teacher, teacher_dtype=torch.float32 with "
+                "compute_dtype=torch.bfloat16); run f32 on the plain path")
+        t_dtype = config.teacher_dtype
+        if t_dtype is None or t_dtype == self.compute_dtype:
+            t_dtype = self.compute_dtype
+        elif not (t_dtype == torch.float32 and self.compute_dtype == torch.bfloat16):
+            raise NotImplementedError(
+                f"teacher_dtype={t_dtype} with compute_dtype="
+                f"{self.compute_dtype}: the port has the mixed teacher only "
+                "(teacher_dtype=torch.float32 with bf16 students)")
+        self.teacher_dtype = t_dtype
         self.band_mode = config.band_mode
+        if self.band_mode is not None and t_dtype != self.compute_dtype:
+            raise NotImplementedError(
+                "band_mode with the mixed teacher is not ported: on the card "
+                "its losses sat further from the f32 losses than the bf16 "
+                "kernel path's on one clip (ROADMAP §3); score exact windows "
+                "(band_mode=None) with the mixed teacher")
         if self.band_mode is not None:
             if self.band_mode not in ("both", "teacher"):
                 raise ValueError(f"band_mode={self.band_mode!r}")
@@ -150,6 +182,12 @@ class FrameScorer:
         self.model = build_timesformer(self.model_cfg, state_dict,
                                        device=self.device,
                                        dtype=self.compute_dtype)
+        if self.teacher_dtype == self.compute_dtype:
+            self.t_model = self.model
+        else:  # from the original weights, not the students' bf16 copy
+            self.t_model = build_timesformer(self.model_cfg, state_dict,
+                                             device=self.device,
+                                             dtype=self.teacher_dtype)
         self._dummy_loss: Optional[float] = None
         # rows computed (window rows per pass), and for the banded passes the
         # chunk rows processed (padding and seam halo included) and the
@@ -160,11 +198,12 @@ class FrameScorer:
 
     # -- one chunk -------------------------------------------------------------
 
-    def _gather_views(self, frames: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """Gather (chunk, n_view, H, W, C) windows from the frame buffer;
-        returns (chunk, C, n_view, H, W)."""
+    def _gather_views(self, frames: torch.Tensor, idx: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """Gather (chunk, n_view, H, W, C) windows from the frame buffer in
+        ``dtype``; returns (chunk, C, n_view, H, W)."""
         v = frames[idx.reshape(-1)].reshape(*idx.shape, *frames.shape[1:])
-        return v.permute(0, 4, 1, 2, 3)
+        return v.to(dtype).permute(0, 4, 1, 2, 3)
 
     def _loss(self, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return scoring_dino_loss(s, t, teacher_temp=self.teacher_temp,
@@ -173,14 +212,15 @@ class FrameScorer:
     @torch.inference_mode()
     def _score_chunk(self, frames, loc_idx, glob_idx) -> torch.Tensor:
         """Both forwards + the loss for a chunk of frames: (chunk,) f32."""
-        s = self.model(self._gather_views(frames, loc_idx))
-        t = self.model(self._gather_views(frames, glob_idx))
+        s = self.model(self._gather_views(frames, loc_idx, self.compute_dtype))
+        t = self.t_model(self._gather_views(frames, glob_idx, self.teacher_dtype))
         return self._loss(s, t)
 
     @torch.inference_mode()
     def _student_chunk(self, frames, loc_idx, t_rows) -> torch.Tensor:
         """The student forward + the loss against given teacher rows."""
-        return self._loss(self.model(self._gather_views(frames, loc_idx)), t_rows)
+        return self._loss(self.model(self._gather_views(frames, loc_idx,
+                                                        self.compute_dtype)), t_rows)
 
     # -- banded one-pass scoring ------------------------------------------------
 
@@ -215,13 +255,15 @@ class FrameScorer:
     @torch.inference_mode()
     def _band_pass(self, frames: torch.Tensor, t_real: int, eff: int,
                    kind: str) -> torch.Tensor:
-        """(Cb, D) f32 CLS rows of one banded pass over gathered frames."""
+        """(Cb, D) f32 CLS rows of one banded pass over gathered frames
+        (the teacher's model for the teacher pass)."""
         Cb = frames.shape[0]
         self.stats[f"band_{kind}_frames"] += Cb
         self.stats["band_flops"] += banded_pass_flops(
             self.model_cfg, Cb, eff, self.config.band_block,
             fused=self.model_cfg.use_kernels)
-        return banded.banded_cls_features(self.model, frames, t_real, eff,
+        model = self.t_model if kind == "teacher" else self.model
+        return banded.banded_cls_features(model, frames, t_real, eff,
                                           block=self.config.band_block)
 
     def _score_video_banded(self, frames: np.ndarray, local_idx: np.ndarray,
@@ -266,9 +308,11 @@ class FrameScorer:
     # -- video groups ----------------------------------------------------------
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """Normalized float frames travel in the compute dtype."""
+        """Normalized float frames travel in the teacher's dtype (the
+        compute dtype, or f32 for the mixed teacher); each forward casts its
+        views to its own dtype on the device."""
         return torch.from_numpy(np.ascontiguousarray(frames)).to(
-            self.device, self.compute_dtype)
+            self.device, self.teacher_dtype)
 
     def _run_group_chunks(self, items: List[dict]) -> List[tuple]:
         """Score the rows of several videos as one stream of full chunks
@@ -369,11 +413,11 @@ class FrameScorer:
         views (ref: dino_loss_loader.py:34-38, dino_similarity.py:66-93),
         yielding global_size identical values."""
         if self._dummy_loss is None:
-            dt, dev = self.compute_dtype, self.device
+            dev = self.device
             s = self.model(torch.zeros((1, 3, self.local_size, 224, 224),
-                                       dtype=dt, device=dev))
-            t = self.model(torch.zeros((1, 3, 60, 224, 224), dtype=dt,
-                                       device=dev))
+                                       dtype=self.compute_dtype, device=dev))
+            t = self.t_model(torch.zeros((1, 3, 60, 224, 224),
+                                         dtype=self.teacher_dtype, device=dev))
             self._dummy_loss = float(scoring_dino_loss(
                 s[0], t[0], teacher_temp=self.teacher_temp,
                 student_temp=self.student_temp))

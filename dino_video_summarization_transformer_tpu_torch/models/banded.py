@@ -20,10 +20,17 @@ Two routes, chosen by the model's ``TimeSformerConfig.use_kernels``:
 
 * plain: the slab-blocked masked attention of the JAX XLA path, in the
   module's dtype (f32 is the reference-compat tier);
-* kernels (bf16): ``ops/banded_block.py`` for the temporal attention, the
+* kernels: ``ops/banded_block.py`` for the temporal attention, the
   per-frame-CLS spatial phase and the CLS window aggregation, and
   ``ops/fused_block.mlp_phase`` for the grid MLP; the CLS rows' MLP and
-  projection stay plain torch (C rows), as in the JAX package.
+  projection stay plain torch (C rows), as in the JAX package. A bf16
+  model runs the bf16 tiers; an f32 model (the mixed teacher) carries f32
+  rows between the ops, which run their f32 tiers (the spatial phase and
+  the grid MLP: LN on the f32 rows, bf16 matmul operands, the residuals
+  in f32) or, for the two attentions, take bf16 operands and return bf16
+  that the caller casts, as JAX's mixed tier does (JAX
+  ``models/banded.py:232-275`` at ``compute_dtype=f32``); the temporal
+  glue's LN and dense layers run in f32 on the f32 weights.
 """
 
 from __future__ import annotations
@@ -151,14 +158,27 @@ def _banded_spatial_fused(blk, kp, cls, x, t_real: int, eff: int,
     return blk.attn.proj(band.to(x.dtype).reshape(C, 1, D)), x_new
 
 
+def _temporal_weights(blk) -> dict:
+    """The temporal glue's weights (``fused_block.TEMPORAL_KEYS``) as the
+    block holds them, in its own dtype."""
+    ta = blk.temporal_attn
+    qkv_b = ta.qkv.bias
+    if qkv_b is None:  # the kernels' layout gives a bias-free qkv zeros
+        qkv_b = ta.qkv.weight.new_zeros(ta.qkv.out_features)
+    return {"ln_w": blk.temporal_norm1.weight, "ln_b": blk.temporal_norm1.bias,
+            "qkv_w": ta.qkv.weight, "qkv_b": qkv_b,
+            "proj_w": ta.proj.weight, "proj_b": ta.proj.bias,
+            "fc_w": blk.temporal_fc.weight, "fc_b": blk.temporal_fc.bias}
+
+
 def banded_block(blk, cls, x, lo, eff: int, num_heads: int, block: int,
                  t_real: int, kp=None):
     """One divided block (``models.timesformer.Block``) in banded form.
     ``kp`` (the block's ``fused_block.block_params``) selects the kernel
     route; None runs the plain route."""
     if kp is not None:
-        x = bb.banded_temporal_phase(x.contiguous(), kp["temporal"], t_real,
-                                     eff, num_heads)
+        x = bb.banded_temporal_phase(x.contiguous(), _temporal_weights(blk),
+                                     t_real, eff, num_heads)
         cls_res, x = _banded_spatial_fused(blk, kp, cls, x, t_real, eff,
                                              num_heads)
         cls = cls + cls_res

@@ -12,9 +12,11 @@ Two block routes, chosen per model by ``TimeSformerConfig.use_kernels``:
   position-major (h w t) grid, in the module's dtype — the counterpart of
   the JAX XLA path (f32 is the reference-compat tier);
 * kernels: the frame-major (B, T, N, D) grid through the whole-block
-  kernel pair of ``ops/fused_block.py`` (bf16 block boundaries, f32
-  intra-block carry) — the counterpart of ``fused_wb``. On a CUDA tensor
-  it launches the Hopper kernels; on a CPU tensor their plain twins run.
+  kernel pair of ``ops/fused_block.py`` (f32 intra-block carry, block
+  boundaries in the module's dtype: bf16, or f32 for the mixed teacher,
+  whose kernels take bf16 matmul operands and carry f32 rows and an f32
+  CLS row) — the counterpart of ``fused_wb``. On a CUDA tensor it launches
+  the Hopper kernels; on a CPU tensor their plain twins run.
 
 The plain route also has the XLA-layout block's per-phase dispatch
 (``Block.forward(use_fused=True)``, the JAX ``divided_block(use_fused=
@@ -82,7 +84,8 @@ class TimeSformerConfig:
     attn_drop_rate: float = 0.0
     norm_eps: float = 1e-6
     # Run every block through the whole-block kernel pair (frame-major
-    # grid, bf16 activations). The scorer sets it; see the module docstring.
+    # grid; bf16 activations, or f32 ones in the mixed tier). The scorer
+    # sets it; see the module docstring.
     use_kernels: bool = False
     # The plain route's MHSA through the standalone attention kernel
     # (ops/attention.mhsa_fused); the counterpart of JAX's process-wide
@@ -223,8 +226,8 @@ def _fused(x: torch.Tensor, num_heads: Optional[int], use_fused: bool,
     if x.dtype == torch.float32:
         raise NotImplementedError(
             "use_fused on f32 activations is the per-phase kernels' f32 "
-            "('mixed') tier, which is not ported yet (ROADMAP queue 1 item "
-            "5); run use_fused in bf16")
+            "('mixed') tier, which is not ported yet (ROADMAP queue 2 item "
+            "A3); run use_fused in bf16")
     if kp is None:
         raise ValueError("use_fused needs the kernel-layout weights "
                          "(fused_block.block_params)")

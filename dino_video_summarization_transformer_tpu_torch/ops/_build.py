@@ -44,17 +44,24 @@ _p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C entry point -> argtypes (pointers, then sizes, then the stream)
 _SIGNATURES = {
     "fused": {
-        # x, 8 weights, workspace, out | B, T, N, D, H, out_bf16 | stream
-        "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 6 + [_p],
+        # x, 8 weights, workspace, out | B, T, N, D, H, x_f32, out_bf16 | stream
+        "dvst_temporal_phase_tm": [_p] * 11 + [_i] * 7 + [_p],
+        # its workspace bytes (returns long) | B, T, N, D
+        "dvst_temporal_phase_tm_ws": [_i] * 4,
         # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H,
         # out_f32 | stream
         "dvst_spatial_phase": [_p] * 11 + [_i] * 6 + [_p],
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_spatial_phase_ws": [_i] * 4,
-        # x1, cls, 12 weights, workspace, x2, out, cls_rows | B, T, N, D, H, Dh | stream
-        "dvst_spatial_mlp": [_p] * 18 + [_i] * 6 + [_p],
-        # x, 6 weights, workspace, out | M | D, Dh, residual | stream
-        "dvst_mlp_phase": [_p] * 9 + [_l] + [_i] * 3 + [_p],
+        # x1, cls, 12 weights, workspace, out, cls_rows | B, T, N, D, H, Dh,
+        # cls_f32, out_f32 | stream
+        "dvst_spatial_mlp": [_p] * 17 + [_i] * 7 + [_p],
+        # its workspace bytes (returns long) | B, T, N, D, Dh
+        "dvst_spatial_mlp_ws": [_i] * 5,
+        # x, 6 weights, workspace, out | M | D, Dh, residual, x_f32 | stream
+        "dvst_mlp_phase": [_p] * 9 + [_l] + [_i] * 4 + [_p],
+        # its workspace bytes (returns long) | M | D, Dh
+        "dvst_mlp_phase_ws": [_l] + [_i] * 2,
         # x, 6 weights, workspace, out | S, L, D, H | stream
         "dvst_attn_phase": [_p] * 9 + [_i] * 4 + [_p],
         # x, 8 weights, workspace, out | S, L, D, H | stream
@@ -75,8 +82,11 @@ _SIGNATURES = {
         "dvst_banded_temporal_attn": [_p] * 2 + [_i] * 6 + [_p],
         # shared bytes of one block (returns long) | D, H, eff
         "dvst_banded_temporal_attn_smem": [_i] * 3,
-        # x, cls, 6 weights, workspace, out, qkv, qkv_cls | C, N, D, H | stream
-        "dvst_spatial_pf": [_p] * 12 + [_i] * 4 + [_p],
+        # x, cls, 6 weights, workspace, out, qkv, qkv_cls | C, N, D, H, x_f32
+        # | stream
+        "dvst_spatial_pf": [_p] * 12 + [_i] * 5 + [_p],
+        # its workspace bytes (returns long) | C, N, D
+        "dvst_spatial_pf_ws": [_i] * 3,
         # qkv_cls, qkv, out, workspace | C, N, D, H, t_real, eff | stream
         "dvst_cls_band_attn": [_p] * 4 + [_i] * 6 + [_p],
         # its workspace bytes (returns long) | C, N, D, H, eff

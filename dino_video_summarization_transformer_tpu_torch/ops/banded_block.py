@@ -9,7 +9,8 @@ owns a CLS row of its own (``models/banded.py``). Three ops:
   frame's queries against its window's keys at the same position —
   replaces ``_banded_temporal_kernel`` (banded_block.py:43);
 * ``spatial_phase_pf``: per frame on [cls_i, x_i]: LN -> qkv -> MHSA ->
-  proj -> bf16 grid residual; returns the new grid and the two bf16 qkv
+  proj -> grid residual, in the rows' dtype (bf16, or f32 for the mixed
+  teacher's f32 carry); returns the new grid and the two bf16 qkv
   buffers (grid rows, CLS rows), whose K/V and CLS-query columns are the
   TPU kernel's exports — replaces ``_spatial_pf_kernel`` (:174); its
   products run on the wgmma GEMM and its attention on the tensor-core
@@ -21,7 +22,10 @@ owns a CLS row of its own (``models/banded.py``). Three ops:
 
 and ``banded_temporal_phase``, the temporal half around the first: LN, the
 qkv, proj and temporal_fc products stay plain torch (the JAX package leaves
-them to XLA outside its kernel).
+them to XLA outside its kernel), in the rows' dtype. The two attentions
+take bf16 operands and return bf16 in every tier, as JAX's do.
+``cls_band_attn_f32_plain`` is the CLS aggregation with f32 probabilities,
+against which the card and the CPU tests measure row 12's bf16 roundings.
 
 Each wrapper runs its Hopper kernel (``csrc/banded_block.cu``) on a CUDA
 tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on any
@@ -31,7 +35,8 @@ Numerics, shared by kernel and twin: f32 scores with the row max
 subtracted, f32 denominators, probabilities rounded to bf16 before the PV
 product, bf16 outputs; the spatial op as ``fused_block``'s (f32 LN, qkv
 rounded to bf16 after the bias) with the projection rounded to bf16 before
-the bf16 residual add, as the Pallas kernel rounds it. The Pallas kernels'
+the bf16 residual add, as the Pallas kernel rounds it (its f32 tier adds
+it unrounded). The Pallas kernels'
 +/-80 logit clamp without the max and ones-column denominators are TPU
 workarounds; the tests bound the gap.
 """
@@ -47,7 +52,7 @@ from . import fused_block as fb
 
 # Kernel launches per op wrapper (plain twins do not count).
 launches: Dict[str, int] = {"banded_temporal_attn": 0, "spatial_phase_pf": 0,
-                            "cls_band_attn": 0}
+                            "spatial_phase_pf_f32": 0, "cls_band_attn": 0}
 
 PF_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b")
 # the CLS-band kernel's blocks (csrc: kClsStrips, kClsKeyRuns): at most
@@ -165,7 +170,8 @@ def banded_temporal_attn_plain(qkv: torch.Tensor, t_real: int, eff: int,
 
 def spatial_phase_pf_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
                            num_heads: int):
-    """Plain twin of ``spatial_phase_pf``."""
+    """Plain twin of ``spatial_phase_pf`` (both tiers: the projection in
+    x's dtype, added in f32, the sum in x's dtype)."""
     C, N, D = x.shape
     xf = x.float()
     y = fb._ln(xf, p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
@@ -176,8 +182,8 @@ def spatial_phase_pf_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
     q, k, v = seq.reshape(C, N + 1, 3, num_heads, D // num_heads).permute(
         2, 0, 3, 1, 4).unbind(0)  # (C, H, 1 + N, hd)
     a = fb._attention(q, k, v)[:, :, 1:].transpose(1, 2).reshape(C, N, D)
-    proj = (fb._mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
-    return (xf + proj.float()).to(torch.bfloat16), qkv, qkv_cls
+    proj = (fb._mm(a, p["proj_w"]) + p["proj_b"]).to(x.dtype)
+    return (xf + proj.float()).to(x.dtype), qkv, qkv_cls
 
 
 def cls_band_attn_plain(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
@@ -208,6 +214,33 @@ def cls_band_attn_plain(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
     return (acc * (1.0 / eff)).reshape(C, D).to(torch.bfloat16)
 
 
+def cls_band_attn_f32_plain(qkv_cls: torch.Tensor, qkv: torch.Tensor, t_real: int,
+                            eff: int, num_heads: int) -> torch.Tensor:
+    """``cls_band_attn``'s function with f32 probabilities and an f32
+    output: the reference against which the kernel's and the twin's bf16
+    rounding of P (and of the output) are measured; no op runs it."""
+    C, N, D3 = qkv.shape
+    H = num_heads
+    D = D3 // 3
+    q = _split_heads(qkv_cls[:, :D], H).float()
+    k_self = _split_heads(qkv_cls[:, D:2 * D], H).float()
+    v_self = _split_heads(qkv_cls[:, 2 * D:], H).float()
+    k_pat = _split_heads(qkv[..., D:2 * D], H)
+    v_pat = _split_heads(qkv[..., 2 * D:], H)
+    scale = (D // H) ** -0.5
+    lo = band_starts(torch.arange(C, device=qkv.device), eff, t_real)
+    s_self = (q * k_self).sum(-1, keepdim=True) * scale
+    acc = torch.zeros_like(q)
+    for j in range(eff):
+        t = lo + j
+        s = torch.cat([s_self, torch.einsum("chd,cnhd->chn", q, k_pat[t].float()) * scale],
+                      dim=-1)
+        pr = torch.softmax(s, dim=-1)
+        acc += torch.einsum("chn,cnhd->chd", pr,
+                            torch.cat([v_self[:, None], v_pat[t].float()], dim=1))
+    return (acc / eff).reshape(C, D)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -230,9 +263,7 @@ def banded_temporal_attn(qkv: torch.Tensor, t_real: int, eff: int,
 
     from . import _build
 
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv: the kernel copies 16-byte chunks and needs a "
-                         "16-byte aligned start")
+    fb._check_aligned(qkv=qkv)
     lib = _build.load("banded")
     need = lib.dvst_banded_temporal_attn_smem(D, num_heads, eff)
     if need > fb.SMEM_LIMIT:
@@ -248,20 +279,35 @@ def banded_temporal_attn(qkv: torch.Tensor, t_real: int, eff: int,
     return out
 
 
+def spatial_phase_pf_ws(C: int, N: int, D: int, lib=None) -> int:
+    """Workspace bytes of ``spatial_phase_pf`` (both tiers): ``lib``'s
+    ``dvst_spatial_pf_ws`` where given, else its mirror here
+    (banded_block.cu's spatial_pf_ws: the grid rows' LN rows, the CLS rows'
+    LN rows, the grid rows' attention output, all bf16; the f32 tier stages
+    nothing in f32). A card test holds the two equal."""
+    if lib is not None:
+        return lib.dvst_spatial_pf_ws(C, N, D)
+    return fb._carve(C * N * D * 2, C * D * 2, C * N * D * 2)
+
+
 def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
                      num_heads: int):
-    """x (C, N, D) bf16 grid, cls (C, D) bf16 per-frame CLS rows, ``p`` the
-    ``PF_KEYS`` weights of ``fused_block.block_params(...)["spatial"]`` ->
-    (x + proj(MHSA over [cls_i, x_i]) (C, N, D) bf16, the grid rows' qkv
-    (C, N, 3D) bf16, the CLS rows' qkv (C, 3D) bf16). Kernel on CUDA,
-    plain twin on CPU."""
+    """x (C, N, D) grid, cls (C, D) per-frame CLS rows, both bf16 or (the
+    mixed teacher's tier) both f32, ``p`` the ``PF_KEYS`` weights of
+    ``fused_block.block_params(...)["spatial"]`` -> (x + proj(MHSA over
+    [cls_i, x_i]) (C, N, D) in x's dtype, the grid rows' qkv (C, N, 3D)
+    bf16, the CLS rows' qkv (C, 3D) bf16). bf16 rounds the projection
+    before the add; f32 reads the rows unrounded into LN and adds the
+    projection in f32. Kernel on CUDA, plain twin on CPU."""
     if x.dim() != 3:
         raise ValueError(f"x: expected (C, N, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
     C, N, D = x.shape
     dev = fb._device_of(x)
     fb._check_geometry(D, num_heads)
-    fb._check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    fb._check_tensor("cls", cls, torch.bfloat16, (C, D), dev)
+    fb._check_tensor("x", x, x.dtype, x.shape, dev)
+    fb._check_tensor("cls", cls, x.dtype, (C, D), dev)
     shapes = {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
               "qkv_b": (3 * D,), "proj_w": (D, D), "proj_b": (D,)}
     for k in PF_KEYS:
@@ -272,18 +318,21 @@ def spatial_phase_pf(x: torch.Tensor, cls: torch.Tensor, p: dict,
 
     from . import _build
 
+    fb._check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load("banded")
     fb.check_spatial_attn_smem(lib, N + 1, D // num_heads)
-    out = torch.empty((C, N, D), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((C, N, D), dtype=x.dtype, device=dev)
     qkv = torch.empty((C, N, 3 * D), dtype=torch.bfloat16, device=dev)
     qkv_cls = torch.empty((C, 3 * D), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(2 * C * N * D + C * D, dtype=torch.bfloat16, device=dev)
+    ws = fb._ws(spatial_phase_pf_ws(C, N, D, lib), dev)
+    x_f32 = x.dtype == torch.float32
     with torch.cuda.device(dev):
         fb._run(lib.dvst_spatial_pf, x.data_ptr(), cls.data_ptr(),
                 *(p[k].data_ptr() for k in PF_KEYS), ws.data_ptr(),
                 out.data_ptr(), qkv.data_ptr(), qkv_cls.data_ptr(),
-                C, N, D, num_heads, torch.cuda.current_stream(dev).cuda_stream)
-    launches["spatial_phase_pf"] += 1
+                C, N, D, num_heads, int(x_f32),
+                torch.cuda.current_stream(dev).cuda_stream)
+    launches["spatial_phase_pf_f32" if x_f32 else "spatial_phase_pf"] += 1
     return out, qkv, qkv_cls
 
 
@@ -328,12 +377,16 @@ def _linear(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def banded_temporal_phase(x: torch.Tensor, p: dict, t_real: int, eff: int,
                           num_heads: int) -> torch.Tensor:
-    """x + temporal_fc(proj(banded_attn(LN x))) for x (C, N, D) bf16, ``p``
-    the ``fused_block.TEMPORAL_KEYS`` weights: the attention is
-    ``banded_temporal_attn``; LN (f32 statistics) and the dense layers are
-    plain torch in bf16."""
+    """x + temporal_fc(proj(banded_attn(LN x))) for x (C, N, D) bf16 or
+    (the mixed teacher's tier) f32, ``p`` the ``fused_block.TEMPORAL_KEYS``
+    weights in the block's own dtype (``models/banded.py`` passes the
+    module's: the f32 tier's dense layers take the f32 weights, as JAX's
+    ``linear`` on the f32 parameters): the attention is
+    ``banded_temporal_attn`` on bf16 operands, returning bf16, which the
+    caller casts, as JAX does (JAX ``ops/banded_block.py:136-137,158``); LN
+    (f32 statistics) and the dense layers are plain torch in x's dtype."""
     y = fb._ln(x.float(), p["ln_w"], p["ln_b"]).to(x.dtype)
     qkv = _linear(y, p["qkv_w"], p["qkv_b"])
-    o = banded_temporal_attn(qkv, t_real, eff, num_heads)
+    o = banded_temporal_attn(qkv.to(torch.bfloat16), t_real, eff, num_heads)
     res = _linear(o.to(x.dtype), p["proj_w"], p["proj_b"])
     return x + _linear(res, p["fc_w"], p["fc_b"])

@@ -29,7 +29,12 @@
 //       3P-frame slab and P >= eff - 1 are its block geometry).
 //   dvst_spatial_pf             replaces _spatial_pf_kernel
 //       (ops/banded_block.py:174): per frame on [cls_i, x_i]: LN -> qkv ->
-//       MHSA -> proj -> bf16 grid residual. Its exports (the patch K/V, the
+//       MHSA -> proj -> grid residual, in x's dtype (the kernel writes
+//       x.dtype, :223-224, 268-269): bf16, the projection rounded before
+//       the add; or f32 x and CLS rows, the mixed teacher's f32 carry,
+//       LN on the f32 rows (ln_kernel<float>) and the residual added
+//       unrounded (kEpiResF32F32). The qkv buffers are bf16 in both
+//       tiers, as the TPU kernel's exports are. Its exports (the patch K/V, the
 //       CLS rows' own K/V, the CLS queries) are column slices of the two
 //       bf16 qkv buffers it writes anyway; cls_band_attn reads them there
 //       with their row stride, so nothing is copied. The CLS rows'
@@ -701,6 +706,23 @@ cudaError_t cls_band_launch(const bf16* qkv_cls, const bf16* qkv, bf16* out, flo
 #define DVST_HD_CASES(CASE) \
   CASE(16) CASE(32) CASE(48) CASE(64) CASE(80) CASE(96) CASE(112) CASE(128)
 
+// dvst_spatial_pf's workspace (below).
+struct SpatialPfWs {
+  bf16 *y, *y_cls, *a;
+  size_t bytes;
+};
+
+SpatialPfWs spatial_pf_ws(char* base, int C, int N, int D) {
+  const long M = (long)C * N;
+  Carve c{base};
+  SpatialPfWs w;
+  w.y = c.take<bf16>(M * D);
+  w.y_cls = c.take<bf16>((long)C * D);
+  w.a = c.take<bf16>(M * D);
+  w.bytes = c.off;
+  return w;
+}
+
 }  // namespace
 
 extern "C" {
@@ -728,38 +750,50 @@ long dvst_banded_temporal_attn_smem(int D, int H, int eff) {
   return (long)band_smem(band_heads(H, hd, eff) * hd, eff);
 }
 
-// x (C,N,D) bf16, cls (C,D) bf16 -> out (C,N,D) bf16 = x + proj(MHSA), and
-// the bf16 qkv of the grid rows (C,N,3D) and of the CLS rows (C,3D).
-// ws: bf16 workspace of 2*C*N*D + C*D elements.
+// x (C,N,D) and cls (C,D), both bf16 or (x_f32) both f32 -> out (C,N,D) in
+// their dtype = x + proj(MHSA) (bf16: the projection rounded before the
+// add, the Pallas order; f32: the mixed teacher's tier, added unrounded),
+// and the bf16 qkv of the grid rows (C,N,3D) and of the CLS rows (C,3D).
+// ws: the bytes dvst_spatial_pf_ws gives: the grid rows' LN rows, the CLS
+// rows' LN rows and the grid rows' attention output, bf16 in both tiers,
+// each carved 256-byte aligned.
+long dvst_spatial_pf_ws(int C, int N, int D) {
+  return (long)spatial_pf_ws(nullptr, C, N, D).bytes;
+}
+
 int dvst_spatial_pf(const void* x_, const void* cls_, const void* ln_w,
                     const void* ln_b, const void* qkv_w, const void* qkv_b,
                     const void* proj_w, const void* proj_b, void* ws, void* out,
                     void* qkv_, void* qkv_cls_, int C, int N, int D, int H,
-                    void* stream) {
+                    int x_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)C * N;
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* cls = static_cast<const bf16*>(cls_);
   bf16* qkv = static_cast<bf16*>(qkv_);
   bf16* qkv_cls = static_cast<bf16*>(qkv_cls_);
-  bf16* y = static_cast<bf16*>(ws);  // (M, D): LN rows
-  bf16* y_cls = y + M * D;            // (C, D)
-  bf16* a = y_cls + (long)C * D;      // (M, D): attention out
+  const SpatialPfWs w = spatial_pf_ws(static_cast<char*>(ws), C, N, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, lw, lb, y, M, D, st))) return e;
-  if ((e = ln_launch<bf16>(cls, lw, lb, y_cls, C, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, C, 3 * D, D, st)))
+  // the LNs read the rows in their own dtype (the mixed tier's f32 carry
+  // and per-frame CLS rows are never rounded before their statistics)
+  if (x_f32) {
+    if ((e = ln_launch<float>(static_cast<const float*>(x_), lw, lb, w.y, M, D, st))) return e;
+    e = ln_launch<float>(static_cast<const float*>(cls_), lw, lb, w.y_cls, C, D, st);
+  } else {
+    if ((e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.y, M, D, st))) return e;
+    e = ln_launch<bf16>(static_cast<const bf16*>(cls_), lw, lb, w.y_cls, C, D, st);
+  }
+  if (e) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y_cls, qkv_w, qkv_b, nullptr, qkv_cls, C, 3 * D, D, st)))
     return e;
   // sequence c = [cls row c, grid rows c*N + n for n < N]
   const int hd = D / H;
-  if ((e = tc_prefix_attn(hd, qkv, qkv_cls, a, nullptr, C, 1, N, H,
+  if ((e = tc_prefix_attn(hd, qkv, qkv_cls, w.a, nullptr, C, 1, N, H,
                           1.0f / sqrtf((float)hd), st)))
     return e;
-  if ((e = wg_gemm<kEpiAddBf16>(a, proj_w, proj_b, x, out, M, D, D, st))) return e;
-  return cudaSuccess;
+  if (x_f32) return wg_gemm<kEpiResF32F32>(w.a, proj_w, proj_b, x_, out, M, D, D, st);
+  return wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x_, out, M, D, D, st);
 }
 
 // Dynamic shared bytes one block of dvst_spatial_pf's attention needs at L

@@ -8,10 +8,14 @@
 //
 //   dvst_temporal_phase_tm  replaces _temporal_phase_tm_kernel
 //       (dino_video_summarization_transformer_tpu/ops/fused_block.py:761):
-//       x (B,T,N,D) bf16 -> x + fc(proj(MHSA over T at each position(LN x)))
-//       in two tiers: f32 out (the whole-block path's carry) or, with
-//       out_bf16, bf16 out = bf16(x + bf16(fc)) (the per-phase training
-//       path, the Pallas kernel's rounding at fused_block.py:855-857)
+//       x (B,T,N,D) -> x + fc(proj(MHSA over T at each position(LN x)))
+//       in three tiers: bf16 x, f32 out (the whole-block path's carry);
+//       bf16 x, out_bf16: bf16 out = bf16(x + bf16(fc)) (the per-phase
+//       training path, the Pallas kernel's rounding at
+//       fused_block.py:855-857); x_f32: f32 x, f32 out = x + fc, the
+//       mixed teacher's block boundary (fused_block.py:852-854), its LN
+//       reading the f32 rows (ln_kernel<float>) and its fc epilogue adding
+//       the f32 residual unrounded (kEpiResF32F32)
 //       launches: LN -> GEMM qkv -> attention -> GEMM proj -> GEMM fc+res
 //       Its GEMMs are the wgmma + TMA kernel (wgmma_gemm.cuh), its
 //       attention the tensor-core tile reading the T rows of each
@@ -32,7 +36,11 @@
 //   dvst_spatial_mlp        replaces _spatial_mlp_kernel
 //       (ops/fused_block.py:1556, float tier):
 //       per frame on [cls, x_t]: LN -> MHSA -> proj -> grid residual -> LN ->
-//       MLP -> residual; bf16 grid out + f32 per-frame CLS rows
+//       MLP -> residual; bf16 grid out + f32 per-frame CLS rows, or, in
+//       the mixed teacher's tier, an f32 CLS row in (its LN on the f32
+//       row: the CLS token is f32 end to end, fused_block.py:1688-1715)
+//       and an f32 grid out (out_dtype = the boundary's, :1684-1686;
+//       kEpiResF32F32 in place of kEpiResF32Bf16)
 //       launches: LN grid, LN cls -> GEMM qkv grid, GEMM qkv cls ->
 //       attention -> GEMM proj+res grid, GEMM proj cls -> LN ->
 //       GEMM fc1+GELU -> GEMM fc2+res
@@ -42,7 +50,10 @@
 //   dvst_mlp_phase          replaces _mlp_phase_kernel
 //       (ops/fused_block.py:1191): rows (M,D) bf16 -> LN -> fc1 -> erf GELU
 //       -> fc2, optionally + x, bf16 out; fc2's output is rounded to bf16
-//       before the residual add, as the Pallas kernel rounds it
+//       before the residual add, as the Pallas kernel rounds it. Its
+//       mixed tier (the banded teacher's grid MLP) takes f32 rows and
+//       writes f32 x + fc2 with nothing rounded (the kernel writes
+//       x.dtype, :1213-1215)
 //       launches: LN -> GEMM fc1+GELU -> GEMM fc2(+res), both GEMMs the
 //       wgmma + TMA kernel
 //       Bound by operations: 4*M*D*Dh FLOP against 4*M*D bytes of rows
@@ -99,10 +110,18 @@
 
 namespace {
 
-// dvst_spatial_phase's workspace: the LN rows, qkv and attention output of
-// the M grid rows, of the B CLS rows, and the B*T per-frame CLS attention
-// outputs, each 256-byte aligned (Carve): every TMA operand starts 16-byte
-// aligned.
+// The entry points' workspaces, each buffer carved 256-byte aligned
+// (Carve) so every TMA operand starts 16-byte aligned. Every buffer holds
+// what the C side stages in it, in that dtype: the LN rows, qkv, attention
+// and hidden rows are bf16 in every tier; the post-spatial carry x2 of
+// dvst_spatial_mlp is f32. The f32 ("mixed") tiers read their f32 inputs
+// and write their f32 outputs in the caller's tensors and stage nothing
+// more. Each layout's bytes are its *_ws entry point's answer, and the
+// wrappers size their workspace from it.
+
+// dvst_spatial_phase's: the LN rows, qkv and attention output of the M
+// grid rows, of the B CLS rows, and the B*T per-frame CLS attention
+// outputs.
 struct SpatialPhaseWs {
   bf16 *y, *qkv, *a, *y_cls, *qkv_cls, *a_cls;
   size_t bytes;
@@ -122,6 +141,64 @@ SpatialPhaseWs spatial_phase_ws(char* base, int B, int T, int N, int D) {
   return w;
 }
 
+// dvst_temporal_phase_tm's (and dvst_temporal_phase's): qkv of the M rows,
+// the LN rows (then the proj output), the attention output.
+struct TemporalWs {
+  bf16 *qkv, *buf1, *buf2;
+  size_t bytes;
+};
+
+TemporalWs temporal_ws(char* base, long M, int D) {
+  Carve c{base};
+  TemporalWs w;
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.buf1 = c.take<bf16>(M * D);
+  w.buf2 = c.take<bf16>(M * D);
+  w.bytes = c.off;
+  return w;
+}
+
+// dvst_spatial_mlp's: the M grid rows' LN rows (LN1, then LN2), qkv,
+// attention output and MLP hidden rows; the B CLS rows' LN rows and qkv;
+// the B*T per-frame CLS attention outputs; and the f32 post-spatial carry
+// x2 of the M grid rows.
+struct SpatialMlpWs {
+  bf16 *y, *qkv, *a, *hid, *y_cls, *qkv_cls, *a_cls;
+  float* x2;
+  size_t bytes;
+};
+
+SpatialMlpWs spatial_mlp_ws(char* base, int B, int T, int N, int D, int Dh) {
+  const long M = (long)B * T * N;
+  Carve c{base};
+  SpatialMlpWs w;
+  w.y = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.hid = c.take<bf16>(M * Dh);
+  w.y_cls = c.take<bf16>((long)B * D);
+  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
+  w.a_cls = c.take<bf16>((long)B * T * D);
+  w.x2 = c.take<float>(M * D);
+  w.bytes = c.off;
+  return w;
+}
+
+// dvst_mlp_phase's: the LN rows and the hidden rows.
+struct MlpWs {
+  bf16 *y, *hid;
+  size_t bytes;
+};
+
+MlpWs mlp_ws(char* base, long M, int D, int Dh) {
+  Carve c{base};
+  MlpWs w;
+  w.y = c.take<bf16>(M * D);
+  w.hid = c.take<bf16>(M * Dh);
+  w.bytes = c.off;
+  return w;
+}
+
 }  // namespace
 
 extern "C" {
@@ -130,35 +207,44 @@ const char* dvst_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (B,T,N,D) bf16 frame-major -> out (B,T,N,D), f32 or (out_bf16) bf16.
-// ws: bf16 workspace of B*T*N*5*D elements.
+// x (B,T,N,D) frame-major, bf16 or (x_f32) f32 -> out (B,T,N,D), f32 or
+// (out_bf16, bf16 x only) bf16. ws: the bytes dvst_temporal_phase_tm_ws
+// gives.
+long dvst_temporal_phase_tm_ws(int B, int T, int N, int D) {
+  return (long)temporal_ws(nullptr, (long)B * T * N, D).bytes;
+}
+
 int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
                            const void* qkv_w, const void* qkv_b,
                            const void* proj_w, const void* proj_b,
                            const void* fc_w, const void* fc_b, void* ws,
                            void* out, int B, int T, int N, int D, int H,
-                           int out_bf16, void* stream) {
+                           int x_f32, int out_bf16, void* stream) {
+  if (x_f32 && out_bf16) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
-  const bf16* x = static_cast<const bf16*>(x_);
-  bf16* qkv = static_cast<bf16*>(ws);   // (M, 3D)
-  bf16* buf1 = qkv + M * 3 * D;          // (M, D): LN rows, then proj out
-  bf16* buf2 = buf1 + M * D;             // (M, D): attention out
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, lw, lb, buf1, M, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(buf1, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
+  // LN reads x in its own dtype: the mixed tier's f32 rows are never
+  // rounded before their statistics
+  if (x_f32)
+    e = ln_launch<float>(static_cast<const float*>(x_), lw, lb, w.buf1, M, D, st);
+  else
+    e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.buf1, M, D, st);
+  if (e) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.buf1, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
   // sequence (b, n) over t: rows (b*T + t)*N + n
   const int hd = D / H;
-  if ((e = tc_strided_attn(hd, qkv, buf2, B, T, N, H, 1.0f / sqrtf((float)hd), st)))
+  if ((e = tc_strided_attn(hd, w.qkv, w.buf2, B, T, N, H, 1.0f / sqrtf((float)hd), st)))
     return e;
-  if ((e = wg_gemm<kEpiBf16>(buf2, proj_w, proj_b, nullptr, buf1, M, D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.buf2, proj_w, proj_b, nullptr, w.buf1, M, D, D, st))) return e;
+  if (x_f32)  // the mixed tier: x + fc in f32, nothing rounded
+    return wg_gemm<kEpiResF32F32>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
   if (out_bf16)
-    e = wg_gemm<kEpiAddBf16>(buf1, fc_w, fc_b, x, out, M, D, D, st);
-  else
-    e = wg_gemm<kEpiResBf16F32>(buf1, fc_w, fc_b, x, out, M, D, D, st);
-  return e;
+    return wg_gemm<kEpiAddBf16>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
+  return wg_gemm<kEpiResBf16F32>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
 }
 
 // x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16 =
@@ -198,73 +284,83 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
   return wg_gemm<kEpiBf16>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
 }
 
-// x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
-// cls_rows (B,T,D) f32. ws: bf16 workspace of
-// B*T*N*(5*D + Dh) + 4*B*D + B*T*D elements; x2: f32 (B*T*N, D).
+// x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16, or (f32, the
+// mixed teacher's tier) cls f32 -> out f32; cls_rows (B,T,D) f32. ws: the
+// bytes dvst_spatial_mlp_ws gives.
+long dvst_spatial_mlp_ws(int B, int T, int N, int D, int Dh) {
+  return (long)spatial_mlp_ws(nullptr, B, T, N, D, Dh).bytes;
+}
+
 int dvst_spatial_mlp(const void* x1_, const void* cls_, const void* ln1_w,
                      const void* ln1_b, const void* qkv_w, const void* qkv_b,
                      const void* proj_w, const void* proj_b, const void* ln2_w,
                      const void* ln2_b, const void* fc1_w, const void* fc1_b,
-                     const void* fc2_w, const void* fc2_b, void* ws, void* x2_,
-                     void* out, void* cls_rows, int B, int T, int N, int D,
-                     int H, int Dh, void* stream) {
+                     const void* fc2_w, const void* fc2_b, void* ws, void* out,
+                     void* cls_rows, int B, int T, int N, int D, int H, int Dh,
+                     int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const float* x1 = static_cast<const float*>(x1_);
-  const bf16* cls = static_cast<const bf16*>(cls_);
-  float* x2 = static_cast<float*>(x2_);
-  bf16* y = static_cast<bf16*>(ws);  // (M, D): LN1 rows, then LN2 rows
-  bf16* qkv = y + M * D;              // (M, 3D)
-  bf16* a = qkv + M * 3 * D;          // (M, D)
-  bf16* hid = a + M * D;              // (M, Dh)
-  bf16* y_cls = hid + M * Dh;         // (B, D)
-  bf16* qkv_cls = y_cls + (long)B * D;      // (B, 3D)
-  bf16* a_cls = qkv_cls + (long)B * 3 * D;  // (B*T, D)
+  const SpatialMlpWs w = spatial_mlp_ws(static_cast<char*>(ws), B, T, N, D, Dh);
   const float* l1w = static_cast<const float*>(ln1_w);
   const float* l1b = static_cast<const float*>(ln1_b);
   cudaError_t e;
-  if ((e = ln_launch<float>(x1, l1w, l1b, y, M, D, st))) return e;
-  if ((e = ln_launch<bf16>(cls, l1w, l1b, y_cls, B, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(y, qkv_w, qkv_b, nullptr, qkv, M, 3 * D, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(y_cls, qkv_w, qkv_b, nullptr, qkv_cls, B, 3 * D, D, st)))
+  if ((e = ln_launch<float>(x1, l1w, l1b, w.y, M, D, st))) return e;
+  // the CLS row's LN reads it in its own dtype (f32 in the mixed tier,
+  // where it is f32 end to end)
+  if (f32)
+    e = ln_launch<float>(static_cast<const float*>(cls_), l1w, l1b, w.y_cls, B, D, st);
+  else
+    e = ln_launch<bf16>(static_cast<const bf16*>(cls_), l1w, l1b, w.y_cls, B, D, st);
+  if (e) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y_cls, qkv_w, qkv_b, nullptr, w.qkv_cls, B, 3 * D, D, st)))
     return e;
   // sequence s = b*T + t: [cls row b, grid rows s*N + n for n < N]
   const int hd = D / H;
-  if ((e = tc_prefix_attn(hd, qkv, qkv_cls, a, a_cls, B * T, T, N, H,
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
                           1.0f / sqrtf((float)hd), st)))
     return e;
-  if ((e = wg_gemm<kEpiResF32F32>(a, proj_w, proj_b, x1, x2, M, D, D, st))) return e;
-  if ((e = wg_gemm<kEpiF32>(a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
+  if ((e = wg_gemm<kEpiResF32F32>(w.a, proj_w, proj_b, x1, w.x2, M, D, D, st))) return e;
+  if ((e = wg_gemm<kEpiF32>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T,
                             D, D, st)))
     return e;
-  if ((e = ln_launch<float>(x2, static_cast<const float*>(ln2_w),
-                            static_cast<const float*>(ln2_b), y, M, D, st)))
+  if ((e = ln_launch<float>(w.x2, static_cast<const float*>(ln2_w),
+                            static_cast<const float*>(ln2_b), w.y, M, D, st)))
     return e;
-  if ((e = wg_gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
-  if ((e = wg_gemm<kEpiResF32Bf16>(hid, fc2_w, fc2_b, x2, out, M, D, Dh, st))) return e;
-  return cudaSuccess;
+  if ((e = wg_gemm<kEpiGeluBf16>(w.y, fc1_w, fc1_b, nullptr, w.hid, M, Dh, D, st))) return e;
+  if (f32)  // the mixed tier's grid: x2 + MLP in f32
+    return wg_gemm<kEpiResF32F32>(w.hid, fc2_w, fc2_b, w.x2, out, M, D, Dh, st);
+  return wg_gemm<kEpiResF32Bf16>(w.hid, fc2_w, fc2_b, w.x2, out, M, D, Dh, st);
 }
 
-// x (M,D) bf16 -> out (M,D) bf16 = [x +] fc2(gelu(fc1(LN x))).
-// ws: bf16 workspace of M*(D + Dh) elements.
+// x (M,D) bf16 or (x_f32) f32 -> out (M,D) in x's dtype = [x +]
+// fc2(gelu(fc1(LN x))): bf16 rounds fc2's output before the residual add
+// (the Pallas order), f32 adds it unrounded. ws: the bytes
+// dvst_mlp_phase_ws gives.
+long dvst_mlp_phase_ws(long M, int D, int Dh) { return (long)mlp_ws(nullptr, M, D, Dh).bytes; }
+
 int dvst_mlp_phase(const void* x_, const void* ln_w, const void* ln_b,
                    const void* fc1_w, const void* fc1_b, const void* fc2_w,
                    const void* fc2_b, void* ws, void* out, long M, int D,
-                   int Dh, int residual, void* stream) {
+                   int Dh, int residual, int x_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(x_);
-  bf16* y = static_cast<bf16*>(ws);  // (M, D)
-  bf16* hid = y + M * D;              // (M, Dh)
+  const MlpWs w = mlp_ws(static_cast<char*>(ws), M, D, Dh);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, static_cast<const float*>(ln_w),
-                           static_cast<const float*>(ln_b), y, M, D, st)))
-    return e;
-  if ((e = wg_gemm<kEpiGeluBf16>(y, fc1_w, fc1_b, nullptr, hid, M, Dh, D, st))) return e;
-  if (residual)
-    e = wg_gemm<kEpiAddBf16>(hid, fc2_w, fc2_b, x, out, M, D, Dh, st);
+  if (x_f32)
+    e = ln_launch<float>(static_cast<const float*>(x_), lw, lb, w.y, M, D, st);
   else
-    e = wg_gemm<kEpiBf16>(hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
-  return e;
+    e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.y, M, D, st);
+  if (e) return e;
+  if ((e = wg_gemm<kEpiGeluBf16>(w.y, fc1_w, fc1_b, nullptr, w.hid, M, Dh, D, st))) return e;
+  if (x_f32)  // the mixed tier: the residual in f32
+    return residual ? wg_gemm<kEpiResF32F32>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st)
+                    : wg_gemm<kEpiF32>(w.hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
+  if (residual)
+    return wg_gemm<kEpiAddBf16>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st);
+  return wg_gemm<kEpiBf16>(w.hid, fc2_w, fc2_b, nullptr, out, M, D, Dh, st);
 }
 
 // x (S,L,D) bf16 -> out (S,L,D) bf16 = proj(MHSA(LN x)).
@@ -290,14 +386,14 @@ int dvst_attn_phase(const void* x_, const void* ln_w, const void* ln_b,
 }
 
 // x (S,L,D) bf16 -> out (S,L,D) bf16 = bf16(x + bf16(fc(proj(MHSA(LN x))))).
-// ws: bf16 workspace of S*L*5*D elements.
+// ws: the bytes dvst_temporal_phase_tm_ws(S, L, 1, D) gives.
 int dvst_temporal_phase(const void* x, const void* ln_w, const void* ln_b,
                         const void* qkv_w, const void* qkv_b,
                         const void* proj_w, const void* proj_b,
                         const void* fc_w, const void* fc_b, void* ws, void* out,
                         int S, int L, int D, int H, void* stream) {
   return dvst_temporal_phase_tm(x, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b,
-                                fc_w, fc_b, ws, out, S, L, 1, D, H, 1, stream);
+                                fc_w, fc_b, ws, out, S, L, 1, D, H, 0, 1, stream);
 }
 
 // The spatial attention of dvst_spatial_mlp alone: qkv (S, N, 3D) grid

@@ -3,21 +3,33 @@
 Counterpart of the JAX package's ``ops/fused_block.py`` whole-block path
 (``fused_divided_block_wb``): a divided block as two ops,
 
-* ``temporal_phase_tm``: x (B, T, N, D) bf16, frame-major ->
+* ``temporal_phase_tm``: x (B, T, N, D), frame-major ->
   x + temporal_fc(proj(MHSA over T at each position(LN x))), f32 out —
   replaces ``_temporal_phase_tm_kernel`` (fused_block.py:761);
-* ``spatial_mlp``: the f32 carry x1 and the bf16 CLS row ->
+* ``spatial_mlp``: the f32 carry x1 and the CLS row ->
   per frame on [cls, x_t]: LN -> MHSA -> proj -> grid residual -> LN ->
-  MLP -> residual, bf16 grid out, plus the raw per-frame CLS rows in f32 —
+  MLP -> residual, the grid out, plus the raw per-frame CLS rows in f32 —
   replaces ``_spatial_mlp_kernel`` (fused_block.py:1556);
 
 and ``divided_block_wb``, which chains them and updates the CLS row in
-plain f32 torch (B rows: negligible), as the JAX package does; plus
+plain f32 torch (B rows: negligible), as the JAX package does. Its block
+boundaries (x, the grid out, the CLS row) are bf16, or f32 in the mixed
+teacher's tier (``engine/scoring.py``'s ``teacher_dtype``; JAX's mixed
+tier of the same kernels): ``temporal_phase_tm`` then reads f32 x and
+``spatial_mlp`` an f32 CLS row, and it writes an f32 grid; plus
 
-* ``mlp_phase``: rows (M, D) bf16 -> [x +] fc2(GELU(fc1(LN x))), bf16 out,
-  fc2's output rounded to bf16 before the residual add (the Pallas order) —
+* ``mlp_phase``: rows (M, D) -> [x +] fc2(GELU(fc1(LN x))) in x's dtype:
+  bf16 rows round fc2's output to bf16 before the residual add (the Pallas
+  order), f32 rows (the mixed teacher's banded grid) add it in f32 —
   replaces ``_mlp_phase_kernel`` (fused_block.py:1191); the banded block's
   grid MLP (``models/banded.py``) and the training path's MLP phase.
+
+The f32 tiers take bf16 matrices and f32 LN weights, as every tier does:
+they read their f32 rows straight into LN and add their f32 residual in
+the GEMM's epilogue, and stage nothing in f32 but row 2's post-spatial
+carry. Each wrapper sizes its workspace from the bytes the library states
+for its layout (``dvst_*_ws``), mirrored here (``*_ws``) for the CPU
+tests.
 
 The XLA-layout block's per-phase dispatch (the counterpart of JAX
 ``divided_block(use_fused=True)``, ``models/timesformer.py:278-325``) runs,
@@ -78,8 +90,8 @@ Numerics, shared by kernel and twin (the XLA-path rules, not the Pallas
 kernels' TPU workarounds): LayerNorm in f32 (eps 1e-6), bf16 matmul
 operands with f32 accumulation, qkv rounded to bf16 after the bias,
 softmax in f32 with the row max subtracted, probabilities rounded to bf16
-before the PV product, exact erf GELU, f32 intra-block carry, bf16 block
-boundaries. The Pallas kernels instead clamp logits to +/-80 without the
+before the PV product, exact erf GELU, f32 intra-block carry, block
+boundaries in bf16 (or f32, the mixed tier). The Pallas kernels instead clamp logits to +/-80 without the
 max, sum the denominator on the MXU through a ones column and use tanh
 GELU; the tests bound the resulting gap.
 """
@@ -97,6 +109,7 @@ SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into on sm_90
 # Kernel launches per op wrapper (plain twins do not count).
 launches: Dict[str, int] = {
     "temporal_phase_tm": 0, "spatial_mlp": 0, "mlp_phase": 0,
+    "temporal_phase_tm_f32": 0, "spatial_mlp_f32": 0, "mlp_phase_f32": 0,
     "temporal_phase_tm_bf16": 0, "spatial_phase": 0,
     "temporal_phase_tm_bwd": 0, "spatial_phase_bwd": 0, "mlp_phase_bwd": 0,
     "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0,
@@ -250,7 +263,7 @@ def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
     y2 = _ln(x2, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
     h = F.gelu(_mm(y2, p["fc1_w"]) + p["fc1_b"]).to(torch.bfloat16)
     out = x2 + (_mm(h, p["fc2_w"]) + p["fc2_b"])
-    return out.to(torch.bfloat16), cls_rows.contiguous()
+    return out.to(cls.dtype), cls_rows.contiguous()
 
 
 def spatial_attention_plain(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
@@ -282,13 +295,14 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
 
 
 def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
-    """Plain twin of ``mlp_phase``."""
+    """Plain twin of ``mlp_phase`` (both tiers: fc2's output in x's dtype,
+    then the residual added in f32 and the sum in x's dtype)."""
     xf = x.float()
     y = _ln(xf, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
     h = F.gelu(_mm(y, p["fc1_w"]) + p["fc1_b"]).to(torch.bfloat16)
-    out = (_mm(h, p["fc2_w"]) + p["fc2_b"]).to(torch.bfloat16)
+    out = (_mm(h, p["fc2_w"]) + p["fc2_b"]).to(x.dtype)
     if residual:
-        out = (xf + out.float()).to(torch.bfloat16)
+        out = (xf + out.float()).to(x.dtype)
     return out
 
 
@@ -665,6 +679,50 @@ def check_temporal_attn_smem(S: int, L: int, hd: int, lib=None) -> None:
                          f"of shared memory (limit {SMEM_LIMIT})")
 
 
+def _carve(*nbytes: int) -> int:
+    """Bytes of buffers of ``nbytes`` carved one after another from one
+    workspace, each from a 256-byte boundary (csrc: dvst_common.cuh's
+    Carve)."""
+    off = 0
+    for n in nbytes:
+        off = -(-off // 256) * 256 + n
+    return off
+
+
+def temporal_phase_tm_ws(B: int, T: int, N: int, D: int, lib=None) -> int:
+    """Workspace bytes of ``temporal_phase_tm`` (every tier) and, at N = 1,
+    of ``temporal_phase``: ``lib``'s ``dvst_temporal_phase_tm_ws`` where
+    given, else its mirror here (fused_block.cu's temporal_ws: qkv, the LN
+    rows then the proj output, the attention output, all bf16; the f32
+    tier stages nothing in f32). A card test holds the two equal."""
+    if lib is not None:
+        return lib.dvst_temporal_phase_tm_ws(B, T, N, D)
+    M = B * T * N
+    return _carve(M * 3 * D * 2, M * D * 2, M * D * 2)
+
+
+def spatial_mlp_ws(B: int, T: int, N: int, D: int, Dh: int, lib=None) -> int:
+    """Workspace bytes of ``spatial_mlp`` (every tier): ``lib``'s
+    ``dvst_spatial_mlp_ws`` where given, else its mirror here
+    (fused_block.cu's spatial_mlp_ws: the grid rows' LN rows, qkv,
+    attention output and hidden rows, the CLS rows' LN rows and qkv, the
+    per-frame CLS attention outputs, bf16; the post-spatial carry x2, f32)."""
+    if lib is not None:
+        return lib.dvst_spatial_mlp_ws(B, T, N, D, Dh)
+    M = B * T * N
+    return _carve(M * D * 2, M * 3 * D * 2, M * D * 2, M * Dh * 2, B * D * 2,
+                  B * 3 * D * 2, B * T * D * 2, M * D * 4)
+
+
+def mlp_phase_ws(M: int, D: int, Dh: int, lib=None) -> int:
+    """Workspace bytes of ``mlp_phase`` (both tiers): ``lib``'s
+    ``dvst_mlp_phase_ws`` where given, else its mirror here
+    (fused_block.cu's mlp_ws: the LN rows and the hidden rows, bf16)."""
+    if lib is not None:
+        return lib.dvst_mlp_phase_ws(M, D, Dh)
+    return _carve(M * D * 2, M * Dh * 2)
+
+
 def _check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
@@ -792,18 +850,25 @@ def temporal_attention(qkv: torch.Tensor, num_heads: int,
 
 def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """x (B, T, N, D) bf16 frame-major -> x + temporal_fc(proj(MHSA over T
-    (LN x))) as (B, T, N, D) ``out_dtype``: f32 (the whole-block tier's
-    carry) or bf16 (the per-phase tier, bf16(x + bf16(fc))). Kernel on
+    """x (B, T, N, D) frame-major -> x + temporal_fc(proj(MHSA over T
+    (LN x))) as (B, T, N, D) ``out_dtype``. Three tiers: bf16 x with f32
+    out (the whole-block tier's carry) or bf16 out (the per-phase tier,
+    bf16(x + bf16(fc))); f32 x with f32 out (the mixed teacher's block
+    boundary: LN on the f32 rows, the residual added in f32). Kernel on
     CUDA, plain twin on CPU."""
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype {out_dtype}: f32 or bf16")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
+    x_f32 = x.dtype == torch.float32
+    if x_f32 and out_dtype != torch.float32:
+        raise TypeError("x: f32 rows are the mixed tier, which writes f32")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
     _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
     if dev.type == "cpu":
         check_temporal_attn_smem(B * N, T, D // num_heads)
@@ -811,21 +876,22 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
 
     from . import _build
 
+    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc_w=p["fc_w"])
     lib = _build.load()
     check_temporal_attn_smem(B * N, T, D // num_heads, lib)
-    M = B * T * N
     out = torch.empty((B, T, N, D), dtype=out_dtype, device=dev)
     # Scratch is freed on return while the kernels may still run: the
     # caching allocator hands it out again only to later work on this
     # stream, which is the stream the kernels run on.
-    ws = torch.empty(M * 5 * D, dtype=torch.bfloat16, device=dev)
+    ws = _ws(temporal_phase_tm_ws(B, T, N, D, lib), dev)
     bf16_out = out_dtype == torch.bfloat16
     with torch.cuda.device(dev):  # the launch goes to the current device
         _run(lib.dvst_temporal_phase_tm, x.data_ptr(),
              *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
-             out.data_ptr(), B, T, N, D, num_heads, int(bf16_out),
+             out.data_ptr(), B, T, N, D, num_heads, int(x_f32), int(bf16_out),
              _stream(dev))
-    launches["temporal_phase_tm_bf16" if bf16_out else "temporal_phase_tm"] += 1
+    launches["temporal_phase_tm_f32" if x_f32 else "temporal_phase_tm_bf16"
+             if bf16_out else "temporal_phase_tm"] += 1
     return out
 
 
@@ -915,10 +981,11 @@ def temporal_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
 
     from . import _build
 
+    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc_w=p["fc_w"])
     lib = _build.load()
     check_temporal_attn_smem(S, L, D // num_heads, lib)
     out = torch.empty((S, L, D), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(S * L * 5 * D, dtype=torch.bfloat16, device=dev)
+    ws = _ws(temporal_phase_tm_ws(S, L, 1, D, lib), dev)
     with torch.cuda.device(dev):
         _run(lib.dvst_temporal_phase, x.data_ptr(),
              *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
@@ -928,46 +995,50 @@ def temporal_phase(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
 
 
 def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
-    """x1 (B, T, N, D) f32 carry, cls (B, 1, D) bf16 -> (grid (B, T, N, D)
-    bf16, per-frame CLS rows (B, T, D) f32). Kernel on CUDA, plain twin on
-    CPU."""
+    """x1 (B, T, N, D) f32 carry, cls (B, 1, D) bf16 or f32 -> (grid (B, T,
+    N, D) in cls's dtype, per-frame CLS rows (B, T, D) f32). The block
+    boundary's dtype picks the tier: bf16, or f32 for the mixed teacher
+    (the CLS row's LN reads it unrounded, the grid is written in f32).
+    Kernel on CUDA, plain twin on CPU."""
     if x1.dim() != 4:
         raise ValueError(f"x1: expected (B, T, N, D), got {tuple(x1.shape)}")
+    if cls.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"cls: dtype {cls.dtype}, expected bfloat16 or float32")
     B, T, N, D = x1.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x1)
     _check_geometry(D, num_heads, Dh)
     _check_tensor("x1", x1, torch.float32, x1.shape, dev)
-    _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
+    _check_tensor("cls", cls, cls.dtype, (B, 1, D), dev)
     _check_weights(p, SPATIAL_KEYS, _spatial_shapes(D, Dh), dev)
     if dev.type == "cpu":
         return spatial_mlp_plain(x1, cls, p, num_heads)
 
     from . import _build
 
+    _check_aligned(x1=x1, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc1_w=p["fc1_w"],
+                   fc2_w=p["fc2_w"])
     lib = _build.load()
     check_spatial_attn_smem(lib, N + 1, D // num_heads)
-    M = B * T * N
-    out = torch.empty((B, T, N, D), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, T, N, D), dtype=cls.dtype, device=dev)
     cls_rows = torch.empty((B, T, D), dtype=torch.float32, device=dev)
-    ws = torch.empty(M * (5 * D + Dh) + B * 4 * D + B * T * D,
-                     dtype=torch.bfloat16, device=dev)
-    x2 = torch.empty((M, D), dtype=torch.float32, device=dev)
+    ws = _ws(spatial_mlp_ws(B, T, N, D, Dh, lib), dev)
+    f32 = cls.dtype == torch.float32
     with torch.cuda.device(dev):
         _run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_KEYS), ws.data_ptr(),
-             x2.data_ptr(), out.data_ptr(), cls_rows.data_ptr(),
-             B, T, N, D, num_heads, Dh,
-             torch.cuda.current_stream(dev).cuda_stream)
-    launches["spatial_mlp"] += 1
+             out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads, Dh,
+             int(f32), _stream(dev))
+    launches["spatial_mlp_f32" if f32 else "spatial_mlp"] += 1
     return out, cls_rows
 
 
 def divided_block_wb(p: dict, cls: torch.Tensor, grid: torch.Tensor,
                      num_heads: int):
-    """Whole divided block: cls (B, 1, D) bf16, grid (B, T, N, D) bf16 ->
-    (cls, grid) bf16, with the f32 intra-block carry between the two ops
-    and the CLS row updated in plain f32 torch (erf GELU)."""
+    """Whole divided block: cls (B, 1, D), grid (B, T, N, D), both bf16 or
+    (the mixed teacher's tier) both f32 -> (cls, grid) in that dtype, with
+    the f32 intra-block carry between the two ops and the CLS row updated
+    in plain f32 torch (erf GELU), as JAX's ``clsf.astype(cls.dtype)``."""
     x1 = temporal_phase_tm(grid, p["temporal"], num_heads)
     grid_out, cls_frames = spatial_mlp(x1, cls, p["spatial"], num_heads)
     s = p["spatial"]
@@ -980,33 +1051,38 @@ def divided_block_wb(p: dict, cls: torch.Tensor, grid: torch.Tensor,
 
 
 def mlp_phase(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
-    """x (M, D) bf16 rows -> [x +] fc2(GELU(fc1(LN x))) as (M, D) bf16, with
-    the ``MLP_KEYS`` weights of ``block_params(...)["spatial"]``. Kernel on
-    CUDA, plain twin on CPU."""
+    """x (M, D) rows -> [x +] fc2(GELU(fc1(LN x))) as (M, D) in x's dtype,
+    with the ``MLP_KEYS`` weights of ``block_params(...)["spatial"]``: bf16
+    rows round fc2's output before the residual add; f32 rows (the mixed
+    teacher's banded grid) add it unrounded. Kernel on CUDA, plain twin on
+    CPU."""
     if x.dim() != 2:
         raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
     M, D = x.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x)
     if D % 128 or D > 1024 or Dh % 128:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
     _check_weights(p, MLP_KEYS, _spatial_shapes(D, Dh), dev)
     if dev.type == "cpu":
         return mlp_phase_plain(x, p, residual)
 
     from . import _build
 
+    _check_aligned(x=x, fc1_w=p["fc1_w"], fc2_w=p["fc2_w"])
     lib = _build.load()
-    out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(M * (D + Dh), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((M, D), dtype=x.dtype, device=dev)
+    ws = _ws(mlp_phase_ws(M, D, Dh, lib), dev)
+    x_f32 = x.dtype == torch.float32
     with torch.cuda.device(dev):
         _run(lib.dvst_mlp_phase, x.data_ptr(),
              *(p[k].data_ptr() for k in MLP_KEYS), ws.data_ptr(),
-             out.data_ptr(), M, D, Dh, int(residual),
-             torch.cuda.current_stream(dev).cuda_stream)
-    launches["mlp_phase"] += 1
+             out.data_ptr(), M, D, Dh, int(residual), int(x_f32), _stream(dev))
+    launches["mlp_phase_f32" if x_f32 else "mlp_phase"] += 1
     return out
 
 

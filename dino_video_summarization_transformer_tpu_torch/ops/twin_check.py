@@ -35,6 +35,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 REL_RMS_TOL = 1e-2
@@ -87,6 +88,23 @@ def rounding_ulps(got: torch.Tensor, want: torch.Tensor,
     ref_max = float((want - base.float()).abs().max())
     mag = torch.maximum(got.abs(), want.abs()).clamp_min(ref_max)
     return float(((got - want).abs() / _bf16_ulp(mag)).max())
+
+
+def offset_rows(rng: np.random.RandomState, shape, offset: float = 4.0,
+                spread: float = 0.1) -> np.ndarray:
+    """f32 rows (last axis) with a large common offset (of either sign and
+    of magnitude ``offset`` x (1 + |N(0, 1)|) a row) and a small spread
+    (``spread`` x N(0, 1) an element): the inputs on which the card holds
+    the f32 ("mixed") tiers to their twins. Rounded to bf16 (an ulp of 2^-5
+    or more at |offset| >= 4), such a row loses ~10 % of its spread before
+    LayerNorm rescales it, so a kernel that rounds an f32 input to bf16
+    fails the bounds above; on unit-variance rows the same rounding moves
+    LN's output ~0.4 % and passes them."""
+    shape = tuple(shape)
+    rows = shape[:-1] + (1,)
+    mag = offset * (1.0 + np.abs(rng.randn(*rows)))
+    sign = np.where(rng.rand(*rows) < 0.5, -1.0, 1.0)
+    return (sign * mag + spread * rng.randn(*shape)).astype(np.float32)
 
 
 def twin_failures(gap: Dict[str, float]) -> List[str]:

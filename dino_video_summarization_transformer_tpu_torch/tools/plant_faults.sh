@@ -33,13 +33,21 @@
 # every row's window shifted by one frame, and with each frame's P V
 # divided by the sum of the exponentials over the strip's frames so far
 # instead of its own pair's; row 5's attention over sequences of L - 1
-# rows. Name faults as arguments to run only those:
+# rows; the mixed teacher's f32 tiers: row 1's LN reading its f32 x as
+# bf16 elements, row 2's wrapper handing the kernel the f32 CLS row
+# rounded to bf16 before its LN, row 3's f32 residual read
+# through the bf16-residual epilogue. Name faults as arguments to run only
+# those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
 #     bash .../plant_faults.sh no_rowsum dw_transposed bwd_cls_key_dropped bwd_dk_first_strip dw_desc_offsets_swapped
 #     bash .../plant_faults.sh no_rowsum_row7 dw_transposed_row7 bwd_strided_seq_unmasked bwd_temporal_stride_one ln_bwd_mean_term_dropped
 #     bash .../plant_faults.sh cls_self_dropped cls_window_shifted cls_norm_over_frames attn_phase_seq_short
+#     bash .../plant_faults.sh f32_in_read_as_bf16 cls_rounded_bf16 mixed_residual_bf16
+#
+# A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
+# Python module).
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -80,3 +88,6 @@ run cls_self_dropped banded_block.cu 's/const float e0 = ex2(fmaf(self0, sl, -mx
 run cls_window_shifted banded_block.cu 's/const int lo0 = band_lo(i0 + r0 + g, eff, hi), lo1 = band_lo(i0 + r0 + g + 8, eff, hi);/const int lo0 = band_lo(i0 + r0 + g, eff, hi) + 1, lo1 = band_lo(i0 + r0 + g + 8, eff, hi) + 1;/'
 run cls_norm_over_frames banded_block.cu 's/  float acc\[CH\]\[4\];                \/\/ the rows. running sums over their frames/  float acc[CH][4], lt0 = 0.f, lt1 = 0.f;/; s/const float inv0 = 1.f \/ (l0 + e0), inv1 = 1.f \/ (l1 + e1);/lt0 += l0 + e0; lt1 += l1 + e1; const float inv0 = 1.f \/ lt0, inv1 = 1.f \/ lt1;/'
 run attn_phase_seq_short fused_block.cu 's/tc_strided_attn(hd, qkv, buf, S, L, 1, H,/tc_strided_attn(hd, qkv, buf, S, L - 1, 1, H,/'
+run f32_in_read_as_bf16 fused_block.cu 's/e = ln_launch<float>(static_cast<const float\*>(x_), lw, lb, w.buf1, M, D, st);/e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.buf1, M, D, st);/'
+run cls_rounded_bf16 ../fused_block.py 's/_run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),/_run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.to(torch.bfloat16).to(cls.dtype).data_ptr(),/'
+run mixed_residual_bf16 fused_block.cu 's/wg_gemm<kEpiResF32F32>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st)/wg_gemm<kEpiResBf16F32>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st)/'

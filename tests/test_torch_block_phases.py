@@ -270,7 +270,7 @@ def test_f32_use_fused_raises(pair):
     blk = model.blocks[0]
     cls, grid = model.tokens(torch.zeros(1, 3, 3, 32, 32))
     _, Tx, Nx, _ = grid.shape
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="queue 2 item A3"):
         blk(cls, grid.reshape(1, Tx * Nx, D), 1, Tx, Nx, use_fused=True)
     with pytest.raises(NotImplementedError):
         tsf.mlp_phase_res(blk.norm2, blk.mlp, torch.zeros(2, 1, D),

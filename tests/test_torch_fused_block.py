@@ -159,11 +159,14 @@ def test_kernel_route_forward_matches_pallas_forward(T):
 
 
 def test_wrapper_checks_inputs_on_cpu():
-    """The wrapper validates what the kernel would take, on any device."""
+    """The wrapper validates what the kernel would take, on any device: f32
+    rows are the mixed tier, which writes f32 only; f16 is no tier."""
     _, p = _block()
     x = torch.zeros(1, 3, 4, D, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        fb.temporal_phase_tm(x.float(), p["temporal"], H)
+        fb.temporal_phase_tm(x.float(), p["temporal"], H, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fb.temporal_phase_tm(x.half(), p["temporal"], H)
     with pytest.raises(ValueError):
         fb.temporal_phase_tm(x[:, :, :, :96].contiguous(), p["temporal"], H)
     with pytest.raises(ValueError):  # head dim 128 / 3 is not a multiple of 16

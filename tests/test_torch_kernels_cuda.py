@@ -120,8 +120,8 @@ def test_forward_kernels_match_twins(cuda_device):
 def test_wrapper_rejects_bad_inputs(cuda_device):
     p = _block(128, 2, 0, cuda_device)["temporal"]
     x = torch.zeros(1, 3, 4, 128, device=cuda_device, dtype=torch.float32)
-    with pytest.raises(TypeError):
-        fb.temporal_phase_tm(x, p, 2)  # f32 in: the kernel takes bf16
+    with pytest.raises(TypeError):  # f32 in is the mixed tier: f32 out only
+        fb.temporal_phase_tm(x, p, 2, out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fb.temporal_phase_tm(x.to(torch.bfloat16), p, 3)  # 128 % 3
 
@@ -309,7 +309,10 @@ def test_banded_forward_kernels_match_twins(cuda_device, t_real, eff):
     with torch.inference_mode():
         got = banded.banded_cls_features(gpu, fr.to(cuda_device), t_real, eff)
         want = banded.banded_cls_features(cpu, fr, t_real, eff)
-    assert all(bb.launches[k] == before[k] + 2 for k in before)
+    # the bf16 tiers, each once per block (the f32 tier of row 11 not at all)
+    assert all(bb.launches[k] == before[k] + 2
+               for k in ("banded_temporal_attn", "spatial_phase_pf", "cls_band_attn"))
+    assert bb.launches["spatial_phase_pf_f32"] == before["spatial_phase_pf_f32"]
     _close(got.cpu()[:t_real], want[:t_real])
 
 
@@ -1154,3 +1157,174 @@ def test_layer_norm_bwd_kernel_matches_twin(cuda_device, M, P, tail_div, D, resi
         assert got[1] is None
     _close(got[2], want[2])
     _close(got[3], want[3])
+
+
+# ---------------------------------------------------------------------------
+# The mixed teacher's f32 tiers (rows 1, 2, 3, 11), their workspaces, the
+# wrappers' alignment checks, and the mixed forwards against the twins.
+# Inputs: f32 rows with a large common offset and a small spread
+# (twin_check.offset_rows), on which a kernel that rounds an f32 input to
+# bf16 fails the bound. Shapes: the main path's at ViT-B widths and row
+# counts that are no multiple of the GEMM's 128-row tiles (M = 105, 200).
+# ---------------------------------------------------------------------------
+
+F32_SHAPES = [(8, 30, 196, 768, 12), (8, 3, 196, 768, 12), (1, 5, 4, 256, 4),
+              (3, 7, 5, 128, 2)]
+
+
+def _offset(shape, seed, device):
+    return torch.from_numpy(twin_check.offset_rows(np.random.RandomState(seed),
+                                                   shape)).to(device)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", F32_SHAPES)
+def test_temporal_phase_tm_f32_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["temporal"]
+    x = _offset((B, T, N, D), 71, cuda_device)
+    before = dict(fb.launches)
+    got = fb.temporal_phase_tm(x, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["temporal_phase_tm_f32"] == before["temporal_phase_tm_f32"] + 1
+    assert fb.launches["temporal_phase_tm"] == before["temporal_phase_tm"]
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _close(got, fb.temporal_phase_tm_plain(x, p, H), x)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", F32_SHAPES)
+def test_spatial_mlp_f32_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x1, cls = _offset((B, T, N, D), 72, cuda_device), _offset((B, 1, D), 73, cuda_device)
+    before = fb.launches["spatial_mlp_f32"]
+    grid, rows = fb.spatial_mlp(x1, cls, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_mlp_f32"] == before + 1
+    assert grid.dtype == rows.dtype == torch.float32
+    want_grid, want_rows = fb.spatial_mlp_plain(x1, cls, p, H)
+    _close(grid, want_grid, x1)
+    _close(rows, want_rows)
+
+
+@pytest.mark.parametrize("M,D,H", [(200, 256, 4), (105, 128, 2), (512 * 196, 768, 12),
+                                   (16 * 8 * 196, 768, 12)])
+def test_mlp_phase_f32_kernel_matches_twin(cuda_device, M, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x = _offset((M, D), 74, cuda_device)
+    before = fb.launches["mlp_phase_f32"]
+    got = fb.mlp_phase(x, p)
+    torch.cuda.synchronize()
+    assert fb.launches["mlp_phase_f32"] == before + 1
+    assert got.dtype == torch.float32
+    _close(got, fb.mlp_phase_plain(x, p), x)
+    branch = fb.mlp_phase(x, p, residual=False)
+    assert branch.dtype == torch.float32
+    _close(branch, fb.mlp_phase_plain(x, p, residual=False))
+
+
+@pytest.mark.parametrize("C,N,D,H", [(64, 16, 256, 4), (50, 196, 256, 2),
+                                     (512, 196, 768, 12), (7, 15, 128, 2)])
+def test_spatial_phase_pf_f32_kernel_matches_twin(cuda_device, C, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x, cls = _offset((C, N, D), 75, cuda_device), _offset((C, D), 76, cuda_device)
+    before = bb.launches["spatial_phase_pf_f32"]
+    got = bb.spatial_phase_pf(x, cls, p, H)
+    torch.cuda.synchronize()
+    assert bb.launches["spatial_phase_pf_f32"] == before + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == got[2].dtype == torch.bfloat16
+    want = bb.spatial_phase_pf_plain(x, cls, p, H)
+    _close(got[0], want[0], x)
+    _close(got[1], want[1])
+    _close(got[2], want[2])
+
+
+@pytest.mark.parametrize("B,T,N,D,Dh", [(8, 30, 196, 768, 3072), (8, 3, 196, 768, 3072),
+                                        (3, 7, 5, 128, 512), (1, 1, 1, 128, 128)])
+def test_workspace_mirrors_are_the_librarys(cuda_device, B, T, N, D, Dh):
+    """The wrappers' workspace mirrors (what the CPU twins and the CPU
+    tests read) equal the library's ``*_ws`` answers, which the wrappers
+    allocate on the card."""
+    lib, blib = _build.load(), _build.load("banded")
+    M = B * T * N
+    assert fb.temporal_phase_tm_ws(B, T, N, D) == fb.temporal_phase_tm_ws(B, T, N, D, lib)
+    assert fb.spatial_mlp_ws(B, T, N, D, Dh) == fb.spatial_mlp_ws(B, T, N, D, Dh, lib)
+    assert fb.mlp_phase_ws(M, D, Dh) == fb.mlp_phase_ws(M, D, Dh, lib)
+    assert bb.spatial_phase_pf_ws(B * T, N, D) == bb.spatial_phase_pf_ws(B * T, N, D, blib)
+
+
+def _misaligned(t):
+    """A view of ``t``'s values that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("op", ["temporal_phase_tm", "temporal_phase", "spatial_mlp",
+                                "mlp_phase", "banded_temporal_attn", "spatial_phase_pf"])
+def test_wrappers_refuse_unaligned_views(cuda_device, op):
+    """Rows 1 (and 1b), 6, 2, 3, 10 and 11 read their inputs and weights
+    through TMA, cp.async or 16-byte loads: a view one element in raises a
+    ValueError before any launch, not a CUDA error."""
+    D, H = 256, 4
+    blk = _block(D, H, 0, cuda_device)
+    pt, ps = blk["temporal"], blk["spatial"]
+    x4 = _qkv((2, 3, 4, D), 80, cuda_device)
+    calls = {
+        "temporal_phase_tm": (lambda x, p: fb.temporal_phase_tm(x, p, H), x4, pt,
+                              ("qkv_w", "proj_w", "fc_w"), fb.launches),
+        "temporal_phase": (lambda x, p: fb.temporal_phase(x, p, H),
+                           _qkv((6, 5, D), 81, cuda_device), pt,
+                           ("qkv_w", "proj_w", "fc_w"), fb.launches),
+        "spatial_mlp": (lambda x, p: fb.spatial_mlp(x, x4[:, :1, 0].contiguous(), p, H),
+                        x4.float(), ps, ("qkv_w", "proj_w", "fc1_w", "fc2_w"), fb.launches),
+        "mlp_phase": (lambda x, p: fb.mlp_phase(x, p), _qkv((50, D), 82, cuda_device), ps,
+                      ("fc1_w", "fc2_w"), fb.launches),
+        "banded_temporal_attn": (lambda x, p: bb.banded_temporal_attn(x, 8, 3, H),
+                                 _qkv((8, 4, 3 * D), 83, cuda_device), None, (), bb.launches),
+        "spatial_phase_pf": (lambda x, p: bb.spatial_phase_pf(
+            x, _qkv((8, D), 84, cuda_device).to(x.dtype), p, H),
+            _qkv((8, 4, D), 85, cuda_device), ps, ("qkv_w", "proj_w"), bb.launches),
+    }
+    fn, x, p, weights, counter = calls[op]
+    before = dict(counter)
+    fn(x, p)  # aligned: runs
+    torch.cuda.synchronize()
+    assert counter != before
+    before = dict(counter)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(_misaligned(x), p)
+    for k in weights:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(x, {**p, k: _misaligned(p[k])})
+    if op in ("temporal_phase_tm", "mlp_phase"):  # the f32 tier too
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(_misaligned(x.float()), p)
+    assert counter == before
+
+
+@pytest.mark.parametrize("band", [None, (64, 30), (50, 3)])
+def test_mixed_teacher_forward_kernels_match_twins(cuda_device, band):
+    """A whole f32 (mixed-teacher) forward on the kernels against the same
+    forward with the twins (CPU), at depth 2, windowed and banded: the
+    features held by the card's bound, the f32 tiers launched."""
+    cfg = tsf.TimeSformerConfig(img_size=64, patch_size=16, embed_dim=256,
+                                depth=2, num_heads=4, num_frames=8,
+                                num_classes=0, use_kernels=True)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 13), cfg)
+    gpu = tsf.build_timesformer(cfg, sd, device=cuda_device, dtype=torch.float32)
+    cpu = tsf.build_timesformer(cfg, sd, device="cpu", dtype=torch.float32)
+    before = {**fb.launches, **bb.launches}
+    with torch.inference_mode():
+        if band is None:
+            x = torch.from_numpy(np.random.RandomState(14).randn(2, 3, 6, 64, 64)).float()
+            got, want = gpu(x.to(cuda_device)).cpu(), cpu(x)
+            tiers = ("temporal_phase_tm_f32", "spatial_mlp_f32")
+        else:
+            t_real, eff = band
+            fr = torch.from_numpy(np.random.RandomState(15).randn(64, 64, 64, 3)).float()
+            got = banded.banded_cls_features(gpu, fr.to(cuda_device), t_real, eff).cpu()
+            want = banded.banded_cls_features(cpu, fr, t_real, eff)
+            got, want = got[:t_real], want[:t_real]
+            tiers = ("spatial_phase_pf_f32", "mlp_phase_f32")
+    after = {**fb.launches, **bb.launches}
+    assert all(after[k] == before[k] + 2 for k in tiers), (before, after)
+    _close(got, want)
