@@ -11,7 +11,14 @@ Imports torch, numpy and the port package
    process per source, all started together; print each library's build
    time and ptxas's register / shared-memory lines (and its stack and
    spill lines where they are not zero).
-3. kernels: each kernel against its plain twin on the card at ViT-B/16
+3. kernels: first the frame wire's gather (``wire.gather_normalize``)
+   against its twin, bit for bit (max abs 0), on the rgb8, yuv420 and
+   yuv420q layouts in f32 and bf16: the teacher (8 x 30) and student
+   (8 x 3) views of one chunk from a 64-frame buffer, the banded flat
+   gather (512 indices with padding repeats) from a 600-frame buffer, and
+   packed 226 x 224 frames (H = 2 mod 4); its device time
+   (torch.profiler), CUDA-event time a call, plain time and bytes bound.
+   Then each kernel against its plain twin on the card at ViT-B/16
    widths (N=196, D=768, H=12, MLP 3072): the windowed pair at the teacher
    (B=8, T=30) and student (B=8, T=3) windows of the chunk-8 scorer; the
    training ops (the bf16 tier of the temporal op, the spatial phase, and
@@ -95,6 +102,17 @@ Imports torch, numpy and the port package
    30-frame windows: the mixed teacher's closer to the f32 teacher's than
    the bf16 teacher's (the losses cannot show the teacher's precision
    where its softmax at temperature 0.02 is one-hot).
+4c. windowed path on the frame wire: the clips' bytes (``make_video``'s
+   uint8) packed as I420 (``yuv.pack_rgb``) and, unpacked on the host, as
+   uint8 RGB; ``make_scorers`` + ``run_scoring`` on the bf16 kernel path on
+   each, and the mixed teacher on packed: the wire's gather launched
+   once per view gather (2 x chunks), the windowed kernels as in phases 4
+   and 4b, frames/s beside phase 4's, a profiled run's families; each
+   run's losses held (a) against the same scorer fed the f32 frames the
+   twin makes on the card from the same bytes (identical views: <= 1e-6
+   mean relative), (b) against the same scorer with every kernel op and
+   the gather through its twin (``twins``) and (c) against the f32 path
+   on the same wire, by phase 4's two rules.
 6. banded path, bf16: ``make_scorers(band_mode="both")`` + ``run_scoring``
    over clips of 64, 40 and 600 frames (the last in two segments at
    ``band_chunk`` 512, halo 32: buckets 512 and 256); launch counters read
@@ -112,7 +130,11 @@ Imports torch, numpy and the port package
    teacher pass it would run (``banded.banded_cls_features`` on an f32
    model on the kernels: rows 11 and 3's f32 tiers) on the 64-frame
    clip, its CLS rows strictly closer to the f32 banded teacher's (TF32
-   off) than the bf16 banded teacher's on the kernels.
+   off) than the bf16 banded teacher's on the kernels. Then the 600-frame
+   clip on the wire (packed I420): the gather once per segment, losses
+   held by phase 4c's (a)-(c) at the banded tolerance, and profiles of the
+   float and the wire path: the host-to-device copy's device ms, its bytes
+   and the clip's device busy ms.
 7. DINO SSL train step, bf16: ``init_train_state`` + ``make_train_step``
    on ViT-B/16 (T=8, batch 8: 16 global 224-px and 64 local 96-px clips,
    out_dim 65536, AdamW) on the kernel route; launch counters read around
@@ -507,7 +529,8 @@ FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "ln_bwd_kernel": "::ln_bwd_kernel<", "colsum_kernel": "::colsum_kernel<",
             "reduce_splits_narrow": "::reduce_splits_narrow_kernel(",
             "reduce_splits": "::reduce_splits_kernel(",
-            "cls_band_tc": "::cls_band_tc_kernel<"}
+            "cls_band_tc": "::cls_band_tc_kernel<",
+            "gather_normalize": "::gather_normalize_kernel<"}
 # launches of each family per call of the ops that use them: every row on
 # the wgmma GEMM and the tiles (row 4: qkv of the grid and of the CLS
 # rows, proj of each; row 5: qkv, proj, the tile at stride 1; row 7: qkv
@@ -534,6 +557,7 @@ FAMILY_PER_OP = {
     "spatial_phase": {"ln_kernel": 2, "wg_gemm_kernel": 4, "tc_prefix_attn": 1},
     "attn_phase": {"ln_kernel": 1, "wg_gemm_kernel": 2, "tc_strided_attn": 1},
     "cls_band_attn": {"cls_band_tc": 1},
+    "gather_normalize": {"gather_normalize": 1},
     "temporal_phase_tm_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 8, "tc_strided_attn": 1,
                               "tc_strided_attn_bwd": 1, "ln_bwd_kernel": 1,
                               "colsum_kernel": 3, "reduce_splits_narrow": 4},
@@ -756,7 +780,7 @@ def twins(*modules):
     teacher: the same dtype policy, the kernels' arithmetic in torch). The
     ops' launch counters do not move."""
     ops = ("temporal_phase_tm", "spatial_mlp", "mlp_phase", "banded_temporal_attn",
-           "spatial_phase_pf", "cls_band_attn")
+           "spatial_phase_pf", "cls_band_attn", "gather_normalize")
     saved = [(m, k, getattr(m, k)) for m in modules for k in ops if hasattr(m, k)]
     try:
         for m, k, _ in saved:
@@ -788,7 +812,8 @@ def main():
             banded, convert, timesformer as tsf)
         from dino_video_summarization_transformer_tpu_torch.ops import (
             _build, attention as fa, banded_block as bb, fused_block as fb,
-            twin_check)
+            twin_check, wire)
+        from dino_video_summarization_transformer_tpu_torch.data import yuv
         from dino_video_summarization_transformer_tpu_torch.tools import (
             cls_band_bench, smem_probe)
         from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (
@@ -856,6 +881,74 @@ def main():
     stats = {"temporal_phase_tm": [], "spatial_mlp": [],
              "banded_temporal_attn": [], "spatial_phase_pf": [],
              "cls_band_attn": [], "mlp_phase": []}
+
+    # the frame wire's gather first, so that a fault in it shows within the
+    # first minute: kernel against twin bit for bit (max abs 0) on the
+    # three layouts in f32 and bf16, at the teacher views of one chunk (8 x
+    # 30 frames gathered from a 64-frame buffer by the scorer's windows),
+    # the students' (8 x 3), the banded flat gather (512 indices, padding
+    # repeating the segment's last frame, from a 600-frame buffer), and
+    # packed 226 x 224 frames (H = 2 mod 4: the U plane ends mid-row).
+    # Any bytes are a packed frame, so the buffers are random bytes.
+    print("  the frame wire's gather (gather_normalize), kernel vs twin bit for "
+          "bit", flush=True)
+    r = np.random.RandomState(13)
+    wloc, wglob, _ = window_indices(64, 3, 30)
+    wire_idx = {"teacher": wglob[:8], "student": wloc[:8],
+                "band": np.minimum(np.arange(BAND_C), 479)}
+    stats["gather_normalize"], wire_cases = [], []
+    bf16, f32t = torch.bfloat16, torch.float32
+    for layout in ("yuv420", "rgb8", "yuv420q"):
+        for n_frames, H_img in ((64, 224), (600, 224), (8, 226)):
+            if H_img == 226 and layout != "yuv420":
+                continue
+            shape = ((n_frames, H_img, 224, 3) if layout == "rgb8" else
+                     (n_frames, yuv.packed_height(H_img), 224) if layout == "yuv420"
+                     else (n_frames, yuv.packed_q_height(H_img, 224), 224))
+            buf = torch.from_numpy(r.randint(0, 256, shape, dtype=np.uint8)).to(dev)
+            kinds = (["band"] if n_frames == 600 else ["teacher", "student"]
+                     if H_img == 224 else ["odd"])
+            for kind in kinds:
+                idx = r.randint(0, n_frames, 20) if kind == "odd" else wire_idx[kind]
+                for dt in (bf16, f32t):
+                    with torch.inference_mode():
+                        got = wire.gather_normalize(buf, idx, dt, layout)
+                        want = wire.gather_normalize_plain(buf, idx, dt, layout)
+                    err = float((got.float() - want.float()).abs().max())
+                    tag = f"{layout} {kind} M={idx.size} H={H_img} {str(dt)[6:]}"
+                    if not torch.equal(got, want):
+                        fail(f"gather_normalize {tag}: kernel differs from its twin "
+                             f"(max abs {err:.3e})")
+                    del got, want
+                    M = idx.size
+                    nbytes = wire.gather_bytes(buf, idx, dt, layout)
+                    rows, _ = kernel_breakdown(lambda: [wire.gather_normalize(
+                        buf, idx, dt, layout) for _ in range(10)])
+                    dev_ms = [ms / n for k, n, ms in rows if "gather_normalize_kernel" in k]
+                    if not dev_ms:
+                        fail(f"gather_normalize {tag}: the profile saw no kernel")
+                    ev = cuda_ms(lambda: wire.gather_normalize(buf, idx, dt, layout), 20)
+                    pl = cuda_ms(lambda: wire.gather_normalize_plain(buf, idx, dt, layout),
+                                 5, warmup=1)
+                    b, by = bound_ms(0, nbytes)
+                    row = {"layout": layout, "kind": kind, "M": int(M), "H": H_img,
+                           "dtype": str(dt)[6:], "ms": dev_ms[0], "event_ms": ev,
+                           "plain_ms": pl, "bound_ms": b, "bound_by": by,
+                           "library_ms": None, "max_abs_err": err, "bytes": nbytes}
+                    wire_cases.append(row)
+                    # the kernels line sums the main path's calls on its
+                    # default wire: a chunk's teacher and student views (bf16;
+                    # f32 for the mixed teacher's) and a banded segment's
+                    if layout == "yuv420" and H_img == 224 and (
+                            dt == bf16 or kind == "teacher"):
+                        stats["gather_normalize"].append(row)
+                    print(f"  gather_normalize {tag}: bit-equal, device {dev_ms[0]:.4f} "
+                          f"ms (events {ev:.4f} ms a call, host included), plain "
+                          f"{pl:.3f} ms, bound {b:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                          f"{b / dev_ms[0]:.1%} of bound", flush=True)
+            del buf
+    torch.cuda.empty_cache()
+    part("the wire gather")
     for B, T in [(8, 30), (8, 3)]:
         r = np.random.RandomState(T)
         x = torch.from_numpy(r.randn(B, T, N, D)).to(dev, torch.bfloat16)
@@ -982,7 +1075,6 @@ def main():
     part("the f32 tiers")
 
     # the training ops at the train step's global and local crop shapes
-    bf16 = torch.bfloat16
     for k in TRAIN_OPS:
         stats[k] = []
     mlp_crops = []
@@ -1741,7 +1833,7 @@ def main():
         loc, glob, eff = window_indices(T, 3, 30)
         return {"path": f"clip{i}.mp4", "frames": frames, "local_idx": loc,
                 "global_idx": glob, "eff_global": eff, "num_frames": T,
-                "local_size": 3, "dummy": False}
+                "local_size": 3, "dummy": False, "u8": vid}
 
     items = [clip_item(i, T) for i, T in enumerate(BAND_CLIPS[:2])]
     n_frames = sum(it["num_frames"] for it in items)
@@ -1760,12 +1852,43 @@ def main():
             return json.load(f)
 
     def reset_counts():
-        for mod in (fb, bb, fa, smem_probe):
+        for mod in (fb, bb, fa, smem_probe, wire):
             mod.reset_launches()
 
     def counts():
         return {**fb.launches, **bb.launches, **fa.launches,
-                **smem_probe.launches}
+                **smem_probe.launches, **wire.launches}
+
+    def on_wire(its, frames):
+        """The items with their frames replaced (``frames(item)``)."""
+        return [{**it, "frames": frames(it)} for it in its]
+
+    def twin_floats(its, layout):
+        """The f32 frames the wire's twin makes on the card from each
+        item's bytes: a float path fed these reads the kernel path's views
+        bit for bit."""
+        return on_wire(its, lambda it: wire.gather_normalize_plain(
+            torch.from_numpy(it["frames"]).to(dev), np.arange(it["num_frames"]),
+            torch.float32, layout).cpu().numpy())
+
+    def same_losses(tag, clips, got, want):
+        """Check (a): the wire's kernel path against the same scorer fed the
+        twin's float frames, <= 1e-6 mean relative (identical views)."""
+        for key, _ in clips:
+            k, w = np.asarray(got[key]), np.asarray(want[key])
+            rel = float(np.mean(np.abs(k - w)) / np.mean(np.abs(w)))
+            print(f"  {tag} {key}: vs the same scorer on the twin's float frames: "
+                  f"mean rel {rel:.3e} (<= 1e-6), max abs {np.max(np.abs(k - w)):.3e}",
+                  flush=True)
+            if not rel <= 1e-6:
+                fail(f"{tag} {key}: the wire's losses differ from the float "
+                     "frames' the twin makes from the same bytes")
+
+    def upload_split(rows):
+        """Device ms of the host-to-device copies and of everything in a
+        profile's rows."""
+        return (sum(ms for k, _, ms in rows if "HtoD" in k),
+                sum(ms for _, _, ms in rows))
 
     windowed = ("temporal_phase_tm", "spatial_mlp")
     band_ops = ("banded_temporal_attn", "spatial_phase_pf", "cls_band_attn",
@@ -1825,7 +1948,6 @@ def main():
         lap("phases 4-5")
         print("[4b] windowed path, mixed teacher: make_scorers(teacher_dtype="
               "f32) + run_scoring, bf16 students, the same clips", flush=True)
-        f32t = torch.float32
         scorers = scorers_for(torch.bfloat16, "auto", teacher_dtype=f32t)
         sc = scorers[0]
         if not (sc.model_cfg.use_kernels and sc.t_model.pos_embed.dtype == f32t):
@@ -1892,6 +2014,67 @@ def main():
             fail("the mixed teacher's features are no closer to the f32 teacher's "
                  "than the bf16 teacher's")
         lap("phase 4b")
+
+        # -- 4c. the frame wire, windowed -------------------------------------
+        print("[4c] windowed path on the frame wire: the clips' bytes as packed "
+              "I420 (yuv420) and as uint8 RGB, bf16 kernels, and the mixed "
+              "teacher on packed", flush=True)
+        clips = [(it["path"][:-4], it["num_frames"]) for it in items]
+        packed_items = on_wire(items, lambda it: yuv.pack_rgb(it["u8"]))
+        wires = {"yuv420": packed_items,
+                 "rgb8": on_wire(packed_items, lambda it: yuv.unpack_to_rgb(it["frames"]))}
+        print(f"  upload bytes of the two clips: yuv420 "
+              f"{sum(it['frames'].nbytes for it in packed_items) / 1e6:.1f} MB, rgb8 "
+              f"{sum(it['frames'].nbytes for it in wires['rgb8']) / 1e6:.1f} MB, bf16 "
+              f"floats {sum(it['frames'].size * 2 for it in items) / 1e6:.1f} MB",
+              flush=True)
+        f32_wire = {k: run(scorers_for(torch.float32, "auto"), v, f"f32_{k}")
+                    for k, v in wires.items()}
+        want = {k: 2 * cfg.depth * chunks if k in windowed else 2 * chunks
+                if k == "gather_normalize" else 0 for k in counts()}
+        mixed_want = {k: cfg.depth * chunks if k in mixed_ops else 2 * chunks
+                      if k == "gather_normalize" else 0 for k in counts()}
+        launches_wire = {}
+        for tag, teacher, layout in (("yuv420", None, "yuv420"), ("rgb8", None, "rgb8"),
+                                     ("mixed yuv420", f32t, "yuv420")):
+            its = wires[layout]
+            scorers = scorers_for(torch.bfloat16, "auto", teacher_dtype=teacher)
+            run(scorers, its[1:], "wire_warmup")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got_w = run(scorers, its, f"wire_{layout}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seen = counts()
+            expect = mixed_want if teacher else want
+            print(f"  {tag}: launches {seen} (expected {expect}: the wire's gather once "
+                  f"per view gather, 2 x {chunks} chunks)", flush=True)
+            if seen != expect:
+                fail(f"wire {tag}: launches {seen}, expected {expect}")
+            launches_wire[tag] = seen["gather_normalize"]
+            print(f"  {tag}: frames_per_s={n_frames / wall:.2f} ms_per_chunk="
+                  f"{wall * 1e3 / chunks:.1f} (phase 4's float frames: {fps_windowed:.2f}) "
+                  f"on {card}", flush=True)
+            if tag == "yuv420":
+                checked_profile(f"{items[1]['num_frames']}-frame clip on the wire",
+                                "windowed wire path", lambda: run(scorers, its[1:], "wire_prof"),
+                                reset_counts, counts, top=8)
+            # (a) the same scorer on the twin's float frames from these bytes
+            same_losses(f"wire {tag}", clips, got_w, run(scorers, twin_floats(its, layout),
+                                                        f"wire_floats_{layout}"))
+            # (b) the same scorer with every kernel op through its twin, and
+            # (c) the f32 path on the same wire
+            reset_counts()
+            with twins(fb, bb, wire):
+                plain_w = run(scorers, its, f"wire_plain_{layout}")
+            if any(counts().values()):
+                fail(f"wire {tag}: the twins launched a kernel")
+            loss_checks(f"wire {tag}", clips, got_w, plain_w, f32_wire[layout],
+                        LOSS_REL_TOL, plain_name="plain (twins)")
+            del scorers
+        launches["gather_normalize"] = launches_wire["yuv420"]
+        lap("phase 4c")
 
         # -- 6. banded path, bf16 ---------------------------------------------
         print(f"[6] banded path, bf16: make_scorers(band_mode='both') + "
@@ -2014,6 +2197,55 @@ def main():
         if not e_tm < e_tb:
             fail("the f32 banded teacher pass is no closer to the f32 banded teacher "
                  "than the bf16 one")
+
+        # the 600-frame clip once more, its bytes on the wire (packed I420):
+        # the wire's gather once per segment (both passes read its views),
+        # losses held as phase 4c holds the windowed ones, and the upload
+        # beside the float path's
+        long_w = on_wire([long], lambda it: yuv.pack_rgb(it["u8"]))
+        key = long["path"][:-4]
+        segs_long = len(segs[2])
+        print(f"  the wire: the {long['num_frames']}-frame clip as packed I420, "
+              f"{segs_long} segments", flush=True)
+        scorers = scorers_for(torch.bfloat16, "auto", band_mode="both")
+        sc = scorers[0]
+        run(scorers, on_wire(items[1:], lambda it: yuv.pack_rgb(it["u8"])), "bw_warmup")
+        reset_counts()
+        band_w = run(scorers, long_w, "band_wire")
+        seen = counts()
+        want = {k: 2 * segs_long * cfg.depth if k in band_ops else segs_long
+                if k == "gather_normalize" else 0 for k in seen}
+        print(f"  wire launches {seen} (expected {want})", flush=True)
+        if seen != want:
+            fail(f"banded wire launches {seen}, expected {want}")
+        launches["gather_normalize_banded"] = seen["gather_normalize"]
+        same_losses("banded wire", [(key, long["num_frames"])], band_w,
+                    run(scorers, twin_floats(long_w, "yuv420"), "band_wire_floats"))
+        reset_counts()
+        with twins(fb, bb, wire):
+            band_w_plain = run(scorers, long_w, "band_wire_plain")
+        if any(counts().values()):
+            fail("banded wire: the twins launched a kernel")
+        band_w_f32 = run(scorers_for(torch.float32, "auto", band_mode="both"), long_w,
+                         "band_wire_f32")
+        loss_checks("banded wire", [(key, long["num_frames"])], band_w, band_w_plain,
+                    band_w_f32, BAND_LOSS_REL_TOL, plain_name="plain (twins)")
+        # the upload, by the profile: the float path (bf16 frames) and the wire
+        up = {}
+        for tag, fr in (("bf16 floats", long["frames"]), ("yuv420", long_w[0]["frames"])):
+            rows = checked_profile(f"{long['num_frames']}-frame clip, {tag}",
+                                   f"banded path, {tag}",
+                                   lambda: sc.score_video(fr, long["local_idx"],
+                                                          long["global_idx"],
+                                                          long["eff_global"]),
+                                   reset_counts, counts, top=6)
+            h2d, busy = upload_split(rows)
+            nbytes = fr.size * (2 if fr.dtype != np.uint8 else 1)
+            up[tag] = (h2d, busy, nbytes)
+            print(f"  upload, {tag}: {nbytes / 1e6:.1f} MB, host-to-device copies "
+                  f"{h2d:.3f} device ms ({nbytes / h2d / 1e6:.2f} GB/s), device busy "
+                  f"{busy:.1f} ms on {card}", flush=True)
+        del scorers, sc
         lap("phase 6")
 
     # -- 7. DINO SSL train step, bf16 kernel route ---------------------------------
@@ -2358,6 +2590,8 @@ def main():
         "temporal_phase": ("fused_block.cu", "ops/fused_block.py:642"),
         "fused_attention": ("attention.cu", "ops/attention.py:42"),
         "smem_probe": ("smem_probe.cu", "tools/vmem_probe.py:31"),
+        # no Pallas kernel: the XLA fusion of the gather with unpack_normalize
+        "gather_normalize": ("wire.cu", "data/yuv.py:288"),
     }
     for name in ("attn_phase", "temporal_phase"):
         launches[name] = launches[f"{name}_per_phase"]
@@ -2379,6 +2613,13 @@ def main():
         elif name == "mlp_phase_bwd":
             extra = {"launches_by_rows": launches["mlp_phase_bwd_by_rows"],
                      "per_cls_call": mlp_cls_calls}
+        elif name == "gather_normalize":
+            extra = {"launches_rgb8": launches_wire["rgb8"],
+                     "launches_mixed": launches_wire["mixed yuv420"],
+                     "launches_banded": launches["gather_normalize_banded"],
+                     "cases": wire_cases,
+                     "upload_600_frames": {k: {"h2d_device_ms": v[0], "device_busy_ms": v[1],
+                                               "bytes": v[2]} for k, v in up.items()}}
         elif name == "smem_probe":
             extra = {"budget_bytes": rows[0]["budget_bytes"],
                      "optin_bytes": rows[0]["optin_bytes"]}

@@ -1,7 +1,7 @@
 """CSV-driven datasets (counterpart of the JAX package's
 ``data/datasets.py``): ``read_csv_entries``, the scoring dataset
-``DinoLossDataset`` (rgb8 wire only) and the training dataset
-``ClipDataset`` (train mode, DINO multi-crop).
+``DinoLossDataset`` (the rgb8, yuv420 and yuv420q wires) and the training
+dataset ``ClipDataset`` (train mode, DINO multi-crop).
 
 The dataset returns the decoded frame buffer plus window *index maps*
 instead of materialized (2T, 3, 30, 224, 224) view stacks; the scorer
@@ -10,12 +10,14 @@ gathers the windows on the device (see data/windows.py).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from . import video as vio
+from . import yuv
 from .transform import (VideoDataAugmentationDINO, temporal_sampling,
                         tensor_normalize, uniform_crop)
 from .windows import WindowMismatch, window_indices
@@ -55,7 +57,12 @@ class DinoLossDataset:
 
     __getitem__ returns a dict:
       frames      (T, 224, 224, 3) float32, normalized + center-cropped,
-                  channels-last; None on dummy
+                  channels-last; with ``device_preprocess`` the center
+                  crop in uint8 (the scorer normalizes on the card); with
+                  ``wire_format`` "yuv420" / "yuv420q" the center crop of
+                  the decoder's packed I420 (T, rows, 224) uint8 (yuv420q:
+                  its chroma quartered after the crop; the scorer unpacks
+                  on the card); None on dummy
       local_idx   (T, local_size) int64
       global_idx  (T, eff_global) int64
       eff_global  int
@@ -65,7 +72,12 @@ class DinoLossDataset:
     """
 
     def __init__(self, cfg, mode: str, local_clip_size: int,
-                 global_clip_size: int, sampling_rate: int):
+                 global_clip_size: int, sampling_rate: int,
+                 device_preprocess: bool = False, wire_format: str = "rgb8"):
+        if wire_format not in ("rgb8", "yuv420", "yuv420q"):
+            raise ValueError(f"wire_format={wire_format!r}")
+        self.device_preprocess = device_preprocess
+        self.wire_format = wire_format
         self.cfg = cfg
         self.mode = mode
         self.local_clip_size = local_clip_size
@@ -102,21 +114,33 @@ class DinoLossDataset:
             return self._dummy(out, 1)
 
     def _load_item(self, path: str, out: dict) -> dict:
+        packed = self.wire_format != "rgb8"
+        read = vio.read_video_yuv420 if packed else vio.read_video
         try:
             # pre-sampling stride applied in the decoder (the reference
             # decodes everything, then slices [::rate])
-            frames_u8, _fps = vio.read_video(path, stride=self.sampling_rate)
+            frames_u8, _fps = read(path, stride=self.sampling_rate)
         except vio.DecodeError:
-            frames_u8 = np.zeros((0, 0, 0, 3), np.uint8)
-        if (frames_u8.shape[0] == 0 or frames_u8.shape[1] < self.crop_size
+            frames_u8 = np.zeros((0, 0, 0) if packed else (0, 0, 0, 3), np.uint8)
+        fh = yuv.frame_height(frames_u8.shape[1]) if packed else frames_u8.shape[1]
+        if (frames_u8.shape[0] == 0 or fh < self.crop_size
                 or frames_u8.shape[2] < self.crop_size):
             return self._dummy(out, min(self.global_clip_size,
                                         max(frames_u8.shape[0], 1)))
 
-        tchw = np.moveaxis(tensor_normalize(
-            frames_u8, self.cfg.DATA.MEAN, self.cfg.DATA.STD), -1, 1)
-        tchw, _ = uniform_crop(tchw, self.crop_size, spatial_idx=1)
-        frames = np.ascontiguousarray(np.moveaxis(tchw, 1, -1))
+        if packed:
+            # the centre crop of the packed planes, at uniform_crop's
+            # ceil-centred offsets (rounded down to even inside crop)
+            y0 = math.ceil((fh - self.crop_size) / 2)
+            x0 = math.ceil((frames_u8.shape[2] - self.crop_size) / 2)
+            frames = yuv.crop(frames_u8, y0, x0, self.crop_size, self.crop_size)
+            if self.wire_format == "yuv420q":
+                frames = yuv.quarter_chroma(frames)
+        else:
+            tchw = np.moveaxis(frames_u8 if self.device_preprocess else tensor_normalize(
+                frames_u8, self.cfg.DATA.MEAN, self.cfg.DATA.STD), -1, 1)
+            tchw, _ = uniform_crop(tchw, self.crop_size, spatial_idx=1)
+            frames = np.ascontiguousarray(np.moveaxis(tchw, 1, -1))
 
         T = frames.shape[0]
         try:

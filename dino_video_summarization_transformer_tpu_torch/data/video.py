@@ -1,6 +1,7 @@
-"""RGB video decode through the repo's native libav shim (ctypes).
+"""Video decode through the repo's native libav shim (ctypes): RGB24 and
+packed I420 (the frame wire, ``data/yuv.py``).
 
-The RGB subset of the JAX package's ``data/video.py``. The shim
+The RGB and I420 subset of the JAX package's ``data/video.py``. The shim
 (``native/libdvst_decoder.so``, built from ``native/decoder.cc``) is loaded
 only when a video is decoded: importing this module needs neither the
 library nor libav.
@@ -57,6 +58,8 @@ def _load_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_double),
     ]
     lib.dvst_decode_strided.restype = ctypes.c_int
+    lib.dvst_decode_strided_yuv.argtypes = lib.dvst_decode_strided.argtypes
+    lib.dvst_decode_strided_yuv.restype = ctypes.c_int
     _LIB = lib
     return lib
 
@@ -85,6 +88,34 @@ def read_video(path: str, stride: int = 1, start: int = 0,
         return np.zeros((0, h.value, w.value, 3), np.uint8), fps.value
     arr = np.ctypeslib.as_array(
         out, shape=(t.value, h.value, w.value, 3)).copy()
+    lib.dvst_free(out)
+    return arr, fps.value
+
+
+def read_video_yuv420(path: str, stride: int = 1, start: int = 0,
+                      max_frames: int = -1) -> Tuple[np.ndarray, float]:
+    """Decode frames [start::stride][:max_frames] as packed I420
+    (T, H*3//2, W) uint8: the codec's own planar 4:2:0 layout, half the
+    bytes of RGB24. The colour conversion happens on the card
+    (``ops/wire.py``); the host never makes RGB. H and W are rounded down
+    to even."""
+    lib = _load_lib()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    t = ctypes.c_int64()
+    h = ctypes.c_int()
+    w = ctypes.c_int()
+    fps = ctypes.c_double()
+    rc = lib.dvst_decode_strided_yuv(
+        path.encode(), start, stride, max_frames,
+        ctypes.byref(out), ctypes.byref(t), ctypes.byref(h), ctypes.byref(w),
+        ctypes.byref(fps))
+    if rc != 0:
+        raise DecodeError(lib.dvst_last_error().decode())
+    shape = (t.value, h.value * 3 // 2, w.value)
+    if t.value * shape[1] * shape[2] == 0:
+        lib.dvst_free(out)
+        return np.zeros(shape, np.uint8), fps.value
+    arr = np.ctypeslib.as_array(out, shape=shape).copy()
     lib.dvst_free(out)
     return arr, fps.value
 

@@ -16,7 +16,12 @@ banded Hopper kernels. ``--teacher_precision float32`` runs the teacher
 forward in f32 while the students keep ``--precision`` (the mixed teacher,
 ``teacher_dtype=torch.float32``: with ``--precision bfloat16`` on the card,
 through the kernels' f32 tiers; exact windows only, so with ``--band`` it
-raises NotImplementedError). The other approximation flags of the JAX
+raises NotImplementedError). ``--wire_format yuv420`` decodes straight to
+packed I420 (the codec's planar 4:2:0, half the bytes of RGB) and the card
+unpacks, colour-converts and normalizes the frames in its view gathers
+(``ops/wire.py``); ``yuv420q`` further box-averages the chroma to 1/8
+resolution per axis (experimental); ``rgb8`` (the default) ships
+normalized floats as before. The other approximation flags of the JAX
 CLI are accepted but not ported yet: any of them away from its default
 raises NotImplementedError naming the ROADMAP item. ``--device`` defaults to
 ``cuda``. Without ``--pretrained_weights`` the model gets numpy-seeded
@@ -39,7 +44,6 @@ UNPORTED_FLAGS = {
     "score_refine": (0.0, "scorer approximation knobs"),
     "student_quant": ("none", "int8 tiers"),
     "teacher_quant": ("none", "int8 tiers"),
-    "wire_format": ("rgb8", "yuv420 wire"),
 }
 
 
@@ -91,7 +95,14 @@ def get_args_parser():
     p.add_argument("--student_quant", default="none", choices=["none", "int8"])
     p.add_argument("--teacher_quant", default="none", choices=["none", "int8"])
     p.add_argument("--wire_format", default="rgb8",
-                   choices=["rgb8", "yuv420", "yuv420q"])
+                   choices=["rgb8", "yuv420", "yuv420q"],
+                   help="host->device frame transport: yuv420 ships the "
+                        "codec's own planar 4:2:0 (half the bytes) and "
+                        "color-converts on device; yuv420q further "
+                        "box-averages chroma to 1/8 resolution per axis "
+                        "(~1.03 B/px) — EXPERIMENTAL, measured far above "
+                        "the quality floor on the synthetic validators "
+                        "(BENCH.md: The wire); revalidate before use")
     p.add_argument("--local_devices", default=1, type=int,
                    help="score with N local cards from this one process "
                         "(0 = all): videos are dealt round-robin to "
@@ -133,7 +144,8 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
 
     dataset = DinoLossDataset(
         cfg=config, mode="test", local_clip_size=local_clip_size,
-        global_clip_size=global_clip_size, sampling_rate=sampling_rate)
+        global_clip_size=global_clip_size, sampling_rate=sampling_rate,
+        wire_format=cli.wire_format)
     bf16 = cli.precision == "bfloat16"
     scorer = make_scorers(
         sd, mcfg, n_devices=cli.local_devices, device=cli.device,
@@ -143,7 +155,11 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
         precision=None if bf16 else "highest",
         band_mode=None if cli.band == "none" else cli.band,
         teacher_dtype=(torch.float32 if cli.teacher_precision == "float32"
-                       else None))
+                       else None),
+        wire_format=cli.wire_format if cli.wire_format != "rgb8" else "yuv420")
+    if (cli.wire_format != "rgb8" or cli.band != "none") and not bf16:
+        print("NOTE: approximation/wire flags change scores; "
+              "f32 bit-parity does not apply")
     run_scoring(dataset, scorer, file_path, num_workers=cli.num_workers,
                 shard_id=cli.shard_id, num_shards=cli.num_shards)
 

@@ -30,8 +30,16 @@ weights: f32 activations and block boundaries, bf16 matmul operands,
 through the kernels' f32 tiers on the card. With ``band_mode`` it raises
 (ROADMAP §3).
 
+Frames reach the card in one of four forms (JAX ``_make_buffer`` and
+``_gather_views``): normalized floats (uploaded in the teacher's dtype),
+uint8 RGB (T, H, W, 3), or packed I420 / yuv420q uint8 (T, rows, W), read
+by ``ScorerConfig.wire_format``. A uint8 buffer ships as its bytes, and
+every view gather unpacks and normalizes it on the card in the forward's
+own dtype (``ops/wire.py``: the hand-written kernel on the kernel route,
+its plain twin otherwise).
+
 The approximation knobs of the JAX scorer (teacher/score strides, int8
-tiers, the yuv wire) are not ported yet (ROADMAP).
+tiers) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 
 from ..models import banded
 from ..models.timesformer import TimeSformerConfig, build_timesformer
+from ..ops import wire
 from ..ops.banded_block import banded_problems
 from ..train.dino import scoring_dino_loss
 from ..utils.device import resolve_device
@@ -83,6 +92,11 @@ class ScorerConfig:
       teacher_temp 0.02 the teacher softmax is the score's sharpest noise
       amplifier, so teacher precision buys score fidelity. Exact windows
       only: with ``band_mode`` it raises NotImplementedError.
+    wire_format: how 3-D uint8 frames (T, rows, W) are read: "yuv420", the
+      codec's packed I420 planes (default), or "yuv420q", I420 with
+      eighth-resolution chroma (experimental: 16-27% relative score error
+      on the JAX package's synthetic validators). uint8 RGB (T, H, W, 3)
+      and float frames do not read it.
     """
 
     local_size: int = 3
@@ -99,6 +113,7 @@ class ScorerConfig:
     band_halo: int = 32
     band_block: int = 32
     teacher_dtype: Optional[torch.dtype] = None
+    wire_format: str = "yuv420"
 
 
 class FrameScorer:
@@ -150,6 +165,9 @@ class FrameScorer:
                 f"{self.compute_dtype}: the port has the mixed teacher only "
                 "(teacher_dtype=torch.float32 with bf16 students)")
         self.teacher_dtype = t_dtype
+        if config.wire_format not in ("yuv420", "yuv420q"):
+            raise ValueError(f"wire_format={config.wire_format!r}, expected "
+                             "'yuv420' or 'yuv420q'")
         self.band_mode = config.band_mode
         if self.band_mode is not None and t_dtype != self.compute_dtype:
             raise NotImplementedError(
@@ -198,12 +216,38 @@ class FrameScorer:
 
     # -- one chunk -------------------------------------------------------------
 
-    def _gather_views(self, frames: torch.Tensor, idx: torch.Tensor,
+    def _layout(self, frames) -> Optional[str]:
+        """The wire layout of a uint8 frame array or buffer (numpy or
+        torch): "rgb8" for (T, H, W, 3), ``wire_format`` for packed
+        (T, rows, W); None for float frames."""
+        if frames.dtype not in (np.uint8, torch.uint8):
+            return None
+        if frames.ndim == 4 and frames.shape[-1] == 3:
+            return "rgb8"
+        if frames.ndim == 3:
+            return self.config.wire_format
+        raise ValueError(f"uint8 frames of shape {tuple(frames.shape)}: expected "
+                         "RGB (T, H, W, 3) or packed (T, rows, W)")
+
+    def _gather(self, frames: torch.Tensor, idx: np.ndarray,
+                dtype: torch.dtype) -> torch.Tensor:
+        """(M, H, W, 3) frames at the host indices ``idx`` in ``dtype``: a
+        uint8 buffer through the wire's gather (its kernel on the kernel
+        route, its twin otherwise), a float buffer by indexing."""
+        layout = self._layout(frames)
+        if layout is not None:
+            gather = (wire.gather_normalize if self.model_cfg.use_kernels
+                      else wire.gather_normalize_plain)
+            return gather(frames, idx, dtype, layout)
+        return frames[wire.index_tensor(idx, frames.shape[0], frames.device)].to(dtype)
+
+    def _gather_views(self, frames: torch.Tensor, idx: np.ndarray,
                       dtype: torch.dtype) -> torch.Tensor:
-        """Gather (chunk, n_view, H, W, C) windows from the frame buffer in
-        ``dtype``; returns (chunk, C, n_view, H, W)."""
-        v = frames[idx.reshape(-1)].reshape(*idx.shape, *frames.shape[1:])
-        return v.to(dtype).permute(0, 4, 1, 2, 3)
+        """Gather (chunk, n_view) windows by the host index matrix ``idx``
+        from the frame buffer in ``dtype``; returns (chunk, C, n_view, H,
+        W)."""
+        v = self._gather(frames, idx.reshape(-1), dtype)
+        return v.reshape(*idx.shape, *v.shape[1:]).permute(0, 4, 1, 2, 3)
 
     def _loss(self, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return scoring_dino_loss(s, t, teacher_temp=self.teacher_temp,
@@ -278,10 +322,11 @@ class FrameScorer:
         for w0, w1, e0, e1 in self._band_segments(T):
             Lw = w1 - w0
             Cb = self._band_bucket(Lw)
-            # padding rows repeat the segment's last frame; their rows drop
-            idx = torch.from_numpy(np.minimum(w0 + np.arange(Cb), w1 - 1)).to(
-                self.device)
-            fr = buf[idx]
+            # padding rows repeat the segment's last frame; their rows drop.
+            # Both passes read these views (the teacher's dtype is the
+            # students' on the banded path)
+            fr = self._gather(buf, np.minimum(w0 + np.arange(Cb), w1 - 1),
+                              self.teacher_dtype)
             t_rows = self._band_pass(fr, Lw, eff_global, "teacher")
             if self.band_mode == "both":
                 s_rows = self._band_pass(fr, Lw, self.local_size, "student")
@@ -296,8 +341,8 @@ class FrameScorer:
         t_all = torch.cat(t_parts)
         n_chunks = -(-T // self.chunk)
         pad = n_chunks * self.chunk - T
-        loc = torch.from_numpy(np.pad(np.asarray(local_idx), ((0, pad), (0, 0))))
-        loc = loc.to(self.device).reshape(n_chunks, self.chunk, -1)
+        loc = np.pad(np.asarray(local_idx), ((0, pad), (0, 0))).reshape(
+            n_chunks, self.chunk, -1)
         t_all = torch.nn.functional.pad(t_all, (0, 0, 0, pad)).reshape(
             n_chunks, self.chunk, -1)
         for c in range(n_chunks):
@@ -308,16 +353,24 @@ class FrameScorer:
     # -- video groups ----------------------------------------------------------
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """Normalized float frames travel in the teacher's dtype (the
-        compute dtype, or f32 for the mixed teacher); each forward casts its
-        views to its own dtype on the device."""
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(
-            self.device, self.teacher_dtype)
+        """uint8 frames (RGB or packed) travel as their bytes; normalized
+        float frames in the teacher's dtype (the compute dtype, or f32 for
+        the mixed teacher). Each forward's gather makes its views in its
+        own dtype on the device."""
+        t = torch.from_numpy(np.ascontiguousarray(frames))
+        if t.dtype == torch.uint8:
+            return t.to(self.device)
+        return t.to(self.device, self.teacher_dtype)
 
     def _run_group_chunks(self, items: List[dict]) -> List[tuple]:
         """Score the rows of several videos as one stream of full chunks
         (chunks may straddle videos). Returns [(device_losses, n_valid)],
-        rows in video order; nothing is fetched."""
+        rows in video order; nothing is fetched. The videos must share one
+        frame layout (float, uint8 RGB or one packed wire)."""
+        layouts = {self._layout(it["frames"]) for it in items}
+        if len(layouts) > 1:
+            raise ValueError(f"a video group mixes frame layouts {layouts}: "
+                             "score them in separate groups")
         bufs, locs, globs = [], [], []
         off = 0
         for it in items:
@@ -330,13 +383,11 @@ class FrameScorer:
         n_chunks = -(-n_rows // self.chunk)
         pad = n_chunks * self.chunk - n_rows
 
-        def to_dev(mats):  # padded rows gather frame 0; their losses drop
-            m = np.concatenate(mats)
-            m = np.pad(m, ((0, pad), (0, 0)))
-            return torch.from_numpy(m).to(self.device).reshape(
-                n_chunks, self.chunk, m.shape[1])
+        def chunked(mats):  # padded rows gather frame 0; their losses drop
+            m = np.pad(np.concatenate(mats), ((0, pad), (0, 0)))
+            return m.reshape(n_chunks, self.chunk, m.shape[1])
 
-        loc, glob = to_dev(locs), to_dev(globs)
+        loc, glob = chunked(locs), chunked(globs)
         outs = []
         for c in range(n_chunks):
             n = min(self.chunk, n_rows - c * self.chunk)
@@ -401,8 +452,9 @@ class FrameScorer:
 
     def score_video(self, frames: np.ndarray, local_idx: np.ndarray,
                     global_idx: np.ndarray, eff_global: int) -> np.ndarray:
-        """frames (T, H, W, C) float32, normalized; returns (T,) float64
-        losses."""
+        """frames: (T, H, W, 3) float32 normalized, (T, H, W, 3) uint8 RGB,
+        or (T, rows, W) uint8 packed in ``wire_format``; returns (T,)
+        float64 losses."""
         return self.score_video_async(frames, local_idx, global_idx,
                                       eff_global).fetch()
 

@@ -5,7 +5,7 @@ One shared library with a plain C interface per source in ``csrc/``
 ``attention.cu``, each including ``dvst_common.cuh``; all also the
 tensor-core attention tile ``tc_attention.cuh``, all but ``attention.cu``
 the wgmma + TMA GEMM ``wgmma_gemm.cuh``; and the standalone
-``smem_probe.cu``), compiled for ``sm_90a`` into ``build/torch_kernels/``
+``smem_probe.cu`` and ``wire.cu``, the frame wire's gather), compiled for ``sm_90a`` into ``build/torch_kernels/``
 at the repo root (listed in ``.gitignore``) at first use, one nvcc per
 source, all started together. Nothing here runs at import: the CPU tests
 import every module on a machine with no nvcc.
@@ -36,7 +36,8 @@ SOURCES = {"fused": os.path.join(_CSRC, "fused_block.cu"),
            "banded": os.path.join(_CSRC, "banded_block.cu"),
            "bwd": os.path.join(_CSRC, "fused_block_bwd.cu"),
            "attention": os.path.join(_CSRC, "attention.cu"),
-           "probe": os.path.join(_CSRC, "smem_probe.cu")}
+           "probe": os.path.join(_CSRC, "smem_probe.cu"),
+           "wire": os.path.join(_CSRC, "wire.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -153,6 +154,10 @@ _SIGNATURES = {
         # in, out | nbytes | stream
         "dvst_smem_roundtrip": [_p] * 2 + [_i, _p],
         "dvst_smem_optin_max": [],
+    },
+    "wire": {
+        # frames, idx, out | M, H, W | frame_bytes | layout, out_bf16 | stream
+        "dvst_gather_normalize": [_p] * 3 + [_i] * 3 + [_l] + [_i] * 2 + [_p],
     },
 }
 

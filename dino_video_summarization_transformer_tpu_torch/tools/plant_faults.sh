@@ -36,8 +36,13 @@
 # rows; the mixed teacher's f32 tiers: row 1's LN reading its f32 x as
 # bf16 elements, row 2's wrapper handing the kernel the f32 CLS row
 # rounded to bf16 before its LN, row 3's f32 residual read
-# through the bf16-residual epilogue. Name faults as arguments to run only
-# those:
+# through the bf16-residual epilogue; the frame wire's gather
+# (``wire.cu``): the V plane placed by whole rows (right only where
+# H % 4 == 0; the 226-row frames of phase 3 show it), the colour math with
+# a multiply and an add contracted into an FMA, bf16 rounded toward zero;
+# and the scorer's uint8 RGB gather casting the bytes without normalizing
+# them (the fault the wire's port repaired; it exits 1 in phase 4c, the
+# others in phase 3). Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
@@ -45,9 +50,10 @@
 #     bash .../plant_faults.sh no_rowsum_row7 dw_transposed_row7 bwd_strided_seq_unmasked bwd_temporal_stride_one ln_bwd_mean_term_dropped
 #     bash .../plant_faults.sh cls_self_dropped cls_window_shifted cls_norm_over_frames attn_phase_seq_short
 #     bash .../plant_faults.sh f32_in_read_as_bf16 cls_rounded_bf16 mixed_residual_bf16
+#     bash .../plant_faults.sh wire_chroma_rows wire_fma wire_bf16_truncated u8_unnormalized
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
-# Python module).
+# Python module, ../../engine/scoring.py the scorer).
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -62,7 +68,7 @@ run() {
   before=$(md5sum < "$f"); sed -i "$expr" "$f"; after=$(md5sum < "$f")
   if [ "$before" = "$after" ]; then echo "FAULT $name: sed changed nothing"; rm -rf "$dst"; return; fi
   (cd "$dst" && timeout 600 python3 chip_smoke.py > out.log 2>&1); rc=$?
-  echo "FAULT $name: exit $rc, last phase $(grep -o '^\[[0-9]\]' "$dst/out.log" | tail -1)"
+  echo "FAULT $name: exit $rc, last phase $(grep -o '^\[[0-9]*[a-z]*\]' "$dst/out.log" | tail -1)"
   grep -E "FAILED|^FAIL" "$dst/out.log" | cut -c1-400 | head -8
   rm -rf "$dst"
 }
@@ -91,3 +97,7 @@ run attn_phase_seq_short fused_block.cu 's/tc_strided_attn(hd, qkv, buf, S, L, 1
 run f32_in_read_as_bf16 fused_block.cu 's/e = ln_launch<float>(static_cast<const float\*>(x_), lw, lb, w.buf1, M, D, st);/e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.buf1, M, D, st);/'
 run cls_rounded_bf16 ../fused_block.py 's/_run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),/_run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.to(torch.bfloat16).to(cls.dtype).data_ptr(),/'
 run mixed_residual_bf16 fused_block.cu 's/wg_gemm<kEpiResF32F32>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st)/wg_gemm<kEpiResBf16F32>(w.hid, fc2_w, fc2_b, x_, out, M, D, Dh, st)/'
+run wire_chroma_rows wire.cu 's|const long v_at = u_at + (long)(H / sub) \* cw;|const long v_at = u_at + (long)(H / (2 * sub)) * W;|'
+run wire_fma wire.cu 's|r = clip255(__fadd_rn(c, __fmul_rn(kRV, e)));|r = clip255(fmaf(kRV, e, c));|'
+run wire_bf16_truncated wire.cu 's|__float2bfloat16_rn|__float2bfloat16_rz|g'
+run u8_unnormalized ../../engine/scoring.py 's|        if layout is not None:|        if layout not in (None, "rgb8"):|'

@@ -30,8 +30,8 @@ dim 64, the kernels' geometry) for the bf16 kernel route.
     mean|port plain bf16 - f32| + 1e-3 (chip_smoke.py's bound).
 (d) run_scoring writes the JSON the JAX run writes (keys, lengths, f32
     values at 1e-5, a dummy item's constant losses); the CLI takes
-    ``--band`` and ``--teacher_precision float32``; ``--teacher_quant`` and
-    ``--wire_format`` still raise.
+    ``--band``, ``--teacher_precision float32`` and ``--wire_format``;
+    ``--teacher_quant`` and ``--score_stride`` still raise.
 """
 
 import json
@@ -237,15 +237,17 @@ def test_cli_band_in_process(tmp_path, band):
 
 
 def test_cli_band_flag_is_ported_and_mixed_teacher_is_not():
-    """(The name predates the mixed teacher's port.) ``--band`` and
-    ``--teacher_precision float32`` are accepted, alone and together; the
-    flags still unported (``--teacher_quant int8``, ``--wire_format
-    yuv420``) still raise, with the mixed teacher beside them too."""
+    """(The name predates the mixed teacher's and the wire's ports.)
+    ``--band``, ``--teacher_precision float32`` and ``--wire_format`` are
+    accepted, alone and together; the flags still unported
+    (``--teacher_quant int8``, ``--score_stride 2``) still raise, with the
+    mixed teacher beside them too."""
     parse = cli.get_args_parser().parse_args
     for argv in (["--band", "both"], ["--teacher_precision", "float32"],
-                 ["--band", "both", "--teacher_precision", "float32"]):
+                 ["--band", "both", "--teacher_precision", "float32"],
+                 ["--wire_format", "yuv420", "--band", "both"]):
         cli.check_unported(parse(argv))
-    for argv in (["--teacher_quant", "int8"], ["--wire_format", "yuv420"]):
+    for argv in (["--teacher_quant", "int8"], ["--score_stride", "2"]):
         for extra in ([], ["--band", "both", "--teacher_precision", "float32"]):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 cli.check_unported(parse(argv + extra))

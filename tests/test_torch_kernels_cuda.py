@@ -15,7 +15,8 @@ temporal op's out - x, the spatial grids' out - x1 (out - x for the
 banded spatial phase and the MLP phase), the CLS rows, the qkv buffers
 and the banded attention outputs, at rms(err) <= 1e-2 x rms(branch), f32
 max|err| <= 2e-2 x max|branch|, and bf16 outputs within 4 bf16 ulps of
-max(|want|, rms(branch)) at every element.
+max(|want|, rms(branch)) at every element. The frame wire's gather
+(``ops/wire.py``) rounds at the twin's points: it is held bit for bit.
 """
 
 import os
@@ -31,8 +32,11 @@ from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E40
     convert, timesformer as tsf)
 from dino_video_summarization_transformer_tpu_torch.models import (  # noqa: E402
     banded)
+from dino_video_summarization_transformer_tpu_torch.data import yuv  # noqa: E402
+from dino_video_summarization_transformer_tpu_torch.engine import (  # noqa: E402
+    scoring)
 from dino_video_summarization_transformer_tpu_torch.ops import (  # noqa: E402
-    _build, banded_block as bb, fused_block as fb, twin_check)
+    _build, banded_block as bb, fused_block as fb, twin_check, wire)
 from dino_video_summarization_transformer_tpu_torch.tools import (  # noqa: E402
     cls_band_bench)
 from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -1328,3 +1332,80 @@ def test_mixed_teacher_forward_kernels_match_twins(cuda_device, band):
     after = {**fb.launches, **bb.launches}
     assert all(after[k] == before[k] + 2 for k in tiers), (before, after)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The frame wire's gather (ops/wire.py): bit for bit against its twin
+# ---------------------------------------------------------------------------
+
+def _wire_buffer(layout, n, H, W, seed):
+    """n random frames' bytes in ``layout`` (any bytes are a packed frame)."""
+    shape = ((n, H, W, 3) if layout == "rgb8" else
+             (n, yuv.packed_height(H), W) if layout == "yuv420" else
+             (n, yuv.packed_q_height(H, W), W))
+    return torch.from_numpy(
+        np.random.RandomState(seed).randint(0, 256, shape, dtype=np.uint8))
+
+
+@pytest.mark.parametrize("layout,H,W", [("rgb8", 224, 224), ("yuv420", 224, 224),
+                                        ("yuv420q", 224, 224), ("yuv420", 226, 224),
+                                        ("yuv420", 18, 24), ("yuv420q", 24, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_normalize_kernel_matches_twin(cuda_device, layout, H, W, dtype):
+    buf = _wire_buffer(layout, 16, H, W, 3).to(cuda_device)
+    idx = np.random.RandomState(4).randint(0, 16, (6, 5))
+    before = wire.launches["gather_normalize"]
+    got = wire.gather_normalize(buf, idx, dtype, layout)
+    want = wire.gather_normalize_plain(buf, idx, dtype, layout)
+    torch.cuda.synchronize()
+    assert wire.launches["gather_normalize"] == before + 1
+    assert got.shape == (30, H, W, 3) and got.dtype == dtype
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    # and the twin on the card equals the twin on the CPU
+    assert torch.equal(want.cpu(), wire.gather_normalize_plain(buf.cpu(), idx, dtype,
+                                                               layout))
+
+
+def test_gather_normalize_repeats_and_padding(cuda_device):
+    """The banded segment's padding (its last frame repeated) and the
+    windowed path's padding rows (frame 0): every repeat equals its frame."""
+    buf = _wire_buffer("yuv420", 40, 32, 32, 5).to(cuda_device)
+    idx = np.concatenate([np.minimum(np.arange(48), 29), np.zeros(5, np.int64)])
+    got = wire.gather_normalize(buf, idx, torch.bfloat16, "yuv420")
+    assert torch.equal(got, wire.gather_normalize_plain(buf, idx, torch.bfloat16, "yuv420"))
+    assert all(torch.equal(got[i], got[29]) for i in range(30, 48))
+    assert all(torch.equal(got[48 + i], got[0]) for i in range(5))
+
+
+def test_gather_normalize_refuses_bad_inputs(cuda_device):
+    buf = _wire_buffer("yuv420", 4, 32, 32, 6).to(cuda_device)
+    before = wire.launches["gather_normalize"]
+    with pytest.raises(TypeError, match="uint8"):
+        wire.gather_normalize(buf.float(), [0], torch.float32, "yuv420")
+    for bad in ([4], [-1], [0, 1, 7]):
+        with pytest.raises(IndexError, match="out of range"):
+            wire.gather_normalize(buf, bad, torch.float32, "yuv420")
+    with pytest.raises(TypeError, match="host array"):
+        wire.gather_normalize(buf, torch.zeros(2, dtype=torch.int64, device=cuda_device),
+                              torch.float32, "yuv420")
+    with pytest.raises(ValueError, match=r"expected \(N, H, W, 3\)"):
+        wire.gather_normalize(buf, [0], torch.float32, "rgb8")
+    with pytest.raises(ValueError, match="yuv420q"):
+        wire.gather_normalize(buf, [0], torch.float32, "yuv420q")
+    with pytest.raises(TypeError, match="dtype"):
+        wire.gather_normalize(buf, [0], torch.float16, "yuv420")
+    assert wire.launches["gather_normalize"] == before
+
+
+def test_scorer_refuses_a_group_of_mixed_layouts(cuda_device):
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=64, depth=1,
+                                num_heads=2, num_frames=4, num_classes=0)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 0), cfg)
+    sc = scoring.FrameScorer(sd, cfg, local_size=3, global_size=8, chunk=4,
+                             device=cuda_device)
+    u8 = np.random.RandomState(7).randint(0, 256, (12, 32, 32, 3), dtype=np.uint8)
+    loc, glob = np.zeros((12, 3), np.int64), np.zeros((12, 8), np.int64)
+    item = {"local_idx": loc, "global_idx": glob, "eff_global": 8, "dummy": False}
+    group = [dict(item, frames=u8), dict(item, frames=yuv.pack_rgb(u8))]
+    with pytest.raises(ValueError, match="mixes frame layouts"):
+        sc.score_group_async(group)

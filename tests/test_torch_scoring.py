@@ -145,7 +145,10 @@ def test_run_scoring_json_matches_jax(tmp_path):
                                    err_msg=k)
 
 
-def test_cli_in_process(tmp_path):
+@pytest.mark.parametrize("wire_format", ["rgb8", "yuv420", "yuv420q"])
+def test_cli_in_process(tmp_path, wire_format):
+    """Normalized floats (rgb8), packed I420 and yuv420q from decode to the
+    scorer."""
     from dino_video_summarization_transformer_tpu.data import video as jvio
     from dino_video_summarization_transformer_tpu.models import convert as jconvert
     from dino_video_summarization_transformer_tpu_torch.data import video as vio
@@ -168,7 +171,7 @@ def test_cli_in_process(tmp_path):
         "--pretrained_weights", ckpt, "--checkpoint_key", "teacher",
         "--arch", "vit_tiny", "--batch_size_per_gpu", "4",
         "--global_clip_size", "4", "--file_path", out, "--num_workers", "2",
-        "--device", "cpu",
+        "--device", "cpu", "--wire_format", wire_format,
         "--opts", "DATA.PATH_TO_DATA_DIR", str(tmp_path),
         "DATA.PATH_PREFIX", str(tmp_path), "TEST.NUM_ENSEMBLE_VIEWS", "1"])
     with open(out) as f:
@@ -179,7 +182,17 @@ def test_cli_in_process(tmp_path):
 
 
 def test_cli_refuses_unported_flags():
-    args = cli.get_args_parser().parse_args(["--teacher_stride", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.check_unported(args)
-    cli.check_unported(cli.get_args_parser().parse_args([]))
+    """Every flag of UNPORTED_FLAGS raises away from its default; the ported
+    ones (here ``--wire_format``) do not."""
+    parse = cli.get_args_parser().parse_args
+    away = {"global_subsample": "2", "teacher_stride": "4",
+            "teacher_interp": "catmullrom", "teacher_adaptive": "0.5",
+            "teacher_refine": "0.5", "score_stride": "2", "score_refine": "0.5",
+            "student_quant": "int8", "teacher_quant": "int8"}
+    assert set(away) == set(cli.UNPORTED_FLAGS)
+    for flag, value in away.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.check_unported(parse([f"--{flag}", value]))
+    for wire_format in ("rgb8", "yuv420", "yuv420q"):
+        cli.check_unported(parse(["--wire_format", wire_format]))
+    cli.check_unported(parse([]))
