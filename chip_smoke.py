@@ -113,6 +113,24 @@ Imports torch, numpy and the port package
    mean relative), (b) against the same scorer with every kernel op and
    the gather through its twin (``twins``) and (c) against the f32 path
    on the same wire, by phase 4's two rules.
+4d. the int8 tier (W8A8; ``ops/quant.py``), its kernels first: the LN +
+   quantize kernel (``fused_block.ln_quant_rows``) on bf16 and f32 rows
+   and the row quantize kernel (``quant_rows``) at widths 768 and 3072,
+   at the teacher (M = 240 x 196) and student (24 x 196) rows, codes and
+   scales bit for bit against their twins; the s8 wgmma GEMM
+   (``gemm_s8``) at rows 1q and 2q's products (qkv, proj, fc, fc1, fc2)
+   at both row counts, its f32 output (the dequantized sums + bias) bit
+   for bit against ``gemm_s8_plain`` and the path's epilogue by
+   ``twin_check``, its TOPS beside ``torch._int_mm`` (cuBLASLt's s32
+   product, a yardstick the port never calls) and the bf16 wgmma GEMM;
+   rows 1q and 2q (``temporal_phase_tm`` / ``spatial_mlp`` on s8 weights)
+   against their twins by ``twin_check``'s int8 rules at both windows,
+   timed beside their bounds (GEMMs at the s8 peak) and split by kernel.
+   Then ``make_scorers`` + ``run_scoring`` on phase 4's clips with
+   student-int8, teacher-int8 and both: launch counters around each run,
+   frames/s beside phase 4's, a profiled run's families, losses held
+   against the plain int8 path (the same scorer with every kernel op
+   through its twin) and phase 5's f32 path.
 6. banded path, bf16: ``make_scorers(band_mode="both")`` + ``run_scoring``
    over clips of 64, 40 and 600 frames (the last in two segments at
    ``band_chunk`` 512, halo 32: buckets 512 and 256); launch counters read
@@ -197,6 +215,15 @@ Tolerances (stated here, checked below):
   same clip (the tier's reason to exist), and its teacher features
   strictly closer to the f32 teacher's than the bf16 teacher's; the banded
   teacher pass on an f32 model (phase 6) held to the same feature rule.
+* the int8 tier (phase 4d): its three kernels' codes, scales and
+  dequantized f32 sums bit for bit (max abs 0) against their twins, which
+  do the same integer sums and the same roundings; rows 1q and 2q by
+  ``twin_check``'s int8 rules (rel_rms <= 1e-2 and max|err| <= 2e-2 x
+  max|branch| for every output, bf16 or f32: a code that flips where the
+  twin's attention differs by an ulp redraws the row's rounding, which no
+  element-wise ulp rule bounds); each int8 scoring path's losses by the
+  mixed teacher's two rules against the plain int8 path (0.06 mean
+  relative; mean |loss - f32 loss| <= 1.5 x the plain int8 path's + 1e-3).
 * training-op gradients (f32) vs their twins: the same rms and max
   bounds; dx (bf16) within 4 ulps of its branch dx - dout.
 * train step, kernel route vs the plain bf16 route: per parameter
@@ -234,8 +261,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (dense): bf16 tensor cores, HBM3
+# published H100 SXM peaks (dense): bf16 tensor cores, s8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_S8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 TRAIN_OPS = ("temporal_phase_tm_bf16", "spatial_phase", "temporal_phase_tm_bwd",
@@ -354,6 +382,36 @@ def spatial_f32_cost(B, T, N, D, Dh):
     M = B * T * N
     flops, _ = spatial_cost(B, T, N, D, Dh)
     return flops, 2 * M * D * 4 + B * D * 4 + B * T * D * 4 + (4 * D * D + 2 * D * Dh) * 2
+
+
+def temporal_q8_cost(B, T, N, D):
+    """Row 1's int8 tier: (s8 operations of its qkv, proj and fc GEMMs, 10
+    D^2 per row; bf16 FLOP of its attention over T, 4 T D per row; bytes: x
+    read (bf16), out written (f32), the s8 weights and their f32 scales and
+    biases read once)."""
+    M = B * T * N
+    return M * 10 * D * D, M * 4 * T * D, M * D * 2 + M * D * 4 + 5 * D * D + 10 * D * 4
+
+
+def spatial_q8_cost(B, T, N, D, Dh):
+    """Row 2's int8 tier: (s8 operations of qkv over the grid and the CLS
+    rows, proj over the grid and the per-frame CLS rows, fc1 and fc2; bf16
+    FLOP of the attention over L = N + 1 per frame; bytes: x1 read (f32),
+    cls read (bf16), grid out (bf16), CLS rows out (f32), the s8 weights and
+    their f32 scales and biases once)."""
+    M, L = B * T * N, N + 1
+    ops = 2 * (M + B) * D * 3 * D + 2 * (M + B * T) * D * D + 4 * M * D * Dh
+    nbytes = (M * D * 4 + B * D * 2 + M * D * 2 + B * T * D * 4
+              + (4 * D * D + 2 * D * Dh) + (10 * D + 2 * Dh) * 4)
+    return ops, 4 * B * T * L * L * D, nbytes
+
+
+def bound_q8_ms(s8_ops, bf16_flops, nbytes):
+    """The int8 tier's bound: its s8 operations at the s8 peak plus its bf16
+    FLOP at the bf16 peak, or its bytes at the memory rate if longer."""
+    t_ops = s8_ops / PEAK_S8_OPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def band_temporal_cost(C, N, D, eff):
@@ -496,8 +554,13 @@ def kernel_breakdown(fn, on_record=None):
         # returns; a call launched at once, and the activity of a call
         # collected right after it ends, have gone unrecorded on the card
         # (whole profiles of one op, three in a row): a pause on each side
-        # of the recorded call, outside its wall time
+        # of the recorded call, outside its wall time. The first kernel of
+        # the recorded step has gone unrecorded too (the int8 row 1's first,
+        # a 0.06 ms LN, in three profiles in a row): a spin kernel takes that
+        # place, and its row is dropped
         time.sleep(0.05)
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
         if on_record is not None:
             on_record()
         t0 = time.perf_counter()
@@ -506,7 +569,8 @@ def kernel_breakdown(fn, on_record=None):
         wall = (time.perf_counter() - t0) * 1e3
         time.sleep(0.05)
     rows = [(e.key, e.count, e.device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_time_total > 0]
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and "spin_kernel" not in e.key]
     return sorted(rows, key=lambda r: -r[2]), wall
 
 
@@ -530,7 +594,12 @@ FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "reduce_splits_narrow": "::reduce_splits_narrow_kernel(",
             "reduce_splits": "::reduce_splits_kernel(",
             "cls_band_tc": "::cls_band_tc_kernel<",
-            "gather_normalize": "::gather_normalize_kernel<"}
+            "gather_normalize": "::gather_normalize_kernel<",
+            # the int8 tier's (wg_gemm_s8: the wgmma GEMM's s8 instance,
+            # counted in wg_gemm_kernel too)
+            "ln_quant_kernel": "::ln_quant_kernel<",
+            "quant_rows_kernel": "::quant_rows_kernel(",
+            "wg_gemm_s8": ", false, false, true>("}
 # launches of each family per call of the ops that use them: every row on
 # the wgmma GEMM and the tiles (row 4: qkv of the grid and of the CLS
 # rows, proj of each; row 5: qkv, proj, the tile at stride 1; row 7: qkv
@@ -557,6 +626,12 @@ FAMILY_PER_OP = {
     "spatial_phase": {"ln_kernel": 2, "wg_gemm_kernel": 4, "tc_prefix_attn": 1},
     "attn_phase": {"ln_kernel": 1, "wg_gemm_kernel": 2, "tc_strided_attn": 1},
     "cls_band_attn": {"cls_band_tc": 1},
+    # the int8 tier: LN + quantize, each product an s8 GEMM on rows quantized
+    # just before it (fb.Q8_LAUNCHES)
+    "temporal_phase_tm_q8": {"ln_quant_kernel": 1, "wg_gemm_kernel": 3, "wg_gemm_s8": 3,
+                             "tc_strided_attn": 1, "quant_rows_kernel": 2},
+    "spatial_mlp_q8": {"ln_quant_kernel": 3, "wg_gemm_kernel": 6, "wg_gemm_s8": 6,
+                       "tc_prefix_attn": 1, "quant_rows_kernel": 3},
     "gather_normalize": {"gather_normalize": 1},
     "temporal_phase_tm_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 8, "tc_strided_attn": 1,
                               "tc_strided_attn_bwd": 1, "ln_bwd_kernel": 1,
@@ -587,14 +662,17 @@ def family_counts(rows):
 def split_ms(rows):
     """Device ms of one op's profile by block: attention, the attention
     backward (where the op has one), GEMMs, LN (and its backward), rest."""
-    out = {"attention": 0.0, "attention_bwd": 0.0, "gemm": 0.0, "ln": 0.0, "other": 0.0}
+    out = {"attention": 0.0, "attention_bwd": 0.0, "gemm": 0.0, "ln": 0.0,
+           "quantize": 0.0, "other": 0.0}
     for k, _, ms in rows:
         part = ("attention_bwd" if "attn_bwd" in k else "attention" if "attn" in k
                 else "gemm" if "gemm" in k
-                else "ln" if "::ln_kernel<" in k or "::ln_bwd_kernel<" in k else "other")
+                else "ln" if "::ln_kernel<" in k or "::ln_bwd_kernel<" in k
+                else "quantize" if "quant" in k else "other")
         out[part] += ms
-    if not out["attention_bwd"]:
-        del out["attention_bwd"]
+    for k in ("attention_bwd", "quantize"):
+        if not out[k]:
+            del out[k]
     return out
 
 
@@ -613,7 +691,7 @@ def record_split(tag, fn, row, top=None, op=None):
         if rows and not short:
             break
         print(f"  {tag}: the profile missed kernels ({short or 'all'}; it recorded "
-              f"{len(rows)} kernel names)"
+              f"{len(rows)} kernel names: {[k[:40] for k, _, _ in rows]})"
               + ("; profiling again" if attempt < 2 else ""), flush=True)
         time.sleep(1.0)  # let the profiler's collection settle first
     else:
@@ -691,13 +769,13 @@ def checked_profile(tag, family_tag, fn, reset, counts, top=10, reduces=0):
     return rows
 
 
-def check_close(name, got, want, base=None):
-    """Print the kernel's gap to its twin (ops/twin_check.py); True if it is
-    within tolerance."""
+def check_close(name, got, want, base=None, q8=False):
+    """Print the kernel's gap to its twin (ops/twin_check.py; ``q8``: the
+    int8 tier's rules); True if it is within tolerance."""
     from dino_video_summarization_transformer_tpu_torch.ops import twin_check
 
     gap = twin_check.twin_gap(got, want, base)
-    bad = twin_check.twin_failures(gap)
+    bad = twin_check.twin_failures(gap, q8)
     ulps = f" max_ulps={gap['max_ulps']:.2f}" if "max_ulps" in gap else ""
     print(f"  {name}: max_abs_err={gap['max_abs_err']:.3e} rms_err="
           f"{gap['rms_err']:.3e} ref_rms={gap['ref_rms']:.3e} ref_max="
@@ -812,7 +890,7 @@ def main():
             banded, convert, timesformer as tsf)
         from dino_video_summarization_transformer_tpu_torch.ops import (
             _build, attention as fa, banded_block as bb, fused_block as fb,
-            twin_check, wire)
+            quant, twin_check, wire)
         from dino_video_summarization_transformer_tpu_torch.data import yuv
         from dino_video_summarization_transformer_tpu_torch.tools import (
             cls_band_bench, smem_probe)
@@ -2076,6 +2154,239 @@ def main():
         launches["gather_normalize"] = launches_wire["yuv420"]
         lap("phase 4c")
 
+        # -- 4d. the int8 tier --------------------------------------------
+        print("[4d] the int8 tier (W8A8): its three kernels against their twins "
+              "bit for bit, rows 1q and 2q against theirs, then make_scorers("
+              "teacher_quant / student_quant='int8') + run_scoring on the clips",
+              flush=True)
+        q_sd = quant.quantize_state_dict_int8(sd)
+        q_block = tsf.build_timesformer(
+            tsf.TimeSformerConfig(embed_dim=D, depth=1, num_heads=H, num_frames=8,
+                                  num_classes=0), q_sd, device=dev)
+        pq = fb.block_params(q_block.blocks[0])
+        tq, sq = pq["temporal"], pq["spatial"]
+        del q_block
+        s8 = torch.int8
+        Mt, Ms = 8 * 30 * N, 8 * 3 * N  # the teacher's and the students' rows
+        for k in ("ln_quant_rows", "quant_rows", "gemm_s8"):
+            stats[k] = []
+        # (1) K1 and K2, codes and scales bit for bit at the main path's
+        # calls: LN + quantize on row 1's bf16 x and row 2's f32 carries
+        # (rows with a large common offset: twin_check.offset_rows' shape,
+        # drawn on the card) and on the CLS rows (B = 8, bf16); quantize on
+        # the 768-wide attention and proj outputs and the 3072-wide hidden
+        # rows
+        g8 = torch.Generator(device="cuda").manual_seed(81)
+
+        def rows_on_card(M_, K_, dtype, offset=0.0):
+            x_ = torch.randn(M_, K_, generator=g8, device=dev)
+            if offset:
+                x_ = 0.1 * x_ + offset * (1 + torch.randn(M_, 1, generator=g8,
+                                                          device=dev).abs())
+            return x_.to(dtype)
+
+        q_checks = []
+        for who, M_ in (("teacher", Mt), ("student", Ms)):
+            for tag, x_, w_, b_ in (
+                    ("bf16 x", rows_on_card(M_, D, bf16), tq["ln_w"], tq["ln_b"]),
+                    ("f32 carry", rows_on_card(M_, D, f32t, 4.0), sq["ln2_w"], sq["ln2_b"]),
+                    ("bf16 CLS rows", rows_on_card(8, D, bf16), sq["ln1_w"], sq["ln1_b"])):
+                with torch.inference_mode():
+                    q_, s_ = fb.ln_quant_rows(x_, w_, b_)
+                    q0, s0 = fb.ln_quant_rows_plain(x_, w_, b_)
+                n_bad = int((q_ != q0).sum()) + int((s_ != s0).sum())
+                print(f"  ln_quant_rows {who} M={x_.shape[0]} {tag}: codes and scales "
+                      f"{'bit-equal' if n_bad == 0 else f'differ at {n_bad}'}", flush=True)
+                q_checks.append(n_bad == 0)
+                if tag != "bf16 CLS rows":
+                    elem = x_.element_size()
+                    b, by = bound_ms(10 * x_.numel(), x_.numel() * (elem + 1) + 4 * x_.shape[0])
+                    stats["ln_quant_rows"].append({
+                        "rows": who, "M": x_.shape[0], "dtype": str(x_.dtype)[6:],
+                        "ms": cuda_ms(lambda: fb.ln_quant_rows(x_, w_, b_), 20),
+                        "plain_ms": cuda_ms(lambda: fb.ln_quant_rows_plain(x_, w_, b_), 3),
+                        "bound_ms": b, "bound_by": by, "library_ms": None,
+                        "max_abs_err": float((q_.int() - q0.int()).abs().max())})
+            for K_ in (D, Dh):
+                x_ = rows_on_card(M_, K_, bf16)
+                with torch.inference_mode():
+                    q_, s_ = fb.quant_rows(x_)
+                    q0, s0 = fb.quant_rows_plain(x_)
+                n_bad = int((q_ != q0).sum()) + int((s_ != s0).sum())
+                print(f"  quant_rows {who} M={M_} K={K_}: codes and scales "
+                      f"{'bit-equal' if n_bad == 0 else f'differ at {n_bad}'}", flush=True)
+                q_checks.append(n_bad == 0)
+                b, by = bound_ms(3 * x_.numel(), 3 * x_.numel() + 4 * M_)
+                stats["quant_rows"].append({
+                    "rows": who, "M": M_, "K": K_, "ms": cuda_ms(lambda: fb.quant_rows(x_), 20),
+                    "plain_ms": cuda_ms(lambda: fb.quant_rows_plain(x_), 3),
+                    "bound_ms": b, "bound_by": by, "library_ms": None,
+                    "max_abs_err": float((q_.int() - q0.int()).abs().max())})
+            del x_, q_, q0
+        if not all(q_checks):
+            fail("a quantize kernel's codes or scales differ from its twin's")
+        part("phase 4d: the quantize kernels")
+        # (2) K3: its f32 output (the dequantized sums + bias) bit-equal to
+        # gemm_s8_plain at each product of rows 1q and 2q (the twin does the
+        # same integer sums and the same roundings), the path's own
+        # epilogue held by twin_check; TOPS beside torch._int_mm (the s32
+        # product alone, cuBLASLt) and the bf16 wgmma GEMM on operands of
+        # the same shape (yardsticks the port never calls)
+        products = [("qkv", tq, "qkv", "bf16"), ("proj", tq, "proj", "bf16"),
+                    ("fc", tq, "fc", "res_bf16_f32"), ("fc1", sq, "fc1", "gelu_bf16"),
+                    ("fc2", sq, "fc2", "res_f32_bf16")]
+        k3_ok = []
+        for who, M_ in (("teacher", Mt), ("student", Ms)):
+            for name, half, key, epi in products:
+                w_q, sw_, bias_ = half[f"{key}_w"], half[f"{key}_s"], half[f"{key}_b"]
+                Nn, K_ = w_q.shape
+                a_q = torch.randint(-127, 128, (M_, K_), generator=g8, device=dev, dtype=s8)
+                sx_ = 0.05 * torch.rand(M_, generator=g8, device=dev)
+                rdt = fb.GEMM_EPILOGUES[epi][1]
+                res_ = None if rdt is None else dev_randn(82, M_, Nn, dtype=rdt)
+                with torch.inference_mode():
+                    exact = torch.equal(fb.gemm_s8(a_q, sx_, w_q, sw_, bias_, "f32"),
+                                        fb.gemm_s8_plain(a_q, sx_, w_q, sw_, bias_, "f32"))
+                    ok, gap = check_close(f"gemm_s8 {name} {who} M={M_} N={Nn} K={K_} {epi}",
+                                          fb.gemm_s8(a_q, sx_, w_q, sw_, bias_, epi, res_),
+                                          fb.gemm_s8_plain(a_q, sx_, w_q, sw_, bias_, epi, res_),
+                                          res_)
+                print(f"  gemm_s8 {name} {who}: f32 output {'bit-equal' if exact else 'DIFFERS'} "
+                      "to the twin's", flush=True)
+                k3_ok.append(exact and ok)
+                ops = 2 * M_ * Nn * K_
+                ms = cuda_ms(lambda: fb.gemm_s8(a_q, sx_, w_q, sw_, bias_, epi, res_), 20)
+                pl = cuda_ms(lambda: fb.gemm_s8_plain(a_q, sx_, w_q, sw_, bias_, epi, res_), 3)
+                lib = cuda_ms(lambda: torch._int_mm(a_q, w_q.t()), 20)
+                a16, w16 = a_q.to(bf16), w_q.to(bf16)
+                ms16 = cuda_ms(lambda: fb.gemm(a16, w16, bias_, "bf16"), 20)
+                del a16, w16
+                out_b = fb.GEMM_EPILOGUES[epi][2].itemsize
+                nbytes = (M_ * K_ + Nn * K_ + 4 * M_ + 8 * Nn + M_ * Nn * out_b
+                          + (0 if res_ is None else res_.numel() * res_.element_size()))
+                b = max(ops / PEAK_S8_OPS, nbytes / PEAK_BYTES) * 1e3
+                by = "operations" if ops / PEAK_S8_OPS >= nbytes / PEAK_BYTES else "bytes"
+                stats["gemm_s8"].append({
+                    "rows": who, "product": name, "M": M_, "N": Nn, "K": K_, "epilogue": epi,
+                    "ms": ms, "plain_ms": pl, "bound_ms": b, "bound_by": by,
+                    "library_ms": lib, "bf16_gemm_ms": ms16,
+                    "max_abs_err": gap["max_abs_err"], "bit_equal_f32": exact})
+                print(f"  gemm_s8 {name} {who} M={M_} N={Nn} K={K_}: kernel {ms:.4f} ms "
+                      f"({ops / ms / 1e9:.0f} TOPS), torch._int_mm {lib:.4f} ms "
+                      f"({ops / lib / 1e9:.0f} TOPS), bf16 wgmma GEMM {ms16:.4f} ms "
+                      f"({ops / ms16 / 1e9:.0f} TFLOP/s), plain {pl:.3f} ms, bound {b:.4f} "
+                      f"ms ({by}, s8 peak), {b / ms:.1%} of bound", flush=True)
+                del a_q, res_
+        if not all(k3_ok):
+            fail("the s8 GEMM disagrees with its twin")
+        torch.cuda.empty_cache()
+        part("phase 4d: the s8 GEMM")
+        # (3) rows 1q and 2q against their twins (twin_check, q8 rules) at
+        # the teacher and student windows; times beside their bounds (the
+        # GEMMs at the s8 peak, the attention at the bf16 peak)
+        for k in ("temporal_phase_tm_q8", "spatial_mlp_q8"):
+            stats[k] = []
+        for B, T in [(8, 30), (8, 3)]:
+            x = dev_randn(83, B, T, N, D)
+            x1 = dev_randn(84, B, T, N, D, dtype=f32t)
+            cls = dev_randn(85, B, 1, D)
+            with torch.inference_mode():
+                g_, c_ = fb.spatial_mlp(x1, cls, sq, H)
+                g0, c0 = fb.spatial_mlp_plain(x1, cls, sq, H)
+                t_ = fb.temporal_phase_tm(x, tq, H)
+                t0_ = fb.temporal_phase_tm_plain(x, tq, H)
+            checks = [check_close(f"temporal_phase_tm_q8 out-x B={B} T={T}", t_, t0_, x, q8=True),
+                      check_close(f"spatial_mlp_q8 grid-x1 B={B} T={T}", g_, g0, x1, q8=True),
+                      check_close(f"spatial_mlp_q8 cls B={B} T={T}", c_, c0, q8=True)]
+            if not all(ok for ok, _ in checks):
+                fail(f"an int8 row disagrees with its plain twin at B={B} T={T}")
+            del g_, c_, g0, c0, t_, t0_
+            gaps = [gap for _, gap in checks]
+            iters = 20 if T > 8 else 50
+            for name, kern, plain_fn, cost, op_gaps in [
+                    ("temporal_phase_tm_q8", lambda: fb.temporal_phase_tm(x, tq, H),
+                     lambda: fb.temporal_phase_tm_plain(x, tq, H),
+                     temporal_q8_cost(B, T, N, D), gaps[:1]),
+                    ("spatial_mlp_q8", lambda: fb.spatial_mlp(x1, cls, sq, H),
+                     lambda: fb.spatial_mlp_plain(x1, cls, sq, H),
+                     spatial_q8_cost(B, T, N, D, Dh), gaps[1:])]:
+                # the profile right after the kernel's own timing: once, after
+                # the twin's timing (thousands of small launches), three
+                # profiles in a row missed the call's first kernels
+                row = {"B": B, "T": T, "max_abs_err": max(g["max_abs_err"] for g in op_gaps),
+                       "rel_rms": max(g["rel_rms"] for g in op_gaps)}
+                with torch.inference_mode():
+                    ms = cuda_ms(kern, iters)
+                    record_split(f"{name} B={B} T={T}", kern, row, op=name)
+                    pl = cuda_ms(plain_fn, 2, warmup=1)
+                b, by = bound_q8_ms(*cost)
+                row.update(ms=ms, plain_ms=pl, bound_ms=b, bound_by=by, library_ms=None)
+                stats[name].append(row)
+                print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
+                      f"{b:.4f} ms ({by}; GEMMs at the s8 peak), {b / ms:.1%} of bound",
+                      flush=True)
+            del x, x1, cls
+        torch.cuda.empty_cache()
+        part("phase 4d: rows 1q and 2q")
+        # (4) the windowed path with each int8 option: counters around the
+        # run, frames/s beside phase 4's, a profiled run's families, losses
+        # against the plain int8 path (the same scorer, every kernel op
+        # through its twin) and the f32 path of phase 5
+        q8_ops = ("temporal_phase_tm_q8", "spatial_mlp_q8")
+        launches_q8 = {}
+        for tag, qkw in (("student int8", dict(student_quant="int8")),
+                         ("teacher int8", dict(teacher_quant="int8")),
+                         ("both int8", dict(teacher_quant="int8", student_quant="int8"))):
+            scorers = scorers_for(torch.bfloat16, "auto", **qkw)
+            sc = scorers[0]
+            if not (sc.model_cfg.use_kernels
+                    and sc.model.quantized == ("student_quant" in qkw)
+                    and sc.t_model.quantized == ("teacher_quant" in qkw)):
+                fail(f"{tag}: the scorer did not build its quantized model on the kernels")
+            del sc
+            run(scorers, items[1:], "q8_warmup")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got_q = run(scorers, items, f"q8_{tag[:4]}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seen = counts()
+            n_q8 = cfg.depth * chunks * (2 if len(qkw) == 2 else 1)
+            n_bf = 2 * cfg.depth * chunks - n_q8
+            expect = {k: 0 for k in seen}
+            expect.update({"temporal_phase_tm_q8": n_q8, "spatial_mlp_q8": n_q8,
+                           "temporal_phase_tm": n_bf, "spatial_mlp": n_bf})
+            for op in q8_ops:
+                for k, n in fb.Q8_LAUNCHES[op].items():
+                    expect[k] += n * n_q8
+            print(f"  {tag}: launches {seen} (expected {expect}: each windowed op's int8 "
+                  f"tier once a block of each quantized forward, its bf16 tier for the "
+                  f"other, and the int8 tier's kernels per call {fb.Q8_LAUNCHES})",
+                  flush=True)
+            if seen != expect:
+                fail(f"{tag}: launches {seen}, expected {expect}")
+            launches_q8[tag] = seen
+            print(f"  {tag}: frames_per_s={n_frames / wall:.2f} ms_per_chunk="
+                  f"{wall * 1e3 / chunks:.1f} (phase 4's bf16: {fps_windowed:.2f}) on {card}",
+                  flush=True)
+            checked_profile(f"{items[1]['num_frames']}-frame clip, {tag}", f"windowed {tag}",
+                            lambda: run(scorers, items[1:], "q8_prof"), reset_counts, counts,
+                            top=10)
+            del scorers
+            reset_counts()
+            with twins(fb, bb):
+                plain_q = run(scorers_for(torch.bfloat16, "auto", **qkw), items, "q8_plain")
+            if any(counts().values()):
+                fail(f"{tag}: the plain int8 path launched a kernel")
+            loss_checks(f"windowed {tag}", [(it["path"][:-4], it["num_frames"])
+                                            for it in items],
+                        got_q, plain_q, f32, LOSS_REL_TOL, plain_name="plain int8")
+        for k in q8_ops + ("gemm_s8", "quant_rows", "ln_quant_rows"):
+            launches[k] = launches_q8["both int8"][k]
+        torch.cuda.empty_cache()
+        lap("phase 4d")
+
         # -- 6. banded path, bf16 ---------------------------------------------
         print(f"[6] banded path, bf16: make_scorers(band_mode='both') + "
               f"run_scoring, clips of {BAND_CLIPS} frames, band_chunk "
@@ -2592,6 +2903,14 @@ def main():
         "smem_probe": ("smem_probe.cu", "tools/vmem_probe.py:31"),
         # no Pallas kernel: the XLA fusion of the gather with unpack_normalize
         "gather_normalize": ("wire.cu", "data/yuv.py:288"),
+        # the int8 tier of rows 1 and 2 (their int8 refs, _q8_rows :1481)
+        # and its three kernels (row Q): the quantization half and the s8
+        # product of _q8_rows
+        "temporal_phase_tm_q8": ("fused_block.cu", "ops/fused_block.py:761"),
+        "spatial_mlp_q8": ("fused_block.cu", "ops/fused_block.py:1556"),
+        "gemm_s8": ("wgmma_gemm.cuh", "ops/fused_block.py:1481"),
+        "quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
+        "ln_quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
     }
     for name in ("attn_phase", "temporal_phase"):
         launches[name] = launches[f"{name}_per_phase"]
@@ -2623,6 +2942,11 @@ def main():
         elif name == "smem_probe":
             extra = {"budget_bytes": rows[0]["budget_bytes"],
                      "optin_bytes": rows[0]["optin_bytes"]}
+        elif name in ("temporal_phase_tm_q8", "spatial_mlp_q8", "gemm_s8", "quant_rows",
+                      "ln_quant_rows"):
+            # the count is the both-int8 run's; the two one-sided runs' too
+            extra = {"launches_student_int8": launches_q8["student int8"][name],
+                     "launches_teacher_int8": launches_q8["teacher int8"][name]}
         if name in blocks:  # rows 1-3, 6, 8, 9 and 11: their blocks alone
             extra["blocks"] = blocks[name]
         kernels.append({**extra,

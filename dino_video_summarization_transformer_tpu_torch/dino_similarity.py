@@ -21,7 +21,12 @@ packed I420 (the codec's planar 4:2:0, half the bytes of RGB) and the card
 unpacks, colour-converts and normalizes the frames in its view gathers
 (``ops/wire.py``); ``yuv420q`` further box-averages the chroma to 1/8
 resolution per axis (experimental); ``rgb8`` (the default) ships
-normalized floats as before. The other approximation flags of the JAX
+normalized floats as before. ``--teacher_quant int8`` / ``--student_quant
+int8`` quantize the teacher's / the students' dense block weights (W8A8,
+``ops/quant.py``; in bf16 on the card the int8 tier of the whole-block
+kernels, s8 wgmma GEMMs); exact windows only, so with ``--band`` they
+raise NotImplementedError, as ``--teacher_quant`` does with
+``--teacher_precision float32``. The other approximation flags of the JAX
 CLI are accepted but not ported yet: any of them away from its default
 raises NotImplementedError naming the ROADMAP item. ``--device`` defaults to
 ``cuda``. Without ``--pretrained_weights`` the model gets numpy-seeded
@@ -42,8 +47,6 @@ UNPORTED_FLAGS = {
     "teacher_refine": (0.0, "scorer approximation knobs"),
     "score_stride": (1, "scorer approximation knobs"),
     "score_refine": (0.0, "scorer approximation knobs"),
-    "student_quant": ("none", "int8 tiers"),
-    "teacher_quant": ("none", "int8 tiers"),
 }
 
 
@@ -118,6 +121,16 @@ def check_unported(cli) -> None:
             raise NotImplementedError(
                 f"--{flag} {getattr(cli, flag)!r}: not ported to the CUDA "
                 f"package yet (ROADMAP: {item})")
+    # the int8 tiers' combinations the scorer refuses, before any loading
+    if cli.band != "none" and "int8" in (cli.teacher_quant, cli.student_quant):
+        raise NotImplementedError(
+            "--band with an int8 tier: not ported to the CUDA package yet "
+            "(ROADMAP queue 1 item 5a: banded int8)")
+    if cli.teacher_quant == "int8" and cli.teacher_precision == "float32":
+        raise NotImplementedError(
+            "--teacher_quant int8 with --teacher_precision float32: not ported "
+            "to the CUDA package yet (ROADMAP queue 1 item 5b: teacher_quant "
+            "with the mixed teacher)")
 
 
 def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
@@ -156,8 +169,11 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
         band_mode=None if cli.band == "none" else cli.band,
         teacher_dtype=(torch.float32 if cli.teacher_precision == "float32"
                        else None),
+        teacher_quant=None if cli.teacher_quant == "none" else cli.teacher_quant,
+        student_quant=None if cli.student_quant == "none" else cli.student_quant,
         wire_format=cli.wire_format if cli.wire_format != "rgb8" else "yuv420")
-    if (cli.wire_format != "rgb8" or cli.band != "none") and not bf16:
+    if (cli.wire_format != "rgb8" or cli.band != "none" or cli.teacher_quant != "none"
+            or cli.student_quant != "none") and not bf16:
         print("NOTE: approximation/wire flags change scores; "
               "f32 bit-parity does not apply")
     run_scoring(dataset, scorer, file_path, num_workers=cli.num_workers,

@@ -38,8 +38,13 @@ every view gather unpacks and normalizes it on the card in the forward's
 own dtype (``ops/wire.py``: the hand-written kernel on the kernel route,
 its plain twin otherwise).
 
-The approximation knobs of the JAX scorer (teacher/score strides, int8
-tiers) are not ported yet (ROADMAP).
+The int8 tiers (``teacher_quant`` / ``student_quant``, JAX
+``ScorerConfig``'s) quantize the teacher's or the students' dense block
+weights (W8A8, ``ops/quant.py``) from the original state dict; in bf16 on
+the card the quantized forwards run the int8 tier of the whole-block pair
+(s8 wgmma GEMMs), on the plain path ``quant.int8_linear``. Exact windows
+only; ``teacher_quant`` not with the mixed teacher. The approximation knobs
+of the JAX scorer (teacher/score strides) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from ..models import banded
 from ..models.timesformer import TimeSformerConfig, build_timesformer
 from ..ops import wire
 from ..ops.banded_block import banded_problems
+from ..ops.quant import quantize_state_dict_int8
 from ..train.dino import scoring_dino_loss
 from ..utils.device import resolve_device
 from ..utils.flops import banded_pass_flops
@@ -92,6 +98,14 @@ class ScorerConfig:
       teacher_temp 0.02 the teacher softmax is the score's sharpest noise
       amplifier, so teacher precision buys score fidelity. Exact windows
       only: with ``band_mode`` it raises NotImplementedError.
+    teacher_quant, student_quant: None or "int8": the teacher's, or the
+      students', seven dense layers of every block quantized to int8 (W8A8
+      dynamic PTQ, ``ops/quant.py``: per-channel weights quantized once
+      from the ORIGINAL state dict, per-row activations), as JAX's. With
+      both, teacher and students share one quantized model. Exact windows
+      only (with ``band_mode`` they raise NotImplementedError), and
+      ``teacher_quant`` not with the mixed teacher; ``student_quant`` with
+      it is allowed.
     wire_format: how 3-D uint8 frames (T, rows, W) are read: "yuv420", the
       codec's packed I420 planes (default), or "yuv420q", I420 with
       eighth-resolution chroma (experimental: 16-27% relative score error
@@ -114,6 +128,8 @@ class ScorerConfig:
     band_block: int = 32
     teacher_dtype: Optional[torch.dtype] = None
     wire_format: str = "yuv420"
+    teacher_quant: Optional[str] = None
+    student_quant: Optional[str] = None
 
 
 class FrameScorer:
@@ -168,6 +184,18 @@ class FrameScorer:
         if config.wire_format not in ("yuv420", "yuv420q"):
             raise ValueError(f"wire_format={config.wire_format!r}, expected "
                              "'yuv420' or 'yuv420q'")
+        for name in ("teacher_quant", "student_quant"):
+            if getattr(config, name) not in (None, "int8"):
+                raise ValueError(f"{name}={getattr(config, name)!r}: None or 'int8'")
+        self.teacher_quant, self.student_quant = config.teacher_quant, config.student_quant
+        if config.band_mode is not None and (self.teacher_quant or self.student_quant):
+            raise NotImplementedError(
+                "band_mode with teacher_quant or student_quant: banded int8 is "
+                "not ported (ROADMAP queue 1 item 5a); score exact windows")
+        if self.teacher_quant and t_dtype != self.compute_dtype:
+            raise NotImplementedError(
+                "teacher_quant with the mixed teacher (teacher_dtype=float32) is "
+                "not ported (ROADMAP queue 1 item 5b): no JAX bench mode runs it")
         self.band_mode = config.band_mode
         if self.band_mode is not None and t_dtype != self.compute_dtype:
             raise NotImplementedError(
@@ -197,15 +225,19 @@ class FrameScorer:
                 if bad:
                     raise ValueError(f"band_mode with the kernels: {bad}")
         self.model_cfg = dataclasses.replace(model_cfg, use_kernels=bool(use))
-        self.model = build_timesformer(self.model_cfg, state_dict,
-                                       device=self.device,
-                                       dtype=self.compute_dtype)
-        if self.teacher_dtype == self.compute_dtype:
+        # the int8 tiers' weights, quantized from the original state dict
+        q_sd = (quantize_state_dict_int8(state_dict)
+                if self.teacher_quant or self.student_quant else None)
+        self.model = build_timesformer(
+            self.model_cfg, q_sd if self.student_quant else state_dict,
+            device=self.device, dtype=self.compute_dtype)
+        if (self.teacher_dtype == self.compute_dtype
+                and self.teacher_quant == self.student_quant):
             self.t_model = self.model
         else:  # from the original weights, not the students' bf16 copy
-            self.t_model = build_timesformer(self.model_cfg, state_dict,
-                                             device=self.device,
-                                             dtype=self.teacher_dtype)
+            self.t_model = build_timesformer(
+                self.model_cfg, q_sd if self.teacher_quant else state_dict,
+                device=self.device, dtype=self.teacher_dtype)
         self._dummy_loss: Optional[float] = None
         # rows computed (window rows per pass), and for the banded passes the
         # chunk rows processed (padding and seam halo included) and the

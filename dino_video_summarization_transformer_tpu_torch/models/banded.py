@@ -207,6 +207,10 @@ def banded_cls_features(model, frames: torch.Tensor, t_real: int, eff: int,
     they never reach a valid row); ``eff``: the window length (the local
     size for the student pass, min(global size, T) for the teacher).
     Returns (C, D) float32."""
+    if model.quantized:
+        raise NotImplementedError(
+            "banded passes on a quantized model: banded int8 is not ported "
+            "(ROADMAP queue 1 item 5a)")
     cfg = model.cfg
     C, _, Wimg, _ = frames.shape
     D = cfg.embed_dim

@@ -10,7 +10,10 @@ returns) to the reference layout, with the logic of the JAX package's
 ``pytree_to_reference_state_dict`` and no JAX; ``head_state_dict_from_jax``
 does the same for the DINO head (the inverse of the JAX package's
 ``dino_head_to_pytree``). Both are linear in the leaves, so they also carry
-JAX gradients and optimizer moments across for the tests.
+JAX gradients and optimizer moments across for the tests. The int8 tier's
+weights are not carried across: a converted state dict is quantized by the
+port (``ops/quant.quantize_state_dict_int8``), whose codes and scales equal
+JAX ``quantize_tree_int8``'s of the same tree bit for bit.
 """
 
 from __future__ import annotations

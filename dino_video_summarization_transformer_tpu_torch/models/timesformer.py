@@ -37,6 +37,14 @@ block's MHSA for ``ops/attention.mhsa_fused`` (JAX:
 Patch embedding is patchify + one matmul (as in JAX), which also keeps
 cuDNN's TF32 convolution default out of the f32 tier.
 
+A state dict quantized by ``ops/quant.quantize_state_dict_int8`` builds a
+quantized model (``build_timesformer``): each block's seven dense layers
+are ``QuantLinear`` (s8 codes, f32 scales and bias, no float copy), which
+run ``ops/quant.int8_linear`` on the plain route (JAX ``linear`` on a
+``qkernel`` tree) and the int8 tier of the whole-block pair on the kernel
+route; the per-phase dispatch is float-only there and raises, as does
+training.
+
 Training (``TimeSformer.forward_train``) keeps the parameters in f32 and
 takes an explicit compute dtype, casting where the JAX package casts: the
 input, ``cls_token``, ``pos_embed``, ``time_embed``, each linear kernel and
@@ -63,7 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import attention, fused_block
+from ..ops import attention, fused_block, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +178,10 @@ def mhsa(x: torch.Tensor, qkv: nn.Linear, proj: nn.Linear,
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """The JAX package's ``linear``: the kernel and then the bias cast to
-    x's dtype, each added in that dtype."""
+    x's dtype, each added in that dtype; a quantized layer (``QuantLinear``)
+    runs ``quant.int8_linear``, as JAX's ``linear`` on ``qkernel``."""
+    if isinstance(lin, QuantLinear):
+        return lin(x)
     y = torch.matmul(x, lin.weight.to(x.dtype).t())
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
@@ -223,6 +234,11 @@ def _fused(x: torch.Tensor, num_heads: Optional[int], use_fused: bool,
     the kernel op."""
     if not use_fused or not fused_block.fused_ok(x, num_heads):
         return False
+    if kp is not None and fused_block.is_q8(kp):
+        raise NotImplementedError(
+            "use_fused on a quantized block: the per-phase kernels are "
+            "float-only; a quantized model runs the whole-block pair "
+            "(TimeSformerConfig.use_kernels), as JAX gates it")
     if x.dtype == torch.float32:
         raise NotImplementedError(
             "use_fused on f32 activations is the per-phase kernels' f32 "
@@ -349,12 +365,49 @@ def load_reference_state_dict(module: nn.Module, sd: Mapping[str, object]) -> No
             if v.shape != t.shape:
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                                  f"{tuple(t.shape)}")
+            if (v.dtype == torch.int8) != (t.dtype == torch.int8):
+                raise TypeError(f"{k}: {v.dtype} into {t.dtype} (an int8 "
+                                "state dict builds a quantized model: "
+                                "build_timesformer)")
             t.copy_(v)
 
 
 # ---------------------------------------------------------------------------
 # Modules (reference state-dict layout)
 # ---------------------------------------------------------------------------
+
+class QuantLinear(nn.Module):
+    """A dense layer of the int8 tier (JAX ``quantize_dense``'s output):
+    ``weight`` the s8 codes (out, in), ``qscale`` their f32 per-channel
+    scales, ``bias`` f32, all buffers; ``forward`` is ``quant.int8_linear``,
+    output in x's dtype. ``build_timesformer`` puts these in place after it
+    casts the model to its dtype; a later ``.to(dtype)`` would cast the
+    scales and bias too."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight", torch.zeros(out_features, in_features,
+                                                   dtype=torch.int8))
+        self.register_buffer("qscale", torch.zeros(out_features))
+        self.register_buffer("bias", torch.zeros(out_features) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant.int8_linear(x, self.weight, self.qscale, self.bias)
+
+
+def quantize_blocks(model: "TimeSformer") -> None:
+    """Replace every block's ``quant.BLOCK_DENSE`` layers by ``QuantLinear``
+    modules of the same shapes (zeros until a quantized state dict loads)."""
+    for blk in model.blocks:
+        for name in quant.BLOCK_DENSE:
+            parent, _, attr = name.rpartition(".")
+            owner = blk.get_submodule(parent) if parent else blk
+            lin = getattr(owner, attr)
+            with torch.device(lin.weight.device):
+                setattr(owner, attr, QuantLinear(lin.in_features, lin.out_features,
+                                                 lin.bias is not None))
+
 
 class Attention(nn.Module):
     def __init__(self, dim: int, qkv_bias: bool = True):
@@ -561,10 +614,16 @@ class TimeSformer(nn.Module):
     def load_reference_state_dict(self, sd: Mapping[str, object]) -> None:
         load_reference_state_dict(self, sd)
 
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.blocks[0].mlp.fc1, QuantLinear)
+
     def kernel_params(self) -> list:
         """Per-block weights in the kernels' layout (bf16 matrices, f32
-        vectors), rebuilt whenever a parameter is replaced or written."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        vectors; s8 codes and f32 scales where quantized), rebuilt whenever
+        a parameter or buffer is replaced or written."""
+        key = tuple((p.data_ptr(), p._version)
+                    for p in [*self.parameters(), *self.buffers()])
         if key != self._kp_key:
             self._kp = [fused_block.block_params(b) for b in self.blocks]
             self._kp_key = key
@@ -640,6 +699,8 @@ class TimeSformer(nn.Module):
         (``train_route``)."""
         if route not in ("plain", "kernels"):
             raise ValueError(f"route {route!r}: 'plain' or 'kernels'")
+        if self.quantized:
+            raise NotImplementedError("a quantized model serves inference only")
         cfg = self.cfg
         B, C, T, Himg, Wimg = x.shape
         W = Wimg // cfg.patch_size
@@ -688,7 +749,9 @@ def build_timesformer(cfg: TimeSformerConfig, state_dict: Mapping[str, object],
                       device=None, dtype: Optional[torch.dtype] = None
                       ) -> TimeSformer:
     """Build on ``device`` (default: the CUDA card), cast to ``dtype`` and
-    load a reference-layout state dict. Inference mode (``eval``)."""
+    load a reference-layout state dict. Inference mode (``eval``). A state
+    dict from ``quant.quantize_state_dict_int8`` builds the quantized model
+    (``QuantLinear`` blocks), the rest cast to ``dtype``."""
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -696,6 +759,8 @@ def build_timesformer(cfg: TimeSformerConfig, state_dict: Mapping[str, object],
         model = TimeSformer(cfg)
     if dtype is not None:
         model = model.to(dtype)
+    if quant.is_quantized(state_dict):
+        quantize_blocks(model)
     model.load_reference_state_dict(state_dict)
     return model.eval()
 

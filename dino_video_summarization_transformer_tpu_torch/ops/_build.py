@@ -77,6 +77,22 @@ _SIGNATURES = {
         "dvst_temporal_attn_smem": [_i] * 3,
         # A, W, bias, res, out | M | N, K, epilogue | stream
         "dvst_gemm": [_p] * 5 + [_l] + [_i] * 3 + [_p],
+        # the int8 tier: x, 11 weights and scales, workspace, out | B, T,
+        # N, D, H | stream
+        "dvst_temporal_phase_tm_q8": [_p] * 14 + [_i] * 5 + [_p],
+        # its workspace bytes (returns long) | B, T, N, D
+        "dvst_temporal_phase_tm_q8_ws": [_i] * 4,
+        # x1, cls, 16 weights and scales, workspace, out, cls_rows | B, T,
+        # N, D, H, Dh | stream
+        "dvst_spatial_mlp_q8": [_p] * 21 + [_i] * 6 + [_p],
+        # its workspace bytes (returns long) | B, T, N, D, Dh
+        "dvst_spatial_mlp_q8_ws": [_i] * 5,
+        # A, sx, W, sw, bias, res, out | M | N, K, epilogue | stream
+        "dvst_gemm_s8": [_p] * 7 + [_l] + [_i] * 3 + [_p],
+        # x, codes, scales | M | D | stream
+        "dvst_quant_rows": [_p] * 3 + [_l, _i, _p],
+        # x, w, b, codes, scales | M | D, x_f32 | stream
+        "dvst_ln_quant_rows": [_p] * 5 + [_l] + [_i] * 2 + [_p],
     },
     "banded": {
         # qkv, out | C, N, D, H, t_real, eff | stream

@@ -89,6 +89,150 @@ cudaError_t ln_launch(const TIn* x, const float* w, const float* b, bf16* y,
 }
 
 // ---------------------------------------------------------------------------
+// The int8 tier's row quantization (replaces the activation half of
+// _q8_rows, dino_video_summarization_transformer_tpu/ops/fused_block.py:
+// 1481-1493): a row's scale sx = max(amax, 1e-12) / 127 and its codes
+// clip(rint(x / sx), -127, 127) in s8, with IEEE division (__fdiv_rn) and
+// round-half-even (rintf), as JAX's int8_linear and the twins compute them
+// (the Pallas kernel multiplies by 1 / sx and does not clip). One warp a
+// row, so the row's amax is one warp_max. Bound by bytes: each row read
+// once (the second read of quant_rows_kernel hits L1), the codes and the
+// scale written once.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_sum_rn(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float q8_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+}
+
+__device__ __forceinline__ float q8_code(float v, float sx) {
+  return fminf(fmaxf(rintf(__fdiv_rn(v, sx)), -127.f), 127.f);
+}
+
+// K1: LayerNorm of a row, rounded to bf16, then quantized: the codes (s8)
+// and the row's scale. The LN runs in an order the twin
+// (fused_block.ln_quant_rows_plain) repeats step for step, so the two
+// agree bit for bit: lane l sums its values x[l + 32 i] in order of i, the
+// lanes' sums meet in a xor butterfly (16, 8, 4, 2, 1); mean = sum / D;
+// the squares of x - mean likewise; rs = 1 / sqrt(var + eps); y = ((x -
+// mean) * rs) * w + b; every step rounded (_rn intrinsics: no FMA
+// contraction, no approximate rsqrt). The row width D = 32 V is a template
+// parameter, so a lane holds exactly its V values (24 at ViT-B): a first
+// form sized for the widest row held 95 registers a thread and ran at
+// ~10% of its bytes bound (PERF.md). D % 128 == 0, D <= 1024.
+template <typename TIn, int V>
+__global__ void __launch_bounds__(kLnThreads)
+ln_quant_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ b, int8_t* __restrict__ q,
+                float* __restrict__ sx, long rows) {
+  constexpr int D = 32 * V;
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // uniform per warp
+  const TIn* xr = x + row * D;
+  float v[V];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    v[i] = to_f32(xr[lane + 32 * i]);
+    s = __fadd_rn(s, v[i]);
+  }
+  const float mu = __fdiv_rn(warp_sum_rn(s), (float)D);
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    v[i] = __fsub_rn(v[i], mu);
+    ss = __fadd_rn(ss, __fmul_rn(v[i], v[i]));
+  }
+  const float var = __fdiv_rn(warp_sum_rn(ss), (float)D);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, kLnEps)));
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int d = lane + 32 * i;
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[i], rs), w[d]), b[d]);
+    v[i] = __bfloat162float(__float2bfloat16_rn(y));  // what gets quantized
+    amax = fmaxf(amax, fabsf(v[i]));
+  }
+  const float scale = q8_scale(warp_max(amax));
+  int8_t* qr = q + row * D;
+#pragma unroll
+  for (int i = 0; i < V; ++i) qr[lane + 32 * i] = (int8_t)q8_code(v[i], scale);
+  if (lane == 0) sx[row] = scale;
+}
+
+template <typename TIn>
+cudaError_t ln_quant_launch(const TIn* x, const float* w, const float* b, int8_t* q,
+                            float* sx, long rows, int D, cudaStream_t st) {
+  if (rows <= 0) return cudaSuccess;
+  const long rows_per_block = kLnThreads / 32;
+  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+#define DVST_LNQ_CASE(VV)                                                                 \
+  case 32 * VV:                                                                           \
+    ln_quant_kernel<TIn, VV><<<blocks, kLnThreads, 0, st>>>(x, w, b, q, sx, rows);        \
+    break;
+  switch (D) {
+    DVST_LNQ_CASE(4)
+    DVST_LNQ_CASE(8)
+    DVST_LNQ_CASE(12)
+    DVST_LNQ_CASE(16)
+    DVST_LNQ_CASE(20)
+    DVST_LNQ_CASE(24)
+    DVST_LNQ_CASE(28)
+    DVST_LNQ_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DVST_LNQ_CASE
+  return cudaGetLastError();
+}
+
+// K2: bf16 rows (the attention output, the proj output, the MLP's hidden
+// rows) to s8 codes and the row's scale. A lane reads 4 consecutive values
+// (8 bytes) at a time, columns 4 (lane + 32 c): one pass for the amax,
+// a second for the codes (4 bytes a store). D % 128 == 0.
+__global__ void __launch_bounds__(kLnThreads)
+quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+                  float* __restrict__ sx, long rows, int D) {
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * (kLnThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // uniform per warp
+  const bf16* xr = x + row * D;
+  float amax = 0.f;
+  for (int d = 4 * lane; d < D; d += 128) {
+    const uint2 u = *reinterpret_cast<const uint2*>(xr + d);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    amax = fmaxf(fmaxf(amax, fmaxf(fabsf(a.x), fabsf(a.y))), fmaxf(fabsf(c.x), fabsf(c.y)));
+  }
+  const float scale = q8_scale(warp_max(amax));
+  for (int d = 4 * lane; d < D; d += 128) {
+    const uint2 u = *reinterpret_cast<const uint2*>(xr + d);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    *reinterpret_cast<char4*>(q + row * D + d) =
+        make_char4((signed char)q8_code(a.x, scale), (signed char)q8_code(a.y, scale),
+                   (signed char)q8_code(c.x, scale), (signed char)q8_code(c.y, scale));
+  }
+  if (lane == 0) sx[row] = scale;
+}
+
+inline cudaError_t quant_rows_launch(const bf16* x, int8_t* q, float* sx, long rows, int D,
+                                     cudaStream_t st) {
+  if (rows <= 0) return cudaSuccess;
+  if (D <= 0 || D % 128) return cudaErrorInvalidValue;
+  const long rows_per_block = kLnThreads / 32;
+  const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  quant_rows_kernel<<<blocks, kLnThreads, 0, st>>>(x, q, sx, rows, D);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The GEMM epilogues of wgmma_gemm.cuh: out[M, N] = epilogue(A . W^T +
 // bias[N]), with the helpers its epilogues and the row passes share.
 // ---------------------------------------------------------------------------

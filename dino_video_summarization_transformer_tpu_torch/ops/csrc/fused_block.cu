@@ -3,7 +3,7 @@
 // block's two attention phases (forwards; the backwards are in
 // fused_block_bwd.cu).
 //
-// Six C entry points, each a short chain of launches on the caller's
+// Eight C entry points, each a short chain of launches on the caller's
 // stream (the building blocks are in dvst_common.cuh):
 //
 //   dvst_temporal_phase_tm  replaces _temporal_phase_tm_kernel
@@ -21,6 +21,15 @@
 //       attention the tensor-core tile reading the T rows of each
 //       sequence at stride N straight from the qkv buffer (tc_attention.cuh's
 //       tc_strided_attn).
+//   dvst_temporal_phase_tm_q8  replaces the int8 tier of
+//       _temporal_phase_tm_kernel (fused_block.py:761, its weight-scale
+//       refs at :765-769, wrapper :911-921; _q8_rows :1481): bf16 x ->
+//       f32 x + fc(proj(MHSA over T(LN x))) with s8 weights and per-row
+//       s8 activations, as JAX's _dense_rows runs every product of the
+//       tier (:1496); the attention stays bf16
+//       launches: LN+quant -> s8 GEMM qkv -> attention -> quant ->
+//       s8 GEMM proj -> quant -> s8 GEMM fc+res
+//       (ln_quant_kernel, wg_gemm_s8, tc_strided_attn, quant_rows_kernel)
 //   dvst_spatial_phase      replaces _spatial_phase_kernel
 //       (ops/fused_block.py:287): per frame on [cls, x_t]: LN -> MHSA ->
 //       proj; grid out = bf16(x + bf16(proj)), raw per-frame CLS rows bf16
@@ -47,6 +56,20 @@
 //       Its GEMMs are the wgmma + TMA kernel (wgmma_gemm.cuh), its
 //       attention the tensor-core tile with the CLS row as prefix key
 //       (tc_attention.cuh's tc_prefix_attn).
+//   dvst_spatial_mlp_q8     replaces the int8 tier of _spatial_mlp_kernel
+//       (fused_block.py:1556, refs :1567-1571, wrapper :1607-1618): the
+//       float tier's chain with every product an s8 GEMM on rows quantized
+//       just before it: the LN rows of the grid and of the CLS rows, the
+//       attention outputs (grid and per-frame CLS), the post-spatial LN
+//       rows and the 3072-wide hidden rows before fc2 (_mhsa_rows :1505,
+//       _mlp_rows :1538); the CLS row bf16, the grid out bf16
+//       launches: LN+quant grid, LN+quant cls -> s8 GEMM qkv grid, qkv
+//       cls -> attention -> quant, s8 GEMM proj+res grid -> quant, s8
+//       GEMM proj cls -> LN+quant -> s8 GEMM fc1+GELU -> quant -> s8
+//       GEMM fc2+res
+//       The int8 tier's bound: its GEMMs' operations at the s8 peak (1979
+//       TOPS), its attention's at the bf16 peak; it is a simple first
+//       form, the quantization a row pass of its own before each product.
 //   dvst_mlp_phase          replaces _mlp_phase_kernel
 //       (ops/fused_block.py:1191): rows (M,D) bf16 -> LN -> fc1 -> erf GELU
 //       -> fc2, optionally + x, bf16 out; fc2's output is rounded to bf16
@@ -184,6 +207,58 @@ SpatialMlpWs spatial_mlp_ws(char* base, int B, int T, int N, int D, int Dh) {
   return w;
 }
 
+// dvst_temporal_phase_tm_q8's: the s8 codes and f32 scales of the rows
+// about to be multiplied (the LN rows, then the attention output, then the
+// proj output), qkv, and the attention output (then the proj output).
+struct TemporalQ8Ws {
+  int8_t* q;
+  float* sx;
+  bf16 *qkv, *a;
+  size_t bytes;
+};
+
+TemporalQ8Ws temporal_q8_ws(char* base, long M, int D) {
+  Carve c{base};
+  TemporalQ8Ws w;
+  w.q = c.take<int8_t>(M * D);
+  w.sx = c.take<float>(M);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.bytes = c.off;
+  return w;
+}
+
+// dvst_spatial_mlp_q8's: the codes and scales of the M grid rows (up to
+// Dh wide: the hidden rows), qkv, the attention output and the hidden
+// rows; the codes and scales of the B CLS rows and then of the B*T
+// per-frame CLS attention outputs, the CLS rows' qkv and those outputs;
+// and the f32 post-spatial carry x2.
+struct SpatialMlpQ8Ws {
+  int8_t *q, *q_cls;
+  float *sx, *sx_cls;
+  bf16 *qkv, *a, *hid, *qkv_cls, *a_cls;
+  float* x2;
+  size_t bytes;
+};
+
+SpatialMlpQ8Ws spatial_mlp_q8_ws(char* base, int B, int T, int N, int D, int Dh) {
+  const long M = (long)B * T * N;
+  Carve c{base};
+  SpatialMlpQ8Ws w;
+  w.q = c.take<int8_t>(M * (Dh > D ? Dh : D));
+  w.sx = c.take<float>(M);
+  w.qkv = c.take<bf16>(M * 3 * D);
+  w.a = c.take<bf16>(M * D);
+  w.hid = c.take<bf16>(M * Dh);
+  w.q_cls = c.take<int8_t>((long)B * T * D);
+  w.sx_cls = c.take<float>((long)B * T);
+  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
+  w.a_cls = c.take<bf16>((long)B * T * D);
+  w.x2 = c.take<float>(M * D);
+  w.bytes = c.off;
+  return w;
+}
+
 // dvst_mlp_phase's: the LN rows and the hidden rows.
 struct MlpWs {
   bf16 *y, *hid;
@@ -245,6 +320,38 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
   if (out_bf16)
     return wg_gemm<kEpiAddBf16>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
   return wg_gemm<kEpiResBf16F32>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
+}
+
+// The int8 tier: x (B,T,N,D) bf16 -> out (B,T,N,D) f32, with s8 weights
+// (out, in) and their f32 scales. ws: the bytes
+// dvst_temporal_phase_tm_q8_ws gives.
+long dvst_temporal_phase_tm_q8_ws(int B, int T, int N, int D) {
+  return (long)temporal_q8_ws(nullptr, (long)B * T * N, D).bytes;
+}
+
+int dvst_temporal_phase_tm_q8(const void* x_, const void* ln_w, const void* ln_b,
+                              const void* qkv_w, const void* qkv_s, const void* qkv_b,
+                              const void* proj_w, const void* proj_s, const void* proj_b,
+                              const void* fc_w, const void* fc_s, const void* fc_b, void* ws,
+                              void* out, int B, int T, int N, int D, int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const TemporalQ8Ws w = temporal_q8_ws(static_cast<char*>(ws), M, D);
+  cudaError_t e;
+  if ((e = ln_quant_launch<bf16>(static_cast<const bf16*>(x_), static_cast<const float*>(ln_w),
+                                 static_cast<const float*>(ln_b), w.q, w.sx, M, D, st)))
+    return e;
+  if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, qkv_w, qkv_s, qkv_b, nullptr, w.qkv, M, 3 * D, D,
+                                st)))
+    return e;
+  // sequence (b, n) over t: rows (b*T + t)*N + n
+  const int hd = D / H;
+  if ((e = tc_strided_attn(hd, w.qkv, w.a, B, T, N, H, 1.0f / sqrtf((float)hd), st))) return e;
+  if ((e = quant_rows_launch(w.a, w.q, w.sx, M, D, st))) return e;
+  if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, proj_w, proj_s, proj_b, nullptr, w.a, M, D, D, st)))
+    return e;
+  if ((e = quant_rows_launch(w.a, w.q, w.sx, M, D, st))) return e;
+  return wg_gemm_s8<kEpiResBf16F32>(w.q, w.sx, fc_w, fc_s, fc_b, x_, out, M, D, D, st);
 }
 
 // x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16 =
@@ -332,6 +439,60 @@ int dvst_spatial_mlp(const void* x1_, const void* cls_, const void* ln1_w,
   if (f32)  // the mixed tier's grid: x2 + MLP in f32
     return wg_gemm<kEpiResF32F32>(w.hid, fc2_w, fc2_b, w.x2, out, M, D, Dh, st);
   return wg_gemm<kEpiResF32Bf16>(w.hid, fc2_w, fc2_b, w.x2, out, M, D, Dh, st);
+}
+
+// The int8 tier: x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
+// cls_rows (B,T,D) f32, with s8 weights (out, in) and their f32 scales.
+// ws: the bytes dvst_spatial_mlp_q8_ws gives.
+long dvst_spatial_mlp_q8_ws(int B, int T, int N, int D, int Dh) {
+  return (long)spatial_mlp_q8_ws(nullptr, B, T, N, D, Dh).bytes;
+}
+
+int dvst_spatial_mlp_q8(const void* x1_, const void* cls_, const void* ln1_w,
+                        const void* ln1_b, const void* qkv_w, const void* qkv_s,
+                        const void* qkv_b, const void* proj_w, const void* proj_s,
+                        const void* proj_b, const void* ln2_w, const void* ln2_b,
+                        const void* fc1_w, const void* fc1_s, const void* fc1_b,
+                        const void* fc2_w, const void* fc2_s, const void* fc2_b, void* ws,
+                        void* out, void* cls_rows, int B, int T, int N, int D, int H, int Dh,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const float* x1 = static_cast<const float*>(x1_);
+  const SpatialMlpQ8Ws w = spatial_mlp_q8_ws(static_cast<char*>(ws), B, T, N, D, Dh);
+  const float* l1w = static_cast<const float*>(ln1_w);
+  const float* l1b = static_cast<const float*>(ln1_b);
+  cudaError_t e;
+  if ((e = ln_quant_launch<float>(x1, l1w, l1b, w.q, w.sx, M, D, st))) return e;
+  if ((e = ln_quant_launch<bf16>(static_cast<const bf16*>(cls_), l1w, l1b, w.q_cls, w.sx_cls, B,
+                                 D, st)))
+    return e;
+  if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, qkv_w, qkv_s, qkv_b, nullptr, w.qkv, M, 3 * D, D,
+                                st)))
+    return e;
+  if ((e = wg_gemm_s8<kEpiBf16>(w.q_cls, w.sx_cls, qkv_w, qkv_s, qkv_b, nullptr, w.qkv_cls, B,
+                                3 * D, D, st)))
+    return e;
+  // sequence s = b*T + t: [cls row b, grid rows s*N + n for n < N]
+  const int hd = D / H;
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
+                          1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = quant_rows_launch(w.a, w.q, w.sx, M, D, st))) return e;
+  if ((e = wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, proj_w, proj_s, proj_b, x1, w.x2, M, D, D, st)))
+    return e;
+  if ((e = quant_rows_launch(w.a_cls, w.q_cls, w.sx_cls, (long)B * T, D, st))) return e;
+  if ((e = wg_gemm_s8<kEpiF32>(w.q_cls, w.sx_cls, proj_w, proj_s, proj_b, nullptr, cls_rows,
+                               (long)B * T, D, D, st)))
+    return e;
+  if ((e = ln_quant_launch<float>(w.x2, static_cast<const float*>(ln2_w),
+                                  static_cast<const float*>(ln2_b), w.q, w.sx, M, D, st)))
+    return e;
+  if ((e = wg_gemm_s8<kEpiGeluBf16>(w.q, w.sx, fc1_w, fc1_s, fc1_b, nullptr, w.hid, M, Dh, D,
+                                    st)))
+    return e;
+  if ((e = quant_rows_launch(w.hid, w.q, w.sx, M, Dh, st))) return e;
+  return wg_gemm_s8<kEpiResF32Bf16>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);
 }
 
 // x (M,D) bf16 or (x_f32) f32 -> out (M,D) in x's dtype = [x +]
@@ -444,6 +605,49 @@ int dvst_gemm(const void* A, const void* W, const void* bias, const void* res,
     case kEpiAddBf16: return wg_gemm<kEpiAddBf16>(a, W, bias, res, out, M, N, K, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The int8 tier's blocks alone. The s8 GEMM: out = epi(f32(A (M, K) s8 .
+// W (N, K)^T s8) * sx[row] * sw[col] + bias), epi one of the forwards'
+// Epi (0-6).
+int dvst_gemm_s8(const void* A, const void* sx, const void* W, const void* sw,
+                 const void* bias, const void* res, void* out, long M, int N, int K, int epi,
+                 void* stream) {
+  const int8_t* a = static_cast<const int8_t*>(A);
+  const float* s = static_cast<const float*>(sx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case kEpiBf16: return wg_gemm_s8<kEpiBf16>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiGeluBf16: return wg_gemm_s8<kEpiGeluBf16>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiResBf16F32:
+      return wg_gemm_s8<kEpiResBf16F32>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiResF32F32:
+      return wg_gemm_s8<kEpiResF32F32>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiF32: return wg_gemm_s8<kEpiF32>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiResF32Bf16:
+      return wg_gemm_s8<kEpiResF32Bf16>(a, s, W, sw, bias, res, out, M, N, K, st);
+    case kEpiAddBf16: return wg_gemm_s8<kEpiAddBf16>(a, s, W, sw, bias, res, out, M, N, K, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Bf16 rows (M, D) -> s8 codes (M, D) and f32 scales (M).
+int dvst_quant_rows(const void* x, void* q, void* sx, long M, int D, void* stream) {
+  return quant_rows_launch(static_cast<const bf16*>(x), static_cast<int8_t*>(q),
+                           static_cast<float*>(sx), M, D, static_cast<cudaStream_t>(stream));
+}
+
+// LayerNorm of rows (M, D), bf16 or (x_f32) f32, rounded to bf16, then
+// quantized: s8 codes (M, D) and f32 scales (M).
+int dvst_ln_quant_rows(const void* x, const void* w, const void* b, void* q, void* sx, long M,
+                       int D, int x_f32, void* stream) {
+  const float* lw = static_cast<const float*>(w);
+  const float* lb = static_cast<const float*>(b);
+  int8_t* qq = static_cast<int8_t*>(q);
+  float* s = static_cast<float*>(sx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_f32) return ln_quant_launch<float>(static_cast<const float*>(x), lw, lb, qq, s, M, D, st);
+  return ln_quant_launch<bf16>(static_cast<const bf16*>(x), lw, lb, qq, s, M, D, st);
 }
 
 }  // extern "C"

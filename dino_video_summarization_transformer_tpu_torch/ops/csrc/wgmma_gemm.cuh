@@ -54,10 +54,27 @@
 //   fastest: split z reduces K stages [z * kchunk, (z + 1) * kchunk) and
 //   writes partial z, whichever block takes it, so the sums are the same
 //   on every call.
+//
+// The s8 instance (Q8, wg_gemm_s8): the int8 tier's products, A (M, K) s8
+// row codes and W (N, K) s8 channel codes, both K-major (8-bit wgmma has
+// no transpose bit), summed exactly in s32 by
+// wgmma.mma_async.m64nBNk32.s32.s8.s8. A 128-deep s8 stage is 128 bytes a
+// row, as a 64-deep bf16 stage is, so the ring, the 128-byte TMA swizzle,
+// the descriptors' byte strides and the four wgmma a stage carry over
+// (each k32 step 32 bytes on, as each bf16 k16 step). The epilogue first
+// dequantizes each sum as f32(acc) * sx[row] * sw[col] + bias[col], left
+// to right with no FMA contraction (the twin's order, so the f32 result is
+// bit-equal to it), then applies the same Epi codes. Bound by operations
+// at the port's shapes (K = 768 or 3072) at the s8 peak (1979 TOPS), half
+// the time of the bf16 product; a simple first form, its quantization in
+// separate row passes (dvst_common.cuh's ln_quant_kernel and
+// quant_rows_kernel).
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode function's types (header only)
+
+#include <type_traits>
 
 #include "dvst_common.cuh"
 
@@ -65,6 +82,7 @@ namespace {
 
 constexpr int kWgBM = 128;       // rows per tile: two consumer warpgroups of 64
 constexpr int kWgBK = 64;        // K per stage: one 128-byte swizzled row of bf16
+                                 // (128 deep in the s8 instance)
 constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
 constexpr int kWgRing = 196608;  // bytes of the stage ring
 
@@ -164,6 +182,12 @@ __device__ __forceinline__ void wg_fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void wg_fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (64 x n, f32) += A (64 x 16, descriptor da) . B (16 x n, descriptor db);
 // TA / TB: 1 where that operand is MN-major (wgmma's transpose bits).
 template <int TA, int TB>
@@ -256,6 +280,98 @@ __device__ __forceinline__ void wg_mma(float (&d)[128], uint64_t da, uint64_t db
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x n, s32) += A (64 x 32, s8, descriptor da) . B (32 x n, s8,
+// descriptor db), both K-major: the s8 instance's product, exact.
+__device__ __forceinline__ void wg_mma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wg_mma_s8(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t wg_pack(float lo, float hi) {
@@ -393,13 +509,25 @@ __device__ __forceinline__ void wg_store_res8(void* out, size_t o, const float (
     store8(static_cast<bf16*>(out) + o, s);
 }
 
-template <int BN, int EPI, bool AMN, bool BMN>
+// The s8 instance's sums kept in their accumulator registers between the
+// epilogue's two passes (as the f32 sums are kept in theirs): the bits of
+// the f32 value.
+__device__ __forceinline__ void wg_keep(float& d, float v) { d = v; }
+__device__ __forceinline__ void wg_keep(int& d, float v) { d = __float_as_int(v); }
+__device__ __forceinline__ float wg_kept(float d) { return d; }
+__device__ __forceinline__ float wg_kept(int d) { return __int_as_float(d); }
+
+// Q8: A and W s8 codes, sx (M) and sw (N) their f32 scales (null otherwise).
+template <int BN, int EPI, bool AMN, bool BMN, bool Q8 = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                const __grid_constant__ CUtensorMap tmW, const float* __restrict__ bias,
                const void* __restrict__ res, void* __restrict__ out, int M, int N,
-               int K, int kchunk, int splits, long split_stride) {
+               int K, int kchunk, int splits, long split_stride,
+               const float* __restrict__ sx, const float* __restrict__ sw) {
   using S = WgShape<BN>;
+  static_assert(!Q8 || (!AMN && !BMN), "8-bit wgmma reads K-major operands only");
+  constexpr int kBK = Q8 ? 2 * kWgBK : kWgBK;  // K of a 128-byte stage row
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
   const uint32_t ring = (wg_smem_u32(wg_smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = ring + S::kStages * S::kStage;
@@ -412,7 +540,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
   const int n_tiles = N / BN;
   const int tiles = (M + kWgBM - 1) / kWgBM * n_tiles;
   const int work = kSplit ? tiles * splits : tiles;  // (split, tile) items, tiles fastest
-  const int nk = (K + kWgBK - 1) / kWgBK;
+  const int nk = (K + kBK - 1) / kBK;
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
@@ -437,7 +565,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         for (int kt = z * kchunk; kt < k1; ++kt) {
           mbar_wait(empty(s), ph ^ 1u);
           const uint32_t a = ring + s * S::kStage;
-          const int k0 = kt * kWgBK;
+          const int k0 = kt * kBK;
           mbar_expect_tx(full(s), S::kStage);
           if constexpr (AMN) {  // two boxes of 64 rows of M
             tma_load_2d(a, &tmA, full(s), m0, k0);
@@ -466,7 +594,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     const int g = (tid & 31) >> 2, q = tid & 3;
     // K-major: the next 16-deep slice is 32 bytes on; MN-major: 16 rows on
     constexpr uint64_t kStepA = AMN ? 128 : 2, kStepB = BMN ? 128 : 2;
-    float acc[BN / 2];
+    std::conditional_t<Q8, int, float> acc[BN / 2];
     int s = 0;
     uint32_t ph = 0;
     for (int w = blockIdx.x; w < work; w += gridDim.x) {
@@ -489,7 +617,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                   rb + ((size_t)(row0 + 8 * h) * N + n0) * WgEpi<EPI>::kRes + l * 128));
       }
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
       wg_fence_operands(acc);
       int prev = 0;
       for (int kt = k0t; kt < k1; ++kt) {
@@ -499,8 +627,12 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         const uint64_t db = BMN ? wg_desc_mn(a + S::kA) : wg_desc(a + S::kA);
         wg_fence();
 #pragma unroll
-        for (int k = 0; k < kWgBK / 16; ++k)
-          wg_mma<AMN, BMN>(acc, da + kStepA * k, db + kStepB * k);
+        for (int k = 0; k < 4; ++k) {  // k16 (bf16) or k32 (s8): 32 bytes each
+          if constexpr (Q8)
+            wg_mma_s8(acc, da + kStepA * k, db + kStepB * k);
+          else
+            wg_mma<AMN, BMN>(acc, da + kStepA * k, db + kStepB * k);
+        }
         wg_commit();
         wg_wait<1>();  // the previous stage's group has retired: free it
         if (kt > k0t && tid == 0) mbar_arrive(empty(prev));
@@ -515,39 +647,56 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
       if (tid == 0) mbar_arrive(empty(prev));
 
       // acc[4 j + 2 h + e]: row 16 warp + g + 8 h, column 8 j + 2 q + e;
-      // taken 32 columns (four n8 tiles) at a time. With a residual, the
+      // taken 32 columns (four n8 tiles) at a time; the s8 instance's sums
+      // dequantized first. With a residual, the
       // transposed sums go back into acc (group (j0, h)'s eight slots) and
       // the residual is read in batches of four 16- or 32-byte loads, all
       // issued before the batch's stores (the tile's lines were prefetched
       // into L2 when the tile began). Split z writes its partial at z *
       // split_stride.
       constexpr int kRes = WgEpi<EPI>::kRes;
+      float rsx[2] = {0.f, 0.f};  // the s8 instance: the two rows' scales
+      if constexpr (Q8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row0 + 8 * h < M) rsx[h] = sx[row0 + 8 * h];
+      }
       void* outz = kSplit && splits > 1
                        ? static_cast<void*>(static_cast<float*>(out) + (size_t)z * split_stride)
                        : out;
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += 4) {
-        float2 b[4];
+        float2 b[4], c[4];
 #pragma unroll
-        for (int t_ = 0; t_ < 4; ++t_)
+        for (int t_ = 0; t_ < 4; ++t_) {
           b[t_] = kBias ? *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t_) + 2 * q)
                         : make_float2(0.f, 0.f);
+          if constexpr (Q8)
+            c[t_] = *reinterpret_cast<const float2*>(sw + n0 + 8 * (j0 + t_) + 2 * q);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
           float lo[4], hi[4], v[8];
 #pragma unroll
           for (int t_ = 0; t_ < 4; ++t_) {
-            lo[t_] = acc[4 * (j0 + t_) + 2 * h] + b[t_].x;
-            hi[t_] = acc[4 * (j0 + t_) + 2 * h + 1] + b[t_].y;
+            if constexpr (Q8) {  // f32(acc) * sx * sw + bias, each step rounded
+              lo[t_] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * (j0 + t_) + 2 * h]),
+                                                     rsx[h]), c[t_].x), b[t_].x);
+              hi[t_] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * (j0 + t_) + 2 * h + 1]),
+                                                     rsx[h]), c[t_].y), b[t_].y);
+            } else {
+              lo[t_] = acc[4 * (j0 + t_) + 2 * h] + b[t_].x;
+              hi[t_] = acc[4 * (j0 + t_) + 2 * h + 1] + b[t_].y;
+            }
           }
           wg_epilogue8<EPI>(outz, res, (size_t)row * N + n0 + 8 * (j0 + q), row < M, lo, hi, q,
                             v);
           if constexpr (kRes != 0) {
 #pragma unroll
             for (int t_ = 0; t_ < 4; ++t_) {
-              acc[4 * (j0 + t_) + 2 * h] = v[2 * t_];
-              acc[4 * (j0 + t_) + 2 * h + 1] = v[2 * t_ + 1];
+              wg_keep(acc[4 * (j0 + t_) + 2 * h], v[2 * t_]);
+              wg_keep(acc[4 * (j0 + t_) + 2 * h + 1], v[2 * t_ + 1]);
             }
           }
         }
@@ -570,8 +719,8 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
             float v[8];
 #pragma unroll
             for (int t_ = 0; t_ < 4; ++t_) {
-              v[2 * t_] = acc[4 * (j0 + t_) + 2 * h];
-              v[2 * t_ + 1] = acc[4 * (j0 + t_) + 2 * h + 1];
+              v[2 * t_] = wg_kept(acc[4 * (j0 + t_) + 2 * h]);
+              v[2 * t_ + 1] = wg_kept(acc[4 * (j0 + t_) + 2 * h + 1]);
             }
             if (row < M) wg_store_res8<EPI>(outz, (size_t)row * N + n0 + 8 * (j0 + q), v, r[i]);
           }
@@ -609,16 +758,18 @@ inline WgEncodeTiled wg_encode_tiled() {
 // Tensor map of a (rows, cols) row-major bf16 matrix, boxes of box_rows x
 // 64 (cols), 128-byte swizzled; rows past `rows` read as zeros. A K-major
 // operand is (M or N, K) in boxes of the tile's rows; an MN-major one
-// (K, M or N) in boxes of 64 K rows.
+// (K, M or N) in boxes of 64 K rows. With s8, an s8 matrix in boxes of
+// box_rows x 128 (the same 128 bytes a box row).
 inline cudaError_t wg_tensor_map(CUtensorMap* map, const void* ptr, long rows, int cols,
-                                 int box_rows) {
+                                 int box_rows, bool s8 = false) {
   const WgEncodeTiled encode = wg_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (s8 ? 1 : 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)(s8 ? 2 * kWgBK : kWgBK), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  const CUresult r = encode(map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -654,7 +805,8 @@ cudaError_t wg_gemm_launch(const bf16* A, const bf16* W, const float* bias,
   const long work = (M + kWgBM - 1) / kWgBM * (N / BN) * splits;
   wg_gemm_kernel<BN, EPI, AMN, BMN>
       <<<(unsigned)(work < sms ? work : sms), kWgThreads, S::kSmem, st>>>(
-          ta, tw, bias, res, out, (int)M, N, (int)K, kchunk, splits, split_stride);
+          ta, tw, bias, res, out, (int)M, N, (int)K, kchunk, splits, split_stride, nullptr,
+          nullptr);
   return cudaGetLastError();
 }
 
@@ -680,6 +832,45 @@ cudaError_t wg_gemm(const bf16* A, const void* W, const void* bias, const void* 
   if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
     return cudaErrorInvalidValue;
   return wg_gemm_any<EPI, false, false>(A, W, bias, res, out, M, N, K, 1, K / kWgBK, 0, st);
+}
+
+template <int BN, int EPI>
+cudaError_t wg_gemm_s8_launch(const int8_t* A, const float* sx, const int8_t* W,
+                              const float* sw, const float* bias, const void* res, void* out,
+                              long M, int N, long K, cudaStream_t st) {
+  using S = WgShape<BN>;
+  CUtensorMap ta, tw;
+  cudaError_t e;
+  if ((e = wg_tensor_map(&ta, A, M, (int)K, kWgBM, true))) return e;
+  if ((e = wg_tensor_map(&tw, W, N, (int)K, BN, true))) return e;
+  static SmemGrant grant;
+  if ((e = smem_opt_in(wg_gemm_kernel<BN, EPI, false, false, true>, S::kSmem, grant))) return e;
+  int sms = 0;
+  if ((e = wg_sms(&sms))) return e;
+  const long work = (M + kWgBM - 1) / kWgBM * (N / BN);
+  wg_gemm_kernel<BN, EPI, false, false, true>
+      <<<(unsigned)(work < sms ? work : sms), kWgThreads, S::kSmem, st>>>(
+          ta, tw, bias, res, out, (int)M, N, (int)K, (int)(K / (2 * kWgBK)), 1, 0, sx, sw);
+  return cudaGetLastError();
+}
+
+// The int8 tier's product: out (M, N) = epi(f32(A . W^T) * sx[row] * sw[col]
+// + bias[col]), A (M, K) s8 row codes with their f32 scales sx (M), W
+// (N, K) s8 channel codes with theirs, sw (N). Requires N % 128 == 0, K %
+// 128 == 0, 16-byte aligned A and W (the wrappers check); M is ragged.
+template <int EPI>
+cudaError_t wg_gemm_s8(const int8_t* A, const float* sx, const void* W, const void* sw,
+                       const void* bias, const void* res, void* out, long M, int N, int K,
+                       cudaStream_t st) {
+  if (M <= 0) return cudaSuccess;
+  if (N <= 0 || N % 128 || K <= 0 || K % (2 * kWgBK) || M > (1L << 30))
+    return cudaErrorInvalidValue;
+  const int8_t* w = static_cast<const int8_t*>(W);
+  const float* s = static_cast<const float*>(sw);
+  const float* b = static_cast<const float*>(bias);
+  if (N % 256 == 0)
+    return wg_gemm_s8_launch<256, EPI>(A, sx, w, s, b, res, out, M, N, K, st);
+  return wg_gemm_s8_launch<128, EPI>(A, sx, w, s, b, res, out, M, N, K, st);
 }
 
 #ifdef DVST_WITH_BACKWARD

@@ -24,6 +24,19 @@ tier of the same kernels): ``temporal_phase_tm`` then reads f32 x and
   replaces ``_mlp_phase_kernel`` (fused_block.py:1191); the banded block's
   grid MLP (``models/banded.py``) and the training path's MLP phase.
 
+Both ops also have an int8 tier (W8A8, the JAX package's ``ops/quant.py``
+scheme on its whole-block kernels' int8 refs), picked by the weights' dtype:
+``block_params`` of a block whose dense layers are quantized
+(``models.timesformer.QuantLinear``) carries s8 (out, in) codes and their
+f32 scales (``*_s``), and every product runs as s8 x s8 -> s32 on rows
+quantized per row just before it; LN, the attention and GELU stay float.
+Its blocks have wrappers of their own: ``ln_quant_rows`` (LN, bf16
+rounding, row quantization), ``quant_rows`` (bf16 rows to codes) and
+``gemm_s8`` (the s8 wgmma GEMM with the dequantizing epilogue), plain twins
+``*_plain``; the first two and the GEMM's f32 output equal their twins bit
+for bit on the card. ``divided_block_wb`` takes the CLS row's MLP through
+the same math in plain torch (JAX fused_block.py:1694-1706).
+
 The f32 tiers take bf16 matrices and f32 LN weights, as every tier does:
 they read their f32 rows straight into LN and add their f32 residual in
 the GEMM's epilogue, and stage nothing in f32 but row 2's post-spatial
@@ -103,6 +116,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from . import quant
+
 LN_EPS = 1e-6
 SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into on sm_90
 
@@ -115,7 +130,17 @@ launches: Dict[str, int] = {
     "attn_phase": 0, "temporal_phase": 0, "gemm": 0, "spatial_attention": 0,
     "temporal_attention": 0, "spatial_attention_bwd": 0, "gemm_dx": 0,
     "gemm_dw": 0, "gemm_gelu_grad": 0, "temporal_attention_bwd": 0,
-    "layer_norm_bwd": 0}
+    "layer_norm_bwd": 0, "temporal_phase_tm_q8": 0, "spatial_mlp_q8": 0,
+    "gemm_s8": 0, "quant_rows": 0, "ln_quant_rows": 0}
+
+# The int8 tier's launches of its three kernels per call of rows 1 and 2
+# (the LN + quantize, the row quantize, the s8 GEMM): each op's wrapper adds
+# them to those kernels' counters, so the counters count every launch of
+# the three kernels, alone or inside the ops.
+Q8_LAUNCHES = {
+    "temporal_phase_tm_q8": {"ln_quant_rows": 1, "quant_rows": 2, "gemm_s8": 3},
+    "spatial_mlp_q8": {"ln_quant_rows": 3, "quant_rows": 3, "gemm_s8": 6},
+}
 
 # The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
 # the residual's dtype or None, the output's dtype).
@@ -150,12 +175,22 @@ SPATIAL_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
 MLP_KEYS = ("ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 SPATIAL_PHASE_KEYS = SPATIAL_KEYS[:6]
 _MATRICES = ("qkv_w", "proj_w", "fc_w", "fc1_w", "fc2_w")
+# the int8 tier's: each s8 matrix followed by its f32 scales
+TEMPORAL_Q8_KEYS = ("ln_w", "ln_b", "qkv_w", "qkv_s", "qkv_b", "proj_w", "proj_s",
+                    "proj_b", "fc_w", "fc_s", "fc_b")
+SPATIAL_Q8_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_s", "qkv_b", "proj_w", "proj_s",
+                   "proj_b", "ln2_w", "ln2_b", "fc1_w", "fc1_s", "fc1_b", "fc2_w",
+                   "fc2_s", "fc2_b")
 
 
 def block_params(block) -> dict:
     """Kernel-layout weights of one ``models.timesformer.Block``: bf16
-    (out, in) matrices and f32 vectors, for both ops."""
+    (out, in) matrices and f32 vectors, for both ops; for a quantized block
+    (its dense layers ``QuantLinear``) the s8 codes as the matrices and
+    their f32 scales under ``*_s``."""
     def mat(lin):
+        if lin.weight.dtype == torch.int8:
+            return lin.weight.detach().contiguous()
         return lin.weight.detach().to(torch.bfloat16).contiguous()
 
     def vec(t):
@@ -168,7 +203,7 @@ def block_params(block) -> dict:
         return vec(lin.bias)
 
     ta, sa = block.temporal_attn, block.attn
-    return {
+    out = {
         "temporal": {
             "ln_w": vec(block.temporal_norm1.weight),
             "ln_b": vec(block.temporal_norm1.bias),
@@ -185,6 +220,21 @@ def block_params(block) -> dict:
             "fc2_w": mat(block.mlp.fc2), "fc2_b": bias(block.mlp.fc2),
         },
     }
+    if block.mlp.fc1.weight.dtype == torch.int8:
+        for half, layers in (("temporal", {"qkv": ta.qkv, "proj": ta.proj,
+                                           "fc": block.temporal_fc}),
+                             ("spatial", {"qkv": sa.qkv, "proj": sa.proj,
+                                          "fc1": block.mlp.fc1,
+                                          "fc2": block.mlp.fc2})):
+            for name, lin in layers.items():
+                out[half][f"{name}_s"] = vec(lin.qscale)
+    return out
+
+
+def is_q8(p: dict) -> bool:
+    """Whether kernel-layout weights (one half of ``block_params``) are the
+    int8 tier's."""
+    return p["qkv_w"].dtype == torch.int8
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +267,86 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def _lane_sum(t: torch.Tensor) -> torch.Tensor:
+    """(M, V, 32) -> (M, 1): ln_quant_kernel's sum of a row held by a warp,
+    lane l's values t[:, i, l] added in order of i, then the lanes' sums
+    added in a xor butterfly (16, 8, 4, 2, 1); every lane ends with the
+    same sum."""
+    s = t[:, 0]
+    for i in range(1, t.shape[1]):
+        s = s + t[:, i]
+    lane = torch.arange(32, device=t.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ o]
+    return s[:, :1]
+
+
+def _ln_lanes(xf: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 LayerNorm of f32 rows (M, D) as ln_quant_kernel computes it, step
+    for step and rounding for rounding: value i of lane l is x[l + 32 i];
+    mean = sum / D, var = sum((x - mean)^2) / D, ((x - mean) * (1 /
+    sqrt(var + eps))) * w + b."""
+    M, D = xf.shape
+    v = xf.reshape(M, D // 32, 32)
+    c = v - quant.div_ieee(_lane_sum(v), D)[:, :, None]
+    var = quant.div_ieee(_lane_sum(c * c), D)
+    rs = torch.ones_like(var) / torch.sqrt(var + LN_EPS)
+    return (c * rs[:, :, None] * w.reshape(-1, 32) + b.reshape(-1, 32)).reshape(M, D)
+
+
+def quant_rows_plain(x: torch.Tensor):
+    """Plain twin of ``quant_rows``: rows (M, D) -> (s8 codes (M, D), f32
+    scales (M,))."""
+    return quant.quant_rows(x)
+
+
+def ln_quant_rows_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Plain twin of ``ln_quant_rows``: the kernel's LayerNorm of rows (M,
+    D), rounded to bf16, quantized per row."""
+    return quant.quant_rows(_ln_lanes(x.float(), w, b).to(torch.bfloat16))
+
+
+def _epilogue(v: torch.Tensor, epi: str, res: Optional[torch.Tensor]) -> torch.Tensor:
+    """GEMM_EPILOGUES' ``epi`` of the f32 sums v (bias added)."""
+    if epi == "gelu_bf16":
+        return F.gelu(v).to(torch.bfloat16)
+    if epi == "add_bf16":
+        return (res.float() + v.to(torch.bfloat16).float()).to(torch.bfloat16)
+    if res is not None:  # res_f32_f32, res_f32_bf16, res_bf16_f32
+        v = res.float() + v
+    return v.to(GEMM_EPILOGUES[epi][2])
+
+
+def gemm_s8_plain(a_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
+                  sw: torch.Tensor, bias: torch.Tensor, epi: str,
+                  res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of ``gemm_s8``: ``epi`` of f32(a_q @ w_q^T) * sx[row] *
+    sw[col] + bias, the integer sums exact (``quant.s8_product``), each
+    step rounded as the kernel rounds it."""
+    v = quant.s8_product(a_q, w_q) * sx[:, None] * sw + bias
+    return _epilogue(v, epi, res)
+
+
+def _temporal_phase_tm_q8_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """Row 1's int8 tier in torch: the chain of its blocks' twins."""
+    B, T, N, D = x.shape
+    M = B * T * N
+    q, sx = ln_quant_rows_plain(x.reshape(M, D), p["ln_w"], p["ln_b"])
+    qkv = gemm_s8_plain(q, sx, p["qkv_w"], p["qkv_s"], p["qkv_b"], "bf16")
+    a = temporal_attention_plain(qkv.reshape(B, T, N, 3 * D), num_heads)
+    q, sx = quant_rows_plain(a.reshape(M, D))
+    proj = gemm_s8_plain(q, sx, p["proj_w"], p["proj_s"], p["proj_b"], "bf16")
+    q, sx = quant_rows_plain(proj)
+    out = gemm_s8_plain(q, sx, p["fc_w"], p["fc_s"], p["fc_b"], "res_bf16_f32",
+                        x.reshape(M, D))
+    return out.reshape(B, T, N, D)
+
+
 def temporal_phase_tm_plain(x: torch.Tensor, p: dict, num_heads: int,
                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain twin of ``temporal_phase_tm``."""
+    """Plain twin of ``temporal_phase_tm`` (every tier)."""
+    if is_q8(p):
+        return _temporal_phase_tm_q8_plain(x, p, num_heads)
     xf = x.float()
     y = _ln(xf, p["ln_w"], p["ln_b"]).to(torch.bfloat16)
     qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
@@ -244,9 +371,33 @@ def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
     return a.permute(0, 3, 1, 2, 4).reshape(B, T, N, D3 // 3)
 
 
+def _spatial_mlp_q8_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
+                          num_heads: int):
+    """Row 2's int8 tier in torch: the chain of its blocks' twins."""
+    B, T, N, D = x1.shape
+    M = B * T * N
+    x1r = x1.reshape(M, D)
+    q, sx = ln_quant_rows_plain(x1r, p["ln1_w"], p["ln1_b"])
+    qc, sc = ln_quant_rows_plain(cls.reshape(B, D), p["ln1_w"], p["ln1_b"])
+    qkv = gemm_s8_plain(q, sx, p["qkv_w"], p["qkv_s"], p["qkv_b"], "bf16")
+    qkv_cls = gemm_s8_plain(qc, sc, p["qkv_w"], p["qkv_s"], p["qkv_b"], "bf16")
+    a, a_cls = spatial_attention_plain(qkv.reshape(B * T, N, 3 * D), qkv_cls, num_heads)
+    q, sx = quant_rows_plain(a.reshape(M, D))
+    x2 = gemm_s8_plain(q, sx, p["proj_w"], p["proj_s"], p["proj_b"], "res_f32_f32", x1r)
+    qc, sc = quant_rows_plain(a_cls)
+    cls_rows = gemm_s8_plain(qc, sc, p["proj_w"], p["proj_s"], p["proj_b"], "f32")
+    q, sx = ln_quant_rows_plain(x2, p["ln2_w"], p["ln2_b"])
+    hid = gemm_s8_plain(q, sx, p["fc1_w"], p["fc1_s"], p["fc1_b"], "gelu_bf16")
+    q, sx = quant_rows_plain(hid)
+    out = gemm_s8_plain(q, sx, p["fc2_w"], p["fc2_s"], p["fc2_b"], "res_f32_bf16", x2)
+    return out.reshape(B, T, N, D), cls_rows.reshape(B, T, D)
+
+
 def spatial_mlp_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
                       num_heads: int):
-    """Plain twin of ``spatial_mlp``."""
+    """Plain twin of ``spatial_mlp`` (every tier)."""
+    if is_q8(p):
+        return _spatial_mlp_q8_plain(x1, cls, p, num_heads)
     B, T, N, D = x1.shape
     H = num_heads
     hd = D // H
@@ -284,14 +435,7 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
                res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain twin of ``gemm``: ``epi`` of GEMM_EPILOGUES applied to a @ w^T +
     bias (bf16 operands, f32 accumulation)."""
-    v = _mm(a, w) + bias
-    if epi == "gelu_bf16":
-        return F.gelu(v).to(torch.bfloat16)
-    if epi == "add_bf16":
-        return (res.float() + v.to(torch.bfloat16).float()).to(torch.bfloat16)
-    if res is not None:  # res_f32_f32, res_f32_bf16, res_bf16_f32
-        v = res.float() + v
-    return v.to(GEMM_EPILOGUES[epi][2])
+    return _epilogue(_mm(a, w) + bias, epi, res)
 
 
 def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Tensor:
@@ -612,22 +756,25 @@ def _run(fn, *args) -> None:
             f"CUDA kernel launch failed ({err}): {_build.error_string(err)}")
 
 
-def _check_weights(p: dict, keys, shapes: dict, dev) -> None:
+def _check_weights(p: dict, keys, shapes: dict, dev, q8: bool = False) -> None:
+    """bf16 matrices (s8 in the int8 tier) and f32 vectors and scales."""
+    mat = torch.int8 if q8 else torch.bfloat16
     for k in keys:
-        _check_tensor(k, p[k], torch.bfloat16 if k in _MATRICES
-                      else torch.float32, shapes[k], dev)
+        _check_tensor(k, p[k], mat if k in _MATRICES else torch.float32, shapes[k], dev)
 
 
 def _temporal_shapes(D: int) -> dict:
     return {"ln_w": (D,), "ln_b": (D,), "qkv_w": (3 * D, D), "qkv_b": (3 * D,),
-            "proj_w": (D, D), "proj_b": (D,), "fc_w": (D, D), "fc_b": (D,)}
+            "proj_w": (D, D), "proj_b": (D,), "fc_w": (D, D), "fc_b": (D,),
+            "qkv_s": (3 * D,), "proj_s": (D,), "fc_s": (D,)}
 
 
 def _spatial_shapes(D: int, Dh: int = 0) -> dict:
     return {"ln1_w": (D,), "ln1_b": (D,), "qkv_w": (3 * D, D),
             "qkv_b": (3 * D,), "proj_w": (D, D), "proj_b": (D,),
             "ln2_w": (D,), "ln2_b": (D,), "fc1_w": (Dh, D), "fc1_b": (Dh,),
-            "fc2_w": (D, Dh), "fc2_b": (D,)}
+            "fc2_w": (D, Dh), "fc2_b": (D,), "qkv_s": (3 * D,), "proj_s": (D,),
+            "fc1_s": (Dh,), "fc2_s": (D,)}
 
 
 def _stream(dev) -> int:
@@ -714,6 +861,31 @@ def spatial_mlp_ws(B: int, T: int, N: int, D: int, Dh: int, lib=None) -> int:
                   B * 3 * D * 2, B * T * D * 2, M * D * 4)
 
 
+def temporal_phase_tm_q8_ws(B: int, T: int, N: int, D: int, lib=None) -> int:
+    """Workspace bytes of ``temporal_phase_tm``'s int8 tier: ``lib``'s
+    ``dvst_temporal_phase_tm_q8_ws`` where given, else its mirror here
+    (fused_block.cu's temporal_q8_ws: the s8 codes and f32 scales of the
+    rows being quantized, qkv and the attention output, bf16)."""
+    if lib is not None:
+        return lib.dvst_temporal_phase_tm_q8_ws(B, T, N, D)
+    M = B * T * N
+    return _carve(M * D, M * 4, M * 3 * D * 2, M * D * 2)
+
+
+def spatial_mlp_q8_ws(B: int, T: int, N: int, D: int, Dh: int, lib=None) -> int:
+    """Workspace bytes of ``spatial_mlp``'s int8 tier: ``lib``'s
+    ``dvst_spatial_mlp_q8_ws`` where given, else its mirror here
+    (fused_block.cu's spatial_mlp_q8_ws: the grid rows' codes (up to Dh
+    wide) and scales, qkv, attention output and hidden rows; the CLS rows'
+    codes and scales, qkv and per-frame attention outputs; the f32 carry
+    x2)."""
+    if lib is not None:
+        return lib.dvst_spatial_mlp_q8_ws(B, T, N, D, Dh)
+    M = B * T * N
+    return _carve(M * max(D, Dh), M * 4, M * 3 * D * 2, M * D * 2, M * Dh * 2,
+                  B * T * D, B * T * 4, B * 3 * D * 2, B * T * D * 2, M * D * 4)
+
+
 def mlp_phase_ws(M: int, D: int, Dh: int, lib=None) -> int:
     """Workspace bytes of ``mlp_phase`` (both tiers): ``lib``'s
     ``dvst_mlp_phase_ws`` where given, else its mirror here
@@ -768,6 +940,112 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
              code, _stream(dev))
     launches["gemm"] += 1
     return out
+
+
+def _count_q8(op: str) -> None:
+    launches[op] += 1
+    for k, n in Q8_LAUNCHES[op].items():
+        launches[k] += n
+
+
+def gemm_s8(a_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor, sw: torch.Tensor,
+            bias: torch.Tensor, epi: str, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 tier's s8 wgmma GEMM alone: a_q (M, K) s8 row codes with
+    their f32 scales sx (M,), w_q (N, K) s8 channel codes with theirs sw
+    (N,), bias (N,) f32 -> ``epi`` (a key of GEMM_EPILOGUES) of f32(a_q @
+    w_q^T) * sx[row] * sw[col] + bias, (M, N); ``res`` (M, N) for the
+    residual epilogues. N % 128 == 0, K % 128 == 0. Kernel on CUDA, plain
+    twin on CPU."""
+    if epi not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue {epi!r}: one of {sorted(GEMM_EPILOGUES)}")
+    code, res_dtype, out_dtype = GEMM_EPILOGUES[epi]
+    if a_q.dim() != 2 or w_q.dim() != 2:
+        raise ValueError("a_q and w_q: expected (M, K) and (N, K)")
+    (M, K), N = a_q.shape, w_q.shape[0]
+    dev = _device_of(a_q)
+    if N % 128 or K % 128:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+                         "K % 128 == 0")
+    _check_tensor("a_q", a_q, torch.int8, (M, K), dev)
+    _check_tensor("sx", sx, torch.float32, (M,), dev)
+    _check_tensor("w_q", w_q, torch.int8, (N, K), dev)
+    _check_tensor("sw", sw, torch.float32, (N,), dev)
+    _check_tensor("bias", bias, torch.float32, (N,), dev)
+    if res_dtype is None:
+        if res is not None:
+            raise ValueError(f"epilogue {epi!r} takes no residual")
+    else:
+        _check_tensor("res", res, res_dtype, (M, N), dev)
+    if dev.type == "cpu":
+        return gemm_s8_plain(a_q, sx, w_q, sw, bias, epi, res)
+
+    from . import _build
+
+    _check_aligned(a_q=a_q, w_q=w_q, sw=sw, bias=bias)
+    lib = _build.load()
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_gemm_s8, a_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(),
+             sw.data_ptr(), bias.data_ptr(), None if res is None else res.data_ptr(),
+             out.data_ptr(), M, N, K, code, _stream(dev))
+    launches["gemm_s8"] += 1
+    return out
+
+
+def quant_rows(x: torch.Tensor):
+    """The int8 tier's row quantization alone: bf16 rows (M, D) -> (s8
+    codes (M, D), f32 scales (M,)), D % 128 == 0. Kernel on CUDA, plain twin
+    on CPU."""
+    if x.dim() != 2 or x.shape[1] % 128:
+        raise ValueError(f"x: expected (M, D) with D % 128 == 0, got {tuple(x.shape)}")
+    M, D = x.shape
+    dev = _device_of(x)
+    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
+    if dev.type == "cpu":
+        return quant_rows_plain(x)
+
+    from . import _build
+
+    _check_aligned(x=x)
+    lib = _build.load()
+    q = torch.empty((M, D), dtype=torch.int8, device=dev)
+    sx = torch.empty(M, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_quant_rows, x.data_ptr(), q.data_ptr(), sx.data_ptr(), M, D,
+             _stream(dev))
+    launches["quant_rows"] += 1
+    return q, sx
+
+
+def ln_quant_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The int8 tier's LayerNorm + row quantization alone: rows (M, D), bf16
+    or f32 -> (s8 codes (M, D), f32 scales (M,)) of bf16(LN(x)), D % 128
+    == 0 and D <= 1024. Kernel on CUDA, plain twin on CPU."""
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
+    M, D = x.shape
+    if D % 128 or D > 1024:
+        raise ValueError(f"D={D}: the kernel needs D % 128 == 0 and D <= 1024")
+    dev = _device_of(x)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    _check_tensor("w", w, torch.float32, (D,), dev)
+    _check_tensor("b", b, torch.float32, (D,), dev)
+    if dev.type == "cpu":
+        return ln_quant_rows_plain(x, w, b)
+
+    from . import _build
+
+    lib = _build.load()
+    q = torch.empty((M, D), dtype=torch.int8, device=dev)
+    sx = torch.empty(M, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_ln_quant_rows, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+             q.data_ptr(), sx.data_ptr(), M, D, int(x.dtype == torch.float32),
+             _stream(dev))
+    launches["ln_quant_rows"] += 1
+    return q, sx
 
 
 def spatial_attention(qkv: torch.Tensor, qkv_prefix: torch.Tensor,
@@ -854,8 +1132,9 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     (LN x))) as (B, T, N, D) ``out_dtype``. Three tiers: bf16 x with f32
     out (the whole-block tier's carry) or bf16 out (the per-phase tier,
     bf16(x + bf16(fc))); f32 x with f32 out (the mixed teacher's block
-    boundary: LN on the f32 rows, the residual added in f32). Kernel on
-    CUDA, plain twin on CPU."""
+    boundary: LN on the f32 rows, the residual added in f32). With s8
+    weights (``block_params`` of a quantized block) the int8 tier: bf16 x,
+    f32 out. Kernel on CUDA, plain twin on CPU."""
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -865,11 +1144,15 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     x_f32 = x.dtype == torch.float32
     if x_f32 and out_dtype != torch.float32:
         raise TypeError("x: f32 rows are the mixed tier, which writes f32")
+    q8 = is_q8(p)
+    if q8 and (x_f32 or out_dtype != torch.float32):
+        raise TypeError("the int8 tier takes bf16 x and writes the f32 carry")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
     _check_tensor("x", x, x.dtype, x.shape, dev)
-    _check_weights(p, TEMPORAL_KEYS, _temporal_shapes(D), dev)
+    _check_weights(p, TEMPORAL_Q8_KEYS if q8 else TEMPORAL_KEYS, _temporal_shapes(D),
+                   dev, q8)
     if dev.type == "cpu":
         check_temporal_attn_smem(B * N, T, D // num_heads)
         return temporal_phase_tm_plain(x, p, num_heads, out_dtype)
@@ -883,6 +1166,15 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     # Scratch is freed on return while the kernels may still run: the
     # caching allocator hands it out again only to later work on this
     # stream, which is the stream the kernels run on.
+    if q8:
+        _check_aligned(qkv_s=p["qkv_s"], proj_s=p["proj_s"], fc_s=p["fc_s"])
+        ws = _ws(temporal_phase_tm_q8_ws(B, T, N, D, lib), dev)
+        with torch.cuda.device(dev):
+            _run(lib.dvst_temporal_phase_tm_q8, x.data_ptr(),
+                 *(p[k].data_ptr() for k in TEMPORAL_Q8_KEYS), ws.data_ptr(),
+                 out.data_ptr(), B, T, N, D, num_heads, _stream(dev))
+        _count_q8("temporal_phase_tm_q8")
+        return out
     ws = _ws(temporal_phase_tm_ws(B, T, N, D, lib), dev)
     bf16_out = out_dtype == torch.bfloat16
     with torch.cuda.device(dev):  # the launch goes to the current device
@@ -998,19 +1290,25 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     """x1 (B, T, N, D) f32 carry, cls (B, 1, D) bf16 or f32 -> (grid (B, T,
     N, D) in cls's dtype, per-frame CLS rows (B, T, D) f32). The block
     boundary's dtype picks the tier: bf16, or f32 for the mixed teacher
-    (the CLS row's LN reads it unrounded, the grid is written in f32).
-    Kernel on CUDA, plain twin on CPU."""
+    (the CLS row's LN reads it unrounded, the grid is written in f32). With
+    s8 weights the int8 tier (a bf16 CLS row). Kernel on CUDA, plain twin on
+    CPU."""
     if x1.dim() != 4:
         raise ValueError(f"x1: expected (B, T, N, D), got {tuple(x1.shape)}")
     if cls.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"cls: dtype {cls.dtype}, expected bfloat16 or float32")
+    q8 = is_q8(p)
+    if q8 and cls.dtype != torch.bfloat16:
+        raise TypeError("the int8 tier takes a bf16 CLS row (the mixed "
+                        "teacher's f32 boundary has no int8 tier)")
     B, T, N, D = x1.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x1)
     _check_geometry(D, num_heads, Dh)
     _check_tensor("x1", x1, torch.float32, x1.shape, dev)
     _check_tensor("cls", cls, cls.dtype, (B, 1, D), dev)
-    _check_weights(p, SPATIAL_KEYS, _spatial_shapes(D, Dh), dev)
+    _check_weights(p, SPATIAL_Q8_KEYS if q8 else SPATIAL_KEYS, _spatial_shapes(D, Dh),
+                   dev, q8)
     if dev.type == "cpu":
         return spatial_mlp_plain(x1, cls, p, num_heads)
 
@@ -1022,6 +1320,16 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     check_spatial_attn_smem(lib, N + 1, D // num_heads)
     out = torch.empty((B, T, N, D), dtype=cls.dtype, device=dev)
     cls_rows = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    if q8:
+        _check_aligned(**{k: p[k] for k in ("qkv_s", "proj_s", "fc1_s", "fc2_s")})
+        ws = _ws(spatial_mlp_q8_ws(B, T, N, D, Dh, lib), dev)
+        with torch.cuda.device(dev):
+            _run(lib.dvst_spatial_mlp_q8, x1.data_ptr(), cls.data_ptr(),
+                 *(p[k].data_ptr() for k in SPATIAL_Q8_KEYS), ws.data_ptr(),
+                 out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads, Dh,
+                 _stream(dev))
+        _count_q8("spatial_mlp_q8")
+        return out, cls_rows
     ws = _ws(spatial_mlp_ws(B, T, N, D, Dh, lib), dev)
     f32 = cls.dtype == torch.float32
     with torch.cuda.device(dev):
@@ -1038,14 +1346,21 @@ def divided_block_wb(p: dict, cls: torch.Tensor, grid: torch.Tensor,
     """Whole divided block: cls (B, 1, D), grid (B, T, N, D), both bf16 or
     (the mixed teacher's tier) both f32 -> (cls, grid) in that dtype, with
     the f32 intra-block carry between the two ops and the CLS row updated
-    in plain f32 torch (erf GELU), as JAX's ``clsf.astype(cls.dtype)``."""
+    in plain f32 torch (erf GELU), as JAX's ``clsf.astype(cls.dtype)``. The
+    int8 tier's CLS row takes JAX's int8 math (fused_block.py:1694-1706):
+    fc1 quantizes the f32 LN row and writes f32, fc2 quantizes bf16(GELU)
+    and writes bf16."""
     x1 = temporal_phase_tm(grid, p["temporal"], num_heads)
     grid_out, cls_frames = spatial_mlp(x1, cls, p["spatial"], num_heads)
     s = p["spatial"]
     clsf = cls.float() + cls_frames.mean(dim=1, keepdim=True)
     yn = _ln(clsf, s["ln2_w"], s["ln2_b"])
-    h = F.gelu(_mm(yn.to(torch.bfloat16), s["fc1_w"]) + s["fc1_b"])
-    mo = _mm(h.to(torch.bfloat16), s["fc2_w"])
+    if is_q8(s):
+        h = F.gelu(quant.int8_linear(yn, s["fc1_w"], s["fc1_s"]) + s["fc1_b"])
+        mo = quant.int8_linear(h.to(torch.bfloat16), s["fc2_w"], s["fc2_s"]).float()
+    else:
+        h = F.gelu(_mm(yn.to(torch.bfloat16), s["fc1_w"]) + s["fc1_b"])
+        mo = _mm(h.to(torch.bfloat16), s["fc2_w"])
     clsf = clsf + mo + s["fc2_b"]
     return clsf.to(cls.dtype), grid_out
 

@@ -27,6 +27,16 @@ tolerances above), and its bf16 output by ``rounding_ulps`` at most
 ``ROUNDING_ULPS``: where the branch is small beside the output's ulp, the
 last roundings' flips alone would read near ``REL_RMS_TOL`` against it.
 
+The int8 tier's outputs (rows 1 and 2 with s8 weights, ``q8=True``) are
+held by ``rel_rms`` and ``rel_max`` whatever their dtype. Kernel and twin
+quantize rows that may differ by a bf16 ulp upstream (the attention tile
+sums in another order than its twin), which flips a code, or, where it
+moves the row's largest element, redraws the rounding of the whole row:
+an error of the order of the quantization step times the weights at an
+element (on the card: up to 1.5e-2 of max|branch|, 10.5 bf16 ulps, at rms
+7e-4 of the branch), which an element-wise ulp rule does not bound. Their
+blocks alone are held bit for bit (``chip_smoke.py`` phase 4d).
+
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` hold every
 kernel to these; PERF.md gives the readings they were set from.
 """
@@ -107,14 +117,15 @@ def offset_rows(rng: np.random.RandomState, shape, offset: float = 4.0,
     return (sign * mag + spread * rng.randn(*shape)).astype(np.float32)
 
 
-def twin_failures(gap: Dict[str, float]) -> List[str]:
-    """The tolerances ``gap`` breaks; empty when it is within all of them."""
+def twin_failures(gap: Dict[str, float], q8: bool = False) -> List[str]:
+    """The tolerances ``gap`` breaks; empty when it is within all of them.
+    ``q8``: an output of the int8 tier, held by rel_rms and rel_max."""
     bad = []
     if not gap["finite"]:
         bad.append("non-finite output")
     if gap["rel_rms"] > REL_RMS_TOL:
         bad.append(f"rel_rms {gap['rel_rms']:.3e} > {REL_RMS_TOL}")
-    if "max_ulps" in gap:
+    if "max_ulps" in gap and not q8:
         if gap["max_ulps"] > BF16_ULPS:
             bad.append(f"max_ulps {gap['max_ulps']:.2f} > {BF16_ULPS}")
     elif gap["rel_max"] > REL_MAX_TOL:

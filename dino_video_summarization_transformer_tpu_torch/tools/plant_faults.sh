@@ -42,7 +42,14 @@
 # a multiply and an add contracted into an FMA, bf16 rounded toward zero;
 # and the scorer's uint8 RGB gather casting the bytes without normalizing
 # them (the fault the wire's port repaired; it exits 1 in phase 4c, the
-# others in phase 3). Name faults as arguments to run only those:
+# others in phase 3); the int8 tier's kernels (each exits 1 in phase 4d):
+# the codes rounded toward zero instead of to nearest even, the s8 GEMM's
+# dequantization with its product by the channel scale and the bias add
+# contracted into an FMA, the row scale dropped from the dequantization,
+# the LN + quantize kernel quantizing its f32 LN row instead of its bf16
+# rounding, and the quantization grid stretched to +-128 (the scale
+# amax / 128), whose largest codes clip at 127. Name faults as arguments
+# to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
@@ -51,6 +58,7 @@
 #     bash .../plant_faults.sh cls_self_dropped cls_window_shifted cls_norm_over_frames attn_phase_seq_short
 #     bash .../plant_faults.sh f32_in_read_as_bf16 cls_rounded_bf16 mixed_residual_bf16
 #     bash .../plant_faults.sh wire_chroma_rows wire_fma wire_bf16_truncated u8_unnormalized
+#     bash .../plant_faults.sh q8_round_rz q8_rescale_fma q8_no_row_scale q8_ln_unrounded q8_clip128
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer).
@@ -88,7 +96,7 @@ run fa_first_seq tc_attention.cuh 's/sp.kb, sp.ke, lo0, lo0 + L, lo1, lo1 + L,/0
 run band_shifted banded_block.cu 's/lo0 = band_lo(q0 + g, eff, hi), lo1 = band_lo(q0 + g + 8, eff, hi);/lo0 = band_lo(q0 + g, eff, hi) + 1, lo1 = band_lo(q0 + g + 8, eff, hi) + 1;/'
 run band_pad_unmasked banded_block.cu 's/lo0, lo0 + eff, lo1, lo1 + eff,/lo0, 1 << 30, lo1, 1 << 30,/'
 run cls_key_dropped tc_attention.cuh 's/const int k0 = 0;  \/\/ the first key: the prefix row/const int k0 = 1;/'
-run gemm_stage_skipped wgmma_gemm.cuh 's/const int k0 = kt \* kWgBK;/const int k0 = (kt + (kt == 1)) * kWgBK;/'
+run gemm_stage_skipped wgmma_gemm.cuh 's/const int k0 = kt \* kBK;/const int k0 = (kt + (kt == 1)) * kBK;/'
 run temporal_stride_one tc_attention.cuh 's/return ((long)b \* T + t) \* N + (s - b \* N);/return (long)s * T + t;/'
 run cls_self_dropped banded_block.cu 's/const float e0 = ex2(fmaf(self0, sl, -mx0)), e1 = ex2(fmaf(self1, sl, -mx1));/const float e0 = 0.f, e1 = 0.f;/'
 run cls_window_shifted banded_block.cu 's/const int lo0 = band_lo(i0 + r0 + g, eff, hi), lo1 = band_lo(i0 + r0 + g + 8, eff, hi);/const int lo0 = band_lo(i0 + r0 + g, eff, hi) + 1, lo1 = band_lo(i0 + r0 + g + 8, eff, hi) + 1;/'
@@ -101,3 +109,8 @@ run wire_chroma_rows wire.cu 's|const long v_at = u_at + (long)(H / sub) \* cw;|
 run wire_fma wire.cu 's|r = clip255(__fadd_rn(c, __fmul_rn(kRV, e)));|r = clip255(fmaf(kRV, e, c));|'
 run wire_bf16_truncated wire.cu 's|__float2bfloat16_rn|__float2bfloat16_rz|g'
 run u8_unnormalized ../../engine/scoring.py 's|        if layout is not None:|        if layout not in (None, "rgb8"):|'
+run q8_round_rz dvst_common.cuh 's/return fminf(fmaxf(rintf(__fdiv_rn(v, sx)), -127.f), 127.f);/return fminf(fmaxf(truncf(__fdiv_rn(v, sx)), -127.f), 127.f);/'
+run q8_rescale_fma wgmma_gemm.cuh 's/lo\[t_\] = __fadd_rn(__fmul_rn(__fmul_rn(/lo[t_] = fmaf((__fmul_rn(/; s/rsx\[h\]), c\[t_\]\.x), b\[t_\]\.x);/rsx[h])), c[t_].x, b[t_].x);/'
+run q8_no_row_scale wgmma_gemm.cuh 's/if (row0 + 8 \* h < M) rsx\[h\] = sx\[row0 + 8 \* h\];/rsx[h] = 1.f;/'
+run q8_ln_unrounded dvst_common.cuh 's/v\[i\] = __bfloat162float(__float2bfloat16_rn(y));  \/\/ what gets quantized/v[i] = y;/'
+run q8_clip128 dvst_common.cuh 's/return __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);/return __fdiv_rn(fmaxf(amax, 1e-12f), 128.f);/'

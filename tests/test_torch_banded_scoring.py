@@ -237,17 +237,20 @@ def test_cli_band_in_process(tmp_path, band):
 
 
 def test_cli_band_flag_is_ported_and_mixed_teacher_is_not():
-    """(The name predates the mixed teacher's and the wire's ports.)
-    ``--band``, ``--teacher_precision float32`` and ``--wire_format`` are
-    accepted, alone and together; the flags still unported
-    (``--teacher_quant int8``, ``--score_stride 2``) still raise, with the
+    """(The name predates the mixed teacher's, the wire's and the int8
+    tiers' ports.) ``--band``, ``--teacher_precision float32``,
+    ``--wire_format`` and the int8 flags are accepted, alone and together
+    where the scorer takes the pairing; the flags still unported
+    (``--teacher_stride 4``, ``--score_stride 2``) still raise, with the
     mixed teacher beside them too."""
     parse = cli.get_args_parser().parse_args
     for argv in (["--band", "both"], ["--teacher_precision", "float32"],
                  ["--band", "both", "--teacher_precision", "float32"],
-                 ["--wire_format", "yuv420", "--band", "both"]):
+                 ["--wire_format", "yuv420", "--band", "both"],
+                 ["--teacher_quant", "int8"],
+                 ["--student_quant", "int8", "--teacher_precision", "float32"]):
         cli.check_unported(parse(argv))
-    for argv in (["--teacher_quant", "int8"], ["--score_stride", "2"]):
+    for argv in (["--teacher_stride", "4"], ["--score_stride", "2"]):
         for extra in ([], ["--band", "both", "--teacher_precision", "float32"]):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 cli.check_unported(parse(argv + extra))

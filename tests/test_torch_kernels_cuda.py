@@ -1409,3 +1409,91 @@ def test_scorer_refuses_a_group_of_mixed_layouts(cuda_device):
     group = [dict(item, frames=u8), dict(item, frames=yuv.pack_rgb(u8))]
     with pytest.raises(ValueError, match="mixes frame layouts"):
         sc.score_group_async(group)
+
+
+# ---------------------------------------------------------------------------
+# The int8 tier (W8A8): its three kernels bit for bit, rows 1q and 2q by
+# twin_check's int8 rules
+# ---------------------------------------------------------------------------
+
+def _q8_block(D, H, seed, device):
+    from dino_video_summarization_transformer_tpu_torch.ops import quant
+
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=D,
+                                depth=1, num_heads=H, num_frames=4,
+                                num_classes=0)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, seed), cfg)
+    model = tsf.build_timesformer(cfg, quant.quantize_state_dict_int8(sd), device=device)
+    return fb.block_params(model.blocks[0])
+
+
+@pytest.mark.parametrize("M,D,dtype", [(3, 128, torch.bfloat16), (1000, 768, torch.bfloat16),
+                                       (1000, 768, torch.float32), (77, 1024, torch.float32)])
+def test_ln_quant_rows_kernel_is_bit_equal(cuda_device, M, D, dtype):
+    """K1: the LN + quantize kernel's codes and scales equal its twin's."""
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = (2 * torch.randn(M, D, generator=g, device=cuda_device) + 1).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(D, generator=g, device=cuda_device)
+    q, s = fb.ln_quant_rows(x, w, b)
+    q0, s0 = fb.ln_quant_rows_plain(x, w, b)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
+@pytest.mark.parametrize("M,D", [(5, 128), (1000, 768), (333, 3072)])
+def test_quant_rows_kernel_is_bit_equal(cuda_device, M, D):
+    """K2: the row quantize kernel's codes and scales equal its twin's; a
+    zero row quantizes to zeros."""
+    g = torch.Generator(device="cuda").manual_seed(D)
+    x = torch.randn(M, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    x[0] = 0
+    q, s = fb.quant_rows(x)
+    q0, s0 = fb.quant_rows_plain(x)
+    assert torch.equal(q, q0) and torch.equal(s, s0) and not q[0].any()
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 128, 128), (300, 768, 768), (4704, 2304, 768),
+                                   (4704, 768, 3072), (129, 3072, 768)])
+def test_gemm_s8_kernel_is_bit_equal(cuda_device, M, N, K):
+    """K3: the s8 GEMM's outputs equal its twin's at every forward
+    epilogue (the ragged M edge included)."""
+    g = torch.Generator(device="cuda").manual_seed(N + K)
+    a = torch.randint(-127, 128, (M, K), generator=g, device=cuda_device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=g, device=cuda_device, dtype=torch.int8)
+    sx = 0.05 * torch.rand(M, generator=g, device=cuda_device)
+    sw = 1e-3 * torch.rand(N, generator=g, device=cuda_device)
+    bias = torch.randn(N, generator=g, device=cuda_device)
+    for epi, (_, rdt, _) in fb.GEMM_EPILOGUES.items():
+        res = None if rdt is None else torch.randn(M, N, generator=g, device=cuda_device).to(rdt)
+        got = fb.gemm_s8(a, sx, w, sw, bias, epi, res)
+        want = fb.gemm_s8_plain(a, sx, w, sw, bias, epi, res)
+        if epi == "gelu_bf16":  # erff against torch's erf: held as bf16 outputs are
+            _close(got, want)
+        else:
+            assert torch.equal(got, want), epi
+
+
+@pytest.mark.parametrize("B,T,N,D,H", [(2, 3, 16, 128, 2), (8, 30, 196, 768, 12),
+                                       (8, 3, 196, 768, 12)])
+def test_q8_rows_match_twins(cuda_device, B, T, N, D, H):
+    """Rows 1q and 2q against their twins by twin_check's int8 rules."""
+    p = _q8_block(D, H, 7, cuda_device)
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn(B, T, N, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    x1 = torch.randn(B, T, N, D, generator=g, device=cuda_device)
+    cls = torch.randn(B, 1, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    gaps = [twin_check.twin_gap(fb.temporal_phase_tm(x, p["temporal"], H),
+                                fb.temporal_phase_tm_plain(x, p["temporal"], H), x)]
+    got, want = fb.spatial_mlp(x1, cls, p["spatial"], H), fb.spatial_mlp_plain(
+        x1, cls, p["spatial"], H)
+    gaps += [twin_check.twin_gap(got[0], want[0], x1), twin_check.twin_gap(got[1], want[1])]
+    for gap in gaps:
+        assert not twin_check.twin_failures(gap, q8=True), gap
+
+
+def test_q8_workspaces_match_the_mirrors(cuda_device):
+    """The library's int8 workspaces == the Python mirrors."""
+    lib = _build.load()
+    for B, T, N, D, Dh in [(8, 30, 196, 768, 3072), (2, 3, 5, 128, 512)]:
+        assert fb.temporal_phase_tm_q8_ws(B, T, N, D, lib) == fb.temporal_phase_tm_q8_ws(B, T, N, D)
+        assert fb.spatial_mlp_q8_ws(B, T, N, D, Dh, lib) == fb.spatial_mlp_q8_ws(B, T, N, D, Dh)

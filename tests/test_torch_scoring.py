@@ -183,16 +183,18 @@ def test_cli_in_process(tmp_path, wire_format):
 
 def test_cli_refuses_unported_flags():
     """Every flag of UNPORTED_FLAGS raises away from its default; the ported
-    ones (here ``--wire_format``) do not."""
+    ones (here ``--wire_format`` and the int8 tiers' ``--student_quant`` /
+    ``--teacher_quant``) do not."""
     parse = cli.get_args_parser().parse_args
     away = {"global_subsample": "2", "teacher_stride": "4",
             "teacher_interp": "catmullrom", "teacher_adaptive": "0.5",
-            "teacher_refine": "0.5", "score_stride": "2", "score_refine": "0.5",
-            "student_quant": "int8", "teacher_quant": "int8"}
+            "teacher_refine": "0.5", "score_stride": "2", "score_refine": "0.5"}
     assert set(away) == set(cli.UNPORTED_FLAGS)
     for flag, value in away.items():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.check_unported(parse([f"--{flag}", value]))
     for wire_format in ("rgb8", "yuv420", "yuv420q"):
         cli.check_unported(parse(["--wire_format", wire_format]))
+    for flag in ("student_quant", "teacher_quant"):
+        cli.check_unported(parse([f"--{flag}", "int8"]))
     cli.check_unported(parse([]))
