@@ -168,6 +168,21 @@ Imports torch, numpy and the port package
    batch 2 on the initial weights and one set of crops, the gradients of
    the kernel route against the plain bf16 route and the f32 route (TF32
    off).
+7b. DINO SSL train step, the mixed tier (``make_train_step(route=
+   "kernels", compute_dtype=torch.float32)``: f32 activations and
+   carries, bf16 matmul operands). First its new kernels against their
+   twins at phase 7's global and local crops, on offset rows (x, the CLS
+   row and the cotangents): row 4f (``spatial_phase`` on f32 x and CLS
+   row), rows 7f, 8f and 9f (the three backwards on f32 x and cotangents;
+   9f also at the step's CLS rows), the LayerNorm backward's f32 instance
+   alone (beside its bytes bound and torch's layer-norm backward) and row
+   3's f32 tier at the crops' rows; each timed beside its twin and bound,
+   the backwards' device time split by profile. Then, on phase 7's initial
+   weights and batch-2 crops, the mixed kernel route against the mixed
+   twin route (every op through its twin on the card, ``twins(fb)``) and
+   phase 7's f32 gradients; then the step at phase 7's batch: launches
+   per step (the f32 tiers only), ms per step and TFLOP/s beside phase
+   7's, peak memory, the EMA check, a profiled step's launches by family.
 8. per-phase XLA-layout forward, bf16: ViT-B/16 (numpy-seeded weights)
    with every block through ``Block.forward(use_fused=True)`` (the
    model's ``tokens``, then the blocks one by one, then its norm) on B=8
@@ -225,12 +240,21 @@ Tolerances (stated here, checked below):
   mixed teacher's two rules against the plain int8 path (0.06 mean
   relative; mean |loss - f32 loss| <= 1.5 x the plain int8 path's + 1e-3).
 * training-op gradients (f32) vs their twins: the same rms and max
-  bounds; dx (bf16) within 4 ulps of its branch dx - dout.
+  bounds; dx (bf16) within 4 ulps of its branch dx - dout. The mixed
+  tier's f32 outputs at the same rules (dx, the grid and the CLS rows
+  against their branches) and at ``twin_check``'s f32 rules, which one
+  bf16 rounding (about 2^-9) breaks: at most 1 % of an f32 output's
+  elements exactly representable in bf16 (``bf16_exact``; an unrounded
+  one has ~2^-16), and the bias gradients summed from the f32 cotangent
+  within 1e-4 of max|twin| (``sum_rel_max``; summed from its bf16 copy
+  they sit ~1e-3 off).
 * train step, kernel route vs the plain bf16 route: per parameter
   max|diff| / max|plain| < 0.15, and the mean distance to the f32
   gradients <= 1.5 x the plain bf16 route's + 1e-6 (the CPU test's
   bounds against JAX); the teacher after a step equals t * m + s * (1 - m)
-  of the teacher before and the new student to 1e-6.
+  of the teacher before and the new student to 1e-6. The mixed tier
+  (phase 7b): the same two rules against the mixed twin route, and its
+  mean distance to f32 at most the bf16 kernel route's (phase 7).
 * CLS features of the per-phase and attention-swap forwards (phases 8-9)
   against the f32 forward: the kernel route's mean absolute error <= 1.5 x
   the plain bf16 route's + 1e-3, the scoring paths' rule; the f32 forward
@@ -318,6 +342,19 @@ def dev_randn(seed, *shape, dtype=None):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(*shape, generator=g, device="cuda").to(dtype or torch.bfloat16)
+
+
+def dev_offset_rows(seed, *shape, offset=4.0, spread=0.1):
+    """``twin_check.offset_rows`` drawn on the card from ``seed``: f32 rows
+    with a common offset of either sign and magnitude offset x (1 + |N(0,
+    1)|) a row and a spread of spread x N(0, 1) an element."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = tuple(shape[:-1]) + (1,)
+    mag = offset * (1.0 + torch.randn(rows, generator=g, device="cuda").abs())
+    sign = torch.where(torch.rand(rows, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    return sign * mag + spread * torch.randn(shape, generator=g, device="cuda")
 
 
 def graph_ms(fn, reps=10, iters=10):
@@ -515,6 +552,45 @@ def attention_bwd_cost(BH, L, hd):
     return 10 * BH * L * L * hd, 7 * BH * L * hd * 2
 
 
+def spatial_phase_f32_cost(B, T, N, D):
+    """Row 4f: spatial_phase_cost's operations; x and cls read, the grid and
+    the CLS rows written, all f32; weights once (bf16)."""
+    flops, _ = spatial_phase_cost(B, T, N, D)
+    return flops, 2 * B * T * N * D * 4 + B * D * 4 + B * T * D * 4 + 4 * D * D * 2
+
+
+def temporal_bwd_f32_cost(B, T, N, D):
+    """Row 7f: temporal_bwd_cost's operations; x, dout read and dx written
+    in f32, weights read (bf16), gradients written (f32)."""
+    flops, _ = temporal_bwd_cost(B, T, N, D)
+    M = B * T * N
+    return flops, 3 * M * D * 4 + 5 * D * D * 2 + (5 * D * D + 7 * D) * 4
+
+
+def spatial_bwd_f32_cost(B, T, N, D):
+    """Row 8f: spatial_bwd_cost's operations; x, dgo read, dx written, cls,
+    dco read and dcls written, all f32; weights read, gradients written."""
+    flops, _ = spatial_bwd_cost(B, T, N, D)
+    M = B * T * N
+    return flops, (3 * M * D * 4 + B * D * 4 + B * T * D * 4 + B * D * 4
+                   + 4 * D * D * 2 + (4 * D * D + 6 * D) * 4)
+
+
+def mlp_bwd_f32_cost(M, D, Dh):
+    """Row 9f: mlp_bwd_cost's operations; x, do read and dx written in
+    f32, weights read (bf16), gradients written (f32)."""
+    return (10 * M * D * Dh,
+            3 * M * D * 4 + 2 * D * Dh * 2 + (2 * D * Dh + Dh + 3 * D) * 4)
+
+
+def ln_bwd_f32_cost(M, R, D, residual):
+    """ln_bwd_kernel<V, float> over R rows: ln_bwd_cost's reads and writes
+    with x, the residual and dx in f32 (dy and x read for every row, the
+    residual read and dx written over the M grid rows, the R - M CLS rows'
+    dx written)."""
+    return 10 * R * D, R * D * 8 + M * D * 4 * (1 + int(residual)) + (R - M) * D * 4
+
+
 def attn_phase_cost(S, L, D):
     """qkv and proj GEMMs (8 D^2 per row) + attention over L (4 L D per
     row), the Pallas cost estimate; x read, out written (bf16), weights
@@ -554,12 +630,14 @@ def kernel_breakdown(fn, on_record=None):
         # returns; a call launched at once, and the activity of a call
         # collected right after it ends, have gone unrecorded on the card
         # (whole profiles of one op, three in a row): a pause on each side
-        # of the recorded call, outside its wall time. The first kernel of
-        # the recorded step has gone unrecorded too (the int8 row 1's first,
-        # a 0.06 ms LN, in three profiles in a row): a spin kernel takes that
-        # place, and its row is dropped
+        # of the recorded call, outside its wall time. The first kernels of
+        # the recorded step have gone unrecorded too (the int8 row 1's first
+        # one or two, in three profiles in a row, with one spin kernel ahead
+        # of them): sixteen short spin kernels take that place, and their
+        # rows are dropped
         time.sleep(0.05)
-        torch.cuda._sleep(100_000)
+        for _ in range(16):
+            torch.cuda._sleep(20_000)
         torch.cuda.synchronize()
         if on_record is not None:
             on_record()
@@ -591,6 +669,7 @@ FAMILIES = {"gemm_kernel": "::gemm_kernel<", "attn_kernel": "::attn_kernel<",
             "tc_prefix_attn_bwd": "::tc_prefix_attn_bwd_kernel<",
             "tc_strided_attn_bwd": "::tc_strided_attn_bwd_kernel<",
             "ln_bwd_kernel": "::ln_bwd_kernel<", "colsum_kernel": "::colsum_kernel<",
+            "cast_colsum": "::cast_colsum_kernel(",
             "reduce_splits_narrow": "::reduce_splits_narrow_kernel(",
             "reduce_splits": "::reduce_splits_kernel(",
             "cls_band_tc": "::cls_band_tc_kernel<",
@@ -641,6 +720,18 @@ FAMILY_PER_OP = {
                           "colsum_kernel": 2, "reduce_splits_narrow": 3},
     "mlp_phase_bwd": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1,
                       "colsum_kernel": 2, "reduce_splits_narrow": 3},
+    # the trainer's mixed tier: the same launches, the incoming cotangent's
+    # column sum a cast_colsum pass (its bf16 copy and its f32 sums)
+    "spatial_phase_f32": {"ln_kernel": 2, "wg_gemm_kernel": 4, "tc_prefix_attn": 1},
+    "temporal_phase_tm_bwd_f32": {"ln_kernel": 1, "wg_gemm_kernel": 8, "tc_strided_attn": 1,
+                                  "tc_strided_attn_bwd": 1, "ln_bwd_kernel": 1,
+                                  "colsum_kernel": 2, "cast_colsum": 1,
+                                  "reduce_splits_narrow": 4},
+    "spatial_phase_bwd_f32": {"ln_kernel": 2, "wg_gemm_kernel": 5, "tc_prefix_attn": 1,
+                              "tc_prefix_attn_bwd": 1, "ln_bwd_kernel": 1,
+                              "colsum_kernel": 1, "cast_colsum": 1, "reduce_splits_narrow": 3},
+    "mlp_phase_bwd_f32": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1,
+                          "colsum_kernel": 1, "cast_colsum": 1, "reduce_splits_narrow": 3},
 }
 
 
@@ -650,7 +741,7 @@ def dw_reduces(fb, calls, D, Dh):
     qkv; row 8: proj, qkv; row 9: fc2, fc1)."""
     shapes = {"temporal_phase_tm_bwd": [(D, D), (D, D), (3 * D, D)],
               "spatial_phase_bwd": [(D, D), (3 * D, D)],
-              "mlp_phase_bwd": [(D, Dh), (Dh, D)]}
+              "mlp_phase_bwd": [(D, Dh), (Dh, D)]}  # either tier
     return sum(n * sum(fb.gemm_dw_splits(rows, o, i) > 1 for o, i in shapes[op])
                for (op, rows), n in calls.items())
 
@@ -853,12 +944,15 @@ def loss_checks(tag, clips, got, plain, f32, rel_tol, plain_name="plain bf16",
 @contextlib.contextmanager
 def twins(*modules):
     """Within the block, every kernel op of the given op modules that the
-    scoring paths call runs its plain twin (``<op>_plain``) on the card:
-    the plain path of a tier that has no plain route of its own (the mixed
-    teacher: the same dtype policy, the kernels' arithmetic in torch). The
-    ops' launch counters do not move."""
+    scoring paths and the training Functions call runs its plain twin
+    (``<op>_plain``) on the card: the plain path of a tier that has no
+    plain route of its own (the mixed teacher, the trainer's mixed tier:
+    the same dtype policy, the kernels' arithmetic in torch). The ops'
+    launch counters do not move."""
     ops = ("temporal_phase_tm", "spatial_mlp", "mlp_phase", "banded_temporal_attn",
-           "spatial_phase_pf", "cls_band_attn", "gather_normalize")
+           "spatial_phase_pf", "cls_band_attn", "gather_normalize",
+           # the training ops the autograd Functions call
+           "spatial_phase", "temporal_phase_tm_bwd", "spatial_phase_bwd", "mlp_phase_bwd")
     saved = [(m, k, getattr(m, k)) for m in modules for k in ops if hasattr(m, k)]
     try:
         for m, k, _ in saved:
@@ -2624,7 +2718,10 @@ def main():
         fail("kernel-route gradients disagree with the plain bf16 route")
     if e_k > TRAIN_F32_RATIO * e_p + 1e-6:
         fail("kernel-route gradients are further from f32 than allowed")
-    del route_grads, gk, gp, gf, g2, l2
+    # phase 7b holds the mixed tier against these f32 gradients and the bf16
+    # kernel route's distance to them, on the same weights and crops
+    f32_grads_b2, e_bf16_kernels = gf, e_k
+    del route_grads, gk, gp
     torch.cuda.empty_cache()
 
     g, l = crops(batch, 50)
@@ -2694,6 +2791,7 @@ def main():
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / n_steps
     flops = train_step_flops(tcfg, batch, n_local_crops=n_local, local_size_px=96)
+    ms_step_bf16, peak_bf16 = ms_step, torch.cuda.max_memory_allocated()
     print(f"  ms_per_step={ms_step:.1f} ({n_steps} steps), {flops:.3e} FLOP per "
           f"step (train_step_flops), {flops / ms_step / 1e9:.1f} TFLOP/s, "
           f"{flops / ms_step / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of the bf16 "
@@ -2725,8 +2823,351 @@ def main():
     del state, step
     torch.cuda.empty_cache()
 
-    # -- 8. per-phase XLA-layout forward, bf16 ------------------------------------
+    # -- 7b. DINO SSL train step, the mixed tier -----------------------------------
     lap("phase 7")
+    print(f"[7b] DINO SSL train step, mixed tier (make_train_step(route='kernels', "
+          f"compute_dtype=float32): f32 activations and carries, bf16 matmul operands): "
+          f"ViT-B/16, T=8, batch {batch}, as phase 7", flush=True)
+    # the new tiers against their twins first, on offset rows (x, the CLS
+    # row, the cotangents: dev_offset_rows), where an x rounded to bf16
+    # before a LayerNorm fails the twin rules; the f32 outputs also by
+    # twin_check's f32 rules: each output float32 and not rounded to bf16
+    # (bf16_exact <= F32_EXACT_SHARE_MAX), the bias gradients summed from
+    # an f32 cotangent within F32_SUM_REL_MAX of the twin's
+    mixed_ops = ("spatial_phase_f32", "temporal_phase_tm_bwd_f32", "spatial_phase_bwd_f32",
+                 "mlp_phase_bwd_f32", "mlp_phase_f32")
+    for k in mixed_ops:
+        stats[k] = []
+    blocks["temporal_phase_tm_bwd_f32"] = {"layer_norm_bwd": []}
+    mixed_cls_calls = []
+    cot_bias = {"temporal_phase_tm_bwd_f32": "fc_b", "spatial_phase_bwd_f32": "proj_b",
+                "mlp_phase_bwd_f32": "fc2_b"}
+
+    def check_f32(name, got, want=None):
+        """twin_check's f32 rules on one output (``want``: a bias gradient
+        summed from an f32 cotangent, against the twin's); prints the
+        reading; (ok, reading)."""
+        bad = twin_check.f32_failures(got, want)
+        if want is None:
+            reading = {"bf16_exact": twin_check.bf16_exact(got)}
+        else:
+            reading = {"sum_rel_max": float((got - want).abs().max())
+                       / max(float(want.abs().max()), 1e-30)}
+        print(f"  {name}: " + ", ".join(f"{k}={v:.3e}" for k, v in reading.items())
+              + f" {'ok' if not bad else 'FAILED: ' + '; '.join(bad)}", flush=True)
+        return not bad, reading
+
+    pt, ps = p["temporal"], p["spatial"]
+    for tag, (B, T, Np) in [("global", (16, 8, N)), ("local", (64, 8, 36))]:
+        seed = 80 + Np
+        x, dout = dev_offset_rows(seed, B, T, Np, D), dev_offset_rows(seed + 1, B, T, Np, D)
+        cls, dco = dev_offset_rows(seed + 2, B, 1, D), dev_offset_rows(seed + 3, B, T, D)
+        xm, dm = x.reshape(-1, D), dout.reshape(-1, D)
+        # the same rows in bf16, for each op's bf16 tier timed in turns
+        # with its f32 tier (the card's clocks move over a run)
+        x16, dout16, cls16, dco16 = (t.to(torch.bfloat16) for t in (x, dout, cls, dco))
+        xm16, dm16 = x16.reshape(-1, D), dout16.reshape(-1, D)
+        bf16_tier = {
+            "spatial_phase_f32": lambda: fb.spatial_phase(x16, cls16, ps, H),
+            "temporal_phase_tm_bwd_f32": lambda: fb.temporal_phase_tm_bwd(x16, dout16, pt, H),
+            "spatial_phase_bwd_f32": lambda: fb.spatial_phase_bwd(x16, cls16, dout16, dco16,
+                                                                  ps, H),
+            "mlp_phase_bwd_f32": lambda: fb.mlp_phase_bwd(xm16, dm16, ps),
+            "mlp_phase_f32": lambda: fb.mlp_phase(xm16, ps)}
+        M_ = B * T * Np
+        runs = {
+            "spatial_phase_f32": (
+                lambda: fb.spatial_phase(x, cls, ps, H),
+                lambda: fb.spatial_phase_plain(x, cls, ps, H),
+                spatial_phase_f32_cost(B, T, Np, D)),
+            "temporal_phase_tm_bwd_f32": (
+                lambda: fb.temporal_phase_tm_bwd(x, dout, pt, H),
+                lambda: fb.temporal_phase_tm_bwd_plain(x, dout, pt, H),
+                temporal_bwd_f32_cost(B, T, Np, D)),
+            "spatial_phase_bwd_f32": (
+                lambda: fb.spatial_phase_bwd(x, cls, dout, dco, ps, H),
+                lambda: fb.spatial_phase_bwd_plain(x, cls, dout, dco, ps, H),
+                spatial_bwd_f32_cost(B, T, Np, D)),
+            "mlp_phase_bwd_f32": (
+                lambda: fb.mlp_phase_bwd(xm, dm, ps),
+                lambda: fb.mlp_phase_bwd_plain(xm, dm, ps),
+                mlp_bwd_f32_cost(M_, D, Dh)),
+            "mlp_phase_f32": (
+                lambda: fb.mlp_phase(xm, ps), lambda: fb.mlp_phase_plain(xm, ps),
+                mlp_cost(M_, D, Dh, elem=4)),
+        }
+        with torch.inference_mode():
+            checks, f32_checks = {}, {}
+            for name, (kern, plain, _) in runs.items():
+                got, want = kern(), plain()
+                lbl = f"{name} {tag}"
+                if name == "spatial_phase_f32":
+                    checks[name] = [check_close(f"{lbl} grid-x", got[0], want[0], x),
+                                    check_close(f"{lbl} cls rows", got[1], want[1])]
+                    f32_checks[name] = [check_f32(f"{lbl} grid", got[0]),
+                                        check_f32(f"{lbl} cls rows", got[1])]
+                elif name == "mlp_phase_f32":
+                    checks[name] = [check_close(f"{lbl} out-x M={M_}", got, want, xm)]
+                    f32_checks[name] = [check_f32(f"{lbl} out", got)]
+                else:
+                    base = dm if name == "mlp_phase_bwd_f32" else dout
+                    c = [check_close(f"{lbl} dx-dout", got[0], want[0], base)]
+                    if name == "spatial_phase_bwd_f32":
+                        c.append(check_close(f"{lbl} dcls", got[1], want[1]))
+                    c += [check_close(f"{lbl} d{k}", got[-1][k], want[-1][k])
+                          for k in want[-1]]
+                    checks[name] = c
+                    b_ = cot_bias[name]
+                    f32_checks[name] = [check_f32(f"{lbl} dx", got[0]),
+                                        check_f32(f"{lbl} d{b_} (from the f32 cotangent)",
+                                                  got[-1][b_], want[-1][b_])]
+                del got, want
+            if not all(ok for v in checks.values() for ok, _ in v):
+                fail(f"a mixed-tier kernel disagrees with its plain twin ({tag} crops)")
+            if not all(ok for v in f32_checks.values() for ok, _ in v):
+                fail(f"a mixed-tier kernel breaks the f32 tier's rules ({tag} crops)")
+            for name, (kern, plain, cost) in runs.items():
+                # f32 tier, bf16 tier, bf16, f32: each the mean of its two turns
+                ms, ms16 = cuda_ms(kern, 5), cuda_ms(bf16_tier[name], 5)
+                ms16 = (ms16 + cuda_ms(bf16_tier[name], 5)) / 2
+                ms = (ms + cuda_ms(kern, 5)) / 2
+                pl = cuda_ms(plain, 1, warmup=1)
+                b, by = bound_ms(*cost)
+                gaps = [gap for _, gap in checks[name]]
+                row = {"crops": tag, "B": B, "T": T, "N": Np, "ms": ms, "bf16_tier_ms": ms16,
+                       "plain_ms": pl, "bound_ms": b, "bound_by": by, "library_ms": None,
+                       "max_abs_err": max(g_["max_abs_err"] for g_ in gaps),
+                       "rel_rms": max(g_["rel_rms"] for g_ in gaps)}
+                for _, reading in f32_checks[name]:
+                    for k, v in reading.items():
+                        row[k] = max(row.get(k, 0.0), v)
+                stats[name].append(row)
+                print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms (its bf16 "
+                      f"tier in turns {ms16:.3f} ms, {ms / ms16:.2f}x), plain {pl:.3f} ms, "
+                      f"bound {b:.4f} ms ({by}, f32 rows), {b / ms:.1%} of bound; library: "
+                      "none (no single call)", flush=True)
+                if name != "mlp_phase_f32":
+                    rows = record_split(f"{name} {tag}", kern, row, top=16, op=name)
+                    if name != "spatial_phase_f32":
+                        row["ln_bwd_ms"] = sum(ms_ for k_, _, ms_ in rows
+                                               if "::ln_bwd_kernel<" in k_)
+                        row["cast_colsum_ms"] = sum(ms_ for k_, _, ms_ in rows
+                                                    if "::cast_colsum_kernel(" in k_)
+            # row 9f at the step's CLS-row calls (M = 16 global, 64 local clips)
+            xc, dc = x[:, 0, 0].contiguous(), dout[:, 0, 0].contiguous()
+            got, want = fb.mlp_phase_bwd(xc, dc, ps), fb.mlp_phase_bwd_plain(xc, dc, ps)
+            oks = ([check_close(f"mlp_phase_bwd_f32 {tag} CLS rows M={B} dx-do", got[0],
+                                want[0], dc)]
+                   + [check_close(f"mlp_phase_bwd_f32 {tag} CLS rows d{k}", got[1][k],
+                                  want[1][k]) for k in want[1]])
+            f32_oks = [check_f32(f"mlp_phase_bwd_f32 {tag} CLS rows dx", got[0]),
+                       check_f32(f"mlp_phase_bwd_f32 {tag} CLS rows dfc2_b", got[1]["fc2_b"],
+                                 want[1]["fc2_b"])]
+            if not all(ok for ok, _ in oks + f32_oks):
+                fail(f"mlp_phase_bwd's f32 tier disagrees with its twin at the CLS rows ({tag})")
+            ms = cuda_ms(lambda: fb.mlp_phase_bwd(xc, dc, ps), 10)
+            pl = cuda_ms(lambda: fb.mlp_phase_bwd_plain(xc, dc, ps), 2, warmup=1)
+            b, by = bound_ms(*mlp_bwd_f32_cost(B, D, Dh))
+            mixed_cls_calls.append({"crops": tag, "M": B, "ms": ms, "plain_ms": pl,
+                                    "bound_ms": b, "bound_by": by,
+                                    "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks)})
+            print(f"  mlp_phase_bwd_f32 {tag} CLS rows M={B}: kernel {ms:.3f} ms, plain "
+                  f"{pl:.3f} ms, bound {b:.4f} ms ({by})", flush=True)
+            del xc, dc, got, want
+        # the LayerNorm backward's f32 instance alone (rows 7f and 9f's grid
+        # rows with the residual; row 8f's grid rows and per-frame CLS rows)
+        # beside its bytes bound and autograd of F.layer_norm on the same
+        # rows (a yardstick the port never calls)
+        for what, P_, div in (("rows 7f and 9f", 0, 1), ("row 8f", B, T)):
+            R_ = M_ + P_ * div
+            lt = cls.reshape(B, D) if P_ else None
+            ldy = dev_randn(seed + 4, R_, D, dtype=torch.float32)
+            lw = (1 + 0.1 * dev_randn(seed + 5, D, dtype=torch.float32))
+            args = (xm, ldy, lw, dm, lt, div)
+            args16 = (xm16, ldy, lw, dm16, None if lt is None else cls16.reshape(B, D), div)
+            got, want = fb.layer_norm_bwd(*args), fb.layer_norm_bwd_plain(*args)
+            oks = [check_close(f"layer_norm_bwd f32 {tag} {what} R={R_} dx-res", got[0],
+                               want[0], dm)]
+            if P_:
+                oks.append(check_close(f"layer_norm_bwd f32 {tag} {what} R={R_} tail dx",
+                                       got[1], want[1]))
+            oks += [check_close(f"layer_norm_bwd f32 {tag} {what} R={R_} d{nm}", got[i],
+                                want[i]) for i, nm in ((2, "scale"), (3, "bias"))]
+            f32_ok = check_f32(f"layer_norm_bwd f32 {tag} {what} dx", got[0])
+            if not all(ok for ok, _ in oks + [f32_ok]):
+                fail(f"the LayerNorm backward's f32 tier disagrees with its twin ({tag}, {what})")
+            del got, want
+            ms = cuda_ms(lambda: fb.layer_norm_bwd(*args), 10)
+            dms, dms16 = graph_ms(lambda: fb.layer_norm_bwd(*args)), graph_ms(
+                lambda: fb.layer_norm_bwd(*args16))
+            dms16 = (dms16 + graph_ms(lambda: fb.layer_norm_bwd(*args16))) / 2
+            dms = (dms + graph_ms(lambda: fb.layer_norm_bwd(*args))) / 2
+            pl = cuda_ms(lambda: fb.layer_norm_bwd_plain(*args), 2, warmup=1)
+            xf = (torch.cat([xm, lt.repeat_interleave(div, 0)]) if P_ else xm).clone()
+            xf.requires_grad_(True)
+            lwq = lw.clone().requires_grad_(True)
+            lb_ = torch.zeros_like(lw, requires_grad=True)
+            lo = F.layer_norm(xf, (D,), lwq, lb_, 1e-6)
+            lib = cuda_ms(lambda: torch.autograd.grad(lo, (xf, lwq, lb_), ldy, retain_graph=True),
+                          10)
+            del xf, lwq, lb_, lo
+            b, by = bound_ms(*ln_bwd_f32_cost(M_, R_, D, True))
+            blocks["temporal_phase_tm_bwd_f32"]["layer_norm_bwd"].append({
+                "crops": tag, "rows_of": what, "M": M_, "R": R_, "ms": ms, "device_ms": dms,
+                "bf16_instance_device_ms": dms16, "plain_ms": pl, "library_ms": lib,
+                "bound_ms": b, "bound_by": by,
+                "max_abs_err": max(g_["max_abs_err"] for _, g_ in oks),
+                "bf16_exact": f32_ok[1]["bf16_exact"]})
+            print(f"  layer_norm_bwd f32 {tag} {what} (M={M_}, R={R_}, D={D}): {ms:.3f} ms "
+                  f"(device {dms:.4f} ms; the bf16 instance in turns {dms16:.4f} ms), bound "
+                  f"{b:.4f} ms ({by}), {b / dms:.1%} of bound, plain {pl:.3f} ms, torch's "
+                  f"layer-norm backward {lib:.3f} ms", flush=True)
+            del ldy, lw, args, args16
+        del x, dout, cls, dco, xm, dm, runs, x16, dout16, cls16, dco16, xm16, dm16, bf16_tier
+        torch.cuda.empty_cache()
+    part("phase 7b: the mixed tier's kernels")
+
+    # routes on phase 7's initial weights and batch-2 crops: the mixed tier
+    # on the kernels, the same tier with every op through its twin on the
+    # card (twins(fb)), against phase 7's f32 route gradients
+    state, core, mask = ssl.init_train_state(tcfg, out_dim=out_dim, optimizer="adamw",
+                                             seed=0, device=dev)
+    mstep = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local, clip_grad=3.0,
+                                compute_dtype=torch.float32, route="kernels")
+    if mstep.route != "kernels":
+        fail(f"the mixed ViT-B train step chose the {mstep.route!r} route")
+    mixed_grads, mixed_loss = {}, {}
+    for name in ("kernels", "twins"):
+        reset_counts()
+        with twins(fb) if name == "twins" else contextlib.nullcontext():
+            loss, _, grads = mstep.loss_and_grads(state, g2, l2, 0.04)
+        torch.cuda.synchronize()
+        ran = counts()
+        if name == "twins" and any(ran.values()):
+            fail(f"the mixed twin route launched kernels: {ran}")
+        if name == "kernels" and not all(ran[k] for k in (
+                "temporal_phase_tm_f32", "spatial_phase_f32", "mlp_phase_f32",
+                "temporal_phase_tm_bwd_f32", "spatial_phase_bwd_f32", "mlp_phase_bwd_f32")):
+            fail(f"the mixed kernel route missed an f32 tier: {ran}")
+        mixed_loss[name], mixed_grads[name] = float(loss), grads
+        del grads
+        torch.cuda.empty_cache()
+    worst, e_mk, e_mt = ("", 0.0), 0.0, 0.0
+    gk, gt, gf = mixed_grads["kernels"], mixed_grads["twins"], f32_grads_b2
+    for n in gf:
+        rel = float((gk[n] - gt[n]).abs().max() / (gt[n].abs().max() + 1e-12))
+        worst = max(worst, (n, rel), key=lambda t: t[1])
+        scale = float(gf[n].abs().mean()) + 1e-12
+        e_mk += float((gk[n] - gf[n]).abs().mean()) / scale
+        e_mt += float((gt[n] - gf[n]).abs().mean()) / scale
+    e_mk, e_mt = e_mk / len(gf), e_mt / len(gf)
+    print(f"  batch 2, losses {mixed_loss} (f32 route {route_loss['f32']}); mixed kernel vs "
+          f"mixed twin gradients: worst max|diff|/max|twin| {worst[1]:.3e} at {worst[0]} (< "
+          f"{TRAIN_GRAD_REL_MAX}); mean distance to f32: mixed kernels {e_mk:.3e}, mixed "
+          f"twins {e_mt:.3e} (need kernels <= {TRAIN_F32_RATIO} x twins + 1e-6), phase 7's "
+          f"bf16 kernel route {e_bf16_kernels:.3e} (need mixed kernels <= it)", flush=True)
+    if worst[1] >= TRAIN_GRAD_REL_MAX:
+        fail("mixed kernel-route gradients disagree with the mixed twin route")
+    if e_mk > TRAIN_F32_RATIO * e_mt + 1e-6:
+        fail("mixed kernel-route gradients are further from f32 than allowed")
+    if e_mk > e_bf16_kernels:
+        fail("the mixed kernel route is further from f32 than the bf16 kernel route")
+    del mixed_grads, gk, gt, gf, f32_grads_b2, g2, l2
+    torch.cuda.empty_cache()
+
+    # the step at phase 7's batch, on the same crops
+    g, l = crops(batch, 50)
+    losses = []
+
+    def mixed_step():
+        nonlocal state
+        state, metrics = mstep(state, g, l, *hp)
+        losses.append(float(metrics["loss"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    mixed_step()  # first-call allocations
+    torch.cuda.synchronize()
+    reset_counts()
+    bwd_calls = {}
+    sound = {op: getattr(fb, op) for op in rows_of}
+    for op in rows_of:
+        setattr(fb, op, shim(op))
+    try:
+        mixed_step()
+    finally:
+        for op, fn in sound.items():
+            setattr(fb, op, fn)
+    torch.cuda.synchronize()
+    seen = counts()
+    reduces = dw_reduces(fb, bwd_calls, tcfg.embed_dim, int(tcfg.embed_dim * tcfg.mlp_ratio))
+    want = {k: 0 for k in seen}
+    want.update({"temporal_phase_tm_f32": 3 * depth, "spatial_phase_f32": 3 * depth,
+                 "mlp_phase_f32": 6 * depth, "temporal_phase_tm_bwd_f32": 2 * depth,
+                 "spatial_phase_bwd_f32": 2 * depth,
+                 "mlp_phase_bwd_f32": 2 * (2 * depth - 1)})
+    print(f"  launches in one mixed step {seen} (expected {want}: the f32 tiers only, 3 "
+          f"forwards and 2 student backwards x {depth} blocks, no backward of the last "
+          f"block's grid MLP); backward calls by row count {bwd_calls}", flush=True)
+    if seen != want:
+        fail(f"mixed train step launches {seen}, expected {want}")
+    launches_mixed = {k: seen[k] for k in want if want[k]}
+    mlp_rows = {rows: n for (op, rows), n in bwd_calls.items() if op == "mlp_phase_bwd"}
+    peak_mixed = torch.cuda.max_memory_allocated()
+    # ms per step in turns with phase 7's bf16 step on the same state and
+    # crops (mixed, bf16, mixed, bf16; n_steps steps a turn)
+    bstep = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local, clip_grad=3.0,
+                                compute_dtype=torch.bfloat16)
+
+    def bf16_step():
+        nonlocal state
+        state, _ = bstep(state, g, l, *hp)
+
+    bf16_step()  # its first call on this state
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    turns = {"mixed": [], "bf16": []}
+    for _ in range(2):
+        turns["mixed"].append(timed(mixed_step))
+        turns["bf16"].append(timed(bf16_step))
+    ms_mixed = sum(turns["mixed"]) / 2
+    ms_bf16_turns = sum(turns["bf16"]) / 2
+    print(f"  mixed ms_per_step={ms_mixed:.1f} (turns {[round(v, 1) for v in turns['mixed']]}, "
+          f"{n_steps} steps each; the bf16 step in turns {ms_bf16_turns:.1f}: "
+          f"{[round(v, 1) for v in turns['bf16']]}; phase 7's {ms_step_bf16:.1f}), "
+          f"{flops / ms_mixed / 1e9:.1f} TFLOP/s (bf16 {flops / ms_bf16_turns / 1e9:.1f}); "
+          f"peak memory {peak_mixed / 2**30:.1f} GiB (phase 7's bf16 step {peak_bf16 / 2**30:.1f}) "
+          f"on {card}", flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("a mixed train step gave a non-finite loss")
+    t_before = [t.detach().clone() for t in state.teacher.parameters()]
+    mixed_step()
+    ema_err = max(float((t - (tb * m + s.detach() * (1.0 - m))).abs().max())
+                  for t, tb, s in zip(state.teacher.parameters(), t_before,
+                                      state.student.parameters()))
+    del t_before
+    print(f"  teacher vs EMA of the new student (mixed step): max abs {ema_err:.3e} "
+          "(<= 1e-6)", flush=True)
+    if not math.isfinite(losses[-1]) or ema_err > 1e-6:
+        fail("the mixed step's teacher is not the EMA of the student")
+    checked_profile("one mixed step", "mixed train step", mixed_step, reset_counts, counts,
+                    top=16, reduces=reduces)
+    print_profile("one bf16 step beside it", bf16_step, top=0)
+    launches.update({k: launches_mixed[k] for k in mixed_ops})
+    launches["mlp_phase_bwd_f32_by_rows"] = {str(k): v for k, v in sorted(mlp_rows.items())}
+    launches["temporal_phase_tm_f32_train_step"] = launches_mixed["temporal_phase_tm_f32"]
+    del g, l, state, mstep, bstep
+    torch.cuda.empty_cache()
+
+    # -- 8. per-phase XLA-layout forward, bf16 ------------------------------------
+    lap("phase 7b")
     print("[8] per-phase XLA-layout forward, bf16: ViT-B/16, every block "
           "through Block.forward(use_fused=True), B=8 windows of 30 and 3 "
           "frames", flush=True)
@@ -2911,6 +3352,13 @@ def main():
         "gemm_s8": ("wgmma_gemm.cuh", "ops/fused_block.py:1481"),
         "quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
         "ln_quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
+        # the trainer's mixed tier (phase 7b): rows 4f, 7f, 8f, 9f and row
+        # 3's f32 tier on the train step's rows
+        "spatial_phase_f32": ("fused_block.cu", "ops/fused_block.py:287"),
+        "temporal_phase_tm_bwd_f32": ("fused_block_bwd.cu", "ops/fused_block.py:963"),
+        "spatial_phase_bwd_f32": ("fused_block_bwd.cu", "ops/fused_block.py:430"),
+        "mlp_phase_bwd_f32": ("fused_block_bwd.cu", "ops/fused_block.py:1233"),
+        "mlp_phase_f32": ("fused_block.cu", "ops/fused_block.py:1191"),
     }
     for name in ("attn_phase", "temporal_phase"):
         launches[name] = launches[f"{name}_per_phase"]
@@ -2932,6 +3380,13 @@ def main():
         elif name == "mlp_phase_bwd":
             extra = {"launches_by_rows": launches["mlp_phase_bwd_by_rows"],
                      "per_cls_call": mlp_cls_calls}
+        elif name == "mlp_phase_bwd_f32":
+            extra = {"launches_by_rows": launches["mlp_phase_bwd_f32_by_rows"],
+                     "per_cls_call": mixed_cls_calls}
+        elif name == "temporal_phase_tm_f32":
+            # the count is the mixed teacher's (phase 4b); the mixed train
+            # step's too (phase 7b)
+            extra = {"launches_mixed_train_step": launches["temporal_phase_tm_f32_train_step"]}
         elif name == "gather_normalize":
             extra = {"launches_rgb8": launches_wire["rgb8"],
                      "launches_mixed": launches_wire["mixed yuv420"],

@@ -58,6 +58,11 @@ routes, chosen once per model by ``train_route``:
   ``SpatialPhase`` and ``MlpPhase`` of ``ops/fused_block.py`` (Hopper
   kernels forward and backward on a CUDA tensor, plain twins on a CPU
   tensor). The CLS update ``cls + mean(cls_frames)`` stays plain torch.
+  In bf16 it is the bf16 tier; in f32 the mixed tier (JAX's
+  ``use_fused=True`` at f32: f32 activations, carries and CLS row, bf16
+  matmul operands), which only an explicit ``route="kernels"`` selects:
+  ``"auto"`` picks the kernel route for bf16 alone, as JAX's CLI gate
+  ``should_fuse`` does.
 """
 
 from __future__ import annotations
@@ -204,20 +209,38 @@ def mhsa_train(x: torch.Tensor, attn: nn.Module, num_heads: int) -> torch.Tensor
     return linear((a @ v).transpose(1, 2).reshape(S, L, C), attn.proj)
 
 
-def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype) -> str:
-    """``"kernels"`` or ``"plain"``: the JAX package's glue-free gate
-    (models/timesformer.py:679-686) — bf16 compute, divided attention,
+def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype,
+                route: str = "auto") -> str:
+    """``"kernels"`` or ``"plain"``. The geometry gate is the JAX package's
+    glue-free gate (models/timesformer.py:679-686) — divided attention,
     D % 128 == 0 and head dim < 128 — plus what the Hopper kernels take
-    (head dim % 16 == 0, D <= 1024, qkv biases). Every other geometry
-    (vit_tiny's D = 192 among them) and f32 take the plain route. A static
-    choice, not a fallback: on the kernel route a CUDA tensor launches the
-    kernels or raises."""
+    (head dim % 16 == 0, D <= 1024, qkv biases). ``route="auto"`` picks the
+    kernel route for bf16 compute on that geometry, as JAX's ``should_fuse``
+    does (bf16 only); every other geometry (vit_tiny's D = 192 among them)
+    and f32 take the plain route. ``route="kernels"`` asks for the kernel
+    route in bf16 or in f32 (the mixed tier, JAX's ``use_fused=True`` at
+    f32) and raises where the gate refuses the geometry or the dtype. A
+    static choice, not a fallback: on the kernel route a CUDA tensor
+    launches the kernels or raises."""
+    if route not in ("auto", "plain", "kernels"):
+        raise ValueError(f"route {route!r}: 'auto', 'plain' or 'kernels'")
+    if route == "plain":
+        return route
     D, H = cfg.embed_dim, cfg.num_heads
-    ok = (compute_dtype == torch.bfloat16
-          and cfg.attention_type == "divided_space_time"
-          and D % 128 == 0 and D // H < 128 and D % H == 0
-          and (D // H) % 16 == 0 and D <= 1024 and cfg.qkv_bias)
-    return "kernels" if ok else "plain"
+    geometry = (cfg.attention_type == "divided_space_time"
+                and D % 128 == 0 and D // H < 128 and D % H == 0
+                and (D // H) % 16 == 0 and D <= 1024 and cfg.qkv_bias)
+    if route == "auto":
+        return "kernels" if geometry and compute_dtype == torch.bfloat16 else "plain"
+    if not geometry:
+        raise ValueError(
+            f"route='kernels': D={D} with {H} heads (qkv_bias={cfg.qkv_bias}) is "
+            "outside the kernels' gate (divided attention, D % 128 == 0, "
+            "D <= 1024, head dim % 16 == 0 and < 128, qkv biases)")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"route='kernels': compute dtype {compute_dtype}, "
+                         "expected bfloat16 or float32 (the mixed tier)")
+    return route
 
 
 # ---------------------------------------------------------------------------
@@ -566,9 +589,9 @@ class Block(nn.Module):
 
     def forward_kernels(self, cls: torch.Tensor, grid: torch.Tensor):
         """Training, kernel route (the JAX ``divided_block_fused``): cls
-        (B, 1, D) and the frame-major grid (B, T, N, D), both bf16, through
-        the three per-phase autograd Functions; the CLS update stays plain
-        torch."""
+        (B, 1, D) and the frame-major grid (B, T, N, D), both bf16 or both
+        f32 (the mixed tier), through the three per-phase autograd
+        Functions; the CLS update stays plain torch, in their dtype."""
         B, T, N, D = grid.shape
         H = self.num_heads
         ta, sa = self.temporal_attn, self.attn
@@ -696,7 +719,8 @@ class TimeSformer(nn.Module):
         ``train=False``, as the JAX train step calls it): x (B, C, T, H, W)
         -> (B, D) CLS features in ``compute_dtype``, the f32 parameters
         cast where JAX casts them. ``route``: ``"plain"`` or ``"kernels"``
-        (``train_route``)."""
+        (``train_route``; with f32 compute the kernel route is the mixed
+        tier)."""
         if route not in ("plain", "kernels"):
             raise ValueError(f"route {route!r}: 'plain' or 'kernels'")
         if self.quantized:

@@ -50,8 +50,8 @@ _SIGNATURES = {
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_temporal_phase_tm_ws": [_i] * 4,
         # x, cls, 6 weights, workspace, out, cls_rows | B, T, N, D, H,
-        # out_f32 | stream
-        "dvst_spatial_phase": [_p] * 11 + [_i] * 6 + [_p],
+        # out_f32, x_f32 | stream
+        "dvst_spatial_phase": [_p] * 11 + [_i] * 7 + [_p],
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_spatial_phase_ws": [_i] * 4,
         # x1, cls, 12 weights, workspace, out, cls_rows | B, T, N, D, H, Dh,
@@ -121,18 +121,18 @@ _SIGNATURES = {
     },
     "bwd": {
         # x, dout, 8 weights, workspace, dx, dln, 6 weight grads
-        # | B, T, N, D, H | stream
-        "dvst_temporal_phase_tm_bwd": [_p] * 19 + [_i] * 5 + [_p],
+        # | B, T, N, D, H, f32 | stream
+        "dvst_temporal_phase_tm_bwd": [_p] * 19 + [_i] * 6 + [_p],
         # x, cls, dgo, dco, 6 weights, workspace, dx, dcls, dln, 4 weight
-        # grads | B, T, N, D, H | stream
-        "dvst_spatial_phase_bwd": [_p] * 18 + [_i] * 5 + [_p],
+        # grads | B, T, N, D, H, f32 | stream
+        "dvst_spatial_phase_bwd": [_p] * 18 + [_i] * 6 + [_p],
         # x, do, 6 weights, workspace, dx, dln, 4 weight grads | M | D, Dh,
-        # residual | stream
-        "dvst_mlp_phase_bwd": [_p] * 15 + [_l] + [_i] * 3 + [_p],
-        # workspace bytes of the three (returns long)
-        "dvst_temporal_phase_tm_bwd_ws": [_i] * 5,
-        "dvst_spatial_phase_bwd_ws": [_i] * 5,
-        "dvst_mlp_phase_bwd_ws": [_l] + [_i] * 2,
+        # residual, f32 | stream
+        "dvst_mlp_phase_bwd": [_p] * 15 + [_l] + [_i] * 4 + [_p],
+        # workspace bytes of the three (returns long) | ..., f32
+        "dvst_temporal_phase_tm_bwd_ws": [_i] * 6,
+        "dvst_spatial_phase_bwd_ws": [_i] * 6,
+        "dvst_mlp_phase_bwd_ws": [_l] + [_i] * 3,
         # qkv, qkv_pre, da, da_pre, dqkv, dqkv_pre | S, S_lo, N, D, H | scale
         # | stream
         "dvst_spatial_attn_bwd": [_p] * 6 + [_i] * 5 + [_f, _p],
@@ -143,8 +143,8 @@ _SIGNATURES = {
         # shared bytes of one block (returns long) | S, L, hd
         "dvst_temporal_attn_bwd_smem": [_i] * 3,
         # x, x_tail, dy, w, res, dx, dx_tail, partials, dgb | M, R | D,
-        # tail_div | stream
-        "dvst_layer_norm_bwd": [_p] * 9 + [_l] * 2 + [_i] * 2 + [_p],
+        # tail_div, f32 | stream
+        "dvst_layer_norm_bwd": [_p] * 9 + [_l] * 2 + [_i] * 3 + [_p],
         # bytes of partials (returns long) | R | D
         "dvst_layer_norm_bwd_ws": [_l, _i],
         # dY, W, aux, out | M | N, K, epilogue | stream

@@ -2,7 +2,8 @@
 // (fused_block.cu, banded_block.cu, fused_block_bwd.cu, attention.cu):
 // LayerNorm, the GEMM epilogues of wgmma_gemm.cuh and their helpers, the
 // cp.async wrappers, the shared-memory opt-in, the workspace carver, and
-// for the backwards the LayerNorm backward, the column sums, the
+// for the backwards the LayerNorm backward (bf16 and f32 rows), the column
+// sums and the f32 cotangent pass, the
 // fixed-order reductions and two small row passes.
 // Each library includes this file once; everything here has internal
 // linkage.
@@ -450,21 +451,62 @@ cudaError_t colsum(const T* x, long rows, int cols, float* part, float* out,
   return reduce_splits(part, splits, cols, out, st);
 }
 
+// The trainer's mixed tier reads its incoming cotangents in f32: one pass
+// writes their bf16 copy (the operand of the products that read them) and
+// sums them over the rows in f32 (the bias gradient of the layer they
+// enter), as colsum splits and adds the rows, so that bias gradients come
+// from the f32 values (JAX fused_block.py:1033, :1276). The rows are a's
+// first Ma rows, then b's (the spatial op's [dgo; dco]; b null when Ma ==
+// rows). Bound by bytes: the cotangent read once, its copy written once.
+__global__ void cast_colsum_kernel(const float* __restrict__ a, long Ma,
+                                   const float* __restrict__ b, long rows, int cols,
+                                   long rows_per_split, bf16* __restrict__ out16,
+                                   float* __restrict__ part) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const long r0 = (long)blockIdx.y * rows_per_split;
+  const long r1 = r0 + rows_per_split < rows ? r0 + rows_per_split : rows;
+  float s = 0.f;
+  for (long r = r0; r < r1; ++r) {
+    const float v = r < Ma ? a[r * cols + c] : b[(r - Ma) * cols + c];
+    out16[r * cols + c] = __float2bfloat16(v);
+    s += v;
+  }
+  part[(long)blockIdx.y * cols + c] = s;
+}
+
+// part: colsum_splits(rows) * cols floats of scratch; out16 (rows, cols)
+// bf16, out (cols) f32.
+inline cudaError_t cast_colsum(const float* a, long Ma, const float* b, long rows, int cols,
+                               bf16* out16, float* part, float* out, cudaStream_t st) {
+  const int splits = colsum_splits(rows);
+  const long rps = (rows + splits - 1) / splits;
+  cast_colsum_kernel<<<dim3((cols + 255) / 256, splits), 256, 0, st>>>(a, Ma, b, rows, cols,
+                                                                      rps, out16, part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return reduce_splits(part, splits, cols, out, st);
+}
+
 // ---------------------------------------------------------------------------
 // LayerNorm backward, f32 throughout (the JAX kernels' f32 dy): dx = rstd *
 // (dxh - mean(dxh) - xhat * mean(dxh * xhat)), dxh = dy * w. Rows r < M
-// read x[r] and write dx[r] = bf16(dx + res[r]) (res may be null); rows M
+// read x[r] and write dx[r] = TX(dx + res[r]) (res may be null); rows M
 // <= r < R read x_tail[(r - M) / tail_div] (a row shared by tail_div rows,
-// the spatial op's per-frame CLS) and write dx_tail[r - M] in f32. The
+// the spatial op's per-frame CLS) and write dx_tail[r - M] in f32. TX is
+// the rows' type: bf16 (x, the residual and dx bf16, dx rounded once at
+// the store) or f32 (the trainer's mixed tier: x read, the residual added
+// and dx stored in f32, never rounded). The
 // column sums of dy * xhat and dy (the scale and bias gradients) go to one
 // partial per block, its warps' sums added in warp order, which
 // reduce_splits adds in a fixed order.
 // Bound by bytes: dy (f32), x, the residual read once, dx written once
 // (193 MB at R = 25216, D = 768: 0.058 ms).
 // Design: the row width D = 32 V is a template parameter, so a lane holds
-// exactly its V values of a row (24 at ViT-B), x as packed bf16 pairs (its
-// f32 values are recomputed where used, so the lane's dy, dxh and the two
-// column sums fit 128 registers without spilling); a lane reads 8
+// exactly its V values of a row (24 at ViT-B), bf16 x as packed bf16 pairs
+// (its f32 values are recomputed where used, so the lane's dy, dxh and the
+// two column sums fit 128 registers without spilling), f32 x as it is
+// (LnRow); a lane reads 8
 // consecutive values at once (16-byte loads of x and the residual, two of
 // dy; 4 where V % 8 != 0) and writes them at once; a warp takes one row at
 // a time; a
@@ -545,11 +587,36 @@ __device__ __forceinline__ void ln_store(float* dst, const float* v) {
   }
 }
 
+// A lane's V values of one x row: bf16 rows as packed pairs, f32 rows as
+// they are; v(i) is value i in f32 either way.
+template <typename TX, int V>
+struct LnRow;
+
 template <int V>
+struct LnRow<bf16, V> {
+  uint32_t p[V / 2];
+  template <int CW>
+  __device__ __forceinline__ void load(const bf16* src, int c) {
+    ln_load_packed<CW>(src, p + CW / 2 * c);
+  }
+  __device__ __forceinline__ float v(int i) const { return bf16_of(p, i); }
+};
+
+template <int V>
+struct LnRow<float, V> {
+  float f[V];
+  template <int CW>
+  __device__ __forceinline__ void load(const float* src, int c) {
+    ln_load<CW>(src, f + CW * c);
+  }
+  __device__ __forceinline__ float v(int i) const { return f[i]; }
+};
+
+template <int V, typename TX>
 __global__ void __launch_bounds__(kLnBwdWarps * 32, 2)
-ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int tail_div,
+ln_bwd_kernel(const TX* __restrict__ x, const TX* __restrict__ x_tail, int tail_div,
               const float* __restrict__ dy, const float* __restrict__ w,
-              const bf16* __restrict__ res, bf16* __restrict__ dx, float* __restrict__ dx_tail,
+              const TX* __restrict__ res, TX* __restrict__ dx, float* __restrict__ dx_tail,
               long M, long R, float* __restrict__ part) {
   constexpr int D = 32 * V;
   constexpr int CW = V % 8 == 0 ? 8 : 4;  // values a lane reads at once
@@ -562,23 +629,23 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int t
   const long G = gridDim.x;
   const long rb = blockIdx.x * R / G, re = (blockIdx.x + 1) * R / G;
   for (long r = rb + warp; r < re; r += kLnBwdWarps) {
-    const bf16* xr = r < M ? x + r * D : x_tail + (r - M) / tail_div * D;
+    const TX* xr = r < M ? x + r * D : x_tail + (r - M) / tail_div * D;
     const float* dyr = dy + r * D;
-    uint32_t xp[V / 2];  // x as bf16 pairs
-    float g[V];          // dy, then dxh
+    LnRow<TX, V> xp;
+    float g[V];  // dy, then dxh
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = CW * (lane + 32 * c);
-      ln_load_packed<CW>(xr + d, xp + CW / 2 * c);
+      xp.template load<CW>(xr + d, c);
       ln_load<CW>(dyr + d, g + CW * c);
     }
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) s += bf16_of(xp, i);
+    for (int i = 0; i < V; ++i) s += xp.v(i);
     const float mu = warp_sum(s) / (float)D;
     float q = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) q += (bf16_of(xp, i) - mu) * (bf16_of(xp, i) - mu);
+    for (int i = 0; i < V; ++i) q += (xp.v(i) - mu) * (xp.v(i) - mu);
     const float rs = rsqrtf(warp_sum(q) / (float)D + kLnEps);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -588,7 +655,7 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int t
 #pragma unroll
       for (int e = 0; e < CW; ++e) {
         const int i = CW * c + e;
-        const float xh = (bf16_of(xp, i) - mu) * rs;
+        const float xh = (xp.v(i) - mu) * rs;
         ag[i] += g[i] * xh;
         ab[i] += g[i];
         const float dxh = g[i] * wv[e];
@@ -604,7 +671,7 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int t
       float o[CW];
 #pragma unroll
       for (int e = 0; e < CW; ++e) {
-        const float xh = (bf16_of(xp, CW * c + e) - mu) * rs;
+        const float xh = (xp.v(CW * c + e) - mu) * rs;
         o[e] = rs * (g[CW * c + e] - m1 - xh * m2);
       }
       if (r < M) {
@@ -643,16 +710,16 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ x_tail, int t
 
 // dgb: 2D floats, (dw | db). part: ln_bwd_blocks(R) * 2D floats. D a
 // multiple of 128 up to 1024; x, x_tail, dy, res, dx, dx_tail and w
-// 16-byte aligned.
-inline cudaError_t ln_bwd(const bf16* x, const bf16* x_tail, int tail_div,
-                          const float* dy, const float* w, const bf16* res,
-                          bf16* dx, float* dx_tail, long M, long R, int D,
-                          float* part, float* dgb, cudaStream_t st) {
+// 16-byte aligned. TX: bf16 or float (x, x_tail, res and dx).
+template <typename TX>
+cudaError_t ln_bwd(const TX* x, const TX* x_tail, int tail_div, const float* dy,
+                   const float* w, const TX* res, TX* dx, float* dx_tail, long M, long R,
+                   int D, float* part, float* dgb, cudaStream_t st) {
   if (R <= 0) return cudaSuccess;
   const long blocks = ln_bwd_blocks(R);
 #define DVST_LNB_CASE(VV)                                                                   \
   case 32 * VV:                                                                             \
-    ln_bwd_kernel<VV><<<(unsigned)blocks, kLnBwdWarps * 32, 0, st>>>(                       \
+    ln_bwd_kernel<VV, TX><<<(unsigned)blocks, kLnBwdWarps * 32, 0, st>>>(                   \
         x, x_tail, tail_div, dy, w, res, dx, dx_tail, M, R, part);                          \
     break;
   switch (D) {

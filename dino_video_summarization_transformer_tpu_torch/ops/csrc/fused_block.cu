@@ -32,7 +32,11 @@
 //       (ln_quant_kernel, wg_gemm_s8, tc_strided_attn, quant_rows_kernel)
 //   dvst_spatial_phase      replaces _spatial_phase_kernel
 //       (ops/fused_block.py:287): per frame on [cls, x_t]: LN -> MHSA ->
-//       proj; grid out = bf16(x + bf16(proj)), raw per-frame CLS rows bf16
+//       proj; grid out = bf16(x + bf16(proj)), raw per-frame CLS rows bf16;
+//       x_f32, the trainer's mixed tier (f32 x and CLS row in, :299): the
+//       LNs read the f32 rows (ln_kernel<float>), grid out = f32 x + proj
+//       unrounded (kEpiResF32F32) and the CLS rows f32 (kEpiF32; the
+//       Pallas kernel writes x.dtype, :340-345)
 //       launches: LN grid, LN cls -> GEMM qkv grid, GEMM qkv cls ->
 //       attention -> GEMM proj+res grid, GEMM proj cls
 //       Bound by operations: at the training step's global crops (B=16,
@@ -357,8 +361,9 @@ int dvst_temporal_phase_tm_q8(const void* x_, const void* ln_w, const void* ln_b
 // x (B,T,N,D) bf16, cls (B,1,D) bf16 -> out (B,T,N,D) bf16 =
 // bf16(x + bf16(proj)) or, with out_f32, f32 x + proj (the branch
 // unrounded: the card's checks hold the branch through this tier of the
-// same launches), cls_rows (B,T,D) bf16. ws: the bytes
-// dvst_spatial_phase_ws gives.
+// same launches), cls_rows (B,T,D) bf16. With x_f32 (the trainer's mixed
+// tier): x and cls f32 -> out f32 = x + proj, cls_rows f32 (out_f32 is
+// then ignored). ws: the bytes dvst_spatial_phase_ws gives.
 long dvst_spatial_phase_ws(int B, int T, int N, int D) {
   return (long)spatial_phase_ws(nullptr, B, T, N, D).bytes;
 }
@@ -367,17 +372,22 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
                        const void* ln_b, const void* qkv_w, const void* qkv_b,
                        const void* proj_w, const void* proj_b, void* ws,
                        void* out, void* cls_rows, int B, int T, int N, int D,
-                       int H, int out_f32, void* stream) {
+                       int H, int out_f32, int x_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
-  const bf16* x = static_cast<const bf16*>(x_);
   const SpatialPhaseWs w = spatial_phase_ws(static_cast<char*>(ws), B, T, N, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   const int hd = D / H;
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, lw, lb, w.y, M, D, st))) return e;
-  if ((e = ln_launch<bf16>(static_cast<const bf16*>(cls_), lw, lb, w.y_cls, B, D, st))) return e;
+  if (x_f32) {
+    if ((e = ln_launch<float>(static_cast<const float*>(x_), lw, lb, w.y, M, D, st))) return e;
+    e = ln_launch<float>(static_cast<const float*>(cls_), lw, lb, w.y_cls, B, D, st);
+  } else {
+    if ((e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.y, M, D, st))) return e;
+    e = ln_launch<bf16>(static_cast<const bf16*>(cls_), lw, lb, w.y_cls, B, D, st);
+  }
+  if (e) return e;
   if ((e = wg_gemm<kEpiBf16>(w.y, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
   if ((e = wg_gemm<kEpiBf16>(w.y_cls, qkv_w, qkv_b, nullptr, w.qkv_cls, B, 3 * D, D, st)))
     return e;
@@ -385,8 +395,12 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
   if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
                           1.0f / sqrtf((float)hd), st)))
     return e;
-  e = out_f32 ? wg_gemm<kEpiResBf16F32>(w.a, proj_w, proj_b, x, out, M, D, D, st)
-              : wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x, out, M, D, D, st);
+  if (x_f32) {
+    if ((e = wg_gemm<kEpiResF32F32>(w.a, proj_w, proj_b, x_, out, M, D, D, st))) return e;
+    return wg_gemm<kEpiF32>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
+  }
+  e = out_f32 ? wg_gemm<kEpiResBf16F32>(w.a, proj_w, proj_b, x_, out, M, D, D, st)
+              : wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x_, out, M, D, D, st);
   if (e) return e;
   return wg_gemm<kEpiBf16>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
 }

@@ -6,8 +6,8 @@
 //
 //   dvst_temporal_phase_tm_bwd  replaces _temporal_phase_tm_bwd_kernel
 //       (dino_video_summarization_transformer_tpu/ops/fused_block.py:963):
-//       x, dout (B,T,N,D) bf16 -> dx bf16 and f32 dLN, dWqkv, dbqkv,
-//       dWproj, dbproj, dWfc, dbfc.
+//       x, dout (B,T,N,D) bf16 -> dx bf16, or (f32) x, dout f32 -> dx
+//       f32; f32 dLN, dWqkv, dbqkv, dWproj, dbproj, dWfc, dbfc.
 //       recompute: LN -> GEMM qkv -> strided attention -> GEMM proj, as
 //       dvst_temporal_phase_tm runs them
 //       backward: dWfc, dbfc -> dproj -> dWproj, dbproj -> da -> the
@@ -18,9 +18,10 @@
 //       T=8, N=196, D=768), 0.45 ms at the bf16 peak, against ~0.13 GB
 //       moved (chip_smoke.py counts what these launches do: 4.2e11).
 //   dvst_spatial_phase_bwd      replaces _spatial_phase_bwd_kernel
-//       (ops/fused_block.py:430): x, cls, dgo (B,T,N,D), dco (B,T,D) ->
-//       dx bf16, dcls f32 (B,1,D) (the CLS row's gradient summed over the
-//       T frames it joins) and f32 dLN, dWqkv, dbqkv, dWproj, dbproj.
+//       (ops/fused_block.py:430): x, cls, dgo (B,T,N,D), dco (B,T,D), all
+//       bf16 or (f32) all f32 -> dx in x's dtype, dcls f32 (B,1,D) (the
+//       CLS row's gradient summed over the T frames it joins) and f32 dLN,
+//       dWqkv, dbqkv, dWproj, dbproj.
 //       The per-frame CLS rows are B*T extra rows after the M grid rows in
 //       every row buffer (their LN rows replicated), so each weight
 //       gradient is one GEMM over M + B*T rows.
@@ -28,8 +29,9 @@
 //       4*L*D) is 4.0e11 FLOP at the global crops, 0.41 ms (chip_smoke.py:
 //       3.8e11).
 //   dvst_mlp_phase_bwd          replaces _mlp_phase_bwd_kernel
-//       (ops/fused_block.py:1233): x, do (M,D) bf16 -> dx bf16 and f32
-//       dLN, dW1, db1, dW2, db2; only the M real rows enter the sums (the
+//       (ops/fused_block.py:1233): x, do (M,D) bf16 or (f32) f32 -> dx in
+//       x's dtype and f32 dLN, dW1, db1, dW2, db2; only the M real rows
+//       enter the sums (the
 //       Pallas kernel masks its ragged tail, :1254-1259).
 //       recompute: LN -> GEMM fc1 + erf GELU (bf16) and its derivative (f32)
 //       backward: dW2, db2 -> dh1 = bf16((do . W2) * gelu'(h1)) -> dW1, db1
@@ -57,6 +59,17 @@
 //   backwards the tile's backward over the same sequences
 //   (tc_strided_attn_bwd, tc_prefix_attn_bwd; tc_attention.cuh): no L x L
 //   matrix in memory. The LN backward is dvst_common.cuh's ln_bwd.
+//
+// The f32 tier of all three (the trainer's mixed tier: f32 activations and
+// carries, bf16 matmul operands; the Pallas kernels on f32 x): the
+// recompute's LN reads the f32 x (ln_kernel<float>); the incoming
+// cotangent is read in f32 by one pass (cast_colsum) that writes its bf16
+// copy, the operand of the products that read it, and sums the f32 values
+// into the bias gradient of the layer it enters (dbfc, :1033; dbproj of
+// row 8, :497; db2, :1276); the LN backward is ln_bwd<float>, which reads
+// the f32 x and adds the f32 residual cotangent, and dx is stored in f32,
+// never rounded (:1089-1090, :540-541, :1294-1297). Every other rounding
+// is the bf16 tier's.
 //
 // Numerics: the XLA-path rules, not the TPU workarounds — the softmax
 // subtracts its row max (no +/-80 clamp, so no |s| < 80 mask on ds), the
@@ -90,13 +103,15 @@ size_t wg_part_floats(long rows, const int (*dw)[2], int n_dw, int max_cols, int
   return n;
 }
 
+// The f32 tier's bf16 copy of the incoming cotangent (do16) is carved only
+// in that tier.
 struct TemporalWs {
-  bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv;
+  bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv, *do16;
   float *dy, *part;
   size_t bytes;
 };
 
-TemporalWs temporal_ws(char* base, long M, int D) {
+TemporalWs temporal_ws(char* base, long M, int D, bool f32) {
   Carve c{base};
   TemporalWs w;
   const int dw[2][2] = {{D, D}, {3 * D, D}};  // dWfc and dWproj, dWqkv
@@ -109,6 +124,7 @@ TemporalWs temporal_ws(char* base, long M, int D) {
   w.dqkv = c.take<bf16>(M * 3 * D);
   w.dy = c.take<float>(M * D);
   w.part = c.take<float>(wg_part_floats(M, dw, 2, 3 * D, D));
+  w.do16 = f32 ? c.take<bf16>(M * D) : nullptr;
   w.bytes = c.off;
   return w;
 }
@@ -141,12 +157,12 @@ SpatialWs spatial_ws(char* base, long M, long Mc, int B, int D) {
 }
 
 struct MlpWs {
-  bf16 *y, *hg, *dh1;
+  bf16 *y, *hg, *dh1, *do16;
   float *gp, *dy, *part;  // gp: gelu_erf'(h1), f32
   size_t bytes;
 };
 
-MlpWs mlp_ws(char* base, long M, int D, int Dh) {
+MlpWs mlp_ws(char* base, long M, int D, int Dh, bool f32) {
   Carve c{base};
   MlpWs w;
   const int dw[2][2] = {{D, Dh}, {Dh, D}};
@@ -156,51 +172,79 @@ MlpWs mlp_ws(char* base, long M, int D, int Dh) {
   w.gp = c.take<float>(M * Dh);
   w.dy = c.take<float>(M * D);
   w.part = c.take<float>(wg_part_floats(M, dw, 2, Dh, D));
+  w.do16 = f32 ? c.take<bf16>(M * D) : nullptr;
   w.bytes = c.off;
   return w;
+}
+
+// LN rows of the M rows of x (bf16, or f32 in the f32 tier) into y.
+cudaError_t ln_rows(const void* x, bool f32, const float* lw, const float* lb, bf16* y,
+                    long M, int D, cudaStream_t st) {
+  return f32 ? ln_launch<float>(static_cast<const float*>(x), lw, lb, y, M, D, st)
+             : ln_launch<bf16>(static_cast<const bf16*>(x), lw, lb, y, M, D, st);
+}
+
+// The LN backward of the three, over x's type: dx = LN-backward + res.
+cudaError_t ln_bwd_rows(const void* x, const void* x_tail, int tail_div, bool f32,
+                        const float* dy, const float* lw, const void* res, void* dx,
+                        float* dx_tail, long M, long R, int D, float* part, float* dgb,
+                        cudaStream_t st) {
+  if (f32)
+    return ln_bwd<float>(static_cast<const float*>(x), static_cast<const float*>(x_tail),
+                         tail_div, dy, lw, static_cast<const float*>(res),
+                         static_cast<float*>(dx), dx_tail, M, R, D, part, dgb, st);
+  return ln_bwd<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(x_tail), tail_div,
+                      dy, lw, static_cast<const bf16*>(res), static_cast<bf16*>(dx), dx_tail,
+                      M, R, D, part, dgb, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-long dvst_temporal_phase_tm_bwd_ws(int B, int T, int N, int D, int H) {
+long dvst_temporal_phase_tm_bwd_ws(int B, int T, int N, int D, int H, int f32) {
   (void)H;
-  return (long)temporal_ws(nullptr, (long)B * T * N, D).bytes;
+  return (long)temporal_ws(nullptr, (long)B * T * N, D, f32).bytes;
 }
 
-// x, dout (B,T,N,D) bf16 -> dx (B,T,N,D) bf16; dln f32 (2, D) (scale |
-// bias); dqkv_w (3D, D), dqkv_b (3D), dproj_w (D, D), dproj_b (D), dfc_w
-// (D, D), dfc_b (D), f32, (out, in) layout. ws: the bytes
-// dvst_temporal_phase_tm_bwd_ws gives.
+// x, dout (B,T,N,D) bf16 -> dx (B,T,N,D) bf16, or with f32 all three f32;
+// dln f32 (2, D) (scale | bias); dqkv_w (3D, D), dqkv_b (3D), dproj_w (D,
+// D), dproj_b (D), dfc_w (D, D), dfc_b (D), f32, (out, in) layout. ws: the
+// bytes dvst_temporal_phase_tm_bwd_ws gives for the same f32.
 int dvst_temporal_phase_tm_bwd(
     const void* x_, const void* dout_, const void* ln_w, const void* ln_b,
     const void* qkv_w, const void* qkv_b, const void* proj_w,
     const void* proj_b, const void* fc_w, const void* fc_b, void* ws,
     void* dx, void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w,
     void* dproj_b, void* dfc_w, void* dfc_b, int B, int T, int N, int D,
-    int H, void* stream) {
+    int H, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* dout = static_cast<const bf16*>(dout_);
   const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
   const bf16* Wproj = static_cast<const bf16*>(proj_w);
   const bf16* Wfc = static_cast<const bf16*>(fc_w);
   const float* lw = static_cast<const float*>(ln_w);
-  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D);
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D, f32);
   const int hd = D / H;
   const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
   // recompute the forward up to proj, as dvst_temporal_phase_tm runs it
-  if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
+  if ((e = ln_rows(x_, f32, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
   if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
   // sequence (b, n) over t: rows (b*T + t)*N + n
   if ((e = tc_strided_attn(hd, w.qkv, w.a, B, T, N, H, scale, st))) return e;
   if ((e = wg_gemm<kEpiBf16>(w.a, Wproj, proj_b, nullptr, w.proj, M, D, D, st))) return e;
-  // temporal_fc
+  // temporal_fc: dbfc from the cotangent as read (f32 in the f32 tier),
+  // dWfc and dproj from its bf16 copy
+  const bf16* dout = static_cast<const bf16*>(dout_);
+  if (f32) {
+    if ((e = cast_colsum(static_cast<const float*>(dout_), M, nullptr, M, D, w.do16, w.part,
+                         static_cast<float*>(dfc_b), st)))
+      return e;
+    dout = w.do16;
+  }
   if ((e = wg_gemm_dw(dout, w.proj, static_cast<float*>(dfc_w), w.part, M, D, D, st))) return e;
-  if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st))) return e;
+  if (!f32 && (e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st))) return e;
   if ((e = wg_gemm_dx<kEpiBf16>(dout, Wfc, nullptr, w.dproj, M, D, D, st))) return e;
   // proj
   if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, D, st))) return e;
@@ -213,19 +257,21 @@ int dvst_temporal_phase_tm_bwd(
     return e;
   if ((e = colsum<bf16>(w.dqkv, M, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
   if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, M, D, 3 * D, st))) return e;
-  // LN, + the residual's dout
-  return ln_bwd(x, nullptr, 1, w.dy, lw, dout, static_cast<bf16*>(dx), nullptr,
-                M, M, D, w.part, static_cast<float*>(dln), st);
+  // LN, + the residual's dout (as read)
+  return ln_bwd_rows(x_, nullptr, 1, f32, w.dy, lw, dout_, dx, nullptr, M, M, D, w.part,
+                     static_cast<float*>(dln), st);
 }
 
-long dvst_spatial_phase_bwd_ws(int B, int T, int N, int D, int H) {
+long dvst_spatial_phase_bwd_ws(int B, int T, int N, int D, int H, int f32) {
   (void)H;
+  (void)f32;  // the f32 tier's cotangent copy is the dproj rows the bf16 tier fills
   return (long)spatial_ws(nullptr, (long)B * T * N, (long)B * T, B, D).bytes;
 }
 
 // x (B,T,N,D), cls (B,1,D), dgo (B,T,N,D), dco (B,T,D) bf16 -> dx (B,T,N,D)
-// bf16, dcls (B,1,D) f32; dln f32 (2, D); dqkv_w (3D, D), dqkv_b (3D),
-// dproj_w (D, D), dproj_b (D) f32. ws: dvst_spatial_phase_bwd_ws bytes.
+// bf16, or with f32 all five f32; dcls (B,1,D) f32; dln f32 (2, D); dqkv_w
+// (3D, D), dqkv_b (3D), dproj_w (D, D), dproj_b (D) f32. ws:
+// dvst_spatial_phase_bwd_ws bytes.
 int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
                            const void* dco_, const void* ln_w,
                            const void* ln_b, const void* qkv_w,
@@ -233,12 +279,9 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
                            const void* proj_b, void* ws, void* dx, void* dcls,
                            void* dln, void* dqkv_w, void* dqkv_b,
                            void* dproj_w, void* dproj_b, int B, int T, int N,
-                           int D, int H, void* stream) {
+                           int D, int H, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N, Mc = (long)B * T, R = M + Mc;
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* cls = static_cast<const bf16*>(cls_);
-  const bf16* dgo = static_cast<const bf16*>(dgo_);
   const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
   const bf16* Wproj = static_cast<const bf16*>(proj_w);
   const float* lw = static_cast<const float*>(ln_w);
@@ -249,8 +292,8 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   cudaError_t e;
   // recompute: LN rows of the grid, then of the CLS replicated per frame;
   // qkv over all R rows (the CLS rows are sequence s's prefix at M + s)
-  if ((e = ln_launch<bf16>(x, lw, lb, w.y, M, D, st))) return e;
-  if ((e = ln_launch<bf16>(cls, lw, lb, w.y_cls, B, D, st))) return e;
+  if ((e = ln_rows(x_, f32, lw, lb, w.y, M, D, st))) return e;
+  if ((e = ln_rows(cls_, f32, lw, lb, w.y_cls, B, D, st))) return e;
   rep_rows_kernel<<<ew_blocks(Mc * D), 256, 0, st>>>(w.y_cls, w.y + M * D, T,
                                                      D, B);
   if ((e = cudaGetLastError())) return e;
@@ -259,16 +302,25 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   if ((e = tc_prefix_attn(hd, w.qkv, w.qkv + M * 3 * D, w.a, w.a + M * D, (int)Mc, 1, N, H,
                           scale, st)))
     return e;
-  // proj: the cotangent rows are [dgo; dco]
-  if ((e = cudaMemcpyAsync(w.dproj, dgo, (size_t)M * D * sizeof(bf16),
-                           cudaMemcpyDeviceToDevice, st)))
-    return e;
-  if ((e = cudaMemcpyAsync(w.dproj + M * D, dco_, (size_t)Mc * D * sizeof(bf16),
-                           cudaMemcpyDeviceToDevice, st)))
-    return e;
+  // proj: the cotangent rows are [dgo; dco] (bf16; in the f32 tier their
+  // bf16 copy, dbproj summed from the f32 rows)
+  if (f32) {
+    if ((e = cast_colsum(static_cast<const float*>(dgo_), M, static_cast<const float*>(dco_),
+                         R, D, w.dproj, w.part, static_cast<float*>(dproj_b), st)))
+      return e;
+  } else {
+    if ((e = cudaMemcpyAsync(w.dproj, dgo_, (size_t)M * D * sizeof(bf16),
+                             cudaMemcpyDeviceToDevice, st)))
+      return e;
+    if ((e = cudaMemcpyAsync(w.dproj + M * D, dco_, (size_t)Mc * D * sizeof(bf16),
+                             cudaMemcpyDeviceToDevice, st)))
+      return e;
+  }
   if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, D, st)))
     return e;
-  if ((e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st))) return e;
+  if (!f32 &&
+      (e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st)))
+    return e;
   if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, R, D, D, st))) return e;
   // attention: the CLS row's dq/dk/dv per frame go to rows M + (b*T + t)
   if ((e = tc_prefix_attn_bwd(hd, w.qkv, w.qkv + M * 3 * D, w.da, w.da + M * D, w.dqkv,
@@ -280,50 +332,55 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   if ((e = colsum<bf16>(w.dqkv, R, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
   if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, R, D, 3 * D, st))) return e;
   // LN: grid rows + dgo -> dx; CLS rows -> per-frame f32, summed over T
-  if ((e = ln_bwd(x, cls, T, w.dy, lw, dgo, static_cast<bf16*>(dx), w.dx_tail,
-                  M, R, D, w.part, static_cast<float*>(dln), st)))
+  if ((e = ln_bwd_rows(x_, cls_, T, f32, w.dy, lw, dgo_, dx, w.dx_tail, M, R, D, w.part,
+                       static_cast<float*>(dln), st)))
     return e;
   sum_groups_kernel<<<ew_blocks((long)B * D), 256, 0, st>>>(
       w.dx_tail, T, D, B, static_cast<float*>(dcls));
   return cudaGetLastError();
 }
 
-long dvst_mlp_phase_bwd_ws(long M, int D, int Dh) {
-  return (long)mlp_ws(nullptr, M, D, Dh).bytes;
+long dvst_mlp_phase_bwd_ws(long M, int D, int Dh, int f32) {
+  return (long)mlp_ws(nullptr, M, D, Dh, f32).bytes;
 }
 
-// x, do (M,D) bf16 -> dx (M,D) bf16 (+ do when residual); dln f32 (2, D);
-// dfc1_w (Dh, D), dfc1_b (Dh), dfc2_w (D, Dh), dfc2_b (D) f32. ws:
-// dvst_mlp_phase_bwd_ws bytes.
+// x, do (M,D) bf16 -> dx (M,D) bf16 (+ do when residual), or with f32 all
+// three f32; dln f32 (2, D); dfc1_w (Dh, D), dfc1_b (Dh), dfc2_w (D, Dh),
+// dfc2_b (D) f32. ws: dvst_mlp_phase_bwd_ws bytes for the same f32.
 int dvst_mlp_phase_bwd(const void* x_, const void* do_, const void* ln_w,
                        const void* ln_b, const void* fc1_w, const void* fc1_b,
                        const void* fc2_w, const void* fc2_b, void* ws,
                        void* dx, void* dln, void* dfc1_w, void* dfc1_b,
                        void* dfc2_w, void* dfc2_b, long M, int D, int Dh,
-                       int residual, void* stream) {
+                       int residual, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* dout = static_cast<const bf16*>(do_);
   const bf16* W1 = static_cast<const bf16*>(fc1_w);
   const bf16* W2 = static_cast<const bf16*>(fc2_w);
   const float* lw = static_cast<const float*>(ln_w);
-  const MlpWs w = mlp_ws(static_cast<char*>(ws), M, D, Dh);
+  const MlpWs w = mlp_ws(static_cast<char*>(ws), M, D, Dh, f32);
   cudaError_t e;
-  if ((e = ln_launch<bf16>(x, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
+  if ((e = ln_rows(x_, f32, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
   // fc1: hg = bf16(gelu(h1)) and gp = gelu'(h1) from the f32 accumulator
   if ((e = wg_gemm<kEpiGeluBf16GradF32>(w.y, W1, fc1_b, w.gp, w.hg, M, Dh, D, st))) return e;
-  // fc2
+  // fc2: db2 from the cotangent as read (f32 in the f32 tier), dW2 and dh1
+  // from its bf16 copy
+  const bf16* dout = static_cast<const bf16*>(do_);
+  if (f32) {
+    if ((e = cast_colsum(static_cast<const float*>(do_), M, nullptr, M, D, w.do16, w.part,
+                         static_cast<float*>(dfc2_b), st)))
+      return e;
+    dout = w.do16;
+  }
   if ((e = wg_gemm_dw(dout, w.hg, static_cast<float*>(dfc2_w), w.part, M, D, Dh, st))) return e;
-  if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st))) return e;
+  if (!f32 && (e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st))) return e;
   // dh1 = bf16((do . W2) * gelu'(h1)), both factors f32
   if ((e = wg_gemm_dx<kEpiMulF32Bf16>(dout, W2, w.gp, w.dh1, M, Dh, D, st))) return e;
   // fc1
   if ((e = wg_gemm_dw(w.dh1, w.y, static_cast<float*>(dfc1_w), w.part, M, Dh, D, st))) return e;
   if ((e = colsum<bf16>(w.dh1, M, Dh, w.part, static_cast<float*>(dfc1_b), st))) return e;
   if ((e = wg_gemm_dx<kEpiF32>(w.dh1, W1, nullptr, w.dy, M, D, Dh, st))) return e;
-  return ln_bwd(x, nullptr, 1, w.dy, lw, residual ? dout : nullptr,
-                static_cast<bf16*>(dx), nullptr, M, M, D, w.part,
-                static_cast<float*>(dln), st);
+  return ln_bwd_rows(x_, nullptr, 1, f32, w.dy, lw, residual ? do_ : nullptr, dx, nullptr, M,
+                     M, D, w.part, static_cast<float*>(dln), st);
 }
 
 // The building blocks of the three alone, for the card tests and
@@ -366,17 +423,17 @@ long dvst_temporal_attn_bwd_smem(int S, int L, int hd) {
 // The LayerNorm backward of the three alone: x (M, D) bf16 and, for the R
 // - M tail rows, x_tail ((R - M) / tail_div, D) bf16 (null when R == M);
 // dy (R, D) f32, w (D) f32, res (M, D) bf16 or null -> dx (M, D) bf16 =
-// bf16(dx + res), dx_tail (R - M, D) f32, dgb (2, D) f32 (scale | bias).
-// part: the bytes dvst_layer_norm_bwd_ws gives.
+// bf16(dx + res), dx_tail (R - M, D) f32, dgb (2, D) f32 (scale | bias);
+// with f32, x, x_tail, res and dx f32 (dx = dx + res, unrounded). part:
+// the bytes dvst_layer_norm_bwd_ws gives.
 int dvst_layer_norm_bwd(const void* x, const void* x_tail, const void* dy, const void* w,
                         const void* res, void* dx, void* dx_tail, void* part, void* dgb,
-                        long M, long R, int D, int tail_div, void* stream) {
+                        long M, long R, int D, int tail_div, int f32, void* stream) {
   if (M < 0 || R < M || tail_div <= 0) return cudaErrorInvalidValue;
-  return ln_bwd(static_cast<const bf16*>(x), static_cast<const bf16*>(x_tail), tail_div,
-                static_cast<const float*>(dy), static_cast<const float*>(w),
-                static_cast<const bf16*>(res), static_cast<bf16*>(dx),
-                static_cast<float*>(dx_tail), M, R, D, static_cast<float*>(part),
-                static_cast<float*>(dgb), static_cast<cudaStream_t>(stream));
+  return ln_bwd_rows(x, x_tail, tail_div, f32, static_cast<const float*>(dy),
+                     static_cast<const float*>(w), res, dx, static_cast<float*>(dx_tail), M, R,
+                     D, static_cast<float*>(part), static_cast<float*>(dgb),
+                     static_cast<cudaStream_t>(stream));
 }
 
 long dvst_layer_norm_bwd_ws(long R, int D) {

@@ -94,6 +94,18 @@ blocks have wrappers of their own for the card tests and ``chip_smoke.py``:
 ``temporal_attention_bwd``, ``spatial_attention_bwd``, ``layer_norm_bwd``,
 ``gemm_dx``, ``gemm_dw`` and ``gemm_gelu_grad`` (plain twins ``*_plain``).
 
+The same three Functions on f32 x are the trainer's mixed tier (the
+counterpart of ``divided_block_fused`` at f32: f32 activations and
+carries, bf16 matmul operands): ``TemporalPhaseTm`` runs row 1's f32 tier
+(1f), ``SpatialPhase`` row 4's (4f: f32 x and CLS row in, f32 grid and CLS
+rows out), ``MlpPhase`` row 3's (3f); their backwards read f32 x and f32
+cotangents and write f32 dx (7f, 8f, 9f): the recompute's LN and the
+LayerNorm backward read the f32 rows, the incoming cotangent enters the
+products as its bf16 copy and its bias gradient and the residual as f32,
+and dx is never rounded (JAX fused_block.py:1033, :1276, :1294-1297). The
+dtype of x picks the tier; the ops refuse mixed dtypes, and each f32 tier
+counts its launches under its own key (``*_f32``).
+
 Each op's wrapper runs its Hopper kernels (``csrc/fused_block.cu``) on a
 CUDA tensor and its plain twin (``*_plain``) on a CPU tensor; it raises on
 any other device and never falls back. ``launches`` counts the kernel
@@ -131,7 +143,10 @@ launches: Dict[str, int] = {
     "temporal_attention": 0, "spatial_attention_bwd": 0, "gemm_dx": 0,
     "gemm_dw": 0, "gemm_gelu_grad": 0, "temporal_attention_bwd": 0,
     "layer_norm_bwd": 0, "temporal_phase_tm_q8": 0, "spatial_mlp_q8": 0,
-    "gemm_s8": 0, "quant_rows": 0, "ln_quant_rows": 0}
+    "gemm_s8": 0, "quant_rows": 0, "ln_quant_rows": 0,
+    # the f32 tiers of the trainer's mixed tier
+    "spatial_phase_f32": 0, "temporal_phase_tm_bwd_f32": 0, "spatial_phase_bwd_f32": 0,
+    "mlp_phase_bwd_f32": 0, "layer_norm_bwd_f32": 0}
 
 # The int8 tier's launches of its three kernels per call of rows 1 and 2
 # (the LN + quantize, the row quantize, the s8 GEMM): each op's wrapper adds
@@ -451,8 +466,9 @@ def mlp_phase_plain(x: torch.Tensor, p: dict, residual: bool = True) -> torch.Te
 
 
 def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
-                        num_heads: int, out_dtype: torch.dtype = torch.bfloat16):
-    """Plain twin of ``spatial_phase`` (both grid tiers)."""
+                        num_heads: int, out_dtype: Optional[torch.dtype] = None):
+    """Plain twin of ``spatial_phase`` (every tier)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     B, T, N, D = x.shape
     H = num_heads
     hd = D // H
@@ -464,7 +480,7 @@ def spatial_phase_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
     q, k, v = qkv.reshape(B, T, L, 3, H, hd).permute(3, 0, 1, 4, 2, 5).unbind(0)
     a = _attention(q, k, v).transpose(2, 3).reshape(B, T, L, D)
     res = _mm(a, p["proj_w"]) + p["proj_b"]
-    cls_rows = res[:, :, 0, :].to(torch.bfloat16).contiguous()
+    cls_rows = res[:, :, 0, :].to(x.dtype).contiguous()
     if out_dtype == torch.float32:
         return x.float() + res[:, :, 1:, :], cls_rows
     grid = (x.float() + res[:, :, 1:, :].to(torch.bfloat16).float()).to(torch.bfloat16)
@@ -586,16 +602,16 @@ def layer_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                          res: Optional[torch.Tensor] = None,
                          x_tail: Optional[torch.Tensor] = None, tail_div: int = 1):
     """Plain twin of ``layer_norm_bwd``: ``_ln_bwd`` over the M rows of x and
-    then each x_tail row tail_div times; returns (dx (M, D) bf16 = bf16(dx
-    + res), the tail rows' dx (P * tail_div, D) f32 or None, dscale, dbias
-    f32)."""
+    then each x_tail row tail_div times; returns (dx (M, D) in x's dtype =
+    dx + res, rounded once, the tail rows' dx (P * tail_div, D) f32 or
+    None, dscale, dbias f32)."""
     M = x.shape[0]
     xf = x.float()
     if x_tail is not None:
         xf = torch.cat([xf, x_tail.float().repeat_interleave(tail_div, dim=0)])
     dx, dscale, dbias = _ln_bwd(xf, dy, w)
     grid = dx[:M] if res is None else dx[:M] + res.float()
-    return (grid.to(torch.bfloat16), None if x_tail is None else dx[M:].contiguous(),
+    return (grid.to(x.dtype), None if x_tail is None else dx[M:].contiguous(),
             dscale, dbias)
 
 
@@ -628,8 +644,10 @@ def temporal_attention_bwd_plain(qkv: torch.Tensor, da: torch.Tensor, num_heads:
 
 def temporal_phase_tm_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
                                 num_heads: int):
-    """Plain twin of ``temporal_phase_tm_bwd``: its blocks' twins chained, as
-    the kernel chains the blocks."""
+    """Plain twin of ``temporal_phase_tm_bwd`` (both tiers): its blocks' twins
+    chained, as the kernel chains the blocks. The incoming cotangent enters
+    the products as its bf16 copy and the bias gradient and the residual as
+    read (f32 in the f32 tier)."""
     B, T, N, D = x.shape
     M = B * T * N
     y = _ln(x.float(), p["ln_w"], p["ln_b"]).to(torch.bfloat16)
@@ -638,8 +656,9 @@ def temporal_phase_tm_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
     proj = (_mm(a, p["proj_w"]) + p["proj_b"]).to(torch.bfloat16)
     g = {}
     dfc = dout.reshape(M, D)
-    g["fc_w"], g["fc_b"] = gemm_dw_plain(dfc, proj), dfc.float().sum(0)
-    dproj = gemm_dx_plain(dfc, p["fc_w"], "bf16")
+    dfc16 = dfc.to(torch.bfloat16)
+    g["fc_w"], g["fc_b"] = gemm_dw_plain(dfc16, proj), dfc.float().sum(0)
+    dproj = gemm_dx_plain(dfc16, p["fc_w"], "bf16")
     g["proj_w"], g["proj_b"] = gemm_dw_plain(dproj, a), dproj.float().sum(0)
     da = gemm_dx_plain(dproj, p["proj_w"], "bf16")
     dqkv = temporal_attention_bwd_plain(qkv, da.reshape(B, T, N, D), num_heads).reshape(M, 3 * D)
@@ -652,7 +671,8 @@ def temporal_phase_tm_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
 def spatial_phase_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
                             dgo: torch.Tensor, dco: torch.Tensor, p: dict,
                             num_heads: int):
-    """Plain twin of ``spatial_phase_bwd``."""
+    """Plain twin of ``spatial_phase_bwd`` (both tiers; the cotangents as in
+    ``temporal_phase_tm_bwd_plain``)."""
     B, T, N, D = x.shape
     H = num_heads
     hd = D // H
@@ -665,34 +685,37 @@ def spatial_phase_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
     a = _attention(q, k, v).transpose(2, 3).reshape(-1, D)
     g = {}
     dproj = torch.cat([dco.reshape(B, T, 1, D), dgo], dim=2).reshape(-1, D)
-    g["proj_w"], g["proj_b"] = _dw(dproj, a), dproj.float().sum(0)
-    da = _mm(dproj, p["proj_w"].t()).to(torch.bfloat16)
+    dproj16 = dproj.to(torch.bfloat16)
+    g["proj_w"], g["proj_b"] = _dw(dproj16, a), dproj.float().sum(0)
+    da = _mm(dproj16, p["proj_w"].t()).to(torch.bfloat16)
     da = da.reshape(B, T, L, H, hd).transpose(2, 3)  # (B, T, H, L, hd)
     dqkv = torch.stack(_attention_bwd(q, k, v, da))  # (3, B, T, H, L, hd)
     dqkv = dqkv.permute(1, 2, 4, 0, 3, 5).reshape(-1, 3 * D)
     g["qkv_w"], g["qkv_b"] = _dw(dqkv, y.reshape(-1, D)), dqkv.float().sum(0)
     dy = _mm(dqkv, p["qkv_w"].t()).reshape(B, T, L, D)
     dseq, g["ln1_w"], g["ln1_b"] = _ln_bwd(seq, dy, p["ln1_w"])
-    dx = (dseq[:, :, 1:, :] + dgo.float()).to(torch.bfloat16)
+    dx = (dseq[:, :, 1:, :] + dgo.float()).to(x.dtype)
     dcls = _sum_frames(dseq[:, :, 0, :])
     return dx, dcls, {k: g[k] for k in SPATIAL_PHASE_KEYS}
 
 
 def mlp_phase_bwd_plain(x: torch.Tensor, do: torch.Tensor, p: dict,
                         residual: bool = True):
-    """Plain twin of ``mlp_phase_bwd``."""
+    """Plain twin of ``mlp_phase_bwd`` (both tiers; the cotangent as in
+    ``temporal_phase_tm_bwd_plain``)."""
     xf = x.float()
     y = _ln(xf, p["ln2_w"], p["ln2_b"]).to(torch.bfloat16)
     hg, gp = gemm_gelu_grad_plain(y, p["fc1_w"], p["fc1_b"])
     g = {}
-    g["fc2_w"], g["fc2_b"] = _dw(do, hg), do.float().sum(0)
-    dh1 = gemm_dx_plain(do, p["fc2_w"], "mul_f32_bf16", gp)
+    do16 = do.to(torch.bfloat16)
+    g["fc2_w"], g["fc2_b"] = _dw(do16, hg), do.float().sum(0)
+    dh1 = gemm_dx_plain(do16, p["fc2_w"], "mul_f32_bf16", gp)
     g["fc1_w"], g["fc1_b"] = _dw(dh1, y), dh1.float().sum(0)
     dy = _mm(dh1, p["fc1_w"].t())
     dx, g["ln2_w"], g["ln2_b"] = _ln_bwd(xf, dy, p["ln2_w"])
     if residual:
         dx = dx + do.float()
-    return dx.to(torch.bfloat16), {k: g[k] for k in MLP_KEYS}
+    return dx.to(x.dtype), {k: g[k] for k in MLP_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -734,8 +757,9 @@ def fused_ok(x: torch.Tensor, num_heads: Optional[int] = None) -> bool:
     ``fused_ok``: bf16 or f32, D % 128 == 0, head dim < 128.
     ``num_heads=None`` asks for the MLP phase, which has no attention. A
     tensor it admits goes to the kernel op, which raises for what the
-    kernels cannot take (``_check_geometry``); the f32 ("mixed") tier is
-    not ported, and ``models.timesformer`` raises for it."""
+    kernels cannot take (``_check_geometry``); the f32 ("mixed") tier of
+    that dispatch (rows 5 and 6) is not ported, and ``models.timesformer``
+    raises for it."""
     if x.dtype not in (torch.bfloat16, torch.float32) or x.shape[-1] % 128:
         return False
     return num_heads is None or x.shape[-1] // num_heads < 128
@@ -899,6 +923,17 @@ def _check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel needs a 16-byte aligned start")
+
+
+def _rows_f32(x: torch.Tensor) -> bool:
+    """The tier of the training ops, picked by x's dtype: bf16, or f32 (the
+    trainer's mixed tier); the op's other row inputs take the same dtype,
+    which ``_check_tensor`` holds them to."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"x: expected a tensor, got {type(x).__name__}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
+    return x.dtype == torch.float32
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
@@ -1188,41 +1223,47 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
 
 
 def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int,
-                  out_dtype: torch.dtype = torch.bfloat16):
+                  out_dtype: Optional[torch.dtype] = None):
     """x (B, T, N, D) bf16 frame-major, cls (B, 1, D) bf16 -> (grid (B, T,
     N, D) bf16 = x + bf16(proj(MHSA(LN [cls, x_t])) rows), per-frame CLS
     rows (B, T, D) bf16), with the ``SPATIAL_PHASE_KEYS`` weights of
     ``block_params(...)["spatial"]``. ``out_dtype=torch.float32`` is the
     grid's f32 tier, x + proj with the branch unrounded, from the same
-    launches (through which the card's checks hold the branch). Kernel on
-    CUDA, plain twin on CPU."""
-    if out_dtype not in (torch.bfloat16, torch.float32):
+    launches (through which the card's checks hold the branch). f32 x and
+    cls are the trainer's mixed tier: LN on the f32 rows, grid = x + proj
+    and the CLS rows in f32, nothing rounded (``out_dtype`` None or f32).
+    Kernel on CUDA, plain twin on CPU."""
+    if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: bfloat16 or float32")
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    x_f32 = _rows_f32(x)
+    if x_f32 and out_dtype == torch.bfloat16:
+        raise TypeError("x: f32 rows are the mixed tier, which writes f32")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    _check_tensor("cls", cls, x.dtype, (B, 1, D), dev)
     _check_weights(p, SPATIAL_PHASE_KEYS, _spatial_shapes(D), dev)
     if dev.type == "cpu":
         return spatial_phase_plain(x, cls, p, num_heads, out_dtype)
 
     from . import _build
 
-    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
+    _check_aligned(x=x, cls=cls, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load()
     check_spatial_attn_smem(lib, N + 1, D // num_heads)
     out = torch.empty((B, T, N, D), dtype=out_dtype, device=dev)
-    cls_rows = torch.empty((B, T, D), dtype=torch.bfloat16, device=dev)
+    cls_rows = torch.empty((B, T, D), dtype=x.dtype, device=dev)
     ws = _ws(lib.dvst_spatial_phase_ws(B, T, N, D), dev)
     with torch.cuda.device(dev):
         _run(lib.dvst_spatial_phase, x.data_ptr(), cls.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
              out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads,
-             int(out_dtype == torch.float32), _stream(dev))
-    launches["spatial_phase"] += 1
+             int(out_dtype == torch.float32), int(x_f32), _stream(dev))
+    launches["spatial_phase_f32" if x_f32 else "spatial_phase"] += 1
     return out, cls_rows
 
 
@@ -1551,8 +1592,11 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     shared by tail_div rows: row 8's per-frame CLS rows); dy (M + P *
     tail_div, D) f32, the scale w (D,) f32, the residual res (M, D) bf16 or
     None -> (dx (M, D) bf16 = bf16(dx + res), the tail rows' dx (P *
-    tail_div, D) f32 or None, dscale (D,), dbias (D,) f32). D % 128 == 0,
-    D <= 1024. Kernel on CUDA, plain twin on CPU."""
+    tail_div, D) f32 or None, dscale (D,), dbias (D,) f32). f32 x (with
+    x_tail and res f32) is the trainer's mixed tier: dx = dx + res in f32,
+    never rounded. D % 128 == 0, D <= 1024. Kernel on CUDA, plain twin on
+    CPU."""
+    x_f32 = _rows_f32(x)
     if x.dim() != 2:
         raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
     M, D = x.shape
@@ -1563,13 +1607,13 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"tail_div={tail_div}: at least 1")
     P = 0 if x_tail is None else x_tail.shape[0]
     R = M + P * tail_div
-    _check_tensor("x", x, torch.bfloat16, (M, D), dev)
+    _check_tensor("x", x, x.dtype, (M, D), dev)
     if x_tail is not None:
-        _check_tensor("x_tail", x_tail, torch.bfloat16, (P, D), dev)
+        _check_tensor("x_tail", x_tail, x.dtype, (P, D), dev)
     _check_tensor("dy", dy, torch.float32, (R, D), dev)
     _check_tensor("w", w, torch.float32, (D,), dev)
     if res is not None:
-        _check_tensor("res", res, torch.bfloat16, (M, D), dev)
+        _check_tensor("res", res, x.dtype, (M, D), dev)
     if dev.type == "cpu":
         return layer_norm_bwd_plain(x, dy, w, res, x_tail, tail_div)
 
@@ -1586,8 +1630,8 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
              None if x_tail is None else x_tail.data_ptr(), dy.data_ptr(), w.data_ptr(),
              None if res is None else res.data_ptr(), dx.data_ptr(),
              None if dx_tail is None else dx_tail.data_ptr(), part.data_ptr(),
-             dgb.data_ptr(), M, R, D, tail_div, _stream(dev))
-    launches["layer_norm_bwd"] += 1
+             dgb.data_ptr(), M, R, D, tail_div, int(x_f32), _stream(dev))
+    launches["layer_norm_bwd_f32" if x_f32 else "layer_norm_bwd"] += 1
     return dx, dx_tail, dgb[0], dgb[1]
 
 
@@ -1719,15 +1763,17 @@ def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
                           num_heads: int):
     """Backward of ``temporal_phase_tm``'s bf16 tier: x, dout (B, T, N, D)
     bf16 -> (dx (B, T, N, D) bf16, f32 gradients keyed as
-    ``TEMPORAL_KEYS``, in the weights' (out, in) layout). Kernel on CUDA,
+    ``TEMPORAL_KEYS``, in the weights' (out, in) layout); of its f32 tier
+    (the trainer's mixed tier) on f32 x and dout: dx f32. Kernel on CUDA,
     plain twin on CPU."""
+    x_f32 = _rows_f32(x)
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    _check_tensor("dout", dout, torch.bfloat16, x.shape, dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    _check_tensor("dout", dout, x.dtype, x.shape, dev)
     shapes = _temporal_shapes(D)
     _check_weights(p, TEMPORAL_KEYS, shapes, dev)
     hd = D // num_heads
@@ -1743,13 +1789,13 @@ def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
     dx = torch.empty_like(x)
     dln, g = _grads(dev, shapes, TEMPORAL_KEYS)
     with torch.cuda.device(dev):
-        ws = _ws(lib.dvst_temporal_phase_tm_bwd_ws(B, T, N, D, num_heads), dev)
+        ws = _ws(lib.dvst_temporal_phase_tm_bwd_ws(B, T, N, D, num_heads, int(x_f32)), dev)
         _run(lib.dvst_temporal_phase_tm_bwd, x.data_ptr(), dout.data_ptr(),
              *(p[k].data_ptr() for k in TEMPORAL_KEYS), ws.data_ptr(),
              dx.data_ptr(), dln.data_ptr(),
              *(g[k].data_ptr() for k in TEMPORAL_KEYS[2:]),
-             B, T, N, D, num_heads, _stream(dev))
-    launches["temporal_phase_tm_bwd"] += 1
+             B, T, N, D, num_heads, int(x_f32), _stream(dev))
+    launches["temporal_phase_tm_bwd_f32" if x_f32 else "temporal_phase_tm_bwd"] += 1
     return dx, g
 
 
@@ -1757,17 +1803,18 @@ def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
                       dco: torch.Tensor, p: dict, num_heads: int):
     """Backward of ``spatial_phase``: x (B, T, N, D), cls (B, 1, D), the
     cotangents dgo (B, T, N, D) and dco (B, T, D), all bf16 -> (dx bf16,
-    dcls (B, 1, D) f32, f32 gradients keyed as ``SPATIAL_PHASE_KEYS``).
-    Kernel on CUDA, plain twin on CPU."""
+    dcls (B, 1, D) f32, f32 gradients keyed as ``SPATIAL_PHASE_KEYS``); all
+    f32 (the mixed tier): dx f32. Kernel on CUDA, plain twin on CPU."""
+    x_f32 = _rows_f32(x)
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    _check_tensor("cls", cls, torch.bfloat16, (B, 1, D), dev)
-    _check_tensor("dgo", dgo, torch.bfloat16, x.shape, dev)
-    _check_tensor("dco", dco, torch.bfloat16, (B, T, D), dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    _check_tensor("cls", cls, x.dtype, (B, 1, D), dev)
+    _check_tensor("dgo", dgo, x.dtype, x.shape, dev)
+    _check_tensor("dco", dco, x.dtype, (B, T, D), dev)
     shapes = _spatial_shapes(D)
     _check_weights(p, SPATIAL_PHASE_KEYS, shapes, dev)
     hd = D // num_heads
@@ -1777,29 +1824,30 @@ def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
 
     from . import _build
 
-    _check_aligned(x=x, cls=cls, dgo=dgo, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
+    _check_aligned(x=x, cls=cls, dgo=dgo, dco=dco, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
     lib = _build.load("bwd")
     check_spatial_attn_bwd_smem(N + 1, hd, lib)
     dx = torch.empty_like(x)
     dcls = torch.empty((B, 1, D), dtype=torch.float32, device=dev)
     dln, g = _grads(dev, shapes, SPATIAL_PHASE_KEYS)
     with torch.cuda.device(dev):
-        ws = _ws(lib.dvst_spatial_phase_bwd_ws(B, T, N, D, num_heads), dev)
+        ws = _ws(lib.dvst_spatial_phase_bwd_ws(B, T, N, D, num_heads, int(x_f32)), dev)
         _run(lib.dvst_spatial_phase_bwd, x.data_ptr(), cls.data_ptr(),
              dgo.data_ptr(), dco.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_PHASE_KEYS), ws.data_ptr(),
              dx.data_ptr(), dcls.data_ptr(), dln.data_ptr(),
              *(g[k].data_ptr() for k in SPATIAL_PHASE_KEYS[2:]),
-             B, T, N, D, num_heads, _stream(dev))
-    launches["spatial_phase_bwd"] += 1
+             B, T, N, D, num_heads, int(x_f32), _stream(dev))
+    launches["spatial_phase_bwd_f32" if x_f32 else "spatial_phase_bwd"] += 1
     return dx, dcls, g
 
 
 def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
                   residual: bool = True):
     """Backward of ``mlp_phase``: x, do (M, D) bf16 -> (dx (M, D) bf16,
-    f32 gradients keyed as ``MLP_KEYS``). Kernel on CUDA, plain twin on
-    CPU."""
+    f32 gradients keyed as ``MLP_KEYS``); f32 x and do (the mixed tier): dx
+    f32. Kernel on CUDA, plain twin on CPU."""
+    x_f32 = _rows_f32(x)
     if x.dim() != 2:
         raise ValueError(f"x: expected (M, D), got {tuple(x.shape)}")
     M, D = x.shape
@@ -1808,8 +1856,8 @@ def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
     if D % 128 or D > 1024 or Dh % 128:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
-    _check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    _check_tensor("do", do, torch.bfloat16, x.shape, dev)
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    _check_tensor("do", do, x.dtype, x.shape, dev)
     shapes = _spatial_shapes(D, Dh)
     _check_weights(p, MLP_KEYS, shapes, dev)
     if dev.type == "cpu":
@@ -1822,13 +1870,13 @@ def mlp_phase_bwd(x: torch.Tensor, do: torch.Tensor, p: dict,
     dx = torch.empty_like(x)
     dln, g = _grads(dev, shapes, MLP_KEYS)
     with torch.cuda.device(dev):
-        ws = _ws(lib.dvst_mlp_phase_bwd_ws(M, D, Dh), dev)
+        ws = _ws(lib.dvst_mlp_phase_bwd_ws(M, D, Dh, int(x_f32)), dev)
         _run(lib.dvst_mlp_phase_bwd, x.data_ptr(), do.data_ptr(),
              *(p[k].data_ptr() for k in MLP_KEYS), ws.data_ptr(),
              dx.data_ptr(), dln.data_ptr(),
              *(g[k].data_ptr() for k in MLP_KEYS[2:]),
-             M, D, Dh, int(residual), _stream(dev))
-    launches["mlp_phase_bwd"] += 1
+             M, D, Dh, int(residual), int(x_f32), _stream(dev))
+    launches["mlp_phase_bwd_f32" if x_f32 else "mlp_phase_bwd"] += 1
     return dx, g
 
 
@@ -1849,16 +1897,17 @@ def _cast_grads(g: dict, keys, params):
 
 
 class TemporalPhaseTm(torch.autograd.Function):
-    """``temporal_phase_tm``'s bf16 tier with ``temporal_phase_tm_bwd`` as
-    its backward: ``apply(x, num_heads, *params)``, params the f32 masters
-    in ``TEMPORAL_KEYS`` order."""
+    """``temporal_phase_tm`` with ``temporal_phase_tm_bwd`` as its backward:
+    ``apply(x, num_heads, *params)``, params the f32 masters in
+    ``TEMPORAL_KEYS`` order. bf16 x runs the bf16-out tier (1b), f32 x the
+    f32 tier (1f: f32 in and out, the trainer's mixed tier)."""
 
     @staticmethod
     def forward(ctx, x, num_heads, *params):
         ctx.num_heads = num_heads
         ctx.save_for_backward(x, *params)
         return temporal_phase_tm(x, kernel_weights(params, TEMPORAL_KEYS),
-                                 num_heads, out_dtype=torch.bfloat16)
+                                 num_heads, out_dtype=x.dtype)
 
     @staticmethod
     def backward(ctx, dout):
@@ -1872,7 +1921,7 @@ class TemporalPhaseTm(torch.autograd.Function):
 class SpatialPhase(torch.autograd.Function):
     """``spatial_phase`` with ``spatial_phase_bwd`` as its backward:
     ``apply(x, cls, num_heads, *params)``, params the f32 masters in
-    ``SPATIAL_PHASE_KEYS`` order."""
+    ``SPATIAL_PHASE_KEYS`` order; x and cls bf16, or both f32 (4f)."""
 
     @staticmethod
     def forward(ctx, x, cls, num_heads, *params):
@@ -1886,7 +1935,7 @@ class SpatialPhase(torch.autograd.Function):
         x, cls, *params = ctx.saved_tensors
         B, T, N, D = x.shape
         dgo = torch.zeros_like(x) if dgo is None else dgo.contiguous()
-        dco = (torch.zeros((B, T, D), dtype=x.dtype, device=x.device)
+        dco = (torch.zeros((B, T, D), dtype=dgo.dtype, device=x.device)
                if dco is None else dco.contiguous())
         dx, dcls, g = spatial_phase_bwd(
             x, cls, dgo, dco, kernel_weights(params, SPATIAL_PHASE_KEYS),
@@ -1897,8 +1946,8 @@ class SpatialPhase(torch.autograd.Function):
 
 class MlpPhase(torch.autograd.Function):
     """``mlp_phase`` with ``mlp_phase_bwd`` as its backward:
-    ``apply(x, residual, *params)``, x (M, D) bf16, params the f32 masters
-    in ``MLP_KEYS`` order."""
+    ``apply(x, residual, *params)``, x (M, D) bf16 or f32 (3f and 9f),
+    params the f32 masters in ``MLP_KEYS`` order."""
 
     @staticmethod
     def forward(ctx, x, residual, *params):

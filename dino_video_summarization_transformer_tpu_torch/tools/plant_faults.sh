@@ -48,8 +48,13 @@
 # contracted into an FMA, the row scale dropped from the dequantization,
 # the LN + quantize kernel quantizing its f32 LN row instead of its bf16
 # rounding, and the quantization grid stretched to +-128 (the scale
-# amax / 128), whose largest codes clip at 127. Name faults as arguments
-# to run only those:
+# amax / 128), whose largest codes clip at 127; the trainer's mixed tier
+# (each exits 1 in phase 7b): the f32 LayerNorm backward's dx rounded to
+# bf16 at its store (rows 7f, 8f and 9f's dx), row 9f's db2 summed from
+# the cotangent's bf16 copy instead of the f32 rows, the f32 LayerNorm
+# backward reading each x value through a bf16 rounding, and row 4f's f32
+# CLS rows rounded to bf16 (a sed of the Python wrapper). Name faults as
+# arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
@@ -59,6 +64,7 @@
 #     bash .../plant_faults.sh f32_in_read_as_bf16 cls_rounded_bf16 mixed_residual_bf16
 #     bash .../plant_faults.sh wire_chroma_rows wire_fma wire_bf16_truncated u8_unnormalized
 #     bash .../plant_faults.sh q8_round_rz q8_rescale_fma q8_no_row_scale q8_ln_unrounded q8_clip128
+#     bash .../plant_faults.sh f32bwd_dx_bf16 f32bwd_db_from_bf16 f32_ln_bwd_x_bf16 f32_spatial_cls_bf16
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer).
@@ -114,3 +120,7 @@ run q8_rescale_fma wgmma_gemm.cuh 's/lo\[t_\] = __fadd_rn(__fmul_rn(__fmul_rn(/l
 run q8_no_row_scale wgmma_gemm.cuh 's/if (row0 + 8 \* h < M) rsx\[h\] = sx\[row0 + 8 \* h\];/rsx[h] = 1.f;/'
 run q8_ln_unrounded dvst_common.cuh 's/v\[i\] = __bfloat162float(__float2bfloat16_rn(y));  \/\/ what gets quantized/v[i] = y;/'
 run q8_clip128 dvst_common.cuh 's/return __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);/return __fdiv_rn(fmaxf(amax, 1e-12f), 128.f);/'
+run f32bwd_dx_bf16 dvst_common.cuh 's/        ln_store<CW>(dx + r \* D + d, o);/        if constexpr (sizeof(TX) == 4) { for (int e = 0; e < CW; ++e) o[e] = __bfloat162float(__float2bfloat16(o[e])); } ln_store<CW>(dx + r * D + d, o);/'
+run f32bwd_db_from_bf16 fused_block_bwd.cu 's/if (!f32 \&\& (e = colsum<bf16>(dout, M, D, w.part, static_cast<float\*>(dfc2_b), st)))/if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st)))/'
+run f32_ln_bwd_x_bf16 dvst_common.cuh 's/float v(int i) const { return f\[i\]; }/float v(int i) const { return __bfloat162float(__float2bfloat16(f[i])); }/'
+run f32_spatial_cls_bf16 ../fused_block.py 's/    launches\["spatial_phase_f32" if x_f32 else "spatial_phase"\] += 1/    launches["spatial_phase_f32" if x_f32 else "spatial_phase"] += 1; cls_rows = cls_rows.to(torch.bfloat16).to(cls_rows.dtype)/'

@@ -8,9 +8,14 @@ gradients, the DINO head on each, ``dino_loss`` with centering, the
 backward, ``apply_updates_with_schedules`` (clip, weight decay, last-layer
 freeze, the optimizer, -lr) and the teacher EMA. The backbone runs
 ``TimeSformer.forward_train`` on the route ``train_route`` picks once for
-the model (bf16 on ViT-B: the per-phase Hopper kernels forward and
-backward). Like the JAX step, it never runs drop-path (the forward is
-called with ``train=False``, ``train/ssl.py:139-142`` of the JAX package).
+the model (``route="auto"``: bf16 on ViT-B runs the per-phase Hopper
+kernels forward and backward, f32 the plain route). ``route="kernels"``
+with ``compute_dtype=torch.float32`` is the mixed tier, JAX's
+``make_train_step`` on a ``use_fused=True`` config at f32: both student
+forwards, the teacher forward and the student backward run the kernels'
+f32 tiers (f32 activations and carries, bf16 matmul operands). Like the
+JAX step, it never runs drop-path (the forward is called with
+``train=False``, ``train/ssl.py:139-142`` of the JAX package).
 
 The two-token, rand-fr, two-stream, CNN-distill, remat and parallel
 variants are not ported (ROADMAP) and raise ``NotImplementedError``.
@@ -102,8 +107,7 @@ class TrainStep:
         self.student_temp = student_temp
         self.center_momentum = center_momentum
         self.compute_dtype = compute_dtype
-        self.route = (tsf.train_route(model_cfg, compute_dtype)
-                      if route == "auto" else route)
+        self.route = tsf.train_route(model_cfg, compute_dtype, route)
 
     def _features(self, model: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
         return model["backbone"].forward_train(x, self.compute_dtype, self.route)
@@ -152,7 +156,8 @@ def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
                     backbone_forward=None) -> TrainStep:
     """The plain DINO step (the JAX ``make_train_step`` default variant).
     ``route``: ``"auto"`` (``train_route``, once for the model),
-    ``"plain"`` or ``"kernels"``."""
+    ``"plain"`` or ``"kernels"`` (bf16, or f32: the mixed tier; raises where
+    the kernels' gate refuses the model)."""
     if remat or two_token or backbone_forward is not None or (
             cnn_params is not None and cnn_distill_weight > 0):
         raise NotImplementedError("the remat, two-token, CNN-distill and "

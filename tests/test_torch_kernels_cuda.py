@@ -1497,3 +1497,182 @@ def test_q8_workspaces_match_the_mirrors(cuda_device):
     for B, T, N, D, Dh in [(8, 30, 196, 768, 3072), (2, 3, 5, 128, 512)]:
         assert fb.temporal_phase_tm_q8_ws(B, T, N, D, lib) == fb.temporal_phase_tm_q8_ws(B, T, N, D)
         assert fb.spatial_mlp_q8_ws(B, T, N, D, Dh, lib) == fb.spatial_mlp_q8_ws(B, T, N, D, Dh)
+
+
+# ---------------------------------------------------------------------------
+# The trainer's mixed tier: rows 4f, 7f, 8f, 9f and the LayerNorm
+# backward's f32 instance. Inputs on offset rows (x, the CLS row and the
+# cotangents: twin_check.offset_rows), where an x rounded to bf16 before a
+# LayerNorm fails the twin rules; the f32 outputs also held by
+# twin_check's f32 rules (no output rounded to bf16, the f32-cotangent bias
+# gradients within F32_SUM_REL_MAX of the twin's).
+# ---------------------------------------------------------------------------
+
+MIXED_SHAPES = [(16, 8, 196, 768, 12), (64, 8, 36, 768, 12), (3, 8, 4, 256, 4),
+                (5, 8, 1, 128, 2)]
+
+
+def _offset(shape, seed, device):
+    return torch.from_numpy(twin_check.offset_rows(np.random.RandomState(seed),
+                                                   shape)).to(device)
+
+
+def _f32_ok(got, want=None):
+    assert not twin_check.f32_failures(got, want), twin_check.f32_failures(got, want)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", MIXED_SHAPES)
+def test_spatial_phase_f32_kernel_matches_twin(cuda_device, B, T, N, D, H):
+    p = _block(D, H, 0, cuda_device)["spatial"]
+    x, cls = _offset((B, T, N, D), 31, cuda_device), _offset((B, 1, D), 32, cuda_device)
+    before = fb.launches["spatial_phase_f32"]
+    grid, rows = fb.spatial_phase(x, cls, p, H)
+    torch.cuda.synchronize()
+    assert fb.launches["spatial_phase_f32"] == before + 1
+    assert grid.dtype == rows.dtype == torch.float32
+    want_grid, want_rows = fb.spatial_phase_plain(x, cls, p, H)
+    _close(grid, want_grid, x)
+    _close(rows, want_rows)
+    _f32_ok(grid)
+    _f32_ok(rows)
+
+
+def _mixed_bwd(op, B, T, N, D, H, device, kernel=True):
+    """(dx, dcls or None, grads, the inputs) of an f32 backward op on
+    offset rows, through the wrapper (kernel) or its twin."""
+    p = _block(D, H, 0, device)["spatial" if op != "temporal" else "temporal"]
+    x = _offset((B, T, N, D), 33, device)
+    dout = _offset((B, T, N, D), 34, device)
+    if op == "temporal":
+        fn = fb.temporal_phase_tm_bwd if kernel else fb.temporal_phase_tm_bwd_plain
+        dx, g = fn(x, dout, p, H)
+        return dx, None, g, (x, dout)
+    if op == "spatial":
+        cls, dco = _offset((B, 1, D), 35, device), _offset((B, T, D), 36, device)
+        fn = fb.spatial_phase_bwd if kernel else fb.spatial_phase_bwd_plain
+        dx, dcls, g = fn(x, cls, dout, dco, p, H)
+        return dx, dcls, g, (x, dout)
+    xm, dm = x.reshape(-1, D), dout.reshape(-1, D)
+    fn = fb.mlp_phase_bwd if kernel else fb.mlp_phase_bwd_plain
+    dx, g = fn(xm, dm, p)
+    return dx, None, g, (xm, dm)
+
+
+# the bias gradient each op sums from its f32 cotangent
+COTANGENT_BIAS = {"temporal": "fc_b", "spatial": "proj_b", "mlp": "fc2_b"}
+
+
+@pytest.mark.parametrize("op", ["temporal", "spatial", "mlp"])
+@pytest.mark.parametrize("B,T,N,D,H", MIXED_SHAPES)
+def test_backward_f32_kernels_match_twins(cuda_device, op, B, T, N, D, H):
+    key = {"temporal": "temporal_phase_tm_bwd_f32", "spatial": "spatial_phase_bwd_f32",
+           "mlp": "mlp_phase_bwd_f32"}[op]
+    before = fb.launches[key]
+    dx, dcls, g, (x, dout) = _mixed_bwd(op, B, T, N, D, H, cuda_device)
+    dx2, dcls2, g2, _ = _mixed_bwd(op, B, T, N, D, H, cuda_device)
+    torch.cuda.synchronize()
+    assert fb.launches[key] == before + 2
+    assert dx.dtype == torch.float32 and torch.equal(dx, dx2)
+    assert all(torch.equal(g[k], g2[k]) for k in g)
+    want_dx, want_dcls, want_g, _ = _mixed_bwd(op, B, T, N, D, H, cuda_device, kernel=False)
+    _close(dx, want_dx, dout)
+    _f32_ok(dx)
+    if dcls is not None:
+        assert torch.equal(dcls, dcls2)
+        _close(dcls, want_dcls)
+    _grads_close(g, want_g)
+    b = COTANGENT_BIAS[op]
+    _f32_ok(g[b], want_g[b])
+
+
+@pytest.mark.parametrize("M,P,tail_div,D,residual", [(25088, 0, 1, 768, True),
+                                                     (25088, 16, 8, 768, True),
+                                                     (300, 3, 5, 256, False)])
+def test_layer_norm_bwd_f32_kernel_matches_twin(cuda_device, M, P, tail_div, D, residual):
+    r = np.random.RandomState(M + P + D + 1)
+    x = _offset((M, D), M, cuda_device)
+    x_tail = _offset((P, D), P + 1, cuda_device) if P else None
+    dy = torch.from_numpy(r.randn(M + P * tail_div, D)).to(cuda_device, torch.float32)
+    w = torch.from_numpy(1 + 0.2 * r.randn(D)).to(cuda_device, torch.float32)
+    res = _offset((M, D), M + 2, cuda_device) if residual else None
+    before = fb.launches["layer_norm_bwd_f32"]
+    got = fb.layer_norm_bwd(x, dy, w, res, x_tail, tail_div)
+    torch.cuda.synchronize()
+    assert fb.launches["layer_norm_bwd_f32"] == before + 1
+    want = fb.layer_norm_bwd_plain(x, dy, w, res, x_tail, tail_div)
+    assert got[0].dtype == torch.float32
+    _close(got[0], want[0], res)
+    _f32_ok(got[0])
+    if P:
+        _close(got[1], want[1])
+    _close(got[2], want[2])
+    _close(got[3], want[3])
+
+
+@pytest.mark.parametrize("B,T,N,D,H", [(16, 8, 196, 768, 12), (3, 8, 4, 256, 4)])
+def test_f32_tiers_on_bf16_values_equal_the_bf16_tiers(cuda_device, B, T, N, D, H):
+    """On inputs that bf16 holds exactly, each f32 tier computes what its
+    bf16 tier computes, bit for bit, and differs only where it stores: row
+    4f's grid equals row 4's f32-out tier and its CLS rows rounded to bf16
+    row 4's; 7f, 8f and 9f's weight gradients and dcls equal the bf16
+    tiers' and their dx rounded to bf16 the bf16 dx; the LN backward's f32
+    dx rounded to bf16 its bf16 instance's. So the bf16 instances read,
+    round and sum as before, and the f32 ones only read and store in f32."""
+    pt, ps = _block(D, H, 0, cuda_device)["temporal"], _block(D, H, 0, cuda_device)["spatial"]
+    bf = torch.bfloat16
+    x16, dout16 = _qkv((B, T, N, D), 37, cuda_device), _qkv((B, T, N, D), 38, cuda_device)
+    cls16, dco16 = _qkv((B, 1, D), 39, cuda_device), _qkv((B, T, D), 40, cuda_device)
+    x, dout, cls, dco = (t.float() for t in (x16, dout16, cls16, dco16))
+    grid, rows = fb.spatial_phase(x, cls, ps, H)
+    grid16_f32, rows16 = fb.spatial_phase(x16, cls16, ps, H, out_dtype=torch.float32)
+    assert torch.equal(grid, grid16_f32) and torch.equal(rows.to(bf), rows16)
+    pairs = [(fb.temporal_phase_tm_bwd(x, dout, pt, H), fb.temporal_phase_tm_bwd(x16, dout16, pt, H)),
+             (fb.spatial_phase_bwd(x, cls, dout, dco, ps, H),
+              fb.spatial_phase_bwd(x16, cls16, dout16, dco16, ps, H)),
+             (fb.mlp_phase_bwd(x.reshape(-1, D), dout.reshape(-1, D), ps),
+              fb.mlp_phase_bwd(x16.reshape(-1, D), dout16.reshape(-1, D), ps))]
+    for got32, got16 in pairs:
+        assert got32[0].dtype == torch.float32 and torch.equal(got32[0].to(bf), got16[0])
+        for a, b in zip(got32[1:-1], got16[1:-1]):  # dcls
+            assert torch.equal(a, b)
+        assert all(torch.equal(got32[-1][k], got16[-1][k]) for k in got16[-1])
+    dy = torch.randn(B * T * N + B * T, D, device=cuda_device)
+    w = torch.rand(D, device=cuda_device) + 0.5
+    lb32 = fb.layer_norm_bwd(x.reshape(-1, D), dy, w, dout.reshape(-1, D), cls.reshape(B, D), T)
+    lb16 = fb.layer_norm_bwd(x16.reshape(-1, D), dy, w, dout16.reshape(-1, D),
+                             cls16.reshape(B, D), T)
+    assert torch.equal(lb32[0].to(bf), lb16[0])
+    assert all(torch.equal(a, b) for a, b in zip(lb32[1:], lb16[1:]))
+
+
+def test_mixed_train_step_kernel_route_matches_twins(cuda_device):
+    """The mixed tier's gradients of a whole train step (depth 2, D=128) on
+    the card against the same step on the CPU (the twins), as the bf16
+    route's test above holds it: per parameter max|diff| / max|CPU| <
+    0.15; every backward on the card ran its f32 tier."""
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=128,
+                                depth=2, num_heads=2, num_frames=4,
+                                num_classes=0)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 5), cfg)
+    r = np.random.RandomState(6)
+    g = torch.from_numpy(r.randn(4, 3, 4, 32, 32).astype(np.float32))
+    l = torch.from_numpy(r.randn(8, 3, 4, 32, 32).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        state, core, mask = ssl.init_train_state(cfg, out_dim=64, seed=7,
+                                                 pretrained_backbone=sd,
+                                                 device=dev)
+        step = ssl.make_train_step(cfg, core, mask, n_local_crops=4,
+                                   compute_dtype=torch.float32, route="kernels")
+        before = dict(fb.launches)
+        _, _, grads[str(dev)] = step.loss_and_grads(state, g.to(dev), l.to(dev), 0.04)
+        ran = {k: fb.launches[k] - before[k] for k in fb.launches}
+        want = 0 if dev == "cpu" else 2 * cfg.depth
+        assert ran["spatial_phase_bwd_f32"] == ran["temporal_phase_tm_bwd_f32"] == want
+        assert ran["spatial_phase_bwd"] == ran["temporal_phase_tm_bwd"] == 0
+    for n, want in grads["cpu"].items():
+        got = grads["cuda"][n].cpu()
+        rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
+        assert torch.isfinite(got).all() and rel < 0.15, (n, rel)

@@ -102,17 +102,23 @@ def test_temporal_attention_bwd_twin_matches_jax_vjp(T, N):
         assert rel < GRAD_TOL, (name, rel)
 
 
-@pytest.mark.parametrize("M,P,div,residual", [(12, 0, 1, True), (12, 2, 3, True),
-                                              (9, 4, 8, False)])
-def test_layer_norm_bwd_twin_matches_jax_vjp(M, P, div, residual):
+@pytest.mark.parametrize("M,P,div,residual,dtype", [
+    pytest.param(12, 0, 1, True, bf16, id="12-0-1-True"),
+    pytest.param(12, 2, 3, True, bf16, id="12-2-3-True"),
+    pytest.param(9, 4, 8, False, bf16, id="9-4-8-False"),
+    pytest.param(12, 0, 1, True, torch.float32, id="12-0-1-True-f32"),
+    pytest.param(12, 2, 3, True, torch.float32, id="12-2-3-True-f32")])
+def test_layer_norm_bwd_twin_matches_jax_vjp(M, P, div, residual, dtype):
     """The grid rows alone (rows 7 and 9: the residual added), with tail rows
     each shared by ``div`` rows (row 8's per-frame CLS rows, div = T), and
-    without a residual, at D = 128."""
+    without a residual, at D = 128; bf16 rows, and f32 rows (the trainer's
+    mixed tier: x, the tail rows and the residual f32, dx f32 held by the
+    test's f32 rule)."""
     D = 128
     r = np.random.RandomState(M + P)
-    x, xt = _t(r.randn(M, D) * 2 + 0.3), (_t(r.randn(P, D)) if P else None)
+    x, xt = _t(r.randn(M, D) * 2 + 0.3, dtype), (_t(r.randn(P, D), dtype) if P else None)
     dy, w = _t(r.randn(M + P * div, D), torch.float32), _t(1 + 0.2 * r.randn(D), torch.float32)
-    res = _t(r.randn(M, D)) if residual else None
+    res = _t(r.randn(M, D), dtype) if residual else None
     dx, dx_tail, dscale, dbias = fb.layer_norm_bwd(x, dy, w, res, xt, div)  # CPU: the twin
     rows = x if xt is None else torch.cat([x, xt.repeat_interleave(div, 0)])
     jp = {"scale": jnp.asarray(w.numpy()), "bias": jnp.zeros(D, jnp.float32)}
@@ -124,7 +130,11 @@ def test_layer_norm_bwd_twin_matches_jax_vjp(M, P, div, residual):
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
     want_dx = gx[:M] + (res.float().numpy() if residual else 0.0)
-    assert twin_check.twin_gap(dx, torch.from_numpy(want_dx).to(bf16))["max_ulps"] <= 1
+    assert dx.dtype == dtype
+    if dtype == bf16:
+        assert twin_check.twin_gap(dx, torch.from_numpy(want_dx).to(bf16))["max_ulps"] <= 1
+    else:
+        assert np.abs(dx.numpy() - want_dx).max() <= 1e-5 * np.abs(want_dx).max()
     assert dx_tail is None if not P else dx_tail.shape == (P * div, D)
 
 
