@@ -11,7 +11,12 @@ Imports torch, numpy and the port package
    process per source, all started together; print each library's build
    time and ptxas's register / shared-memory lines (and its stack and
    spill lines where they are not zero).
-3. kernels: first the frame wire's gather (``wire.gather_normalize``)
+3. kernels: first the strided scorer's new kernel geometries: rows 1f
+   and 2f (``temporal_phase_tm`` on f32 x, ``spatial_mlp`` with an f32 CLS
+   row) at the students' window (B=8, T=3: f32 students on the kernels) on
+   offset rows, and rows 1 and 2 (bf16) at ``teacher_img=160``'s grid
+   (N=100, B=8, T=30), each against its twin, timed beside its plain time
+   and bound. Then the frame wire's gather (``wire.gather_normalize``)
    against its twin, bit for bit (max abs 0), on the rgb8, yuv420 and
    yuv420q layouts in f32 and bf16: the teacher (8 x 30) and student
    (8 x 3) views of one chunk from a 64-frame buffer, the banded flat
@@ -131,6 +136,27 @@ Imports torch, numpy and the port package
    frames/s beside phase 4's, a profiled run's families, losses held
    against the plain int8 path (the same scorer with every kernel op
    through its twin) and phase 5's f32 path.
+4e. the strided scorer and f32 students on the kernels: ``make_scorers(
+   use_kernels=True, ...)`` + ``run_scoring`` on phase 4's clips with the
+   knobs of JAX's bench modes ``exact-mixed-fused`` (f32 students and
+   teacher on the f32 tier), ``turbo-mixed``, ``turbo2e-mt`` (JAX's
+   default), ``turbo2e-mt-m2e`` (the guarded score stride),
+   ``turbo2-q8sq8t`` (both int8 tiers) and ``teacher_img=160`` on exact
+   bf16 windows (the 40-frame clip): launch counters held to the models'
+   forwards (forward pre-hooks: each windowed op once a block of each
+   forward, in the tier of its model's dtype and quantization), frames/s
+   and teacher and student rows per frame beside phase 4's, a profiled run
+   of the 40-frame clip (device busy, idle share, kernel families held to
+   the counters), the refined
+   knots of the kernels and of the twins; losses held against the same
+   scorer with every kernel op through its twin (``twins``) and against
+   the same knobs on the plain route at f32 (TF32 off; for
+   ``exact-mixed-fused`` phase 5's losses). ``turbo2e-mt`` also with
+   ``student_dispatch=1``, bit for bit the default's; ``exact-mixed-fused``
+   prints its students' CLS-feature distance to the f32 students beside
+   the bf16 kernel path's. Last, the teacher rows' interpolation on the
+   card (Catmull-Rom and linear at ``turbo2e-mt``'s refined knots)
+   against a float64 evaluation.
 6. banded path, bf16: ``make_scorers(band_mode="both")`` + ``run_scoring``
    over clips of 64, 40 and 600 frames (the last in two segments at
    ``band_chunk`` 512, halo 32: buckets 512 and 256); launch counters read
@@ -239,6 +265,13 @@ Tolerances (stated here, checked below):
   element-wise ulp rule bounds); each int8 scoring path's losses by the
   mixed teacher's two rules against the plain int8 path (0.06 mean
   relative; mean |loss - f32 loss| <= 1.5 x the plain int8 path's + 1e-3).
+* the strided scorer (phase 4e): the mixed teacher's two rules against
+  the twins (0.06 mean relative; mean |loss - f32 loss| <= 1.5 x the
+  twins' + 1e-3, f32 being the same knobs at f32), no rule between two
+  tiers' distances to f32; ``student_dispatch`` 1 and 4 bit for bit; the
+  interpolation within 1e-5 x max|rows| of float64. The kernels and their
+  twins may refine different knots where a knot's error sits near the
+  threshold: the knots are printed, not compared.
 * training-op gradients (f32) vs their twins: the same rms and max
   bounds; dx (bf16) within 4 ulps of its branch dx - dout. The mixed
   tier's f32 outputs at the same rules (dx, the grid and the CLS rows
@@ -1054,6 +1087,92 @@ def main():
              "banded_temporal_attn": [], "spatial_phase_pf": [],
              "cls_band_attn": [], "mlp_phase": []}
 
+    # the strided scorer's new kernel geometries first, so that a geometry
+    # the card refuses shows before anything else: rows 1f and 2f (the f32
+    # tier) at the students' window (B=8, T=3; f32 students on the
+    # kernels), on offset rows (twin_check.offset_rows), each output held
+    # on its branch by the twin rules and by twin_check's f32 rule
+    # (bf16_exact: an f32 output rounded to bf16 fails it); rows 1 and 2
+    # (bf16) at teacher_img=160's grid (N=100, the teacher's B=8, T=30)
+    print("  the strided path's new geometries: rows 1f and 2f at B=8 T=3 (offset "
+          "rows), rows 1 and 2 at N=100 (teacher_img=160)", flush=True)
+    pt, ps = p["temporal"], p["spatial"]
+    geo_f32, geo_img = {}, {}
+    B, T = 8, 3
+    xw, x1w, clsw = (dev_offset_rows(91, B, T, N, D), dev_offset_rows(92, B, T, N, D),
+                     dev_offset_rows(93, B, 1, D))
+    with torch.inference_mode():
+        got_t, want_t = fb.temporal_phase_tm(xw, pt, H), fb.temporal_phase_tm_plain(xw, pt, H)
+        got_s, want_s = fb.spatial_mlp(x1w, clsw, ps, H), fb.spatial_mlp_plain(x1w, clsw, ps, H)
+        checks = {"temporal_phase_tm_f32": [
+                      check_close(f"temporal_phase_tm_f32 out-x B={B} T={T}", got_t, want_t, xw)],
+                  "spatial_mlp_f32": [
+                      check_close(f"spatial_mlp_f32 grid-x1 B={B} T={T}", got_s[0], want_s[0],
+                                  x1w),
+                      check_close(f"spatial_mlp_f32 cls rows B={B} T={T}", got_s[1], want_s[1])]}
+        f32_bad = []
+        for tag, t in (("temporal_phase_tm_f32 out", got_t), ("spatial_mlp_f32 grid", got_s[0])):
+            bad = twin_check.f32_failures(t)
+            print(f"  {tag} B={B} T={T}: bf16_exact={twin_check.bf16_exact(t):.3e} "
+                  f"{'ok' if not bad else 'FAILED: ' + '; '.join(bad)}", flush=True)
+            f32_bad += bad
+        del got_t, want_t, got_s, want_s
+        if f32_bad or not all(ok for v in checks.values() for ok, _ in v):
+            fail(f"an f32 tier disagrees with its plain twin at the students' window "
+                 f"(B={B}, T={T})")
+        runs = {"temporal_phase_tm_f32": (lambda: fb.temporal_phase_tm(xw, pt, H),
+                                          lambda: fb.temporal_phase_tm_plain(xw, pt, H),
+                                          temporal_f32_cost(B, T, N, D)),
+                "spatial_mlp_f32": (lambda: fb.spatial_mlp(x1w, clsw, ps, H),
+                                    lambda: fb.spatial_mlp_plain(x1w, clsw, ps, H),
+                                    spatial_f32_cost(B, T, N, D, Dh))}
+        for name, (kern, plain, cost) in runs.items():
+            ms, pl = cuda_ms(kern, 50), cuda_ms(plain, 5)
+            b, by = bound_ms(*cost)
+            gaps = [gap for _, gap in checks[name]]
+            geo_f32[name] = {"B": B, "T": T, "ms": ms, "plain_ms": pl, "bound_ms": b,
+                             "bound_by": by, "library_ms": None,
+                             "max_abs_err": max(g["max_abs_err"] for g in gaps),
+                             "rel_rms": max(g["rel_rms"] for g in gaps)}
+            print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
+                  f"{b:.4f} ms ({by}, f32 carry bytes), {b / ms:.1%} of bound; library: "
+                  "none (no single call)", flush=True)
+    del xw, x1w, clsw, runs
+    B, T, Ni = 8, 30, 100
+    x, x1 = dev_randn(94, B, T, Ni, D), dev_randn(95, B, T, Ni, D, dtype=torch.float32)
+    cls = dev_randn(96, B, 1, D)
+    with torch.inference_mode():
+        g, c = fb.spatial_mlp(x1, cls, ps, H)
+        g0, c0 = fb.spatial_mlp_plain(x1, cls, ps, H)
+        checks = {"temporal_phase_tm": [check_close(
+                      f"temporal_phase_tm out-x B={B} T={T} N={Ni}", fb.temporal_phase_tm(x, pt, H),
+                      fb.temporal_phase_tm_plain(x, pt, H), x)],
+                  "spatial_mlp": [
+                      check_close(f"spatial_mlp grid-x1 B={B} T={T} N={Ni}", g, g0, x1),
+                      check_close(f"spatial_mlp cls B={B} T={T} N={Ni}", c, c0)]}
+        del g, c, g0, c0
+        if not all(ok for v in checks.values() for ok, _ in v):
+            fail(f"a kernel disagrees with its plain twin at teacher_img=160's grid (N={Ni})")
+        runs = {"temporal_phase_tm": (lambda: fb.temporal_phase_tm(x, pt, H),
+                                      lambda: fb.temporal_phase_tm_plain(x, pt, H),
+                                      temporal_cost(B, T, Ni, D)),
+                "spatial_mlp": (lambda: fb.spatial_mlp(x1, cls, ps, H),
+                                lambda: fb.spatial_mlp_plain(x1, cls, ps, H),
+                                spatial_cost(B, T, Ni, D, Dh))}
+        for name, (kern, plain, cost) in runs.items():
+            ms, pl = cuda_ms(kern, 20), cuda_ms(plain, 5)
+            b, by = bound_ms(*cost)
+            gaps = [gap for _, gap in checks[name]]
+            geo_img[name] = {"B": B, "T": T, "N": Ni, "ms": ms, "plain_ms": pl, "bound_ms": b,
+                             "bound_by": by, "library_ms": None,
+                             "max_abs_err": max(g["max_abs_err"] for g in gaps),
+                             "rel_rms": max(g["rel_rms"] for g in gaps)}
+            print(f"  {name} B={B} T={T} N={Ni}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
+                  f"{b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
+    del x, x1, cls, runs
+    torch.cuda.empty_cache()
+    part("the strided path's new geometries")
+
     # the frame wire's gather first, so that a fault in it shows within the
     # first minute: kernel against twin bit for bit (max abs 0) on the
     # three layouts in f32 and bf16, at the teacher views of one chunk (8 x
@@ -1237,7 +1356,9 @@ def main():
             # the scorer refuses (ROADMAP §3): held and timed here, off the
             # kernels line, as no main path launches them
             if name in ("temporal_phase_tm_f32", "spatial_mlp_f32"):
-                stats[name] = [row]
+                # the teacher's window, then the students' (the start of
+                # phase 3): f32 students on the kernels run both
+                stats[name] = [row, geo_f32[name]]
             print(f"  {name} {shape}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
                   f"{b:.4f} ms ({by}, f32 carry bytes), {b / ms:.1%} of bound; "
                   "library: none (no single call)", flush=True)
@@ -2481,6 +2602,191 @@ def main():
         torch.cuda.empty_cache()
         lap("phase 4d")
 
+        # -- 4e. the strided scorer and f32 students on the kernels ------
+        print("[4e] the strided scorer (JAX's turbo* modes) and f32 students on the "
+              "kernels: make_scorers(use_kernels=True, ...) + run_scoring on the "
+              "clips, each against its twins and the same knobs at f32", flush=True)
+        strided_launches, strided_fps = {}, {}
+        knots_seen = {}
+
+        def forward_counter(sc):
+            """Forward pre-hooks on the scorer's models: {tier: forwards}, the
+            tier by the model's dtype and quantization."""
+            seen, hooks = {}, []
+            for m in {id(sc.model): sc.model, id(sc.t_model): sc.t_model}.values():
+                tier = ("q8" if m.quantized else "f32"
+                        if m.pos_embed.dtype == torch.float32 else "bf16")
+
+                def pre(mod, inp, _tier=tier):
+                    seen[_tier] = seen.get(_tier, 0) + 1
+                hooks.append(m.register_forward_pre_hook(pre))
+            return seen, hooks
+
+        def tier_launches(forwards):
+            """The counters a run of ``forwards`` ({tier: n}) must read: each
+            windowed op once a block of each forward in its tier's name (the
+            int8 tier's kernels per call, fb.Q8_LAUNCHES), nothing else."""
+            expect = {k: 0 for k in counts()}
+            for tier, n in forwards.items():
+                for op in windowed:
+                    name = op if tier == "bf16" else f"{op}_{tier}"
+                    expect[name] += cfg.depth * n
+                    for k, per in fb.Q8_LAUNCHES.get(name, {}).items():
+                        expect[k] += per * cfg.depth * n
+            return expect
+
+        def record_knots(sc, tag):
+            """Keep the refined teacher knots of each group the scorer scores."""
+            real = sc._refine_group
+
+            def refine(*a):
+                tposs, feats = real(*a)
+                knots_seen.setdefault(tag, []).append([t.tolist() for t in tposs])
+                return tposs, feats
+            sc._refine_group = refine
+
+        k8cr = dict(teacher_stride=8, teacher_interp="catmullrom")
+        mt = dict(teacher_dtype=f32t, teacher_refine=0.035, **k8cr)
+        strided_cfgs = {  # JAX bench.py MODES: (students' dtype, knobs, clips)
+            "exact-mixed-fused": (f32t, {}, items),
+            "turbo-mixed": (f32t, dict(teacher_stride=4), items),
+            "turbo2e-mt": (bf16, mt, items),
+            "turbo2e-mt-m2e": (bf16, dict(mt, score_stride=2, score_refine=0.2), items),
+            "turbo2-q8sq8t": (bf16, dict(teacher_quant="int8", student_quant="int8", **k8cr),
+                              items),
+            "teacher_img=160": (bf16, dict(teacher_img=160), items[1:]),
+        }
+        for tag, (dtype, kw, its) in strided_cfgs.items():
+            t_cfg = time.perf_counter()
+            clips_s = [(it["path"][:-4], it["num_frames"]) for it in its]
+            frames_s = sum(n for _, n in clips_s)
+            scorers = make_scorers(sd, cfg, n_devices=1, local_size=3, global_size=30,
+                                   chunk=8, compute_dtype=dtype, use_kernels=True,
+                                   precision=None, **kw)
+            sc = scorers[0]
+            record_knots(sc, tag)
+            run(scorers, its[1:] if len(its) > 1 else its, "strided_warmup")
+            knots_seen.pop(tag, None)
+            reset_counts()
+            rows0 = dict(sc.stats)
+            seen_fw, hooks = forward_counter(sc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got_s = run(scorers, its, "strided_kernels")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for h in hooks:
+                h.remove()
+            seen = counts()
+            expect = tier_launches(seen_fw)
+            print(f"  {tag}: launches {seen} (expected {expect}: {seen_fw} forwards by "
+                  "tier, each windowed op once a block of each)", flush=True)
+            if seen != expect or not any(seen.values()):
+                fail(f"{tag}: launches {seen}, expected {expect}")
+            strided_launches[tag] = {k: v for k, v in seen.items() if v}
+            t_rows = sc.stats["teacher_rows"] - rows0["teacher_rows"]
+            s_rows = sc.stats["student_rows"] - rows0["student_rows"]
+            strided_fps[tag] = {"frames_per_s": frames_s / wall, "frames": frames_s,
+                                "teacher_rows_per_frame": t_rows / frames_s,
+                                "student_rows_per_frame": s_rows / frames_s}
+            print(f"  {tag}: frames_per_s={frames_s / wall:.2f} ({frames_s} frames; phase "
+                  f"4's exact bf16 {fps_windowed:.2f}), teacher rows per frame "
+                  f"{t_rows / frames_s:.3f}, student rows per frame {s_rows / frames_s:.3f} "
+                  f"on {card}", flush=True)
+            # which kernels the path launched, the device's busy and idle
+            # share: one profiled run of the 40-frame clip
+            checked_profile(f"{its[-1]['num_frames']}-frame clip, {tag}", f"strided {tag}",
+                            lambda: run(scorers, its[-1:], "strided_prof"), reset_counts,
+                            counts, top=6)
+            if tag == "turbo2e-mt":
+                # student_dispatch 1 on the same clips: bit for bit the
+                # default's (4 chunks a call), kernels and all
+                one = run(make_scorers(sd, cfg, n_devices=1, local_size=3, global_size=30,
+                                       chunk=8, compute_dtype=dtype, use_kernels=True,
+                                       precision=None, student_dispatch=1, **kw),
+                          its, "strided_dispatch1")
+                same = all(np.array_equal(np.asarray(one[k]), np.asarray(got_s[k]))
+                           for k, _ in clips_s)
+                print(f"  {tag}: student_dispatch 1 against 4 on the kernels: "
+                      f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+                if not same:
+                    fail(f"{tag}: student_dispatch changes the losses")
+            reset_counts()
+            with twins(fb, bb, wire):
+                sc_tw = make_scorers(sd, cfg, n_devices=1, local_size=3, global_size=30,
+                                     chunk=8, compute_dtype=dtype, use_kernels=True,
+                                     precision=None, **kw)
+                record_knots(sc_tw[0], f"{tag} twins")
+                plain_s = run(sc_tw, its, "strided_twins")
+            if any(counts().values()):
+                fail(f"{tag}: the twins launched a kernel")
+            del scorers, sc, sc_tw
+            knobs = {k: v for k, v in kw.items()
+                     if k not in ("teacher_dtype", "teacher_quant", "student_quant")}
+            f32_s = (f32 if not knobs else
+                     run(scorers_for(torch.float32, False, **knobs), its, "strided_f32"))
+            for key in (f"{tag}", f"{tag} twins"):  # the timed run's, then the twins'
+                if key in knots_seen:
+                    print(f"  {key}: refined knots per video {knots_seen[key][0]}", flush=True)
+            loss_checks(f"strided {tag}", clips_s, got_s, plain_s, f32_s, LOSS_REL_TOL,
+                        plain_name="twins")
+            if tag == "exact-mixed-fused":
+                # the students' CLS features on the 40-frame clip's first
+                # eight local windows: f32 students on the kernels and the
+                # bf16 kernel path's, each against the f32 students (printed)
+                it1 = items[1]
+                views = torch.from_numpy(it1["frames"][np.asarray(it1["local_idx"][:8])])
+                views = views.to(dev).permute(0, 4, 1, 2, 3).contiguous()
+                kcfg = dataclasses.replace(cfg, use_kernels=True)
+                feats = {}
+                for k, (mc, dt) in {"f32 kernels": (kcfg, f32t), "bf16 kernels": (kcfg, bf16),
+                                    "f32": (cfg, f32t)}.items():
+                    model = tsf.build_timesformer(mc, sd, device=dev, dtype=dt)
+                    with torch.inference_mode():
+                        feats[k] = model(views.to(dt)).float()
+                    del model
+                e_fk = float((feats["f32 kernels"] - feats["f32"]).abs().mean())
+                e_bk = float((feats["bf16 kernels"] - feats["f32"]).abs().mean())
+                print(f"  {tag}: students' CLS features (8 windows of 3 frames) vs the f32 "
+                      f"students, mean abs: f32 kernels {e_fk:.4e}, bf16 kernels {e_bk:.4e} "
+                      f"(ratio {e_fk / e_bk:.3f})", flush=True)
+                strided_fps[tag]["student_feature_err"] = {"f32_kernels": e_fk,
+                                                           "bf16_kernels": e_bk}
+                del feats, views
+            torch.cuda.empty_cache()
+            part(f"phase 4e: {tag} ({time.perf_counter() - t_cfg:.1f} s)")
+        print("  strided paths: " + json.dumps(strided_fps), flush=True)
+        # the device form of the teacher rows' interpolation against an
+        # independent float64 evaluation: Catmull-Rom (tangents over the
+        # uneven spans, clamped ends) and linear at turbo2e-mt's refined
+        # knots of the 64-frame clip, every frame, rows of the model's width
+        from dino_video_summarization_transformer_tpu_torch.engine import scoring as eng
+
+        kn = np.asarray(knots_seen["turbo2e-mt"][0][0])
+        rows = dev_randn(97, len(kn), D, dtype=torch.float32)
+        y = rows.double().cpu().numpy()
+        xs = np.arange(int(kn[-1]) + 1)
+        j = np.clip(np.searchsorted(kn, xs, side="right") - 1, 0, len(kn) - 2)
+        h = (kn[j + 1] - kn[j]).astype(np.float64)
+        t = (xs - kn[j]) / h
+        jm1, jp2 = np.maximum(j - 1, 0), np.minimum(j + 2, len(kn) - 1)
+        m0 = (y[j + 1] - y[jm1]) / (kn[j + 1] - kn[jm1])[:, None]
+        m1 = (y[jp2] - y[j]) / (kn[jp2] - kn[j])[:, None]
+        tt = t[:, None]
+        want_cr = ((2 * tt**3 - 3 * tt**2 + 1) * y[j] + (tt**3 - 2 * tt**2 + tt) * h[:, None] * m0
+                   + (-2 * tt**3 + 3 * tt**2) * y[j + 1] + (tt**3 - tt**2) * h[:, None] * m1)
+        want_li = y[j] * (1 - tt) + y[j + 1] * tt
+        for kind, want_i in (("catmullrom", want_cr), ("linear", want_li)):
+            got_i = eng._interp_rows(kn, rows, xs, kind).double().cpu().numpy()
+            err = float(np.abs(got_i - want_i).max())
+            print(f"  interpolation on the card, {kind} at {len(kn)} knots x {D}: max abs "
+                  f"{err:.3e} against float64 (<= 1e-5 x max|rows| = "
+                  f"{1e-5 * np.abs(y).max():.3e})", flush=True)
+            if not err <= 1e-5 * np.abs(y).max():
+                fail(f"the teacher rows' {kind} interpolation disagrees with float64")
+        del rows
+        lap("phase 4e")
+
         # -- 6. banded path, bf16 ---------------------------------------------
         print(f"[6] banded path, bf16: make_scorers(band_mode='both') + "
               f"run_scoring, clips of {BAND_CLIPS} frames, band_chunk "
@@ -3404,6 +3710,13 @@ def main():
                      "launches_teacher_int8": launches_q8["teacher int8"][name]}
         if name in blocks:  # rows 1-3, 6, 8, 9 and 11: their blocks alone
             extra["blocks"] = blocks[name]
+        # phase 4e's launches of the op by configuration, and rows 1 and 2
+        # at teacher_img=160's grid (phase 3)
+        by_cfg = {tag: n[name] for tag, n in strided_launches.items() if name in n}
+        if by_cfg:
+            extra["launches_strided"] = by_cfg
+        if name in geo_img:
+            extra["teacher_img_160"] = geo_img[name]
         kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",

@@ -26,29 +26,21 @@ int8`` quantize the teacher's / the students' dense block weights (W8A8,
 ``ops/quant.py``; in bf16 on the card the int8 tier of the whole-block
 kernels, s8 wgmma GEMMs); exact windows only, so with ``--band`` they
 raise NotImplementedError, as ``--teacher_quant`` does with
-``--teacher_precision float32``. The other approximation flags of the JAX
-CLI are accepted but not ported yet: any of them away from its default
-raises NotImplementedError naming the ROADMAP item. ``--device`` defaults to
-``cuda``. Without ``--pretrained_weights`` the model gets numpy-seeded
-random weights (``utils/synthetic.py``, seed ``RNG_SEED``).
+``--teacher_precision float32``. The approximation flags are the JAX CLI's
+(``--global_subsample``, ``--teacher_stride``, ``--teacher_interp``,
+``--teacher_adaptive``, ``--teacher_refine``, ``--score_stride``,
+``--score_refine``; ``engine/scoring.py``): e.g. JAX's default bench mode
+``turbo2e-mt`` is ``--precision bfloat16 --teacher_precision float32
+--teacher_stride 8 --teacher_interp catmullrom --teacher_refine 0.035``.
+With ``--band`` they raise ValueError. ``--device`` defaults to ``cuda``.
+Without ``--pretrained_weights`` the model gets numpy-seeded random weights
+(``utils/synthetic.py``, seed ``RNG_SEED``).
 """
 
 import argparse
 
 from .config import load_config
 from .utils.misc import bool_flag
-
-# flag -> (default, ROADMAP item that ports it)
-UNPORTED_FLAGS = {
-    "global_subsample": (1, "scorer approximation knobs"),
-    "teacher_stride": (1, "scorer approximation knobs"),
-    "teacher_interp": ("linear", "scorer approximation knobs"),
-    "teacher_adaptive": (0.0, "scorer approximation knobs"),
-    "teacher_refine": (0.0, "scorer approximation knobs"),
-    "score_stride": (1, "scorer approximation knobs"),
-    "score_refine": (0.0, "scorer approximation knobs"),
-}
-
 
 def get_args_parser():
     # flag set mirrors the reference CLI (ref: dino_similarity.py:140-183)
@@ -116,20 +108,16 @@ def get_args_parser():
 
 
 def check_unported(cli) -> None:
-    for flag, (default, item) in UNPORTED_FLAGS.items():
-        if getattr(cli, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} {getattr(cli, flag)!r}: not ported to the CUDA "
-                f"package yet (ROADMAP: {item})")
-    # the int8 tiers' combinations the scorer refuses, before any loading
+    """The int8 tiers' combinations the scorer refuses, before any
+    loading."""
     if cli.band != "none" and "int8" in (cli.teacher_quant, cli.student_quant):
         raise NotImplementedError(
             "--band with an int8 tier: not ported to the CUDA package yet "
-            "(ROADMAP queue 1 item 5a: banded int8)")
+            "(ROADMAP queue 1 item 4a: banded int8)")
     if cli.teacher_quant == "int8" and cli.teacher_precision == "float32":
         raise NotImplementedError(
             "--teacher_quant int8 with --teacher_precision float32: not ported "
-            "to the CUDA package yet (ROADMAP queue 1 item 5b: teacher_quant "
+            "to the CUDA package yet (ROADMAP queue 1 item 4b: teacher_quant "
             "with the mixed teacher)")
 
 
@@ -166,14 +154,24 @@ def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,
         chunk=cli.batch_size_per_gpu,
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         precision=None if bf16 else "highest",
+        global_subsample=cli.global_subsample,
+        teacher_stride=cli.teacher_stride, score_stride=cli.score_stride,
+        teacher_interp=cli.teacher_interp,
+        teacher_adaptive=cli.teacher_adaptive,
+        teacher_refine=cli.teacher_refine,
+        score_refine=cli.score_refine,
         band_mode=None if cli.band == "none" else cli.band,
         teacher_dtype=(torch.float32 if cli.teacher_precision == "float32"
                        else None),
         teacher_quant=None if cli.teacher_quant == "none" else cli.teacher_quant,
         student_quant=None if cli.student_quant == "none" else cli.student_quant,
         wire_format=cli.wire_format if cli.wire_format != "rgb8" else "yuv420")
-    if (cli.wire_format != "rgb8" or cli.band != "none" or cli.teacher_quant != "none"
-            or cli.student_quant != "none") and not bf16:
+    approx = (cli.global_subsample > 1 or cli.teacher_stride > 1
+              or cli.score_stride > 1 or cli.teacher_adaptive > 0
+              or cli.teacher_refine > 0 or cli.wire_format != "rgb8"
+              or cli.band != "none" or cli.teacher_quant != "none"
+              or cli.student_quant != "none")
+    if approx and not bf16:
         print("NOTE: approximation/wire flags change scores; "
               "f32 bit-parity does not apply")
     run_scoring(dataset, scorer, file_path, num_workers=cli.num_workers,

@@ -210,7 +210,7 @@ def banded_cls_features(model, frames: torch.Tensor, t_real: int, eff: int,
     if model.quantized:
         raise NotImplementedError(
             "banded passes on a quantized model: banded int8 is not ported "
-            "(ROADMAP queue 1 item 5a)")
+            "(ROADMAP queue 1 item 4a)")
     cfg = model.cfg
     C, _, Wimg, _ = frames.shape
     D = cfg.embed_dim

@@ -53,8 +53,11 @@
 # bf16 at its store (rows 7f, 8f and 9f's dx), row 9f's db2 summed from
 # the cotangent's bf16 copy instead of the f32 rows, the f32 LayerNorm
 # backward reading each x value through a bf16 rounding, and row 4f's f32
-# CLS rows rounded to bf16 (a sed of the Python wrapper). Name faults as
-# arguments to run only those:
+# CLS rows rounded to bf16 (a sed of the Python wrapper); the strided
+# scorer (each exits 1 in phase 4e; seds of the scorer): Catmull-Rom's
+# tangent weights exchanged (cl <-> cr), and the student pass returning
+# the chunks of a call of several (student_dispatch) in reverse order.
+# Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
 #     bash .../plant_faults.sh cls_key_dropped gemm_stage_skipped temporal_stride_one
@@ -65,6 +68,7 @@
 #     bash .../plant_faults.sh wire_chroma_rows wire_fma wire_bf16_truncated u8_unnormalized
 #     bash .../plant_faults.sh q8_round_rz q8_rescale_fma q8_no_row_scale q8_ln_unrounded q8_clip128
 #     bash .../plant_faults.sh f32bwd_dx_bf16 f32bwd_db_from_bf16 f32_ln_bwd_x_bf16 f32_spatial_cls_bf16
+#     bash .../plant_faults.sh cr_tangents_swapped dispatch_chunks_reversed
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer).
@@ -124,3 +128,5 @@ run f32bwd_dx_bf16 dvst_common.cuh 's/        ln_store<CW>(dx + r \* D + d, o);/
 run f32bwd_db_from_bf16 fused_block_bwd.cu 's/if (!f32 \&\& (e = colsum<bf16>(dout, M, D, w.part, static_cast<float\*>(dfc2_b), st)))/if ((e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc2_b), st)))/'
 run f32_ln_bwd_x_bf16 dvst_common.cuh 's/float v(int i) const { return f\[i\]; }/float v(int i) const { return __bfloat162float(__float2bfloat16(f[i])); }/'
 run f32_spatial_cls_bf16 ../fused_block.py 's/    launches\["spatial_phase_f32" if x_f32 else "spatial_phase"\] += 1/    launches["spatial_phase_f32" if x_f32 else "spatial_phase"] += 1; cls_rows = cls_rows.to(torch.bfloat16).to(cls_rows.dtype)/'
+run cr_tangents_swapped ../../engine/scoring.py 's/w = np.stack(\[-cl, h00 - cr, h01 + cl, cr\], axis=1)/w = np.stack([-cr, h00 - cl, h01 + cr, cl], axis=1)/'
+run dispatch_chunks_reversed ../../engine/scoring.py 's/for r0 in range(0, views.shape\[0\], c)\])/for r0 in range(0, views.shape[0], c)][::-1])/'

@@ -30,8 +30,8 @@ dim 64, the kernels' geometry) for the bf16 kernel route.
     mean|port plain bf16 - f32| + 1e-3 (chip_smoke.py's bound).
 (d) run_scoring writes the JSON the JAX run writes (keys, lengths, f32
     values at 1e-5, a dummy item's constant losses); the CLI takes
-    ``--band``, ``--teacher_precision float32`` and ``--wire_format``;
-    ``--teacher_quant`` and ``--score_stride`` still raise.
+    ``--band``, ``--teacher_precision float32``, ``--wire_format`` and the
+    strided flags; the scorer refuses ``band_mode`` with a strided knob.
 """
 
 import json
@@ -237,20 +237,23 @@ def test_cli_band_in_process(tmp_path, band):
 
 
 def test_cli_band_flag_is_ported_and_mixed_teacher_is_not():
-    """(The name predates the mixed teacher's, the wire's and the int8
-    tiers' ports.) ``--band``, ``--teacher_precision float32``,
-    ``--wire_format`` and the int8 flags are accepted, alone and together
-    where the scorer takes the pairing; the flags still unported
-    (``--teacher_stride 4``, ``--score_stride 2``) still raise, with the
-    mixed teacher beside them too."""
+    """(The name predates the mixed teacher's, the wire's, the int8 tiers'
+    and the strided knobs' ports.) ``--band``, ``--teacher_precision
+    float32``, ``--wire_format``, the int8 flags and the strided flags
+    (``--teacher_stride 4``, ``--score_stride 2``) pass the CLI's check,
+    alone and together; the scorer refuses ``band_mode`` with a strided
+    knob with JAX's ValueError, before it loads any weights."""
     parse = cli.get_args_parser().parse_args
     for argv in (["--band", "both"], ["--teacher_precision", "float32"],
                  ["--band", "both", "--teacher_precision", "float32"],
                  ["--wire_format", "yuv420", "--band", "both"],
                  ["--teacher_quant", "int8"],
-                 ["--student_quant", "int8", "--teacher_precision", "float32"]):
+                 ["--student_quant", "int8", "--teacher_precision", "float32"],
+                 ["--teacher_stride", "4"], ["--score_stride", "2"],
+                 ["--teacher_stride", "4", "--band", "both"]):
         cli.check_unported(parse(argv))
-    for argv in (["--teacher_stride", "4"], ["--score_stride", "2"]):
-        for extra in ([], ["--band", "both", "--teacher_precision", "float32"]):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cli.check_unported(parse(argv + extra))
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=64, depth=2,
+                                num_heads=2, num_classes=0)
+    for knob in ("teacher_stride", "score_stride"):
+        with pytest.raises(ValueError, match=f"band_mode does not compose with .*{knob}"):
+            scoring.FrameScorer({}, cfg, device="cpu", band_mode="both", **{knob: 2})

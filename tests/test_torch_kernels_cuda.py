@@ -1676,3 +1676,82 @@ def test_mixed_train_step_kernel_route_matches_twins(cuda_device):
         got = grads["cuda"][n].cpu()
         rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
         assert torch.isfinite(got).all() and rel < 0.15, (n, rel)
+
+
+# ---------------------------------------------------------------------------
+# The strided scorer's geometries: rows 1f and 2f at the students' window
+# (f32 students on the kernels), rows 1 and 2 at teacher_img=160's grid
+# (N = 100), and the scorer's strided modes on the card against its twins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,N,D,H", [(8, 3, 196, 768, 12), (3, 3, 16, 128, 2)])
+def test_f32_tiers_at_the_students_window_stay_f32(cuda_device, B, T, N, D, H):
+    """Rows 1f and 2f at T = 3 on offset rows: their f32 outputs are not
+    rounded to bf16 (twin_check's f32 rule) and match their twins."""
+    blk = _block(D, H, 0, cuda_device)
+    x = _offset((B, T, N, D), 75, cuda_device)
+    x1, cls = _offset((B, T, N, D), 76, cuda_device), _offset((B, 1, D), 77, cuda_device)
+    out = fb.temporal_phase_tm(x, blk["temporal"], H)
+    grid, rows = fb.spatial_mlp(x1, cls, blk["spatial"], H)
+    torch.cuda.synchronize()
+    for t in (out, grid):
+        _f32_ok(t)
+    _close(out, fb.temporal_phase_tm_plain(x, blk["temporal"], H), x)
+    want_grid, want_rows = fb.spatial_mlp_plain(x1, cls, blk["spatial"], H)
+    _close(grid, want_grid, x1)
+    _close(rows, want_rows)
+
+
+@pytest.mark.parametrize("B,T,N,D,H", [(8, 30, 100, 768, 12), (2, 30, 100, 128, 2),
+                                       (8, 3, 100, 768, 12)])
+def test_windowed_pair_at_the_teacher_img_grid(cuda_device, B, T, N, D, H):
+    """Rows 1 and 2 (bf16) at N = 100, teacher_img=160's 10 x 10 patch
+    grid (the spatial attention at L = 101)."""
+    blk = _block(D, H, 0, cuda_device)
+    r = np.random.RandomState(8)
+    x = torch.from_numpy(r.randn(B, T, N, D)).to(cuda_device, torch.bfloat16)
+    x1 = torch.from_numpy(r.randn(B, T, N, D)).to(cuda_device, torch.float32)
+    cls = torch.from_numpy(r.randn(B, 1, D)).to(cuda_device, torch.bfloat16)
+    _close(fb.temporal_phase_tm(x, blk["temporal"], H),
+           fb.temporal_phase_tm_plain(x, blk["temporal"], H), x)
+    grid, rows = fb.spatial_mlp(x1, cls, blk["spatial"], H)
+    want_grid, want_rows = fb.spatial_mlp_plain(x1, cls, blk["spatial"], H)
+    _close(grid, want_grid, x1)
+    _close(rows, want_rows)
+
+
+STRIDED = {"turbo2e-mt": dict(compute_dtype=torch.bfloat16, teacher_dtype=torch.float32,
+                              teacher_stride=8, teacher_interp="catmullrom",
+                              teacher_refine=0.035),
+           "turbo-mixed": dict(compute_dtype=torch.float32, teacher_stride=4),
+           "teacher_img": dict(compute_dtype=torch.bfloat16, teacher_img=32)}
+
+
+@pytest.mark.parametrize("mode", list(STRIDED))
+def test_strided_scorer_kernels_match_twins(cuda_device, mode):
+    """The strided scorer on the kernels against the same scorer on the CPU
+    (the twins), depth 2, D = 128, 48-px frames: within 0.06 mean relative
+    (chip_smoke.py's rule between the kernel path and its twins; one frame
+    of the teacher_img case reads 0.26 x the mean loss apart, a teacher
+    softmax at temperature 0.02 flipping between near-tied rows);
+    student_dispatch 1 equal to 4 bit for bit on the card."""
+    cfg = tsf.TimeSformerConfig(img_size=48, patch_size=16, embed_dim=128, depth=2,
+                                num_heads=2, num_frames=4, num_classes=0)
+    sd = convert.state_dict_from_jax_params(make_numpy_params(cfg, 3), cfg)
+    frames = np.random.RandomState(9).randn(40, 48, 48, 3).astype(np.float32)
+    loc = np.clip(np.arange(40)[:, None] + np.arange(-1, 2), 0, 39)
+    glob = np.clip(np.arange(40)[:, None] + np.arange(-4, 4), 0, 39)
+    kw = dict(local_size=3, global_size=8, chunk=4, use_kernels=True, precision=None,
+              **STRIDED[mode])
+    got = {}
+    for dev in ("cpu", cuda_device):
+        before = dict(fb.launches)
+        sc = scoring.FrameScorer(sd, cfg, device=dev, **kw)
+        got[str(dev)] = sc.score_video(frames, loc, glob, 8)
+        ran = sum(fb.launches[k] - before[k] for k in fb.launches)
+        assert (ran > 0) == (dev != "cpu")
+    one = scoring.FrameScorer(sd, cfg, device=cuda_device, student_dispatch=1,
+                              **kw).score_video(frames, loc, glob, 8)
+    np.testing.assert_array_equal(one, got["cuda"])
+    rel = np.mean(np.abs(got["cuda"] - got["cpu"])) / np.mean(np.abs(got["cpu"]))
+    assert np.all(np.isfinite(got["cuda"])) and rel <= 0.06, rel

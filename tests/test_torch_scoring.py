@@ -181,20 +181,36 @@ def test_cli_in_process(tmp_path, wire_format):
     assert all(np.isfinite(v) for v in data["vidA"] + data["vidB"])
 
 
-def test_cli_refuses_unported_flags():
-    """Every flag of UNPORTED_FLAGS raises away from its default; the ported
-    ones (here ``--wire_format`` and the int8 tiers' ``--student_quant`` /
-    ``--teacher_quant``) do not."""
+def test_cli_refuses_unported_flags(monkeypatch):
+    """No flag of the CLI is refused as unported any more: the seven
+    approximation flags of the JAX CLI pass ``check_unported`` and reach
+    ``make_scorers`` with their parsed values (its NOTE line printed at
+    f32), as ``--wire_format`` and the int8 tiers' flags do."""
+    from dino_video_summarization_transformer_tpu_torch.data import datasets
+    from dino_video_summarization_transformer_tpu_torch.engine import scoring as port_scoring
+
     parse = cli.get_args_parser().parse_args
     away = {"global_subsample": "2", "teacher_stride": "4",
             "teacher_interp": "catmullrom", "teacher_adaptive": "0.5",
             "teacher_refine": "0.5", "score_stride": "2", "score_refine": "0.5"}
-    assert set(away) == set(cli.UNPORTED_FLAGS)
+    assert not hasattr(cli, "UNPORTED_FLAGS")
     for flag, value in away.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.check_unported(parse([f"--{flag}", value]))
+        cli.check_unported(parse([f"--{flag}", value]))
     for wire_format in ("rgb8", "yuv420", "yuv420q"):
         cli.check_unported(parse(["--wire_format", wire_format]))
     for flag in ("student_quant", "teacher_quant"):
         cli.check_unported(parse([f"--{flag}", "int8"]))
     cli.check_unported(parse([]))
+    seen = {}
+    monkeypatch.setattr(port_scoring, "make_scorers",
+                        lambda sd, mcfg, **kw: seen.update(kw) or ["scorer"])
+    monkeypatch.setattr(port_scoring, "run_scoring", lambda ds, sc, *a, **k: seen.update(
+        ran=sc))
+    monkeypatch.setattr(datasets, "DinoLossDataset", lambda **kw: None)
+    argv = sum(([f"--{k}", v] for k, v in away.items()), [])
+    cli.main(argv + ["--arch", "vit_tiny", "--device", "cpu", "--cfg", os.path.join(
+        conftest.REPO_ROOT, "configs/kinetics/timesformer_divst_8x32_224.yaml")])
+    parsed = parse(argv)
+    assert seen["ran"] == ["scorer"]
+    for flag in away:
+        assert seen[flag] == getattr(parsed, flag), flag
