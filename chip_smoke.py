@@ -84,8 +84,8 @@ Imports torch, numpy and the port package
    a large common offset (``twin_check.offset_rows``: a kernel that rounds
    an f32 input to bf16 fails there), each output held on its branch,
    timed beside its bound with f32 bytes for the carries (rows 3 and 11's
-   f32 tiers, which only the refused banded mixed teacher would run, stay
-   off the kernels line).
+   f32 tiers at the 512-frame bucket: the banded mixed teacher's, phase
+   6b).
    Row 12's kernel and twin against its f32 reference (f32 probabilities,
    ``cls_band_attn_f32_plain``) at eff 30 and 3, printed.
 4. windowed path, bf16: ``make_scorers`` + ``run_scoring`` on ViT-B/16 with
@@ -130,12 +130,16 @@ Imports torch, numpy and the port package
    product, a yardstick the port never calls) and the bf16 wgmma GEMM;
    rows 1q and 2q (``temporal_phase_tm`` / ``spatial_mlp`` on s8 weights)
    against their twins by ``twin_check``'s int8 rules at both windows,
-   timed beside their bounds (GEMMs at the s8 peak) and split by kernel.
-   Then ``make_scorers`` + ``run_scoring`` on phase 4's clips with
-   student-int8, teacher-int8 and both: launch counters around each run,
-   frames/s beside phase 4's, a profiled run's families, losses held
-   against the plain int8 path (the same scorer with every kernel op
-   through its twin) and phase 5's f32 path.
+   timed beside their bounds (GEMMs at the s8 peak) and split by kernel;
+   then their f32 tiers, rows 1qf and 2qf (f32 x, an f32 CLS row, an f32
+   grid: the int8 teacher under the mixed teacher) on offset rows, by the
+   same rules and twin_check's f32 rule, each timed beside its bound and,
+   in turns, beside row 1q / 2q. Then ``make_scorers`` + ``run_scoring`` on
+   phase 4's clips with student-int8, teacher-int8, both, and teacher-int8
+   under the mixed teacher: launch counters around each run, frames/s
+   beside phase 4's, a profiled run's families, losses held against the
+   plain int8 path (the same scorer with every kernel op through its twin)
+   and phase 5's f32 path.
 4e. the strided scorer and f32 students on the kernels: ``make_scorers(
    use_kernels=True, ...)`` + ``run_scoring`` on phase 4's clips with the
    knobs of JAX's bench modes ``exact-mixed-fused`` (f32 students and
@@ -169,16 +173,30 @@ Imports torch, numpy and the port package
    the "teacher" hybrid on the
    64-frame clip with both kernel sets counted; frames/s beside the
    windowed path's, and the rank correlation of banded against exact
-   losses (information only). The mixed teacher with ``band_mode``, which
-   the scorer refuses (ROADMAP §3): the refusal checked, and the banded
-   teacher pass it would run (``banded.banded_cls_features`` on an f32
-   model on the kernels: rows 11 and 3's f32 tiers) on the 64-frame
-   clip, its CLS rows strictly closer to the f32 banded teacher's (TF32
-   off) than the bf16 banded teacher's on the kernels. Then the 600-frame
+   losses (information only). Then the 600-frame
    clip on the wire (packed I420): the gather once per segment, losses
    held by phase 4c's (a)-(c) at the banded tolerance, and profiles of the
    float and the wire path: the host-to-device copy's device ms, its bytes
    and the clip's device busy ms.
+6b. banded path, the mixed teacher (JAX's ``band-mt`` and ``band-t-mt``):
+   ``make_scorers(band_mode="both", teacher_dtype=f32)`` + ``run_scoring``
+   on phase 6's clips: launch counters (rows 10 and 12 in every pass, rows
+   11f and 3f in each teacher pass, rows 11 and 3 in each student pass),
+   frames/s beside ``band``'s, a profiled run of the 600-frame clip (its
+   families held to the counters), each pass's views (the teacher's the
+   clip's f32 frames bit for bit, the students' their bf16 rounding),
+   losses held
+   against the same scorer through its twins and phase 6's f32 banded
+   losses by phase 6's two rules. The teacher's precision by two rules
+   fixed before the first card run (PERF.md, PR 17's prediction): (a) its
+   CLS rows (the scorer's teacher pass on the 64-frame clip) strictly
+   closer to the f32 banded teacher's than the bf16 banded teacher's; (b)
+   at teacher_temp 0.1, on each clip, mean |loss - f32 banded loss| below
+   ``band``'s (at 0.02 printed only: the random-weight teacher is one-hot
+   there). ``band-t-mt`` on the 64-frame clip: counters, losses against its
+   twins and the f32 hybrid. Banded int8: the kernel route's refusal, and
+   one plain-route run on the 40-frame clip with its losses printed beside
+   ``band``'s.
 7. DINO SSL train step, bf16: ``init_train_state`` + ``make_train_step``
    on ViT-B/16 (T=8, batch 8: 16 global 224-px and 64 local 96-px clips,
    out_dim 65536, AdamW) on the kernel route; launch counters read around
@@ -255,14 +273,17 @@ Tolerances (stated here, checked below):
   its gap to f32), its gap to f32 at most the bf16 kernel path's on the
   same clip (the tier's reason to exist), and its teacher features
   strictly closer to the f32 teacher's than the bf16 teacher's; the banded
-  teacher pass on an f32 model (phase 6) held to the same feature rule.
+  mixed teacher (phase 6b) by phase 6's two rules against its twins, the
+  feature rule on its teacher pass, and at teacher_temp 0.1 its losses
+  closer to f32 than the bf16 banded path's on every clip.
 * the int8 tier (phase 4d): its three kernels' codes, scales and
   dequantized f32 sums bit for bit (max abs 0) against their twins, which
   do the same integer sums and the same roundings; rows 1q and 2q by
   ``twin_check``'s int8 rules (rel_rms <= 1e-2 and max|err| <= 2e-2 x
   max|branch| for every output, bf16 or f32: a code that flips where the
   twin's attention differs by an ulp redraws the row's rounding, which no
-  element-wise ulp rule bounds); each int8 scoring path's losses by the
+  element-wise ulp rule bounds), rows 1qf and 2qf also by the f32 rule
+  (bf16_exact <= 1 %); each int8 scoring path's losses by the
   mixed teacher's two rules against the plain int8 path (0.06 mean
   relative; mean |loss - f32 loss| <= 1.5 x the plain int8 path's + 1e-3).
 * the strided scorer (phase 4e): the mixed teacher's two rules against
@@ -474,6 +495,25 @@ def spatial_q8_cost(B, T, N, D, Dh):
     nbytes = (M * D * 4 + B * D * 2 + M * D * 2 + B * T * D * 4
               + (4 * D * D + 2 * D * Dh) + (10 * D + 2 * Dh) * 4)
     return ops, 4 * B * T * L * L * D, nbytes
+
+
+def temporal_q8_f32_cost(B, T, N, D):
+    """Row 1qf (the int8 tier's f32 block boundary): temporal_q8_cost's
+    operations; x read and out written in f32, the s8 weights and their
+    f32 scales and biases once."""
+    ops, flops, _ = temporal_q8_cost(B, T, N, D)
+    M = B * T * N
+    return ops, flops, 2 * M * D * 4 + 5 * D * D + 10 * D * 4
+
+
+def spatial_q8_f32_cost(B, T, N, D, Dh):
+    """Row 2qf: spatial_q8_cost's operations; x1 read, the grid written,
+    the CLS row read and the CLS rows written, all f32; the s8 weights and
+    their f32 scales and biases once."""
+    ops, flops, _ = spatial_q8_cost(B, T, N, D, Dh)
+    M = B * T * N
+    return ops, flops, (2 * M * D * 4 + B * D * 4 + B * T * D * 4
+                        + (4 * D * D + 2 * D * Dh) + (10 * D + 2 * Dh) * 4)
 
 
 def bound_q8_ms(s8_ops, bf16_flops, nbytes):
@@ -766,6 +806,10 @@ FAMILY_PER_OP = {
     "mlp_phase_bwd_f32": {"ln_kernel": 1, "wg_gemm_kernel": 5, "ln_bwd_kernel": 1,
                           "colsum_kernel": 1, "cast_colsum": 1, "reduce_splits_narrow": 3},
 }
+# the int8 tier's f32 tier (the int8 teacher under the mixed teacher): the
+# same launches
+FAMILY_PER_OP.update({f"{op}_f32": FAMILY_PER_OP[op]
+                      for op in ("temporal_phase_tm_q8", "spatial_mlp_q8")})
 
 
 def dw_reduces(fb, calls, D, Dh):
@@ -1301,6 +1345,7 @@ def main():
 
     xw, x1w, clsw = f32_rows(B, T, N, D), f32_rows(B, T, N, D), f32_rows(B, 1, D)
     xm32 = f32_rows(BAND_C * N, D)
+    band_f32_rows = {}
     xg32, cg32 = f32_rows(BAND_C, N, D), f32_rows(BAND_C, D)
     pt, ps = p["temporal"], p["spatial"]
     runs32 = {
@@ -1352,9 +1397,10 @@ def main():
                    "library_ms": None,
                    "max_abs_err": max(g["max_abs_err"] for g in gaps),
                    "rel_rms": max(g["rel_rms"] for g in gaps)}
-            # rows 3 and 11's f32 tiers serve the banded mixed teacher, which
-            # the scorer refuses (ROADMAP §3): held and timed here, off the
-            # kernels line, as no main path launches them
+            # rows 3 and 11's f32 tiers serve the banded mixed teacher
+            # (band-mt, phase 6b), at the 512-frame bucket
+            if name in ("mlp_phase_f32", "spatial_phase_pf_f32"):
+                band_f32_rows[name] = row
             if name in ("temporal_phase_tm_f32", "spatial_mlp_f32"):
                 # the teacher's window, then the students' (the start of
                 # phase 3): f32 students on the kernels run both
@@ -2405,7 +2451,8 @@ def main():
             for tag, x_, w_, b_ in (
                     ("bf16 x", rows_on_card(M_, D, bf16), tq["ln_w"], tq["ln_b"]),
                     ("f32 carry", rows_on_card(M_, D, f32t, 4.0), sq["ln2_w"], sq["ln2_b"]),
-                    ("bf16 CLS rows", rows_on_card(8, D, bf16), sq["ln1_w"], sq["ln1_b"])):
+                    ("bf16 CLS rows", rows_on_card(8, D, bf16), sq["ln1_w"], sq["ln1_b"]),
+                    ("f32 CLS rows", rows_on_card(8, D, f32t, 4.0), sq["ln1_w"], sq["ln1_b"])):
                 with torch.inference_mode():
                     q_, s_ = fb.ln_quant_rows(x_, w_, b_)
                     q0, s0 = fb.ln_quant_rows_plain(x_, w_, b_)
@@ -2413,7 +2460,7 @@ def main():
                 print(f"  ln_quant_rows {who} M={x_.shape[0]} {tag}: codes and scales "
                       f"{'bit-equal' if n_bad == 0 else f'differ at {n_bad}'}", flush=True)
                 q_checks.append(n_bad == 0)
-                if tag != "bf16 CLS rows":
+                if "CLS rows" not in tag:
                     elem = x_.element_size()
                     b, by = bound_ms(10 * x_.numel(), x_.numel() * (elem + 1) + 4 * x_.shape[0])
                     stats["ln_quant_rows"].append({
@@ -2543,7 +2590,72 @@ def main():
             del x, x1, cls
         torch.cuda.empty_cache()
         part("phase 4d: rows 1q and 2q")
-        # (4) the windowed path with each int8 option: counters around the
+        # (3b) rows 1qf and 2qf, the int8 tier's f32 block boundary (the
+        # int8 teacher under the mixed teacher: f32 x into row 1, an f32 CLS
+        # row into row 2 and an f32 grid out), against their twins at both
+        # windows on offset rows (twin_check.offset_rows: a kernel that
+        # rounds an f32 input to bf16 fails there) by the int8 rules, their
+        # f32 outputs also by twin_check's f32 rule (bf16_exact); each timed
+        # beside its bound and, in turns, beside row 1q / 2q on the same rows
+        # (bf16 x and CLS row for those)
+        for k in ("temporal_phase_tm_q8_f32", "spatial_mlp_q8_f32"):
+            stats[k] = []
+        for B, T in [(8, 30), (8, 3)]:
+            x = dev_offset_rows(86, B, T, N, D)
+            x1 = dev_offset_rows(87, B, T, N, D)
+            cls = dev_offset_rows(88, B, 1, D)
+            xb, clsb = x.to(bf16), cls.to(bf16)
+            with torch.inference_mode():
+                t_ = fb.temporal_phase_tm(x, tq, H)
+                t0_ = fb.temporal_phase_tm_plain(x, tq, H)
+                g_, c_ = fb.spatial_mlp(x1, cls, sq, H)
+                g0, c0 = fb.spatial_mlp_plain(x1, cls, sq, H)
+            checks = [check_close(f"temporal_phase_tm_q8_f32 out-x B={B} T={T}", t_, t0_, x,
+                                  q8=True),
+                      check_close(f"spatial_mlp_q8_f32 grid-x1 B={B} T={T}", g_, g0, x1, q8=True),
+                      check_close(f"spatial_mlp_q8_f32 cls B={B} T={T}", c_, c0, q8=True)]
+            f32_bad = []
+            for tag, t in (("temporal_phase_tm_q8_f32 out", t_), ("spatial_mlp_q8_f32 grid", g_),
+                           ("spatial_mlp_q8_f32 cls rows", c_)):
+                bad = twin_check.f32_failures(t)
+                print(f"  {tag} B={B} T={T}: bf16_exact={twin_check.bf16_exact(t):.3e} "
+                      f"{'ok' if not bad else 'FAILED: ' + '; '.join(bad)}", flush=True)
+                f32_bad += bad
+            if f32_bad or not all(ok for ok, _ in checks):
+                fail(f"an int8 f32 row disagrees with its plain twin at B={B} T={T}")
+            del t_, t0_, g_, c_, g0, c0
+            gaps = [gap for _, gap in checks]
+            iters = 20 if T > 8 else 50
+            for name, kern, plain_fn, base_fn, base, cost, op_gaps in [
+                    ("temporal_phase_tm_q8_f32", lambda: fb.temporal_phase_tm(x, tq, H),
+                     lambda: fb.temporal_phase_tm_plain(x, tq, H),
+                     lambda: fb.temporal_phase_tm(xb, tq, H), "temporal_phase_tm_q8",
+                     temporal_q8_f32_cost(B, T, N, D), gaps[:1]),
+                    ("spatial_mlp_q8_f32", lambda: fb.spatial_mlp(x1, cls, sq, H),
+                     lambda: fb.spatial_mlp_plain(x1, cls, sq, H),
+                     lambda: fb.spatial_mlp(x1, clsb, sq, H), "spatial_mlp_q8",
+                     spatial_q8_f32_cost(B, T, N, D, Dh), gaps[1:])]:
+                row = {"B": B, "T": T, "max_abs_err": max(g["max_abs_err"] for g in op_gaps),
+                       "rel_rms": max(g["rel_rms"] for g in op_gaps)}
+                with torch.inference_mode():
+                    turns = [cuda_ms(f, iters) for f in (base_fn, kern, kern, base_fn)]
+                    record_split(f"{name} B={B} T={T}", kern, row, op=name)
+                    pl = cuda_ms(plain_fn, 2, warmup=1)
+                ms, ms_q8 = min(turns[1:3]), min(turns[0], turns[3])
+                b, by = bound_q8_ms(*cost)
+                row.update(ms=ms, plain_ms=pl, bound_ms=b, bound_by=by, library_ms=None,
+                           int8_bf16_tier_ms=ms_q8, turns_ms=turns)
+                stats[name].append(row)
+                print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms ({base} in turns "
+                      f"{ms_q8:.3f} ms, ratio {ms / ms_q8:.3f}; turns {base}, f32, f32, {base}: "
+                      + ", ".join(f"{t:.3f}" for t in turns) + f"), plain {pl:.3f} ms, bound "
+                      f"{b:.4f} ms ({by}; GEMMs at the s8 peak), {b / ms:.1%} of bound",
+                      flush=True)
+            del x, x1, cls, xb, clsb
+        torch.cuda.empty_cache()
+        part("phase 4d: rows 1qf and 2qf")
+        # (4) the windowed path with each int8 option, and the int8 teacher
+        # under the mixed teacher (rows 1qf and 2qf): counters around the
         # run, frames/s beside phase 4's, a profiled run's families, losses
         # against the plain int8 path (the same scorer, every kernel op
         # through its twin) and the f32 path of phase 5
@@ -2551,12 +2663,16 @@ def main():
         launches_q8 = {}
         for tag, qkw in (("student int8", dict(student_quant="int8")),
                          ("teacher int8", dict(teacher_quant="int8")),
-                         ("both int8", dict(teacher_quant="int8", student_quant="int8"))):
+                         ("both int8", dict(teacher_quant="int8", student_quant="int8")),
+                         ("teacher int8 mixed", dict(teacher_quant="int8",
+                                                     teacher_dtype=f32t))):
             scorers = scorers_for(torch.bfloat16, "auto", **qkw)
             sc = scorers[0]
+            t_dt = qkw.get("teacher_dtype", bf16)
             if not (sc.model_cfg.use_kernels
                     and sc.model.quantized == ("student_quant" in qkw)
-                    and sc.t_model.quantized == ("teacher_quant" in qkw)):
+                    and sc.t_model.quantized == ("teacher_quant" in qkw)
+                    and sc.t_model.pos_embed.dtype == t_dt):
                 fail(f"{tag}: the scorer did not build its quantized model on the kernels")
             del sc
             run(scorers, items[1:], "q8_warmup")
@@ -2567,18 +2683,19 @@ def main():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             seen = counts()
-            n_q8 = cfg.depth * chunks * (2 if len(qkw) == 2 else 1)
-            n_bf = 2 * cfg.depth * chunks - n_q8
+            # each forward's tier: the students' and the teacher's
             expect = {k: 0 for k in seen}
-            expect.update({"temporal_phase_tm_q8": n_q8, "spatial_mlp_q8": n_q8,
-                           "temporal_phase_tm": n_bf, "spatial_mlp": n_bf})
-            for op in q8_ops:
-                for k, n in fb.Q8_LAUNCHES[op].items():
-                    expect[k] += n * n_q8
+            for quantized, f32_tier in (("student_quant" in qkw, False),
+                                        ("teacher_quant" in qkw, t_dt == f32t)):
+                for op in windowed:
+                    name = (f"{op}_q8" if quantized else op) + ("_f32" if f32_tier else "")
+                    expect[name] += cfg.depth * chunks
+                    for k, n in fb.Q8_LAUNCHES.get(name, {}).items():
+                        expect[k] += n * cfg.depth * chunks
             print(f"  {tag}: launches {seen} (expected {expect}: each windowed op's int8 "
-                  f"tier once a block of each quantized forward, its bf16 tier for the "
-                  f"other, and the int8 tier's kernels per call {fb.Q8_LAUNCHES})",
-                  flush=True)
+                  f"tier (its f32 tier for an f32 teacher) once a block of each quantized "
+                  f"forward, its bf16 tier for the other, and the int8 tier's kernels per "
+                  f"call {fb.Q8_LAUNCHES})", flush=True)
             if seen != expect:
                 fail(f"{tag}: launches {seen}, expected {expect}")
             launches_q8[tag] = seen
@@ -2599,6 +2716,8 @@ def main():
                         got_q, plain_q, f32, LOSS_REL_TOL, plain_name="plain int8")
         for k in q8_ops + ("gemm_s8", "quant_rows", "ln_quant_rows"):
             launches[k] = launches_q8["both int8"][k]
+        for k in q8_ops:
+            launches[f"{k}_f32"] = launches_q8["teacher int8 mixed"][f"{k}_f32"]
         torch.cuda.empty_cache()
         lap("phase 4d")
 
@@ -2867,48 +2986,6 @@ def main():
               f"rank correlation {spearman(h, got['clip0']):.4f} (information "
               "only)", flush=True)
 
-        # the mixed teacher with band_mode: the scorer refuses it (ROADMAP
-        # §3), and the banded teacher pass it would run is held here by the
-        # feature rule of phase 4b: on the 64-frame clip, the CLS rows of
-        # banded_cls_features on an f32 model on the kernels (rows 11 and
-        # 3's f32 tiers) against the f32 banded teacher's (TF32 off) and the
-        # bf16 banded teacher's on the kernels
-        try:
-            scorers_for(torch.bfloat16, "auto", band_mode="both", teacher_dtype=f32t)
-        except NotImplementedError as e:
-            print(f"  band_mode with the mixed teacher: refused ({e})", flush=True)
-        else:
-            fail("band_mode with the mixed teacher did not raise")
-        it0 = items[0]
-        fr0 = torch.from_numpy(it0["frames"]).to(dev)
-        eff0 = min(30, it0["num_frames"])
-        teachers = {"mixed": tsf.build_timesformer(kcfg, sd, device=dev),
-                    "bf16": tsf.build_timesformer(kcfg, sd, device=dev,
-                                                  dtype=torch.bfloat16),
-                    "f32": tsf.build_timesformer(cfg, sd, device=dev)}
-        feats = {}
-        with torch.inference_mode():
-            for k, m in teachers.items():
-                reset_counts()
-                feats[k] = banded.banded_cls_features(m, fr0, it0["num_frames"], eff0)
-                torch.cuda.synchronize()
-                seen = {n: c for n, c in counts().items() if c}
-                print(f"  banded teacher pass, {k}: launches {seen}", flush=True)
-                if k == "mixed" and seen != {n: cfg.depth for n in (
-                        "banded_temporal_attn", "cls_band_attn", "spatial_phase_pf_f32",
-                        "mlp_phase_f32")}:
-                    fail(f"the f32 banded teacher pass launched {seen}")
-        del teachers, fr0
-        e_tm = float((feats["mixed"] - feats["f32"]).abs().mean())
-        e_tb = float((feats["bf16"] - feats["f32"]).abs().mean())
-        print(f"  banded teacher CLS rows ({it0['num_frames']} frames, eff {eff0}) vs the "
-              f"f32 banded teacher, mean abs: f32 model on the kernels {e_tm:.4e}, bf16 "
-              f"teacher {e_tb:.4e} (need f32 < bf16; ratio {e_tm / e_tb:.3f})", flush=True)
-        del feats
-        if not e_tm < e_tb:
-            fail("the f32 banded teacher pass is no closer to the f32 banded teacher "
-                 "than the bf16 one")
-
         # the 600-frame clip once more, its bytes on the wire (packed I420):
         # the wire's gather once per segment (both passes read its views),
         # losses held as phase 4c holds the windowed ones, and the upload
@@ -2958,6 +3035,185 @@ def main():
                   f"{busy:.1f} ms on {card}", flush=True)
         del scorers, sc
         lap("phase 6")
+
+        # -- 6b. banded path, the mixed teacher -------------------------------
+        print("[6b] banded path, the mixed teacher (JAX's band-mt and band-t-mt): "
+              "make_scorers(band_mode='both' / 'teacher', teacher_dtype=f32) + "
+              "run_scoring, bf16 students", flush=True)
+        mixed_band_ops = ("banded_temporal_attn", "cls_band_attn", "spatial_phase_pf",
+                          "spatial_phase_pf_f32", "mlp_phase", "mlp_phase_f32")
+        scorers = scorers_for(torch.bfloat16, "auto", band_mode="both", teacher_dtype=f32t)
+        sc = scorers[0]
+        if not (sc.model_cfg.use_kernels and sc.t_model.pos_embed.dtype == f32t
+                and sc.model.pos_embed.dtype == bf16):
+            fail("band-mt: the scorer did not build an f32 teacher and bf16 students on "
+                 "the kernels")
+        run(scorers, items[1:], "band_mt_warmup")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        band_mt = run(scorers, band_items, "band_mt")
+        torch.cuda.synchronize()
+        band_mt_wall = time.perf_counter() - t0
+        seen = counts()
+        # each pass once a segment: per block, the teacher pass's rows 10,
+        # 11f, 12 and 3f, the student pass's rows 10, 11, 12 and 3
+        half = passes // 2 * cfg.depth
+        want = {k: (2 * half if k in ("banded_temporal_attn", "cls_band_attn")
+                    else half if k in mixed_band_ops else 0) for k in seen}
+        print(f"  band-mt launches {seen} (expected {want}: {passes // 2} teacher and "
+              f"{passes // 2} student passes x {cfg.depth} blocks)", flush=True)
+        if seen != want:
+            fail(f"band-mt launches {seen}, expected {want}")
+        launches_band_mt = {k: seen[k] for k in mixed_band_ops}
+        for it in band_items:
+            key = it["path"][:-4]
+            if len(band_mt.get(key, [])) != it["num_frames"] or not np.all(
+                    np.isfinite(band_mt[key])):
+                fail(f"band-mt {key}: expected {it['num_frames']} finite losses")
+        fps_band_mt = n_band / band_mt_wall
+        print(f"  band-mt frames_per_s={fps_band_mt:.2f} ({n_band} frames, "
+              f"{band_mt_wall:.3f} s) against band's {fps_band:.2f} on {card}", flush=True)
+        # where its time goes beside phase 6's profile: the 600-frame clip
+        checked_profile(f"{long['num_frames']}-frame clip, band-mt", "band-mt",
+                        lambda: sc.score_video(long["frames"], long["local_idx"],
+                                               long["global_idx"], long["eff_global"]),
+                        reset_counts, counts, top=14)
+        # each pass's views in its model's dtype: the teacher's the clip's f32
+        # frames bit for bit, the students' their bf16 rounding (the 64-frame
+        # clip: one segment)
+        views = {}
+        real_pass = sc._band_pass
+
+        def keep_views(frames, t_real, eff, kind):
+            views[kind] = frames
+            return real_pass(frames, t_real, eff, kind)
+
+        sc._band_pass = keep_views
+        it0 = band_items[0]
+        sc.score_video(it0["frames"], it0["local_idx"], it0["global_idx"], it0["eff_global"])
+        sc._band_pass = real_pass
+        want_f32 = torch.from_numpy(it0["frames"]).to(dev)
+        ok_views = (views["teacher"].dtype == f32t and views["student"].dtype == bf16
+                    and torch.equal(views["teacher"], want_f32)
+                    and torch.equal(views["student"], want_f32.to(bf16)))
+        print(f"  band-mt views: teacher {views['teacher'].dtype}, students "
+              f"{views['student'].dtype}; "
+              f"{'the f32 frames and their bf16 rounding' if ok_views else 'DIFFER'}",
+              flush=True)
+        if not ok_views:
+            fail("band-mt: a pass's views are not the clip's frames in its model's dtype")
+        del views, want_f32, scorers, sc
+        # losses against the same scorer with every kernel op through its
+        # twin and the f32 banded path (phase 6), by phase 6's two rules
+        reset_counts()
+        with twins(fb, bb):
+            band_mt_plain = run(scorers_for(torch.bfloat16, "auto", band_mode="both",
+                                            teacher_dtype=f32t), band_items, "band_mt_plain")
+        if any(counts().values()):
+            fail("band-mt: the twins launched a kernel")
+        band_clips = [(it["path"][:-4], it["num_frames"]) for it in band_items]
+        loss_checks("band-mt", band_clips, band_mt, band_mt_plain, band_f32,
+                    BAND_LOSS_REL_TOL, plain_name="plain (twins)")
+        # the teacher's precision. (a) its CLS rows (the scorer's teacher
+        # pass on the 64-frame clip) strictly closer to the f32 banded
+        # teacher's (TF32 off) than the bf16 banded teacher's on the kernels
+        t_rows = {}
+        for tag, dt, kw in (("mixed", bf16, dict(teacher_dtype=f32t)), ("bf16", bf16, {}),
+                            ("f32", f32t, {})):
+            sc = scorers_for(dt, "auto", band_mode="both", **kw)[0]
+            real_pass = sc._band_pass
+
+            def keep_teacher(frames, t_real, eff, kind, _real=real_pass, _tag=tag):
+                out = _real(frames, t_real, eff, kind)
+                if kind == "teacher":
+                    t_rows[_tag] = out[:t_real]
+                return out
+
+            sc._band_pass = keep_teacher
+            sc.score_video(it0["frames"], it0["local_idx"], it0["global_idx"],
+                           it0["eff_global"])
+            del sc
+        e_tm = float((t_rows["mixed"] - t_rows["f32"]).abs().mean())
+        e_tb = float((t_rows["bf16"] - t_rows["f32"]).abs().mean())
+        print(f"  (a) band-mt teacher CLS rows ({it0['num_frames']} frames, eff "
+              f"{it0['eff_global']}) vs the f32 banded teacher's, mean abs: mixed {e_tm:.4e}, "
+              f"bf16 {e_tb:.4e} (need mixed < bf16; ratio {e_tm / e_tb:.3f})", flush=True)
+        del t_rows
+        if not e_tm < e_tb:
+            fail("band-mt: the teacher's CLS rows are no closer to the f32 banded "
+                 "teacher's than the bf16 banded teacher's")
+        # (b) at teacher_temp 0.1 (the random-weight teacher's softmax is
+        # one-hot at 0.02, where a few argmax flips decide any loss rule):
+        # on each clip, mean |loss - f32 banded loss| strictly below band's
+        hot = {tag: run(scorers_for(dt, "auto", band_mode="both", teacher_temp=0.1, **kw),
+                        band_items, f"band_t01_{tag}")
+               for tag, dt, kw in (("mixed", bf16, dict(teacher_dtype=f32t)),
+                                   ("bf16", bf16, {}), ("f32", f32t, {}))}
+        gaps_b = {}
+        for key, _ in band_clips:
+            ref = np.asarray(hot["f32"][key])
+            e_m = float(np.mean(np.abs(np.asarray(hot["mixed"][key]) - ref)))
+            e_b = float(np.mean(np.abs(np.asarray(hot["bf16"][key]) - ref)))
+            e_m02 = float(np.mean(np.abs(np.asarray(band_mt[key]) - band_f32[key])))
+            e_b02 = float(np.mean(np.abs(np.asarray(band_got[key]) - band_f32[key])))
+            gaps_b[key] = (e_m, e_b)
+            print(f"  (b) {key}: mean |loss - f32 banded loss| at teacher_temp 0.1: band-mt "
+                  f"{e_m:.4e}, band {e_b:.4e} (need band-mt < band; ratio {e_m / e_b:.3f}); "
+                  f"at 0.02 (information only): band-mt {e_m02:.4e}, band {e_b02:.4e}",
+                  flush=True)
+        del hot
+        if not all(e_m < e_b for e_m, e_b in gaps_b.values()):
+            fail("band-mt: at teacher_temp 0.1 its losses are no closer to the f32 banded "
+                 "losses than band's on some clip")
+        # band-t-mt on the 64-frame clip: the f32 banded teacher pass, the
+        # exact bf16 windowed students (rows 1 and 2), against its twins and
+        # the f32 hybrid
+        reset_counts()
+        scorers = scorers_for(torch.bfloat16, "auto", band_mode="teacher", teacher_dtype=f32t)
+        band_tmt = run(scorers, items[:1], "band_t_mt")
+        seen = counts()
+        n_chunks = math.ceil(items[0]["num_frames"] / 8)
+        want = {k: (n_chunks if k in windowed else 1 if k in (
+                    "banded_temporal_attn", "cls_band_attn", "spatial_phase_pf_f32",
+                    "mlp_phase_f32") else 0) * cfg.depth for k in seen}
+        print(f"  band-t-mt launches {seen} (expected {want}: one f32 banded teacher "
+              f"pass, {n_chunks} bf16 student chunks)", flush=True)
+        if seen != want:
+            fail(f"band-t-mt launches {seen}, expected {want}")
+        launches_band_tmt = {k: v for k, v in seen.items() if v}
+        reset_counts()
+        with twins(fb, bb):
+            band_tmt_plain = run(scorers, items[:1], "band_t_mt_plain")
+        if any(counts().values()):
+            fail("band-t-mt: the twins launched a kernel")
+        del scorers
+        loss_checks("band-t-mt", band_clips[:1], band_tmt, band_tmt_plain,
+                    run(scorers_for(torch.float32, "auto", band_mode="teacher"), items[:1],
+                        "band_t_f32"), BAND_LOSS_REL_TOL, plain_name="plain (twins)")
+        # banded int8 (JAX's XLA route): the kernel route refuses, the plain
+        # route runs the 40-frame clip
+        try:
+            scorers_for(torch.bfloat16, "auto", band_mode="both", teacher_quant="int8",
+                        student_quant="int8")
+        except NotImplementedError as e:
+            print(f"  banded int8 on the kernel route: refused ({str(e)[:160]})", flush=True)
+        else:
+            fail("banded int8 on the kernel route did not raise")
+        reset_counts()
+        t0 = time.perf_counter()
+        band_q8 = run(scorers_for(torch.bfloat16, False, band_mode="both", teacher_quant="int8",
+                                  student_quant="int8"), items[1:2], "band_int8_plain")
+        wall_q8 = time.perf_counter() - t0
+        key1 = items[1]["path"][:-4]
+        lq = np.asarray(band_q8.get(key1, []))
+        if len(lq) != items[1]["num_frames"] or not np.all(np.isfinite(lq)) or any(
+                counts().values()):
+            fail("banded int8 (plain route): losses missing, non-finite, or a kernel launched")
+        print(f"  banded int8 (both, plain route) {key1}: mean loss {lq.mean():.4f} beside "
+              f"band's {np.mean(band_got[key1]):.4f} (f32 banded {np.mean(band_f32[key1]):.4f});"
+              f" {items[1]['num_frames'] / wall_q8:.2f} frames/s (information only)", flush=True)
+        lap("phase 6b")
 
     # -- 7. DINO SSL train step, bf16 kernel route ---------------------------------
     from dino_video_summarization_transformer_tpu_torch.train import ssl
@@ -3655,6 +3911,10 @@ def main():
         # product of _q8_rows
         "temporal_phase_tm_q8": ("fused_block.cu", "ops/fused_block.py:761"),
         "spatial_mlp_q8": ("fused_block.cu", "ops/fused_block.py:1556"),
+        # their f32 tier (rows 1qf and 2qf: the int8 teacher under the mixed
+        # teacher)
+        "temporal_phase_tm_q8_f32": ("fused_block.cu", "ops/fused_block.py:761"),
+        "spatial_mlp_q8_f32": ("fused_block.cu", "ops/fused_block.py:1556"),
         "gemm_s8": ("wgmma_gemm.cuh", "ops/fused_block.py:1481"),
         "quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
         "ln_quant_rows": ("dvst_common.cuh", "ops/fused_block.py:1481"),
@@ -3665,7 +3925,17 @@ def main():
         "spatial_phase_bwd_f32": ("fused_block_bwd.cu", "ops/fused_block.py:430"),
         "mlp_phase_bwd_f32": ("fused_block_bwd.cu", "ops/fused_block.py:1233"),
         "mlp_phase_f32": ("fused_block.cu", "ops/fused_block.py:1191"),
+        # the banded mixed teacher's row 11f (phase 6b; row 3f above)
+        "spatial_phase_pf_f32": ("banded_block.cu", "ops/banded_block.py:174"),
     }
+    # rows 3f and 11f on band-mt's teacher passes (the 512-frame bucket),
+    # row 3f at the mixed train step's crops beside them
+    mlp_f32_crops = stats["mlp_phase_f32"]
+    stats["mlp_phase_f32"] = [band_f32_rows["mlp_phase_f32"]]
+    stats["spatial_phase_pf_f32"] = [band_f32_rows["spatial_phase_pf_f32"]]
+    launches["mlp_phase_f32_train_step"] = launches["mlp_phase_f32"]
+    for name in ("mlp_phase_f32", "spatial_phase_pf_f32"):
+        launches[name] = launches_band_mt[name]
     for name in ("attn_phase", "temporal_phase"):
         launches[name] = launches[f"{name}_per_phase"]
     for name, rows in stats.items():
@@ -3689,6 +3959,9 @@ def main():
         elif name == "mlp_phase_bwd_f32":
             extra = {"launches_by_rows": launches["mlp_phase_bwd_f32_by_rows"],
                      "per_cls_call": mixed_cls_calls}
+        elif name == "mlp_phase_f32":
+            extra = {"launches_mixed_train_step": launches["mlp_phase_f32_train_step"],
+                     "per_crop": mlp_f32_crops}
         elif name == "temporal_phase_tm_f32":
             # the count is the mixed teacher's (phase 4b); the mixed train
             # step's too (phase 7b)
@@ -3705,9 +3978,14 @@ def main():
                      "optin_bytes": rows[0]["optin_bytes"]}
         elif name in ("temporal_phase_tm_q8", "spatial_mlp_q8", "gemm_s8", "quant_rows",
                       "ln_quant_rows"):
-            # the count is the both-int8 run's; the two one-sided runs' too
+            # the count is the both-int8 run's; the two one-sided runs' and
+            # the int8 teacher under the mixed teacher's too
             extra = {"launches_student_int8": launches_q8["student int8"][name],
-                     "launches_teacher_int8": launches_q8["teacher int8"][name]}
+                     "launches_teacher_int8": launches_q8["teacher int8"][name],
+                     "launches_teacher_int8_mixed": launches_q8["teacher int8 mixed"][name]}
+        if name in launches_band_mt:  # rows 10, 11(f), 12 and 3(f) on band-mt / band-t-mt
+            extra["launches_band_mt"] = launches_band_mt[name]
+            extra["launches_band_t_mt"] = launches_band_tmt.get(name, 0)
         if name in blocks:  # rows 1-3, 6, 8, 9 and 11: their blocks alone
             extra["blocks"] = blocks[name]
         # phase 4e's launches of the op by configuration, and rows 1 and 2

@@ -15,8 +15,8 @@ students against banded teacher rows; in bf16 on the card both run the
 banded Hopper kernels. ``--teacher_precision float32`` runs the teacher
 forward in f32 while the students keep ``--precision`` (the mixed teacher,
 ``teacher_dtype=torch.float32``: with ``--precision bfloat16`` on the card,
-through the kernels' f32 tiers; exact windows only, so with ``--band`` it
-raises NotImplementedError). ``--wire_format yuv420`` decodes straight to
+through the kernels' f32 tiers, on exact windows and with ``--band``).
+``--wire_format yuv420`` decodes straight to
 packed I420 (the codec's planar 4:2:0, half the bytes of RGB) and the card
 unpacks, colour-converts and normalizes the frames in its view gathers
 (``ops/wire.py``); ``yuv420q`` further box-averages the chroma to 1/8
@@ -24,9 +24,11 @@ resolution per axis (experimental); ``rgb8`` (the default) ships
 normalized floats as before. ``--teacher_quant int8`` / ``--student_quant
 int8`` quantize the teacher's / the students' dense block weights (W8A8,
 ``ops/quant.py``; in bf16 on the card the int8 tier of the whole-block
-kernels, s8 wgmma GEMMs); exact windows only, so with ``--band`` they
-raise NotImplementedError, as ``--teacher_quant`` does with
-``--teacher_precision float32``. The approximation flags are the JAX CLI's
+kernels, s8 wgmma GEMMs; with ``--teacher_precision float32`` the int8
+teacher takes their f32 tier). With ``--band`` they run on the plain route
+only (``--precision float32`` or ``--device cpu``), as JAX runs banded int8
+on its XLA route only: in bfloat16 on the card they raise
+NotImplementedError. The approximation flags are the JAX CLI's
 (``--global_subsample``, ``--teacher_stride``, ``--teacher_interp``,
 ``--teacher_adaptive``, ``--teacher_refine``, ``--score_stride``,
 ``--score_refine``; ``engine/scoring.py``): e.g. JAX's default bench mode
@@ -80,8 +82,7 @@ def get_args_parser():
                    choices=["same", "float32"],
                    help="float32 runs the teacher forward with f32 "
                         "activations while the students keep --precision "
-                        "(the mixed teacher; exact windows only, not with "
-                        "--band)")
+                        "(the mixed teacher; exact windows and --band)")
     p.add_argument("--teacher_adaptive", default=0.0, type=float)
     p.add_argument("--teacher_refine", default=0.0, type=float)
     p.add_argument("--score_stride", default=1, type=int)
@@ -108,17 +109,17 @@ def get_args_parser():
 
 
 def check_unported(cli) -> None:
-    """The int8 tiers' combinations the scorer refuses, before any
-    loading."""
-    if cli.band != "none" and "int8" in (cli.teacher_quant, cli.student_quant):
+    """The combination the scorer refuses, before any loading: ``--band``
+    with an int8 tier where the scorer takes the kernel route
+    (``--precision bfloat16`` on a card); on ``--device cpu`` or in f32 it
+    runs on the plain route, as in JAX."""
+    if (cli.band != "none" and "int8" in (cli.teacher_quant, cli.student_quant)
+            and cli.precision == "bfloat16" and cli.device != "cpu"):
+        from .models.banded import BANDED_INT8_KERNELS
+
         raise NotImplementedError(
-            "--band with an int8 tier: not ported to the CUDA package yet "
-            "(ROADMAP queue 1 item 4a: banded int8)")
-    if cli.teacher_quant == "int8" and cli.teacher_precision == "float32":
-        raise NotImplementedError(
-            "--teacher_quant int8 with --teacher_precision float32: not ported "
-            "to the CUDA package yet (ROADMAP queue 1 item 4b: teacher_quant "
-            "with the mixed teacher)")
+            f"--band with an int8 tier in bfloat16 on the card: {BANDED_INT8_KERNELS}; "
+            "score it with --precision float32 or --device cpu")
 
 
 def dino_similarity(cli, local_clip_size, global_clip_size, sampling_rate,

@@ -34,7 +34,9 @@ each frame once per pass instead of once per overlapping window: "both"
 runs a banded teacher pass (band = global window) and a banded student pass
 (band = local window) per segment of up to ``band_chunk`` frames; "teacher"
 keeps the exact windowed students and takes its teacher rows from the
-banded teacher pass. It composes with none of the knobs above.
+banded teacher pass. It composes with none of the knobs above. With the
+mixed teacher each pass gathers the segment's frames in its own model's
+dtype (f32 views for the f32 teacher pass, bf16 for the student pass).
 
 Numerics: f32 (``precision="highest"``, TF32 off) is the reference-compat
 tier and reproduces the JAX package's f32 golden scores; bf16 is the
@@ -44,9 +46,10 @@ paths, the banded kernels and the MLP-phase kernel on the banded path. f32
 with ``use_kernels=True`` (JAX's ``use_pallas=True`` at f32) runs students
 and teacher through the whole-block pair's f32 tier: f32 activations and
 block boundaries, bf16 matmul operands. The mixed teacher
-(``teacher_dtype=torch.float32`` with bf16 students, not banded) runs the
-teacher forward on its own f32 model, built from the original weights,
-through the same f32 tier on the card.
+(``teacher_dtype=torch.float32`` with bf16 students) runs the teacher
+forward on its own f32 model, built from the original weights, through
+the same f32 tier on the card (on the banded path: the f32 tiers of the
+banded spatial phase and the grid MLP).
 
 Frames reach the card in one of four forms (JAX ``_make_buffer`` and
 ``_gather_views``): normalized floats (uploaded in the teacher's dtype),
@@ -60,8 +63,10 @@ The int8 tiers (``teacher_quant`` / ``student_quant``, JAX
 ``ScorerConfig``'s) quantize the teacher's or the students' dense block
 weights (W8A8, ``ops/quant.py``) from the original state dict; in bf16 on
 the card the quantized forwards run the int8 tier of the whole-block pair
-(s8 wgmma GEMMs), on the plain path ``quant.int8_linear``. Not banded, and
-``teacher_quant`` not with the mixed teacher.
+(s8 wgmma GEMMs; the int8 teacher under the mixed teacher its f32 tier),
+on the plain path ``quant.int8_linear``. Banded int8 runs on the plain
+path only (JAX's XLA route): the kernel route refuses it, as JAX's Pallas
+banded route does.
 """
 
 from __future__ import annotations
@@ -118,16 +123,17 @@ class ScorerConfig:
       frames, and on the card through the kernels' f32 tiers (bf16 matmul
       operands, f32 LN weights, f32 carries); the students stay bf16. At
       teacher_temp 0.02 the teacher softmax is the score's sharpest noise
-      amplifier, so teacher precision buys score fidelity. Not banded: with
-      ``band_mode`` it raises NotImplementedError.
+      amplifier, so teacher precision buys score fidelity. With
+      ``band_mode`` the teacher pass runs on the f32 model and f32 views.
     teacher_quant, student_quant: None or "int8": the teacher's, or the
       students', seven dense layers of every block quantized to int8 (W8A8
       dynamic PTQ, ``ops/quant.py``: per-channel weights quantized once
       from the ORIGINAL state dict, per-row activations), as JAX's. With
-      both, teacher and students share one quantized model. Not banded
-      (with ``band_mode`` they raise NotImplementedError), and
-      ``teacher_quant`` not with the mixed teacher; ``student_quant`` with
-      it is allowed.
+      both, teacher and students share one quantized model. With the
+      mixed teacher, ``teacher_quant`` quantizes the f32 teacher (the int8
+      tier's f32 block boundary on the kernels). With ``band_mode`` they run
+      on the plain route only (``use_kernels=False``, or "auto" off the
+      card's bf16 tier): the kernel route raises NotImplementedError.
     wire_format: how 3-D uint8 frames (T, rows, W) are read: "yuv420", the
       codec's packed I420 planes (default), or "yuv420q", I420 with
       eighth-resolution chroma (experimental: 16-27% relative score error
@@ -285,20 +291,11 @@ class FrameScorer:
             if getattr(config, name) not in (None, "int8"):
                 raise ValueError(f"{name}={getattr(config, name)!r}: None or 'int8'")
         self.teacher_quant, self.student_quant = config.teacher_quant, config.student_quant
-        if self.band_mode is not None and (self.teacher_quant or self.student_quant):
+        if (self.band_mode is not None and use
+                and (self.teacher_quant or self.student_quant)):
             raise NotImplementedError(
-                "band_mode with teacher_quant or student_quant: banded int8 is "
-                "not ported (ROADMAP queue 1 item 4a); score exact windows")
-        if self.teacher_quant and t_dtype != self.compute_dtype:
-            raise NotImplementedError(
-                "teacher_quant with the mixed teacher (teacher_dtype=float32) is "
-                "not ported (ROADMAP queue 1 item 4b): no JAX bench mode runs it")
-        if self.band_mode is not None and t_dtype != self.compute_dtype:
-            raise NotImplementedError(
-                "band_mode with the mixed teacher is not ported: on the card "
-                "its losses sat further from the f32 losses than the bf16 "
-                "kernel path's on one clip (ROADMAP §3); score exact windows "
-                "(band_mode=None) with the mixed teacher")
+                f"band_mode with an int8 option on the kernel route: "
+                f"{banded.BANDED_INT8_KERNELS}; pass use_kernels=False")
         if self.band_mode is not None:
             if config.band_halo < self.global_size // 2:
                 raise ValueError(
@@ -490,8 +487,8 @@ class FrameScorer:
     @torch.inference_mode()
     def _band_pass(self, frames: torch.Tensor, t_real: int, eff: int,
                    kind: str) -> torch.Tensor:
-        """(Cb, D) f32 CLS rows of one banded pass over gathered frames
-        (the teacher's model for the teacher pass)."""
+        """(Cb, D) f32 CLS rows of one banded pass over frames gathered in
+        its model's dtype (the teacher's model for the teacher pass)."""
         Cb = frames.shape[0]
         self.stats[f"band_{kind}_frames"] += Cb
         self.stats["band_flops"] += banded_pass_flops(
@@ -514,12 +511,14 @@ class FrameScorer:
             Lw = w1 - w0
             Cb = self._band_bucket(Lw)
             # padding rows repeat the segment's last frame; their rows drop.
-            # Both passes read these views (the teacher's dtype is the
-            # students' on the banded path)
-            fr = self._gather(buf, np.minimum(w0 + np.arange(Cb), w1 - 1),
-                              self.teacher_dtype)
+            # Each pass reads the views in its model's dtype: one gather
+            # for both where the dtypes agree, two under the mixed teacher
+            idx = np.minimum(w0 + np.arange(Cb), w1 - 1)
+            fr = self._gather(buf, idx, self.teacher_dtype)
             t_rows = self._band_pass(fr, Lw, eff_global, "teacher")
             if self.band_mode == "both":
+                if self.compute_dtype != self.teacher_dtype:
+                    fr = self._gather(buf, idx, self.compute_dtype)
                 s_rows = self._band_pass(fr, Lw, self.local_size, "student")
                 outs.append((self._loss(s_rows, t_rows)[e0 - w0:e1 - w0],
                              e1 - e0))

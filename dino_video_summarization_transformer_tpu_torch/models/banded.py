@@ -19,7 +19,10 @@ constant, the banded pass reproduces the windowed forward for every frame.
 Two routes, chosen by the model's ``TimeSformerConfig.use_kernels``:
 
 * plain: the slab-blocked masked attention of the JAX XLA path, in the
-  module's dtype (f32 is the reference-compat tier);
+  module's dtype (f32 is the reference-compat tier); a quantized model's
+  dense layers run ``quant.int8_linear`` (``QuantLinear``), JAX's XLA
+  route on ``qkernel`` weights (banded int8; the kernel route refuses a
+  quantized model, as JAX's Pallas banded route does);
 * kernels: ``ops/banded_block.py`` for the temporal attention, the
   per-frame-CLS spatial phase and the CLS window aggregation, and
   ``ops/fused_block.mlp_phase`` for the grid MLP; the CLS rows' MLP and
@@ -42,7 +45,16 @@ from ..ops import fused_block as fb
 from ..ops.banded_block import band_starts
 from .timesformer import interp_nearest_1d, layer_norm, resize_pos_embed
 
-__all__ = ["band_starts", "banded_block", "banded_cls_features"]
+__all__ = ["BANDED_INT8_KERNELS", "band_starts", "banded_block", "banded_cls_features"]
+
+# A quantized model's banded pass runs on the plain route only, as in the
+# JAX package, where ``linear()`` consumes the quantized layers (its XLA
+# route) and the Pallas banded route reads float kernels only.
+BANDED_INT8_KERNELS = (
+    "banded passes on a quantized model run on the plain route only "
+    "(use_kernels=False): the JAX package's Pallas banded route has no int8 "
+    "tier (its ops/banded_block.py:249,253 raise KeyError: 'kernel' on a "
+    "quantized layer), so neither has the port's")
 
 
 def _band_mask(lo_b: torch.Tensor, s0: int, S: int, eff: int) -> torch.Tensor:
@@ -207,11 +219,9 @@ def banded_cls_features(model, frames: torch.Tensor, t_real: int, eff: int,
     they never reach a valid row); ``eff``: the window length (the local
     size for the student pass, min(global size, T) for the teacher).
     Returns (C, D) float32."""
-    if model.quantized:
-        raise NotImplementedError(
-            "banded passes on a quantized model: banded int8 is not ported "
-            "(ROADMAP queue 1 item 4a)")
     cfg = model.cfg
+    if model.quantized and cfg.use_kernels:
+        raise NotImplementedError(BANDED_INT8_KERNELS)
     C, _, Wimg, _ = frames.shape
     D = cfg.embed_dim
     dtype = model.pos_embed.dtype

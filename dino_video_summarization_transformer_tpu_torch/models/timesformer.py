@@ -42,8 +42,10 @@ quantized model (``build_timesformer``): each block's seven dense layers
 are ``QuantLinear`` (s8 codes, f32 scales and bias, no float copy), which
 run ``ops/quant.int8_linear`` on the plain route (JAX ``linear`` on a
 ``qkernel`` tree) and the int8 tier of the whole-block pair on the kernel
-route; the per-phase dispatch is float-only there and raises, as does
-training.
+route, in the model's dtype: bf16, or f32 (the int8 teacher under the mixed
+teacher: the int8 tier's f32 block boundary, f32 x and CLS row in, f32
+grid out); the per-phase dispatch is float-only there and raises, as do
+training and the banded kernel route (``models/banded.py``).
 
 Training (``TimeSformer.forward_train``) keeps the parameters in f32 and
 takes an explicit compute dtype, casting where the JAX package casts: the

@@ -78,13 +78,13 @@ _SIGNATURES = {
         # A, W, bias, res, out | M | N, K, epilogue | stream
         "dvst_gemm": [_p] * 5 + [_l] + [_i] * 3 + [_p],
         # the int8 tier: x, 11 weights and scales, workspace, out | B, T,
-        # N, D, H | stream
-        "dvst_temporal_phase_tm_q8": [_p] * 14 + [_i] * 5 + [_p],
+        # N, D, H, x_f32 | stream
+        "dvst_temporal_phase_tm_q8": [_p] * 14 + [_i] * 6 + [_p],
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_temporal_phase_tm_q8_ws": [_i] * 4,
         # x1, cls, 16 weights and scales, workspace, out, cls_rows | B, T,
-        # N, D, H, Dh | stream
-        "dvst_spatial_mlp_q8": [_p] * 21 + [_i] * 6 + [_p],
+        # N, D, H, Dh, f32 | stream
+        "dvst_spatial_mlp_q8": [_p] * 21 + [_i] * 7 + [_p],
         # its workspace bytes (returns long) | B, T, N, D, Dh
         "dvst_spatial_mlp_q8_ws": [_i] * 5,
         # A, sx, W, sw, bias, res, out | M | N, K, epilogue | stream

@@ -26,7 +26,12 @@
 //       refs at :765-769, wrapper :911-921; _q8_rows :1481): bf16 x ->
 //       f32 x + fc(proj(MHSA over T(LN x))) with s8 weights and per-row
 //       s8 activations, as JAX's _dense_rows runs every product of the
-//       tier (:1496); the attention stays bf16
+//       tier (:1496); the attention stays bf16. Its f32 tier (x_f32, row
+//       1qf: the int8 teacher under the mixed teacher, whose block
+//       boundary is f32): f32 x -> f32 x + fc, the LN + quantize reading
+//       the f32 rows (ln_quant_kernel<float>, fused_block.py:780-784 casts
+//       any x to f32 before LN) and fc's dequantizing epilogue adding the
+//       f32 residual unrounded (kEpiResF32F32), as row 1f's does
 //       launches: LN+quant -> s8 GEMM qkv -> attention -> quant ->
 //       s8 GEMM proj -> quant -> s8 GEMM fc+res
 //       (ln_quant_kernel, wg_gemm_s8, tc_strided_attn, quant_rows_kernel)
@@ -66,7 +71,12 @@
 //       just before it: the LN rows of the grid and of the CLS rows, the
 //       attention outputs (grid and per-frame CLS), the post-spatial LN
 //       rows and the 3072-wide hidden rows before fc2 (_mhsa_rows :1505,
-//       _mlp_rows :1538); the CLS row bf16, the grid out bf16
+//       _mlp_rows :1538); the CLS row bf16, the grid out bf16, or (f32,
+//       row 2qf: the int8 teacher under the mixed teacher) an f32 CLS row,
+//       its LN + quantize on the f32 row (ln_quant_kernel<float>,
+//       :1688-1690), and an f32 grid out = x2 + MLP unrounded (fc2's
+//       dequantizing epilogue kEpiResF32F32 in place of kEpiResF32Bf16,
+//       :1684-1686)
 //       launches: LN+quant grid, LN+quant cls -> s8 GEMM qkv grid, qkv
 //       cls -> attention -> quant, s8 GEMM proj+res grid -> quant, s8
 //       GEMM proj cls -> LN+quant -> s8 GEMM fc1+GELU -> quant -> s8
@@ -326,9 +336,9 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
   return wg_gemm<kEpiResBf16F32>(w.buf1, fc_w, fc_b, x_, out, M, D, D, st);
 }
 
-// The int8 tier: x (B,T,N,D) bf16 -> out (B,T,N,D) f32, with s8 weights
-// (out, in) and their f32 scales. ws: the bytes
-// dvst_temporal_phase_tm_q8_ws gives.
+// The int8 tier: x (B,T,N,D) bf16 or (x_f32) f32 -> out (B,T,N,D) f32 =
+// x + fc, with s8 weights (out, in) and their f32 scales. ws: the bytes
+// dvst_temporal_phase_tm_q8_ws gives (the same layout for either x).
 long dvst_temporal_phase_tm_q8_ws(int B, int T, int N, int D) {
   return (long)temporal_q8_ws(nullptr, (long)B * T * N, D).bytes;
 }
@@ -337,14 +347,22 @@ int dvst_temporal_phase_tm_q8(const void* x_, const void* ln_w, const void* ln_b
                               const void* qkv_w, const void* qkv_s, const void* qkv_b,
                               const void* proj_w, const void* proj_s, const void* proj_b,
                               const void* fc_w, const void* fc_s, const void* fc_b, void* ws,
-                              void* out, int B, int T, int N, int D, int H, void* stream) {
+                              void* out, int B, int T, int N, int D, int H, int x_f32,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const TemporalQ8Ws w = temporal_q8_ws(static_cast<char*>(ws), M, D);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
-  if ((e = ln_quant_launch<bf16>(static_cast<const bf16*>(x_), static_cast<const float*>(ln_w),
-                                 static_cast<const float*>(ln_b), w.q, w.sx, M, D, st)))
-    return e;
+  // LN reads x in its own dtype: the f32 tier's rows are never rounded
+  // before their statistics (the LN output is rounded to bf16, then
+  // quantized, in both tiers)
+  if (x_f32)
+    e = ln_quant_launch<float>(static_cast<const float*>(x_), lw, lb, w.q, w.sx, M, D, st);
+  else
+    e = ln_quant_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.q, w.sx, M, D, st);
+  if (e) return e;
   if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, qkv_w, qkv_s, qkv_b, nullptr, w.qkv, M, 3 * D, D,
                                 st)))
     return e;
@@ -355,6 +373,8 @@ int dvst_temporal_phase_tm_q8(const void* x_, const void* ln_w, const void* ln_b
   if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, proj_w, proj_s, proj_b, nullptr, w.a, M, D, D, st)))
     return e;
   if ((e = quant_rows_launch(w.a, w.q, w.sx, M, D, st))) return e;
+  if (x_f32)  // the f32 tier: x + fc in f32, nothing rounded
+    return wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, fc_w, fc_s, fc_b, x_, out, M, D, D, st);
   return wg_gemm_s8<kEpiResBf16F32>(w.q, w.sx, fc_w, fc_s, fc_b, x_, out, M, D, D, st);
 }
 
@@ -456,8 +476,9 @@ int dvst_spatial_mlp(const void* x1_, const void* cls_, const void* ln1_w,
 }
 
 // The int8 tier: x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16,
-// cls_rows (B,T,D) f32, with s8 weights (out, in) and their f32 scales.
-// ws: the bytes dvst_spatial_mlp_q8_ws gives.
+// or (f32) cls f32 -> out f32; cls_rows (B,T,D) f32, with s8 weights (out,
+// in) and their f32 scales. ws: the bytes dvst_spatial_mlp_q8_ws gives
+// (the same layout for either tier).
 long dvst_spatial_mlp_q8_ws(int B, int T, int N, int D, int Dh) {
   return (long)spatial_mlp_q8_ws(nullptr, B, T, N, D, Dh).bytes;
 }
@@ -469,7 +490,7 @@ int dvst_spatial_mlp_q8(const void* x1_, const void* cls_, const void* ln1_w,
                         const void* fc1_w, const void* fc1_s, const void* fc1_b,
                         const void* fc2_w, const void* fc2_s, const void* fc2_b, void* ws,
                         void* out, void* cls_rows, int B, int T, int N, int D, int H, int Dh,
-                        void* stream) {
+                        int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
   const float* x1 = static_cast<const float*>(x1_);
@@ -478,9 +499,14 @@ int dvst_spatial_mlp_q8(const void* x1_, const void* cls_, const void* ln1_w,
   const float* l1b = static_cast<const float*>(ln1_b);
   cudaError_t e;
   if ((e = ln_quant_launch<float>(x1, l1w, l1b, w.q, w.sx, M, D, st))) return e;
-  if ((e = ln_quant_launch<bf16>(static_cast<const bf16*>(cls_), l1w, l1b, w.q_cls, w.sx_cls, B,
-                                 D, st)))
-    return e;
+  // the CLS row's LN reads it in its own dtype (f32 in the f32 tier)
+  if (f32)
+    e = ln_quant_launch<float>(static_cast<const float*>(cls_), l1w, l1b, w.q_cls, w.sx_cls, B,
+                               D, st);
+  else
+    e = ln_quant_launch<bf16>(static_cast<const bf16*>(cls_), l1w, l1b, w.q_cls, w.sx_cls, B,
+                              D, st);
+  if (e) return e;
   if ((e = wg_gemm_s8<kEpiBf16>(w.q, w.sx, qkv_w, qkv_s, qkv_b, nullptr, w.qkv, M, 3 * D, D,
                                 st)))
     return e;
@@ -506,6 +532,8 @@ int dvst_spatial_mlp_q8(const void* x1_, const void* cls_, const void* ln1_w,
                                     st)))
     return e;
   if ((e = quant_rows_launch(w.hid, w.q, w.sx, M, Dh, st))) return e;
+  if (f32)  // the f32 tier's grid: x2 + MLP in f32
+    return wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);
   return wg_gemm_s8<kEpiResF32Bf16>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);
 }
 

@@ -25,7 +25,10 @@ tier of the same kernels): ``temporal_phase_tm`` then reads f32 x and
   grid MLP (``models/banded.py``) and the training path's MLP phase.
 
 Both ops also have an int8 tier (W8A8, the JAX package's ``ops/quant.py``
-scheme on its whole-block kernels' int8 refs), picked by the weights' dtype:
+scheme on its whole-block kernels' int8 refs), picked by the weights' dtype,
+with a bf16 and an f32 block boundary (the int8 teacher under the mixed
+teacher: f32 x into ``temporal_phase_tm``, an f32 CLS row into
+``spatial_mlp`` and an f32 grid out; launch counters ``*_q8_f32``):
 ``block_params`` of a block whose dense layers are quantized
 (``models.timesformer.QuantLinear``) carries s8 (out, in) codes and their
 f32 scales (``*_s``), and every product runs as s8 x s8 -> s32 on rows
@@ -144,18 +147,22 @@ launches: Dict[str, int] = {
     "gemm_dw": 0, "gemm_gelu_grad": 0, "temporal_attention_bwd": 0,
     "layer_norm_bwd": 0, "temporal_phase_tm_q8": 0, "spatial_mlp_q8": 0,
     "gemm_s8": 0, "quant_rows": 0, "ln_quant_rows": 0,
+    # the int8 tier's f32 tier (the int8 teacher under the mixed teacher)
+    "temporal_phase_tm_q8_f32": 0, "spatial_mlp_q8_f32": 0,
     # the f32 tiers of the trainer's mixed tier
     "spatial_phase_f32": 0, "temporal_phase_tm_bwd_f32": 0, "spatial_phase_bwd_f32": 0,
     "mlp_phase_bwd_f32": 0, "layer_norm_bwd_f32": 0}
 
 # The int8 tier's launches of its three kernels per call of rows 1 and 2
-# (the LN + quantize, the row quantize, the s8 GEMM): each op's wrapper adds
-# them to those kernels' counters, so the counters count every launch of
-# the three kernels, alone or inside the ops.
+# (the LN + quantize, the row quantize, the s8 GEMM), in either of its
+# tiers: each op's wrapper adds them to those kernels' counters, so the
+# counters count every launch of the three kernels, alone or inside the
+# ops.
 Q8_LAUNCHES = {
     "temporal_phase_tm_q8": {"ln_quant_rows": 1, "quant_rows": 2, "gemm_s8": 3},
     "spatial_mlp_q8": {"ln_quant_rows": 3, "quant_rows": 3, "gemm_s8": 6},
 }
+Q8_LAUNCHES.update({f"{op}_f32": n for op, n in Q8_LAUNCHES.items()})
 
 # The wgmma GEMM's epilogues (csrc: dvst_common.cuh's Epi): name -> (code,
 # the residual's dtype or None, the output's dtype).
@@ -343,7 +350,8 @@ def gemm_s8_plain(a_q: torch.Tensor, sx: torch.Tensor, w_q: torch.Tensor,
 
 
 def _temporal_phase_tm_q8_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
-    """Row 1's int8 tier in torch: the chain of its blocks' twins."""
+    """Row 1's int8 tier in torch: the chain of its blocks' twins; bf16 x
+    (row 1q) or f32 x (row 1qf: LN on the f32 rows, the f32 residual)."""
     B, T, N, D = x.shape
     M = B * T * N
     q, sx = ln_quant_rows_plain(x.reshape(M, D), p["ln_w"], p["ln_b"])
@@ -352,7 +360,8 @@ def _temporal_phase_tm_q8_plain(x: torch.Tensor, p: dict, num_heads: int) -> tor
     q, sx = quant_rows_plain(a.reshape(M, D))
     proj = gemm_s8_plain(q, sx, p["proj_w"], p["proj_s"], p["proj_b"], "bf16")
     q, sx = quant_rows_plain(proj)
-    out = gemm_s8_plain(q, sx, p["fc_w"], p["fc_s"], p["fc_b"], "res_bf16_f32",
+    out = gemm_s8_plain(q, sx, p["fc_w"], p["fc_s"], p["fc_b"],
+                        "res_f32_f32" if x.dtype == torch.float32 else "res_bf16_f32",
                         x.reshape(M, D))
     return out.reshape(B, T, N, D)
 
@@ -388,7 +397,8 @@ def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
 
 def _spatial_mlp_q8_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
                           num_heads: int):
-    """Row 2's int8 tier in torch: the chain of its blocks' twins."""
+    """Row 2's int8 tier in torch: the chain of its blocks' twins; a bf16
+    CLS row and grid out (row 2q), or f32 ones (row 2qf)."""
     B, T, N, D = x1.shape
     M = B * T * N
     x1r = x1.reshape(M, D)
@@ -404,7 +414,8 @@ def _spatial_mlp_q8_plain(x1: torch.Tensor, cls: torch.Tensor, p: dict,
     q, sx = ln_quant_rows_plain(x2, p["ln2_w"], p["ln2_b"])
     hid = gemm_s8_plain(q, sx, p["fc1_w"], p["fc1_s"], p["fc1_b"], "gelu_bf16")
     q, sx = quant_rows_plain(hid)
-    out = gemm_s8_plain(q, sx, p["fc2_w"], p["fc2_s"], p["fc2_b"], "res_f32_bf16", x2)
+    out = gemm_s8_plain(q, sx, p["fc2_w"], p["fc2_s"], p["fc2_b"],
+                        "res_f32_f32" if cls.dtype == torch.float32 else "res_f32_bf16", x2)
     return out.reshape(B, T, N, D), cls_rows.reshape(B, T, D)
 
 
@@ -886,10 +897,12 @@ def spatial_mlp_ws(B: int, T: int, N: int, D: int, Dh: int, lib=None) -> int:
 
 
 def temporal_phase_tm_q8_ws(B: int, T: int, N: int, D: int, lib=None) -> int:
-    """Workspace bytes of ``temporal_phase_tm``'s int8 tier: ``lib``'s
-    ``dvst_temporal_phase_tm_q8_ws`` where given, else its mirror here
-    (fused_block.cu's temporal_q8_ws: the s8 codes and f32 scales of the
-    rows being quantized, qkv and the attention output, bf16)."""
+    """Workspace bytes of ``temporal_phase_tm``'s int8 tier (rows 1q and
+    1qf alike: x is read in place, so its dtype leaves the layout as it
+    is): ``lib``'s ``dvst_temporal_phase_tm_q8_ws`` where given, else its
+    mirror here (fused_block.cu's temporal_q8_ws: the s8 codes and f32
+    scales of the rows being quantized, qkv and the attention output,
+    bf16)."""
     if lib is not None:
         return lib.dvst_temporal_phase_tm_q8_ws(B, T, N, D)
     M = B * T * N
@@ -897,8 +910,9 @@ def temporal_phase_tm_q8_ws(B: int, T: int, N: int, D: int, lib=None) -> int:
 
 
 def spatial_mlp_q8_ws(B: int, T: int, N: int, D: int, Dh: int, lib=None) -> int:
-    """Workspace bytes of ``spatial_mlp``'s int8 tier: ``lib``'s
-    ``dvst_spatial_mlp_q8_ws`` where given, else its mirror here
+    """Workspace bytes of ``spatial_mlp``'s int8 tier (rows 2q and 2qf
+    alike: the CLS row is read in place, the grid written to ``out``):
+    ``lib``'s ``dvst_spatial_mlp_q8_ws`` where given, else its mirror here
     (fused_block.cu's spatial_mlp_q8_ws: the grid rows' codes (up to Dh
     wide) and scales, qkv, attention output and hidden rows; the CLS rows'
     codes and scales, qkv and per-frame attention outputs; the f32 carry
@@ -1168,8 +1182,10 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     out (the whole-block tier's carry) or bf16 out (the per-phase tier,
     bf16(x + bf16(fc))); f32 x with f32 out (the mixed teacher's block
     boundary: LN on the f32 rows, the residual added in f32). With s8
-    weights (``block_params`` of a quantized block) the int8 tier: bf16 x,
-    f32 out. Kernel on CUDA, plain twin on CPU."""
+    weights (``block_params`` of a quantized block) the int8 tier, f32 out:
+    bf16 x, or f32 x (its f32 tier, the int8 teacher under the mixed
+    teacher: LN on the f32 rows, the f32 residual). Kernel on CUDA, plain
+    twin on CPU."""
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -1180,8 +1196,8 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     if x_f32 and out_dtype != torch.float32:
         raise TypeError("x: f32 rows are the mixed tier, which writes f32")
     q8 = is_q8(p)
-    if q8 and (x_f32 or out_dtype != torch.float32):
-        raise TypeError("the int8 tier takes bf16 x and writes the f32 carry")
+    if q8 and out_dtype != torch.float32:
+        raise TypeError("the int8 tier writes the f32 carry")
     B, T, N, D = x.shape
     dev = _device_of(x)
     _check_geometry(D, num_heads)
@@ -1207,8 +1223,8 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
         with torch.cuda.device(dev):
             _run(lib.dvst_temporal_phase_tm_q8, x.data_ptr(),
                  *(p[k].data_ptr() for k in TEMPORAL_Q8_KEYS), ws.data_ptr(),
-                 out.data_ptr(), B, T, N, D, num_heads, _stream(dev))
-        _count_q8("temporal_phase_tm_q8")
+                 out.data_ptr(), B, T, N, D, num_heads, int(x_f32), _stream(dev))
+        _count_q8("temporal_phase_tm_q8_f32" if x_f32 else "temporal_phase_tm_q8")
         return out
     ws = _ws(temporal_phase_tm_ws(B, T, N, D, lib), dev)
     bf16_out = out_dtype == torch.bfloat16
@@ -1332,16 +1348,15 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
     N, D) in cls's dtype, per-frame CLS rows (B, T, D) f32). The block
     boundary's dtype picks the tier: bf16, or f32 for the mixed teacher
     (the CLS row's LN reads it unrounded, the grid is written in f32). With
-    s8 weights the int8 tier (a bf16 CLS row). Kernel on CUDA, plain twin on
-    CPU."""
+    s8 weights the int8 tier, in the same two tiers (a bf16 CLS row, or an
+    f32 one: the int8 teacher under the mixed teacher). Kernel on CUDA,
+    plain twin on CPU."""
     if x1.dim() != 4:
         raise ValueError(f"x1: expected (B, T, N, D), got {tuple(x1.shape)}")
     if cls.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"cls: dtype {cls.dtype}, expected bfloat16 or float32")
     q8 = is_q8(p)
-    if q8 and cls.dtype != torch.bfloat16:
-        raise TypeError("the int8 tier takes a bf16 CLS row (the mixed "
-                        "teacher's f32 boundary has no int8 tier)")
+    f32 = cls.dtype == torch.float32
     B, T, N, D = x1.shape
     Dh = p["fc1_w"].shape[0]
     dev = _device_of(x1)
@@ -1368,11 +1383,10 @@ def spatial_mlp(x1: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
             _run(lib.dvst_spatial_mlp_q8, x1.data_ptr(), cls.data_ptr(),
                  *(p[k].data_ptr() for k in SPATIAL_Q8_KEYS), ws.data_ptr(),
                  out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, num_heads, Dh,
-                 _stream(dev))
-        _count_q8("spatial_mlp_q8")
+                 int(f32), _stream(dev))
+        _count_q8("spatial_mlp_q8_f32" if f32 else "spatial_mlp_q8")
         return out, cls_rows
     ws = _ws(spatial_mlp_ws(B, T, N, D, Dh, lib), dev)
-    f32 = cls.dtype == torch.float32
     with torch.cuda.device(dev):
         _run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),
              *(p[k].data_ptr() for k in SPATIAL_KEYS), ws.data_ptr(),

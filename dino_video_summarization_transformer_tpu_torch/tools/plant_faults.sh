@@ -56,7 +56,11 @@
 # CLS rows rounded to bf16 (a sed of the Python wrapper); the strided
 # scorer (each exits 1 in phase 4e; seds of the scorer): Catmull-Rom's
 # tangent weights exchanged (cl <-> cr), and the student pass returning
-# the chunks of a call of several (student_dispatch) in reverse order.
+# the chunks of a call of several (student_dispatch) in reverse order;
+# the int8 tier's f32 boundary: row 2qf's fc2 taking its f32 residual
+# through the bf16-residual epilogue (exits 1 in phase 4d); the banded
+# mixed teacher: the teacher pass fed the students' bf16 views cast back
+# to f32 (a sed of the scorer; exits 1 in phase 6b).
 # Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
@@ -69,6 +73,7 @@
 #     bash .../plant_faults.sh q8_round_rz q8_rescale_fma q8_no_row_scale q8_ln_unrounded q8_clip128
 #     bash .../plant_faults.sh f32bwd_dx_bf16 f32bwd_db_from_bf16 f32_ln_bwd_x_bf16 f32_spatial_cls_bf16
 #     bash .../plant_faults.sh cr_tangents_swapped dispatch_chunks_reversed
+#     bash .../plant_faults.sh q8f_residual_bf16 band_mt_teacher_bf16
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer).
@@ -130,3 +135,5 @@ run f32_ln_bwd_x_bf16 dvst_common.cuh 's/float v(int i) const { return f\[i\]; }
 run f32_spatial_cls_bf16 ../fused_block.py 's/    launches\["spatial_phase_f32" if x_f32 else "spatial_phase"\] += 1/    launches["spatial_phase_f32" if x_f32 else "spatial_phase"] += 1; cls_rows = cls_rows.to(torch.bfloat16).to(cls_rows.dtype)/'
 run cr_tangents_swapped ../../engine/scoring.py 's/w = np.stack(\[-cl, h00 - cr, h01 + cl, cr\], axis=1)/w = np.stack([-cr, h00 - cl, h01 + cr, cl], axis=1)/'
 run dispatch_chunks_reversed ../../engine/scoring.py 's/for r0 in range(0, views.shape\[0\], c)\])/for r0 in range(0, views.shape[0], c)][::-1])/'
+run q8f_residual_bf16 fused_block.cu 's/return wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/return wg_gemm_s8<kEpiResBf16F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/'
+run band_mt_teacher_bf16 ../../engine/scoring.py 's/            fr = self._gather(buf, idx, self.teacher_dtype)/            fr = self._gather(buf, idx, self.compute_dtype).to(self.teacher_dtype)/'

@@ -41,6 +41,16 @@ KW = dict(img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2,
 F32_SWAP_MAX = 5e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(t):
     return np.asarray(t.detach().float() if isinstance(t, torch.Tensor) else
                       jnp.asarray(t, jnp.float32))

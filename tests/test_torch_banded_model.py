@@ -43,6 +43,16 @@ KW = dict(img_size=32, patch_size=16, embed_dim=256, depth=2, num_heads=4,
           num_frames=8, num_classes=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _models(seed, zero_te=False, **port_kw):
     """numpy-seeded params as the JAX pytree and a port model built from the
     same numbers (f32 unless ``dtype`` is given)."""

@@ -49,6 +49,16 @@ BANDS = [(64, 64, 30), (64, 50, 30), (64, 64, 3), (64, 50, 3)]
 OFF_TILE = [(90, 77, 30), (90, 77, 3), (150, 131, 30), (150, 131, 3)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(seed, std=0.05):
     """One block's weights as the JAX pytree (f32) and the port's kernel
     layout (bf16 (out, in) matrices, f32 vectors), from the same numbers.

@@ -65,6 +65,16 @@ STAT_KEYS = ("teacher_rows", "student_rows", "band_teacher_frames",
              "band_student_frames", "band_flops")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights(seed, zero_te=False, kw=KW):
     jcfg, cfg = jtsf.TimeSformerConfig(**kw), tsf.TimeSformerConfig(**kw)
     params = jax.tree.map(np.asarray, jsyn.make_numpy_params(jcfg, seed=seed))

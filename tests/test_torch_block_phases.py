@@ -41,6 +41,16 @@ B, T, HG, WG = 2, 3, 2, 2  # clips, frames, grid rows and columns
 N = HG * WG
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """numpy-seeded weights: the JAX pytree (f32, and block 0 in f32 and

@@ -63,6 +63,16 @@ BANDS = [(64, 64, 30), (64, 50, 30), (64, 64, 3), (64, 50, 3), (50, 41, 30),
          (50, 20, 3)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(C, N, seed):
     r = np.random.RandomState(seed)
     return (torch.from_numpy(1.5 * r.randn(C, 3 * D).astype(np.float32)).to(bf16),

@@ -34,6 +34,16 @@ CFG_YAML = os.path.join(conftest.REPO_ROOT,
                         "configs/kinetics/timesformer_divst_8x32_224.yaml")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("T", [1, 2, 3, 7, 12, 29, 30, 31, 64])
 def test_window_indices_match_jax(T):
     try:

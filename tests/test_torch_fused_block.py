@@ -37,6 +37,16 @@ TOL = 5e-2
 GEOMS = [(3, 4), (5, 16)]  # (T, N): the two window kinds at two grid sizes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(seed=0):
     """Block 0 of numpy-seeded params: the JAX pytree (f32) and the port's
     kernel-layout dict, from the same numbers."""

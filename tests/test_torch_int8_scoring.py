@@ -70,6 +70,16 @@ PORT_BF16 = dict(use_kernels=True, compute_dtype=bf16, precision=None)
 JAX_BF16 = dict(use_pallas=True, compute_dtype=jnp.bfloat16, precision=None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed, T, global_size, chunk, video_seed):
     jcfg, cfg = jtsf.TimeSformerConfig(**KW), tsf.TimeSformerConfig(**KW)
     params = jsyn.make_numpy_params(jcfg, seed=seed)
@@ -180,11 +190,24 @@ def test_student_int8_with_the_mixed_teacher(small):
                                 dict(teacher_quant="int8", teacher_dtype=f32,
                                      compute_dtype=bf16)])
 def test_refused_combinations_raise(small, kw):
-    """Banded scoring with either int8 option and ``teacher_quant`` with
-    the mixed teacher raise NotImplementedError naming their ROADMAP item;
-    an option other than None / "int8" raises ValueError."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scoring.FrameScorer(small["sd"], small["cfg"], device="cpu", **small["geo"], **kw)
+    """(The name predates their ports.) Banded scoring with either int8
+    option raises NotImplementedError on the kernel route only, naming
+    JAX's Pallas refusal, and builds its quantized model on the plain
+    route; ``teacher_quant`` with the mixed teacher builds a quantized f32
+    teacher on the kernel route. An option other than None / "int8" raises
+    ValueError."""
+    if "band_mode" in kw:
+        with pytest.raises(NotImplementedError, match="Pallas banded route"):
+            scoring.FrameScorer(small["sd"], small["cfg"], device="cpu", **small["geo"],
+                                **PORT_BF16, **kw)
+        sc = scoring.FrameScorer(small["sd"], small["cfg"], device="cpu", **small["geo"], **kw)
+        assert not sc.model_cfg.use_kernels
+    else:
+        sc = scoring.FrameScorer(small["sd"], small["cfg"], device="cpu", **small["geo"],
+                                 **{**PORT_BF16, **kw})
+        assert sc.model_cfg.use_kernels and sc.t_model.pos_embed.dtype == f32
+    assert sc.t_model.quantized == ("teacher_quant" in kw)
+    assert sc.model.quantized == ("student_quant" in kw)
     with pytest.raises(ValueError, match="int8"):
         scoring.FrameScorer(small["sd"], small["cfg"], device="cpu", student_quant="int4")
 
@@ -192,7 +215,8 @@ def test_refused_combinations_raise(small, kw):
 def test_quantized_model_refuses_what_its_kernels_do_not_take(small):
     """On the kernel route a quantized model runs only the whole-block pair:
     a geometry the kernels refuse raises (no plain fallback); the per-phase
-    dispatch, the banded pass and training raise on a quantized model."""
+    dispatch, the banded pass's kernel route and training raise on a
+    quantized model (its banded pass runs on the plain route)."""
     cfg = tsf.TimeSformerConfig(**{**KW, "embed_dim": 192, "num_heads": 3})
     sd = convert.state_dict_from_jax_params(jax.tree.map(np.asarray, jsyn.make_numpy_params(
         jtsf.TimeSformerConfig(**{**KW, "embed_dim": 192, "num_heads": 3}), seed=0)), cfg)
@@ -208,32 +232,41 @@ def test_quantized_model_refuses_what_its_kernels_do_not_take(small):
     with pytest.raises(NotImplementedError, match="float-only"):
         model.blocks[0](cls, grid.transpose(1, 2).reshape(B, N * T, D), B, T, N,
                         use_fused=True)
-    with pytest.raises(NotImplementedError, match="banded int8"):
-        banded.banded_cls_features(model, torch.zeros(8, 32, 32, 3), 8, 3)
     with pytest.raises(NotImplementedError, match="inference only"):
         model.forward_train(x.float())
     # the quantized model's plain route runs int8_linear in every block
     kmodel = tsf.build_timesformer(dataclasses.replace(small["cfg"], use_kernels=True),
                                    quant.quantize_state_dict_int8(small["sd"]),
                                    device="cpu", dtype=bf16)
+    # the banded pass: the plain route only (JAX's XLA route), as JAX's
+    # Pallas banded route has no int8 tier
+    with pytest.raises(NotImplementedError, match="Pallas banded route"):
+        banded.banded_cls_features(kmodel, torch.zeros(8, 32, 32, 3, dtype=bf16), 8, 3)
+    rows = banded.banded_cls_features(model, torch.zeros(8, 32, 32, 3, dtype=bf16), 8, 3)
+    assert rows.shape == (8, D) and torch.isfinite(rows).all()
     got, want = kmodel(x).float(), model(x).float()
     assert got.shape == want.shape == (1, D) and torch.isfinite(got).all()
 
 
 def test_cli_takes_the_int8_flags_and_refuses_their_unported_pairings():
     """``--teacher_quant int8`` and ``--student_quant int8`` pass the CLI's
-    check alone, together and with ``--teacher_precision float32`` (the
-    students'); with ``--band`` either raises, as ``--teacher_quant`` does
-    with the mixed teacher, naming the ROADMAP item."""
+    check alone, together and with ``--teacher_precision float32``, and
+    with ``--band`` in f32 or on the CPU (the plain route); with ``--band``
+    in bfloat16 on the card (the kernel route) either raises, naming JAX's
+    Pallas refusal."""
     parse = cli.get_args_parser().parse_args
     for argv in (["--teacher_quant", "int8"], ["--student_quant", "int8"],
                  ["--teacher_quant", "int8", "--student_quant", "int8"],
-                 ["--student_quant", "int8", "--teacher_precision", "float32"]):
+                 ["--student_quant", "int8", "--teacher_precision", "float32"],
+                 ["--teacher_quant", "int8", "--teacher_precision", "float32"],
+                 ["--teacher_quant", "int8", "--band", "both"],
+                 ["--student_quant", "int8", "--band", "teacher", "--precision",
+                  "bfloat16", "--device", "cpu"]):
         cli.check_unported(parse(argv))
-    for argv in (["--teacher_quant", "int8", "--band", "both"],
-                 ["--student_quant", "int8", "--band", "teacher"],
-                 ["--teacher_quant", "int8", "--teacher_precision", "float32"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for argv in (["--teacher_quant", "int8", "--band", "both", "--precision", "bfloat16"],
+                 ["--student_quant", "int8", "--band", "teacher", "--precision",
+                  "bfloat16"]):
+        with pytest.raises(NotImplementedError, match="Pallas banded route"):
             cli.check_unported(parse(argv))
 
 

@@ -1491,6 +1491,30 @@ def test_q8_rows_match_twins(cuda_device, B, T, N, D, H):
         assert not twin_check.twin_failures(gap, q8=True), gap
 
 
+@pytest.mark.parametrize("B,T,N,D,H", [(2, 3, 16, 128, 2), (8, 30, 196, 768, 12),
+                                       (8, 3, 196, 768, 12)])
+def test_q8_f32_rows_match_twins(cuda_device, B, T, N, D, H):
+    """Rows 1qf and 2qf (the int8 tier's f32 block boundary: f32 x, an f32
+    CLS row, an f32 grid) on offset rows against their twins by twin_check's
+    int8 rules, their f32 outputs also by its f32 rule (bf16_exact)."""
+    p = _q8_block(D, H, 7, cuda_device)
+    r = np.random.RandomState(T)
+
+    def rows(*shape):
+        return torch.from_numpy(twin_check.offset_rows(r, shape)).to(cuda_device)
+
+    x, x1, cls = rows(B, T, N, D), rows(B, T, N, D), rows(B, 1, D)
+    out = fb.temporal_phase_tm(x, p["temporal"], H)
+    gaps = [twin_check.twin_gap(out, fb.temporal_phase_tm_plain(x, p["temporal"], H), x)]
+    got, want = fb.spatial_mlp(x1, cls, p["spatial"], H), fb.spatial_mlp_plain(
+        x1, cls, p["spatial"], H)
+    gaps += [twin_check.twin_gap(got[0], want[0], x1), twin_check.twin_gap(got[1], want[1])]
+    for gap in gaps:
+        assert not twin_check.twin_failures(gap, q8=True), gap
+    for t in (out, got[0], got[1]):
+        assert not twin_check.f32_failures(t)
+
+
 def test_q8_workspaces_match_the_mirrors(cuda_device):
     """The library's int8 workspaces == the Python mirrors."""
     lib = _build.load()

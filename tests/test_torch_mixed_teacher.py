@@ -75,6 +75,16 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dino_video_summarization_transformer_tpu_torch", "ops", "csrc")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(seed=0):
     """Block 0 of numpy-seeded params: the JAX pytree (f32) and the port's
     kernel-layout dict (bf16 matrices, f32 vectors), from the same numbers."""
@@ -526,13 +536,30 @@ def test_banded_f32_forward_matches_jax_mixed_forward(monkeypatch, t_real, eff):
     assert e32 < e16, (e32, e16)
 
 
-def test_band_mode_with_the_mixed_teacher_raises(clip):
-    """Exact windows only: ``band_mode`` with the mixed teacher raises (the
-    CLI's ``--band`` with ``--teacher_precision float32`` too)."""
+def test_band_mode_with_the_mixed_teacher_raises(clip, monkeypatch):
+    """(The name predates the banded mixed teacher's port.) ``band_mode``
+    with the mixed teacher builds and scores: its banded teacher pass on
+    the f32 model, fed f32 views, through the f32 tiers of the banded
+    spatial phase and the grid MLP; the students' pass (``"both"``) on the
+    bf16 model, fed bf16 views, through their bf16 tiers
+    (tests/test_torch_banded_mixed.py holds it against JAX)."""
+    frames, idx = clip["frames"][:32], window_indices(32, 3, 30)
     for mode in ("both", "teacher"):
-        with pytest.raises(NotImplementedError, match="band_mode with the mixed teacher"):
-            scoring.FrameScorer(clip["sd"], clip["cfg"], device="cpu", use_kernels=True,
-                                compute_dtype=bf16, teacher_dtype=f32, band_mode=mode)
+        seen = []
+        for name, mod in (("mlp_phase", fb), ("spatial_phase_pf", bb)):
+            real = getattr(fb if name == "mlp_phase" else bb, name)
+            monkeypatch.setattr(mod, name, lambda *a, _fn=real, _n=name, **k: (
+                seen.append((_n, a[0].dtype)), _fn(*a, **k))[1])
+        sc = scoring.FrameScorer(clip["sd"], clip["cfg"], device="cpu", use_kernels=True,
+                                 compute_dtype=bf16, teacher_dtype=f32, band_mode=mode,
+                                 precision=None, **GEO)
+        got = sc.score_video(frames, *idx)
+        monkeypatch.undo()
+        assert got.shape == (32,) and np.all(np.isfinite(got))
+        want = {("mlp_phase", f32), ("spatial_phase_pf", f32)}
+        if mode == "both":
+            want |= {("mlp_phase", bf16), ("spatial_phase_pf", bf16)}
+        assert set(seen) == want
 
 
 def test_mixed_teacher_runs_the_f32_tiers(clip, monkeypatch):

@@ -56,6 +56,16 @@ B, T, N = 2, 4, 6
 f32 = torch.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rows(r, *shape):
     """Offset f32 rows, as numpy (JAX) and torch (port) arrays."""
     a = twin_check.offset_rows(r, shape)

@@ -64,6 +64,16 @@ DENSE = {("attn", "qkv"): "attn.qkv", ("attn", "proj"): "attn.proj",
          ("temporal_fc",): "temporal_fc"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(seed=0, depth=2):
     cfg = tsf.TimeSformerConfig(depth=depth, **KW)
     params = jax.tree.map(np.asarray, jsyn.make_numpy_params(
@@ -358,17 +368,18 @@ def test_divided_block_wb_q8_matches_pallas_and_oracle(T, N):
 
 
 def test_q8_tier_refuses_what_it_does_not_take():
-    """The int8 tier takes bf16 x and writes the f32 carry (row 1) and a
-    bf16 CLS row (row 2); mixed float and s8 weights, and a geometry the
-    kernels refuse, raise on the CPU as on the card."""
+    """The int8 tier writes the f32 carry (row 1) from bf16 or f32 x, and
+    takes a bf16 or an f32 CLS row (row 2; an f32 one writes an f32 grid:
+    rows 1qf and 2qf, tests/test_torch_int8_mixed.py); a bf16 carry out,
+    mixed float and s8 weights, and a geometry the kernels refuse, raise on
+    the CPU as on the card."""
     _, _, p = _block(seed=9)
     x = torch.zeros(1, 3, 4, D)
-    with pytest.raises(TypeError, match="int8 tier"):
-        fb.temporal_phase_tm(x, p["temporal"], H)
+    assert fb.temporal_phase_tm(x, p["temporal"], H).dtype == torch.float32
     with pytest.raises(TypeError, match="int8 tier"):
         fb.temporal_phase_tm(x.to(bf16), p["temporal"], H, out_dtype=bf16)
-    with pytest.raises(TypeError, match="int8 tier"):
-        fb.spatial_mlp(x, torch.zeros(1, 1, D), p["spatial"], H)
+    grid, cls_rows = fb.spatial_mlp(x, torch.zeros(1, 1, D), p["spatial"], H)
+    assert grid.dtype == cls_rows.dtype == torch.float32
     mixed = {**p["temporal"], "proj_w": p["temporal"]["proj_w"].to(bf16)}
     with pytest.raises(TypeError, match="proj_w"):
         fb.temporal_phase_tm(x.to(bf16), mixed, H)

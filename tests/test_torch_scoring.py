@@ -49,6 +49,16 @@ from gen_golden_scores import GOLDEN_PATH  # noqa: E402
 KW = dict(patch_size=16, num_heads=2, num_classes=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _normalized(vid):
     return (vid.astype(np.float32) / 255.0 - 0.45) / 0.225
 

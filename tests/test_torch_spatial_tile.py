@@ -35,6 +35,16 @@ from dino_video_summarization_transformer_tpu_torch.utils.synthetic import make_
 N, D, H = 196, 768, 12  # rows 2 and 11 at ViT-B/16: 197 rows with the prefix, hd 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def vitb_spatial():
     """Block 0's spatial weights of a numpy-seeded ViT-B/16, as chip_smoke.py

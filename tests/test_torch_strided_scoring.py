@@ -26,7 +26,8 @@ with ``precision="highest"`` on the same numpy-seeded weights
     the plain stride, the bail, student_dispatch 4 equal to 1 bit for bit
     per video and per group).
 (e) ``band_mode`` with each strided knob raises JAX's ValueError naming
-    the knob; the refusals that stay raise NotImplementedError.
+    the knob; banded int8 raises NotImplementedError on the kernel route
+    only, and the pairings the scorer once refused score.
 (The CLI: tests/test_torch_strided_cli.py.)
 """
 
@@ -47,7 +48,9 @@ from dino_video_summarization_transformer_tpu.models import timesformer as jtsf
 from dino_video_summarization_transformer_tpu.utils import synthetic as jsyn
 from dino_video_summarization_transformer_tpu_torch.data.windows import window_indices
 from dino_video_summarization_transformer_tpu_torch.engine import scoring
+from dino_video_summarization_transformer_tpu_torch.models import banded
 from dino_video_summarization_transformer_tpu_torch.models import convert, timesformer as tsf
+from dino_video_summarization_transformer_tpu_torch.ops import quant
 from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (
     make_numpy_params, make_video)
 
@@ -323,18 +326,48 @@ def test_band_mode_with_a_strided_knob_raises(setup, knob, mode):
         scoring.FrameScorer(sd, cfg, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(band_mode="both", teacher_quant="int8"), "ROADMAP queue 1 item 4a"),
-    (dict(band_mode="teacher", student_quant="int8"), "ROADMAP queue 1 item 4a"),
-    (dict(compute_dtype=torch.bfloat16, teacher_dtype=torch.float32,
-          teacher_quant="int8"), "ROADMAP queue 1 item 4b"),
-    (dict(compute_dtype=torch.bfloat16, teacher_dtype=torch.float32, band_mode="both"),
-     "band_mode with the mixed teacher")], ids=["band_int8_t", "band_int8_s", "tq_mixed",
-                                                 "band_mixed"])
-def test_the_refusals_that_stay(setup, kw, match):
+@pytest.mark.parametrize("kw", [
+    dict(band_mode="both", teacher_quant="int8"),
+    dict(band_mode="teacher", student_quant="int8"),
+    dict(compute_dtype=torch.bfloat16, teacher_dtype=torch.float32, teacher_quant="int8"),
+    dict(compute_dtype=torch.bfloat16, teacher_dtype=torch.float32, band_mode="both")],
+    ids=["band_int8_t", "band_int8_s", "tq_mixed", "band_mixed"])
+def test_the_refusals_that_stay(setup, kw, monkeypatch):
+    """(The name predates their ports.) Of the four pairings the scorer
+    refused, banded int8 stays refused on the kernel route only, naming
+    JAX's Pallas refusal; on the plain route (JAX's XLA route) it scores
+    through the quantized layers. ``teacher_quant`` and ``band_mode`` with
+    the mixed teacher score, their teacher on an f32 model (quantized for
+    the first) fed f32 views, the students on a bf16 model fed bf16 views."""
     _, cfg, _, sd = setup.model(32)
-    with pytest.raises(NotImplementedError, match=match):
-        scoring.FrameScorer(sd, cfg, device="cpu", **kw)
+    frames, loc, glob, eff = setup.clip(T3)
+    seen = []
+    real_q8 = quant.int8_linear
+    monkeypatch.setattr(quant, "int8_linear", lambda x, *a, **k: (
+        seen.append(("int8_linear", x.dtype)), real_q8(x, *a, **k))[1])
+    real_pass = banded.banded_cls_features
+    monkeypatch.setattr(banded, "banded_cls_features", lambda m, fr, *a, **k: (
+        seen.append(("pass", m.pos_embed.dtype, fr.dtype, m.quantized)),
+        real_pass(m, fr, *a, **k))[1])
+    if "band_mode" in kw and any(k.endswith("_quant") for k in kw):
+        with pytest.raises(NotImplementedError, match="Pallas banded route"):
+            scoring.FrameScorer(sd, cfg, device="cpu", use_kernels=True, **kw)
+    sc = scoring.FrameScorer(sd, cfg, device="cpu", **kw)
+    got = sc.score_video(frames, loc, glob, eff)
+    assert got.shape == (T3,) and np.all(np.isfinite(got))
+    t_dtype = torch.float32
+    assert sc.t_model.pos_embed.dtype == t_dtype
+    assert sc.t_model.quantized == ("teacher_quant" in kw)
+    assert sc.model.quantized == ("student_quant" in kw)
+    if kw.get("teacher_quant") or kw.get("student_quant"):
+        assert ("int8_linear", t_dtype) in seen
+    if "band_mode" in kw:
+        passes = {s for s in seen if s[0] == "pass"}
+        s_dtype = kw.get("compute_dtype", torch.float32)
+        want = {("pass", t_dtype, t_dtype, sc.t_model.quantized)}
+        if kw["band_mode"] == "both":
+            want.add(("pass", s_dtype, s_dtype, sc.model.quantized))
+        assert passes == want
 
 
 def test_bad_knob_values_raise_as_jax(setup):

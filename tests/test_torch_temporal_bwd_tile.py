@@ -43,6 +43,16 @@ GRAD_TOL = 2e-2
 bf16 = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=bf16):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype)
 

@@ -29,6 +29,16 @@ from dino_video_summarization_transformer_tpu_torch.utils.synthetic import make_
 D, H = 768, 12  # ViT-B/16: hd 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def vitb_temporal():
     """Block 0's temporal weights of a numpy-seeded ViT-B/16, as chip_smoke.py

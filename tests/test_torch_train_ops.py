@@ -38,6 +38,16 @@ GRAD_TOL = 2e-2
 GEOMS = [(4, 6), (5, 6)]  # (T, N)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lin(r, fi, fo, std=0.1):
     return {"kernel": np.asarray(r.randn(fi, fo) * std, np.float32),
             "bias": np.asarray(r.randn(fo) * 0.02, np.float32)}

@@ -47,6 +47,16 @@ KW = dict(img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2,
 OUT = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))

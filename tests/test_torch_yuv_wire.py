@@ -55,6 +55,16 @@ MEAN, STD = [0.45] * 3, [0.225] * 3
 LAYOUTS = ("rgb8", "yuv420", "yuv420q")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these tiny models: faster alone, and a test
+    worker does not then contend for the cores the others share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rgb(T, H, W, seed):
     return np.random.RandomState(seed).randint(0, 256, (T, H, W, 3), dtype=np.uint8)
 
