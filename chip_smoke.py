@@ -227,6 +227,29 @@ Imports torch, numpy and the port package
    phase 7's f32 gradients; then the step at phase 7's batch: launches
    per step (the f32 tiers only), ms per step and TFLOP/s beside phase
    7's, peak memory, the EMA check, a profiled step's launches by family.
+7c. the trainer's variants (``phase_7c``): (a) rows 1b, 4, 3 and the
+   backwards 7, 8, 9 against their twins at the rand-fr step's
+   geometries (16 local clips of T = 2, 4 and 16 at N = 36, 8 global clips
+   of T = 4 at N = 196; T = 16 runs the strided backward's whole-sequence
+   strips), on offset rows, each timed beside its twin and bound; (b)
+   ``make_rand_fr_train_step`` on the bf16 kernel route: gradients at
+   batch 2 against the plain bf16 and f32 routes by phase 7's rules, then
+   batch 8 (g4, g8: 8 clips of 224 px; l2-l16: 16 clips of 96 px):
+   launches read around one step (per block 6 student and 2 teacher
+   forwards, 6 backwards, no scoring kernel), ms and device busy a step,
+   peak memory, finite losses, the EMA check; (e) the CLI's profiler
+   helper (``train_ssl.StepProfiler``) around two rand-fr steps: its
+   Chrome trace parses and names a port kernel; (c) rematerialized
+   students (``remat=True``) at phase 7's batch-2 crops: gradients bit for
+   bit the non-remat route's (or within its own run-to-run spread, where
+   that is not zero), each student per-phase forward twice per block;
+   then phase 7's batch: ms and device busy a step in turns with the
+   non-remat step, peak memory of the forward and backward (remat's
+   lower) and of the step; (d) the two-token step on the plain bf16
+   route at batch 2: no port launch, a finite loss, a (2, out_dim) center
+   that moved, the EMA check, its gradients' mean distance to the f32
+   route's (printed); then the largest batch up to 8 that fits: ms,
+   device busy, peak memory.
 8. per-phase XLA-layout forward, bf16: ViT-B/16 (numpy-seeded weights)
    with every block through ``Block.forward(use_fused=True)`` (the
    model's ``tokens``, then the blocks one by one, then its norm) on B=8
@@ -953,6 +976,148 @@ def check_close(name, got, want, base=None, q8=False):
     return not bad, gap
 
 
+def grad_distances(gk, gp, gf):
+    """The train phases' gradient rules' readings: the worst max|kernel -
+    reference| / max|reference| over the parameters as (name, value), and
+    the mean over the parameters of the kernel and reference routes' mean
+    distance to f32 (each over mean|f32|)."""
+    worst, e_k, e_p = ("", 0.0), 0.0, 0.0
+    for n in gf:
+        rel = float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-12))
+        worst = max(worst, (n, rel), key=lambda t: t[1])
+        scale = float(gf[n].abs().mean()) + 1e-12
+        e_k += float((gk[n] - gf[n]).abs().mean()) / scale
+        e_p += float((gp[n] - gf[n]).abs().mean()) / scale
+    return worst, e_k / len(gf), e_p / len(gf)
+
+
+def train_op_checks(fb, p, H, D, Dh, tag, x, cls, dout, dco, stats, split=False):
+    """Rows 1b, 4, 7, 8 and 9 at one crop geometry, x and dout (B, T, N, D),
+    cls (B, 1, D) and dco (B, T, D) bf16, against their plain twins by the
+    training ops' twin rules, then each timed beside its twin and its bound
+    (a row appended to ``stats[op]``); row 3 at the grid's rows likewise
+    (its row returned). Rows 1b and 4's bf16 outputs are bf16(x +
+    bf16(branch)): the branch is held through the f32-out tier of the same
+    launches, the bf16 output at ``twin_check.ROUNDING_ULPS`` of the
+    twin's. ``split``: also each op's device time split by profile (the
+    backwards' LN backward beside its bytes bound). Fails on a
+    disagreement."""
+    import torch
+
+    from dino_video_summarization_transformer_tpu_torch.ops import twin_check
+
+    bf16 = torch.bfloat16
+    B, T, Np, _ = x.shape
+    xm, dm = x.reshape(-1, D), dout.reshape(-1, D)
+    pt, ps = p["temporal"], p["spatial"]
+    runs = {
+        "temporal_phase_tm_bf16": (
+            lambda: fb.temporal_phase_tm(x, pt, H, out_dtype=bf16),
+            lambda: fb.temporal_phase_tm_plain(x, pt, H, bf16),
+            temporal_bf16_cost(B, T, Np, D)),
+        "spatial_phase": (
+            lambda: fb.spatial_phase(x, cls, ps, H),
+            lambda: fb.spatial_phase_plain(x, cls, ps, H),
+            spatial_phase_cost(B, T, Np, D)),
+        "temporal_phase_tm_bwd": (
+            lambda: fb.temporal_phase_tm_bwd(x, dout, pt, H),
+            lambda: fb.temporal_phase_tm_bwd_plain(x, dout, pt, H),
+            temporal_bwd_cost(B, T, Np, D)),
+        "spatial_phase_bwd": (
+            lambda: fb.spatial_phase_bwd(x, cls, dout, dco, ps, H),
+            lambda: fb.spatial_phase_bwd_plain(x, cls, dout, dco, ps, H),
+            spatial_bwd_cost(B, T, Np, D)),
+        "mlp_phase_bwd": (
+            lambda: fb.mlp_phase_bwd(xm, dm, ps),
+            lambda: fb.mlp_phase_bwd_plain(xm, dm, ps),
+            mlp_bwd_cost(B * T * Np, D, Dh)),
+    }
+    geo = f"{tag} B={B} T={T} N={Np}"
+    with torch.inference_mode():
+        checks, bf16_out = {}, {}
+        for name, (kern, plain, _) in runs.items():
+            got, want = kern(), plain()
+            lbl = f"{name} {geo}"
+            if name in ("temporal_phase_tm_bf16", "spatial_phase"):
+                grid, want_grid = (got, want) if name == "temporal_phase_tm_bf16" else (
+                    got[0], want[0])
+                ulps = twin_check.rounding_ulps(grid, want_grid, x)
+                err = float((grid.float() - want_grid.float()).abs().max())
+                print(f"  {lbl} bf16 out: max_abs_err={err:.3e} {ulps:.2f} ulps (<= "
+                      f"{twin_check.ROUNDING_ULPS})", flush=True)
+                if ulps > twin_check.ROUNDING_ULPS:
+                    fail(f"{lbl}: the bf16 output is {ulps:.2f} ulps from its twin's")
+                bf16_out[name] = (err, ulps)
+                if name == "temporal_phase_tm_bf16":
+                    checks[name] = [check_close(
+                        f"{lbl} f32-out tier out-x", fb.temporal_phase_tm(x, pt, H),
+                        fb.temporal_phase_tm_plain(x, pt, H), x)]
+                else:
+                    checks[name] = [
+                        check_close(f"{lbl} f32-out tier grid-x",
+                                    fb.spatial_phase(x, cls, ps, H, out_dtype=torch.float32)[0],
+                                    fb.spatial_phase_plain(x, cls, ps, H, torch.float32)[0], x),
+                        check_close(f"{lbl} cls rows", got[1], want[1])]
+            else:
+                base = dm if name == "mlp_phase_bwd" else dout
+                c = [check_close(f"{lbl} dx-dout", got[0], want[0], base)]
+                if name == "spatial_phase_bwd":
+                    c.append(check_close(f"{lbl} dcls", got[1], want[1]))
+                c += [check_close(f"{lbl} d{k}", got[-1][k], want[-1][k]) for k in want[-1]]
+                checks[name] = c
+            del got, want
+        if not all(ok for v in checks.values() for ok, _ in v):
+            fail(f"a training kernel disagrees with its plain twin ({geo})")
+        for name, (kern, plain, cost) in runs.items():
+            ms = cuda_ms(kern, 5)
+            pl = cuda_ms(plain, 1, warmup=1)
+            b, by = bound_ms(*cost)
+            gaps = [gap for _, gap in checks[name]]
+            row = {"crops": tag, "B": B, "T": T, "N": Np, "ms": ms, "plain_ms": pl,
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "max_abs_err": max(g["max_abs_err"] for g in gaps),
+                   "rel_rms": max(g["rel_rms"] for g in gaps)}
+            if name in bf16_out:  # the bf16 output's gap
+                err, ulps = bf16_out[name]
+                row.update(max_abs_err=max([err] + [g["max_abs_err"] for g in gaps[1:]]),
+                           max_ulps=ulps, f32_tier_max_abs_err=gaps[0]["max_abs_err"])
+            stats[name].append(row)
+            print(f"  {name} {geo}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
+                  f"{b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
+            if split and name in bf16_out:
+                record_split(f"{name} {tag}", kern, row, op=name)
+        # row 3 at the crop's rows, as the train step's forwards run it
+        Mx = B * T * Np
+        ok, gap = check_close(f"mlp_phase {geo} out-x M={Mx}", fb.mlp_phase(xm, ps),
+                              fb.mlp_phase_plain(xm, ps), xm)
+        if not ok:
+            fail(f"mlp_phase disagrees with its plain twin ({geo})")
+        ms = cuda_ms(lambda: fb.mlp_phase(xm, ps), 5)
+        pl = cuda_ms(lambda: fb.mlp_phase_plain(xm, ps), 1, warmup=1)
+        b, by = bound_ms(*mlp_cost(Mx, D, Dh))
+        mlp_row = {"crops": tag, "M": Mx, "ms": ms, "plain_ms": pl, "bound_ms": b,
+                   "bound_by": by, "max_abs_err": gap["max_abs_err"], "rel_rms": gap["rel_rms"]}
+        print(f"  mlp_phase {geo} M={Mx}: kernel {ms:.3f} ms, plain {pl:.3f} ms, "
+              f"bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
+        if split:
+            record_split(f"mlp_phase {tag}", lambda: fb.mlp_phase(xm, ps), mlp_row,
+                         op="mlp_phase")
+    if split:
+        # where the time goes inside each backward: rows 7, 8 and 9 split by
+        # block, ln_bwd_kernel beside its bytes bound
+        for name, R_ in (("temporal_phase_tm_bwd", B * T * Np),
+                         ("spatial_phase_bwd", B * T * Np + B * T),
+                         ("mlp_phase_bwd", B * T * Np)):
+            row = stats[name][-1]
+            rows = record_split(f"{name} {tag}", runs[name][0], row, top=16, op=name)
+            lb_ms = sum(ms for k, _, ms in rows if "::ln_bwd_kernel<" in k)
+            lb_bound, _ = bound_ms(*ln_bwd_cost(B * T * Np, R_, D, True))
+            row["ln_bwd"] = {"ms": lb_ms, "bound_ms": lb_bound, "bound_by": "bytes"}
+            print(f"  {name} {tag}: ln_bwd_kernel {lb_ms:.4f} ms, bytes bound "
+                  f"{lb_bound:.4f} ms ({lb_bound / max(lb_ms, 1e-9):.1%})", flush=True)
+    return mlp_row
+
+
 def spearman(a, b):
     import numpy as np
 
@@ -1038,6 +1203,345 @@ def twins(*modules):
     finally:
         for m, k, fn in saved:
             setattr(m, k, fn)
+
+
+def phase_7c(fb, p, dev, card, reset_counts, counts, part, phase7):
+    """Phase 7c, the trainer's variants at ViT-B/16 (numpy-seeded weights
+    for the ops, seeded ones for the steps; out_dim 65536, AdamW): (a) rows
+    1b, 3, 4 and 7-9 at the rand-fr step's geometries against their twins;
+    (b) the rand-fr step on the bf16 kernel route (gradients against the
+    plain bf16 and f32 routes at batch 2, then batch 8: launches, ms and
+    device busy a step, peak memory, losses, the EMA); (e) the CLI's
+    profiler helper around two rand-fr steps; (c) rematerialized students
+    against the non-remat kernel route (gradients, launches, ms, peak
+    memory); (d) the two-token step on the plain bf16 route. ``phase7``:
+    phase 7's bf16 step (its "ms", "peak" and "crops"). Returns the
+    kernels line's additions: (rows by op at the rand-fr geometries,
+    launches per rand-fr step, launches per remat forward and backward)."""
+    import torch
+
+    from dino_video_summarization_transformer_tpu_torch import train_ssl
+    from dino_video_summarization_transformer_tpu_torch.models import timesformer as tsf
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    bf16 = torch.bfloat16
+    tcfg = tsf.vit_base_config(num_frames=8, num_classes=0)
+    D, H, N, depth = tcfg.embed_dim, tcfg.num_heads, tcfg.num_patches, tcfg.depth
+    Dh = int(D * tcfg.mlp_ratio)
+    batch, n_local, out_dim, n_steps = 8, 8, 65536, 3
+    hp = (5e-4, 0.04, 0.996, 0.04, True)  # lr, wd, teacher momentum, temp, freeze
+    m = hp[2]
+    ms_step_bf16, peak_bf16, crops = phase7["ms"], phase7["peak"], phase7["crops"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    print(f"[7c] the trainer's variants: rows 1b, 3, 4 and 7-9 at the rand-fr groups' "
+          f"geometries, the rand-fr step (DATA.RAND_FR), rematerialized students, the "
+          f"two-token step and the CLI's profiler trace: ViT-B/16, out_dim {out_dim}, "
+          "AdamW", flush=True)
+    # (a) the train ops at the rand-fr step's geometries (batch 8: 16 local
+    # clips of 2, 4 and 16 frames, 8 global clips of 4; T = 8 is phase 7's),
+    # on offset rows, by phase 3's twin rules; T = 16 runs the strided
+    # backward's whole-sequence strips (kSeqStrips)
+    rf_geo = {k: [] for k in TRAIN_OPS}
+    rf_geo["mlp_phase"] = []
+    for tag, (B, T, Np) in [("local", (16, 2, 36)), ("local", (16, 4, 36)),
+                            ("local", (16, 16, 36)), ("global", (8, 4, N))]:
+        seed = 90 + T + Np
+        x, dout = (dev_offset_rows(seed + i, B, T, Np, D).to(bf16) for i in (0, 1))
+        cls = dev_offset_rows(seed + 2, B, 1, D).to(bf16)
+        dco = dev_offset_rows(seed + 3, B, T, D).to(bf16)
+        rf_geo["mlp_phase"].append(
+            train_op_checks(fb, p, H, D, Dh, tag, x, cls, dout, dco, rf_geo))
+        del x, dout, cls, dco
+    torch.cuda.empty_cache()
+    part("phase 7c: the train ops at the rand-fr geometries")
+
+    # (b) the rand-fr step on the bf16 kernel route: its gradients at batch 2
+    # on the initial weights against the plain bf16 and f32 routes (phase
+    # 7's rules), then batch 8 (g4, g8: 8 clips of 224 px; l2-l16: 16 clips
+    # of 96 px)
+    def rf_crops(b, seed):
+        groups = ((1, 4, 224), (1, 8, 224), (2, 2, 96), (2, 4, 96), (2, 8, 96), (2, 16, 96))
+        return tuple(dev_randn(seed + i, n * b, 3, t, px, px, dtype=torch.float32)
+                     for i, (n, t, px) in enumerate(groups))
+
+    state, core, mask = ssl.init_train_state(tcfg, out_dim=out_dim, optimizer="adamw",
+                                             seed=0, device=dev)
+    rf2 = rf_crops(2, 60)
+    rf_grads, rf_loss = {}, {}
+    for name, cd, route in [("kernels", bf16, "kernels"), ("plain bf16", bf16, "plain"),
+                            ("f32", torch.float32, "plain")]:
+        st = ssl.make_rand_fr_train_step(tcfg, core, mask, compute_dtype=cd, route=route)
+        reset_counts()
+        loss, _, grads = st.loss_and_grads(state, rf2, 0.04)
+        torch.cuda.synchronize()
+        ran = counts()
+        if route == "plain" and any(ran.values()):
+            fail(f"the rand-fr {name} route launched a kernel: {ran}")
+        if route == "kernels" and not all(ran[k] for k in TRAIN_OPS):
+            fail(f"the rand-fr kernel route missed a training op: {ran}")
+        rf_loss[name], rf_grads[name] = float(loss), grads
+        del grads
+        torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("the f32 route ran with TF32 on")
+    worst, e_k, e_p = grad_distances(*(rf_grads[k] for k in ("kernels", "plain bf16", "f32")))
+    print(f"  rand-fr batch 2, losses {rf_loss}; kernel vs plain bf16 gradients: worst "
+          f"max|diff|/max|plain| {worst[1]:.3e} at {worst[0]} (< {TRAIN_GRAD_REL_MAX}); mean "
+          f"distance to f32: kernel route {e_k:.3e}, plain bf16 {e_p:.3e} (need kernel <= "
+          f"{TRAIN_F32_RATIO} x plain + 1e-6)", flush=True)
+    if worst[1] >= TRAIN_GRAD_REL_MAX:
+        fail("rand-fr kernel-route gradients disagree with the plain bf16 route")
+    if e_k > TRAIN_F32_RATIO * e_p + 1e-6:
+        fail("rand-fr kernel-route gradients are further from f32 than allowed")
+    del rf_grads, rf2
+    torch.cuda.empty_cache()
+
+    rf = rf_crops(batch, 61)
+    rstep = ssl.make_rand_fr_train_step(tcfg, core, mask, clip_grad=3.0,
+                                        compute_dtype=bf16)
+    if rstep.route != "kernels":
+        fail(f"the bf16 ViT-B rand-fr step chose the {rstep.route!r} route")
+    losses = []
+
+    def rf_step():
+        nonlocal state
+        state, metrics = rstep(state, rf, *hp)
+        losses.append(float(metrics["loss"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    rf_step()  # first-call allocations
+    torch.cuda.synchronize()
+    reset_counts()
+    rf_step()
+    torch.cuda.synchronize()
+    seen = counts()
+    want = {k: 0 for k in seen}
+    want.update({"temporal_phase_tm_bf16": 8 * depth, "spatial_phase": 8 * depth,
+                 "mlp_phase": 16 * depth, "temporal_phase_tm_bwd": 6 * depth,
+                 "spatial_phase_bwd": 6 * depth, "mlp_phase_bwd": 6 * (2 * depth - 1)})
+    print(f"  launches in one rand-fr step {seen} (expected {want}: per block 6 student "
+          "and 2 teacher forwards, 6 backwards, no backward of the last block's grid "
+          "MLP, no scoring kernel)", flush=True)
+    if seen != want:
+        fail(f"rand-fr step launches {seen}, expected {want}")
+    launches_rf = {k: v for k, v in seen.items() if v}
+    peak_rf = torch.cuda.max_memory_allocated()
+    ms_rf = timed(rf_step)
+    rows, _ = kernel_breakdown(rf_step)
+    busy_rf = sum(ms_ for _, _, ms_ in rows)
+    print(f"  rand-fr ms_per_step={ms_rf:.1f} ({n_steps} steps), device busy "
+          f"{busy_rf:.1f} ms a step ({busy_rf / ms_rf:.1%}), peak memory "
+          f"{peak_rf / 2**30:.1f} GiB (phase 7's step: {ms_step_bf16:.1f} ms, "
+          f"{peak_bf16 / 2**30:.1f} GiB) on {card}", flush=True)
+    print(f"  losses {[round(v, 4) for v in losses]}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("a rand-fr step gave a non-finite loss")
+    t_before = [t.detach().clone() for t in state.teacher.parameters()]
+    rf_step()
+    ema_err = max(float((t - (tb * m + s_.detach() * (1.0 - m))).abs().max())
+                  for t, tb, s_ in zip(state.teacher.parameters(), t_before,
+                                       state.student.parameters()))
+    del t_before
+    print(f"  teacher vs EMA of the new student (rand-fr step): max abs {ema_err:.3e} "
+          "(<= 1e-6)", flush=True)
+    if not math.isfinite(losses[-1]) or ema_err > 1e-6:
+        fail("the rand-fr step's teacher is not the EMA of the student")
+
+    # (e) the CLI's profiling helper around two rand-fr steps: a Chrome trace
+    # that parses and names a port kernel (presence only: the card's
+    # profiler drops a recorded call's first kernels now and then)
+    with tempfile.TemporaryDirectory() as prof_dir:
+        prof = train_ssl.StepProfiler(prof_dir, 0, 2, dev)
+        for gi in range(3):
+            prof.step(gi)
+            if gi < 2:
+                rf_step()
+        prof.stop()
+        with open(prof.path) as f:
+            trace = json.load(f)
+    names = {e.get("name", "") for e in trace.get("traceEvents", [])}
+    fams = sorted({fam for fam, pat in FAMILIES.items() for n_ in names if pat in n_})
+    print(f"  profiler trace of two rand-fr steps: {len(trace.get('traceEvents', []))} "
+          f"events, the port's kernel families in it: {fams}", flush=True)
+    if not fams:
+        fail("the CLI's profiler trace names no kernel of the port")
+    del trace, names, rf
+    part("phase 7c: the rand-fr step")
+
+    # (c) rematerialized students on the bf16 kernel route, at phase 7's
+    # batch-2 crops: the gradients of remat against non-remat, bit for bit
+    # (or, where the kernels are not deterministic, within the non-remat
+    # route's own run-to-run spread), the launches; then phase 7's batch
+    g2, l2 = crops(2, 51)
+    remat_grads, remat_counts = {}, {}
+    for name, remat in (("non-remat", False), ("non-remat again", False), ("remat", True)):
+        st = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local, clip_grad=3.0,
+                                 compute_dtype=bf16, remat=remat)
+        reset_counts()
+        loss, _, grads = st.loss_and_grads(state, g2, l2, 0.04)
+        torch.cuda.synchronize()
+        remat_counts[name] = counts()
+        remat_grads[name] = (loss, grads)
+    (l0, g0), (l1, g1), (lr_, gr) = (remat_grads[k] for k in (
+        "non-remat", "non-remat again", "remat"))
+    spread = {n: float((g1[n] - g0[n]).abs().max()) for n in g0}
+    gap = {n: float((gr[n] - g0[n]).abs().max()) for n in g0}
+    noisy = sorted(n for n, v in spread.items() if v > 0)
+    print(f"  remat batch 2: loss {float(lr_)} (non-remat {float(l0)}, again {float(l1)}); "
+          f"gradients differing from non-remat: {sum(v > 0 for v in gap.values())} of "
+          f"{len(gap)} (largest {max(gap.values()):.3e}); non-remat run to run: "
+          f"{len(noisy)} differ{' (' + ', '.join(noisy[:6]) + ')' if noisy else ''}",
+          flush=True)
+    if noisy:
+        over = [n for n in g0 if gap[n] > spread[n]]
+        if over:
+            fail(f"remat gradients beyond the non-remat route's own spread: {over[:6]}")
+    elif any(gap.values()) or not torch.equal(lr_, l0):
+        fail("remat gradients are not bit for bit the non-remat route's")
+    want_r = {k: 0 for k in remat_counts["remat"]}
+    want_r.update({"temporal_phase_tm_bf16": 5 * depth, "spatial_phase": 5 * depth,
+                   "mlp_phase": 10 * depth, "temporal_phase_tm_bwd": 2 * depth,
+                   "spatial_phase_bwd": 2 * depth, "mlp_phase_bwd": 2 * (2 * depth - 1)})
+    print(f"  launches of one remat forward and backward {remat_counts['remat']} (expected "
+          f"{want_r}: per block each student forward twice, the teacher's once)", flush=True)
+    if remat_counts["remat"] != want_r:
+        fail(f"remat launches {remat_counts['remat']}, expected {want_r}")
+    launches_remat = {k: v for k, v in remat_counts["remat"].items() if v}
+    del remat_grads, g0, g1, gr, g2, l2
+    torch.cuda.empty_cache()
+
+    g, l = crops(batch, 50)
+    steps_ = {}
+    peaks = {}
+    for name, remat in (("non-remat", False), ("remat", True)):
+        st = ssl.make_train_step(tcfg, core, mask, n_local_crops=n_local, clip_grad=3.0,
+                                 compute_dtype=bf16, remat=remat)
+
+        def one(st=st):
+            nonlocal state
+            state, _ = st(state, g, l, *hp)
+
+        one()  # first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, grads = st.loss_and_grads(state, g, l, 0.04)
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated()
+        del grads
+        torch.cuda.reset_peak_memory_stats()
+        one()
+        torch.cuda.synchronize()
+        peaks[name] = (fb_peak, torch.cuda.max_memory_allocated())
+        steps_[name] = one
+    turns = {"non-remat": [], "remat": []}
+    for order in (("remat", "non-remat"), ("non-remat", "remat")):
+        for name in order:
+            turns[name].append(timed(steps_[name]))
+    ms_remat = {k: sum(v) / 2 for k, v in turns.items()}
+    busy = {name: sum(ms_ for _, _, ms_ in kernel_breakdown(steps_[name])[0])
+            for name in turns}
+    print(f"  remat ms_per_step={ms_remat['remat']:.1f} (turns {turns['remat']}, {n_steps} "
+          f"steps each), non-remat in turns {ms_remat['non-remat']:.1f} "
+          f"({turns['non-remat']}; phase 7's {ms_step_bf16:.1f}); device busy a step: remat "
+          f"{busy['remat']:.1f} ms ({busy['remat'] / ms_remat['remat']:.1%}), non-remat "
+          f"{busy['non-remat']:.1f} ms ({busy['non-remat'] / ms_remat['non-remat']:.1%}); peak memory "
+          f"of the forward and backward: remat {peaks['remat'][0] / 2**30:.2f} GiB, "
+          f"non-remat {peaks['non-remat'][0] / 2**30:.2f} GiB; of the whole step: remat "
+          f"{peaks['remat'][1] / 2**30:.2f} GiB, non-remat {peaks['non-remat'][1] / 2**30:.2f}"
+          f" GiB (phase 7's {peak_bf16 / 2**30:.2f} GiB) on {card}", flush=True)
+    if peaks["remat"][0] >= peaks["non-remat"][0]:
+        fail("remat's forward and backward peak memory is not below the non-remat's")
+    del steps_, g, l, state, rstep
+    torch.cuda.empty_cache()
+    part("phase 7c: remat")
+
+    # (d) the two-token step on the plain bf16 route (JAX runs no Pallas
+    # kernel there): batch 2 (teacher 2 x 224 px, student 2 x 96 px and 2 x
+    # 224 px views of 8 frames): its launches, loss, center, EMA, and its
+    # gradients' mean distance to the f32 route's (printed); then the step
+    # at the largest batch up to 8 that fits
+    def tt_crops(b, seed):
+        return (dev_randn(seed, 2 * b, 3, 8, 224, 224, dtype=torch.float32),
+                (dev_randn(seed + 1, 2 * b, 3, 8, 96, 96, dtype=torch.float32),
+                 dev_randn(seed + 2, 2 * b, 3, 8, 224, 224, dtype=torch.float32)))
+
+    state, core, mask = ssl.init_train_state(tcfg, out_dim=out_dim, optimizer="adamw",
+                                             seed=0, device=dev, two_token=True)
+    tt2 = tt_crops(2, 70)
+    tt_grads = {}
+    for cd in (bf16, torch.float32):
+        st = ssl.make_train_step(tcfg, core, mask, two_token=True, compute_dtype=cd)
+        if st.route != "plain":
+            fail(f"the two-token step chose the {st.route!r} route")
+        _, _, tt_grads[cd] = st.loss_and_grads(state, *tt2, 0.04)
+    e_tt = sum(float((tt_grads[bf16][n] - gf_).abs().mean())
+               / (float(gf_.abs().mean()) + 1e-12)
+               for n, gf_ in tt_grads[torch.float32].items()) / len(tt_grads[bf16])
+    del tt_grads
+    tstep = ssl.make_train_step(tcfg, core, mask, two_token=True, compute_dtype=bf16)
+    losses = []
+
+    def tt_step(crops_):
+        nonlocal state
+        state, metrics = tstep(state, *crops_, *hp)
+        losses.append(float(metrics["loss"]))
+
+    reset_counts()
+    t_before = [t.detach().clone() for t in state.teacher.parameters()]
+    tt_step(tt2)
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in counts().items() if v}
+    ema_err = max(float((t - (tb * m + s_.detach() * (1.0 - m))).abs().max())
+                  for t, tb, s_ in zip(state.teacher.parameters(), t_before,
+                                       state.student.parameters()))
+    del t_before
+    moved = float(state.center.abs().max())
+    print(f"  two-token batch 2: loss {losses[-1]}, center {tuple(state.center.shape)} "
+          f"max |c| {moved:.3e}, teacher vs EMA max abs {ema_err:.3e} (<= 1e-6), port "
+          f"kernels launched: {ran or 'none'}; gradients' mean distance to the f32 "
+          f"route's {e_tt:.3e} (printed only; the rand-fr plain bf16 route's: {e_p:.3e})",
+          flush=True)
+    if ran:
+        fail(f"the two-token step launched port kernels: {ran}")
+    if not math.isfinite(losses[-1]) or tuple(state.center.shape) != (2, out_dim) or moved == 0:
+        fail("the two-token step's loss or center is wrong")
+    if ema_err > 1e-6:
+        fail("the two-token step's teacher is not the EMA of the student")
+    del tt2
+    for b_tt in (8, 4, 2):
+        try:
+            ttc = tt_crops(b_tt, 71)
+            torch.cuda.reset_peak_memory_stats()
+            tt_step(ttc)
+            torch.cuda.synchronize()
+            peak_tt = torch.cuda.max_memory_allocated()
+            ms_tt = timed(lambda: tt_step(ttc))
+            rows, _ = kernel_breakdown(lambda: tt_step(ttc))
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"  two-token batch {b_tt}: out of memory", flush=True)
+            ttc = None
+            torch.cuda.empty_cache()
+    else:
+        fail("the two-token step fits at no batch of 8, 4 or 2")
+    busy_tt = sum(ms_ for _, _, ms_ in rows)
+    print(f"  two-token batch {b_tt}: ms_per_step={ms_tt:.1f} ({n_steps} steps), device "
+          f"busy {busy_tt:.1f} ms a step ({busy_tt / ms_tt:.1%}), peak memory "
+          f"{peak_tt / 2**30:.1f} GiB on {card}; losses {[round(v, 4) for v in losses]}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("a two-token step gave a non-finite loss")
+    del ttc, state, tstep, core, mask
+    torch.cuda.empty_cache()
+    return rf_geo, launches_rf, launches_remat
 
 
 def main():
@@ -1424,131 +1928,9 @@ def main():
             return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(dev, bf16)
 
         x, cls, dout, dco = rnd(B, T, Np, D), rnd(B, 1, D), rnd(B, T, Np, D), rnd(B, T, D)
-        xm, dm = x.reshape(-1, D), dout.reshape(-1, D)
-        pt, ps = p["temporal"], p["spatial"]
-        runs = {
-            "temporal_phase_tm_bf16": (
-                lambda: fb.temporal_phase_tm(x, pt, H, out_dtype=bf16),
-                lambda: fb.temporal_phase_tm_plain(x, pt, H, bf16),
-                temporal_bf16_cost(B, T, Np, D)),
-            "spatial_phase": (
-                lambda: fb.spatial_phase(x, cls, ps, H),
-                lambda: fb.spatial_phase_plain(x, cls, ps, H),
-                spatial_phase_cost(B, T, Np, D)),
-            "temporal_phase_tm_bwd": (
-                lambda: fb.temporal_phase_tm_bwd(x, dout, pt, H),
-                lambda: fb.temporal_phase_tm_bwd_plain(x, dout, pt, H),
-                temporal_bwd_cost(B, T, Np, D)),
-            "spatial_phase_bwd": (
-                lambda: fb.spatial_phase_bwd(x, cls, dout, dco, ps, H),
-                lambda: fb.spatial_phase_bwd_plain(x, cls, dout, dco, ps, H),
-                spatial_bwd_cost(B, T, Np, D)),
-            "mlp_phase_bwd": (
-                lambda: fb.mlp_phase_bwd(xm, dm, ps),
-                lambda: fb.mlp_phase_bwd_plain(xm, dm, ps),
-                mlp_bwd_cost(B * T * Np, D, Dh)),
-        }
-        with torch.inference_mode():
-            checks = {}
-            for name, (kern, plain, _) in runs.items():
-                got, want = kern(), plain()
-                lbl = f"{name} {tag}"
-                if name == "temporal_phase_tm_bf16":
-                    # bf16(x + bf16(branch)), as row 6: the branch through
-                    # the f32-out tier of the same launches, the bf16
-                    # output at two ulps of the twin's (ops/twin_check.py)
-                    ulps1b = twin_check.rounding_ulps(got, want, x)
-                    err1b = float((got.float() - want.float()).abs().max())
-                    print(f"  {lbl} bf16 out: max_abs_err={err1b:.3e} "
-                          f"{ulps1b:.2f} ulps (<= {twin_check.ROUNDING_ULPS})",
-                          flush=True)
-                    if ulps1b > twin_check.ROUNDING_ULPS:
-                        fail(f"{lbl}: the bf16 output is {ulps1b:.2f} ulps from "
-                             "its twin's")
-                    checks[name] = [check_close(
-                        f"{lbl} f32-out tier out-x", fb.temporal_phase_tm(x, pt, H),
-                        fb.temporal_phase_tm_plain(x, pt, H), x)]
-                elif name == "spatial_phase":
-                    # the grid is bf16(x + bf16(branch)), as rows 6 and 1b:
-                    # the branch through the f32-out tier of the same
-                    # launches, the bf16 grid at two ulps of the twin's
-                    ulps4 = twin_check.rounding_ulps(got[0], want[0], x)
-                    err4 = float((got[0].float() - want[0].float()).abs().max())
-                    print(f"  {lbl} bf16 grid: max_abs_err={err4:.3e} "
-                          f"{ulps4:.2f} ulps (<= {twin_check.ROUNDING_ULPS})",
-                          flush=True)
-                    if ulps4 > twin_check.ROUNDING_ULPS:
-                        fail(f"{lbl}: the bf16 grid is {ulps4:.2f} ulps from its "
-                             "twin's")
-                    checks[name] = [
-                        check_close(f"{lbl} f32-out tier grid-x",
-                                    fb.spatial_phase(x, cls, ps, H, out_dtype=torch.float32)[0],
-                                    fb.spatial_phase_plain(x, cls, ps, H, torch.float32)[0], x),
-                        check_close(f"{lbl} cls rows", got[1], want[1])]
-                else:
-                    base = dm if name == "mlp_phase_bwd" else dout
-                    c = [check_close(f"{lbl} dx-dout", got[0], want[0], base)]
-                    if name == "spatial_phase_bwd":
-                        c.append(check_close(f"{lbl} dcls", got[1], want[1]))
-                    c += [check_close(f"{lbl} d{k}", got[-1][k], want[-1][k])
-                          for k in want[-1]]
-                    checks[name] = c
-                del got, want
-            if not all(ok for v in checks.values() for ok, _ in v):
-                fail(f"a training kernel disagrees with its plain twin ({tag} crops)")
-            for name, (kern, plain, cost) in runs.items():
-                ms = cuda_ms(kern, 5)
-                pl = cuda_ms(plain, 1, warmup=1)
-                b, by = bound_ms(*cost)
-                gaps = [gap for _, gap in checks[name]]
-                row = {
-                    "crops": tag, "B": B, "T": T, "N": Np, "ms": ms,
-                    "plain_ms": pl, "bound_ms": b, "bound_by": by,
-                    "library_ms": None,
-                    "max_abs_err": max(g["max_abs_err"] for g in gaps),
-                    "rel_rms": max(g["rel_rms"] for g in gaps)}
-                if name == "temporal_phase_tm_bf16":  # the bf16 output's gap
-                    row.update(max_abs_err=err1b, max_ulps=ulps1b,
-                               f32_tier_max_abs_err=gaps[0]["max_abs_err"])
-                if name == "spatial_phase":  # the bf16 grid's gap
-                    row.update(max_abs_err=max(err4, gaps[1]["max_abs_err"]),
-                               max_ulps=ulps4, f32_tier_max_abs_err=gaps[0]["max_abs_err"])
-                stats[name].append(row)
-                print(f"  {name} {tag} B={B} T={T} N={Np}: kernel {ms:.3f} ms, "
-                      f"plain {pl:.3f} ms, bound {b:.4f} ms ({by}), "
-                      f"{b / ms:.1%} of bound", flush=True)
-                if name in ("temporal_phase_tm_bf16", "spatial_phase"):
-                    record_split(f"{name} {tag}", kern, row, op=name)
-            # row 3 at the crop's rows, as the train step's forwards run it
-            Mx = B * T * Np
-            ok, gap = check_close(f"mlp_phase {tag} out-x M={Mx}", fb.mlp_phase(xm, ps),
-                                  fb.mlp_phase_plain(xm, ps), xm)
-            if not ok:
-                fail(f"mlp_phase disagrees with its plain twin ({tag} crops)")
-            ms = cuda_ms(lambda: fb.mlp_phase(xm, ps), 5)
-            pl = cuda_ms(lambda: fb.mlp_phase_plain(xm, ps), 1, warmup=1)
-            b, by = bound_ms(*mlp_cost(Mx, D, Dh))
-            row = {"crops": tag, "M": Mx, "ms": ms, "plain_ms": pl, "bound_ms": b,
-                   "bound_by": by, "max_abs_err": gap["max_abs_err"],
-                   "rel_rms": gap["rel_rms"]}
-            print(f"  mlp_phase {tag} M={Mx}: kernel {ms:.3f} ms, plain {pl:.3f} ms, "
-                  f"bound {b:.4f} ms ({by}), {b / ms:.1%} of bound", flush=True)
-            record_split(f"mlp_phase {tag}", lambda: fb.mlp_phase(xm, ps), row,
-                         op="mlp_phase")
-            mlp_crops.append(row)
-        # where the time goes inside each backward: rows 7, 8 and 9 split by
-        # block, ln_bwd_kernel beside its bytes bound
-        for name, R_ in (("temporal_phase_tm_bwd", B * T * Np),
-                         ("spatial_phase_bwd", B * T * Np + B * T),
-                         ("mlp_phase_bwd", B * T * Np)):
-            row = stats[name][-1]
-            rows = record_split(f"{name} {tag}", runs[name][0], row, top=16, op=name)
-            lb_ms = sum(ms for k, _, ms in rows if "::ln_bwd_kernel<" in k)
-            lb_bound, _ = bound_ms(*ln_bwd_cost(B * T * Np, R_, D, True))
-            row["ln_bwd"] = {"ms": lb_ms, "bound_ms": lb_bound, "bound_by": "bytes"}
-            print(f"  {name} {tag}: ln_bwd_kernel {lb_ms:.4f} ms, bytes bound "
-                  f"{lb_bound:.4f} ms ({lb_bound / max(lb_ms, 1e-9):.1%})", flush=True)
-        del x, cls, dout, dco, xm, dm, runs
+        mlp_crops.append(train_op_checks(fb, p, H, D, Dh, tag, x, cls, dout, dco, stats,
+                                         split=True))
+        del x, cls, dout, dco
         torch.cuda.empty_cache()
 
     part("the training ops")
@@ -3262,15 +3644,8 @@ def main():
         torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("the f32 route ran with TF32 on")
-    worst, e_k, e_p = ("", 0.0), 0.0, 0.0
     gk, gp, gf = (route_grads[k] for k in ("kernels", "plain bf16", "f32"))
-    for n in gf:
-        rel = float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-12))
-        worst = max(worst, (n, rel), key=lambda t: t[1])
-        scale = float(gf[n].abs().mean()) + 1e-12
-        e_k += float((gk[n] - gf[n]).abs().mean()) / scale
-        e_p += float((gp[n] - gf[n]).abs().mean()) / scale
-    e_k, e_p = e_k / len(gf), e_p / len(gf)
+    worst, e_k, e_p = grad_distances(gk, gp, gf)
     print(f"  batch 2, losses {route_loss}; kernel vs plain bf16 gradients: "
           f"worst max|diff|/max|plain| {worst[1]:.3e} at {worst[0]} (< "
           f"{TRAIN_GRAD_REL_MAX}); mean distance to f32: kernel route {e_k:.3e}, "
@@ -3614,15 +3989,8 @@ def main():
         mixed_loss[name], mixed_grads[name] = float(loss), grads
         del grads
         torch.cuda.empty_cache()
-    worst, e_mk, e_mt = ("", 0.0), 0.0, 0.0
     gk, gt, gf = mixed_grads["kernels"], mixed_grads["twins"], f32_grads_b2
-    for n in gf:
-        rel = float((gk[n] - gt[n]).abs().max() / (gt[n].abs().max() + 1e-12))
-        worst = max(worst, (n, rel), key=lambda t: t[1])
-        scale = float(gf[n].abs().mean()) + 1e-12
-        e_mk += float((gk[n] - gf[n]).abs().mean()) / scale
-        e_mt += float((gt[n] - gf[n]).abs().mean()) / scale
-    e_mk, e_mt = e_mk / len(gf), e_mt / len(gf)
+    worst, e_mk, e_mt = grad_distances(gk, gt, gf)
     print(f"  batch 2, losses {mixed_loss} (f32 route {route_loss['f32']}); mixed kernel vs "
           f"mixed twin gradients: worst max|diff|/max|twin| {worst[1]:.3e} at {worst[0]} (< "
           f"{TRAIN_GRAD_REL_MAX}); mean distance to f32: mixed kernels {e_mk:.3e}, mixed "
@@ -3728,8 +4096,14 @@ def main():
     del g, l, state, mstep, bstep
     torch.cuda.empty_cache()
 
-    # -- 8. per-phase XLA-layout forward, bf16 ------------------------------------
+    # -- 7c. the trainer's variants ------------------------------------------------
     lap("phase 7b")
+    rf_geo, launches_rf, launches_remat = phase_7c(
+        fb, p, dev, card, reset_counts, counts, part,
+        {"ms": ms_step_bf16, "peak": peak_bf16, "crops": crops})
+
+    # -- 8. per-phase XLA-layout forward, bf16 ------------------------------------
+    lap("phase 7c")
     print("[8] per-phase XLA-layout forward, bf16: ViT-B/16, every block "
           "through Block.forward(use_fused=True), B=8 windows of 30 and 3 "
           "frames", flush=True)
@@ -3995,6 +4369,10 @@ def main():
             extra["launches_strided"] = by_cfg
         if name in geo_img:
             extra["teacher_img_160"] = geo_img[name]
+        if name in launches_rf:  # the trainer's variants (phase 7c)
+            extra.update(launches_rand_fr_step=launches_rf[name],
+                         launches_remat_step=launches_remat[name],
+                         rand_fr_geometries=rf_geo[name])
         kernels.append({**extra,
             "name": name, "route": "cuda",
             "source": f"dino_video_summarization_transformer_tpu_torch/ops/csrc/{src}",

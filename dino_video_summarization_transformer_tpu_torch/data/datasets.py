@@ -18,7 +18,8 @@ import numpy as np
 
 from . import video as vio
 from . import yuv
-from .transform import (VideoDataAugmentationDINO, temporal_sampling,
+from .transform import (VideoDataAugmentationDINO, get_start_end_idx,
+                        spatial_tile_local_crops, temporal_sampling,
                         tensor_normalize, uniform_crop)
 from .windows import WindowMismatch, window_indices
 
@@ -156,24 +157,42 @@ class DinoLossDataset:
 
 class ClipDataset:
     """Train-mode DINO multi-crop clip dataset for Kinetics / UCF101 /
-    HMDB51 (the JAX package's ``ClipDataset`` with ``temporal_aug``, ref:
+    HMDB51 (the JAX package's ``ClipDataset`` in train mode, ref:
     datasets_custom/kinetics.py:121-332). An item is the multi-crop of one
-    video: 2 global 224-px clips sampled over the whole video and 8 local
-    96-px clips over an eighth of it each, every clip (C, T, H, W) float32
-    (ref: decoder.py:428-440, transform.py:661-749), as ``(crops, label,
-    index, meta)``. A video that fails to decode is swapped for a random
-    other one, up to ``num_retries`` times. Videos are decoded whole through
-    ``data/video.py`` (the repo's native decoder). The val / test modes and
-    the plain-clip, two-token, rand-fr, tiled-local and flow variants are
-    not ported (ROADMAP)."""
+    video, every clip (C, T, H, W) float32 (ref: decoder.py:401-440,
+    transform.py:661-749), as ``(crops, label, index, meta)``:
+
+    * ``temporal_aug`` (the default): 2 global 224-px clips sampled over the
+      whole video and 8 local 96-px clips over an eighth of it each;
+    * with ``rand_fr``: the globals of 4 and 8 frames, the locals of [2, 2,
+      4, 4, 8, 8, 16, 16] frames (ref: decoder.py:418-427);
+    * with ``tiled_local``: the locals are 8 overlapping 96 x 96 tiles of
+      one frame (``spatial_tile_local_crops``; ref: decoder.py:576-601);
+    * ``two_token``: 3 global and 2 local clips make 6 views
+      (``VideoDataAugmentationDINO(two_token=True)``).
+
+    Each draws from its ``RandomState`` what the JAX class draws, in the
+    same order, so the same seed gives the same crops. A video that fails
+    to decode is swapped for a random other one, up to ``num_retries``
+    times. Videos are decoded whole through ``data/video.py`` (the repo's
+    native decoder). The val / test modes, the plain-clip train mode and
+    the flow companion are not ported (ROADMAP)."""
 
     def __init__(self, cfg, mode: str = "train", num_retries: int = 10,
+                 temporal_aug: bool = True, two_token: bool = False,
+                 rand_fr: bool = False, tiled_local: bool = False,
                  csv_name: Optional[str] = None, seed: Optional[int] = None):
         if mode != "train":
             raise NotImplementedError(f"ClipDataset mode {mode!r}: only the "
                                       "train mode is ported (ROADMAP)")
+        if not (temporal_aug or two_token):
+            raise NotImplementedError("ClipDataset's plain-clip train mode (no "
+                                      "multi-crop) is not ported (ROADMAP)")
         self.cfg = cfg
         self._num_retries = num_retries
+        self.two_token = two_token
+        self.rand_fr = rand_fr
+        self.tiled_local = tiled_local
         self.rng = np.random.RandomState(seed)
         csv = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, csv_name or f"{mode}.csv")
         self._path_to_videos, self._labels = read_csv_entries(
@@ -188,22 +207,52 @@ class ClipDataset:
     def labels(self):
         return list(self._labels)
 
+    def _local_start(self, max_len: int, local_width: int) -> int:
+        return int(self.rng.randint(0, max(max_len - local_width, 1)))
+
     def _decode_clips(self, index: int):
-        """The 10 multi-crop clips, (T, H, W, C) uint8 each, or None when
-        the video does not decode."""
+        """The variant's clips, (T, H, W, C) uint8 each, or None when the
+        video does not decode."""
         try:
-            frames, _ = vio.read_video(self._path_to_videos[index])
+            frames, fps = vio.read_video(self._path_to_videos[index])
         except vio.DecodeError:
             return None
         if frames.shape[0] == 0:
             return None
-        num_frames = self.cfg.DATA.NUM_FRAMES
+        cfg = self.cfg
+        num_frames = cfg.DATA.NUM_FRAMES
         max_len = frames.shape[0]
         local_width = max_len // 8
+        # the plain clip's start, drawn and unused by the multi-crop clips,
+        # as the JAX class draws it (ref: decoder.py:379-384)
+        clip_sz = (cfg.DATA.SAMPLING_RATE * num_frames / cfg.DATA.TARGET_FPS
+                   * (fps or cfg.DATA.TARGET_FPS))
+        get_start_end_idx(max_len, clip_sz, -1, 1, self.rng)
+        if self.two_token:
+            globals_ = []
+            for _ in range(3):
+                ri = int(self.rng.randint(0, 7))
+                globals_.append(temporal_sampling(frames, ri, max_len - ri, num_frames))
+            locals_ = []
+            for _ in range(2):
+                ri = self._local_start(max_len, local_width)
+                locals_.append(temporal_sampling(frames, ri, ri + local_width, num_frames))
+            return [*globals_, *locals_]
+        if self.rand_fr:
+            clips = [temporal_sampling(frames, 0, max_len - 5, 4),
+                     temporal_sampling(frames, 5, max_len, 8)]
+            for n_local in (2, 2, 4, 4, 8, 8, 16, 16):
+                ri = self._local_start(max_len, local_width)
+                clips.append(temporal_sampling(frames, ri, ri + local_width, n_local))
+            return clips
         clips = [temporal_sampling(frames, 0, max_len - 5, num_frames),
                  temporal_sampling(frames, 5, max_len, num_frames)]
+        if self.tiled_local:
+            ri = self._local_start(max_len, local_width)
+            one = temporal_sampling(frames, ri, ri, 1)[0]
+            return clips + spatial_tile_local_crops(one)
         for _ in range(8):
-            ri = int(self.rng.randint(0, max(max_len - local_width, 1)))
+            ri = self._local_start(max_len, local_width)
             clips.append(temporal_sampling(frames, ri, ri + local_width, num_frames))
         return clips
 
@@ -217,7 +266,10 @@ class ClipDataset:
             raise RuntimeError(f"failed to decode after {self._num_retries} retries")
         aug = VideoDataAugmentationDINO(rng=self.rng)
         as_tchw = [np.moveaxis(c, -1, 1).astype(np.float32) for c in clips]
-        crops = aug(as_tchw, from_list=True)
+        if self.two_token:
+            crops = aug(as_tchw, two_token=True)
+        else:
+            crops = aug(as_tchw, from_list=True)
         # T C H W -> C T H W (ref: kinetics.py:306-311)
         return ([np.ascontiguousarray(np.moveaxis(c, 0, 1)) for c in crops],
                 self._labels[index], index, {})

@@ -162,8 +162,8 @@ class VideoDataAugmentationDINO:
     """DINO video multi-crop augmentation
     (ref: datasets_custom/transform.py:661-749): 2 global 224-crops + N local
     96-crops; the reference's gaussian-blur / solarization are stubbed no-ops
-    there and stay no-ops here. The two-token and no-augmentation views of
-    the JAX class wait for the two-token trainer (ROADMAP).
+    there and stay no-ops here. ``no_aug`` resizes and normalizes only; the
+    two-token trainer's 6 views mix it with the augmented crops.
     """
 
     def __init__(self, global_crops_scale=(0.4, 1.0), local_crops_scale=(0.05, 0.4),
@@ -186,6 +186,9 @@ class VideoDataAugmentationDINO:
     def normalize(frames):
         return color_normalization(frames, mean=[0.485, 0.456, 0.406],
                                    stddev=[0.229, 0.224, 0.225])
+
+    def no_aug(self, frames):
+        return self.normalize(resize(frames, 224, mode="bicubic"))
 
     def global_transform1(self, frames):
         frames = random_resized_crop(frames, 224, self.global_crops_scale,
@@ -210,12 +213,24 @@ class VideoDataAugmentationDINO:
         self.rng.uniform()
         return self.normalize(frames)
 
-    def __call__(self, image, from_list=False):
+    def __call__(self, image, from_list=False, no_aug=False, two_token=False):
         """One (T, C, H, W) clip, or with ``from_list`` the clips of one
-        video (2 globals, then the locals) -> the list of crops."""
+        video (2 globals, then the locals) -> the list of crops. With
+        ``no_aug`` each clip of the list resized and normalized only; with
+        ``two_token`` the list's 5 clips (3 global, 2 local) -> 6 views:
+        [augmented global, plain global of clip 0, 96-px crops of clips 1
+        and 2, plain 224-px views of clips 3 and 4] (ref:
+        transform.py:738-743)."""
         def to_float(x):
             return x.astype(np.float32) / 255.0 if x.dtype == np.uint8 else x
 
+        if two_token:
+            image = [to_float(x) for x in image]
+            return [self.global_transform1(image[0]), self.no_aug(image[0]),
+                    self.local_transform(image[1]), self.local_transform(image[2]),
+                    self.no_aug(image[3]), self.no_aug(image[4])]
+        if no_aug:
+            return [self.no_aug(to_float(x)) for x in image]
         if from_list:
             image = [to_float(x) for x in image]
             crops = [self.global_transform1(image[0]), self.global_transform2(image[1])]
@@ -227,6 +242,29 @@ class VideoDataAugmentationDINO:
         for _ in range(self.local_crops_number):
             crops.append(self.local_transform(image))
         return crops
+
+
+def spatial_tile_local_crops(frame_hwc: np.ndarray) -> list:
+    """The spatial-tiling local crops (ref: datasets_custom/decoder.py:
+    576-601): one (H, W, C) frame, center-cropped to 240 x 240, cut into 8
+    overlapping 96 x 96 tiles on a 2 x 4 grid (x stride 48, rows at y = 24
+    and y = 120). Returns 8 arrays of (1, 96, 96, C)."""
+    tchw = np.moveaxis(frame_hwc[None], -1, 1)  # (1, C, H, W)
+    tchw, _ = uniform_crop(tchw, 240, spatial_idx=1)
+    frame = np.moveaxis(tchw[0], 0, -1)  # (240, 240, C)
+    return [frame[y:y + 96, x:x + 96, :][None]
+            for y in (24, 120) for x in range(0, 4 * 48, 48)]
+
+
+def get_start_end_idx(video_size, clip_size, clip_idx, num_clips, rng):
+    """A clip's start and end frame (ref: datasets_custom/decoder.py:34-63):
+    ``clip_idx`` -1 draws the start uniformly from ``rng``."""
+    delta = max(video_size - clip_size, 0)
+    if clip_idx == -1:
+        start_idx = rng.uniform(0, delta)
+    else:
+        start_idx = delta * clip_idx / num_clips
+    return start_idx, start_idx + clip_size - 1
 
 
 def temporal_sampling(frames: np.ndarray, start_idx, end_idx, num_samples) -> np.ndarray:

@@ -9,7 +9,11 @@ stacked along a leading depth axis, as ``utils/synthetic.make_numpy_params``
 returns) to the reference layout, with the logic of the JAX package's
 ``pytree_to_reference_state_dict`` and no JAX; ``head_state_dict_from_jax``
 does the same for the DINO head (the inverse of the JAX package's
-``dino_head_to_pytree``). Both are linear in the leaves, so they also carry
+``dino_head_to_pytree``). Both take the two-token trainer's trees too:
+the aux-token backbone (``aux_cls_token``, ``pos_embed`` widened to
+num_patches + 2) and the dual head (``aux_mlp``, ``aux_last_layer``),
+whose leaves the JAX package's ``pytree_to_reference_state_dict`` names
+not; the names the port picks are in their docstrings. Both are linear in the leaves, so they also carry
 JAX gradients and optimizer moments across for the tests. The int8 tier's
 weights are not carried across: a converted state dict is quantized by the
 port (``ops/quant.quantize_state_dict_int8``), whose codes and scales equal
@@ -125,7 +129,9 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any], cfg
     """JAX-layout pytree of numpy arrays -> reference-layout state dict:
     torch naming, (out, in) linear weights, (D, C, ps, ps) conv patch
     embed (the logic of the JAX package's ``pytree_to_reference_state_dict``,
-    ``models/convert.py:330``)."""
+    ``models/convert.py:330``). The aux-token backbone's extra leaf
+    ``aux_cls_token`` keeps its JAX name; its ``pos_embed`` (1,
+    num_patches + 2, D) goes across as it is (CLS, the patches, AUX)."""
     out: Dict[str, np.ndarray] = {}
 
     def np32(x):
@@ -141,6 +147,8 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any], cfg
         out[prefix + ".bias"] = np32(p["bias"])
 
     out["cls_token"] = np32(params_np["cls_token"])
+    if "aux_cls_token" in params_np:
+        out["aux_cls_token"] = np32(params_np["aux_cls_token"])
     out["pos_embed"] = np32(params_np["pos_embed"])
     if "time_embed" in params_np:
         out["time_embed"] = np32(params_np["time_embed"])
@@ -181,7 +189,16 @@ def head_state_dict_from_jax(head_np: Mapping[str, Any]) -> Dict[str, np.ndarray
     reference layout ``mlp.{0,2,4}.weight/bias`` (``mlp.weight`` for one
     layer), ``last_layer.weight_g`` (out, 1), ``last_layer.weight_v``
     (out, in): the inverse of the JAX package's ``dino_head_to_pytree``
-    (``models/convert.py:199-218``)."""
+    (``models/convert.py:199-218``). The dual head of the two-token trainer
+    (JAX ``init_multi_dino_head``: ``mlp``, ``last_layer``, ``aux_mlp``,
+    ``aux_last_layer``) goes to ``heads.MultiDINOHead``'s names: the main
+    head's leaves under ``main.``, the aux head's under ``aux.``."""
+    if "aux_mlp" in head_np:
+        return {pre + k: v
+                for pre, mlp, ll in (("main.", "mlp", "last_layer"),
+                                     ("aux.", "aux_mlp", "aux_last_layer"))
+                for k, v in head_state_dict_from_jax(
+                    {"mlp": head_np[mlp], "last_layer": head_np[ll]}).items()}
     out: Dict[str, np.ndarray] = {}
     mlp = head_np["mlp"]
     n = len(mlp)

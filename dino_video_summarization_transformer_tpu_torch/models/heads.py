@@ -3,7 +3,8 @@
 reference's state-dict layout: ``mlp.{0,2,4}`` (Linear, GELU, Linear,
 GELU, Linear; a single ``mlp`` Linear at one layer) and a weight-normed
 ``last_layer`` holding ``weight_g`` (out, 1) and ``weight_v`` (out, in),
-as torch's ``weight_norm`` stores them."""
+as torch's ``weight_norm`` stores them. The two-token trainer's dual head
+(``MultiDINOHead``) holds two of them, ``main`` and ``aux``."""
 
 from __future__ import annotations
 
@@ -82,3 +83,22 @@ class DINOHead(nn.Module):
                 x = F.gelu(x)
         x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
         return torch.matmul(x, self.last_layer.weight().to(x.dtype).t())
+
+
+class MultiDINOHead(nn.Module):
+    """The two-token trainer's dual head (ref: vision_transformer.py:285-345;
+    JAX ``init_multi_dino_head`` / ``multi_dino_head_forward``): a main and
+    an aux ``DINOHead``, their parameters under ``main.`` and ``aux.``.
+    ``forward((x_main, x_aux))`` -> (main(x_main), aux(x_aux))."""
+
+    def __init__(self, in_dim: int, out_dim: int, nlayers: int = 3,
+                 hidden_dim: int = 2048, bottleneck_dim: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.main = DINOHead(in_dim, out_dim, nlayers, hidden_dim,
+                             bottleneck_dim, generator)
+        self.aux = DINOHead(in_dim, out_dim, nlayers, hidden_dim,
+                            bottleneck_dim, generator)
+
+    def forward(self, x_pair):
+        return self.main(x_pair[0]), self.aux(x_pair[1])

@@ -65,6 +65,12 @@ routes, chosen once per model by ``train_route``:
   matmul operands), which only an explicit ``route="kernels"`` selects:
   ``"auto"`` picks the kernel route for bf16 alone, as JAX's CLI gate
   ``should_fuse`` does.
+
+On either route ``forward_train(remat=True)`` reruns each block's forward
+in the backward (``checkpoint_block``), with the same values.
+``AuxTokenTimeSformer`` is the two-token trainer's backbone (an aux class
+token beside the CLS token, JAX ``aux_token_forward_features``), on the
+plain route only: JAX runs it as XLA code, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -356,19 +362,25 @@ def interp_nearest_1d(src: torch.Tensor, out_len: int, axis: int) -> torch.Tenso
     return torch.index_select(src, axis, idx.to(src.device))
 
 
-def resize_pos_embed(pos_embed: torch.Tensor, n_tokens: int, W: int) -> torch.Tensor:
+def resize_pos_embed(pos_embed: torch.Tensor, n_tokens: int, W: int,
+                     two_token: bool = False) -> torch.Tensor:
     """Nearest-resize of spatial pos embeddings with the reference's exact
     (quirky) geometry (ref: models/timesformer.py:292-303): the target grid
-    is (n_tokens // W, W) where n_tokens counts the CLS token."""
-    cls_pe = pos_embed[:, :1, :]
-    other = pos_embed[0, 1:, :]
+    is (n_tokens // W, W) where n_tokens counts the CLS token. With
+    ``two_token`` the last row is the aux token's, kept as the CLS row is,
+    and n_tokens counts both class tokens (ref: models/timesformer.py:
+    533-545; JAX ``aux_token_forward_features``), so only a grid with
+    W > 2 comes out at its own height."""
+    end = pos_embed.shape[1] - (1 if two_token else 0)
+    other = pos_embed[0, 1:end, :]
     P = int(math.isqrt(other.shape[0]))
     D = other.shape[1]
     H_new = n_tokens // W
     grid = other.reshape(P, P, D)
     grid = interp_nearest_1d(grid, H_new, axis=0)
     grid = interp_nearest_1d(grid, W, axis=1)
-    return torch.cat([cls_pe, grid.reshape(1, H_new * W, D)], dim=1)
+    return torch.cat([pos_embed[:, :1, :], grid.reshape(1, H_new * W, D),
+                      pos_embed[:, end:, :]], dim=1)
 
 
 def load_reference_state_dict(module: nn.Module, sd: Mapping[str, object]) -> None:
@@ -589,6 +601,31 @@ class Block(nn.Module):
         grid = grid + self._mlp_train(self._ln(self.norm2, grid))
         return cls, grid
 
+    def forward_two_token(self, x: torch.Tensor, B: int, T: int, N: int) -> torch.Tensor:
+        """The two-token block (JAX ``divided_block_two_token``, ref:
+        models/timesformer.py:124-185 with two class tokens), plain, in x's
+        dtype: x (B, 1 + N*T + 1, D) in the token layout [CLS, (h w t),
+        AUX]; both class tokens join every frame's spatial attention and
+        their outputs are averaged over the frames."""
+        D = x.shape[-1]
+        H = self.num_heads
+        grid = x[:, 1:-1, :]
+        xt = grid.reshape(B * N, T, D)
+        res_t = mhsa_train(self._ln(self.temporal_norm1, xt), self.temporal_attn, H)
+        xt = grid + linear(res_t.reshape(B, N * T, D), self.temporal_fc)
+        init_cls, init_aux = x[:, :1, :], x[:, -1:, :]
+        cls_rep = init_cls.expand(B, T, D).reshape(B * T, 1, D)
+        aux_rep = init_aux.expand(B, T, D).reshape(B * T, 1, D)
+        xs = xt.reshape(B, N, T, D).transpose(1, 2).reshape(B * T, N, D)
+        xs = torch.cat([cls_rep, xs, aux_rep], dim=1)
+        res_s = mhsa_train(self._ln(self.norm1, xs), self.attn, H)
+        cls_out = res_s[:, 0, :].reshape(B, T, D).mean(dim=1, keepdim=True)
+        aux_out = res_s[:, -1, :].reshape(B, T, D).mean(dim=1, keepdim=True)
+        res_sp = res_s[:, 1:-1, :].reshape(B, T, N, D).transpose(1, 2).reshape(
+            B, N * T, D)
+        x = torch.cat([init_cls + cls_out, xt + res_sp, init_aux + aux_out], dim=1)
+        return x + self._mlp_train(self._ln(self.norm2, x))
+
     def forward_kernels(self, cls: torch.Tensor, grid: torch.Tensor):
         """Training, kernel route (the JAX ``divided_block_fused``): cls
         (B, 1, D) and the frame-major grid (B, T, N, D), both bf16 or both
@@ -716,13 +753,14 @@ class TimeSformer(nn.Module):
 
     def forward_train(self, x: torch.Tensor,
                       compute_dtype: torch.dtype = torch.float32,
-                      route: str = "plain") -> torch.Tensor:
+                      route: str = "plain", remat: bool = False) -> torch.Tensor:
         """Differentiable training forward (the JAX ``forward`` with
         ``train=False``, as the JAX train step calls it): x (B, C, T, H, W)
         -> (B, D) CLS features in ``compute_dtype``, the f32 parameters
         cast where JAX casts them. ``route``: ``"plain"`` or ``"kernels"``
         (``train_route``; with f32 compute the kernel route is the mixed
-        tier)."""
+        tier). ``remat``: each block rematerialized (``checkpoint_block``),
+        the same values."""
         if route not in ("plain", "kernels"):
             raise ValueError(f"route {route!r}: 'plain' or 'kernels'")
         if self.quantized:
@@ -753,13 +791,14 @@ class TimeSformer(nn.Module):
             grid = (xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]).contiguous()
             cls_tok = cls_tok.contiguous()
             for blk in self.blocks:
-                cls_tok, grid = blk.forward_kernels(cls_tok, grid)
+                cls_tok, grid = checkpoint_block(remat, blk.forward_kernels, cls_tok, grid)
         else:
             spat = xt[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
                 B * N, T, D)
             spat = (spat + te).reshape(B, N * T, D)
             for blk in self.blocks:
-                cls_tok, spat = blk.forward_plain_train(cls_tok, spat, B, T, N)
+                cls_tok, spat = checkpoint_block(remat, blk.forward_plain_train,
+                                                 cls_tok, spat, B, T, N)
         return layer_norm(cls_tok, self.norm.weight, self.norm.bias,
                           cfg.norm_eps)[:, 0]
 
@@ -769,6 +808,105 @@ class TimeSformer(nn.Module):
         if use_head and self.head is not None:
             feats = self.head(feats)
         return feats
+
+
+def checkpoint_block(remat: bool, fn, *args):
+    """``fn(*args)``, one block of a training forward; with ``remat`` under
+    ``torch.utils.checkpoint`` (non-reentrant): the block keeps only its
+    inputs and reruns its forward when the backward needs what it saved.
+    A block is the unit whose activations the kernels' autograd Functions
+    and the plain route's ops save, so this is the granularity that bounds
+    the saved activations by one block's. Early stop is off, so the rerun
+    runs the whole block (each per-phase launch twice)."""
+    if not remat:
+        return fn(*args)
+    from torch.utils import checkpoint
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+TWO_TOKEN_PLAIN_ONLY = (
+    "the two-token backbone runs the plain route only: its JAX block "
+    "(divided_block_two_token) is XLA code with no Pallas kernel, so no "
+    "Hopper kernel of the port serves it")
+
+
+class AuxTokenTimeSformer(TimeSformer):
+    """The two-token (aux-token) backbone (ref: models/timesformer.py:427-583;
+    JAX ``init_aux_token_timesformer`` / ``aux_token_forward_features``): a
+    second class token ``aux_cls_token`` (1, 1, D) and ``pos_embed`` widened
+    to num_patches + 2 rows (CLS, the patches, AUX). Every block is
+    ``Block.forward_two_token`` on the plain route, in f32 or bf16; the
+    kernel route raises (``TWO_TOKEN_PLAIN_ONLY``)."""
+
+    def __init__(self, cfg: TimeSformerConfig):
+        if cfg.use_kernels:
+            raise ValueError(TWO_TOKEN_PLAIN_ONLY)
+        super().__init__(cfg)
+        D = cfg.embed_dim
+        self.aux_cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 2, D))
+
+    def forward_features(self, x: torch.Tensor, get_all: bool = False,
+                         training: bool = True,
+                         compute_dtype: Optional[torch.dtype] = None,
+                         route: str = "plain"):
+        """x (B, C, T, H, W) -> (cls, aux) features (B, D) each when
+        ``training``, else their concatenation (B, 2D); with ``get_all`` the
+        whole normalized sequence (B, 1 + N*T + 1, D). Differentiable, in
+        ``compute_dtype`` (default: the parameters'), the parameters cast
+        where JAX casts them."""
+        if route != "plain":
+            raise ValueError(f"route={route!r}: {TWO_TOKEN_PLAIN_ONLY}")
+        cfg = self.cfg
+        cd = compute_dtype or self.pos_embed.dtype
+        B, C, T, Himg, Wimg = x.shape
+        W = Wimg // cfg.patch_size
+        N = (Himg // cfg.patch_size) * W
+        D = cfg.embed_dim
+        x = x.to(cd)
+        frames = x.permute(0, 2, 3, 4, 1).reshape(B * T, Himg, Wimg, C)
+        tok = self.patch_embed.forward_train(frames)  # (BT, N, D)
+        cls = self.cls_token.to(cd).expand(B * T, 1, D)
+        aux = self.aux_cls_token.to(cd).expand(B * T, 1, D)
+        xt = torch.cat([cls, tok, aux], dim=1)
+        pe = self.pos_embed
+        if xt.shape[1] != pe.shape[1]:
+            pe = resize_pos_embed(pe, xt.shape[1], W, two_token=True)
+        xt = xt + pe.to(cd)
+        te = self.time_embed
+        if T != te.shape[1]:
+            te = interp_nearest_1d(te, T, axis=1)
+        spat = xt[:, 1:-1, :].reshape(B, T, N, D).transpose(1, 2).reshape(B * N, T, D)
+        spat = (spat + te.to(cd)).reshape(B, N * T, D)
+        # the class rows of the first B frame rows, as the reference takes
+        # them (identical across frames before mixing)
+        x = torch.cat([xt[:B, :1, :], spat, xt[:B, -1:, :]], dim=1)
+        for blk in self.blocks:
+            x = blk.forward_two_token(x, B, T, N)
+        if get_all:
+            return layer_norm(x, self.norm.weight, self.norm.bias, cfg.norm_eps)
+        # only the two class rows are read: LN is per token
+        ends = layer_norm(x[:, [0, -1], :], self.norm.weight, self.norm.bias,
+                          cfg.norm_eps)
+        if not training:
+            return torch.cat([ends[:, 0], ends[:, 1]], dim=1)
+        return ends[:, 0], ends[:, 1]
+
+    def forward_train(self, x: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32,
+                      route: str = "plain", remat: bool = False):
+        """The training forward: (cls, aux) features in ``compute_dtype``.
+        ``remat`` must be False: JAX's two-token step never rematerializes."""
+        if remat:
+            raise ValueError("the two-token backbone has no rematerialized forward")
+        return self.forward_features(x, training=True, compute_dtype=compute_dtype,
+                                     route=route)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The evaluation features: CLS and AUX concatenated (B, 2D)."""
+        return self.forward_features(x, training=False)
 
 
 def build_timesformer(cfg: TimeSformerConfig, state_dict: Mapping[str, object],
@@ -806,9 +944,34 @@ def init_timesformer(cfg: TimeSformerConfig, generator: torch.Generator,
 
     with torch.device("cpu"):
         model = TimeSformer(cfg)
+    _init_weights(model, generator)
+    return model.to(resolve_device(device))
 
+
+def init_aux_token_timesformer(cfg: TimeSformerConfig, generator: torch.Generator,
+                               device=None) -> AuxTokenTimeSformer:
+    """Fresh f32 parameters of the two-token backbone (JAX
+    ``init_aux_token_timesformer``): ``init_timesformer``'s rules, drawn from
+    ``generator`` on the CPU, with ``pos_embed`` at its widened shape and a
+    truncated-normal ``aux_cls_token``; then moved to ``device``."""
+    from ..utils.device import resolve_device
+
+    with torch.device("cpu"):
+        model = AuxTokenTimeSformer(cfg)
+    _init_weights(model, generator)
+    with torch.no_grad():
+        _trunc_normal(model.aux_cls_token, generator)
+    return model.to(resolve_device(device))
+
+
+def _trunc_normal(t: torch.Tensor, generator: torch.Generator) -> None:
+    nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+def _init_weights(model: TimeSformer, generator: torch.Generator) -> None:
+    """``init_timesformer``'s rules, in place."""
     def tn(t):
-        nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+        _trunc_normal(t, generator)
 
     with torch.no_grad():
         for name, mod in model.named_modules():
@@ -825,4 +988,3 @@ def init_timesformer(cfg: TimeSformerConfig, generator: torch.Generator,
         for blk in list(model.blocks)[1:]:
             blk.temporal_fc.weight.zero_()
             blk.temporal_fc.bias.zero_()
-    return model.to(resolve_device(device))

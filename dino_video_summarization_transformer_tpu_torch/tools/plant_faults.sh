@@ -60,7 +60,11 @@
 # the int8 tier's f32 boundary: row 2qf's fc2 taking its f32 residual
 # through the bf16-residual epilogue (exits 1 in phase 4d); the banded
 # mixed teacher: the teacher pass fed the students' bf16 views cast back
-# to f32 (a sed of the scorer; exits 1 in phase 6b).
+# to f32 (a sed of the scorer; exits 1 in phase 6b); the strided attention
+# backward's whole-sequence strips (kSeqStrips, T >= 16, which only the
+# rand-fr step's 16-frame locals reach) reading each row's cotangent from
+# the next row of its sequence (rows r and r ^ 1 swapped; exits 1 in phase
+# 7c).
 # Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
@@ -90,7 +94,7 @@ run() {
   f=$dst/$CSRC/$file
   before=$(md5sum < "$f"); sed -i "$expr" "$f"; after=$(md5sum < "$f")
   if [ "$before" = "$after" ]; then echo "FAULT $name: sed changed nothing"; rm -rf "$dst"; return; fi
-  (cd "$dst" && timeout 600 python3 chip_smoke.py > out.log 2>&1); rc=$?
+  (cd "$dst" && timeout 900 python3 chip_smoke.py > out.log 2>&1); rc=$?
   echo "FAULT $name: exit $rc, last phase $(grep -o '^\[[0-9]*[a-z]*\]' "$dst/out.log" | tail -1)"
   grep -E "FAILED|^FAIL" "$dst/out.log" | cut -c1-400 | head -8
   rm -rf "$dst"
@@ -137,3 +141,4 @@ run cr_tangents_swapped ../../engine/scoring.py 's/w = np.stack(\[-cl, h00 - cr,
 run dispatch_chunks_reversed ../../engine/scoring.py 's/for r0 in range(0, views.shape\[0\], c)\])/for r0 in range(0, views.shape[0], c)][::-1])/'
 run q8f_residual_bf16 fused_block.cu 's/return wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/return wg_gemm_s8<kEpiResBf16F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/'
 run band_mt_teacher_bf16 ../../engine/scoring.py 's/            fr = self._gather(buf, idx, self.teacher_dtype)/            fr = self._gather(buf, idx, self.compute_dtype).to(self.teacher_dtype)/'
+run seq_strips_row_swapped tc_attention.cuh 's/    cp_async16(dA.at(r, c), da + rr \* D + h \* HD + c \* 8, 16);/    cp_async16(dA.at(r, c), da + (kRows == kSeqStrips ? row(r ^ 1) : rr) * D + h * HD + c * 8, 16);/'

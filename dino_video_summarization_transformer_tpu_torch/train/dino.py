@@ -75,6 +75,34 @@ def dino_loss(student_output: torch.Tensor, teacher_output: torch.Tensor,
     return total / n_terms, new_center
 
 
+def dino_loss_two_token(student_pair, teacher_pair, center: torch.Tensor,
+                        temp: float, student_temp: float = 0.1,
+                        center_momentum: float = 0.9
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-token DINO loss (ref: train_ssl.py:632-651): ``student_pair`` the
+    (main, aux) head outputs of the 4 student views, ``teacher_pair`` those
+    of the 2 teacher views, each (views * B, out_dim) view-major. Views 0-1
+    learn from the main teacher's first chunk, views 2-3 from the aux
+    teacher's second chunk. ``center`` (2, out_dim): the main and aux rows.
+    Returns (scalar loss, updated center)."""
+    s_main = student_pair[0].float() / student_temp
+    s_aux = student_pair[1].float() / student_temp
+    t_main = torch.softmax((teacher_pair[0].float() - center[0]) / temp, dim=-1).detach()
+    t_aux = torch.softmax((teacher_pair[1].float() - center[1]) / temp, dim=-1).detach()
+    s_main_chunks = s_main.tensor_split(4, dim=0)
+    s_aux_chunks = s_aux.tensor_split(4, dim=0)
+    q_main = t_main.tensor_split(2, dim=0)[0]
+    q_aux = t_aux.tensor_split(2, dim=0)[1]
+    total = 0.0
+    for iv in range(4):
+        q, v = (q_main, s_main_chunks[iv]) if iv < 2 else (q_aux, s_aux_chunks[iv])
+        total = total + torch.sum(-q * torch.log_softmax(v, dim=-1), dim=-1).mean()
+    new_center = torch.cat([
+        update_center(teacher_pair[i].float().detach(), center[i:i + 1],
+                      center_momentum) for i in range(2)])
+    return total / 4.0, new_center
+
+
 @torch.no_grad()
 def ema_update(teacher: nn.Module, student: nn.Module, momentum: float) -> None:
     """Teacher EMA t = t * m + s * (1 - m), in place, parameter by parameter

@@ -17,8 +17,21 @@ f32 tiers (f32 activations and carries, bf16 matmul operands). Like the
 JAX step, it never runs drop-path (the forward is called with
 ``train=False``, ``train/ssl.py:139-142`` of the JAX package).
 
-The two-token, rand-fr, two-stream, CNN-distill, remat and parallel
-variants are not ported (ROADMAP) and raise ``NotImplementedError``.
+The variants that need no other backbone:
+
+* ``remat=True``: the student's two backbone passes rematerialized block
+  by block (``timesformer.checkpoint_block``), the teacher's not, on every
+  route; the same values;
+* ``two_token=True`` (with ``init_train_state(two_token=True)``): the
+  aux-token backbone, the dual head, a (2, out_dim) center and the 6-view
+  protocol, on the plain route only (JAX runs no Pallas kernel there);
+* ``make_rand_fr_train_step``: DATA.RAND_FR's variable-frame-count crops,
+  one student forward per frame-count group and one teacher forward per
+  global group, on ``make_train_step``'s routes (``"auto"`` on bf16 ViT-B
+  runs the kernels at every group's T).
+
+The two-stream, CNN-distill and parallel variants need the other backbones
+or the parallel modules (ROADMAP) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,16 +44,17 @@ import torch
 from torch import nn
 
 from ..models import timesformer as tsf
-from ..models.heads import DINOHead
-from .dino import dino_loss, ema_update
+from ..models.heads import DINOHead, MultiDINOHead
+from .dino import dino_loss, dino_loss_two_token, ema_update
 from .optim import Optimizer, apply_updates_with_schedules, wd_mask
 
 
 @dataclasses.dataclass
 class TrainState:
     """student and teacher: ``nn.ModuleDict({"backbone", "head"})`` with f32
-    parameters; center (1, out_dim); opt_state: the optimizer's tensors by
-    parameter name; step: steps taken."""
+    parameters; center (1, out_dim), or (2, out_dim) for the two-token
+    variant; opt_state: the optimizer's tensors by parameter name; step:
+    steps taken."""
     student: nn.ModuleDict
     teacher: nn.ModuleDict
     center: torch.Tensor
@@ -60,23 +74,28 @@ def init_train_state(model_cfg: tsf.TimeSformerConfig, out_dim: int = 65536,
     optimizer state (ref: train_ssl.py:330-333). Returns (state, core,
     mask), as the JAX function does. Weights come from a reference-layout
     state dict where given (``pretrained_backbone``, ``head_state_dict``),
-    else from a ``torch.Generator`` seeded with ``seed``. ``device``
-    defaults to the CUDA card."""
-    if two_token or cnn_distill_dim:
-        raise NotImplementedError("the two-token and CNN-distill trainer "
-                                  "variants are not ported (ROADMAP)")
+    else from a ``torch.Generator`` seeded with ``seed``. ``two_token``: the
+    aux-token backbone, the dual head (``MultiDINOHead``) and a (2,
+    out_dim) center (ref: train_ssl.py:610-620). ``device`` defaults to the
+    CUDA card."""
+    if cnn_distill_dim:
+        raise NotImplementedError("the CNN-distill trainer variant needs the "
+                                  "S3D backbone, which is not ported (ROADMAP)")
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     if pretrained_backbone is not None:
         with torch.device("cpu"):
-            backbone = tsf.TimeSformer(model_cfg)
+            backbone = (tsf.AuxTokenTimeSformer if two_token else tsf.TimeSformer)(model_cfg)
         backbone.load_reference_state_dict(pretrained_backbone)
+    elif two_token:
+        backbone = tsf.init_aux_token_timesformer(model_cfg, gen, device="cpu")
     else:
         backbone = tsf.init_timesformer(model_cfg, gen, device="cpu")
-    head = DINOHead(model_cfg.embed_dim, out_dim,
-                    generator=None if head_state_dict is not None else gen)
+    head = (MultiDINOHead if two_token else DINOHead)(
+        model_cfg.embed_dim, out_dim,
+        generator=None if head_state_dict is not None else gen)
     if head_state_dict is not None:
         tsf.load_reference_state_dict(head, head_state_dict)
     student = nn.ModuleDict({"backbone": backbone, "head": head}).to(dev)
@@ -85,7 +104,7 @@ def init_train_state(model_cfg: tsf.TimeSformerConfig, out_dim: int = 65536,
     core = Optimizer(optimizer, momentum)
     mask = wd_mask(student)
     state = TrainState(student=student, teacher=teacher,
-                       center=torch.zeros((1, out_dim), device=dev),
+                       center=torch.zeros((2 if two_token else 1, out_dim), device=dev),
                        opt_state=core.init(dict(student.named_parameters())))
     return state, core, mask
 
@@ -94,36 +113,49 @@ class TrainStep:
     """``step(state, g_crops, l_crops, lr, wd, teacher_momentum,
     teacher_temp, freeze_last) -> (state, {"loss": tensor})``, the state
     updated in place. g_crops (2B, C, T, S, S), l_crops (n_local * B, C,
-    T, s, s). ``loss_and_grads`` is its first half (loss, new center, f32
-    gradients by parameter name), for tests and measurement."""
+    T, s, s). ``loss_and_grads(state, g_crops, l_crops, teacher_temp)`` is
+    its first half (loss, new center, f32 gradients by parameter name),
+    for tests and measurement. Subclasses change the crops the step takes
+    and the loss (``_loss``); the update is this class's."""
 
-    def __init__(self, model_cfg, core, mask, n_local_crops, clip_grad,
-                 student_temp, center_momentum, compute_dtype, route):
+    def __init__(self, model_cfg, core, mask, clip_grad, student_temp,
+                 center_momentum, compute_dtype, route, n_crops, remat=False):
         self.cfg = model_cfg
         self.core = core
         self.mask = mask
-        self.n_crops = 2 + n_local_crops
+        self.n_crops = n_crops
         self.clip_grad = clip_grad
         self.student_temp = student_temp
         self.center_momentum = center_momentum
         self.compute_dtype = compute_dtype
         self.route = tsf.train_route(model_cfg, compute_dtype, route)
+        self.remat = remat
 
-    def _features(self, model: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-        return model["backbone"].forward_train(x, self.compute_dtype, self.route)
+    def _features(self, model: nn.ModuleDict, x: torch.Tensor,
+                  student: bool = False) -> torch.Tensor:
+        return model["backbone"].forward_train(x, self.compute_dtype, self.route,
+                                               remat=student and self.remat)
 
-    def loss_and_grads(self, state: TrainState, g_crops: torch.Tensor,
-                       l_crops: torch.Tensor, teacher_temp: float):
-        params = state.params()
-        s_g = self._features(state.student, g_crops)
-        s_l = self._features(state.student, l_crops)
-        s_out = state.student["head"](torch.cat([s_g, s_l], dim=0))
+    def _dino(self, state: TrainState, s_feats, g_crops, teacher_temp):
+        """The head on the student's features and the teacher's on its
+        forward of ``g_crops``, then ``dino_loss``."""
+        s_out = state.student["head"](torch.cat(s_feats, dim=0))
         with torch.no_grad():
-            t_out = state.teacher["head"](self._features(state.teacher, g_crops))
-        loss, new_center = dino_loss(
-            s_out.float(), t_out.float(), state.center, teacher_temp,
-            n_crops=self.n_crops, student_temp=self.student_temp,
-            center_momentum=self.center_momentum)
+            t_out = state.teacher["head"](torch.cat(
+                [self._features(state.teacher, g) for g in g_crops], dim=0))
+        return dino_loss(s_out.float(), t_out.float(), state.center, teacher_temp,
+                         n_crops=self.n_crops, student_temp=self.student_temp,
+                         center_momentum=self.center_momentum)
+
+    def _loss(self, state: TrainState, g_crops, l_crops, teacher_temp):
+        s_feats = [self._features(state.student, c, student=True)
+                   for c in (g_crops, l_crops)]
+        return self._dino(state, s_feats, [g_crops], teacher_temp)
+
+    def loss_and_grads(self, state: TrainState, *batch):
+        """``batch``: the step's crops, then the teacher temperature."""
+        params = state.params()
+        loss, new_center = self._loss(state, *batch)
         names = list(params)
         gs = torch.autograd.grad(loss, [params[n] for n in names],
                                  allow_unused=True)
@@ -131,11 +163,11 @@ class TrainStep:
                  for n, g in zip(names, gs)}
         return loss.detach(), new_center, grads
 
-    def __call__(self, state: TrainState, g_crops, l_crops, lr: float,
-                 wd: float, teacher_momentum: float, teacher_temp: float,
-                 freeze_last: bool):
-        loss, new_center, grads = self.loss_and_grads(state, g_crops, l_crops,
-                                                      teacher_temp)
+    def __call__(self, state: TrainState, *args):
+        """``args``: the step's crops, then lr, wd, teacher momentum,
+        teacher temperature and the last-layer freeze."""
+        *crops, lr, wd, teacher_momentum, teacher_temp, freeze_last = args
+        loss, new_center, grads = self.loss_and_grads(state, *crops, teacher_temp)
         state.opt_state = apply_updates_with_schedules(
             state.params(), grads, state.opt_state, self.core, self.mask,
             float(lr), float(wd), clip=self.clip_grad,
@@ -146,6 +178,54 @@ class TrainStep:
         return state, {"loss": loss}
 
 
+class TwoTokenTrainStep(TrainStep):
+    """The two-token step (JAX ``make_train_step(two_token=True)``; ref:
+    train_ssl.py:516-525, decoder.py:401-414): ``g_crops`` the 2 teacher
+    views (2B, C, T, S, S), ``l_crops = (s96, s224)`` the student's 4:
+    the two 96-px crops and the two temporally-local 224-px views, in the
+    order [2 x 96 px, 2 x 224 px]. Aux-token backbone, dual head,
+    ``dino_loss_two_token``; the plain route only, without remat, as in
+    JAX (its two-token branch never calls the rematerialized forward)."""
+
+    def _loss(self, state: TrainState, g_crops, l_crops, teacher_temp):
+        s96, s224 = l_crops
+        s_a = self._features(state.student, s96)
+        s_b = self._features(state.student, s224)
+        s_out = state.student["head"]((torch.cat([s_a[0], s_b[0]], dim=0),
+                                       torch.cat([s_a[1], s_b[1]], dim=0)))
+        with torch.no_grad():
+            t_out = state.teacher["head"](self._features(state.teacher, g_crops))
+        return dino_loss_two_token(s_out, t_out, state.center, teacher_temp,
+                                   student_temp=self.student_temp,
+                                   center_momentum=self.center_momentum)
+
+
+class RandFrTrainStep(TrainStep):
+    """The DATA.RAND_FR step (JAX ``make_rand_fr_train_step``): ``step(state,
+    crops, lr, wd, teacher_momentum, teacher_temp, freeze_last)``, crops the
+    6 frame-count groups (g4 (B, C, 4, S, S), g8 (B, C, 8, S, S), l2 (2B,
+    C, 2, s, s), l4, l8, l16), the reference's vary_fr grouping (ref:
+    utils/utils.py:583-588, decoder.py:418-427). One student forward per
+    group, one teacher forward per global group, ``dino_loss`` over 10
+    crops."""
+
+    def _loss(self, state: TrainState, crops, teacher_temp):
+        if len(crops) != 6:
+            raise ValueError(f"rand-fr crops: 6 groups, got {len(crops)}")
+        s_feats = [self._features(state.student, c, student=True) for c in crops]
+        return self._dino(state, s_feats, crops[:2], teacher_temp)
+
+
+def _step_route(route: str, two_token: bool) -> str:
+    if route not in ("auto", "plain", "kernels"):
+        raise ValueError(f"route {route!r}")
+    if not two_token:
+        return route
+    if route == "kernels":
+        raise ValueError(f"route='kernels': {tsf.TWO_TOKEN_PLAIN_ONLY}")
+    return "plain"
+
+
 def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
                     n_local_crops: int = 8, clip_grad: Optional[float] = 3.0,
                     student_temp: float = 0.1, center_momentum: float = 0.9,
@@ -154,24 +234,37 @@ def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
                     two_token: bool = False, cnn_params=None,
                     cnn_distill_weight: float = 0.0,
                     backbone_forward=None) -> TrainStep:
-    """The plain DINO step (the JAX ``make_train_step`` default variant).
-    ``route``: ``"auto"`` (``train_route``, once for the model),
-    ``"plain"`` or ``"kernels"`` (bf16, or f32: the mixed tier; raises where
-    the kernels' gate refuses the model)."""
-    if remat or two_token or backbone_forward is not None or (
-            cnn_params is not None and cnn_distill_weight > 0):
-        raise NotImplementedError("the remat, two-token, CNN-distill and "
-                                  "parallel trainer variants are not ported "
-                                  "(ROADMAP)")
-    if route not in ("auto", "plain", "kernels"):
-        raise ValueError(f"route {route!r}")
-    return TrainStep(model_cfg, core, mask, n_local_crops, clip_grad,
-                     student_temp, center_momentum, compute_dtype, route)
+    """The DINO step (the JAX ``make_train_step``). ``route``: ``"auto"``
+    (``train_route``, once for the model), ``"plain"`` or ``"kernels"``
+    (bf16, or f32: the mixed tier; raises where the kernels' gate refuses
+    the model). ``remat``: the student's backbone passes rematerialized per
+    block (``timesformer.checkpoint_block``), on every route, the same
+    values. ``two_token``: ``TwoTokenTrainStep`` (``n_local_crops`` and
+    ``remat`` unused; ``"auto"`` is the plain route, ``"kernels"``
+    raises)."""
+    if backbone_forward is not None or (cnn_params is not None
+                                        and cnn_distill_weight > 0):
+        raise NotImplementedError("the CNN-distill and parallel trainer "
+                                  "variants are not ported (ROADMAP)")
+    route = _step_route(route, two_token)
+    if two_token:
+        return TwoTokenTrainStep(model_cfg, core, mask, clip_grad, student_temp,
+                                 center_momentum, compute_dtype, route, n_crops=4)
+    return TrainStep(model_cfg, core, mask, clip_grad, student_temp,
+                     center_momentum, compute_dtype, route,
+                     n_crops=2 + n_local_crops, remat=remat)
 
 
-def make_rand_fr_train_step(*args, **kw):
-    raise NotImplementedError("the DATA.RAND_FR trainer variant is not "
-                              "ported (ROADMAP)")
+def make_rand_fr_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
+                            clip_grad: Optional[float] = 3.0,
+                            student_temp: float = 0.1, center_momentum: float = 0.9,
+                            compute_dtype: torch.dtype = torch.float32,
+                            route: str = "auto") -> RandFrTrainStep:
+    """The variable-frame-count multi-crop step (DATA.RAND_FR; JAX
+    ``make_rand_fr_train_step``), on ``make_train_step``'s routes."""
+    route = _step_route(route, False)
+    return RandFrTrainStep(model_cfg, core, mask, clip_grad, student_temp,
+                           center_momentum, compute_dtype, route, n_crops=10)
 
 
 def make_two_stream_train_step(*args, **kw):

@@ -7,8 +7,8 @@ with the same flag set plus ``--device``).
         --data_path /data/kinetics400 --output_dir out/svt \\
         --batch_size_per_gpu 8 --epochs 20
 
-Runs the plain trainer variant: multi-crop DINO (2 global + N local clips
-from ``ClipDataset``), AdamW / SGD / LARS, the cosine
+Runs multi-crop DINO (2 global + N local clips from ``ClipDataset``),
+AdamW / SGD / LARS, the cosine
 lr / wd / teacher-momentum schedules, teacher-temperature warmup, gradient
 clip and last-layer freeze, the EMA teacher, a checkpoint at
 ``output_dir/checkpoint`` with resume from it, and one ``log.txt`` JSON
@@ -17,11 +17,19 @@ ViT-B and ViT-S runs the per-phase Hopper kernels forward and backward;
 f32 compute runs with TF32 off. The loss is checked every ``SYNC_EVERY``
 steps; a non-finite one stops the run with exit code 1.
 
-Flags of the variants that are not ported (two-token, two-stream, rand-fr,
-CNN distillation, remat, profiling, online kNN, the parallel strategies)
-raise ``NotImplementedError`` unless they are at their defaults, as do
-configs that select those variants. ``--norm_last_layer`` is parsed and
-never read, as in the JAX CLI (ROADMAP section 3).
+The variants of the JAX CLI that need no other backbone: ``--two_token``
+or ``MODEL.TWO_TOKEN`` (the aux-token backbone and the 6-view protocol,
+on the plain route), ``DATA.RAND_FR`` (variable-frame-count crops, one
+forward per frame-count group), ``--use_remat`` (rematerialized student
+forwards) and ``--profile_dir`` (a ``torch.profiler`` Chrome trace of
+steps ``--profile_start_step`` to ``+ --profile_steps``, also written when
+the run stops on a non-finite loss).
+
+Flags of the variants that are not ported (two-stream, CNN distillation,
+online kNN, the parallel strategies) raise ``NotImplementedError`` unless
+they are at their defaults, as do configs that select those variants.
+``--norm_last_layer`` is parsed and never read, as in the JAX CLI
+(ROADMAP section 3).
 """
 
 import argparse
@@ -38,12 +46,9 @@ SYNC_EVERY = 10
 
 # flag -> (default, what it selects)
 UNPORTED_FLAGS = {
-    "two_token": (False, "the two-token trainer variant"),
     "pretrained_motion": (None, "the two-stream trainer variant"),
     "pretrained_cnn": (None, "the CNN-distillation variant"),
     "cnn_distill_weight": (0.0, "the CNN-distillation variant"),
-    "use_remat": (False, "rematerialized student forwards"),
-    "profile_dir": ("", "the profiler trace"),
     "knn_eval_freq": (0, "the online kNN evaluation (evaluation consumers)"),
     "model_parallel": (1, "tensor parallelism (parallelism)"),
     "tp_fused": (False, "tensor parallelism (parallelism)"),
@@ -52,8 +57,7 @@ UNPORTED_FLAGS = {
     "seq_parallel": (1, "sequence parallelism (parallelism)"),
     "num_shards": (1, "multi-process data parallelism (parallelism)"),
 }
-UNPORTED_CFG = ("MODEL.TWO_TOKEN", "MODEL.TWO_STREAM", "MODEL.CNN_DISTILL",
-                "DATA.RAND_FR")
+UNPORTED_CFG = ("MODEL.TWO_STREAM", "MODEL.CNN_DISTILL")
 
 
 def get_args_parser():
@@ -136,6 +140,48 @@ def check_unported(args, cfg) -> None:
                                       "is not ported yet (ROADMAP)")
 
 
+class StepProfiler:
+    """The ``--profile_dir`` trace (the JAX CLI's ``jax.profiler`` window):
+    ``torch.profiler`` over the CPU and, on a card, CUDA activities, started
+    before step ``start`` and stopped before step ``start + steps`` (or by
+    ``stop``), which writes ``trace.json``, a Chrome trace, into
+    ``profile_dir`` and prints ``profiler trace written to <dir>``."""
+
+    def __init__(self, profile_dir: str, start: int, steps: int, device):
+        self.profile_dir = profile_dir
+        self.start, self.steps = start, steps
+        self.device = device
+        self.prof = None
+        self.path = os.path.join(profile_dir, "trace.json") if profile_dir else None
+
+    def step(self, gi: int) -> None:
+        """Call before global step ``gi``."""
+        if self.profile_dir and self.prof is None and gi == self.start:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        if self.prof is not None and gi >= self.start + self.steps:
+            self.stop()
+
+    def stop(self) -> None:
+        """Flush a running trace (a no-op otherwise)."""
+        if self.prof is None:
+            return
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print(f"profiler trace written to {self.profile_dir}", flush=True)
+
+
 def train_svt(args):
     """(ref: train_ssl.py:154-463). Returns the final ``TrainState``."""
     import numpy as np
@@ -147,7 +193,8 @@ def train_svt(args):
     from .models import convert
     from .models.timesformer import config_from_cfg
     from .train.dino import teacher_temp_schedule
-    from .train.ssl import build_schedules, init_train_state, make_train_step
+    from .train.ssl import (build_schedules, init_train_state,
+                            make_rand_fr_train_step, make_train_step)
     from .utils.checkpoint import restore_checkpoint, save_checkpoint
     from .utils.device import resolve_device
     from .utils.flops import train_step_flops
@@ -169,13 +216,34 @@ def train_svt(args):
         json.dump(vars(args), f, indent=2, default=str)
 
     # ---------------- data -------------------------------------------------
-    dataset = ClipDataset(cfg, "train", seed=args.seed)
+    two_token = args.two_token or cfg.MODEL.TWO_TOKEN
+    rand_fr = cfg.DATA.RAND_FR
+    dataset = ClipDataset(cfg, "train", temporal_aug=not two_token,
+                          two_token=two_token, rand_fr=rand_fr, seed=args.seed)
     per_host = args.batch_size_per_gpu
-    n_local = args.local_crops_number
+    n_local = 2 if two_token else args.local_crops_number
     idx = shard_indices(len(dataset), 0, 1, shuffle=True, seed=args.seed,
                         drop_last=True)
     niter_per_ep = max(len(idx) // per_host, 1)
     print(f"Data loaded: {len(dataset)} videos, {niter_per_ep} it/epoch.")
+
+    def collate(items):
+        """The step's crops: views stacked view-major, as the reference's
+        multi-crop wrapper concatenates them (ref: utils/utils.py:582-609)."""
+        def views(sel):
+            return torch.from_numpy(np.concatenate(
+                [np.stack([it[c] for it in items]) for c in sel])).to(
+                    dev, non_blocking=True)
+
+        if two_token:
+            # teacher [v0, v1]; student ([v2, v3] at 96 px, [v4, v5] at 224)
+            # (ref: transform.py:738-743)
+            return views((0, 1)), (views((2, 3)), views((4, 5)))
+        if rand_fr:
+            # the vary_fr groups [1, 2, 4, 6, 8, 10] (ref: utils/utils.py:583-588)
+            return (tuple(views(sel) for sel in
+                          ((0,), (1,), (2, 3), (4, 5), (6, 7), (8, 9))),)
+        return views(range(2)), views(range(2, 2 + n_local))
 
     def batches(epoch):
         order = shard_indices(len(dataset), 0, 1, shuffle=True,
@@ -185,14 +253,7 @@ def train_svt(args):
                                    num_workers=args.num_workers):
             items.append(item[0])
             if len(items) == per_host:
-                # views stacked view-major, as the reference's multi-crop
-                # wrapper concatenates them (ref: utils/utils.py:582-609)
-                g = np.concatenate([np.stack([it[c] for it in items])
-                                    for c in range(2)])
-                loc = np.concatenate([np.stack([it[c] for it in items])
-                                      for c in range(2, 2 + n_local)])
-                yield (torch.from_numpy(g).to(dev, non_blocking=True),
-                       torch.from_numpy(loc).to(dev, non_blocking=True))
+                yield collate(items)
                 items = []
 
     # ---------------- model ------------------------------------------------
@@ -205,10 +266,15 @@ def train_svt(args):
     compute_dtype = torch.bfloat16 if args.use_fp16 else torch.float32
     state, core, mask = init_train_state(
         mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
-        pretrained_backbone=backbone_sd, device=dev)
-    step_fn = make_train_step(mcfg, core, mask, n_local_crops=n_local,
-                              clip_grad=args.clip_grad,
-                              compute_dtype=compute_dtype)
+        pretrained_backbone=backbone_sd, device=dev, two_token=two_token)
+    if rand_fr:
+        step_fn = make_rand_fr_train_step(mcfg, core, mask, clip_grad=args.clip_grad,
+                                          compute_dtype=compute_dtype)
+    else:
+        step_fn = make_train_step(mcfg, core, mask, n_local_crops=n_local,
+                                  clip_grad=args.clip_grad,
+                                  compute_dtype=compute_dtype,
+                                  remat=args.use_remat, two_token=two_token)
     print(f"Block route: {step_fn.route} ({compute_dtype})")
 
     # ---------------- schedules --------------------------------------------
@@ -226,10 +292,15 @@ def train_svt(args):
         start_epoch = int(run_vars.get("epoch", 0))
         print(f"Resumed from {ckpt_path} at epoch {start_epoch}")
 
-    step_flops = train_step_flops(mcfg, per_host, n_local_crops=n_local,
-                                  local_size_px=96)
+    if rand_fr or two_token:
+        step_flops = 0.0  # mixed-geometry steps: no analytic model, as in JAX
+    else:
+        step_flops = train_step_flops(mcfg, per_host, n_local_crops=n_local,
+                                      local_size_px=96)
 
     # ---------------- train loop -------------------------------------------
+    profiler = StepProfiler(args.profile_dir, args.profile_start_step,
+                            args.profile_steps, dev)
     start_time = time.time()
     for epoch in range(start_epoch, args.epochs):
         sums = {"loss": 0.0, "lr": 0.0, "wd": 0.0}
@@ -242,6 +313,7 @@ def train_svt(args):
                 v = float(loss)
                 if not math.isfinite(v):
                     print(f"Loss is {v}, stopping training", flush=True)
+                    profiler.stop()  # flush the profile of the dying run
                     sys.exit(1)
                 sums["loss"] += v
                 sums["lr"] += float(lr_sched[gi])
@@ -251,12 +323,13 @@ def train_svt(args):
 
         epoch_t0 = time.time()
         steps_done = 0
-        for it, (g, loc) in enumerate(batches(epoch)):
+        for it, crops in enumerate(batches(epoch)):
             if args.max_steps_per_epoch and it >= args.max_steps_per_epoch:
                 break
             gi = min(epoch * niter_per_ep + it, len(lr_sched) - 1)
+            profiler.step(gi)
             state, metrics = step_fn(
-                state, g, loc, float(lr_sched[gi]), float(wd_sched[gi]),
+                state, *crops, float(lr_sched[gi]), float(wd_sched[gi]),
                 float(mom_sched[gi]), float(tt_sched[min(epoch, len(tt_sched) - 1)]),
                 epoch < args.freeze_last_layer)
             pending.append((gi, metrics["loss"]))
@@ -275,13 +348,15 @@ def train_svt(args):
                             state, {"epoch": epoch + 1})
         log_stats = {f"train_{k}": v / max(count, 1) for k, v in sums.items()}
         log_stats["epoch"] = epoch
-        if steps_done and dev.type == "cuda":
+        if step_flops and steps_done and dev.type == "cuda":
             log_stats["achieved_tflops"] = round(
                 step_flops * steps_done / epoch_dt / 1e12, 2)
         with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(log_stats) + "\n")
         print(json.dumps(log_stats), flush=True)
 
+    # the run ended inside the trace window: flush the trace, as JAX does
+    profiler.stop()
     total = str(datetime.timedelta(seconds=int(time.time() - start_time)))
     print(f"Training time {total}")
     return state

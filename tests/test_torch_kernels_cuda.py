@@ -282,10 +282,13 @@ def test_spatial_phase_pf_kernel_matches_twin(cuda_device, C, N, D, H):
     _close(got[2], want[2])
 
 
-# Row 3: a ragged small M, the banded 512-frame bucket, and the train
-# step's global (16 clips x 8 frames x 196) and local (64 x 8 x 36) crops.
+# Row 3: a ragged small M, the banded 512-frame bucket, the train step's
+# global (16 clips x 8 frames x 196) and local (64 x 8 x 36) crops, and the
+# rand-fr step's 4-frame globals and 2- and 16-frame locals.
 @pytest.mark.parametrize("M,D,H", [(200, 256, 4), (512 * 196, 768, 12),
-                                   (16 * 8 * 196, 768, 12), (64 * 8 * 36, 768, 12)])
+                                   (16 * 8 * 196, 768, 12), (64 * 8 * 36, 768, 12),
+                                   (8 * 4 * 196, 768, 12), (16 * 2 * 36, 768, 12),
+                                   (16 * 16 * 36, 768, 12)])
 def test_mlp_phase_kernel_matches_twin(cuda_device, M, D, H):
     p = _block(D, H, 0, cuda_device)["spatial"]
     x = _qkv((M, D), 10, cuda_device)
@@ -329,7 +332,12 @@ TRAIN_SHAPES = [(2, 4, 6, 128, 2), (2, 8, 196, 768, 12), (4, 8, 36, 768, 12),
                 # 7's tiles at N = 4 (12 sequences: one ragged group of the
                 # 14 the temporal tiles take at T = 8) and N = 1
                 (16, 8, 196, 768, 12), (64, 8, 36, 768, 12), (3, 8, 4, 256, 4),
-                (5, 8, 1, 128, 2)]
+                (5, 8, 1, 128, 2),
+                # the rand-fr step's groups (DATA.RAND_FR, batch 8): the 4-frame
+                # globals, and the 2-, 4- and 16-frame locals (T = 16 takes the
+                # strided backward's whole-sequence strips)
+                (8, 4, 196, 768, 12), (16, 2, 36, 768, 12), (16, 4, 36, 768, 12),
+                (16, 16, 36, 768, 12)]
 
 
 def _grads_close(got: dict, want: dict):
@@ -418,7 +426,12 @@ def test_spatial_phase_bwd_kernel_matches_twin(cuda_device, B, T, N, D, H):
                                              (77, 256, 1024, False),
                                              (18432, 768, 3072, True),
                                              (64, 768, 3072, True),
-                                             (100, 768, 3072, True)])
+                                             (100, 768, 3072, True),
+                                             # the rand-fr step's 4-frame
+                                             # globals, 2- and 16-frame locals
+                                             (6272, 768, 3072, True),
+                                             (1152, 768, 3072, True),
+                                             (9216, 768, 3072, True)])
 def test_mlp_phase_bwd_kernel_matches_twin(cuda_device, M, D, Dh, residual):
     p = _block(D, D // 64, 0, cuda_device)["spatial"]
     assert p["fc1_w"].shape == (Dh, D)
@@ -468,6 +481,40 @@ def test_train_step_kernel_route_matches_twins(cuda_device):
         got = grads["cuda"][n].cpu()
         rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
         assert torch.isfinite(got).all() and rel < 0.15, (n, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_remat_kernel_route_equals_non_remat(cuda_device, dtype):
+    """Rematerialized students (``make_train_step(remat=True)``) on the
+    kernel route, bf16 and the mixed tier (f32): the loss and every
+    gradient equal the non-remat route's bit for bit (the same kernels on
+    the same inputs, deterministic); the recompute launches each student
+    per-phase forward a second time per block."""
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=128,
+                                depth=2, num_heads=2, num_frames=4,
+                                num_classes=0)
+    r = np.random.RandomState(8)
+    g = torch.from_numpy(r.randn(4, 3, 4, 32, 32).astype(np.float32)).to(cuda_device)
+    l = torch.from_numpy(r.randn(8, 3, 4, 32, 32).astype(np.float32)).to(cuda_device)
+    state, core, mask = ssl.init_train_state(cfg, out_dim=64, seed=9, device=cuda_device)
+    out = {}
+    for remat in (False, True):
+        step = ssl.make_train_step(cfg, core, mask, n_local_crops=4, compute_dtype=dtype,
+                                   route="kernels", remat=remat)
+        before = dict(fb.launches)
+        out[remat] = step.loss_and_grads(state, g, l, 0.04)
+        torch.cuda.synchronize()
+        out[remat] += ({k: fb.launches[k] - before[k] for k in fb.launches},)
+    (l0, c0, g0, n0), (l1, c1, g1, n1) = out[False], out[True]
+    assert torch.equal(l0, l1) and torch.equal(c0, c1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    tier = "_f32" if dtype == torch.float32 else ""
+    fwd = "temporal_phase_tm_f32" if tier else "temporal_phase_tm_bf16"
+    assert (n0[fwd], n1[fwd]) == (3 * cfg.depth, 5 * cfg.depth)
+    assert (n0["mlp_phase" + tier], n1["mlp_phase" + tier]) == (6 * cfg.depth, 10 * cfg.depth)
+    assert n0["spatial_phase_bwd" + tier] == n1["spatial_phase_bwd" + tier] == 2 * cfg.depth
 
 
 # The XLA-layout block's two attention phases (rows 5, 6): the spatial
@@ -1064,7 +1111,9 @@ def test_backward_blocks_refuse_bad_inputs(cuda_device):
 TEMPORAL_BWD_SHAPES = [(16, 8, 196, 768, 12), (64, 8, 36, 768, 12), (1, 8, 13, 128, 2),
                        (2, 8, 15, 256, 4), (3, 8, 4, 256, 4), (5, 8, 1, 128, 2),
                        (2, 3, 16, 128, 2), (2, 5, 9, 256, 4), (1, 30, 4, 768, 12),
-                       (1, 17, 3, 256, 2)] + [
+                       (1, 17, 3, 256, 2),
+                       # the rand-fr step's 2- and 16-frame locals
+                       (16, 2, 36, 768, 12), (16, 16, 36, 768, 12)] + [
     (1, 8, 7, D, H) for D, H in [(128, 8), (128, 4), (384, 8), (640, 8), (384, 4),
                                  (896, 8), (256, 2)]]
 

@@ -324,14 +324,16 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 
 def test_unported_variants_raise():
+    """What stays unported: the parallel forward hook and CNN distillation
+    (the S3D backbone)."""
     cfg = tsf.TimeSformerConfig(**KW)
     _, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu")
-    for kw in [dict(remat=True), dict(two_token=True),
-               dict(backbone_forward=lambda p, x: x)]:
+    for kw in [dict(backbone_forward=lambda p, x: x),
+               dict(cnn_params={}, cnn_distill_weight=0.5)]:
         with pytest.raises(NotImplementedError):
             ssl.make_train_step(cfg, core, mask, **kw)
     with pytest.raises(NotImplementedError):
-        ssl.init_train_state(cfg, out_dim=OUT, device="cpu", two_token=True)
+        ssl.init_train_state(cfg, out_dim=OUT, device="cpu", cnn_distill_dim=1024)
 
 
 def test_train_route_gate():
@@ -386,9 +388,9 @@ def test_train_ssl_cli_one_step_and_resume(tmp_path, capsys):
     assert "Resumed from" in out and "Block route: plain" in out
     assert len(open(os.path.join(out_dir, "log.txt")).read().splitlines()) == 1
     with pytest.raises(NotImplementedError):
-        train_ssl.main(argv + ["MODEL.TWO_TOKEN", "True"])
+        train_ssl.main(argv + ["MODEL.TWO_STREAM", "True"])
     with pytest.raises(NotImplementedError):
-        train_ssl.main(["--two_token", "true"] + argv)
+        train_ssl.main(["--pretrained_motion", "motion.pth"] + argv)
 
 
 def test_dino_augmentation_matches_jax():
