@@ -269,6 +269,24 @@ Imports torch, numpy and the port package
 10. shared-memory probe: ``tools/smem_probe.probe`` bisects the dynamic
    shared memory a block may opt into; it must reach the
    ``fused_block.SMEM_LIMIT`` the attention kernels assume.
+11. the evaluation consumers (``phase_11``; ViT-B/16, numpy-seeded
+   weights, clips in memory): (a) rows 1 and 2 (bf16) at the kNN and
+   linear probe's batch (B=8, T=8) and rows 1f and 2f (the f32 tier) at
+   the K400 classifier's clip (B=1, T=16; offset rows, twin_check's f32
+   rule on every output), each against its twin and timed beside its
+   plain time and bound; (b) ``engine.knn.extract_features`` on the bf16
+   kernel route (``timesformer.eval_kernels``) over 3 batches of 8 clips
+   (T=8, 224 px): the whole-block pair once per block a batch and nothing
+   else, ms a batch and clips/s, features held to the plain bf16 and f32
+   routes by phase 8's rule, and ``knn_predict`` on the card equal to the
+   CPU's; (c) the K400 classifier (400 classes, T=16, B=1) at
+   ``--precision bfloat16``'s semantics (the f32 model on bf16-rounded
+   pixels: rows 1f and 2f once per block, nothing else): its logits held
+   to its twin route (``twins``) and f32 by phase 8's rule, and no further
+   from f32 than the bf16 kernel route's; ms a video; (d) three
+   linear-probe steps on the kernel route (launches, ms, peak memory) and
+   two finetune steps (f32 plain route, B=4, T=16: no port launch; ms a
+   step, peak memory).
 
 Tolerances (stated here, checked below):
 * kernel vs twin (``ops/twin_check.py``, per output): both share every
@@ -1542,6 +1560,318 @@ def phase_7c(fb, p, dev, card, reset_counts, counts, part, phase7):
     del ttc, state, tstep, core, mask
     torch.cuda.empty_cache()
     return rf_geo, launches_rf, launches_remat
+
+
+def offset_pair_checks(fb, pt, ps, H, B, T, N, D, checks):
+    """Rows 1 and 2's bf16 tier on offset rows (|x| ~ 4-16), the case
+    tests/test_torch_kernels_cuda.py's offset-row test holds. Row 2's bf16
+    grid is one rounding of x1 + branch, whose ulp there (2^-4 near 8) is a
+    fifth of the branch's max, so a tie flipped by the sum's order fails
+    REL_RMS_TOL on a sound kernel: the grid is held by
+    ``twin_check.rounding_ulps``, its branch through the f32 tier on the
+    same bf16-exact CLS row (the bf16 tier but for the grid's dtype).
+    Appends the gaps to ``checks``; returns the failures."""
+    import torch
+
+    from dino_video_summarization_transformer_tpu_torch.ops import twin_check
+
+    x = dev_offset_rows(116, B, T, N, D).to(torch.bfloat16)
+    x1, cls = dev_offset_rows(117, B, T, N, D), dev_offset_rows(118, B, 1, D).to(torch.bfloat16)
+    tag = f"B={B} T={T} offset rows"
+    checks["temporal_phase_tm"].append(check_close(
+        f"temporal_phase_tm out-x {tag}", fb.temporal_phase_tm(x, pt, H),
+        fb.temporal_phase_tm_plain(x, pt, H), x))
+    grid, rows = fb.spatial_mlp(x1, cls, ps, H)
+    want_grid, want_rows = fb.spatial_mlp_plain(x1, cls, ps, H)
+    ulps = twin_check.rounding_ulps(grid, want_grid, x1)
+    ok = ulps <= twin_check.ROUNDING_ULPS
+    print(f"  spatial_mlp bf16 grid {tag}: {ulps:.2f} ulps of the twin's (<= "
+          f"{twin_check.ROUNDING_ULPS}) {'ok' if ok else 'FAILED'}", flush=True)
+    checks["spatial_mlp"].append(check_close(f"spatial_mlp cls rows {tag}", rows, want_rows))
+    checks["spatial_mlp"].append(check_close(
+        f"spatial_mlp grid-x1 {tag} (f32 grid, same CLS row)",
+        fb.spatial_mlp(x1, cls.float(), ps, H)[0],
+        fb.spatial_mlp_plain(x1, cls.float(), ps, H)[0], x1))
+    return [] if ok else [f"spatial_mlp bf16 grid {tag}: {ulps} ulps"]
+
+
+def phase_11(fb, p, dev, card, reset_counts, counts, part):
+    """Phase 11, the evaluation consumers at ViT-B/16 (numpy-seeded
+    weights, clips in memory, no decode): (a) rows 1 and 2 at the kNN and
+    linear probe's batch (B=8, T=8) and rows 1f and 2f at the K400
+    classifier's clip (B=1, T=16) against their twins; (b)
+    ``extract_features`` on the bf16 kernel route over three batches of 8
+    clips, launches, features against the plain bf16 and f32 routes,
+    ``knn_predict`` on the card against the CPU; (c) the K400 classifier
+    (400 classes, T=16, B=1) at ``--precision bfloat16``'s semantics (the
+    f32 model on bf16 pixels, the kernel pair's f32 tier) against its twin
+    route, f32 and the bf16 kernel route; (d) linear-probe steps on kernel
+    features and two f32 finetune steps (B=4, T=16, no port kernel).
+    ``p``: phase 3's block (the ops' weights). Returns the kernels line's
+    additions: (rows by op at the new geometries, launches by op and
+    path)."""
+    import numpy as np
+    import torch
+
+    from dino_video_summarization_transformer_tpu_torch.engine import (
+        classification, knn, linear)
+    from dino_video_summarization_transformer_tpu_torch.models import (
+        convert, timesformer as tsf)
+    from dino_video_summarization_transformer_tpu_torch.ops import twin_check
+    from dino_video_summarization_transformer_tpu_torch.utils.synthetic import (
+        make_numpy_params)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg8 = tsf.vit_base_config(num_frames=8, num_classes=0)
+    D, H, N, depth = cfg8.embed_dim, cfg8.num_heads, cfg8.num_patches, cfg8.depth
+    Dh = int(D * cfg8.mlp_ratio)
+    pt, ps = p["temporal"], p["spatial"]
+    print("[11] the evaluation consumers: rows 1 and 2 at B=8 T=8, rows 1f and 2f at "
+          "B=1 T=16, kNN features, the K400 classifier, the linear probe and "
+          "finetuning (ViT-B/16)", flush=True)
+
+    # (a) the new geometries first, each output on its branch by the twin
+    # rules; the f32 tiers on offset rows and by twin_check's f32 rule
+    geo, launches = {}, {}
+    cases = [("temporal_phase_tm", "spatial_mlp", 8, 8, False),
+             ("temporal_phase_tm_f32", "spatial_mlp_f32", 1, 16, True)]
+    for t_name, s_name, B, T, f32_tier in cases:
+        if f32_tier:
+            x, x1, cls = (dev_offset_rows(111, B, T, N, D), dev_offset_rows(112, B, T, N, D),
+                          dev_offset_rows(113, B, 1, D))
+        else:
+            x, x1, cls = (dev_randn(111, B, T, N, D), dev_randn(112, B, T, N, D, dtype=f32),
+                          dev_randn(113, B, 1, D))
+        with torch.inference_mode():
+            got_t, want_t = fb.temporal_phase_tm(x, pt, H), fb.temporal_phase_tm_plain(x, pt, H)
+            got_s, want_s = fb.spatial_mlp(x1, cls, ps, H), fb.spatial_mlp_plain(x1, cls, ps, H)
+            checks = {t_name: [check_close(f"{t_name} out-x B={B} T={T}", got_t, want_t, x)],
+                      s_name: [check_close(f"{s_name} grid-x1 B={B} T={T}", got_s[0],
+                                           want_s[0], x1),
+                               check_close(f"{s_name} cls rows B={B} T={T}", got_s[1],
+                                           want_s[1])]}
+            bad = []
+            if f32_tier:
+                for tag, t in ((f"{t_name} out", got_t), (f"{s_name} grid", got_s[0]),
+                               (f"{s_name} cls rows", got_s[1])):
+                    b_ = twin_check.f32_failures(t)
+                    print(f"  {tag} B={B} T={T}: bf16_exact={twin_check.bf16_exact(t):.3e} "
+                          f"{'ok' if not b_ else 'FAILED: ' + '; '.join(b_)}", flush=True)
+                    bad += b_
+            else:
+                bad += offset_pair_checks(fb, pt, ps, H, B, T, N, D, checks)
+            del got_t, want_t, got_s, want_s
+            if bad or not all(ok for v in checks.values() for ok, _ in v):
+                fail(f"a kernel disagrees with its plain twin at the evaluation geometry "
+                     f"B={B}, T={T}")
+            runs = {t_name: (lambda: fb.temporal_phase_tm(x, pt, H),
+                             lambda: fb.temporal_phase_tm_plain(x, pt, H),
+                             (temporal_f32_cost if f32_tier else temporal_cost)(B, T, N, D)),
+                    s_name: (lambda: fb.spatial_mlp(x1, cls, ps, H),
+                             lambda: fb.spatial_mlp_plain(x1, cls, ps, H),
+                             (spatial_f32_cost if f32_tier else spatial_cost)(B, T, N, D, Dh))}
+            for name, (kern, plain, cost) in runs.items():
+                ms, pl = cuda_ms(kern, 20), cuda_ms(plain, 5)
+                b, by = bound_ms(*cost)
+                gaps = [gap for _, gap in checks[name]]
+                geo[name] = {"B": B, "T": T, "N": N, "ms": ms, "plain_ms": pl,
+                             "bound_ms": b, "bound_by": by, "library_ms": None,
+                             "max_abs_err": max(g["max_abs_err"] for g in gaps),
+                             "rel_rms": max(g["rel_rms"] for g in gaps)}
+                print(f"  {name} B={B} T={T}: kernel {ms:.3f} ms, plain {pl:.3f} ms, bound "
+                      f"{b:.4f} ms ({by}), {b / ms:.1%} of bound; library: none (no single "
+                      "call)", flush=True)
+        del x, x1, cls, runs
+    torch.cuda.empty_cache()
+    part("phase 11a: rows 1, 2 at B=8 T=8 and 1f, 2f at B=1 T=16")
+
+    # (b) kNN features: the bf16 no-head model on the kernel pair, as the
+    # CLIs build it (timesformer.eval_kernels), over 3 batches of 8 clips
+    sd8 = convert.state_dict_from_jax_params(make_numpy_params(cfg8, seed=0), cfg8)
+    if not tsf.eval_kernels(cfg8, bf16, dev) or tsf.eval_kernels(cfg8, f32, dev):
+        fail("eval_kernels: expected the kernel pair for bf16 on the card only")
+    kmodel = tsf.build_timesformer(dataclasses.replace(cfg8, use_kernels=True), sd8,
+                                   device=dev, dtype=bf16)
+
+    class Clips:
+        x = np.random.RandomState(114).randn(24, 3, 8, 224, 224).astype(np.float32)
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return self.x[i], i
+
+    clips = Clips()
+    knn.extract_features(kmodel, clips, batch_size=8, num_workers=2, log_every=0)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = knn.extract_features(kmodel, clips, batch_size=8, num_workers=2, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seen = counts()
+    want = {k: 0 for k in seen}
+    want.update(temporal_phase_tm=3 * depth, spatial_mlp=3 * depth)
+    xb = torch.from_numpy(clips.x[:8]).to(dev)
+    with torch.inference_mode():
+        dev_ms = cuda_ms(lambda: kmodel.forward_features(xb), 5)
+    print(f"  extract_features, 24 clips (3 batches of 8, T=8, 224 px): {wall * 1e3 / 3:.1f} ms "
+          f"a batch wall, {24 / wall:.1f} clips/s; one batch's forward on the card "
+          f"{dev_ms:.1f} ms on {card}; launches {seen}", flush=True)
+    if seen != want:
+        fail(f"extract_features launches {seen}, expected {want}")
+    launches["knn_extract_3_batches"] = {k: seen[k] for k in ("temporal_phase_tm", "spatial_mlp")}
+    plain_model = tsf.build_timesformer(cfg8, sd8, device=dev, dtype=bf16)
+    f32_model = tsf.build_timesformer(cfg8, sd8, device=dev)
+    reset_counts()
+    plain = knn.extract_features(plain_model, clips, batch_size=8, num_workers=2, log_every=0)
+    ref = knn.extract_features(f32_model, clips, batch_size=8, num_workers=2, log_every=0)
+    if any(counts().values()):
+        fail("the plain bf16 and f32 extractions launched a kernel")
+    feature_checks("kNN features (bf16 kernel route)", torch.from_numpy(feats),
+                   torch.from_numpy(plain), torch.from_numpy(ref))
+    del plain_model, f32_model
+    fn = knn.l2_normalize(feats)
+    labels = np.arange(24) % 5
+    for k in (1, 5, 20):
+        on_card = knn.knn_predict(fn[:16], labels[:16], fn[16:], k, 0.07, 5, dev)
+        on_cpu = knn.knn_predict(fn[:16], labels[:16], fn[16:], k, 0.07, 5, "cpu")
+        if not np.array_equal(on_card, on_cpu):
+            fail(f"knn_predict k={k}: the card's top-5 differ from the CPU's")
+    print("  knn_predict k=1, 5, 20 (16 train, 8 test, 5 classes): the card's top-5 equal "
+          "the CPU's", flush=True)
+    extract = {"ms_per_batch_wall": wall * 1e3 / 3, "clips_per_s": 24 / wall,
+               "ms_per_batch_device": dev_ms}
+    part("phase 11b: kNN features")
+
+    # (c) the K400 classifier at --precision bfloat16: the f32 model with
+    # the kernel pair's f32 tier on bf16-rounded pixels (JAX's dtype fault)
+    cfg16 = tsf.vit_base_config(num_frames=16, num_classes=400)
+    sd16 = convert.state_dict_from_jax_params(make_numpy_params(cfg16, seed=1), cfg16)
+    r = np.random.RandomState(115)
+    sd16["head.weight"] = (0.02 * r.randn(400, D)).astype(np.float32)
+    sd16["head.bias"] = np.zeros(400, np.float32)
+    kcfg16 = dataclasses.replace(cfg16, use_kernels=tsf.eval_kernels(cfg16, bf16, dev))
+    k400 = tsf.build_timesformer(kcfg16, sd16, device=dev)
+    pix = torch.from_numpy(r.randn(1, 16, 3, 224, 224).astype(np.float32)).to(dev)
+    clf = classification.make_classifier_fn(k400, bf16)
+    clf(pix)  # warm-up
+    reset_counts()
+    logits = clf(pix)
+    torch.cuda.synchronize()
+    seen = counts()
+    want = {k: 0 for k in seen}
+    want.update(temporal_phase_tm_f32=depth, spatial_mlp_f32=depth)
+    if seen != want:
+        fail(f"the K400 classifier's launches {seen}, expected {want}")
+    launches["k400_video"] = {k: seen[k] for k in ("temporal_phase_tm_f32", "spatial_mlp_f32")}
+    with twins(fb):
+        twin = clf(pix)
+    ref = classification.make_classifier_fn(tsf.build_timesformer(cfg16, sd16, device=dev),
+                                            bf16)(pix)
+    bf16_k = classification.make_classifier_fn(tsf.build_timesformer(
+        kcfg16, sd16, device=dev, dtype=bf16), bf16)(pix).float()
+    e_k = float((logits - ref).abs().mean())
+    e_b = float((bf16_k - ref).abs().mean())
+    feature_checks("K400 logits (f32 tier on bf16 pixels)", logits, twin, ref)
+    print(f"  K400 logits vs f32 mean abs: f32 tier {e_k:.3e}, bf16 kernel route {e_b:.3e} "
+          f"(need f32 tier <= it); argmax f32 tier / twin / f32 / bf16: "
+          f"{int(logits.argmax())} / {int(twin.argmax())} / {int(ref.argmax())} / "
+          f"{int(bf16_k.argmax())}", flush=True)
+    if tuple(logits.shape) != (1, 400) or e_k > e_b:
+        fail("the K400 classifier's f32 tier is further from f32 than the bf16 kernel route")
+    host = pix.cpu().numpy()
+    with torch.inference_mode():
+        video_ms = cuda_ms(lambda: clf(host), 5)
+        video_dev_ms = cuda_ms(lambda: clf(pix), 5)
+    print(f"  K400 classifier (ViT-B/16, T=16, 400 classes): {video_ms:.1f} ms a video with "
+          f"its upload, {video_dev_ms:.1f} ms on the card ({card})", flush=True)
+    # the host's preprocessing of one video (not in the times above): 16
+    # decoded 240x320 frames through hf_video_preprocess, the first call
+    # (the resize taps computed) and the next (cached)
+    frames = np.random.RandomState(119).randint(0, 256, (16, 240, 320, 3), np.uint8)
+    classification._bilinear_taps.cache_clear()
+    pre_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        classification.hf_video_preprocess(frames)
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  hf_video_preprocess, 16 frames 240x320 on the host: {pre_ms[0]:.1f} ms first "
+          f"call, {min(pre_ms[1:]):.1f} ms after (decode not included)", flush=True)
+    k400_times = {"ms_per_video": video_ms, "ms_per_video_device": video_dev_ms,
+                  "preprocess_ms_per_video_host": min(pre_ms[1:]),
+                  "preprocess_ms_first_video_host": pre_ms[0]}
+    del k400, clf, twin, ref, bf16_k
+    torch.cuda.empty_cache()
+    part("phase 11c: the K400 classifier")
+
+    # (d) linear-probe steps on the kernel features, then two finetune steps
+    state, train_step, _, epoch_lr = linear.make_linear_probe(
+        kmodel, num_labels=101, lr=1e-3 * 8 / 256, epochs=10,
+        generator=torch.Generator().manual_seed(0))
+    ys = torch.from_numpy(r.randint(0, 101, (3, 8))).to(dev)
+    xs = [torch.from_numpy(clips.x[8 * i:8 * i + 8]).to(dev) for i in range(3)]
+    state, _ = train_step(state, xs[0], ys[0], epoch_lr(0))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(3):
+        state, loss = train_step(state, xs[i], ys[i], epoch_lr(0))
+        losses.append(float(loss))
+    probe_ms = (time.perf_counter() - t0) * 1e3 / 3
+    seen = counts()
+    want = {k: 0 for k in seen}
+    want.update(temporal_phase_tm=3 * depth, spatial_mlp=3 * depth)
+    print(f"  linear probe: {probe_ms:.1f} ms a step (batch 8), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}, losses "
+          f"{[round(v, 4) for v in losses]}; launches {seen}", flush=True)
+    if seen != want or not all(math.isfinite(v) for v in losses):
+        fail(f"linear-probe steps: launches {seen} (expected {want}), losses {losses}")
+    launches["linear_probe_step"] = {k: seen[k] // 3 for k in ("temporal_phase_tm", "spatial_mlp")}
+    probe = {"ms_per_step": probe_ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del kmodel, state, xs, clips
+    torch.cuda.empty_cache()
+
+    class Frames:  # clips in memory: the step's time is the card's and the upload's
+        def __init__(self, n):
+            g = np.random.RandomState(120)
+            self.x = g.randn(n, 16, 3, 224, 224).astype(np.float32)
+            self.y = g.randint(0, 400, n)
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return {"pixel_values": self.x[i], "label": int(self.y[i])}
+
+    ft = tsf.build_timesformer(cfg16, sd16, device=dev).train()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as out_dir:
+        _, hist = classification.finetune(Frames(8), Frames(0), ft, out_dir, num_epochs=1,
+                                          batch_size=4, lr=5e-5, warmup_steps=1,
+                                          num_workers=2, max_steps_per_epoch=2, log_every=1)
+    torch.cuda.synchronize()
+    seen = counts()
+    summary = hist[-1]
+    ft_ms = 1e3 * summary["train_runtime"] / max(summary["step"], 1)
+    print(f"  finetune (f32 plain, B=4, T=16, 2 steps): {ft_ms:.1f} ms a step (with the "
+          f"host's batch and upload), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"on {card}, "
+          f"losses {[round(e['loss'], 4) for e in hist if 'loss' in e]}", flush=True)
+    if any(seen.values()):
+        fail(f"the finetune step launched a port kernel: {seen}")
+    if summary["step"] != 2 or not all(math.isfinite(e["loss"]) for e in hist if "loss" in e):
+        fail(f"finetune: {hist}")
+    finetune_rec = {"ms_per_step": ft_ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del ft
+    torch.cuda.empty_cache()
+    part("phase 11d: the linear probe and finetuning")
+    return geo, {"launches": launches, "extract_features": extract, "k400": k400_times,
+                 "linear_probe": probe, "finetune": finetune_rec}
 
 
 def main():
@@ -4258,7 +4588,11 @@ def main():
     print(f"  roundtrip of {probe['budget']} B: kernel {stats['smem_probe'][0]['ms']:.4f}"
           f" ms (with its attribute call), max_abs_err {err}", flush=True)
 
+    # -- 11. the evaluation consumers ------------------------------------------
     lap("phase 10")
+    eval_geo, eval_rec = phase_11(fb, p, dev, card, reset_counts, counts, part)
+
+    lap("phase 11")
     kernels = []
     sources = {
         "temporal_phase_tm": ("fused_block.cu", "ops/fused_block.py:761"),
@@ -4369,6 +4703,10 @@ def main():
             extra["launches_strided"] = by_cfg
         if name in geo_img:
             extra["teacher_img_160"] = geo_img[name]
+        if name in eval_geo:  # the evaluation consumers (phase 11)
+            extra["eval_geometry"] = eval_geo[name]
+            extra["launches_eval"] = {path: n[name] for path, n in eval_rec["launches"].items()
+                                      if name in n}
         if name in launches_rf:  # the trainer's variants (phase 7c)
             extra.update(launches_rand_fr_step=launches_rf[name],
                          launches_remat_step=launches_remat[name],
@@ -4386,6 +4724,8 @@ def main():
             "bound_by": rows[0]["bound_by"],
             "library_ms": None if None in libs else sum(libs),
             "per_window": rows})
+    print(f"  evaluation consumers (phase 11): {json.dumps({k: v for k, v in eval_rec.items() if k != 'launches'})}",
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

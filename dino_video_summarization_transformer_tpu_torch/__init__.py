@@ -10,9 +10,11 @@ Layout:
   config/    config tree + YAML/opts merge (YAML read lazily)
   models/    TimeSformer divided space-time backbone, checkpoint loading
   ops/       hand-written Hopper kernels (csrc/) with their plain twins
-  data/      windows, selection, scoring dataset, native decode, prefetch
-  train/     the per-frame scoring loss
-  engine/    per-frame scoring engine (FrameScorer, run_scoring)
+  data/      windows, selection, scoring / clip / frame-selection datasets,
+             native decode, prefetch
+  train/     the DINO losses and the train step
+  engine/    per-frame scoring engine (FrameScorer, run_scoring); the
+             evaluation consumers (kNN, linear probe, K400 classification)
   utils/     device resolution, numpy-seeded synthetic params and video
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

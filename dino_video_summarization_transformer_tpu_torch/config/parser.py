@@ -1,7 +1,7 @@
 """Config loading for the CLIs (ref: utils/parser.py:65-90).
 
 ``load_config`` builds the config tree from defaults + YAML + trailing
-``opts`` overrides.
+``opts`` overrides; ``set_data_path`` points it at a ``--data_path``.
 Copied from the JAX package's ``config/parser.py``.
 """
 
@@ -27,3 +27,13 @@ def load_config(args):
     if hasattr(args, "output_dir"):
         cfg.OUTPUT_DIR = args.output_dir
     return cfg
+
+
+def set_data_path(cfg, data_path):
+    """A CLI's ``--data_path`` fills ``DATA.PATH_TO_DATA_DIR``, and
+    ``DATA.PATH_PREFIX`` where the config left it empty; an empty path
+    changes nothing."""
+    if data_path:
+        cfg.DATA.PATH_TO_DATA_DIR = data_path
+        if not cfg.DATA.PATH_PREFIX:
+            cfg.DATA.PATH_PREFIX = data_path

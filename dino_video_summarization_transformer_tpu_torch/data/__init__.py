@@ -1,5 +1,6 @@
 from . import selection, video, windows
-from .datasets import ClipDataset, DinoLossDataset, read_csv_entries
+from .datasets import (ClipDataset, DinoLossDataset, FrameSelectionDataset,
+                       build_dataset, read_csv_entries)
 from .loader import PrefetchLoader, shard_indices
 
 __all__ = [
@@ -8,6 +9,8 @@ __all__ = [
     "windows",
     "ClipDataset",
     "DinoLossDataset",
+    "FrameSelectionDataset",
+    "build_dataset",
     "read_csv_entries",
     "PrefetchLoader",
     "shard_indices",

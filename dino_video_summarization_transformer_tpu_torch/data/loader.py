@@ -3,14 +3,15 @@
 Replaces torch DataLoader/DistributedSampler (ref: datasets_custom/loader.py,
 data_utils.py:357-380) with a thread-pool prefetcher: decode/augment run in
 worker threads (the native decoder releases the GIL inside libav), and
-items are handed to the engine in order as numpy for its device upload.
-Copied from the JAX package's ``data/loader.py``.
+items are handed to the engine in order as numpy, one at a time or in
+batches of ``batch_size`` through ``collate``. Copied from the JAX
+package's ``data/loader.py``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -32,19 +33,39 @@ def shard_indices(
 
 class PrefetchLoader:
     """Iterate ``dataset[i]`` for i in ``indices`` with ``num_workers``
-    threads, preserving order, keeping up to ``prefetch`` items buffered."""
+    threads, preserving order, keeping up to ``prefetch`` items buffered;
+    with ``batch_size`` > 1 yield lists of that many items (the last may
+    be short), or ``collate(list)`` where given."""
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
-                 num_workers: int = 4, prefetch: int = 8):
+                 num_workers: int = 4, prefetch: int = 8,
+                 collate: Optional[Callable] = None, batch_size: int = 1):
         self.dataset = dataset
         self.indices = list(indices if indices is not None else range(len(dataset)))
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.collate = collate
+        self.batch_size = batch_size
 
     def __len__(self):
-        return len(self.indices)
+        return (len(self.indices) + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator:
+        batch: List = []
+        for item in self._iter_items():
+            batch.append(item)
+            if len(batch) == self.batch_size:
+                yield self._emit(batch)
+                batch = []
+        if batch:
+            yield self._emit(batch)
+
+    def _emit(self, batch: List):
+        if self.collate:
+            return self.collate(batch)
+        return batch if self.batch_size > 1 else batch[0]
+
+    def _iter_items(self) -> Iterator:
         if self.num_workers == 1:
             for i in self.indices:
                 yield self.dataset[i]

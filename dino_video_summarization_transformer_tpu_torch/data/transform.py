@@ -1,8 +1,10 @@
 """Host-side frame transforms, copied from the JAX package's
 ``data/transform.py`` (numpy, no JAX): the scoring dataset's normalize and
-uniform crop, and the training path's DINO multi-crop augmentation
-(``VideoDataAugmentationDINO``) with the crops, jitters and temporal
-sampling it calls (ref: datasets_custom/transform.py, decoder.py).
+uniform crop, the clip datasets' ``spatial_sampling`` (short-side scale
+jitter, random or uniform crop, flip), and the training path's DINO
+multi-crop augmentation (``VideoDataAugmentationDINO``) with the crops,
+jitters and temporal sampling it calls (ref: datasets_custom/transform.py,
+data_utils.py, decoder.py).
 Every stochastic op takes a ``numpy.random.RandomState``."""
 
 from __future__ import annotations
@@ -26,6 +28,13 @@ def tensor_normalize(frames: np.ndarray, mean, std) -> np.ndarray:
     return (frames - mean) / std
 
 
+def revert_tensor_normalize(frames: np.ndarray, mean, std) -> np.ndarray:
+    """(ref: datasets_custom/data_utils.py:340-352)."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return frames * std + mean
+
+
 def uniform_crop(
     images: np.ndarray, size: int, spatial_idx: int
 ) -> Tuple[np.ndarray, None]:
@@ -47,6 +56,37 @@ def uniform_crop(
             x_offset = width - size
     cropped = images[:, :, y_offset:y_offset + size, x_offset:x_offset + size]
     return cropped, None
+
+
+def random_crop(images: np.ndarray, size: int, rng) -> np.ndarray:
+    """(ref: datasets_custom/transform.py:98-131). images (T, C, H, W)."""
+    if images.shape[2] == size and images.shape[3] == size:
+        return images
+    height, width = images.shape[2], images.shape[3]
+    y_offset = int(rng.randint(0, height - size + 1)) if height > size else 0
+    x_offset = int(rng.randint(0, width - size + 1)) if width > size else 0
+    return images[:, :, y_offset:y_offset + size, x_offset:x_offset + size]
+
+
+def random_short_side_scale_jitter(
+    images: np.ndarray, min_size: int, max_size: int, rng,
+    inverse_uniform_sampling: bool = False,
+) -> np.ndarray:
+    """Short-side scale jitter with bilinear resize
+    (ref: datasets_custom/transform.py:9-64). images (T, C, H, W)."""
+    if inverse_uniform_sampling:
+        size = int(round(1.0 / rng.uniform(1.0 / max_size, 1.0 / min_size)))
+    else:
+        size = int(round(rng.uniform(min_size, max_size)))
+    height, width = images.shape[2], images.shape[3]
+    if (width <= height and width == size) or (height <= width and height == size):
+        return images
+    new_width, new_height = size, size
+    if width < height:
+        new_height = int(math.floor((float(height) / width) * size))
+    else:
+        new_width = int(math.floor((float(width) / height) * size))
+    return resize(images, (new_height, new_width), mode="bilinear")
 
 
 def random_resized_crop(
@@ -156,6 +196,35 @@ def color_normalization(images: np.ndarray, mean, stddev) -> np.ndarray:
     mean = np.asarray(mean, np.float32).reshape(1, -1, 1, 1)
     std = np.asarray(stddev, np.float32).reshape(1, -1, 1, 1)
     return (images - mean) / std
+
+
+def spatial_sampling(
+    frames: np.ndarray,
+    rng,
+    spatial_idx: int = -1,
+    min_scale: int = 256,
+    max_scale: int = 320,
+    crop_size: int = 224,
+    random_horizontal_flip: bool = True,
+    inverse_uniform_sampling: bool = False,
+) -> np.ndarray:
+    """Train / test crop dispatcher (ref: datasets_custom/data_utils.py:
+    109-159). frames (T, C, H, W); ``spatial_idx`` -1 is the train path
+    (scale jitter, random crop, flip), 0-2 the test path (one fixed scale,
+    the uniform crop at that index)."""
+    assert spatial_idx in (-1, 0, 1, 2)
+    if spatial_idx == -1:
+        frames = random_short_side_scale_jitter(
+            frames, min_scale, max_scale, rng,
+            inverse_uniform_sampling=inverse_uniform_sampling)
+        frames = random_crop(frames, crop_size, rng)
+        if random_horizontal_flip:
+            frames = horizontal_flip(0.5, frames, rng)
+    else:
+        assert len({min_scale, max_scale, crop_size}) == 1
+        frames = random_short_side_scale_jitter(frames, min_scale, max_scale, rng)
+        frames, _ = uniform_crop(frames, crop_size, spatial_idx)
+    return np.ascontiguousarray(frames)
 
 
 class VideoDataAugmentationDINO:

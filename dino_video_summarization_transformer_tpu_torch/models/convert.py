@@ -14,7 +14,13 @@ the aux-token backbone (``aux_cls_token``, ``pos_embed`` widened to
 num_patches + 2) and the dual head (``aux_mlp``, ``aux_last_layer``),
 whose leaves the JAX package's ``pytree_to_reference_state_dict`` names
 not; the names the port picks are in their docstrings. Both are linear in the leaves, so they also carry
-JAX gradients and optimizer moments across for the tests. The int8 tier's
+JAX gradients and optimizer moments across for the tests.
+``jax_params_from_state_dict`` is the inverse (the JAX package's
+``timesformer_to_pytree``): the finetuning CLI writes its parameters under
+JAX's ``/``-joined pytree keys with it. ``convert_hf_timesformer`` reads a
+HuggingFace TimeSformer checkpoint (``model.safetensors`` through the
+numpy reader ``load_safetensors``, or ``pytorch_model.bin``) into the
+reference layout. The int8 tier's
 weights are not carried across: a converted state dict is quantized by the
 port (``ops/quant.quantize_state_dict_int8``), whose codes and scales equal
 JAX ``quantize_tree_int8``'s of the same tree bit for bit.
@@ -22,6 +28,10 @@ JAX ``quantize_tree_int8``'s of the same tree bit for bit.
 
 from __future__ import annotations
 
+import json
+import os
+import re
+import struct
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -213,3 +223,185 @@ def head_state_dict_from_jax(head_np: Mapping[str, Any]) -> Dict[str, np.ndarray
     out["last_layer.weight_v"] = np.ascontiguousarray(
         np.asarray(ll["weight_v"], np.float32).T)
     return out
+
+
+_BLOCK_RE = re.compile(r"^blocks\.(\d+)\.(.+)$")
+
+
+def jax_params_from_state_dict(sd: Mapping[str, Any], cfg, dtype=np.float32
+                               ) -> Dict[str, Any]:
+    """Reference-layout state dict -> the JAX package's stacked-block pytree
+    (numpy leaves, blocks stacked along a leading depth axis; JAX
+    ``timesformer_to_pytree``, ``models/convert.py:132-197``): the inverse
+    of ``state_dict_from_jax_params``."""
+    sd = {k: np.asarray(_to_np(v), dtype=dtype) for k, v in sd.items()}
+    block_sd: Dict[int, Dict[str, np.ndarray]] = {}
+    for k, v in sd.items():
+        m = _BLOCK_RE.match(k)
+        if m:
+            block_sd.setdefault(int(m.group(1)), {})[m.group(2)] = v
+    if len(block_sd) != cfg.depth:
+        raise ValueError(f"expected {cfg.depth} blocks, got {len(block_sd)}")
+
+    def lin(b, prefix):
+        p = {"kernel": b[prefix + ".weight"].T}
+        if prefix + ".bias" in b:
+            p["bias"] = b[prefix + ".bias"]
+        return p
+
+    def ln(b, prefix):
+        return {"scale": b[prefix + ".weight"], "bias": b[prefix + ".bias"]}
+
+    def stacked(fn):
+        per = [fn(block_sd[i]) for i in range(cfg.depth)]
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+        return stack(*per)
+
+    blocks = {
+        "norm1": stacked(lambda b: ln(b, "norm1")),
+        "attn": stacked(lambda b: {"qkv": lin(b, "attn.qkv"), "proj": lin(b, "attn.proj")}),
+        "norm2": stacked(lambda b: ln(b, "norm2")),
+        "mlp": stacked(lambda b: {"fc1": lin(b, "mlp.fc1"), "fc2": lin(b, "mlp.fc2")}),
+    }
+    if cfg.attention_type == "divided_space_time":
+        blocks["temporal_norm1"] = stacked(lambda b: ln(b, "temporal_norm1"))
+        blocks["temporal_attn"] = stacked(lambda b: {
+            "qkv": lin(b, "temporal_attn.qkv"), "proj": lin(b, "temporal_attn.proj")})
+        blocks["temporal_fc"] = stacked(lambda b: lin(b, "temporal_fc"))
+    # conv (D, C, ps, ps) -> kernel[(kh*ps + kw)*C + c, d]
+    w = sd["patch_embed.proj.weight"]
+    Dp, C, ps, _ = w.shape
+    params: Dict[str, Any] = {
+        "cls_token": sd["cls_token"],
+        "pos_embed": sd["pos_embed"],
+        "patch_embed": {"proj": {"kernel": w.transpose(2, 3, 1, 0).reshape(ps * ps * C, Dp),
+                                 "bias": sd["patch_embed.proj.bias"]}},
+        "blocks": blocks,
+        "norm": ln(sd, "norm"),
+    }
+    if "time_embed" in sd:
+        params["time_embed"] = sd["time_embed"]
+    if "head.weight" in sd and cfg.num_classes > 0:
+        params["head"] = lin(sd, "head")
+    return params
+
+
+def flatten_params(tree: Mapping[str, Any], prefix=()):
+    """(path tuple, leaf) pairs of a nested dict, in insertion order, as
+    the JAX finetuning CLI walks its pytree for ``finetuned_params.npz``."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from flatten_params(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+# HuggingFace TimesformerModel layout -> the reference's names; the order
+# matters (the most specific prefix first)
+_HF_BLOCK_MAP = [
+    ("attention.attention.qkv.", "attn.qkv."),
+    ("attention.output.dense.", "attn.proj."),
+    ("temporal_attention.attention.qkv.", "temporal_attn.qkv."),
+    ("temporal_attention.output.dense.", "temporal_attn.proj."),
+    ("temporal_dense.", "temporal_fc."),
+    ("temporal_layernorm.", "temporal_norm1."),
+    ("layernorm_before.", "norm1."),
+    ("layernorm_after.", "norm2."),
+    ("intermediate.dense.", "mlp.fc1."),
+    ("output.dense.", "mlp.fc2."),
+]
+_HF_EMBED = {
+    "cls_token": "cls_token",
+    "position_embeddings": "pos_embed",
+    "time_embeddings": "time_embed",
+    "patch_embeddings.projection.weight": "patch_embed.proj.weight",
+    "patch_embeddings.projection.bias": "patch_embed.proj.bias",
+}
+
+
+def hf_timesformer_state_dict_to_reference(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Rename a HuggingFace TimeSformer state dict into the reference naming
+    (the ``TimesformerForVideoClassification`` the reference evaluates,
+    ref: timesformer_evaluation.py:60-62)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("timesformer.embeddings."):
+            out[_HF_EMBED[k[len("timesformer.embeddings."):]]] = v
+        elif k.startswith("timesformer.encoder.layer."):
+            idx, sub = k[len("timesformer.encoder.layer."):].split(".", 1)
+            for src, dst in _HF_BLOCK_MAP:
+                if sub.startswith(src):
+                    sub = dst + sub[len(src):]
+                    break
+            out[f"blocks.{idx}.{sub}"] = v
+        elif k.startswith("timesformer.layernorm."):
+            out["norm." + k[len("timesformer.layernorm."):]] = v
+        elif k.startswith("classifier."):
+            out["head." + k[len("classifier."):]] = v
+    return out
+
+
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+              "U8": np.uint8, "BOOL": np.bool_}
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Read a ``.safetensors`` file with numpy: an 8-byte little-endian
+    header length, the JSON header (name -> dtype, shape, data_offsets into
+    the buffer that follows; ``__metadata__`` skipped), then the raw
+    little-endian buffer. F16 stays float16 (as ``safetensors.numpy``
+    returns it); BF16, which numpy lacks, is widened to float32 exactly (its
+    16 bits are the high half of the f32 word)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = f.read()
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        lo, hi = meta["data_offsets"]
+        raw, shape = buf[lo:hi], tuple(meta["shape"])
+        if meta["dtype"] == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            out[name] = bits.view(np.float32).reshape(shape)
+        elif meta["dtype"] in _ST_DTYPES:
+            dt = np.dtype(_ST_DTYPES[meta["dtype"]]).newbyteorder("<")
+            out[name] = np.frombuffer(raw, dt).reshape(shape).astype(dt.newbyteorder("="))
+        else:
+            raise ValueError(f"{path}: tensor {name!r} of dtype {meta['dtype']}")
+    return out
+
+
+def _load_hf_dir(path: str) -> Dict[str, np.ndarray]:
+    st = os.path.join(path, "model.safetensors")
+    if os.path.exists(st):
+        return load_safetensors(st)
+    return load_torch_state_dict(os.path.join(path, "pytorch_model.bin"))
+
+
+def convert_hf_timesformer(path_or_sd, cfg) -> Dict[str, np.ndarray]:
+    """A HuggingFace TimeSformer checkpoint (a directory holding
+    ``model.safetensors`` or ``pytorch_model.bin``, a ``.bin`` / ``.pth``
+    file, or a state-dict mapping) -> the surgered reference-layout state
+    dict (``apply_surgery``: ``time_embed`` and ``pos_embed`` resized to
+    ``cfg``)."""
+    if isinstance(path_or_sd, str):
+        sd = (_load_hf_dir(path_or_sd) if os.path.isdir(path_or_sd)
+              else load_torch_state_dict(path_or_sd))
+    else:
+        sd = {k: _to_np(v) for k, v in path_or_sd.items()}
+    return apply_surgery(hf_timesformer_state_dict_to_reference(sd), cfg)
+
+
+def linear_head_state_dict_from_jax(head_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX linear probe ``{"kernel": (dim, L), "bias": (L,)}`` ->
+    ``heads.LinearClassifier``'s ``linear.weight`` (L, dim) and
+    ``linear.bias``."""
+    return {"linear.weight": np.ascontiguousarray(np.asarray(head_np["kernel"], np.float32).T),
+            "linear.bias": np.asarray(head_np["bias"], np.float32)}

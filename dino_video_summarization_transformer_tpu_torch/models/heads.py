@@ -4,7 +4,8 @@ reference's state-dict layout: ``mlp.{0,2,4}`` (Linear, GELU, Linear,
 GELU, Linear; a single ``mlp`` Linear at one layer) and a weight-normed
 ``last_layer`` holding ``weight_g`` (out, 1) and ``weight_v`` (out, in),
 as torch's ``weight_norm`` stores them. The two-token trainer's dual head
-(``MultiDINOHead``) holds two of them, ``main`` and ``aux``."""
+(``MultiDINOHead``) holds two of them, ``main`` and ``aux``. The linear
+probe's classifier is ``LinearClassifier``."""
 
 from __future__ import annotations
 
@@ -102,3 +103,23 @@ class MultiDINOHead(nn.Module):
 
     def forward(self, x_pair):
         return self.main(x_pair[0]), self.aux(x_pair[1])
+
+
+class LinearClassifier(nn.Module):
+    """The linear probe (ref: eval_linear.py:306-316; JAX
+    ``init_linear_classifier`` / ``linear_classifier_forward``): flatten,
+    then one linear layer ``linear`` (num_labels, dim), weights N(0, 0.01)
+    from ``generator`` and zero bias. The reference hardcodes in_dim=768
+    and ignores ``dim`` (SURVEY.md section 7); here, as in JAX, ``dim`` is
+    honoured."""
+
+    def __init__(self, dim: int, num_labels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.linear = nn.Linear(dim, num_labels)
+        with torch.no_grad():
+            self.linear.weight.normal_(0.0, 0.01, generator=generator)
+            self.linear.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x.reshape(x.shape[0], -1))

@@ -251,6 +251,17 @@ def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype,
     return route
 
 
+def eval_kernels(cfg: "TimeSformerConfig", compute_dtype: torch.dtype, device) -> bool:
+    """Whether a frozen-backbone consumer (the kNN and linear probes, the
+    K400 classifier) runs the whole-block kernel pair
+    (``TimeSformerConfig.use_kernels``): ``"auto"``, bf16 on a CUDA
+    device, on the kernels' geometry (``train_route``'s gate) — the JAX
+    CLIs' ``should_fuse`` with ``fused_wb=True`` and the glue-free gate.
+    Anything else takes the plain route."""
+    return (torch.device(device).type == "cuda"
+            and train_route(cfg, compute_dtype, "auto") == "kernels")
+
+
 # ---------------------------------------------------------------------------
 # The XLA-layout block's phases (JAX models/timesformer.py:266-325)
 # ---------------------------------------------------------------------------

@@ -78,6 +78,7 @@
 #     bash .../plant_faults.sh f32bwd_dx_bf16 f32bwd_db_from_bf16 f32_ln_bwd_x_bf16 f32_spatial_cls_bf16
 #     bash .../plant_faults.sh cr_tangents_swapped dispatch_chunks_reversed
 #     bash .../plant_faults.sh q8f_residual_bf16 band_mt_teacher_bf16
+#     bash .../plant_faults.sh seq_strips_row_swapped f32_cls_b1_rounded
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer).
@@ -142,3 +143,4 @@ run dispatch_chunks_reversed ../../engine/scoring.py 's/for r0 in range(0, views
 run q8f_residual_bf16 fused_block.cu 's/return wg_gemm_s8<kEpiResF32F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/return wg_gemm_s8<kEpiResBf16F32>(w.q, w.sx, fc2_w, fc2_s, fc2_b, w.x2, out, M, D, Dh, st);/'
 run band_mt_teacher_bf16 ../../engine/scoring.py 's/            fr = self._gather(buf, idx, self.teacher_dtype)/            fr = self._gather(buf, idx, self.compute_dtype).to(self.teacher_dtype)/'
 run seq_strips_row_swapped tc_attention.cuh 's/    cp_async16(dA.at(r, c), da + rr \* D + h \* HD + c \* 8, 16);/    cp_async16(dA.at(r, c), da + (kRows == kSeqStrips ? row(r ^ 1) : rr) * D + h * HD + c * 8, 16);/'
+run f32_cls_b1_rounded ../fused_block.py 's/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), (cls.to(torch.bfloat16).to(cls.dtype) if B == 1 else cls).data_ptr(),/'

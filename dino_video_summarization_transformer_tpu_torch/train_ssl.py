@@ -25,9 +25,17 @@ forwards) and ``--profile_dir`` (a ``torch.profiler`` Chrome trace of
 steps ``--profile_start_step`` to ``+ --profile_steps``, also written when
 the run stops on a non-finite loss).
 
+The online kNN hook (``--knn_eval_freq`` N with ``--knn_data_path``):
+every N epochs and after the last, the teacher backbone's f32 features of
+the ``--knn_dataset`` train and val splits, a ``--nb_knn`` vote, and
+``knn_top1`` / ``knn_top5`` in the epoch's ``log.txt`` line. The teacher
+runs its training forward in f32 under ``torch.no_grad``, on the train
+step's route: the kernel route's f32 tiers (rows 1f, 4f and 3f) where the
+step runs the kernels, as JAX's hook runs ``use_fused`` at f32.
+
 Flags of the variants that are not ported (two-stream, CNN distillation,
-online kNN, the parallel strategies) raise ``NotImplementedError`` unless
-they are at their defaults, as do configs that select those variants.
+the parallel strategies) raise ``NotImplementedError`` unless they are at
+their defaults, as do configs that select those variants.
 ``--norm_last_layer`` is parsed and never read, as in the JAX CLI
 (ROADMAP section 3).
 """
@@ -49,7 +57,6 @@ UNPORTED_FLAGS = {
     "pretrained_motion": (None, "the two-stream trainer variant"),
     "pretrained_cnn": (None, "the CNN-distillation variant"),
     "cnn_distill_weight": (0.0, "the CNN-distillation variant"),
-    "knn_eval_freq": (0, "the online kNN evaluation (evaluation consumers)"),
     "model_parallel": (1, "tensor parallelism (parallelism)"),
     "tp_fused": (False, "tensor parallelism (parallelism)"),
     "zero1": (False, "ZeRO-1 (parallelism)"),
@@ -182,12 +189,46 @@ class StepProfiler:
         print(f"profiler trace written to {self.profile_dir}", flush=True)
 
 
+def online_knn_eval(args, cfg, backbone, epoch, route, device):
+    """Online kNN probe on the teacher backbone (ref: train_ssl.py:576-599;
+    JAX ``online_knn_eval``): f32 features of the ``--knn_dataset`` splits
+    through ``forward_train(compute_dtype=float32, route=route)``."""
+    import numpy as np
+    import torch
+
+    from .config import set_data_path
+    from .data.datasets import build_dataset
+    from .engine.knn import extract_features, knn_classifier, l2_normalize
+    from .eval_knn import ReturnIndexDataset
+
+    knn_cfg = cfg.clone()
+    knn_cfg.TEST.NUM_SPATIAL_CROPS = 1
+    set_data_path(knn_cfg, args.knn_data_path)
+    ds_train = build_dataset(args.knn_dataset, knn_cfg, "train", num_retries=10)
+    ds_val = build_dataset(args.knn_dataset, knn_cfg, "val", num_retries=10)
+
+    def feats(ds):
+        return l2_normalize(extract_features(
+            backbone, ReturnIndexDataset(ds), batch_size=args.eval_batch_size_per_gpu,
+            num_workers=args.num_workers,
+            forward=lambda x: backbone.forward_train(
+                x, compute_dtype=torch.float32, route=route)))
+
+    top1, top5 = knn_classifier(
+        feats(ds_train), np.asarray(ds_train.labels, np.int64),
+        feats(ds_val), np.asarray(ds_val.labels, np.int64),
+        args.nb_knn, args.temperature, num_classes=max(ds_train.labels) + 1,
+        device=device)
+    print(f"[epoch {epoch}] online kNN: top1 {top1:.2f} top5 {top5:.2f}", flush=True)
+    return {"knn_top1": top1, "knn_top5": top5}
+
+
 def train_svt(args):
     """(ref: train_ssl.py:154-463). Returns the final ``TrainState``."""
     import numpy as np
     import torch
 
-    from .config import load_config
+    from .config import load_config, set_data_path
     from .data.datasets import ClipDataset
     from .data.loader import PrefetchLoader, shard_indices
     from .models import convert
@@ -201,10 +242,7 @@ def train_svt(args):
 
     cfg = load_config(args)
     check_unported(args, cfg)
-    if args.data_path:
-        cfg.DATA.PATH_TO_DATA_DIR = args.data_path
-        if not cfg.DATA.PATH_PREFIX:
-            cfg.DATA.PATH_PREFIX = args.data_path
+    set_data_path(cfg, args.data_path)
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -218,6 +256,11 @@ def train_svt(args):
     # ---------------- data -------------------------------------------------
     two_token = args.two_token or cfg.MODEL.TWO_TOKEN
     rand_fr = cfg.DATA.RAND_FR
+    if two_token and args.knn_eval_freq:
+        raise NotImplementedError(
+            "--knn_eval_freq with the two-token variant: JAX's hook runs the "
+            "one-token forward on the two-token backbone; the port does not "
+            "(ROADMAP section 3)")
     dataset = ClipDataset(cfg, "train", temporal_aug=not two_token,
                           two_token=two_token, rand_fr=rand_fr, seed=args.seed)
     per_host = args.batch_size_per_gpu
@@ -351,6 +394,10 @@ def train_svt(args):
         if step_flops and steps_done and dev.type == "cuda":
             log_stats["achieved_tflops"] = round(
                 step_flops * steps_done / epoch_dt / 1e12, 2)
+        if (args.knn_eval_freq and args.knn_data_path
+                and (epoch % args.knn_eval_freq == 0 or epoch == args.epochs - 1)):
+            log_stats.update(online_knn_eval(args, cfg, state.teacher["backbone"], epoch,
+                                             step_fn.route, dev))
         with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(log_stats) + "\n")
         print(json.dumps(log_stats), flush=True)

@@ -1,4 +1,5 @@
-"""Small CLI helpers (copied from the JAX package's ``utils/misc.py``)."""
+"""Small CLI helpers (copied from the JAX package's ``utils/misc.py``):
+``bool_flag`` and the git stamp the evaluation CLIs print."""
 
 from __future__ import annotations
 
@@ -14,3 +15,25 @@ def bool_flag(s: str) -> bool:
     if s.lower() in TRUTHY:
         return True
     raise argparse.ArgumentTypeError("invalid value for a boolean flag")
+
+
+def get_sha() -> str:
+    """Git SHA stamp for logs (ref: utils/utils.py:373-390)."""
+    import os
+    import subprocess
+
+    cwd = os.path.dirname(os.path.abspath(__file__))
+
+    def _run(cmd):
+        return subprocess.check_output(cmd, cwd=cwd).decode("ascii").strip()
+
+    sha, diff, branch = "N/A", "clean", "N/A"
+    try:
+        sha = _run(["git", "rev-parse", "HEAD"])
+        subprocess.check_output(["git", "diff"], cwd=cwd)
+        diff = _run(["git", "diff-index", "HEAD"])
+        diff = "has uncommitted changes" if diff else "clean"
+        branch = _run(["git", "rev-parse", "--abbrev-ref", "HEAD"])
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return f"sha: {sha}, status: {diff}, branch: {branch}"

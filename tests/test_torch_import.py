@@ -1,4 +1,6 @@
-"""The PyTorch/CUDA port imports neither JAX nor the JAX package.
+"""The PyTorch/CUDA port imports neither JAX nor the JAX package, nor the
+libraries the card's machine lacks that the JAX package's evaluation
+consumers use (PIL, safetensors, sklearn, transformers).
 
 ``dino_video_summarization_transformer_tpu_torch`` starts with the JAX
 package's name, so every check matches whole module names."""
@@ -18,8 +20,11 @@ JAX_PKG = "dino_video_summarization_transformer_tpu"
 PORT_DIR = os.path.join(conftest.REPO_ROOT, PORT)
 
 
-def _forbidden(name: str) -> bool:
-    return any(name == m or name.startswith(m + ".") for m in ("jax", JAX_PKG))
+ABSENT_ON_CARD = ("PIL", "safetensors", "sklearn", "transformers")
+
+
+def _forbidden(name: str, mods=("jax", JAX_PKG)) -> bool:
+    return any(name == m or name.startswith(m + ".") for m in mods)
 
 
 def _port_files():
@@ -39,7 +44,7 @@ def test_import_leaves_jax_out():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'yaml', "
-        f"'{JAX_PKG}') or m.startswith(('jax.', '{JAX_PKG}.'))]\n"
+        f"'{JAX_PKG}', *{ABSENT_ON_CARD!r}) or m.startswith(('jax.', '{JAX_PKG}.'))]\n"
         f"lib = sys.modules['{PORT}.data.video']._LIB\n"
         "print(bad, lib)\n"
         "sys.exit(1 if bad or lib is not None else 0)\n")
@@ -62,6 +67,23 @@ def test_no_jax_import_statement(path):
         else:
             continue
         bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_no_import_of_what_the_card_lacks(path):
+    """No import statement anywhere in a port file (lazy ones included)
+    names PIL, safetensors, sklearn or transformers."""
+    with open(os.path.join(conftest.REPO_ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n, ABSENT_ON_CARD)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 

@@ -531,7 +531,9 @@ def test_train_ssl_cli_variant_one_step(corpus, tmp_path, monkeypatch, capsys, f
 
 @pytest.mark.parametrize("flags,opts", [
     (["--pretrained_motion", "m.pth"], []), (["--pretrained_cnn", "c.pth"], []),
-    (["--cnn_distill_weight", "0.5"], []), (["--knn_eval_freq", "1"], []),
+    (["--cnn_distill_weight", "0.5"], []),
+    # the online kNN hook is ported; with the two-token variant it is refused
+    (["--knn_eval_freq", "1", "--two_token", "true"], []),
     (["--model_parallel", "2"], []), (["--tp_fused", "true"], []),
     (["--zero1", "true"], []), (["--pipeline", "2"], []), (["--seq_parallel", "2"], []),
     (["--num_shards", "2"], []), ([], ["MODEL.TWO_STREAM", "True"]),
