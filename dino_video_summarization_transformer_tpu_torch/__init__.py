@@ -8,13 +8,17 @@ keeps as its own copy.
 
 Layout:
   config/    config tree + YAML/opts merge (YAML read lazily)
-  models/    TimeSformer divided space-time backbone, checkpoint loading
-  ops/       hand-written Hopper kernels (csrc/) with their plain twins
-  data/      windows, selection, scoring / clip / frame-selection datasets,
-             native decode, prefetch
-  train/     the DINO losses and the train step
+  models/    TimeSformer backbone (divided, space-only, joint), the 2D ViT
+             motion nets, the S3D teacher, checkpoint loading
+  ops/       hand-written Hopper kernels (csrc/) with their plain twins;
+             image ops (Sobel, RandConv, flow folders)
+  data/      windows, selection, scoring / clip (with flow) / frame-selection
+             / SSv2 datasets, native decode, prefetch
+  train/     the DINO losses and the train steps (plain, two-token, rand-fr,
+             two-stream, CNN distillation)
   engine/    per-frame scoring engine (FrameScorer, run_scoring); the
-             evaluation consumers (kNN, linear probe, K400 classification)
+             evaluation consumers (kNN, linear probe, K400 classification,
+             captioning metrics)
   utils/     device resolution, numpy-seeded synthetic params and video
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

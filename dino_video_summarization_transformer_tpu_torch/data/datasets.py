@@ -3,8 +3,11 @@
 ``DinoLossDataset`` (the rgb8, yuv420 and yuv420q wires), the frame
 selection dataset ``FrameSelectionDataset`` (the K400 evaluation and
 finetuning), the clip dataset ``ClipDataset`` (train: one clip or the DINO
-multi-crop; val and test: the evaluation CLIs' clips) and the registry
-``build_dataset``.
+multi-crop, with the two-stream trainer's optical-flow companion; val and
+test: the evaluation CLIs' clips), the Something-Something v2 frame-list
+dataset ``Ssv2Dataset`` (``load_image_lists``, ``retry_load_images``) and
+the registry ``build_dataset``. Image files (flow JPEGs, SSv2 frames) are
+read with PIL, imported where an image is read.
 
 The dataset returns the decoded frame buffer plus window *index maps*
 instead of materialized (2T, 3, 30, 224, 224) view stacks; the scorer
@@ -302,9 +305,17 @@ class ClipDataset:
     decodes it all. Each draws from its ``RandomState`` what the JAX class
     draws, in the same order, so the same seed gives the same clips. A
     video that fails to decode is swapped for a random other one, up to
-    ``num_retries`` times. The flow companion (``get_flow``) needs the
-    two-stream trainer's flow helpers and raises (ROADMAP queue 1 item
-    7)."""
+    ``num_retries`` times.
+
+    ``get_flow`` (train only, the two-stream trainer; ref: kinetics.py:
+    314-348): ``meta["flow"]`` holds the video's optical-flow frames, the
+    JPEGs of the folder ``<video path minus its extension>`` with
+    ``train_d256`` replaced by ``train_flow``, Sobel-filtered
+    (``ops.image.sobel_np``); with ``DATA.NO_FLOW_AUG`` each frame bicubic-
+    resized to ``DATA.CROP_SIZE`` (a list of (C, S, S)), else the DINO
+    multi-crop over the flow video (a list of (C, T, s, s) crops). A folder
+    that fails to load swaps the video for a random other one, as a failed
+    decode does."""
 
     def __init__(self, cfg, mode: str, num_retries: int = 10,
                  get_flow: bool = False, temporal_aug: bool = False,
@@ -313,10 +324,9 @@ class ClipDataset:
                  seed: Optional[int] = None):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode {mode!r}: train, val or test")
-        if get_flow:
-            raise NotImplementedError(
-                "ClipDataset(get_flow=True): the optical-flow companion of the "
-                "two-stream trainer is not ported (ROADMAP queue 1 item 7)")
+        if get_flow and mode != "train":
+            raise ValueError("get_flow: the flow companion is for train only")
+        self.get_flow = get_flow
         self.cfg = cfg
         self.mode = mode
         self._num_retries = num_retries
@@ -434,13 +444,46 @@ class ClipDataset:
             return self._multi_crop_clips(frames)
         return temporal_sampling(frames, start_idx, end_idx, num_frames)
 
+    def _load_flow(self, index: int) -> np.ndarray:
+        """The video's flow frames, Sobel-filtered, (T, C, H, W) float32;
+        FileNotFoundError when its folder holds no JPEG."""
+        from ..ops.image import load_flow_folder, sobel_np
+
+        flow_path = self._path_to_videos[index].replace("train_d256", "train_flow")[:-4]
+        flow = load_flow_folder(flow_path)
+        if flow is None:
+            raise FileNotFoundError(flow_path)
+        return sobel_np(flow)
+
+    def _flow_meta(self, flow: np.ndarray) -> list:
+        if self.cfg.DATA.NO_FLOW_AUG:
+            from .interp import resize
+
+            return [np.asarray(x) for x in
+                    resize(flow, self.cfg.DATA.CROP_SIZE, mode="bicubic")]
+        # DINO multi-crop over the flow video, t c h w -> c t h w
+        # (ref: kinetics.py:324-326)
+        crops = VideoDataAugmentationDINO(rng=self.rng)(flow)
+        return [np.ascontiguousarray(np.moveaxis(c, 0, 1)) for c in crops]
+
     def __getitem__(self, index: int):
         cfg = self.cfg
         for _ in range(self._num_retries):
             clips = self._decode_clip(index)
-            if clips is not None:
-                break
-            index = int(self.rng.randint(0, len(self)))
+            if clips is None:
+                index = int(self.rng.randint(0, len(self)))
+                continue
+            meta = {}
+            if self.get_flow:
+                # a flow failure retries with another video, as a decode
+                # failure does (ref: kinetics.py:329-332)
+                try:
+                    flow = self._load_flow(index)
+                except Exception:
+                    index = int(self.rng.randint(0, len(self)))
+                    continue
+                meta["flow"] = self._flow_meta(flow)
+            break
         else:
             raise RuntimeError(f"failed to decode after {self._num_retries} retries")
         label = self._labels[index]
@@ -454,7 +497,7 @@ class ClipDataset:
                 crops = aug(as_tchw, from_list=True)
             # T C H W -> C T H W (ref: kinetics.py:306-311)
             return ([np.ascontiguousarray(np.moveaxis(c, 0, 1)) for c in crops],
-                    label, index, {})
+                    label, index, meta)
 
         # the plain clip: normalize + spatial sampling (ref: kinetics.py:257-289)
         frames = np.moveaxis(tensor_normalize(clips, cfg.DATA.MEAN, cfg.DATA.STD), -1, 1)
@@ -469,7 +512,170 @@ class ClipDataset:
             frames, self.rng, spatial_idx=spatial_idx, min_scale=min_s,
             max_scale=max_s, crop_size=crop,
             random_horizontal_flip=cfg.DATA.RANDOM_FLIP)
-        return np.ascontiguousarray(np.moveaxis(frames, 0, 1)), label, index, {}
+        return np.ascontiguousarray(np.moveaxis(frames, 0, 1)), label, index, meta
+
+
+def load_image_lists(frame_list_file: str, prefix: str = "",
+                     return_list: bool = False):
+    """The frame-list CSV (ref: datasets_custom/data_utils.py:263-305; JAX
+    ``load_image_lists``): a header, then ``original_vido_id video_id
+    frame_id path labels`` rows -> ({video: [frame paths]}, {video: [[frame
+    labels]]}), or the two lists in the videos' order with
+    ``return_list``."""
+    from collections import defaultdict
+
+    image_paths = defaultdict(list)
+    labels = defaultdict(list)
+    with open(frame_list_file, "r") as f:
+        if not f.readline().startswith("original_vido_id"):
+            raise ValueError(f"{frame_list_file}: no frame-list header")
+        for line in f:
+            row = line.split()
+            if not row:
+                continue
+            if len(row) != 5:
+                raise ValueError(f"{frame_list_file}: row {row}")
+            video_name = row[0]
+            path = row[3] if prefix == "" else os.path.join(prefix, row[3])
+            image_paths[video_name].append(path)
+            frame_labels = row[-1].replace('"', "")
+            labels[video_name].append(
+                [int(x) for x in frame_labels.split(",")] if frame_labels else [])
+    if return_list:
+        keys = image_paths.keys()
+        return [image_paths[k] for k in keys], [labels[k] for k in keys]
+    return dict(image_paths), dict(labels)
+
+
+def retry_load_images(image_paths: List[str], retry: int = 10) -> np.ndarray:
+    """The frames of ``image_paths`` as (T, H, W, C) uint8 in BGR order, as
+    the reference reads them with cv2 and never converts (ref:
+    datasets_custom/data_utils.py:19-47; JAX ``retry_load_images``),
+    retrying a failed read up to ``retry`` times a second apart. PIL is
+    imported here."""
+    import time
+
+    from PIL import Image
+
+    for i in range(retry):
+        try:
+            return np.stack([np.asarray(Image.open(p).convert("RGB"))[..., ::-1]
+                             for p in image_paths])
+        except Exception:
+            if i == retry - 1:
+                raise
+            time.sleep(1.0)
+
+
+class Ssv2Dataset:
+    """Something-Something v2 frame lists (ref: datasets_custom/ssv2.py:
+    21-278; JAX ``Ssv2Dataset``, which rebuilt the reference's dead loader):
+    the labels from ``something-something-v2-labels.json`` and the split's
+    ``something-something-v2-{train,validation}.json``, the frames from
+    ``{train,val}.csv`` (``load_image_lists``). An item is (frames (C, T, H,
+    W) float32, label, index, {}): one frame per temporal segment (train: a
+    uniform draw in the segment, val and test: its midpoint), normalized,
+    spatially sampled (test: ``TEST.NUM_ENSEMBLE_VIEWS`` x
+    ``TEST.NUM_SPATIAL_CROPS`` items a video) and resampled to
+    ``DATA.NUM_FRAMES``. Draws from its ``RandomState`` what the JAX class
+    draws, in the same order."""
+
+    def __init__(self, cfg, mode: str, num_retries: int = 10,
+                 seed: Optional[int] = None):
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"mode {mode!r}: train, val or test")
+        self.cfg = cfg
+        self.mode = mode
+        self._num_retries = num_retries
+        self.rng = np.random.RandomState(seed)
+        if mode in ("train", "val"):
+            self._num_clips = 1
+        else:
+            self._num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+        data_dir = cfg.DATA.PATH_TO_DATA_DIR
+        with open(os.path.join(data_dir, "something-something-v2-labels.json")) as f:
+            label_dict = json.load(f)
+        split = "train" if mode == "train" else "validation"
+        with open(os.path.join(data_dir, f"something-something-v2-{split}.json")) as f:
+            label_json = json.load(f)
+        video_names, labels = [], []
+        for video in label_json:
+            template = video["template"].replace("[", "").replace("]", "")
+            video_names.append(video["id"])
+            labels.append(int(label_dict[template]))
+        csv = os.path.join(data_dir, "{}.csv".format("train" if mode == "train" else "val"))
+        path_dict, _ = load_image_lists(csv, cfg.DATA.PATH_PREFIX)
+        # videos without frame rows are dropped (ref: ssv2.py:125-133)
+        paths, new_labels = [], []
+        for name, label in zip(video_names, labels):
+            if name in path_dict:
+                paths.append(path_dict[name])
+                new_labels.append(label)
+        self._path_to_videos = [p for p in paths for _ in range(self._num_clips)]
+        self._labels = [lb for lb in new_labels for _ in range(self._num_clips)]
+        self._spatial_temporal_idx = [i % self._num_clips
+                                      for i in range(len(self._path_to_videos))]
+        print(f"Constructing ssv2 dataloader (size: {len(self._path_to_videos)}) "
+              f"from {csv}")
+
+    def __len__(self):
+        return len(self._path_to_videos)
+
+    @property
+    def labels(self):
+        return list(self._labels)
+
+    def seq_indices(self, video_length: int) -> List[int]:
+        """One frame per segment i = [round(seg * i), round(seg * (i + 1))]
+        (ref: ssv2.py:225-236): a uniform draw in it (train, inclusive) or
+        its midpoint."""
+        num_frames = self.cfg.DATA.NUM_FRAMES
+        seg_size = float(video_length - 1) / num_frames
+        seq = []
+        for i in range(num_frames):
+            start = int(np.round(seg_size * i))
+            end = int(np.round(seg_size * (i + 1)))
+            if self.mode == "train":
+                seq.append(int(self.rng.randint(start, end + 1)))
+            else:
+                seq.append((start + end) // 2)
+        return seq
+
+    def __getitem__(self, index):
+        cfg = self.cfg
+        short_cycle_idx = None
+        if isinstance(index, tuple):  # the short-cycle batcher's protocol
+            index, short_cycle_idx = index
+        if self.mode in ("train", "val"):
+            spatial_idx = -1
+            min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
+            crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            if short_cycle_idx in (0, 1):
+                crop_size = int(round(cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx]
+                                      * cfg.MULTIGRID.DEFAULT_S))
+            if cfg.MULTIGRID.DEFAULT_S > 0:
+                min_scale = int(round(float(min_scale) * crop_size
+                                      / cfg.MULTIGRID.DEFAULT_S))
+        else:
+            spatial_idx = self._spatial_temporal_idx[index] % cfg.TEST.NUM_SPATIAL_CROPS
+            if cfg.TEST.NUM_SPATIAL_CROPS == 1:
+                spatial_idx = 1
+            min_scale = max_scale = crop_size = cfg.DATA.TEST_CROP_SIZE
+        label = self._labels[index]
+        frame_paths = self._path_to_videos[index]
+        seq = self.seq_indices(len(frame_paths))
+        frames = retry_load_images([frame_paths[i] for i in seq], self._num_retries)
+        frames = np.moveaxis(tensor_normalize(frames, cfg.DATA.MEAN, cfg.DATA.STD), -1, 1)
+        frames = spatial_sampling(
+            frames, self.rng, spatial_idx=spatial_idx, min_scale=min_scale,
+            max_scale=max_scale, crop_size=crop_size,
+            random_horizontal_flip=cfg.DATA.RANDOM_FLIP,
+            inverse_uniform_sampling=cfg.DATA.INV_UNIFORM_SAMPLE)
+        # the ViT path's temporal resample to NUM_FRAMES (ref: ssv2.py:263-271)
+        frames = np.ascontiguousarray(np.moveaxis(frames, 0, 1))  # C T H W
+        idx = np.linspace(0, frames.shape[1] - 1, cfg.DATA.NUM_FRAMES,
+                          dtype=np.float32).astype(np.int64)
+        return frames[:, idx], label, index, {}
 
 
 # dataset registry (ref: datasets_custom/build.py:5-30)
@@ -484,17 +690,15 @@ def register_dataset(name):
 
 
 def build_dataset(name: str, cfg, split: str, **kw):
-    """A registered dataset, or ``ClipDataset`` for kinetics / ucf101 /
-    hmdb51 (their differences are the CSV names)."""
+    """A registered dataset, ``Ssv2Dataset`` for ssv2, or ``ClipDataset``
+    for kinetics / ucf101 / hmdb51 (their differences are the CSV names)."""
     key = name.lower()
     if key in DATASET_REGISTRY:
         return DATASET_REGISTRY[key](cfg, split, **kw)
     if key in ("kinetics", "kinetics400"):
         return ClipDataset(cfg, split, **kw)
     if key == "ssv2":
-        raise NotImplementedError(
-            "ssv2: Ssv2Dataset and load_image_lists are not ported yet (ROADMAP "
-            "queue 1 item 6, the rest of the evaluation consumers)")
+        return Ssv2Dataset(cfg, split, **kw)
     if key == "ucf101":
         return ClipDataset(cfg, split, csv_name=f"ucf101_{split}_split_1_videos.txt", **kw)
     if key == "hmdb51":

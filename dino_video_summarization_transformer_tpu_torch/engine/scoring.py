@@ -275,6 +275,15 @@ class FrameScorer:
                    and self.device.type == "cuda")
         elif use not in (True, False):
             raise ValueError(f"use_kernels={use!r}")
+        if model_cfg.attention_type != "divided_space_time":
+            # JAX's glue-free gate admits divided attention only: a space-only
+            # or joint model scores on the XLA path, so here on the plain route
+            use = False
+            if self.band_mode is not None:
+                raise ValueError(
+                    f"band_mode with attention_type={model_cfg.attention_type!r}: "
+                    "the banded pass is the divided block's (JAX's banded "
+                    "forward reads the temporal attention and raises KeyError)")
         t_dtype = config.teacher_dtype
         if t_dtype is None or t_dtype == self.compute_dtype:
             t_dtype = self.compute_dtype

@@ -30,7 +30,9 @@ def get_args_parser():
     p.add_argument("--n_last_blocks", default=1, type=int)
     p.add_argument("--avgpool_patchtokens", default=False, type=bool_flag)
     p.add_argument("--arch", default="vit_base", type=str,
-                   choices=["vit_tiny", "vit_small", "vit_base", "swin"])
+                   choices=["vit_tiny", "vit_small", "vit_base", "swin"],
+                   help="swin builds the ViT-B TimeSformer, as the JAX CLI does "
+                        "(config_from_cfg's dims default to vit_base)")
     p.add_argument("--patch_size", default=16, type=int)
     p.add_argument("--pretrained_weights", default="", type=str)
     p.add_argument("--lc_pretrained_weights", default="", type=str,
@@ -92,9 +94,6 @@ def eval_linear(args):
     from .utils.device import resolve_device
     from .utils.misc import get_sha
 
-    if args.arch == "swin":
-        raise NotImplementedError(
-            "--arch swin: the Swin3D backbone is not ported (ROADMAP queue 1 item 7)")
     dev = resolve_device(args.device)
     print(f"git:\n  {get_sha()}\n")
     print("\n".join(f"{k}: {v}" for k, v in sorted(dict(vars(args)).items())))

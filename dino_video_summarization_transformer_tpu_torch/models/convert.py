@@ -127,6 +127,74 @@ def convert_svt_checkpoint(path: str, cfg, checkpoint_key: str | None = "teacher
     return apply_surgery(sd, cfg)
 
 
+def convert_dino_vit2d_checkpoint(path: str, cfg) -> Dict[str, np.ndarray]:
+    """A published DINO 2D-ViT ``.pth`` (e.g. ``dino_deitsmall16_pretrain``)
+    -> the reference-layout state dict that ``vit2d.ViT2D`` loads natively
+    (JAX ``convert_dino_vit2d_checkpoint``; ref: train_ssl.py:222-231, the
+    motion nets). Its block count must be ``cfg.depth``."""
+    sd = strip_prefixes(load_torch_state_dict(path))
+    depth = len({m.group(1) for m in map(_BLOCK_RE.match, sd) if m})
+    if depth != cfg.depth:
+        raise ValueError(f"{path}: {depth} blocks, the config has {cfg.depth}")
+    return sd
+
+
+def convert_coclr_s3d(path: str) -> Dict[str, np.ndarray]:
+    """A CoCLR S3D checkpoint -> the state dict that ``s3d.S3D`` loads
+    natively: the ``encoder_q.0.`` subtree of its ``state_dict``, prefix
+    stripped, as the reference keeps it (ref: train_ssl.py:263-271; JAX
+    ``convert_coclr_s3d``)."""
+    sd = load_torch_state_dict(path, checkpoint_key="state_dict")
+    return {k[len("encoder_q.0."):]: v for k, v in sd.items()
+            if k.startswith("encoder_q.0.")}
+
+
+def s3d_state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX S3D pytree (numpy leaves; conv (kt, kh, kw, cin, cout), BN
+    {scale, bias, mean, var}, gating linears (in, out)) -> ``s3d.S3D``'s
+    CoCLR layout: the inverse of JAX ``s3d_to_pytree``, gating included."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(pre, w):
+        out[pre + ".weight"] = np.ascontiguousarray(
+            np.asarray(w, np.float32).transpose(4, 3, 0, 1, 2))
+
+    def bn(pre, b):
+        for k, j in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                     ("running_var", "var")):
+            out[f"{pre}.{k}"] = np.asarray(b[j], np.float32)
+
+    def st(pre, p):
+        conv(pre + ".conv1", p["conv1"])
+        conv(pre + ".conv2", p["conv2"])
+        bn(pre + ".bn1", p["bn1"])
+        bn(pre + ".bn2", p["bn2"])
+
+    def basic(pre, p):
+        conv(pre + ".conv", p["conv"])
+        bn(pre + ".bn", p["bn"])
+
+    st("Conv_1a", tree["Conv_1a"])
+    basic("Conv_2b", tree["Conv_2b"])
+    st("Conv_2c", tree["Conv_2c"])
+    for name, m in tree.items():
+        if not name.startswith("Mixed_"):
+            continue
+        basic(name + ".branch0.0", m["branch0"])
+        basic(name + ".branch1.0", m["branch1a"])
+        st(name + ".branch1.1", m["branch1b"])
+        basic(name + ".branch2.0", m["branch2a"])
+        st(name + ".branch2.1", m["branch2b"])
+        basic(name + ".branch3.1", m["branch3b"])
+        for i in range(4):
+            g = m.get(f"gating_b{i}")
+            if g is not None:
+                out[f"{name}.gating_b{i}.weight"] = np.ascontiguousarray(
+                    np.asarray(g["kernel"], np.float32).T)
+                out[f"{name}.gating_b{i}.bias"] = np.asarray(g["bias"], np.float32)
+    return out
+
+
 def _tree_index(tree: Any, i: int) -> Any:
     """Index every leaf's leading (stacked-depth) axis."""
     if isinstance(tree, Mapping):
@@ -141,7 +209,10 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any], cfg
     embed (the logic of the JAX package's ``pytree_to_reference_state_dict``,
     ``models/convert.py:330``). The aux-token backbone's extra leaf
     ``aux_cls_token`` keeps its JAX name; its ``pos_embed`` (1,
-    num_patches + 2, D) goes across as it is (CLS, the patches, AUX)."""
+    num_patches + 2, D) goes across as it is (CLS, the patches, AUX). A
+    space-only model's tree (no ``time_embed``), a joint one's (no temporal
+    block leaves) and a 2D ViT's (JAX ``models/vit2d.py``; ``cfg`` a
+    ``ViT2DConfig``) go across the same way."""
     out: Dict[str, np.ndarray] = {}
 
     def np32(x):

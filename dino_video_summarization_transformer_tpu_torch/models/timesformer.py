@@ -71,6 +71,17 @@ in the backward (``checkpoint_block``), with the same values.
 ``AuxTokenTimeSformer`` is the two-token trainer's backbone (an aux class
 token beside the CLS token, JAX ``aux_token_forward_features``), on the
 plain route only: JAX runs it as XLA code, with no Pallas kernel.
+
+``attention_type="space_only"`` and ``"joint_space_time"`` (the repo's
+``timesformer_spaceonly_8x32_224.yaml`` / ``timesformer_jointst_8x32_224
+.yaml``; JAX ``joint_block``, ``models/timesformer.py:571-584,732-792``)
+build blocks without the temporal attention and run ``Block.forward_joint``
+over one sequence per frame (space-only: no ``time_embed``, features
+averaged over the frames before the last LayerNorm) or over the whole clip
+(joint: [CLS, (h w t)]). They run on the plain route only, for inference
+and training alike: JAX's glue-free gate and every kernel gate of the port
+admit divided attention alone (``train_route``, ``eval_kernels``, the
+scorer), so such a model launches no port kernel.
 """
 
 from __future__ import annotations
@@ -138,6 +149,9 @@ _ARCH_DIMS = {
     "vit_small": (384, 12, 6),
     "vit_tiny": (192, 12, 3),
 }
+
+
+ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
 
 
 def config_from_cfg(cfg, no_head: bool = False,
@@ -450,6 +464,8 @@ def quantize_blocks(model: "TimeSformer") -> None:
     for blk in model.blocks:
         for name in quant.BLOCK_DENSE:
             parent, _, attr = name.rpartition(".")
+            if not hasattr(blk, name.split(".")[0]):
+                continue  # a joint / space-only block has no temporal layers
             owner = blk.get_submodule(parent) if parent else blk
             lin = getattr(owner, attr)
             with torch.device(lin.weight.device):
@@ -508,7 +524,9 @@ class PatchEmbed(nn.Module):
 
 
 class Block(nn.Module):
-    """Divided space-time block (ref: models/timesformer.py:116-185)."""
+    """Divided space-time block (ref: models/timesformer.py:116-185); with a
+    space-only or joint config the block without its temporal half (ref:
+    models/timesformer.py:120-123)."""
 
     def __init__(self, cfg: TimeSformerConfig):
         super().__init__()
@@ -517,9 +535,10 @@ class Block(nn.Module):
         self.eps = cfg.norm_eps
         self.norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
         self.attn = Attention(D, cfg.qkv_bias)
-        self.temporal_norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
-        self.temporal_attn = Attention(D, cfg.qkv_bias)
-        self.temporal_fc = nn.Linear(D, D)
+        if cfg.attention_type == "divided_space_time":
+            self.temporal_norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
+            self.temporal_attn = Attention(D, cfg.qkv_bias)
+            self.temporal_fc = nn.Linear(D, D)
         self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
         self.mhsa_fn = attention.mhsa_fused if cfg.attention_kernel else mhsa
@@ -587,6 +606,13 @@ class Block(nn.Module):
 
     def _mlp_train(self, x: torch.Tensor) -> torch.Tensor:
         return linear(F.gelu(linear(x, self.mlp.fc1)), self.mlp.fc2)
+
+    def forward_joint(self, x: torch.Tensor) -> torch.Tensor:
+        """The space-only / joint block (JAX ``joint_block`` without
+        drop-path), plain, in x's dtype, the weights cast to it: x (S, L, D)
+        -> x + MHSA(LN x), then + MLP(LN x)."""
+        x = x + mhsa_train(self._ln(self.norm1, x), self.attn, self.num_heads)
+        return x + self._mlp_train(self._ln(self.norm2, x))
 
     def forward_plain_train(self, cls: torch.Tensor, grid: torch.Tensor,
                             B: int, T: int, N: int):
@@ -668,15 +694,15 @@ class TimeSformer(nn.Module):
 
     def __init__(self, cfg: TimeSformerConfig):
         super().__init__()
-        if cfg.attention_type != "divided_space_time":
-            raise NotImplementedError(
-                f"attention_type={cfg.attention_type!r}: only divided space-"
-                "time attention is ported (ROADMAP: other backbones)")
+        if cfg.attention_type not in ATTENTION_TYPES:
+            raise ValueError(f"attention_type={cfg.attention_type!r}, "
+                             f"expected one of {ATTENTION_TYPES}")
         self.cfg = cfg
         D = cfg.embed_dim
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D))
-        self.time_embed = nn.Parameter(torch.zeros(1, cfg.num_frames, D))
+        if cfg.attention_type != "space_only":
+            self.time_embed = nn.Parameter(torch.zeros(1, cfg.num_frames, D))
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, D)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=cfg.norm_eps)
@@ -727,13 +753,63 @@ class TimeSformer(nn.Module):
         # the CLS row is identical across frames before mixing
         return xt[:B, :1, :], xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]
 
+    @property
+    def divided(self) -> bool:
+        return self.cfg.attention_type == "divided_space_time"
+
+    def forward_joint(self, x: torch.Tensor, compute_dtype: torch.dtype,
+                      get_all: bool = False, remat: bool = False) -> torch.Tensor:
+        """The space-only and joint backbones (JAX ``forward_features``'
+        ``joint_block`` branch, models/timesformer.py:725-792), plain, in
+        ``compute_dtype``, differentiable: space-only runs each frame as
+        its own [CLS, patches] sequence and averages the B*T sequences over
+        the frames (ref: models/timesformer.py:338-340); joint runs one
+        [CLS, (h w t)] sequence per clip, the time embedding added. ->
+        (B, D) CLS features, or the whole normalized sequence (B, 1+N, D) /
+        (B, 1+N*T, D) when ``get_all``."""
+        cfg = self.cfg
+        B, C, T, Himg, Wimg = x.shape
+        W = Wimg // cfg.patch_size
+        N = (Himg // cfg.patch_size) * W
+        D = cfg.embed_dim
+        cd = compute_dtype
+        x = x.to(cd)
+        frames = x.permute(0, 2, 3, 4, 1).reshape(B * T, Himg, Wimg, C)
+        tok = self.patch_embed.forward_train(frames)  # (BT, N, D)
+        xt = torch.cat([self.cls_token.to(cd).expand(B * T, 1, D), tok], dim=1)
+        pe = self.pos_embed
+        if xt.shape[1] != pe.shape[1]:
+            pe = resize_pos_embed(pe, xt.shape[1], W)
+        xt = xt + pe.to(cd)
+        if cfg.attention_type == "joint_space_time":
+            te = self.time_embed
+            if T != te.shape[1]:
+                te = interp_nearest_1d(te, T, axis=1)
+            spat = xt[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(B * N, T, D)
+            spat = (spat + te.to(cd)).reshape(B, N * T, D)
+            # the class rows of the first B frame rows, as JAX takes them
+            # (identical across frames before mixing)
+            x = torch.cat([xt[:B, :1, :], spat], dim=1)
+        else:
+            x = xt
+        for blk in self.blocks:
+            x = checkpoint_block(remat, blk.forward_joint, x)
+        if cfg.attention_type == "space_only":
+            x = x.reshape(B, T, x.shape[1], D).mean(dim=1)
+        x = layer_norm(x, self.norm.weight, self.norm.bias, cfg.norm_eps)
+        return x if get_all else x[:, 0]
+
     def forward_features(self, x: torch.Tensor,
                          get_all: bool = False) -> torch.Tensor:
         """x (B, C, T, H, W) -> (B, D) CLS features, or (B, 1+N*T, D) in
         the reference token order [CLS, (h w t)] when ``get_all``. Runs in
-        the dtype of the module's parameters."""
+        the dtype of the module's parameters. A space-only or joint model
+        runs ``forward_joint`` whatever ``use_kernels`` says, as JAX's
+        glue-free gate sends it to the XLA path."""
         cfg = self.cfg
         dtype = self.pos_embed.dtype
+        if not self.divided:
+            return self.forward_joint(x, dtype, get_all=get_all)
         cls_tok, grid = self.tokens(x)
         B, T, N, D = grid.shape
 
@@ -776,6 +852,11 @@ class TimeSformer(nn.Module):
             raise ValueError(f"route {route!r}: 'plain' or 'kernels'")
         if self.quantized:
             raise NotImplementedError("a quantized model serves inference only")
+        if not self.divided:
+            if route != "plain":
+                raise ValueError(f"route={route!r}: a {self.cfg.attention_type} "
+                                 "model runs the plain route only (train_route)")
+            return self.forward_joint(x, compute_dtype, remat=remat)
         cfg = self.cfg
         B, C, T, Himg, Wimg = x.shape
         W = Wimg // cfg.patch_size
@@ -995,7 +1076,10 @@ def _init_weights(model: TimeSformer, generator: torch.Generator) -> None:
                     mod.bias.zero_()
         tn(model.cls_token)
         tn(model.pos_embed)
-        model.time_embed.zero_()
+        if hasattr(model, "time_embed"):
+            model.time_embed.zero_()
+        if not model.divided:
+            return
         for blk in list(model.blocks)[1:]:
             blk.temporal_fc.weight.zero_()
             blk.temporal_fc.bias.zero_()

@@ -64,7 +64,9 @@
 # backward's whole-sequence strips (kSeqStrips, T >= 16, which only the
 # rand-fr step's 16-frame locals reach) reading each row's cotangent from
 # the next row of its sequence (rows r and r ^ 1 swapped; exits 1 in phase
-# 7c).
+# 7c); the two-stream step's cross term taking the RGB teacher's targets
+# instead of the motion teacher's (a sed of the trainer; exits 1 in phase
+# 12, where the gradient and loss rules between routes cannot see it).
 # Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
@@ -79,9 +81,11 @@
 #     bash .../plant_faults.sh cr_tangents_swapped dispatch_chunks_reversed
 #     bash .../plant_faults.sh q8f_residual_bf16 band_mt_teacher_bf16
 #     bash .../plant_faults.sh seq_strips_row_swapped f32_cls_b1_rounded
+#     bash .../plant_faults.sh cross_takes_rgb_targets
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
-# Python module, ../../engine/scoring.py the scorer).
+# Python module, ../../engine/scoring.py the scorer, ../../train/ssl.py
+# the trainer).
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -144,3 +148,4 @@ run q8f_residual_bf16 fused_block.cu 's/return wg_gemm_s8<kEpiResF32F32>(w.q, w.
 run band_mt_teacher_bf16 ../../engine/scoring.py 's/            fr = self._gather(buf, idx, self.teacher_dtype)/            fr = self._gather(buf, idx, self.compute_dtype).to(self.teacher_dtype)/'
 run seq_strips_row_swapped tc_attention.cuh 's/    cp_async16(dA.at(r, c), da + rr \* D + h \* HD + c \* 8, 16);/    cp_async16(dA.at(r, c), da + (kRows == kSeqStrips ? row(r ^ 1) : rr) * D + h * HD + c * 8, 16);/'
 run f32_cls_b1_rounded ../fused_block.py 's/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), (cls.to(torch.bfloat16).to(cls.dtype) if B == 1 else cls).data_ptr(),/'
+run cross_takes_rgb_targets ../../train/ssl.py 's/l_cross, c_cross = dino_loss(s_cross.float(), t_flow.float(), state.center_cross,/l_cross, c_cross = dino_loss(s_cross.float(), t_rgb.float(), state.center_cross,/'

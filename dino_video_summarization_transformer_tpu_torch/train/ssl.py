@@ -30,8 +30,25 @@ The variants that need no other backbone:
   global group, on ``make_train_step``'s routes (``"auto"`` on bf16 ViT-B
   runs the kernels at every group's T).
 
-The two-stream, CNN-distill and parallel variants need the other backbones
-or the parallel modules (ROADMAP) and raise ``NotImplementedError``.
+The variants on the other backbones:
+
+* CNN distillation (``init_train_state(cnn_distill_dim=...)`` adds the
+  student's ``cnn_proj``; ``make_train_step(cnn_params=S3D,
+  cnn_distill_weight=w)``): w times the negative cosine between the
+  projected student CLS features of the global crops and the frozen S3D's
+  pooled, normalized features of the same crops, on every route of the
+  step (bf16 ViT-B: the student on the kernels, the S3D in plain torch);
+* two-stream (MODEL.TWO_STREAM; ``TwoStreamState``,
+  ``init_two_stream_state``, ``make_two_stream_train_step``): the RGB
+  student and teacher with the dual head (both streams reading the same CLS
+  features, the intended wiring), 2D ViT motion nets over two flow frames,
+  three DINO terms with three centers, one optimizer over ``rgb.`` and
+  ``motion.`` parameters and an EMA for both teachers. The RGB backbones
+  take the step's route (bf16 ViT-B: the per-phase kernels), the motion
+  nets plain torch, as JAX runs them on XLA.
+
+The parallel forward hook (``backbone_forward``) needs the parallel
+modules (ROADMAP) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,11 +93,11 @@ def init_train_state(model_cfg: tsf.TimeSformerConfig, out_dim: int = 65536,
     state dict where given (``pretrained_backbone``, ``head_state_dict``),
     else from a ``torch.Generator`` seeded with ``seed``. ``two_token``: the
     aux-token backbone, the dual head (``MultiDINOHead``) and a (2,
-    out_dim) center (ref: train_ssl.py:610-620). ``device`` defaults to the
-    CUDA card."""
-    if cnn_distill_dim:
-        raise NotImplementedError("the CNN-distill trainer variant needs the "
-                                  "S3D backbone, which is not ported (ROADMAP)")
+    out_dim) center (ref: train_ssl.py:610-620). ``cnn_distill_dim`` > 0
+    adds ``cnn_proj``, a linear layer embed_dim -> cnn_distill_dim (JAX's
+    ``_linear_init``: truncated normal, zero bias), the CNN-distillation
+    term's projection; the teacher copies it and the EMA moves it, as in
+    JAX. ``device`` defaults to the CUDA card."""
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -98,7 +115,14 @@ def init_train_state(model_cfg: tsf.TimeSformerConfig, out_dim: int = 65536,
         generator=None if head_state_dict is not None else gen)
     if head_state_dict is not None:
         tsf.load_reference_state_dict(head, head_state_dict)
-    student = nn.ModuleDict({"backbone": backbone, "head": head}).to(dev)
+    student = nn.ModuleDict({"backbone": backbone, "head": head})
+    if cnn_distill_dim:
+        proj = nn.Linear(model_cfg.embed_dim, cnn_distill_dim)
+        with torch.no_grad():
+            tsf._trunc_normal(proj.weight, gen)
+            proj.bias.zero_()
+        student["cnn_proj"] = proj
+    student = student.to(dev)
     teacher = copy.deepcopy(student)
     teacher.requires_grad_(False)
     core = Optimizer(optimizer, momentum)
@@ -114,12 +138,14 @@ class TrainStep:
     teacher_temp, freeze_last) -> (state, {"loss": tensor})``, the state
     updated in place. g_crops (2B, C, T, S, S), l_crops (n_local * B, C,
     T, s, s). ``loss_and_grads(state, g_crops, l_crops, teacher_temp)`` is
-    its first half (loss, new center, f32 gradients by parameter name),
-    for tests and measurement. Subclasses change the crops the step takes
-    and the loss (``_loss``); the update is this class's."""
+    its first half (loss, the loss's aux: the new center, f32 gradients by
+    parameter name), for tests and measurement. Subclasses change the crops
+    the step takes and the loss (``_loss``), and what follows the update
+    (``_after_update``); the update is this class's."""
 
     def __init__(self, model_cfg, core, mask, clip_grad, student_temp,
-                 center_momentum, compute_dtype, route, n_crops, remat=False):
+                 center_momentum, compute_dtype, route, n_crops, remat=False,
+                 cnn=None, cnn_distill_weight=0.0):
         self.cfg = model_cfg
         self.core = core
         self.mask = mask
@@ -130,6 +156,8 @@ class TrainStep:
         self.compute_dtype = compute_dtype
         self.route = tsf.train_route(model_cfg, compute_dtype, route)
         self.remat = remat
+        self.cnn = cnn
+        self.cnn_distill_weight = cnn_distill_weight
 
     def _features(self, model: nn.ModuleDict, x: torch.Tensor,
                   student: bool = False) -> torch.Tensor:
@@ -150,7 +178,26 @@ class TrainStep:
     def _loss(self, state: TrainState, g_crops, l_crops, teacher_temp):
         s_feats = [self._features(state.student, c, student=True)
                    for c in (g_crops, l_crops)]
-        return self._dino(state, s_feats, [g_crops], teacher_temp)
+        loss, center = self._dino(state, s_feats, [g_crops], teacher_temp)
+        if self.cnn is not None:
+            loss = loss + self.cnn_distill_weight * self._cnn_distill_term(
+                state.student, g_crops, s_feats[0])
+        return loss, center
+
+    def _cnn_distill_term(self, student: nn.ModuleDict, g_crops: torch.Tensor,
+                          s_g: torch.Tensor) -> torch.Tensor:
+        """JAX ``cnn_distill_term``: mean(1 - cos) between the student's
+        projected CLS features ``s_g`` of the global crops (in f32) and the
+        frozen S3D's features of the same crops (eval-mode BatchNorm, in the
+        step's compute dtype, pooled over (t, h, w), f32, L2-normalized)."""
+        with torch.no_grad():
+            feats = self.cnn(g_crops, training=False, compute_dtype=self.compute_dtype)
+            feats = feats.mean(dim=(2, 3, 4)).float()
+            feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        proj = student["cnn_proj"]
+        p = torch.matmul(s_g.float(), proj.weight.t()) + proj.bias
+        p = p / p.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return torch.mean(1.0 - (p * feats).sum(dim=-1))
 
     def loss_and_grads(self, state: TrainState, *batch):
         """``batch``: the step's crops, then the teacher temperature."""
@@ -167,15 +214,20 @@ class TrainStep:
         """``args``: the step's crops, then lr, wd, teacher momentum,
         teacher temperature and the last-layer freeze."""
         *crops, lr, wd, teacher_momentum, teacher_temp, freeze_last = args
-        loss, new_center, grads = self.loss_and_grads(state, *crops, teacher_temp)
+        loss, aux, grads = self.loss_and_grads(state, *crops, teacher_temp)
         state.opt_state = apply_updates_with_schedules(
             state.params(), grads, state.opt_state, self.core, self.mask,
             float(lr), float(wd), clip=self.clip_grad,
             freeze_last_layer=bool(freeze_last))
-        ema_update(state.teacher, state.student, float(teacher_momentum))
-        state.center = new_center
+        metrics = self._after_update(state, loss, aux, float(teacher_momentum))
         state.step += 1
-        return state, {"loss": loss}
+        return state, metrics
+
+    def _after_update(self, state: TrainState, loss, new_center, teacher_momentum):
+        """The teacher EMA and the new center; -> the step's metrics."""
+        ema_update(state.teacher, state.student, teacher_momentum)
+        state.center = new_center
+        return {"loss": loss}
 
 
 class TwoTokenTrainStep(TrainStep):
@@ -241,18 +293,23 @@ def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
     block (``timesformer.checkpoint_block``), on every route, the same
     values. ``two_token``: ``TwoTokenTrainStep`` (``n_local_crops`` and
     ``remat`` unused; ``"auto"`` is the plain route, ``"kernels"``
-    raises)."""
-    if backbone_forward is not None or (cnn_params is not None
-                                        and cnn_distill_weight > 0):
-        raise NotImplementedError("the CNN-distill and parallel trainer "
-                                  "variants are not ported (ROADMAP)")
+    raises). ``cnn_params`` (a frozen ``s3d.S3D``) with ``cnn_distill_weight``
+    > 0 adds the CNN-distillation term (the state needs ``cnn_proj``:
+    ``init_train_state(cnn_distill_dim=1024)``); weight 0 is the reference's
+    behaviour, the S3D built and no term."""
+    if backbone_forward is not None:
+        raise NotImplementedError("the parallel forward hook (backbone_forward) "
+                                  "needs the parallel modules (ROADMAP)")
     route = _step_route(route, two_token)
     if two_token:
         return TwoTokenTrainStep(model_cfg, core, mask, clip_grad, student_temp,
                                  center_momentum, compute_dtype, route, n_crops=4)
+    use_cnn = cnn_params is not None and cnn_distill_weight > 0.0
     return TrainStep(model_cfg, core, mask, clip_grad, student_temp,
                      center_momentum, compute_dtype, route,
-                     n_crops=2 + n_local_crops, remat=remat)
+                     n_crops=2 + n_local_crops, remat=remat,
+                     cnn=cnn_params if use_cnn else None,
+                     cnn_distill_weight=cnn_distill_weight)
 
 
 def make_rand_fr_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
@@ -267,9 +324,149 @@ def make_rand_fr_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, m
                            center_momentum, compute_dtype, route, n_crops=10)
 
 
-def make_two_stream_train_step(*args, **kw):
-    raise NotImplementedError("the MODEL.TWO_STREAM trainer variant is not "
-                              "ported (ROADMAP)")
+@dataclasses.dataclass
+class TwoStreamState:
+    """The MODEL.TWO_STREAM state (ref: train_ssl.py:280-346; JAX
+    ``TwoStreamState``): the RGB student and teacher (``{"backbone": a
+    TimeSformer, "head": MultiDINOHead}``), the motion student and teacher
+    (``{"backbone": vit2d.ViT2D, "head": DINOHead}``), the three centers
+    (1, out_dim) and one optimizer state over both students' parameters,
+    named ``rgb.<name>`` and ``motion.<name>``."""
+    student: nn.ModuleDict
+    teacher: nn.ModuleDict
+    motion_student: nn.ModuleDict
+    motion_teacher: nn.ModuleDict
+    center_rgb: torch.Tensor
+    center_flow: torch.Tensor
+    center_cross: torch.Tensor
+    opt_state: dict
+    step: int = 0
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {**{"rgb." + n: p for n, p in self.student.named_parameters()},
+                **{"motion." + n: p for n, p in self.motion_student.named_parameters()}}
+
+
+def init_two_stream_state(model_cfg: tsf.TimeSformerConfig, motion_cfg,
+                          out_dim: int = 65536, optimizer: str = "adamw",
+                          momentum: float = 0.9, seed: int = 0,
+                          pretrained_backbone: Optional[Mapping] = None,
+                          pretrained_motion: Optional[Mapping] = None,
+                          head_state_dict: Optional[Mapping] = None,
+                          motion_head_state_dict: Optional[Mapping] = None,
+                          device=None):
+    """(ref: train_ssl.py:222-231, 280-346; JAX ``init_two_stream_state``)
+    -> (state, core, mask). The RGB student gets the dual head with the
+    intended wiring (both streams read the same CLS features: the reference's
+    shipped wiring row-slices one tensor, SURVEY section 7); the motion
+    student is a ``vit2d.ViT2D`` of ``motion_cfg`` with a ``DINOHead``.
+    Weights from reference-layout state dicts where given, else from a
+    ``torch.Generator`` seeded with ``seed``; the teachers copy the
+    students."""
+    from ..models import vit2d
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    if pretrained_backbone is not None:
+        with torch.device("cpu"):
+            backbone = tsf.TimeSformer(model_cfg)
+        backbone.load_reference_state_dict(pretrained_backbone)
+    else:
+        backbone = tsf.init_timesformer(model_cfg, gen, device="cpu")
+    head = MultiDINOHead(model_cfg.embed_dim, out_dim,
+                         generator=None if head_state_dict is not None else gen)
+    if head_state_dict is not None:
+        tsf.load_reference_state_dict(head, head_state_dict)
+    if pretrained_motion is not None:
+        with torch.device("cpu"):
+            mbackbone = vit2d.ViT2D(motion_cfg)
+        mbackbone.load_reference_state_dict(pretrained_motion)
+    else:
+        mbackbone = vit2d.init_vit2d(motion_cfg, gen, device="cpu")
+    mhead = DINOHead(motion_cfg.embed_dim, out_dim,
+                     generator=None if motion_head_state_dict is not None else gen)
+    if motion_head_state_dict is not None:
+        tsf.load_reference_state_dict(mhead, motion_head_state_dict)
+    student = nn.ModuleDict({"backbone": backbone, "head": head}).to(dev)
+    motion = nn.ModuleDict({"backbone": mbackbone, "head": mhead}).to(dev)
+    teacher, motion_teacher = copy.deepcopy(student), copy.deepcopy(motion)
+    teacher.requires_grad_(False)
+    motion_teacher.requires_grad_(False)
+    # one optimizer over both students (ref: train_ssl.py:377-381)
+    core = Optimizer(optimizer, momentum)
+    mask = wd_mask(nn.ModuleDict({"rgb": student, "motion": motion}))
+    zeros = lambda: torch.zeros((1, out_dim), device=dev)  # noqa: E731
+    state = TwoStreamState(student, teacher, motion, motion_teacher, zeros(),
+                           zeros(), zeros(), opt_state=None)
+    state.opt_state = core.init(state.params())
+    return state, core, mask
+
+
+class TwoStreamTrainStep(TrainStep):
+    """The TWO_STREAM step (ref: train_ssl.py:507-519; JAX
+    ``make_two_stream_train_step``): ``step(state, g_crops (2B, C, T, S, S),
+    l_crops (nB, C, T, s, s), flow (2B, C, H, W), lr, wd, teacher_momentum,
+    teacher_temp, freeze_last) -> (state, {"loss", "loss_rgb", "loss_flow",
+    "loss_cross"})``::
+
+        loss = dino(rgb_student(2+n crops), rgb_teacher(2 globals))
+             + dino(motion_student(flow), motion_teacher(flow))
+             + dino(cross_student(2+n crops), motion_teacher(flow))
+
+    The RGB backbones on the step's route, the motion nets plain."""
+
+    def __init__(self, motion_cfg, *args, **kw):
+        super().__init__(*args, **kw)
+        self.motion_cfg = motion_cfg
+
+    def _motion(self, model: nn.ModuleDict, flow: torch.Tensor) -> torch.Tensor:
+        return model["head"](model["backbone"](flow, self.compute_dtype))
+
+    def _loss(self, state: TwoStreamState, g_crops, l_crops, flow, teacher_temp):
+        feats = torch.cat([self._features(state.student, c, student=True)
+                           for c in (g_crops, l_crops)], dim=0)
+        s_rgb, s_cross = state.student["head"]((feats, feats))
+        s_flow = self._motion(state.motion_student, flow)
+        with torch.no_grad():
+            # the teacher's dual head on (t, t): only its rgb stream is read
+            t_rgb = state.teacher["head"].main(self._features(state.teacher, g_crops))
+            t_flow = self._motion(state.motion_teacher, flow)
+        kw = dict(student_temp=self.student_temp, center_momentum=self.center_momentum)
+        l_rgb, c_rgb = dino_loss(s_rgb.float(), t_rgb.float(), state.center_rgb,
+                                 teacher_temp, n_crops=self.n_crops, **kw)
+        l_flow, c_flow = dino_loss(s_flow.float(), t_flow.float(), state.center_flow,
+                                   teacher_temp, n_crops=2, **kw)
+        l_cross, c_cross = dino_loss(s_cross.float(), t_flow.float(), state.center_cross,
+                                     teacher_temp, n_crops=self.n_crops, **kw)
+        loss = l_rgb + l_flow + l_cross
+        return loss, ((c_rgb, c_flow, c_cross),
+                      {"loss_rgb": l_rgb.detach(), "loss_flow": l_flow.detach(),
+                       "loss_cross": l_cross.detach()})
+
+    def _after_update(self, state: TwoStreamState, loss, aux, teacher_momentum):
+        centers, metrics = aux
+        ema_update(state.teacher, state.student, teacher_momentum)
+        ema_update(state.motion_teacher, state.motion_student, teacher_momentum)
+        state.center_rgb, state.center_flow, state.center_cross = centers
+        return {"loss": loss, **metrics}
+
+
+def make_two_stream_train_step(model_cfg: tsf.TimeSformerConfig, motion_cfg,
+                               core: Optimizer, mask, n_local_crops: int = 8,
+                               clip_grad: Optional[float] = 3.0,
+                               student_temp: float = 0.1, center_momentum: float = 0.9,
+                               compute_dtype: torch.dtype = torch.float32,
+                               route: str = "auto", remat: bool = False
+                               ) -> TwoStreamTrainStep:
+    """The TWO_STREAM step (JAX ``make_two_stream_train_step``) on
+    ``make_train_step``'s routes for the RGB backbones (``"auto"`` on bf16
+    ViT-B: the per-phase kernels); ``remat`` rematerializes the RGB
+    student's passes."""
+    route = _step_route(route, False)
+    return TwoStreamTrainStep(motion_cfg, model_cfg, core, mask, clip_grad,
+                              student_temp, center_momentum, compute_dtype, route,
+                              n_crops=2 + n_local_crops, remat=remat)
 
 
 def build_schedules(args_like, niter_per_ep: int, world: int = 1):

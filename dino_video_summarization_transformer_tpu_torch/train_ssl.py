@@ -17,13 +17,21 @@ ViT-B and ViT-S runs the per-phase Hopper kernels forward and backward;
 f32 compute runs with TF32 off. The loss is checked every ``SYNC_EVERY``
 steps; a non-finite one stops the run with exit code 1.
 
-The variants of the JAX CLI that need no other backbone: ``--two_token``
-or ``MODEL.TWO_TOKEN`` (the aux-token backbone and the 6-view protocol,
-on the plain route), ``DATA.RAND_FR`` (variable-frame-count crops, one
-forward per frame-count group), ``--use_remat`` (rematerialized student
-forwards) and ``--profile_dir`` (a ``torch.profiler`` Chrome trace of
-steps ``--profile_start_step`` to ``+ --profile_steps``, also written when
-the run stops on a non-finite loss).
+The variants of the JAX CLI: ``--two_token`` or ``MODEL.TWO_TOKEN`` (the
+aux-token backbone and the 6-view protocol, on the plain route),
+``DATA.RAND_FR`` (variable-frame-count crops, one forward per frame-count
+group), ``--use_remat`` (rematerialized student forwards),
+``--profile_dir`` (a ``torch.profiler`` Chrome trace of steps
+``--profile_start_step`` to ``+ --profile_steps``, also written when the
+run stops on a non-finite loss), ``MODEL.TWO_STREAM`` (with
+``DATA.NO_FLOW_AUG``: the optical-flow companion of each video, two flow
+frames a step drawn from ``RandomState(seed + 1)`` and shared across the
+batch, ViT-S/16 motion nets at ``DATA.CROP_SIZE``, ``--pretrained_motion``
+a DINO ViT-S ``.pth``; the log adds ``train_loss_rgb``, ``train_loss_flow``
+and ``train_loss_cross``) and ``MODEL.CNN_DISTILL`` (a frozen S3D teacher,
+``--pretrained_cnn`` a CoCLR ``.pth.tar`` or seeded weights, and with
+``--cnn_distill_weight`` > 0 the distillation term; weight 0 builds the
+teacher and adds no term, as the reference).
 
 The online kNN hook (``--knn_eval_freq`` N with ``--knn_data_path``):
 every N epochs and after the last, the teacher backbone's f32 features of
@@ -33,9 +41,8 @@ runs its training forward in f32 under ``torch.no_grad``, on the train
 step's route: the kernel route's f32 tiers (rows 1f, 4f and 3f) where the
 step runs the kernels, as JAX's hook runs ``use_fused`` at f32.
 
-Flags of the variants that are not ported (two-stream, CNN distillation,
-the parallel strategies) raise ``NotImplementedError`` unless they are at
-their defaults, as do configs that select those variants.
+The parallel strategies' flags raise ``NotImplementedError`` unless they
+are at their defaults.
 ``--norm_last_layer`` is parsed and never read, as in the JAX CLI
 (ROADMAP section 3).
 """
@@ -54,9 +61,6 @@ SYNC_EVERY = 10
 
 # flag -> (default, what it selects)
 UNPORTED_FLAGS = {
-    "pretrained_motion": (None, "the two-stream trainer variant"),
-    "pretrained_cnn": (None, "the CNN-distillation variant"),
-    "cnn_distill_weight": (0.0, "the CNN-distillation variant"),
     "model_parallel": (1, "tensor parallelism (parallelism)"),
     "tp_fused": (False, "tensor parallelism (parallelism)"),
     "zero1": (False, "ZeRO-1 (parallelism)"),
@@ -64,7 +68,6 @@ UNPORTED_FLAGS = {
     "seq_parallel": (1, "sequence parallelism (parallelism)"),
     "num_shards": (1, "multi-process data parallelism (parallelism)"),
 }
-UNPORTED_CFG = ("MODEL.TWO_STREAM", "MODEL.CNN_DISTILL")
 
 
 def get_args_parser():
@@ -134,17 +137,12 @@ def get_args_parser():
     return p
 
 
-def check_unported(args, cfg) -> None:
+def check_unported(args) -> None:
     for flag, (default, what) in UNPORTED_FLAGS.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r}: {what} is not ported to "
                 "the CUDA package yet (ROADMAP)")
-    for key in UNPORTED_CFG:
-        node, name = key.split(".")
-        if getattr(getattr(cfg, node), name):
-            raise NotImplementedError(f"{key}: the trainer variant it selects "
-                                      "is not ported yet (ROADMAP)")
 
 
 class StepProfiler:
@@ -234,14 +232,15 @@ def train_svt(args):
     from .models import convert
     from .models.timesformer import config_from_cfg
     from .train.dino import teacher_temp_schedule
-    from .train.ssl import (build_schedules, init_train_state,
-                            make_rand_fr_train_step, make_train_step)
+    from .train.ssl import (build_schedules, init_train_state, init_two_stream_state,
+                            make_rand_fr_train_step, make_train_step,
+                            make_two_stream_train_step)
     from .utils.checkpoint import restore_checkpoint, save_checkpoint
     from .utils.device import resolve_device
     from .utils.flops import train_step_flops
 
     cfg = load_config(args)
-    check_unported(args, cfg)
+    check_unported(args)
     set_data_path(cfg, args.data_path)
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -255,14 +254,20 @@ def train_svt(args):
 
     # ---------------- data -------------------------------------------------
     two_token = args.two_token or cfg.MODEL.TWO_TOKEN
+    two_stream = cfg.MODEL.TWO_STREAM
     rand_fr = cfg.DATA.RAND_FR
+    if two_stream and not cfg.DATA.NO_FLOW_AUG:
+        raise ValueError("TWO_STREAM requires DATA.NO_FLOW_AUG: the reference's "
+                         "aug'd flow path never defines flow_images (ref: "
+                         "train_ssl.py:498-502)")
     if two_token and args.knn_eval_freq:
         raise NotImplementedError(
             "--knn_eval_freq with the two-token variant: JAX's hook runs the "
             "one-token forward on the two-token backbone; the port does not "
             "(ROADMAP section 3)")
     dataset = ClipDataset(cfg, "train", temporal_aug=not two_token,
-                          two_token=two_token, rand_fr=rand_fr, seed=args.seed)
+                          two_token=two_token, rand_fr=rand_fr, get_flow=two_stream,
+                          seed=args.seed)
     per_host = args.batch_size_per_gpu
     n_local = 2 if two_token else args.local_crops_number
     idx = shard_indices(len(dataset), 0, 1, shuffle=True, seed=args.seed,
@@ -270,13 +275,17 @@ def train_svt(args):
     niter_per_ep = max(len(idx) // per_host, 1)
     print(f"Data loaded: {len(dataset)} videos, {niter_per_ep} it/epoch.")
 
+    flow_rng = np.random.RandomState(args.seed + 1)
+
     def collate(items):
         """The step's crops: views stacked view-major, as the reference's
-        multi-crop wrapper concatenates them (ref: utils/utils.py:582-609)."""
+        multi-crop wrapper concatenates them (ref: utils/utils.py:582-609);
+        items are the dataset's (crops, label, index, meta)."""
+        def stack(arrays):
+            return torch.from_numpy(np.concatenate(arrays)).to(dev, non_blocking=True)
+
         def views(sel):
-            return torch.from_numpy(np.concatenate(
-                [np.stack([it[c] for it in items]) for c in sel])).to(
-                    dev, non_blocking=True)
+            return stack([np.stack([it[0][c] for it in items]) for c in sel])
 
         if two_token:
             # teacher [v0, v1]; student ([v2, v3] at 96 px, [v4, v5] at 224)
@@ -286,6 +295,15 @@ def train_svt(args):
             # the vary_fr groups [1, 2, 4, 6, 8, 10] (ref: utils/utils.py:583-588)
             return (tuple(views(sel) for sel in
                           ((0,), (1,), (2, 3), (4, 5), (6, 7), (8, 9))),)
+        if two_stream:
+            # 2 random flow frames, shared across the batch (ref:
+            # train_ssl.py:500-502)
+            n_flow = min(len(it[3]["flow"]) for it in items)
+            fi = flow_rng.choice(range(min(cfg.DATA.NUM_FRAMES, n_flow)), 2,
+                                 replace=False)
+            flow = stack([np.stack([np.asarray(it[3]["flow"][i]) for it in items])
+                          for i in fi])
+            return views(range(2)), views(range(2, 2 + n_local)), flow
         return views(range(2)), views(range(2, 2 + n_local))
 
     def batches(epoch):
@@ -294,7 +312,7 @@ def train_svt(args):
         items = []
         for item in PrefetchLoader(dataset, indices=order,
                                    num_workers=args.num_workers):
-            items.append(item[0])
+            items.append(item)
             if len(items) == per_host:
                 yield collate(items)
                 items = []
@@ -306,18 +324,55 @@ def train_svt(args):
         backbone_sd = convert.convert_svt_checkpoint(
             args.pretrained_rgb, mcfg, checkpoint_key="teacher")
         print(f"Loaded pretrained RGB backbone from {args.pretrained_rgb}")
+    # the optional S3D teacher (MODEL.CNN_DISTILL; ref: train_ssl.py:263-277)
+    cnn = None
+    if cfg.MODEL.CNN_DISTILL:
+        from .models import s3d
+
+        if args.pretrained_cnn:
+            with torch.device("cpu"):
+                cnn = s3d.S3D()
+            cnn.load_reference_state_dict(convert.convert_coclr_s3d(args.pretrained_cnn))
+            cnn = cnn.to(dev)
+            print(f"Loaded CoCLR S3D teacher from {args.pretrained_cnn}")
+        else:
+            cnn = s3d.init_s3d(torch.Generator().manual_seed(args.seed + 7), device=dev)
+        cnn.requires_grad_(False)
     compute_dtype = torch.bfloat16 if args.use_fp16 else torch.float32
-    state, core, mask = init_train_state(
-        mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
-        pretrained_backbone=backbone_sd, device=dev, two_token=two_token)
-    if rand_fr:
+    if two_stream:
+        from .models.vit2d import vit2d_small
+
+        motion_cfg = vit2d_small(img_size=cfg.DATA.CROP_SIZE)
+        motion_sd = None
+        if args.pretrained_motion:
+            motion_sd = convert.convert_dino_vit2d_checkpoint(args.pretrained_motion,
+                                                              motion_cfg)
+            print(f"Loaded motion ViT from {args.pretrained_motion}")
+        state, core, mask = init_two_stream_state(
+            mcfg, motion_cfg, out_dim=args.out_dim, optimizer=args.optimizer,
+            seed=args.seed, pretrained_backbone=backbone_sd,
+            pretrained_motion=motion_sd, device=dev)
+        step_fn = make_two_stream_train_step(
+            mcfg, motion_cfg, core, mask, n_local_crops=n_local,
+            clip_grad=args.clip_grad, compute_dtype=compute_dtype, remat=args.use_remat)
+    elif rand_fr:
+        state, core, mask = init_train_state(
+            mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
+            pretrained_backbone=backbone_sd, device=dev)
         step_fn = make_rand_fr_train_step(mcfg, core, mask, clip_grad=args.clip_grad,
                                           compute_dtype=compute_dtype)
     else:
+        distill = cnn is not None and args.cnn_distill_weight > 0
+        state, core, mask = init_train_state(
+            mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
+            pretrained_backbone=backbone_sd, device=dev, two_token=two_token,
+            cnn_distill_dim=1024 if distill else 0)
         step_fn = make_train_step(mcfg, core, mask, n_local_crops=n_local,
                                   clip_grad=args.clip_grad,
                                   compute_dtype=compute_dtype,
-                                  remat=args.use_remat, two_token=two_token)
+                                  remat=args.use_remat, two_token=two_token,
+                                  cnn_params=cnn,
+                                  cnn_distill_weight=args.cnn_distill_weight)
     print(f"Block route: {step_fn.route} ({compute_dtype})")
 
     # ---------------- schedules --------------------------------------------
@@ -335,7 +390,7 @@ def train_svt(args):
         start_epoch = int(run_vars.get("epoch", 0))
         print(f"Resumed from {ckpt_path} at epoch {start_epoch}")
 
-    if rand_fr or two_token:
+    if rand_fr or two_token or two_stream:
         step_flops = 0.0  # mixed-geometry steps: no analytic model, as in JAX
     else:
         step_flops = train_step_flops(mcfg, per_host, n_local_crops=n_local,
@@ -346,21 +401,21 @@ def train_svt(args):
                             args.profile_steps, dev)
     start_time = time.time()
     for epoch in range(start_epoch, args.epochs):
-        sums = {"loss": 0.0, "lr": 0.0, "wd": 0.0}
+        sums = {}
         count = 0
-        pending = []  # (global step, loss tensor): drained every SYNC_EVERY
+        pending = []  # (global step, metrics): drained every SYNC_EVERY
 
         def drain():
             nonlocal count
-            for gi, loss in pending:
-                v = float(loss)
-                if not math.isfinite(v):
-                    print(f"Loss is {v}, stopping training", flush=True)
+            for gi, metrics in pending:
+                vals = {k: float(v) for k, v in metrics.items()}
+                if not math.isfinite(vals["loss"]):
+                    print(f"Loss is {vals['loss']}, stopping training", flush=True)
                     profiler.stop()  # flush the profile of the dying run
                     sys.exit(1)
-                sums["loss"] += v
-                sums["lr"] += float(lr_sched[gi])
-                sums["wd"] += float(wd_sched[gi])
+                vals.update(lr=float(lr_sched[gi]), wd=float(wd_sched[gi]))
+                for k, v in vals.items():
+                    sums[k] = sums.get(k, 0.0) + v
                 count += 1
             pending.clear()
 
@@ -375,7 +430,7 @@ def train_svt(args):
                 state, *crops, float(lr_sched[gi]), float(wd_sched[gi]),
                 float(mom_sched[gi]), float(tt_sched[min(epoch, len(tt_sched) - 1)]),
                 epoch < args.freeze_last_layer)
-            pending.append((gi, metrics["loss"]))
+            pending.append((gi, metrics))
             steps_done += 1
             if len(pending) >= SYNC_EVERY:
                 drain()

@@ -13,24 +13,26 @@ neither package reads the other's.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
 import torch
+from torch import nn
+
+
+def _fields(state) -> dict:
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
 
 
 def save_checkpoint(path: str, state, run_vars: Optional[dict] = None) -> None:
-    """Write ``state`` (a ``train.ssl.TrainState``) and ``run_vars`` to
-    ``path``, through a temporary file and a rename, so a crash never leaves
-    half a checkpoint."""
-    payload = {
-        "student": state.student.state_dict(),
-        "teacher": state.teacher.state_dict(),
-        "center": state.center,
-        "opt_state": state.opt_state,
-        "step": int(state.step),
-        "run_vars": dict(run_vars or {}),
-    }
+    """Write ``state`` (a ``train.ssl.TrainState`` or ``TwoStreamState``:
+    each module's state dict, each center, the optimizer state and the step)
+    and ``run_vars`` to ``path``, through a temporary file and a rename, so
+    a crash never leaves half a checkpoint."""
+    payload = {k: v.state_dict() if isinstance(v, nn.Module) else v
+               for k, v in _fields(state).items()}
+    payload["run_vars"] = dict(run_vars or {})
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -39,17 +41,20 @@ def save_checkpoint(path: str, state, run_vars: Optional[dict] = None) -> None:
 
 
 def restore_checkpoint(path: str, template):
-    """Load ``path`` into ``template`` (a ``TrainState`` of the same model,
+    """Load ``path`` into ``template`` (a state of the same kind and model,
     on the device to restore to) and return ``(template, run_vars)``;
     ``(None, {})`` when ``path`` does not exist."""
     path = os.path.abspath(path)
     if not os.path.exists(path):
         return None, {}
-    dev = template.center.device
+    fields = _fields(template)
+    dev = next(v for v in fields.values() if isinstance(v, torch.Tensor)).device
     ck = torch.load(path, map_location=dev, weights_only=False)
-    template.student.load_state_dict(ck["student"])
-    template.teacher.load_state_dict(ck["teacher"])
-    template.center = ck["center"].to(dev)
-    template.opt_state = ck["opt_state"]
-    template.step = int(ck["step"])
+    for k, v in fields.items():
+        if isinstance(v, nn.Module):
+            v.load_state_dict(ck[k])
+        elif isinstance(v, torch.Tensor):
+            setattr(template, k, ck[k].to(dev))
+        else:
+            setattr(template, k, ck[k])
     return template, dict(ck["run_vars"])

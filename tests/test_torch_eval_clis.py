@@ -147,8 +147,43 @@ def test_eval_linear_cli_matches_jax(ucf, tmp_path, one_card, capsys):
     want = _lines(capsys.readouterr().out, "Eval-only accuracy")
     eval_linear.main(_common(ucf, "--output_dir", str(tmp_path / "p2"), "--device", "cpu", *lc))
     assert _lines(capsys.readouterr().out, "Eval-only accuracy") == want and want
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eval_linear.main(["--arch", "swin", "--device", "cpu"])
+
+
+def test_eval_linear_cli_swin_matches_jax(ucf, tmp_path, one_card, capsys):
+    """``--arch swin`` builds the ViT-B TimeSformer in both CLIs (JAX's
+    ``_ARCH_DIMS.get(arch, vit_base)``): a ViT-B checkpoint at 32-px crops;
+    a saved 768-wide classifier evaluated by both prints the same accuracy,
+    and the port's training run writes JAX's files at ViT-B's width."""
+    import eval_linear as jcli
+
+    jcfg = jtsf.vit_base_config(num_frames=8, num_classes=0, img_size=32)
+    ckpt = tmp_path / "vitb.pth"
+    jconvert.save_reference_checkpoint(
+        str(ckpt), jax.tree.map(np.asarray, jsyn.make_numpy_params(jcfg, seed=1)), jcfg)
+    small = ["DATA.TRAIN_CROP_SIZE", "32", "DATA.TEST_CROP_SIZE", "32",
+             "DATA.TRAIN_JITTER_SCALES", "[32, 32]"]
+
+    def argv(out, *extra):
+        a = _common(ucf, "--output_dir", str(tmp_path / out), *extra) + small
+        a[a.index("vit_tiny")] = "swin"
+        a[a.index(str(ucf / "ckpt.pth"))] = str(ckpt)
+        return a
+
+    r = np.random.RandomState(2)
+    np.savez(tmp_path / "lc.npz", kernel=(0.01 * r.randn(768, 2)).astype(np.float32),
+             bias=np.zeros(2, np.float32), epoch=np.asarray(0))
+    eval_linear.main(argv("port", "--device", "cpu", "--epochs", "1",
+                          "--max_steps_per_epoch", "1"))
+    assert len(_lines(capsys.readouterr().out,
+                      "Multi-view test: {'split': 'test_final'")) == 1
+    zp = np.load(tmp_path / "port" / "checkpoint_linear.npz")
+    assert sorted(zp.files) == ["bias", "epoch", "kernel"]
+    assert zp["kernel"].shape == (768, 2)
+    lc = ("--lc_pretrained_weights", str(tmp_path / "lc.npz"))
+    jcli.eval_linear(jcli.get_args_parser().parse_args(argv("j2", *lc)))
+    want = _lines(capsys.readouterr().out, "Eval-only accuracy")
+    eval_linear.main(argv("p2", "--device", "cpu", *lc))
+    assert _lines(capsys.readouterr().out, "Eval-only accuracy") == want and want
 
 
 @pytest.fixture(scope="module")

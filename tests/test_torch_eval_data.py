@@ -115,8 +115,8 @@ def test_clip_dataset_plain_modes_equal_jax(corpus, mode):
 
 def test_clip_dataset_refuses_what_is_not_ported(corpus):
     pcfg, _ = _cfgs(corpus)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pds.ClipDataset(pcfg, "train", get_flow=True)
+    with pytest.raises(ValueError, match="train only"):
+        pds.ClipDataset(pcfg, "val", get_flow=True)
     with pytest.raises(ValueError):
         pds.ClipDataset(pcfg, "eval")
 
@@ -175,8 +175,8 @@ def test_build_dataset_matches_jax(corpus):
     assert p._path_to_videos == j._path_to_videos and p.labels == j.labels
     np.testing.assert_array_equal(p[0][0], j[0][0])
     assert isinstance(pds.build_dataset("Kinetics400", pcfg, "test"), pds.ClipDataset)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pds.build_dataset("ssv2", pcfg, "train")
+    with pytest.raises(FileNotFoundError, match="something-something-v2-labels"):
+        pds.build_dataset("ssv2", pcfg, "train")  # ported: this corpus has no SSv2 lists
     with pytest.raises(ValueError):
         pds.build_dataset("nope", pcfg, "train")
 

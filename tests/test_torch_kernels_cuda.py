@@ -1929,3 +1929,40 @@ def test_eval_consumer_routes_match_twins(cuda_device, dtype, B, T):
         assert fb.launches["temporal_phase_tm_f32"] == before + 2
         want = classification.make_classifier_fn(cpu, torch.bfloat16)(pix).numpy()
     _close(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def test_two_stream_kernel_route_matches_plain_bf16(cuda_device):
+    """The two-stream step (``make_two_stream_train_step``) at batch 2 on
+    the kernel route against its plain bf16 route, by phase 7's gradient
+    rule (per parameter max|diff| / max|plain| < 0.15): the RGB backbones'
+    training ops launch, the motion nets (plain on both routes) give the
+    same gradients, and the three loss terms agree to the bf16 rule's
+    spread."""
+    from dino_video_summarization_transformer_tpu_torch.models.vit2d import ViT2DConfig
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    cfg = tsf.TimeSformerConfig(img_size=32, patch_size=16, embed_dim=128, depth=2,
+                                num_heads=2, num_frames=4, num_classes=0)
+    mcfg = ViT2DConfig(img_size=32, patch_size=16, embed_dim=64, depth=2, num_heads=2)
+    r = np.random.RandomState(10)
+    g, l, flow = (torch.from_numpy(r.randn(*s).astype(np.float32)).to(cuda_device)
+                  for s in ((4, 3, 4, 32, 32), (8, 3, 4, 32, 32), (4, 3, 32, 32)))
+    state, core, mask = ssl.init_two_stream_state(cfg, mcfg, out_dim=64, seed=11,
+                                                  device=cuda_device)
+    out = {}
+    for route in ("kernels", "plain"):
+        step = ssl.make_two_stream_train_step(cfg, mcfg, core, mask, n_local_crops=4,
+                                              compute_dtype=torch.bfloat16, route=route)
+        before = dict(fb.launches)
+        loss, (_, terms), grads = step.loss_and_grads(state, g, l, flow, 0.04)
+        torch.cuda.synchronize()
+        out[route] = (loss, terms, grads, {k: fb.launches[k] - before[k] for k in fb.launches})
+    (lk, tk, gk, nk), (lp, tp, gp, np_) = out["kernels"], out["plain"]
+    for op in ("temporal_phase_tm_bf16", "spatial_phase", "mlp_phase",
+               "temporal_phase_tm_bwd", "spatial_phase_bwd", "mlp_phase_bwd"):
+        assert nk[op] > 0 and np_[op] == 0, op
+    for n in gp:
+        rel = float((gk[n] - gp[n]).abs().max() / (gp[n].abs().max() + 1e-12))
+        assert rel < 0.15, (n, rel)
+    for k in tp:
+        assert abs(float(tk[k]) - float(tp[k])) <= 0.05 * abs(float(tp[k])), k

@@ -324,16 +324,19 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 
 def test_unported_variants_raise():
-    """What stays unported: the parallel forward hook and CNN distillation
-    (the S3D backbone)."""
+    """What stays unported: the parallel forward hook. CNN distillation is
+    ported (``tests/test_torch_two_stream.py``): its state has ``cnn_proj``,
+    and weight 0 adds no term, as the reference."""
     cfg = tsf.TimeSformerConfig(**KW)
-    _, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu")
-    for kw in [dict(backbone_forward=lambda p, x: x),
-               dict(cnn_params={}, cnn_distill_weight=0.5)]:
-        with pytest.raises(NotImplementedError):
-            ssl.make_train_step(cfg, core, mask, **kw)
-    with pytest.raises(NotImplementedError):
-        ssl.init_train_state(cfg, out_dim=OUT, device="cpu", cnn_distill_dim=1024)
+    state, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel"):
+        ssl.make_train_step(cfg, core, mask, backbone_forward=lambda p, x: x)
+    assert ssl.make_train_step(cfg, core, mask, cnn_params=object(),
+                               cnn_distill_weight=0.0).cnn is None
+    state, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu",
+                                             cnn_distill_dim=1024)
+    assert state.student["cnn_proj"].weight.shape == (1024, cfg.embed_dim)
+    assert torch.equal(state.teacher["cnn_proj"].weight, state.student["cnn_proj"].weight)
 
 
 def test_train_route_gate():
@@ -387,10 +390,10 @@ def test_train_ssl_cli_one_step_and_resume(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Resumed from" in out and "Block route: plain" in out
     assert len(open(os.path.join(out_dir, "log.txt")).read().splitlines()) == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="NO_FLOW_AUG"):
         train_ssl.main(argv + ["MODEL.TWO_STREAM", "True"])
     with pytest.raises(NotImplementedError):
-        train_ssl.main(["--pretrained_motion", "motion.pth"] + argv)
+        train_ssl.main(["--model_parallel", "2"] + argv)
 
 
 def test_dino_augmentation_matches_jax():

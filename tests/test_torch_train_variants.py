@@ -530,14 +530,18 @@ def test_train_ssl_cli_variant_one_step(corpus, tmp_path, monkeypatch, capsys, f
 
 
 @pytest.mark.parametrize("flags,opts", [
-    (["--pretrained_motion", "m.pth"], []), (["--pretrained_cnn", "c.pth"], []),
-    (["--cnn_distill_weight", "0.5"], []),
+    # two-stream and CNN distillation are ported (tests/test_torch_train_cli_
+    # variants.py); the parallel flags stay refused, alone and with them
+    (["--model_parallel", "2"], ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"]),
+    (["--pipeline", "2"], ["MODEL.CNN_DISTILL", "True"]),
+    (["--zero1", "true", "--cnn_distill_weight", "0.5"], ["MODEL.CNN_DISTILL", "True"]),
     # the online kNN hook is ported; with the two-token variant it is refused
     (["--knn_eval_freq", "1", "--two_token", "true"], []),
     (["--model_parallel", "2"], []), (["--tp_fused", "true"], []),
     (["--zero1", "true"], []), (["--pipeline", "2"], []), (["--seq_parallel", "2"], []),
-    (["--num_shards", "2"], []), ([], ["MODEL.TWO_STREAM", "True"]),
-    ([], ["MODEL.CNN_DISTILL", "True"])])
+    (["--num_shards", "2"], []), (["--seq_parallel", "2", "--pretrained_motion", "m.pth"],
+                                  ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"]),
+    (["--num_shards", "2", "--pretrained_cnn", "c.pth"], ["MODEL.CNN_DISTILL", "True"])])
 def test_train_ssl_cli_refuses_unported_variants(tmp_path, flags, opts):
     from dino_video_summarization_transformer_tpu_torch import train_ssl
 
