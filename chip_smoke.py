@@ -301,6 +301,23 @@ Imports torch, numpy and the port package
    student; the S3D's forward in bf16 compute against its f32 run; (c)
    the space-only and joint TimeSformers at batch 2: features and a train
    step's loss, plain bf16 against f32, with no port launch.
+13. tensor parallelism and ZeRO-1 (``phase_13``; ViT-B/16): (a) tier C,
+   the partial tier of rows 1, 4, 7 and 8 (rows 1p, 4p, 7p, 8p: one
+   shard's heads, no proj / fc bias, no residual) for tp = 2 and 4 (Dq
+   384 and 192) at the global crops (B=2, T=8, N=196) and at the crops
+   (b)'s TP-fused step gives them (B=8, N=196 and B=32, N=36), every
+   shard's outputs against its twin by the twin rules, the shards'
+   partials summed with the once-applied biases against the unsharded
+   rows 1, 4, 7 and 8, each op at B=2 timed beside its twin and its
+   bound; (b) a world of 2 ranks on this one card (``parallel.launch``,
+   gloo; the kernels built before the ranks start): 3 bf16 train steps
+   at out_dim 65536, batch 4 (8 global, 32 local clips), of the TP-fused
+   route (mesh 1 x 2), the plain TP route (1 x 2), ZeRO-1 over data
+   parallelism (2 x 1) and plain data parallelism (2 x 1), each step's
+   loss and rank 0's first-step gradients against a one-rank step on the
+   same global batch, each rank's peak of allocated memory and moments;
+   the TP-fused ranks' counters show the tier-C kernels per step and no
+   twin call.
 
 Tolerances (stated here, checked below):
 * kernel vs twin (``ops/twin_check.py``, per output): both share every
@@ -370,6 +387,17 @@ Tolerances (stated here, checked below):
   with the swap within F32_SWAP_MAX (max) of the f32 forward without it,
   the CPU test's bound (``tests/test_torch_attention.py``), whose only
   difference is the bf16 rounding of the probabilities.
+* tier C (phase 13a): each shard's outputs by the twin rules above; the
+  shards' partials summed in f32 with the once-applied biases (b_comb =
+  bproj Wfc^T + bfc, bproj) against the unsharded rows' branches (rows 1
+  and 4's f32-out tiers; rows 7 and 8's f32 tiers for dx - dout and the
+  gradients, fc's with its b_comb term) at rms <= 1e-2 x rms and max <=
+  4e-2 x max (``PARTIAL_SUM_*``): each shard rounds its term to bf16 where
+  the unsharded op rounds once (the CPU test's bounds). The world (13b):
+  each step's loss within 2e-3 relative of the one-rank step's
+  (``WORLD_LOSS_RTOL``, JAX's bound for its TP-fused step against the
+  plain one); rank 0's first-step gradients, gathered, by the train
+  step's rule: per parameter max|diff| / max|one rank| < 0.15.
 * per-frame losses, kernel path vs the plain bf16 path: mean relative
   difference <= 0.06 on the windowed path, about 2x the largest sound
   reading (0.031; kernels with uniform attention read 0.072), and <= 0.04
@@ -1004,14 +1032,17 @@ def checked_profile(tag, family_tag, fn, reset, counts, top=10, reduces=0):
     return rows
 
 
-def check_close(name, got, want, base=None, q8=False):
+def check_close(name, got, want, base=None, q8=False, quiet=False):
     """Print the kernel's gap to its twin (ops/twin_check.py; ``q8``: the
-    int8 tier's rules); True if it is within tolerance."""
+    int8 tier's rules; ``quiet``: only if it fails); True if it is within
+    tolerance."""
     from dino_video_summarization_transformer_tpu_torch.ops import twin_check
 
     gap = twin_check.twin_gap(got, want, base)
     bad = twin_check.twin_failures(gap, q8)
     ulps = f" max_ulps={gap['max_ulps']:.2f}" if "max_ulps" in gap else ""
+    if quiet and not bad:
+        return True, gap
     print(f"  {name}: max_abs_err={gap['max_abs_err']:.3e} rms_err="
           f"{gap['rms_err']:.3e} ref_rms={gap['ref_rms']:.3e} ref_max="
           f"{gap['ref_max']:.3e} rel_rms={gap['rel_rms']:.3e} rel_max="
@@ -2170,6 +2201,350 @@ def phase_12(dev, card, reset_counts, counts, part, phase7):
           f"{peak_cd / 2**30:.2f} GiB), phase 7's step {phase7['ms']:.1f} ms on {card}",
           flush=True)
     return launches_ts, launches_cd
+
+
+def partial_costs(B, T, N, D, Dq):
+    """(FLOP, bytes) of the partial tier's four ops at the shard's
+    attention width Dq, bf16 rows. Row 1p: qkv (6 Dq D a row), attention
+    over T (4 T Dq), proj (2 Dq D), fc (2 D^2); x read, out written,
+    weights once. Row 4p: qkv over the grid and one CLS row a clip,
+    attention over L = N + 1 a frame, proj over the grid and the per-frame
+    CLS rows; x and cls read, grid and CLS rows written, weights once.
+    Rows 7p and 8p: temporal_bwd_cost's and spatial_bwd_cost's terms at
+    width Dq (the recomputes, the backwards' dW and dX products, the
+    attention backward with its score recompute); x and the cotangents
+    read, dx written (bf16), dcls (f32), weights read, f32 gradients
+    written (no proj or fc bias gradient)."""
+    M, L = B * T * N, N + 1
+    R = M + B * T
+    w_t = (3 * Dq * D + D * Dq + D * D)
+    w_s = (3 * Dq * D + D * Dq)
+    return {
+        "temporal_phase_tm_partial": (
+            M * (8 * Dq * D + 2 * D * D + 4 * T * Dq),
+            2 * M * D * 2 + w_t * 2 + (3 * Dq + 2 * D) * 4),
+        "spatial_phase_partial": (
+            2 * (M + B) * D * 3 * Dq + 4 * B * T * L * L * Dq + 2 * (M + B * T) * Dq * D,
+            2 * M * D * 2 + B * D * 2 + B * T * D * 2 + w_s * 2 + (3 * Dq + 2 * D) * 4),
+        "temporal_phase_tm_bwd_partial": (
+            M * (24 * Dq * D + 4 * D * D + 14 * T * Dq),
+            3 * M * D * 2 + w_t * 2 + (w_t + 3 * Dq + 2 * D) * 4),
+        "spatial_phase_bwd_partial": (
+            6 * (M + B) * Dq * D + 14 * B * T * L * L * Dq + 16 * R * Dq * D,
+            3 * M * D * 2 + B * D * 2 + B * T * D * 2 + B * D * 4 + w_s * 2
+            + (w_s + 3 * Dq + 2 * D) * 4),
+    }
+
+
+PARTIAL_OPS = ("temporal_phase_tm_partial", "spatial_phase_partial",
+               "temporal_phase_tm_bwd_partial", "spatial_phase_bwd_partial")
+# phase 13a: the shards' partials summed (f32) with the once-applied biases
+# against the unsharded kernel's branch, and the gradients likewise: each
+# shard rounds its terms to bf16 where the unsharded op rounds once (the
+# CPU test's bounds, tests/test_torch_parallel_ops.py)
+PARTIAL_SUM_RMS, PARTIAL_SUM_MAX = 1e-2, 4e-2
+# phase 13b: each step's loss of the world against a one-rank step on the
+# same global batch, relative: JAX's bound for its TP-fused step against
+# the plain one (tests/test_tp_fused.py), the loosest of the three routes'
+# sources of difference (bf16 partials summed in f32; gradients averaged
+# over ranks; the plain route's bf16 products cut in K). Rank 0's
+# first-step gradients (gathered) against the one-rank step's: the train
+# step's rule, TRAIN_GRAD_REL_MAX
+WORLD_LOSS_RTOL = 2e-3
+
+
+def phase_13(fb, p, H, dev, part):
+    """Phase 13, tensor parallelism and ZeRO-1 (ViT-B/16, D 768, H 12):
+    (a) tier C, rows 1p, 4p, 7p and 8p, for tp = 2 and 4 (Dq 384 and 192:
+    qkv's 1152 and 576 columns, proj's 384- and 192-deep reduction) at the
+    global crops (B=2, T=8, N=196) and at the crops (b)'s TP-fused step
+    gives them (its 8 global crops, N=196, and 32 local ones, N=36): every
+    shard's outputs against its twin by the twin rules; the shards'
+    partials summed with the once-applied biases against the unsharded
+    rows 1 and 4 (their f32-out branches), and the gradients likewise
+    against rows 7 and 8 (PARTIAL_SUM_*); each op at B=2 and tp = 2 and 4
+    timed beside its twin and its bound (library: none, no single call).
+    (b) A world of 2 ranks on this one card (the port's launcher, gloo;
+    the kernels built here first): 3 bf16 train steps at out_dim 65536,
+    batch 4 (8 global 224-px and 32 local 96-px clips, T=8) of the
+    TP-fused route (mesh 1 x 2), the plain TP route (1 x 2), ZeRO-1 over
+    data parallelism (2 x 1) and plain data parallelism (2 x 1, ZeRO-1's
+    memory beside it), each step's loss against a one-rank step on the
+    same global batch (WORLD_LOSS_RTOL) and rank 0's first-step gradients
+    against the one-rank step's (TRAIN_GRAD_REL_MAX); the TP-fused ranks'
+    launch counters hold the tier-C kernels per step and no twin call.
+    Returns (stats rows by op, launches by op of the TP-fused
+    run, the phase's record)."""
+    import numpy as np
+    import torch
+
+    from dino_video_summarization_transformer_tpu_torch.models import timesformer as tsf
+    from dino_video_summarization_transformer_tpu_torch.parallel import launch, worlds
+    from dino_video_summarization_transformer_tpu_torch.parallel.tp_fused import qkv_head_perm
+    from dino_video_summarization_transformer_tpu_torch.train import ssl
+
+    bf16 = torch.bfloat16
+    pt, ps = p["temporal"], p["spatial"]
+    D = pt["fc_w"].shape[0]
+    T = 8
+    print(f"[13] tensor parallelism: (a) tier C (rows 1p, 4p, 7p, 8p) at tp = 2 and 4, timed at "
+          f"ViT-B global crops B=2 T={T} N=196 and checked at the crops 13b's step gives them "
+          f"(global B=8 N=196, local B=32 N=36); (b) a world of 2 ranks on this card",
+          flush=True)
+    stats, per_tp = {k: [] for k in PARTIAL_OPS}, {k: {} for k in PARTIAL_OPS}
+    row_of = dict(zip(PARTIAL_OPS, ("1p", "4p", "7p", "8p")))
+
+    def shard(tp, l):
+        """Shard l's partial-tier weights: the head-major qkv rows, proj's
+        input columns, temporal_fc whole."""
+        Dq = D // tp
+        rows = torch.as_tensor(qkv_head_perm(D, H, tp)[l * 3 * Dq:(l + 1) * 3 * Dq],
+                               device=dev)
+        wt = {"ln_w": pt["ln_w"], "ln_b": pt["ln_b"],
+              "qkv_w": pt["qkv_w"][rows].contiguous(), "qkv_b": pt["qkv_b"][rows].contiguous(),
+              "proj_w": pt["proj_w"][:, l * Dq:(l + 1) * Dq].contiguous(),
+              "fc_w": pt["fc_w"]}
+        ws = {"ln1_w": ps["ln1_w"], "ln1_b": ps["ln1_b"],
+              "qkv_w": ps["qkv_w"][rows].contiguous(), "qkv_b": ps["qkv_b"][rows].contiguous(),
+              "proj_w": ps["proj_w"][:, l * Dq:(l + 1) * Dq].contiguous()}
+        return wt, ws
+
+    def gap(name, got, want, loud):
+        """The sum rule's reading: -> (ok, rms, max) of got - want over
+        want's (printed where ``loud`` or failing)."""
+        got, want = got.float(), want.float()
+        d = got - want
+        rms = float(d.square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30))
+        mx = float(d.abs().max() / want.abs().max().clamp_min(1e-30))
+        ok = rms <= PARTIAL_SUM_RMS and mx <= PARTIAL_SUM_MAX
+        if loud or not ok:
+            print(f"  {name}: rel_rms {rms:.3e} (<= {PARTIAL_SUM_RMS}), rel_max {mx:.3e} (<= "
+                  f"{PARTIAL_SUM_MAX}) {'ok' if ok else 'FAILED'}", flush=True)
+        return ok, rms, mx
+
+    def tier_c(crops, B, N, seed, timed):
+        """Every shard of rows 1p, 4p, 7p and 8p at (B, T, N), tp = 2 and 4,
+        against its twin, and the shards' sums against rows 1, 4, 7 and 8.
+        ``timed``: shard 0's readings printed in full and each op timed
+        beside its twin and its bound; else one line a tp."""
+        x, cls = dev_randn(seed, B, T, N, D), dev_randn(seed + 1, B, 1, D)
+        dout, dco = dev_randn(seed + 2, B, T, N, D), dev_randn(seed + 3, B, T, D)
+        full_t = fb.temporal_phase_tm(x, pt, H) - x.float()  # row 1's branch (f32-out tier)
+        full_g, full_c = fb.spatial_phase(x, cls, ps, H, out_dtype=torch.float32)
+        full_g = full_g - x.float()
+        # rows 7 and 8 through their f32 tier on the same (bf16-exact) rows:
+        # dx - dout is the branch unrounded (the bf16 tier's dx rounds
+        # dout + branch, which at these weights is ~1e-2 dout)
+        x32, dout32 = x.float(), dout.float()
+        dx7, g7 = fb.temporal_phase_tm_bwd(x32, dout32, pt, H)
+        dx8, dcls8, g8 = fb.spatial_phase_bwd(x32, cls.float(), dout32, dco.float(), ps, H)
+        b_comb = pt["proj_b"] @ pt["fc_w"].float().t() + pt["fc_b"]
+        for tp in (2, 4):
+            Hl, Dq = H // tp, D // tp
+            inv = torch.as_tensor(np.argsort(qkv_head_perm(D, H, tp)), device=dev)
+            sums = {"t": 0.0, "g": 0.0, "c": 0.0}
+            bwd7, bwd8 = [], []
+            worst = [0.0, 0.0]  # the twin rules' rel_rms and rel_max over every shard
+            for l in range(tp):
+                wt, ws = shard(tp, l)
+                out_t = fb.temporal_phase_tm(x, wt, Hl, partial_out=True)
+                out_g, out_c = fb.spatial_phase(x, cls, ws, Hl, partial_out=True)
+                r7 = fb.temporal_phase_tm_bwd(x, dout, wt, Hl, partial_out=True)
+                r8 = fb.spatial_phase_bwd(x, cls, dout, dco, ws, Hl, partial_out=True)
+                sums["t"] = sums["t"] + out_t.float()
+                sums["g"], sums["c"] = sums["g"] + out_g.float(), sums["c"] + out_c.float()
+                bwd7.append(r7)
+                bwd8.append(r8)
+                geo = f"{crops} B={B} N={N} tp={tp} shard {l} (Hl={Hl}, Dq={Dq})"
+                want_t = fb.temporal_phase_tm_partial_plain(x, wt, Hl)
+                want_s = fb.spatial_phase_partial_plain(x, cls, ws, Hl)
+                want7 = fb.temporal_phase_tm_partial_bwd_plain(x, dout, wt, Hl)
+                want8 = fb.spatial_phase_partial_bwd_plain(x, cls, dout, dco, ws, Hl)
+                pairs = {"temporal_phase_tm_partial": [("out", out_t, want_t)],
+                         "spatial_phase_partial": [("grid", out_g, want_s[0]),
+                                                   ("cls rows", out_c, want_s[1])],
+                         "temporal_phase_tm_bwd_partial": [("dx", r7[0], want7[0])]
+                         + [(f"d{k}", r7[1][k], want7[1][k]) for k in want7[1]],
+                         "spatial_phase_bwd_partial": [("dx", r8[0], want8[0]),
+                                                       ("dcls", r8[1], want8[1])]
+                         + [(f"d{k}", r8[2][k], want8[2][k]) for k in want8[2]]}
+                loud = timed and not l
+                c = {op: [check_close(f"row {row_of[op]} {geo} {what}", got, want,
+                                      quiet=not loud) for what, got, want in v]
+                     for op, v in pairs.items()}
+                for v in c.values():
+                    for _, g_ in v:
+                        worst[0] = max(worst[0], g_["rel_rms"])
+                        worst[1] = max(worst[1], g_["rel_max"])
+                if not all(ok for v in c.values() for ok, _ in v):
+                    fail(f"a tier-C kernel disagrees with its plain twin ({geo})")
+                if not loud:
+                    continue
+                runs = {"temporal_phase_tm_partial": (
+                            lambda: fb.temporal_phase_tm(x, wt, Hl, partial_out=True),
+                            lambda: fb.temporal_phase_tm_partial_plain(x, wt, Hl)),
+                        "spatial_phase_partial": (
+                            lambda: fb.spatial_phase(x, cls, ws, Hl, partial_out=True),
+                            lambda: fb.spatial_phase_partial_plain(x, cls, ws, Hl)),
+                        "temporal_phase_tm_bwd_partial": (
+                            lambda: fb.temporal_phase_tm_bwd(x, dout, wt, Hl, partial_out=True),
+                            lambda: fb.temporal_phase_tm_partial_bwd_plain(x, dout, wt, Hl)),
+                        "spatial_phase_bwd_partial": (
+                            lambda: fb.spatial_phase_bwd(x, cls, dout, dco, ws, Hl,
+                                                         partial_out=True),
+                            lambda: fb.spatial_phase_partial_bwd_plain(x, cls, dout, dco, ws,
+                                                                       Hl))}
+                costs = partial_costs(B, T, N, D, Dq)
+                for name, (kern, plain) in runs.items():
+                    ms, pl = cuda_ms(kern, 10), cuda_ms(plain, 2, warmup=1)
+                    dms = graph_ms(kern)  # the device's time, without the wrapper's
+                    b, by = bound_ms(*costs[name])
+                    gaps = [g_ for _, g_ in c[name]]
+                    row = {"crops": "global", "tp": tp, "B": B, "T": T, "N": N, "Dq": Dq,
+                           "ms": ms, "device_ms": dms, "plain_ms": pl, "bound_ms": b,
+                           "bound_by": by, "library_ms": None,
+                           "max_abs_err": max(g_["max_abs_err"] for g_ in gaps),
+                           "rel_rms": max(g_["rel_rms"] for g_ in gaps)}
+                    per_tp[name][tp] = row
+                    if tp == 2:
+                        stats[name].append(row)
+                    print(f"  {name} {geo}: kernel {ms:.3f} ms (device {dms:.3f} ms), plain "
+                          f"{pl:.3f} ms, bound {b:.4f} ms ({by}), {b / dms:.1%} of bound on "
+                          "the device; library: none (no single call)", flush=True)
+            if not timed:
+                print(f"  {crops} B={B} N={N} tp={tp}: rows 1p, 4p, 7p, 8p of all {tp} shards "
+                      f"within the twin rules (worst rel_rms {worst[0]:.3e}, rel_max "
+                      f"{worst[1]:.3e})", flush=True)
+            # the shards' sum against the unsharded ops, forward and backward
+            tag = f"{crops} B={B} N={N} tp={tp}"
+            fc_bias = torch.outer(dout.float().reshape(-1, D).sum(0), pt["proj_b"])
+            got7 = {"dx": sum(d_.float() for d_, _ in bwd7),
+                    "ln_w": sum(g_["ln_w"] for _, g_ in bwd7),
+                    "ln_b": sum(g_["ln_b"] for _, g_ in bwd7),
+                    "fc_w": sum(g_["fc_w"] for _, g_ in bwd7) + fc_bias,
+                    "qkv_w": torch.cat([g_["qkv_w"] for _, g_ in bwd7])[inv],
+                    "qkv_b": torch.cat([g_["qkv_b"] for _, g_ in bwd7])[inv],
+                    "proj_w": torch.cat([g_["proj_w"] for _, g_ in bwd7], dim=1)}
+            want7 = {"dx": dx7 - dout32, **g7}
+            got8 = {"dx": sum(d_.float() for d_, _, _ in bwd8),
+                    "cls": sum(c_ for _, c_, _ in bwd8),
+                    "ln1_w": sum(g_["ln1_w"] for _, _, g_ in bwd8),
+                    "ln1_b": sum(g_["ln1_b"] for _, _, g_ in bwd8),
+                    "qkv_w": torch.cat([g_["qkv_w"] for _, _, g_ in bwd8])[inv],
+                    "qkv_b": torch.cat([g_["qkv_b"] for _, _, g_ in bwd8])[inv],
+                    "proj_w": torch.cat([g_["proj_w"] for _, _, g_ in bwd8], dim=1)}
+            want8 = {"dx": dx8 - dout32, "cls": dcls8, **g8}
+            readings = ([gap(f"{tag} sum of row 1p + b_comb vs row 1's branch",
+                             sums["t"] + b_comb, full_t, timed),
+                         gap(f"{tag} sum of row 4p grid + bproj vs row 4's",
+                             sums["g"] + ps["proj_b"], full_g, timed),
+                         gap(f"{tag} sum of row 4p cls rows + bproj vs row 4's",
+                             sums["c"] + ps["proj_b"], full_c, timed)]
+                        + [gap(f"{tag} row 7p sum d{k} vs row 7's", v, want7[k], timed)
+                           for k, v in got7.items()]
+                        + [gap(f"{tag} row 8p sum d{k} vs row 8's", v, want8[k], timed)
+                           for k, v in got8.items()])
+            if not timed:
+                print(f"  {tag}: the shards' sums vs rows 1, 4, 7, 8 (worst rel_rms "
+                      f"{max(r[1] for r in readings):.3e}, rel_max "
+                      f"{max(r[2] for r in readings):.3e})", flush=True)
+            if not all(r[0] for r in readings):
+                fail(f"the tier-C shards do not sum to the unsharded rows ({tag})")
+            del sums, bwd7, bwd8
+        torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        tier_c("global crops", 2, 196, 130, timed=True)
+        # the shapes 13b's TP-fused step gives the kernels: batch 4's 8
+        # global and 32 local (96 px) crops
+        tier_c("the step's global crops", 8, 196, 140, timed=False)
+        tier_c("the step's local crops", 32, 36, 150, timed=False)
+    torch.cuda.empty_cache()
+    part("phase 13a: tier C")
+
+    # -- 13b: a world of 2 ranks on the card ----------------------------------------
+    tcfg = tsf.vit_base_config(num_frames=8, num_classes=0)
+    depth = tcfg.depth
+    batch, n_local, out_dim, n_steps = 4, 8, 65536, 3
+    hp = [(5e-4, 0.04, 0.996, 0.04, True)] * n_steps
+    spec = {"cfg": dataclasses.asdict(tcfg), "out_dim": out_dim, "seed": 0, "n_local": n_local,
+            "hyper": hp, "crops_seed": (135, n_steps, batch, n_local, 8, 224, 96),
+            "device": dev.type, "compute_dtype": "bfloat16", "state": False,
+            "count_twins": True}
+    modes = [("tp_fused", (1, 2)), ("tp", (1, 2)), ("zero1", (2, 1)), ("dp", (2, 1))]
+    t0 = time.perf_counter()
+    ranks = launch.run_world(worlds.run_calls, 2, [
+        (worlds.sharded_steps, dict(spec, mode=m, mesh=mesh)) for m, mesh in modes],
+        threads=0)
+    print(f"  world of 2 (gloo on one card): {time.perf_counter() - t0:.1f} s wall for "
+          f"its {len(modes)} runs of {n_steps} steps", flush=True)
+    # the one-rank references: the same seeded state and global batch, the
+    # kernel route (TP-fused, ZeRO-1) and the plain bf16 route (plain TP)
+    ref = {}
+    for route in ("kernels", "plain"):
+        out = worlds.sharded_steps(0, 1, dict(spec, mode="one", count_twins=False,
+                                              route=route))
+        ref[route] = out
+        print(f"  one rank, {route} route: losses {[round(v, 5) for v in out['loss']]}, "
+              f"ms a step {[round(v, 1) for v in out['ms']]}, peak allocated "
+              f"{out['peak_mib']:.0f} MiB, moments {out['moments_mib']:.0f} MiB", flush=True)
+    want_fused = {k: 0 for k in ranks[0][0]["launches"]}
+    want_fused.update({"temporal_phase_tm_partial": 3 * depth, "spatial_phase_partial": 3 * depth,
+                       "mlp_phase": 6 * depth, "temporal_phase_tm_bwd_partial": 2 * depth,
+                       "spatial_phase_bwd_partial": 2 * depth,
+                       "mlp_phase_bwd": 2 * (2 * depth - 1)})
+    want_fused = {k: n_steps * v for k, v in want_fused.items()}
+    record = {}
+    for i, (mode, mesh) in enumerate(modes):
+        base = ref["plain" if mode == "tp" else "kernels"]
+        # rank 0's first-step gradients, gathered into the single-card
+        # layout, against the one-rank step's (a dropped or doubled reduce
+        # of a partial gradient moves a tensor by about half its size)
+        got_g, want_g = ranks[0][i]["grads"], base["grads"]
+        if set(got_g) != set(want_g):
+            fail(f"the {mode} world's gradients have other names than the one-rank step's")
+        g_rel = {n: float(np.abs(got_g[n] - w).max() / (np.abs(w).max() + 1e-12))
+                 for n, w in want_g.items()}
+        g_worst = max(g_rel, key=g_rel.get)
+        print(f"  {mode} {mesh[0]}x{mesh[1]} first-step gradients vs one rank's: worst "
+              f"max|diff| / max|one rank| {g_rel[g_worst]:.3e} ({g_worst}; < "
+              f"{TRAIN_GRAD_REL_MAX}), median {float(np.median(list(g_rel.values()))):.3e}",
+              flush=True)
+        if not g_rel[g_worst] < TRAIN_GRAD_REL_MAX:
+            fail(f"the {mode} world's gradients stray from the one-rank step's ({g_worst})")
+        for r, res in enumerate(ranks):
+            out = res[i]
+            errs = [abs(a - b_) / abs(b_) for a, b_ in zip(out["loss"], base["loss"])]
+            seen = {k: v for k, v in out["launches"].items() if v}
+            twins_called = {k: v for k, v in out.get("twins", {}).items() if v}
+            print(f"  {mode} {mesh[0]}x{mesh[1]} rank {r}: losses "
+                  f"{[round(v, 5) for v in out['loss']]} (relative to one rank "
+                  f"{max(errs):.2e} <= {WORLD_LOSS_RTOL}), ms a step "
+                  f"{[round(v, 1) for v in out['ms']]}, peak allocated "
+                  f"{out['peak_mib']:.0f} MiB, moments {out['moments_mib']:.0f} MiB, launches "
+                  f"{seen or 'none'}, twin calls {twins_called or 'none'}", flush=True)
+            if not all(np.isfinite(out["loss"])) or max(errs) > WORLD_LOSS_RTOL:
+                fail(f"the {mode} world's losses stray from the one-rank step's")
+            if twins_called:
+                fail(f"the {mode} world called plain twins on the card: {twins_called}")
+            if mode == "tp_fused" and out["launches"] != want_fused:
+                fail(f"TP-fused launches {seen}, expected {n_steps} steps of "
+                     f"{ {k: v // n_steps for k, v in want_fused.items() if v} }")
+            if mode == "tp" and seen:
+                fail(f"the plain TP route launched port kernels: {seen}")
+            if mode in ("zero1", "dp") and out["launches"] != ref["kernels"]["launches"]:
+                fail(f"{mode} launches {seen}, not the one-rank kernel route's")
+        record[mode] = {"losses": [res[i]["loss"] for res in ranks],
+                        "ms_per_step": [res[i]["ms"] for res in ranks],
+                        "peak_mib": [res[i]["peak_mib"] for res in ranks],
+                        "moments_mib": [res[i]["moments_mib"] for res in ranks],
+                        "grad_rel_max": g_rel[g_worst],
+                        "one_rank_losses": base["loss"], "one_rank_ms": base["ms"]}
+    record["one_rank_kernels_ms"] = ref["kernels"]["ms"]
+    part("phase 13b: the world of 2")
+    launches = {k: ranks[0][0]["launches"][k] for k in PARTIAL_OPS}
+    launches_by_rank = [{k: res[0]["launches"][k] for k in PARTIAL_OPS} for res in ranks]
+    return stats, per_tp, launches, launches_by_rank, record
 
 
 def main():
@@ -4900,7 +5275,14 @@ def main():
     launches_ts, launches_cd = phase_12(dev, card, reset_counts, counts, part,
                                         {"ms": ms_step_bf16, "peak": peak_bf16})
 
+    # -- 13. tensor parallelism and ZeRO-1 -------------------------------------------
     lap("phase 12")
+    tp_stats, tp_per_tp, tp_launches, tp_by_rank, tp_record = phase_13(
+        fb, p, H, dev, part)
+    stats.update(tp_stats)
+    launches.update(tp_launches)
+
+    lap("phase 13")
     kernels = []
     sources = {
         "temporal_phase_tm": ("fused_block.cu", "ops/fused_block.py:761"),
@@ -4943,6 +5325,12 @@ def main():
         "mlp_phase_f32": ("fused_block.cu", "ops/fused_block.py:1191"),
         # the banded mixed teacher's row 11f (phase 6b; row 3f above)
         "spatial_phase_pf_f32": ("banded_block.cu", "ops/banded_block.py:174"),
+        # tier C, tensor parallelism's partial tier (phase 13): rows 1p, 4p,
+        # 7p and 8p, the partial_out branches of rows 1, 4, 7 and 8
+        "temporal_phase_tm_partial": ("fused_block.cu", "ops/fused_block.py:761"),
+        "spatial_phase_partial": ("fused_block.cu", "ops/fused_block.py:287"),
+        "temporal_phase_tm_bwd_partial": ("fused_block_bwd.cu", "ops/fused_block.py:963"),
+        "spatial_phase_bwd_partial": ("fused_block_bwd.cu", "ops/fused_block.py:430"),
     }
     # rows 3f and 11f on band-mt's teacher passes (the 512-frame bucket),
     # row 3f at the mixed train step's crops beside them
@@ -5018,6 +5406,10 @@ def main():
         if name in launches_ts:  # the two-stream and distillation steps (phase 12)
             extra.update(launches_two_stream_step=launches_ts[name],
                          launches_distill_step=launches_cd[name])
+        if name in tp_per_tp:  # tier C (phase 13): both tp, the main path's ranks
+            extra.update(per_tp={str(k): v for k, v in tp_per_tp[name].items()},
+                         launches_by_rank=[r[name] for r in tp_by_rank],
+                         launches_per_step=launches[name] // 3)
         if name in launches_rf:  # the trainer's variants (phase 7c)
             extra.update(launches_rand_fr_step=launches_rf[name],
                          launches_remat_step=launches_remat[name],
@@ -5037,6 +5429,7 @@ def main():
             "per_window": rows})
     print(f"  evaluation consumers (phase 11): {json.dumps({k: v for k, v in eval_rec.items() if k != 'launches'})}",
           flush=True)
+    print(f"  tensor parallelism (phase 13b): {json.dumps(tp_record)}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,9 @@ copied from the JAX package's ``engine/meters.py``.
 
 ``TestMeter`` accumulates multi-view clip predictions into per-video scores
 (sum or max ensemble) and finalizes top-k accuracy. ``SmoothedValue`` /
-``MetricLogger`` mirror the reference's windowed stats + ETA logging. The
-port runs one process: the cross-process sum does nothing there, as JAX's
-does at ``process_count() == 1``; with more processes it raises (ROADMAP
-queue 1 item 8, parallelism).
+``MetricLogger`` mirror the reference's windowed stats + ETA logging; the
+cross-process sum adds (count, total) over the ``torch.distributed`` world
+(nothing to do in one process, as JAX's at ``process_count() == 1``).
 """
 
 from __future__ import annotations
@@ -94,15 +93,17 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         """Cross-process (count, total) sum (ref: utils/utils.py:211-224):
-        nothing to do in one process; several raise (ROADMAP queue 1 item
-        8)."""
+        nothing to do in one process; over the world's ranks otherwise (the
+        window is not synchronized, as in the reference)."""
+        import torch
         import torch.distributed as dist
 
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
             return
-        raise NotImplementedError(
-            "SmoothedValue.synchronize_between_processes across processes: "
-            "multi-process runs are not ported (ROADMAP queue 1 item 8, parallelism)")
+        dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        t = torch.tensor([self.count, self.total], dtype=torch.float64, device=dev)
+        dist.all_reduce(t)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self):

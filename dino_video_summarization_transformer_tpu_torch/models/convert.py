@@ -476,3 +476,66 @@ def linear_head_state_dict_from_jax(head_np: Mapping[str, Any]) -> Dict[str, np.
     ``linear.bias``."""
     return {"linear.weight": np.ascontiguousarray(np.asarray(head_np["kernel"], np.float32).T),
             "linear.bias": np.asarray(head_np["bias"], np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# Sharded states (the ``parallel`` modules)
+# ---------------------------------------------------------------------------
+
+def state_dims(sd: Mapping[str, Any], size: int, kind: str = "tp") -> Dict[str, Any]:
+    """Name -> the dim a flat state's tensor is cut on over ``size`` ranks,
+    or None (kept whole): ``kind`` "tp" the Megatron rules
+    (``parallel.tp.tp_spec``) on every student, teacher and moment tensor;
+    "zero1" the first dimension ``size`` divides (``parallel.zero.
+    moment_dim``) on the optimizer's tensors (``opt.`` keys) only."""
+    from ..parallel import tp, zero
+
+    if kind == "tp":
+        return {n: tp.tp_spec(n, tuple(v.shape), size) for n, v in sd.items()}
+    if kind == "zero1":
+        return {n: zero.moment_dim(tuple(v.shape), size) if n.startswith("opt.") else None
+                for n, v in sd.items()}
+    raise ValueError(f"kind {kind!r}: 'tp' or 'zero1'")
+
+
+def shard_state_dict(sd: Mapping[str, Any], index: int, size: int, kind: str = "tp",
+                     num_heads: int = 0) -> Dict[str, Any]:
+    """Rank ``index``'s shard of a full flat state (``parallel.state.
+    flat_state``: ``student.*``, ``teacher.*``, ``opt.<moment>.*``, ...)
+    over an axis of ``size`` ranks: "tp" cuts the student, the teacher and
+    the moments on the Megatron rules, their qkv rows first permuted into
+    the head-major layout of ``num_heads`` heads (``parallel.tp_fused.
+    permute_qkv_tree``: each shard whole heads, the layout both TP routes
+    of the port run on); "zero1" cuts the moments only. Tensors in, views
+    of tensors out."""
+    from ..parallel import tp_fused
+
+    dims = state_dims(sd, size, kind)
+    if kind == "tp":
+        sd = tp_fused.permute_qkv_tree(sd, num_heads, size)
+    out = {}
+    for n, v in sd.items():
+        d = dims[n]
+        if d is not None:
+            w = v.shape[d] // size
+            v = v.narrow(d, index * w, w)
+        out[n] = v
+    return out
+
+
+def gather_state_dicts(shards, dims: Mapping[str, Any], kind: str = "tp",
+                       num_heads: int = 0) -> Dict[str, Any]:
+    """The inverse of ``shard_state_dict``: the ranks' shards (in rank
+    order) side by side on ``dims`` (``state_dims`` of the full state),
+    then, for "tp", the qkv rows unpermuted: the single-card layout."""
+    import torch
+
+    from ..parallel import tp_fused
+
+    out = {}
+    for n, v in shards[0].items():
+        d = dims[n]
+        out[n] = v if d is None else torch.cat([s[n] for s in shards], dim=d)
+    if kind == "tp":
+        out = tp_fused.unpermute_qkv_tree(out, num_heads, len(shards))
+    return out

@@ -215,20 +215,32 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return y
 
 
-def mhsa_train(x: torch.Tensor, attn: nn.Module, num_heads: int) -> torch.Tensor:
+def whole_linear(x: torch.Tensor, lin: nn.Linear, parallel: Optional[str] = None) -> torch.Tensor:
+    """The plain training forwards' linear hook on one card: ``linear`` on
+    the whole layer. ``parallel`` names the layer's tensor-parallel role
+    ("column": qkv, fc1; "row": proj, fc2; None: replicated), which the
+    hook over a mesh's model axis (``parallel.tp.sharded_linear``) acts on."""
+    return linear(x, lin)
+
+
+def mhsa_train(x: torch.Tensor, attn: nn.Module, num_heads: int,
+               lin=whole_linear) -> torch.Tensor:
     """The JAX package's ``mhsa`` with master weights cast to x's dtype:
     bf16 keeps the scores in bf16 (softmax over them), f32 takes the
-    softmax in f32."""
-    S, L, C = x.shape
-    hd = C // num_heads
-    q, k, v = linear(x, attn.qkv).reshape(S, L, 3, num_heads, hd).permute(
-        2, 0, 3, 1, 4).unbind(0)
+    softmax in f32. ``lin``: the linear hook (``whole_linear``); over a
+    model axis ``num_heads`` is the shard's, whose attention width the qkv
+    shard gives."""
+    S, L, _ = x.shape
+    qkv = lin(x, attn.qkv, "column")
+    Dq = qkv.shape[-1] // 3
+    hd = Dq // num_heads
+    q, k, v = qkv.reshape(S, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
     a = (q @ k.transpose(-2, -1)) * hd ** -0.5
     if x.dtype == torch.bfloat16:
         a = a.softmax(dim=-1)
     else:
         a = a.float().softmax(dim=-1).to(x.dtype)
-    return linear((a @ v).transpose(1, 2).reshape(S, L, C), attn.proj)
+    return lin((a @ v).transpose(1, 2).reshape(S, L, Dq), attn.proj, "row")
 
 
 def train_route(cfg: "TimeSformerConfig", compute_dtype: torch.dtype,
@@ -604,8 +616,8 @@ class Block(nn.Module):
                                      masks[2], keep)
         return cls, grid
 
-    def _mlp_train(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(F.gelu(linear(x, self.mlp.fc1)), self.mlp.fc2)
+    def _mlp_train(self, x: torch.Tensor, lin=whole_linear) -> torch.Tensor:
+        return lin(F.gelu(lin(x, self.mlp.fc1, "column")), self.mlp.fc2, "row")
 
     def forward_joint(self, x: torch.Tensor) -> torch.Tensor:
         """The space-only / joint block (JAX ``joint_block`` without
@@ -615,27 +627,30 @@ class Block(nn.Module):
         return x + self._mlp_train(self._ln(self.norm2, x))
 
     def forward_plain_train(self, cls: torch.Tensor, grid: torch.Tensor,
-                            B: int, T: int, N: int):
+                            B: int, T: int, N: int, lin=whole_linear,
+                            num_heads: Optional[int] = None):
         """Training, plain route: the JAX XLA ``divided_block`` without
         drop-path in x's dtype, the f32 master weights cast where JAX casts
-        them. cls (B, 1, D); grid (B, N*T, D) in (h w t) order."""
+        them. cls (B, 1, D); grid (B, N*T, D) in (h w t) order. ``lin`` and
+        ``num_heads``: the linear hook and the heads it holds
+        (``parallel.tp.tp_forward_features`` passes a shard's)."""
         D = grid.shape[-1]
-        H = self.num_heads
+        H = num_heads or self.num_heads
         xt = grid.reshape(B * N, T, D)
-        xt = xt + linear(mhsa_train(self._ln(self.temporal_norm1, xt),
-                                    self.temporal_attn, H), self.temporal_fc)
+        xt = xt + lin(mhsa_train(self._ln(self.temporal_norm1, xt),
+                                 self.temporal_attn, H, lin), self.temporal_fc)
         xt = xt.reshape(B, N * T, D)
         cls_rep = cls.expand(B, T, D).reshape(B * T, 1, D)
         xs = xt.reshape(B, N, T, D).transpose(1, 2).reshape(B * T, N, D)
         xs = torch.cat([cls_rep, xs], dim=1)
-        res_s = mhsa_train(self._ln(self.norm1, xs), self.attn, H)
+        res_s = mhsa_train(self._ln(self.norm1, xs), self.attn, H, lin)
         cls_out = res_s[:, 0, :].reshape(B, T, D).mean(dim=1, keepdim=True)
         res_sp = res_s[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
             B, N * T, D)
         cls = cls + cls_out
         grid = xt + res_sp
-        cls = cls + self._mlp_train(self._ln(self.norm2, cls))
-        grid = grid + self._mlp_train(self._ln(self.norm2, grid))
+        cls = cls + self._mlp_train(self._ln(self.norm2, cls), lin)
+        grid = grid + self._mlp_train(self._ln(self.norm2, grid), lin)
         return cls, grid
 
     def forward_two_token(self, x: torch.Tensor, B: int, T: int, N: int) -> torch.Tensor:
@@ -857,6 +872,24 @@ class TimeSformer(nn.Module):
                 raise ValueError(f"route={route!r}: a {self.cfg.attention_type} "
                                  "model runs the plain route only (train_route)")
             return self.forward_joint(x, compute_dtype, remat=remat)
+        cls_tok, grid = self.train_tokens(x, compute_dtype)
+        B, T, N, D = grid.shape
+        if route == "kernels":
+            grid, cls_tok = grid.contiguous(), cls_tok.contiguous()
+            for blk in self.blocks:
+                cls_tok, grid = checkpoint_block(remat, blk.forward_kernels, cls_tok, grid)
+        else:
+            spat = grid.transpose(1, 2).reshape(B, N * T, D)
+            for blk in self.blocks:
+                cls_tok, spat = checkpoint_block(remat, blk.forward_plain_train,
+                                                 cls_tok, spat, B, T, N)
+        return self.final_norm(cls_tok)
+
+    def train_tokens(self, x: torch.Tensor, compute_dtype: torch.dtype):
+        """``forward_train``'s embedding: x (B, C, T, H, W) -> (cls (B, 1,
+        D), grid (B, T, N, D) frame-major) in ``compute_dtype``, the
+        parameters cast where JAX casts them (also the tensor-parallel
+        forwards' replicated embedding, ``parallel/``)."""
         cfg = self.cfg
         B, C, T, Himg, Wimg = x.shape
         W = Wimg // cfg.patch_size
@@ -876,23 +909,12 @@ class TimeSformer(nn.Module):
         te = self.time_embed
         if T != te.shape[1]:
             te = interp_nearest_1d(te, T, axis=1)
-        te = te.to(cd)
-        cls_tok = xt[:B, :1, :]  # identical across frames before mixing
+        # the CLS row is identical across frames before mixing
+        return xt[:B, :1, :], xt[:, 1:, :].reshape(B, T, N, D) + te.to(cd)[:, :, None, :]
 
-        if route == "kernels":
-            grid = (xt[:, 1:, :].reshape(B, T, N, D) + te[:, :, None, :]).contiguous()
-            cls_tok = cls_tok.contiguous()
-            for blk in self.blocks:
-                cls_tok, grid = checkpoint_block(remat, blk.forward_kernels, cls_tok, grid)
-        else:
-            spat = xt[:, 1:, :].reshape(B, T, N, D).transpose(1, 2).reshape(
-                B * N, T, D)
-            spat = (spat + te).reshape(B, N * T, D)
-            for blk in self.blocks:
-                cls_tok, spat = checkpoint_block(remat, blk.forward_plain_train,
-                                                 cls_tok, spat, B, T, N)
-        return layer_norm(cls_tok, self.norm.weight, self.norm.bias,
-                          cfg.norm_eps)[:, 0]
+    def final_norm(self, cls_tok: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm of the CLS rows (B, 1, D) -> (B, D)."""
+        return layer_norm(cls_tok, self.norm.weight, self.norm.bias, self.cfg.norm_eps)[:, 0]
 
     def forward(self, x: torch.Tensor, use_head: bool = False) -> torch.Tensor:
         """(ref: models/timesformer.py:347-351)."""

@@ -54,6 +54,15 @@ _SIGNATURES = {
         "dvst_spatial_phase": [_p] * 11 + [_i] * 7 + [_p],
         # its workspace bytes (returns long) | B, T, N, D
         "dvst_spatial_phase_ws": [_i] * 4,
+        # the partial tier (tier C, rows 1p and 4p): x, ln_w, ln_b, qkv_w,
+        # qkv_b, proj_w, fc_w, workspace, out | B, T, N, D, Dq, H | stream
+        "dvst_temporal_phase_tm_partial": [_p] * 9 + [_i] * 6 + [_p],
+        # x, cls, ln_w, ln_b, qkv_w, qkv_b, proj_w, workspace, out, cls_rows
+        # | B, T, N, D, Dq, H | stream
+        "dvst_spatial_phase_partial": [_p] * 10 + [_i] * 6 + [_p],
+        # their workspace bytes (returns long) | B, T, N, D, Dq
+        "dvst_temporal_phase_tm_partial_ws": [_i] * 5,
+        "dvst_spatial_phase_partial_ws": [_i] * 5,
         # x1, cls, 12 weights, workspace, out, cls_rows | B, T, N, D, H, Dh,
         # cls_f32, out_f32 | stream
         "dvst_spatial_mlp": [_p] * 17 + [_i] * 7 + [_p],
@@ -129,6 +138,16 @@ _SIGNATURES = {
         # x, do, 6 weights, workspace, dx, dln, 4 weight grads | M | D, Dh,
         # residual, f32 | stream
         "dvst_mlp_phase_bwd": [_p] * 15 + [_l] + [_i] * 4 + [_p],
+        # the partial tier (rows 7p and 8p): x, dout, ln_w, ln_b, qkv_w,
+        # qkv_b, proj_w, fc_w, workspace, dx, dln, dqkv_w, dqkv_b, dproj_w,
+        # dfc_w | B, T, N, D, Dq, H | stream
+        "dvst_temporal_phase_tm_partial_bwd": [_p] * 15 + [_i] * 6 + [_p],
+        # x, cls, dgo, dco, ln_w, ln_b, qkv_w, qkv_b, proj_w, workspace, dx,
+        # dcls, dln, dqkv_w, dqkv_b, dproj_w | B, T, N, D, Dq, H | stream
+        "dvst_spatial_phase_partial_bwd": [_p] * 16 + [_i] * 6 + [_p],
+        # their workspace bytes (returns long) | B, T, N, D, Dq
+        "dvst_temporal_phase_tm_partial_bwd_ws": [_i] * 5,
+        "dvst_spatial_phase_partial_bwd_ws": [_i] * 5,
         # workspace bytes of the three (returns long) | ..., f32
         "dvst_temporal_phase_tm_bwd_ws": [_i] * 6,
         "dvst_spatial_phase_bwd_ws": [_i] * 6,

@@ -3,7 +3,7 @@
 // block's two attention phases (forwards; the backwards are in
 // fused_block_bwd.cu).
 //
-// Eight C entry points, each a short chain of launches on the caller's
+// Ten C entry points, each a short chain of launches on the caller's
 // stream (the building blocks are in dvst_common.cuh):
 //
 //   dvst_temporal_phase_tm  replaces _temporal_phase_tm_kernel
@@ -51,6 +51,17 @@
 //       GEMMs the wgmma + TMA kernel, its attention the tensor-core tile
 //       with the CLS row as prefix key (tc_prefix_attn, one CLS row per
 //       clip read for all its frames, so no per-frame copy is built).
+//   dvst_temporal_phase_tm_partial, dvst_spatial_phase_partial  replace
+//       the partial_out branches of _temporal_phase_tm_kernel
+//       (fused_block.py:842-851, rows 1p) and _spatial_phase_kernel
+//       (:336-343, row 4p): tensor parallelism's tier C, one shard's term
+//       of the sum over the shards (parallel/tp_fused.py), bf16 x (and
+//       CLS row) -> bf16 fc(proj(MHSA)) or proj(MHSA) with the shard's
+//       heads, no proj or fc bias and no residual. The attention width Dq
+//       (= D / tp) is any multiple of 64: qkv is (3 Dq, D), proj (D, Dq),
+//       so at ViT-B over four shards qkv's 576 columns and proj's 192-deep
+//       reduction run the GEMM's 64-wide instance. The same launches as
+//       rows 1 and 4 with null biases.
 //   dvst_spatial_mlp        replaces _spatial_mlp_kernel
 //       (ops/fused_block.py:1556, float tier):
 //       per frame on [cls, x_t]: LN -> MHSA -> proj -> grid residual -> LN ->
@@ -158,39 +169,40 @@ namespace {
 
 // dvst_spatial_phase's: the LN rows, qkv and attention output of the M
 // grid rows, of the B CLS rows, and the B*T per-frame CLS attention
-// outputs.
+// outputs. Dq: the attention's width (D; Dq = D / tp in the partial tier,
+// whose qkv is 3 * Dq wide and whose attention output is Dq wide).
 struct SpatialPhaseWs {
   bf16 *y, *qkv, *a, *y_cls, *qkv_cls, *a_cls;
   size_t bytes;
 };
 
-SpatialPhaseWs spatial_phase_ws(char* base, int B, int T, int N, int D) {
+SpatialPhaseWs spatial_phase_ws(char* base, int B, int T, int N, int D, int Dq) {
   const long M = (long)B * T * N;
   Carve c{base};
   SpatialPhaseWs w;
   w.y = c.take<bf16>(M * D);
-  w.qkv = c.take<bf16>(M * 3 * D);
-  w.a = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * Dq);
+  w.a = c.take<bf16>(M * Dq);
   w.y_cls = c.take<bf16>((long)B * D);
-  w.qkv_cls = c.take<bf16>((long)B * 3 * D);
-  w.a_cls = c.take<bf16>((long)B * T * D);
+  w.qkv_cls = c.take<bf16>((long)B * 3 * Dq);
+  w.a_cls = c.take<bf16>((long)B * T * Dq);
   w.bytes = c.off;
   return w;
 }
 
 // dvst_temporal_phase_tm's (and dvst_temporal_phase's): qkv of the M rows,
-// the LN rows (then the proj output), the attention output.
+// the LN rows (then the proj output), the attention output (Dq as above).
 struct TemporalWs {
   bf16 *qkv, *buf1, *buf2;
   size_t bytes;
 };
 
-TemporalWs temporal_ws(char* base, long M, int D) {
+TemporalWs temporal_ws(char* base, long M, int D, int Dq) {
   Carve c{base};
   TemporalWs w;
-  w.qkv = c.take<bf16>(M * 3 * D);
+  w.qkv = c.take<bf16>(M * 3 * Dq);
   w.buf1 = c.take<bf16>(M * D);
-  w.buf2 = c.take<bf16>(M * D);
+  w.buf2 = c.take<bf16>(M * Dq);
   w.bytes = c.off;
   return w;
 }
@@ -300,7 +312,7 @@ const char* dvst_error_string(int err) {
 // (out_bf16, bf16 x only) bf16. ws: the bytes dvst_temporal_phase_tm_ws
 // gives.
 long dvst_temporal_phase_tm_ws(int B, int T, int N, int D) {
-  return (long)temporal_ws(nullptr, (long)B * T * N, D).bytes;
+  return (long)temporal_ws(nullptr, (long)B * T * N, D, D).bytes;
 }
 
 int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
@@ -312,7 +324,7 @@ int dvst_temporal_phase_tm(const void* x_, const void* ln_w, const void* ln_b,
   if (x_f32 && out_bf16) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
-  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D);
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   cudaError_t e;
@@ -385,7 +397,7 @@ int dvst_temporal_phase_tm_q8(const void* x_, const void* ln_w, const void* ln_b
 // tier): x and cls f32 -> out f32 = x + proj, cls_rows f32 (out_f32 is
 // then ignored). ws: the bytes dvst_spatial_phase_ws gives.
 long dvst_spatial_phase_ws(int B, int T, int N, int D) {
-  return (long)spatial_phase_ws(nullptr, B, T, N, D).bytes;
+  return (long)spatial_phase_ws(nullptr, B, T, N, D, D).bytes;
 }
 
 int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
@@ -395,7 +407,7 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
                        int H, int out_f32, int x_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long M = (long)B * T * N;
-  const SpatialPhaseWs w = spatial_phase_ws(static_cast<char*>(ws), B, T, N, D);
+  const SpatialPhaseWs w = spatial_phase_ws(static_cast<char*>(ws), B, T, N, D, D);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
   const int hd = D / H;
@@ -423,6 +435,71 @@ int dvst_spatial_phase(const void* x_, const void* cls_, const void* ln_w,
               : wg_gemm<kEpiAddBf16>(w.a, proj_w, proj_b, x_, out, M, D, D, st);
   if (e) return e;
   return wg_gemm<kEpiBf16>(w.a_cls, proj_w, proj_b, nullptr, cls_rows, (long)B * T, D, D, st);
+}
+
+// The partial tier (tier C) of dvst_temporal_phase_tm: one shard's
+// term of the tensor-parallel sum, x (B,T,N,D) bf16 -> out (B,T,N,D)
+// bf16 = bf16(fc(bf16(proj(MHSA over T(LN x))))) with the shard's H heads
+// of width Dq / H: qkv_w (3 Dq, D) and qkv_b (3 Dq) head-major, proj_w
+// (D, Dq), fc_w (D, D); no proj or fc bias and no residual (the caller
+// adds them once, after the sum over the shards). ws: the bytes
+// dvst_temporal_phase_tm_partial_ws gives.
+long dvst_temporal_phase_tm_partial_ws(int B, int T, int N, int D, int Dq) {
+  return (long)temporal_ws(nullptr, (long)B * T * N, D, Dq).bytes;
+}
+
+int dvst_temporal_phase_tm_partial(const void* x_, const void* ln_w, const void* ln_b,
+                                   const void* qkv_w, const void* qkv_b, const void* proj_w,
+                                   const void* fc_w, void* ws, void* out, int B, int T, int N,
+                                   int D, int Dq, int H, void* stream) {
+  if (H <= 0 || Dq % H || Dq % 64) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D, Dq);
+  cudaError_t e;
+  if ((e = ln_launch<bf16>(static_cast<const bf16*>(x_), static_cast<const float*>(ln_w),
+                           static_cast<const float*>(ln_b), w.buf1, M, D, st)))
+    return e;
+  if ((e = wg_gemm<kEpiBf16>(w.buf1, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * Dq, D, st))) return e;
+  const int hd = Dq / H;
+  if ((e = tc_strided_attn(hd, w.qkv, w.buf2, B, T, N, H, 1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = wg_gemm<kEpiBf16>(w.buf2, proj_w, nullptr, nullptr, w.buf1, M, D, Dq, st))) return e;
+  return wg_gemm<kEpiBf16>(w.buf1, fc_w, nullptr, nullptr, out, M, D, D, st);
+}
+
+// The partial tier of dvst_spatial_phase: x (B,T,N,D), cls (B,1,D) bf16
+// -> out (B,T,N,D) bf16 = bf16(proj(MHSA(LN [cls, x_t]))) over the grid
+// rows, cls_rows (B,T,D) bf16 the same over the CLS rows, with the shard's
+// H heads (qkv_w (3 Dq, D), qkv_b (3 Dq), proj_w (D, Dq)); no proj bias
+// and no residual. ws: the bytes dvst_spatial_phase_partial_ws gives.
+long dvst_spatial_phase_partial_ws(int B, int T, int N, int D, int Dq) {
+  return (long)spatial_phase_ws(nullptr, B, T, N, D, Dq).bytes;
+}
+
+int dvst_spatial_phase_partial(const void* x_, const void* cls_, const void* ln_w,
+                               const void* ln_b, const void* qkv_w, const void* qkv_b,
+                               const void* proj_w, void* ws, void* out, void* cls_rows, int B,
+                               int T, int N, int D, int Dq, int H, void* stream) {
+  if (H <= 0 || Dq % H || Dq % 64) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long M = (long)B * T * N;
+  const SpatialPhaseWs w = spatial_phase_ws(static_cast<char*>(ws), B, T, N, D, Dq);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
+  const int hd = Dq / H;
+  cudaError_t e;
+  if ((e = ln_launch<bf16>(static_cast<const bf16*>(x_), lw, lb, w.y, M, D, st))) return e;
+  if ((e = ln_launch<bf16>(static_cast<const bf16*>(cls_), lw, lb, w.y_cls, B, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, qkv_w, qkv_b, nullptr, w.qkv, M, 3 * Dq, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y_cls, qkv_w, qkv_b, nullptr, w.qkv_cls, B, 3 * Dq, D, st)))
+    return e;
+  // sequence s = b*T + t: [cls row b, grid rows s*N + n for n < N]
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv_cls, w.a, w.a_cls, B * T, T, N, H,
+                          1.0f / sqrtf((float)hd), st)))
+    return e;
+  if ((e = wg_gemm<kEpiBf16>(w.a, proj_w, nullptr, nullptr, out, M, D, Dq, st))) return e;
+  return wg_gemm<kEpiBf16>(w.a_cls, proj_w, nullptr, nullptr, cls_rows, (long)B * T, D, Dq, st);
 }
 
 // x1 (B,T,N,D) f32, cls (B,1,D) bf16 -> out (B,T,N,D) bf16, or (f32, the

@@ -28,6 +28,15 @@
 //       Bound by operations: the Pallas estimate 3 * B*T*L*(8*D^2 +
 //       4*L*D) is 4.0e11 FLOP at the global crops, 0.41 ms (chip_smoke.py:
 //       3.8e11).
+//   dvst_temporal_phase_tm_partial_bwd, dvst_spatial_phase_partial_bwd
+//       replace the partial_out branches of the two backwards
+//       (fused_block.py:1086, row 7p; :537, row 8p): tensor parallelism's
+//       tier C, the backwards of fused_block.cu's partial entries, bf16
+//       only: the same chains at the shard's attention width Dq (qkv 3 Dq
+//       wide, proj's input Dq wide), the recompute's proj without its bias,
+//       no dproj_b or dfc_b (the biases are applied once, after the reduce
+//       over the shards, so their gradients are the caller's), and dx
+//       without the residual's cotangent (dout, dgo).
 //   dvst_mlp_phase_bwd          replaces _mlp_phase_bwd_kernel
 //       (ops/fused_block.py:1233): x, do (M,D) bf16 or (f32) f32 -> dx in
 //       x's dtype and f32 dLN, dW1, db1, dW2, db2; only the M real rows
@@ -105,25 +114,27 @@ size_t wg_part_floats(long rows, const int (*dw)[2], int n_dw, int max_cols, int
 
 // The f32 tier's bf16 copy of the incoming cotangent (do16) is carved only
 // in that tier.
+// Dq: the attention's width (D; D / tp in the partial tier, whose qkv
+// rows are 3 * Dq wide and whose attention rows Dq wide).
 struct TemporalWs {
   bf16 *y, *qkv, *a, *proj, *dproj, *da, *dqkv, *do16;
   float *dy, *part;
   size_t bytes;
 };
 
-TemporalWs temporal_ws(char* base, long M, int D, bool f32) {
+TemporalWs temporal_ws(char* base, long M, int D, int Dq, bool f32) {
   Carve c{base};
   TemporalWs w;
-  const int dw[2][2] = {{D, D}, {3 * D, D}};  // dWfc and dWproj, dWqkv
+  const int dw[3][2] = {{D, D}, {D, Dq}, {3 * Dq, D}};  // dWfc, dWproj, dWqkv
   w.y = c.take<bf16>(M * D);
-  w.qkv = c.take<bf16>(M * 3 * D);
-  w.a = c.take<bf16>(M * D);
+  w.qkv = c.take<bf16>(M * 3 * Dq);
+  w.a = c.take<bf16>(M * Dq);
   w.proj = c.take<bf16>(M * D);
   w.dproj = c.take<bf16>(M * D);
-  w.da = c.take<bf16>(M * D);
-  w.dqkv = c.take<bf16>(M * 3 * D);
+  w.da = c.take<bf16>(M * Dq);
+  w.dqkv = c.take<bf16>(M * 3 * Dq);
   w.dy = c.take<float>(M * D);
-  w.part = c.take<float>(wg_part_floats(M, dw, 2, 3 * D, D));
+  w.part = c.take<float>(wg_part_floats(M, dw, 3, 3 * Dq > D ? 3 * Dq : D, D));
   w.do16 = f32 ? c.take<bf16>(M * D) : nullptr;
   w.bytes = c.off;
   return w;
@@ -137,21 +148,21 @@ struct SpatialWs {
   size_t bytes;
 };
 
-SpatialWs spatial_ws(char* base, long M, long Mc, int B, int D) {
+SpatialWs spatial_ws(char* base, long M, long Mc, int B, int D, int Dq) {
   Carve c{base};
   SpatialWs w;
   const long R = M + Mc;
-  const int dw[2][2] = {{D, D}, {3 * D, D}};
+  const int dw[2][2] = {{D, Dq}, {3 * Dq, D}};
   w.y = c.take<bf16>(R * D);
   w.y_cls = c.take<bf16>((long)B * D);
-  w.qkv = c.take<bf16>(R * 3 * D);
-  w.a = c.take<bf16>(R * D);
+  w.qkv = c.take<bf16>(R * 3 * Dq);
+  w.a = c.take<bf16>(R * Dq);
   w.dproj = c.take<bf16>(R * D);
-  w.da = c.take<bf16>(R * D);
-  w.dqkv = c.take<bf16>(R * 3 * D);
+  w.da = c.take<bf16>(R * Dq);
+  w.dqkv = c.take<bf16>(R * 3 * Dq);
   w.dy = c.take<float>(R * D);
   w.dx_tail = c.take<float>(Mc * D);
-  w.part = c.take<float>(wg_part_floats(R, dw, 2, 3 * D, D));
+  w.part = c.take<float>(wg_part_floats(R, dw, 2, 3 * Dq > D ? 3 * Dq : D, D));
   w.bytes = c.off;
   return w;
 }
@@ -198,42 +209,31 @@ cudaError_t ln_bwd_rows(const void* x, const void* x_tail, int tail_div, bool f3
                       M, R, D, part, dgb, st);
 }
 
-}  // namespace
-
-extern "C" {
-
-long dvst_temporal_phase_tm_bwd_ws(int B, int T, int N, int D, int H, int f32) {
-  (void)H;
-  return (long)temporal_ws(nullptr, (long)B * T * N, D, f32).bytes;
-}
-
-// x, dout (B,T,N,D) bf16 -> dx (B,T,N,D) bf16, or with f32 all three f32;
-// dln f32 (2, D) (scale | bias); dqkv_w (3D, D), dqkv_b (3D), dproj_w (D,
-// D), dproj_b (D), dfc_w (D, D), dfc_b (D), f32, (out, in) layout. ws: the
-// bytes dvst_temporal_phase_tm_bwd_ws gives for the same f32.
-int dvst_temporal_phase_tm_bwd(
-    const void* x_, const void* dout_, const void* ln_w, const void* ln_b,
-    const void* qkv_w, const void* qkv_b, const void* proj_w,
-    const void* proj_b, const void* fc_w, const void* fc_b, void* ws,
-    void* dx, void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w,
-    void* dproj_b, void* dfc_w, void* dfc_b, int B, int T, int N, int D,
-    int H, int f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The backward of row 7 and of its partial tier (7p: Dq < D, proj_b null
+// and so no dproj_b and dfc_b, and no residual cotangent in dx).
+cudaError_t temporal_bwd(const void* x_, const void* dout_, const void* ln_w,
+                         const void* ln_b, const void* qkv_w, const void* qkv_b,
+                         const void* proj_w, const void* proj_b, const void* fc_w, void* ws,
+                         void* dx, void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w,
+                         void* dproj_b, void* dfc_w, void* dfc_b, int B, int T, int N, int D,
+                         int Dq, int H, bool f32, bool partial, cudaStream_t st) {
   const long M = (long)B * T * N;
   const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
   const bf16* Wproj = static_cast<const bf16*>(proj_w);
   const bf16* Wfc = static_cast<const bf16*>(fc_w);
   const float* lw = static_cast<const float*>(ln_w);
-  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D, f32);
-  const int hd = D / H;
+  const TemporalWs w = temporal_ws(static_cast<char*>(ws), M, D, Dq, f32);
+  const int hd = Dq / H;
   const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
   // recompute the forward up to proj, as dvst_temporal_phase_tm runs it
   if ((e = ln_rows(x_, f32, lw, static_cast<const float*>(ln_b), w.y, M, D, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, M, 3 * Dq, D, st))) return e;
   // sequence (b, n) over t: rows (b*T + t)*N + n
   if ((e = tc_strided_attn(hd, w.qkv, w.a, B, T, N, H, scale, st))) return e;
-  if ((e = wg_gemm<kEpiBf16>(w.a, Wproj, proj_b, nullptr, w.proj, M, D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.a, Wproj, partial ? nullptr : proj_b, nullptr, w.proj, M, D, Dq,
+                             st)))
+    return e;
   // temporal_fc: dbfc from the cotangent as read (f32 in the f32 tier),
   // dWfc and dproj from its bf16 copy
   const bf16* dout = static_cast<const bf16*>(dout_);
@@ -244,50 +244,44 @@ int dvst_temporal_phase_tm_bwd(
     dout = w.do16;
   }
   if ((e = wg_gemm_dw(dout, w.proj, static_cast<float*>(dfc_w), w.part, M, D, D, st))) return e;
-  if (!f32 && (e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st))) return e;
+  if (!f32 && !partial &&
+      (e = colsum<bf16>(dout, M, D, w.part, static_cast<float*>(dfc_b), st)))
+    return e;
   if ((e = wg_gemm_dx<kEpiBf16>(dout, Wfc, nullptr, w.dproj, M, D, D, st))) return e;
   // proj
-  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, D, st))) return e;
-  if ((e = colsum<bf16>(w.dproj, M, D, w.part, static_cast<float*>(dproj_b), st))) return e;
-  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, M, D, D, st))) return e;
+  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, M, D, Dq, st)))
+    return e;
+  if (!partial &&
+      (e = colsum<bf16>(w.dproj, M, D, w.part, static_cast<float*>(dproj_b), st)))
+    return e;
+  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, M, Dq, D, st))) return e;
   // attention, over the same sequences at stride N
   if ((e = tc_strided_attn_bwd(hd, w.qkv, w.da, w.dqkv, B, T, N, H, scale, st))) return e;
   // qkv
-  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, M, 3 * D, D, st)))
+  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, M, 3 * Dq, D, st)))
     return e;
-  if ((e = colsum<bf16>(w.dqkv, M, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
-  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, M, D, 3 * D, st))) return e;
-  // LN, + the residual's dout (as read)
-  return ln_bwd_rows(x_, nullptr, 1, f32, w.dy, lw, dout_, dx, nullptr, M, M, D, w.part,
-                     static_cast<float*>(dln), st);
+  if ((e = colsum<bf16>(w.dqkv, M, 3 * Dq, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, M, D, 3 * Dq, st))) return e;
+  // LN, + the residual's dout (as read; none in the partial tier)
+  return ln_bwd_rows(x_, nullptr, 1, f32, w.dy, lw, partial ? nullptr : dout_, dx, nullptr, M,
+                     M, D, w.part, static_cast<float*>(dln), st);
 }
 
-long dvst_spatial_phase_bwd_ws(int B, int T, int N, int D, int H, int f32) {
-  (void)H;
-  (void)f32;  // the f32 tier's cotangent copy is the dproj rows the bf16 tier fills
-  return (long)spatial_ws(nullptr, (long)B * T * N, (long)B * T, B, D).bytes;
-}
-
-// x (B,T,N,D), cls (B,1,D), dgo (B,T,N,D), dco (B,T,D) bf16 -> dx (B,T,N,D)
-// bf16, or with f32 all five f32; dcls (B,1,D) f32; dln f32 (2, D); dqkv_w
-// (3D, D), dqkv_b (3D), dproj_w (D, D), dproj_b (D) f32. ws:
-// dvst_spatial_phase_bwd_ws bytes.
-int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
-                           const void* dco_, const void* ln_w,
-                           const void* ln_b, const void* qkv_w,
-                           const void* qkv_b, const void* proj_w,
-                           const void* proj_b, void* ws, void* dx, void* dcls,
-                           void* dln, void* dqkv_w, void* dqkv_b,
-                           void* dproj_w, void* dproj_b, int B, int T, int N,
-                           int D, int H, int f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The backward of row 4 and of its partial tier (8p: Dq < D, no dproj_b,
+// and no residual cotangent dgo in dx).
+cudaError_t spatial_bwd(const void* x_, const void* cls_, const void* dgo_, const void* dco_,
+                        const void* ln_w, const void* ln_b, const void* qkv_w,
+                        const void* qkv_b, const void* proj_w, void* ws, void* dx, void* dcls,
+                        void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w, void* dproj_b,
+                        int B, int T, int N, int D, int Dq, int H, bool f32, bool partial,
+                        cudaStream_t st) {
   const long M = (long)B * T * N, Mc = (long)B * T, R = M + Mc;
   const bf16* Wqkv = static_cast<const bf16*>(qkv_w);
   const bf16* Wproj = static_cast<const bf16*>(proj_w);
   const float* lw = static_cast<const float*>(ln_w);
   const float* lb = static_cast<const float*>(ln_b);
-  const SpatialWs w = spatial_ws(static_cast<char*>(ws), M, Mc, B, D);
-  const int hd = D / H;
+  const SpatialWs w = spatial_ws(static_cast<char*>(ws), M, Mc, B, D, Dq);
+  const int hd = Dq / H;
   const float scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
   // recompute: LN rows of the grid, then of the CLS replicated per frame;
@@ -297,9 +291,9 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
   rep_rows_kernel<<<ew_blocks(Mc * D), 256, 0, st>>>(w.y_cls, w.y + M * D, T,
                                                      D, B);
   if ((e = cudaGetLastError())) return e;
-  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, R, 3 * D, D, st))) return e;
+  if ((e = wg_gemm<kEpiBf16>(w.y, Wqkv, qkv_b, nullptr, w.qkv, R, 3 * Dq, D, st))) return e;
   // sequence s = b*T + t: [row M + s, grid rows s*N + n]; CLS outputs at M + s
-  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv + M * 3 * D, w.a, w.a + M * D, (int)Mc, 1, N, H,
+  if ((e = tc_prefix_attn(hd, w.qkv, w.qkv + M * 3 * Dq, w.a, w.a + M * Dq, (int)Mc, 1, N, H,
                           scale, st)))
     return e;
   // proj: the cotangent rows are [dgo; dco] (bf16; in the f32 tier their
@@ -316,29 +310,122 @@ int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
                              cudaMemcpyDeviceToDevice, st)))
       return e;
   }
-  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, D, st)))
+  if ((e = wg_gemm_dw(w.dproj, w.a, static_cast<float*>(dproj_w), w.part, R, D, Dq, st)))
     return e;
-  if (!f32 &&
+  if (!f32 && !partial &&
       (e = colsum<bf16>(w.dproj, R, D, w.part, static_cast<float*>(dproj_b), st)))
     return e;
-  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, R, D, D, st))) return e;
+  if ((e = wg_gemm_dx<kEpiBf16>(w.dproj, Wproj, nullptr, w.da, R, Dq, D, st))) return e;
   // attention: the CLS row's dq/dk/dv per frame go to rows M + (b*T + t)
-  if ((e = tc_prefix_attn_bwd(hd, w.qkv, w.qkv + M * 3 * D, w.da, w.da + M * D, w.dqkv,
-                              w.dqkv + M * 3 * D, (int)Mc, 1, N, H, scale, st)))
+  if ((e = tc_prefix_attn_bwd(hd, w.qkv, w.qkv + M * 3 * Dq, w.da, w.da + M * Dq, w.dqkv,
+                              w.dqkv + M * 3 * Dq, (int)Mc, 1, N, H, scale, st)))
     return e;
   // qkv
-  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, R, 3 * D, D, st)))
+  if ((e = wg_gemm_dw(w.dqkv, w.y, static_cast<float*>(dqkv_w), w.part, R, 3 * Dq, D, st)))
     return e;
-  if ((e = colsum<bf16>(w.dqkv, R, 3 * D, w.part, static_cast<float*>(dqkv_b), st))) return e;
-  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, R, D, 3 * D, st))) return e;
-  // LN: grid rows + dgo -> dx; CLS rows -> per-frame f32, summed over T
-  if ((e = ln_bwd_rows(x_, cls_, T, f32, w.dy, lw, dgo_, dx, w.dx_tail, M, R, D, w.part,
-                       static_cast<float*>(dln), st)))
+  if ((e = colsum<bf16>(w.dqkv, R, 3 * Dq, w.part, static_cast<float*>(dqkv_b), st))) return e;
+  if ((e = wg_gemm_dx<kEpiF32>(w.dqkv, Wqkv, nullptr, w.dy, R, D, 3 * Dq, st))) return e;
+  // LN: grid rows + dgo -> dx (no dgo in the partial tier); CLS rows ->
+  // per-frame f32, summed over T
+  if ((e = ln_bwd_rows(x_, cls_, T, f32, w.dy, lw, partial ? nullptr : dgo_, dx, w.dx_tail, M,
+                       R, D, w.part, static_cast<float*>(dln), st)))
     return e;
   sum_groups_kernel<<<ew_blocks((long)B * D), 256, 0, st>>>(
       w.dx_tail, T, D, B, static_cast<float*>(dcls));
   return cudaGetLastError();
 }
+
+}  // namespace
+
+extern "C" {
+
+long dvst_temporal_phase_tm_bwd_ws(int B, int T, int N, int D, int H, int f32) {
+  (void)H;
+  return (long)temporal_ws(nullptr, (long)B * T * N, D, D, f32).bytes;
+}
+
+// x, dout (B,T,N,D) bf16 -> dx (B,T,N,D) bf16, or with f32 all three f32;
+// dln f32 (2, D) (scale | bias); dqkv_w (3D, D), dqkv_b (3D), dproj_w (D,
+// D), dproj_b (D), dfc_w (D, D), dfc_b (D), f32, (out, in) layout. ws: the
+// bytes dvst_temporal_phase_tm_bwd_ws gives for the same f32.
+int dvst_temporal_phase_tm_bwd(
+    const void* x_, const void* dout_, const void* ln_w, const void* ln_b,
+    const void* qkv_w, const void* qkv_b, const void* proj_w,
+    const void* proj_b, const void* fc_w, const void* fc_b, void* ws,
+    void* dx, void* dln, void* dqkv_w, void* dqkv_b, void* dproj_w,
+    void* dproj_b, void* dfc_w, void* dfc_b, int B, int T, int N, int D,
+    int H, int f32, void* stream) {
+  (void)fc_b;
+  return temporal_bwd(x_, dout_, ln_w, ln_b, qkv_w, qkv_b, proj_w, proj_b, fc_w, ws, dx, dln,
+                      dqkv_w, dqkv_b, dproj_w, dproj_b, dfc_w, dfc_b, B, T, N, D, D, H, f32,
+                      false, static_cast<cudaStream_t>(stream));
+}
+
+long dvst_temporal_phase_tm_partial_bwd_ws(int B, int T, int N, int D, int Dq) {
+  return (long)temporal_ws(nullptr, (long)B * T * N, D, Dq, false).bytes;
+}
+
+// Row 7p, the backward of dvst_temporal_phase_tm_partial: x, dout
+// (B,T,N,D) bf16 -> dx (B,T,N,D) bf16 (no residual cotangent), dln f32 (2,
+// D), dqkv_w (3 Dq, D), dqkv_b (3 Dq), dproj_w (D, Dq), dfc_w (D, D) f32.
+// ws: the bytes dvst_temporal_phase_tm_partial_bwd_ws gives.
+int dvst_temporal_phase_tm_partial_bwd(const void* x_, const void* dout_, const void* ln_w,
+                                       const void* ln_b, const void* qkv_w, const void* qkv_b,
+                                       const void* proj_w, const void* fc_w, void* ws,
+                                       void* dx, void* dln, void* dqkv_w, void* dqkv_b,
+                                       void* dproj_w, void* dfc_w, int B, int T, int N, int D,
+                                       int Dq, int H, void* stream) {
+  if (H <= 0 || Dq % H || Dq % 64) return cudaErrorInvalidValue;
+  return temporal_bwd(x_, dout_, ln_w, ln_b, qkv_w, qkv_b, proj_w, nullptr, fc_w, ws, dx, dln,
+                      dqkv_w, dqkv_b, dproj_w, nullptr, dfc_w, nullptr, B, T, N, D, Dq, H,
+                      false, true, static_cast<cudaStream_t>(stream));
+}
+
+long dvst_spatial_phase_bwd_ws(int B, int T, int N, int D, int H, int f32) {
+  (void)H;
+  (void)f32;  // the f32 tier's cotangent copy is the dproj rows the bf16 tier fills
+  return (long)spatial_ws(nullptr, (long)B * T * N, (long)B * T, B, D, D).bytes;
+}
+
+// x (B,T,N,D), cls (B,1,D), dgo (B,T,N,D), dco (B,T,D) bf16 -> dx (B,T,N,D)
+// bf16, or with f32 all five f32; dcls (B,1,D) f32; dln f32 (2, D); dqkv_w
+// (3D, D), dqkv_b (3D), dproj_w (D, D), dproj_b (D) f32. ws:
+// dvst_spatial_phase_bwd_ws bytes.
+int dvst_spatial_phase_bwd(const void* x_, const void* cls_, const void* dgo_,
+                           const void* dco_, const void* ln_w,
+                           const void* ln_b, const void* qkv_w,
+                           const void* qkv_b, const void* proj_w,
+                           const void* proj_b, void* ws, void* dx, void* dcls,
+                           void* dln, void* dqkv_w, void* dqkv_b,
+                           void* dproj_w, void* dproj_b, int B, int T, int N,
+                           int D, int H, int f32, void* stream) {
+  (void)proj_b;
+  return spatial_bwd(x_, cls_, dgo_, dco_, ln_w, ln_b, qkv_w, qkv_b, proj_w, ws, dx, dcls, dln,
+                     dqkv_w, dqkv_b, dproj_w, dproj_b, B, T, N, D, D, H, f32, false,
+                     static_cast<cudaStream_t>(stream));
+}
+
+long dvst_spatial_phase_partial_bwd_ws(int B, int T, int N, int D, int Dq) {
+  return (long)spatial_ws(nullptr, (long)B * T * N, (long)B * T, B, D, Dq).bytes;
+}
+
+// Row 8p, the backward of dvst_spatial_phase_partial: x (B,T,N,D), cls
+// (B,1,D), dgo (B,T,N,D), dco (B,T,D) bf16 -> dx (B,T,N,D) bf16 (no
+// residual cotangent), dcls (B,1,D) f32, dln f32 (2, D), dqkv_w (3 Dq, D),
+// dqkv_b (3 Dq), dproj_w (D, Dq) f32. ws: the bytes
+// dvst_spatial_phase_partial_bwd_ws gives.
+int dvst_spatial_phase_partial_bwd(const void* x_, const void* cls_, const void* dgo_,
+                                   const void* dco_, const void* ln_w, const void* ln_b,
+                                   const void* qkv_w, const void* qkv_b, const void* proj_w,
+                                   void* ws, void* dx, void* dcls, void* dln, void* dqkv_w,
+                                   void* dqkv_b, void* dproj_w, int B, int T, int N, int D,
+                                   int Dq, int H, void* stream) {
+  if (H <= 0 || Dq % H || Dq % 64) return cudaErrorInvalidValue;
+  return spatial_bwd(x_, cls_, dgo_, dco_, ln_w, ln_b, qkv_w, qkv_b, proj_w, ws, dx, dcls, dln,
+                     dqkv_w, dqkv_b, dproj_w, nullptr, B, T, N, D, Dq, H, false, true,
+                     static_cast<cudaStream_t>(stream));
+}
+
 
 long dvst_mlp_phase_bwd_ws(long M, int D, int Dh, int f32) {
   return (long)mlp_ws(nullptr, M, D, Dh, f32).bytes;

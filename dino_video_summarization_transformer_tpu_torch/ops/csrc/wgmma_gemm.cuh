@@ -20,8 +20,10 @@
 // temporal op's fc, bf16 residual: ~190 FLOP/B): bound by bytes.
 //
 // Design (warp-specialised, persistent):
-// * Tiles of 128 x BN outputs, BN = 256 where N allows it, else 128 (N is
-//   a multiple of 128). Grid: one block per SM (at most the tile count);
+// * Tiles of 128 x BN outputs, BN = 256 where N allows it, else 128, else
+//   64 (N is a multiple of 64: the head-sharded widths of tensor
+//   parallelism, e.g. qkv's 3 * 192 = 576 columns at ViT-B over four
+//   shards). Grid: one block per SM (at most the tile count);
 //   block b takes tiles b, b + grid, ..., N-tiles fastest, so the blocks in
 //   flight together share their A rows in L2 (W fits L2 whole).
 // * A ring of 64-deep K stages in shared memory (4 at BN 256, 6 at 128;
@@ -190,6 +192,29 @@ __device__ __forceinline__ void wg_fence_operands(int (&d)[R]) {
 
 // d (64 x n, f32) += A (64 x 16, descriptor da) . B (16 x n, descriptor db);
 // TA / TB: 1 where that operand is MN-major (wgmma's transpose bits).
+// The 64-wide instance (BN = 64): d (64 x 64, f32).
+template <int TA, int TB>
+__device__ __forceinline__ void wg_mma(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
@@ -669,7 +694,8 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         float2 b[4], c[4];
 #pragma unroll
         for (int t_ = 0; t_ < 4; ++t_) {
-          b[t_] = kBias ? *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t_) + 2 * q)
+          b[t_] = kBias && bias != nullptr
+                      ? *reinterpret_cast<const float2*>(bias + n0 + 8 * (j0 + t_) + 2 * q)
                         : make_float2(0.f, 0.f);
           if constexpr (Q8)
             c[t_] = *reinterpret_cast<const float2*>(sw + n0 + 8 * (j0 + t_) + 2 * q);
@@ -819,17 +845,22 @@ cudaError_t wg_gemm_any(const bf16* A, const void* W, const void* bias, const vo
   if (N % 256 == 0)
     return wg_gemm_launch<256, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
                                               split_stride, st);
-  return wg_gemm_launch<128, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
-                                            split_stride, st);
+  if (N % 128 == 0)
+    return wg_gemm_launch<128, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
+                                              split_stride, st);
+  return wg_gemm_launch<64, EPI, AMN, BMN>(A, w, b, res, out, M, N, K, splits, kchunk,
+                                           split_stride, st);
 }
 
-// gemm<EPI>'s interface on the wgmma kernel. Requires N % 128 == 0, K % 64
-// == 0 and 16-byte aligned A and W (the wrappers check); M is ragged.
+// gemm<EPI>'s interface on the wgmma kernel. Requires N % 64 == 0, K % 64
+// == 0 and 16-byte aligned A and W (the wrappers check); M is ragged. A
+// null bias adds nothing (the partial tier's products, whose biases the
+// caller adds once after the reduce over the shards).
 template <int EPI>
 cudaError_t wg_gemm(const bf16* A, const void* W, const void* bias, const void* res,
                     void* out, long M, int N, int K, cudaStream_t st) {
   if (M <= 0) return cudaSuccess;
-  if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
+  if (N <= 0 || N % 64 || K <= 0 || K % kWgBK || M > (1L << 30))
     return cudaErrorInvalidValue;
   return wg_gemm_any<EPI, false, false>(A, W, bias, res, out, M, N, K, 1, K / kWgBK, 0, st);
 }
@@ -877,13 +908,13 @@ cudaError_t wg_gemm_s8(const int8_t* A, const float* sx, const void* W, const vo
 
 // dX (M, N) = epi(dY (M, K) . W (K, N)), W an (out, in) weight read as
 // stored (out = K, in = N): kEpiBf16, kEpiF32, or kEpiMulF32Bf16 with aux
-// (M, N) f32 (bf16(acc * aux)). No bias. Requires N % 128 == 0, K % 64 ==
+// (M, N) f32 (bf16(acc * aux)). No bias. Requires N % 64 == 0, K % 64 ==
 // 0, 16-byte aligned dY and W; M is ragged.
 template <int EPI>
 cudaError_t wg_gemm_dx(const bf16* dY, const bf16* W, const float* aux, void* out, long M,
                        int N, int K, cudaStream_t st) {
   if (M <= 0) return cudaSuccess;
-  if (N <= 0 || N % 128 || K <= 0 || K % kWgBK || M > (1L << 30))
+  if (N <= 0 || N % 64 || K <= 0 || K % kWgBK || M > (1L << 30))
     return cudaErrorInvalidValue;
   return wg_gemm_any<EPI, false, true>(dY, W, nullptr, aux, out, M, N, K, 1, K / kWgBK, 0,
                                        st);
@@ -900,7 +931,7 @@ constexpr int kWgMaxSplits = 16;
 // non-empty.
 inline int wg_dw_splits(long rows, int n_out, int k_in, int sms, int* kchunk) {
   const long nk = (rows + kWgBK - 1) / kWgBK;
-  const int bn = k_in % 256 == 0 ? 256 : 128;
+  const int bn = k_in % 256 == 0 ? 256 : k_in % 128 == 0 ? 128 : 64;
   const long tiles = (long)(n_out + kWgBM - 1) / kWgBM * (k_in / bn);
   const double stage_ns = 0.84e3 * bn / 256, byte_ns = 1.0 / 3350.0;
   int best = 1;
@@ -933,12 +964,13 @@ inline cudaError_t wg_dw_part_floats(long rows, int n_out, int k_in, size_t* n) 
 
 // dW (n_out, k_in) f32 = dY^T . X over `rows` rows: dY (rows, n_out) and X
 // (rows, k_in) bf16 row-major, both read as stored (MN-major). The rows
-// past `rows` of the last stage are TMA's zero fill. part: the floats
-// wg_dw_part_floats gives. Requires n_out % 128 == 0 (the wrappers check),
-// k_in % 128 == 0, 16-byte aligned dY and X.
+// past `rows` of the last stage are TMA's zero fill, and so are the n_out
+// columns of dY past n_out (a 64-wide half tile: the epilogue masks its
+// rows of dW). part: the floats wg_dw_part_floats gives. Requires n_out %
+// 64 == 0 (the wrappers check), k_in % 64 == 0, 16-byte aligned dY and X.
 inline cudaError_t wg_gemm_dw(const bf16* dY, const bf16* X, float* out, float* part,
                               long rows, int n_out, int k_in, cudaStream_t st) {
-  if (n_out <= 0 || n_out % 128 || k_in <= 0 || k_in % 128 || rows > (1L << 30))
+  if (n_out <= 0 || n_out % 64 || k_in <= 0 || k_in % 64 || rows > (1L << 30))
     return cudaErrorInvalidValue;
   if (rows <= 0) return cudaMemsetAsync(out, 0, (size_t)n_out * k_in * sizeof(float), st);
   int sms = 0, kchunk = 0;

@@ -151,7 +151,10 @@ launches: Dict[str, int] = {
     "temporal_phase_tm_q8_f32": 0, "spatial_mlp_q8_f32": 0,
     # the f32 tiers of the trainer's mixed tier
     "spatial_phase_f32": 0, "temporal_phase_tm_bwd_f32": 0, "spatial_phase_bwd_f32": 0,
-    "mlp_phase_bwd_f32": 0, "layer_norm_bwd_f32": 0}
+    "mlp_phase_bwd_f32": 0, "layer_norm_bwd_f32": 0,
+    # the partial tier (tier C) of tensor parallelism: rows 1p, 4p, 7p, 8p
+    "temporal_phase_tm_partial": 0, "spatial_phase_partial": 0,
+    "temporal_phase_tm_bwd_partial": 0, "spatial_phase_bwd_partial": 0}
 
 # The int8 tier's launches of its three kernels per call of rows 1 and 2
 # (the LN + quantize, the row quantize, the s8 GEMM), in either of its
@@ -196,6 +199,11 @@ SPATIAL_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                 "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 MLP_KEYS = ("ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 SPATIAL_PHASE_KEYS = SPATIAL_KEYS[:6]
+# the partial tier's weights: the shard's head-major qkv (3 Dq, D) and its
+# bias, proj's (D, Dq) input columns, and temporal_fc whole; no proj or fc
+# bias (the caller adds them once, after the sum over the shards)
+TEMPORAL_PARTIAL_KEYS = ("ln_w", "ln_b", "qkv_w", "qkv_b", "proj_w", "fc_w")
+SPATIAL_PARTIAL_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w")
 _MATRICES = ("qkv_w", "proj_w", "fc_w", "fc1_w", "fc2_w")
 # the int8 tier's: each s8 matrix followed by its f32 scales
 TEMPORAL_Q8_KEYS = ("ln_w", "ln_b", "qkv_w", "qkv_s", "qkv_b", "proj_w", "proj_s",
@@ -517,6 +525,45 @@ def temporal_phase_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tens
                                    torch.bfloat16).reshape(S, L, D)
 
 
+def temporal_phase_tm_partial_plain(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """Plain twin of ``temporal_phase_tm(..., partial_out=True)`` (row 1p):
+    fc(bf16(proj(MHSA over T(LN x)))) over the shard's ``num_heads`` heads,
+    no proj or fc bias and no residual, in x's dtype."""
+    y = _ln(x.float(), p["ln_w"], p["ln_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    a = temporal_attention_plain(qkv, num_heads)
+    proj = _mm(a, p["proj_w"]).to(torch.bfloat16)
+    return _mm(proj, p["fc_w"]).to(x.dtype)
+
+
+def _spatial_partial_recompute(x, cls, p, num_heads):
+    """Row 4p's forward up to the attention: (the f32 rows [cls, x_t], their
+    bf16 LN rows, q, k, v (B, T, H, L, hd), the attention output (B*T*L,
+    Dq))."""
+    B, T, N, D = x.shape
+    H = num_heads
+    Dq = p["qkv_w"].shape[0] // 3
+    L = N + 1
+    seq = torch.cat([cls.reshape(B, 1, 1, D).expand(B, T, 1, D), x], dim=2).float()
+    y = _ln(seq, p["ln1_w"], p["ln1_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    q, k, v = qkv.reshape(B, T, L, 3, H, Dq // H).permute(3, 0, 1, 4, 2, 5).unbind(0)
+    a = _attention(q, k, v).transpose(2, 3).reshape(-1, Dq)
+    return seq, y, (q, k, v), a
+
+
+def spatial_phase_partial_plain(x: torch.Tensor, cls: torch.Tensor, p: dict,
+                                num_heads: int):
+    """Plain twin of ``spatial_phase(..., partial_out=True)`` (row 4p):
+    proj(MHSA(LN [cls, x_t])) over the shard's heads with no proj bias and
+    no residual, (grid rows (B, T, N, D), CLS rows (B, T, D)) in x's
+    dtype."""
+    B, T, N, D = x.shape
+    _, _, _, a = _spatial_partial_recompute(x, cls, p, num_heads)
+    res = _mm(a, p["proj_w"]).reshape(B, T, N + 1, D)
+    return res[:, :, 1:].to(x.dtype).contiguous(), res[:, :, 0].to(x.dtype).contiguous()
+
+
 # Backward twins: the kernels' arithmetic, rounded at the Pallas backward's
 # bf16 points (dproj, da, ds, dqkv, dh1 and the recomputed activations),
 # f32 sums and an f32 LayerNorm backward; the planted-fault tests replace
@@ -710,6 +757,58 @@ def spatial_phase_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
     return dx, dcls, {k: g[k] for k in SPATIAL_PHASE_KEYS}
 
 
+def temporal_phase_tm_partial_bwd_plain(x: torch.Tensor, dout: torch.Tensor, p: dict,
+                                        num_heads: int):
+    """Plain twin of ``temporal_phase_tm_bwd(..., partial_out=True)`` (row
+    7p): ``temporal_phase_tm_bwd_plain``'s chain at the shard's width, the
+    recompute's proj without its bias, dx without the residual's dout;
+    gradients keyed as ``TEMPORAL_PARTIAL_KEYS``."""
+    B, T, N, D = x.shape
+    M = B * T * N
+    Dq = p["qkv_w"].shape[0] // 3
+    y = _ln(x.float(), p["ln_w"], p["ln_b"]).to(torch.bfloat16)
+    qkv = (_mm(y, p["qkv_w"]) + p["qkv_b"]).to(torch.bfloat16)
+    a = temporal_attention_plain(qkv, num_heads).reshape(M, Dq)
+    proj = _mm(a, p["proj_w"]).to(torch.bfloat16)
+    g = {}
+    dfc16 = dout.reshape(M, D).to(torch.bfloat16)
+    g["fc_w"] = gemm_dw_plain(dfc16, proj)
+    dproj = gemm_dx_plain(dfc16, p["fc_w"], "bf16")
+    g["proj_w"] = gemm_dw_plain(dproj, a)
+    da = gemm_dx_plain(dproj, p["proj_w"], "bf16")
+    dqkv = temporal_attention_bwd_plain(qkv, da.reshape(B, T, N, Dq),
+                                        num_heads).reshape(M, 3 * Dq)
+    g["qkv_w"], g["qkv_b"] = gemm_dw_plain(dqkv, y.reshape(M, D)), dqkv.float().sum(0)
+    dy = gemm_dx_plain(dqkv, p["qkv_w"], "f32")
+    dx, _, g["ln_w"], g["ln_b"] = layer_norm_bwd_plain(x.reshape(M, D), dy, p["ln_w"])
+    return dx.reshape(B, T, N, D), {k: g[k] for k in TEMPORAL_PARTIAL_KEYS}
+
+
+def spatial_phase_partial_bwd_plain(x: torch.Tensor, cls: torch.Tensor,
+                                    dgo: torch.Tensor, dco: torch.Tensor, p: dict,
+                                    num_heads: int):
+    """Plain twin of ``spatial_phase_bwd(..., partial_out=True)`` (row 8p):
+    ``spatial_phase_bwd_plain``'s chain at the shard's width, dx without
+    the residual's dgo; gradients keyed as ``SPATIAL_PARTIAL_KEYS``."""
+    B, T, N, D = x.shape
+    Dq = p["qkv_w"].shape[0] // 3
+    H, L = num_heads, N + 1
+    seq, y, (q, k, v), a = _spatial_partial_recompute(x, cls, p, num_heads)
+    g = {}
+    dproj16 = torch.cat([dco.reshape(B, T, 1, D), dgo], dim=2).reshape(-1, D).to(torch.bfloat16)
+    g["proj_w"] = _dw(dproj16, a)
+    da = _mm(dproj16, p["proj_w"].t()).to(torch.bfloat16)
+    da = da.reshape(B, T, L, H, Dq // H).transpose(2, 3)
+    dqkv = torch.stack(_attention_bwd(q, k, v, da))  # (3, B, T, H, L, hd)
+    dqkv = dqkv.permute(1, 2, 4, 0, 3, 5).reshape(-1, 3 * Dq)
+    g["qkv_w"], g["qkv_b"] = _dw(dqkv, y.reshape(-1, D)), dqkv.float().sum(0)
+    dy = _mm(dqkv, p["qkv_w"].t()).reshape(B, T, L, D)
+    dseq, g["ln1_w"], g["ln1_b"] = _ln_bwd(seq, dy, p["ln1_w"])
+    dx = dseq[:, :, 1:, :].to(x.dtype)
+    dcls = _sum_frames(dseq[:, :, 0, :])
+    return dx, dcls, {k: g[k] for k in SPATIAL_PARTIAL_KEYS}
+
+
 def mlp_phase_bwd_plain(x: torch.Tensor, do: torch.Tensor, p: dict,
                         residual: bool = True):
     """Plain twin of ``mlp_phase_bwd`` (both tiers; the cotangent as in
@@ -760,6 +859,44 @@ def _check_geometry(D: int, num_heads: int, Dh: int = 0) -> None:
     if D % 128 or D > 1024 or Dh % 128:
         raise ValueError(f"D={D}, MLP width {Dh}: the kernels need "
                          "multiples of 128 and D <= 1024")
+
+
+def _partial_shapes(D: int, Dq: int) -> dict:
+    return {"ln_w": (D,), "ln_b": (D,), "ln1_w": (D,), "ln1_b": (D,),
+            "qkv_w": (3 * Dq, D), "qkv_b": (3 * Dq,), "proj_w": (D, Dq), "fc_w": (D, D)}
+
+
+def _partial_checks(x: torch.Tensor, p: dict, keys, num_heads: int, **rows):
+    """The partial tier's arguments -> (device, Dq): x (B, T, N, D) bf16 on
+    the card (the TP-fused step's compute dtype, JAX's ``fuse_tp`` gate;
+    the twins also take f32) and the other rows (``rows``: name ->
+    (tensor, shape)) in its dtype; the shard's weights keyed as ``keys`` at
+    its attention width Dq, any multiple of 64 (the GEMM's 64-wide
+    instance) over ``num_heads`` heads of width hd % 16 == 0, hd <= 128;
+    D as ``_check_geometry``."""
+    dev = _device_of(x)
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or (
+            dev.type == "cuda" and x.dtype != torch.bfloat16):
+        raise TypeError(f"x: dtype {x.dtype}; the partial tier's kernels take bf16")
+    w = p["qkv_w"]
+    if not isinstance(w, torch.Tensor) or w.dim() != 2 or w.shape[0] % 3:
+        raise ValueError("qkv_w: expected a (3 Dq, D) matrix")
+    D, Dq = x.shape[-1], w.shape[0] // 3
+    if num_heads <= 0 or Dq <= 0 or Dq % num_heads or Dq % 64:
+        raise ValueError(f"attention width {Dq} over {num_heads} heads: the partial "
+                         "tier needs a multiple of 64 that the heads divide")
+    hd = Dq // num_heads
+    if hd % 16 or hd > 128:
+        raise ValueError(f"head dim {hd}: the kernels need hd % 16 == 0 and hd <= 128")
+    if D % 128 or D > 1024:
+        raise ValueError(f"D={D}: the kernels need a multiple of 128, D <= 1024")
+    _check_tensor("x", x, x.dtype, x.shape, dev)
+    for name, (t, shape) in rows.items():
+        _check_tensor(name, t, x.dtype, shape, dev)
+    _check_weights(p, keys, _partial_shapes(D, Dq), dev)
+    return dev, Dq
 
 
 def fused_ok(x: torch.Tensor, num_heads: Optional[int] = None) -> bool:
@@ -955,7 +1092,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
     """The wgmma GEMM of ``spatial_mlp`` and ``spatial_phase_pf`` alone:
     a (M, K) bf16, w (N, K) bf16, bias (N,) f32 -> ``epi`` (a key of
     GEMM_EPILOGUES) of a @ w^T + bias, (M, N); ``res`` (M, N) for the
-    residual epilogues. N % 128 == 0, K % 64 == 0. Kernel on CUDA, plain
+    residual epilogues. N % 64 == 0, K % 64 == 0. Kernel on CUDA, plain
     twin on CPU."""
     if epi not in GEMM_EPILOGUES:
         raise ValueError(f"epilogue {epi!r}: one of {sorted(GEMM_EPILOGUES)}")
@@ -964,8 +1101,8 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epi: str,
         raise ValueError("a and w: expected (M, K) and (N, K)")
     (M, K), N = a.shape, w.shape[0]
     dev = _device_of(a)
-    if N % 128 or K % 64:
-        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+    if N % 64 or K % 64:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 64 == 0 and "
                          "K % 64 == 0")
     _check_tensor("a", a, torch.bfloat16, (M, K), dev)
     _check_tensor("w", w, torch.bfloat16, (N, K), dev)
@@ -1175,8 +1312,31 @@ def temporal_attention(qkv: torch.Tensor, num_heads: int,
     return out
 
 
+def _temporal_phase_tm_partial(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    dev, Dq = _partial_checks(x, p, TEMPORAL_PARTIAL_KEYS, num_heads)
+    B, T, N, D = x.shape
+    if dev.type == "cpu":
+        check_temporal_attn_smem(B * N, T, Dq // num_heads)
+        return temporal_phase_tm_partial_plain(x, p, num_heads)
+
+    from . import _build
+
+    _check_aligned(x=x, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc_w=p["fc_w"])
+    lib = _build.load()
+    check_temporal_attn_smem(B * N, T, Dq // num_heads, lib)
+    out = torch.empty_like(x)
+    ws = _ws(lib.dvst_temporal_phase_tm_partial_ws(B, T, N, D, Dq), dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_temporal_phase_tm_partial, x.data_ptr(),
+             *(p[k].data_ptr() for k in TEMPORAL_PARTIAL_KEYS), ws.data_ptr(),
+             out.data_ptr(), B, T, N, D, Dq, num_heads, _stream(dev))
+    launches["temporal_phase_tm_partial"] += 1
+    return out
+
+
 def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32,
+                      partial_out: bool = False) -> torch.Tensor:
     """x (B, T, N, D) frame-major -> x + temporal_fc(proj(MHSA over T
     (LN x))) as (B, T, N, D) ``out_dtype``. Three tiers: bf16 x with f32
     out (the whole-block tier's carry) or bf16 out (the per-phase tier,
@@ -1184,8 +1344,15 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     boundary: LN on the f32 rows, the residual added in f32). With s8
     weights (``block_params`` of a quantized block) the int8 tier, f32 out:
     bf16 x, or f32 x (its f32 tier, the int8 teacher under the mixed
-    teacher: LN on the f32 rows, the f32 residual). Kernel on CUDA, plain
-    twin on CPU."""
+    teacher: LN on the f32 rows, the f32 residual). ``partial_out``: the
+    partial tier (tier C, row 1p), tensor parallelism's shard term:
+    ``num_heads`` the shard's heads, p keyed as ``TEMPORAL_PARTIAL_KEYS``
+    (head-major qkv (3 Dq, D), proj (D, Dq)), out in x's dtype (bf16 on
+    the card) = fc(bf16(proj(MHSA))) with no proj or fc bias and no
+    residual; ``out_dtype`` is not read. Kernel on CUDA, plain twin on
+    CPU."""
+    if partial_out:
+        return _temporal_phase_tm_partial(x, p, num_heads)
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -1238,8 +1405,30 @@ def temporal_phase_tm(x: torch.Tensor, p: dict, num_heads: int,
     return out
 
 
+def _spatial_phase_partial(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int):
+    B, T, N, D = x.shape
+    dev, Dq = _partial_checks(x, p, SPATIAL_PARTIAL_KEYS, num_heads, cls=(cls, (B, 1, D)))
+    if dev.type == "cpu":
+        return spatial_phase_partial_plain(x, cls, p, num_heads)
+
+    from . import _build
+
+    _check_aligned(x=x, cls=cls, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
+    lib = _build.load()
+    check_spatial_attn_smem(lib, N + 1, Dq // num_heads)
+    out = torch.empty_like(x)
+    cls_rows = torch.empty((B, T, D), dtype=x.dtype, device=dev)
+    ws = _ws(lib.dvst_spatial_phase_partial_ws(B, T, N, D, Dq), dev)
+    with torch.cuda.device(dev):
+        _run(lib.dvst_spatial_phase_partial, x.data_ptr(), cls.data_ptr(),
+             *(p[k].data_ptr() for k in SPATIAL_PARTIAL_KEYS), ws.data_ptr(),
+             out.data_ptr(), cls_rows.data_ptr(), B, T, N, D, Dq, num_heads, _stream(dev))
+    launches["spatial_phase_partial"] += 1
+    return out, cls_rows
+
+
 def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int,
-                  out_dtype: Optional[torch.dtype] = None):
+                  out_dtype: Optional[torch.dtype] = None, partial_out: bool = False):
     """x (B, T, N, D) bf16 frame-major, cls (B, 1, D) bf16 -> (grid (B, T,
     N, D) bf16 = x + bf16(proj(MHSA(LN [cls, x_t])) rows), per-frame CLS
     rows (B, T, D) bf16), with the ``SPATIAL_PHASE_KEYS`` weights of
@@ -1248,7 +1437,15 @@ def spatial_phase(x: torch.Tensor, cls: torch.Tensor, p: dict, num_heads: int,
     launches (through which the card's checks hold the branch). f32 x and
     cls are the trainer's mixed tier: LN on the f32 rows, grid = x + proj
     and the CLS rows in f32, nothing rounded (``out_dtype`` None or f32).
-    Kernel on CUDA, plain twin on CPU."""
+    ``partial_out``: the partial tier (tier C, row 4p), tensor
+    parallelism's shard term: ``num_heads`` the shard's heads, p keyed as
+    ``SPATIAL_PARTIAL_KEYS``, (grid rows, CLS rows) in x's dtype (bf16 on
+    the card) = proj(MHSA(LN [cls, x_t])) with no proj bias and no
+    residual. Kernel on CUDA, plain twin on CPU."""
+    if partial_out:
+        if out_dtype is not None:
+            raise ValueError("the partial tier writes x's dtype")
+        return _spatial_phase_partial(x, cls, p, num_heads)
     if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: bfloat16 or float32")
     if x.dim() != 4:
@@ -1654,7 +1851,7 @@ def gemm_dx(dy: torch.Tensor, w: torch.Tensor, epi: str,
     """The dX GEMM of ``spatial_phase_bwd`` and ``mlp_phase_bwd`` alone: dy
     (M, K) bf16, w (K, N) bf16 (an (out, in) weight, read as stored) ->
     ``epi`` (a key of GEMM_DX_EPILOGUES) of dy @ w, (M, N); ``aux`` (M, N)
-    f32 for ``mul_f32_bf16``. N % 128 == 0, K % 64 == 0. Kernel on CUDA,
+    f32 for ``mul_f32_bf16``. N % 64 == 0, K % 64 == 0. Kernel on CUDA,
     plain twin on CPU."""
     if epi not in GEMM_DX_EPILOGUES:
         raise ValueError(f"epilogue {epi!r}: one of {sorted(GEMM_DX_EPILOGUES)}")
@@ -1663,8 +1860,8 @@ def gemm_dx(dy: torch.Tensor, w: torch.Tensor, epi: str,
         raise ValueError("dy and w: expected (M, K) and (K, N)")
     (M, K), N = dy.shape, w.shape[1]
     dev = _device_of(dy)
-    if N % 128 or K % 64:
-        raise ValueError(f"N={N}, K={K}: the kernel needs N % 128 == 0 and "
+    if N % 64 or K % 64:
+        raise ValueError(f"N={N}, K={K}: the kernel needs N % 64 == 0 and "
                          "K % 64 == 0")
     _check_tensor("dy", dy, torch.bfloat16, (M, K), dev)
     _check_tensor("w", w, torch.bfloat16, (K, N), dev)
@@ -1693,15 +1890,15 @@ def gemm_dw(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The weight-gradient GEMM of ``spatial_phase_bwd`` and
     ``mlp_phase_bwd`` alone: dy (rows, n_out), x (rows, k_in) bf16 -> dW =
     dy^T x (n_out, k_in) f32, in the weights' (out, in) layout, summed over
-    the rows in splits added in a fixed order. n_out % 128 == 0, k_in % 128
+    the rows in splits added in a fixed order. n_out % 64 == 0, k_in % 64
     == 0. Kernel on CUDA, plain twin on CPU."""
     if dy.dim() != 2 or x.dim() != 2 or dy.shape[0] != x.shape[0]:
         raise ValueError("dy and x: expected (rows, n_out) and (rows, k_in)")
     (R, n_out), k_in = dy.shape, x.shape[1]
     dev = _device_of(dy)
-    if n_out % 128 or k_in % 128:
+    if n_out % 64 or k_in % 64:
         raise ValueError(f"n_out={n_out}, k_in={k_in}: the kernel needs "
-                         "multiples of 128")
+                         "multiples of 64")
     _check_tensor("dy", dy, torch.bfloat16, (R, n_out), dev)
     _check_tensor("x", x, torch.bfloat16, (R, k_in), dev)
     if dev.type == "cpu":
@@ -1773,13 +1970,45 @@ def _grads(dev, shapes: dict, keys):
     return dln, g
 
 
+def _temporal_phase_tm_partial_bwd(x, dout, p, num_heads):
+    dev, Dq = _partial_checks(x, p, TEMPORAL_PARTIAL_KEYS, num_heads,
+                              dout=(dout, tuple(x.shape)))
+    B, T, N, D = x.shape
+    hd = Dq // num_heads
+    if dev.type == "cpu":
+        check_temporal_attn_bwd_smem(B * N, T, hd)
+        return temporal_phase_tm_partial_bwd_plain(x, dout, p, num_heads)
+
+    from . import _build
+
+    _check_aligned(x=x, dout=dout, qkv_w=p["qkv_w"], proj_w=p["proj_w"], fc_w=p["fc_w"])
+    lib = _build.load("bwd")
+    check_temporal_attn_bwd_smem(B * N, T, hd, lib)
+    dx = torch.empty_like(x)
+    dln, g = _grads(dev, _partial_shapes(D, Dq), TEMPORAL_PARTIAL_KEYS)
+    with torch.cuda.device(dev):
+        ws = _ws(lib.dvst_temporal_phase_tm_partial_bwd_ws(B, T, N, D, Dq), dev)
+        _run(lib.dvst_temporal_phase_tm_partial_bwd, x.data_ptr(), dout.data_ptr(),
+             *(p[k].data_ptr() for k in TEMPORAL_PARTIAL_KEYS), ws.data_ptr(),
+             dx.data_ptr(), dln.data_ptr(),
+             *(g[k].data_ptr() for k in TEMPORAL_PARTIAL_KEYS[2:]),
+             B, T, N, D, Dq, num_heads, _stream(dev))
+    launches["temporal_phase_tm_bwd_partial"] += 1
+    return dx, g
+
+
 def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
-                          num_heads: int):
+                          num_heads: int, partial_out: bool = False):
     """Backward of ``temporal_phase_tm``'s bf16 tier: x, dout (B, T, N, D)
     bf16 -> (dx (B, T, N, D) bf16, f32 gradients keyed as
     ``TEMPORAL_KEYS``, in the weights' (out, in) layout); of its f32 tier
-    (the trainer's mixed tier) on f32 x and dout: dx f32. Kernel on CUDA,
-    plain twin on CPU."""
+    (the trainer's mixed tier) on f32 x and dout: dx f32. ``partial_out``:
+    the backward of the partial tier (row 7p), p keyed as
+    ``TEMPORAL_PARTIAL_KEYS`` -> (dx without the residual's dout, f32
+    gradients keyed as ``TEMPORAL_PARTIAL_KEYS``). Kernel on CUDA, plain
+    twin on CPU."""
+    if partial_out:
+        return _temporal_phase_tm_partial_bwd(x, dout, p, num_heads)
     x_f32 = _rows_f32(x)
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
@@ -1813,12 +2042,47 @@ def temporal_phase_tm_bwd(x: torch.Tensor, dout: torch.Tensor, p: dict,
     return dx, g
 
 
+def _spatial_phase_partial_bwd(x, cls, dgo, dco, p, num_heads):
+    B, T, N, D = x.shape
+    dev, Dq = _partial_checks(x, p, SPATIAL_PARTIAL_KEYS, num_heads, cls=(cls, (B, 1, D)),
+                              dgo=(dgo, (B, T, N, D)), dco=(dco, (B, T, D)))
+    hd = Dq // num_heads
+    if dev.type == "cpu":
+        check_spatial_attn_bwd_smem(N + 1, hd)
+        return spatial_phase_partial_bwd_plain(x, cls, dgo, dco, p, num_heads)
+
+    from . import _build
+
+    _check_aligned(x=x, cls=cls, dgo=dgo, dco=dco, qkv_w=p["qkv_w"], proj_w=p["proj_w"])
+    lib = _build.load("bwd")
+    check_spatial_attn_bwd_smem(N + 1, hd, lib)
+    dx = torch.empty_like(x)
+    dcls = torch.empty((B, 1, D), dtype=torch.float32, device=dev)
+    dln, g = _grads(dev, _partial_shapes(D, Dq), SPATIAL_PARTIAL_KEYS)
+    with torch.cuda.device(dev):
+        ws = _ws(lib.dvst_spatial_phase_partial_bwd_ws(B, T, N, D, Dq), dev)
+        _run(lib.dvst_spatial_phase_partial_bwd, x.data_ptr(), cls.data_ptr(),
+             dgo.data_ptr(), dco.data_ptr(),
+             *(p[k].data_ptr() for k in SPATIAL_PARTIAL_KEYS), ws.data_ptr(),
+             dx.data_ptr(), dcls.data_ptr(), dln.data_ptr(),
+             *(g[k].data_ptr() for k in SPATIAL_PARTIAL_KEYS[2:]),
+             B, T, N, D, Dq, num_heads, _stream(dev))
+    launches["spatial_phase_bwd_partial"] += 1
+    return dx, dcls, g
+
+
 def spatial_phase_bwd(x: torch.Tensor, cls: torch.Tensor, dgo: torch.Tensor,
-                      dco: torch.Tensor, p: dict, num_heads: int):
+                      dco: torch.Tensor, p: dict, num_heads: int,
+                      partial_out: bool = False):
     """Backward of ``spatial_phase``: x (B, T, N, D), cls (B, 1, D), the
     cotangents dgo (B, T, N, D) and dco (B, T, D), all bf16 -> (dx bf16,
     dcls (B, 1, D) f32, f32 gradients keyed as ``SPATIAL_PHASE_KEYS``); all
-    f32 (the mixed tier): dx f32. Kernel on CUDA, plain twin on CPU."""
+    f32 (the mixed tier): dx f32. ``partial_out``: the backward of the
+    partial tier (row 8p), p keyed as ``SPATIAL_PARTIAL_KEYS`` -> (dx
+    without the residual's dgo, dcls, f32 gradients keyed as
+    ``SPATIAL_PARTIAL_KEYS``). Kernel on CUDA, plain twin on CPU."""
+    if partial_out:
+        return _spatial_phase_partial_bwd(x, cls, dgo, dco, p, num_heads)
     x_f32 = _rows_f32(x)
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, T, N, D), got {tuple(x.shape)}")
@@ -1975,3 +2239,52 @@ class MlpPhase(torch.autograd.Function):
         dx, g = mlp_phase_bwd(x, do.contiguous(),
                               kernel_weights(params, MLP_KEYS), ctx.residual)
         return (dx, None) + _cast_grads(g, MLP_KEYS, params)
+
+
+class TemporalPhaseTmPartial(torch.autograd.Function):
+    """``TemporalPhaseTm``'s partial tier (``temporal_phase_tm(...,
+    partial_out=True)`` with ``temporal_phase_tm_bwd(..., partial_out=True)``
+    as its backward): ``apply(x, num_heads, *params)``, the shard's heads,
+    params its f32 masters in ``TEMPORAL_PARTIAL_KEYS`` order -> the bf16
+    shard term."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, *params)
+        return temporal_phase_tm(x, kernel_weights(params, TEMPORAL_PARTIAL_KEYS),
+                                 num_heads, partial_out=True)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *params = ctx.saved_tensors
+        dx, g = temporal_phase_tm_bwd(
+            x, dout.contiguous(), kernel_weights(params, TEMPORAL_PARTIAL_KEYS),
+            ctx.num_heads, partial_out=True)
+        return (dx, None) + _cast_grads(g, TEMPORAL_PARTIAL_KEYS, params)
+
+
+class SpatialPhasePartial(torch.autograd.Function):
+    """``SpatialPhase``'s partial tier: ``apply(x, cls, num_heads, *params)``,
+    params the shard's f32 masters in ``SPATIAL_PARTIAL_KEYS`` order -> (the
+    grid's and the CLS rows' bf16 shard terms)."""
+
+    @staticmethod
+    def forward(ctx, x, cls, num_heads, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, cls, *params)
+        return spatial_phase(x, cls, kernel_weights(params, SPATIAL_PARTIAL_KEYS),
+                             num_heads, partial_out=True)
+
+    @staticmethod
+    def backward(ctx, dgo, dco):
+        x, cls, *params = ctx.saved_tensors
+        B, T, N, D = x.shape
+        dgo = torch.zeros_like(x) if dgo is None else dgo.contiguous()
+        dco = (torch.zeros((B, T, D), dtype=dgo.dtype, device=x.device)
+               if dco is None else dco.contiguous())
+        dx, dcls, g = spatial_phase_bwd(
+            x, cls, dgo, dco, kernel_weights(params, SPATIAL_PARTIAL_KEYS),
+            ctx.num_heads, partial_out=True)
+        return ((dx, dcls.to(cls.dtype), None)
+                + _cast_grads(g, SPATIAL_PARTIAL_KEYS, params))

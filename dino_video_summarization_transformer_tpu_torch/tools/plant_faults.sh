@@ -66,7 +66,15 @@
 # the next row of its sequence (rows r and r ^ 1 swapped; exits 1 in phase
 # 7c); the two-stream step's cross term taking the RGB teacher's targets
 # instead of the motion teacher's (a sed of the trainer; exits 1 in phase
-# 12, where the gradient and loss rules between routes cannot see it).
+# 12, where the gradient and loss rules between routes cannot see it);
+# tensor parallelism's partial tier: row 1p adding the residual x to its
+# shard term (its fc product through the bf16-add epilogue; exits 1 in
+# phase 13a); the TP-fused block leaving the gradients of the replicated
+# parameters its shards' kernels read (the LayerNorms and temporal_fc)
+# unreduced over the model group (exits 1 in phase 13b, rank 0's
+# first-step gradients against one rank's). The parallel modules' faults
+# also run the CPU tests named beside them from the copy (``run_test``;
+# each must fail them, no card needed).
 # Name faults as arguments to run only those:
 #
 #     bash .../plant_faults.sh fa_unscaled fa_first_seq band_shifted band_pad_unmasked
@@ -82,10 +90,11 @@
 #     bash .../plant_faults.sh q8f_residual_bf16 band_mt_teacher_bf16
 #     bash .../plant_faults.sh seq_strips_row_swapped f32_cls_b1_rounded
 #     bash .../plant_faults.sh cross_takes_rgb_targets
+#     bash .../plant_faults.sh partial_keeps_residual tp_ln_grad_unreduced
 #
 # A fault's file is relative to ops/csrc/ (../fused_block.py is the ops'
 # Python module, ../../engine/scoring.py the scorer, ../../train/ssl.py
-# the trainer).
+# the trainer, ../../parallel/tp_fused.py the TP-fused block).
 set -u
 SRC=$(pwd)
 ONLY="$*"
@@ -102,6 +111,21 @@ run() {
   (cd "$dst" && timeout 900 python3 chip_smoke.py > out.log 2>&1); rc=$?
   echo "FAULT $name: exit $rc, last phase $(grep -o '^\[[0-9]*[a-z]*\]' "$dst/out.log" | tail -1)"
   grep -E "FAILED|^FAIL" "$dst/out.log" | cut -c1-400 | head -8
+  rm -rf "$dst"
+}
+# run_test name file expr tests...: the fault's copy runs those CPU tests
+run_test() {
+  name=$1; file=$2; expr=$3; shift 3
+  if [ -n "$ONLY" ] && [[ " $ONLY " != *" $name "* ]]; then return; fi
+  dst=$(mktemp -d)
+  (cd "$SRC" && tar --exclude=./.git --exclude-vcs-ignores -cf - .) | (cd "$dst" && tar xf -)
+  f=$dst/$CSRC/$file
+  before=$(md5sum < "$f"); sed -i "$expr" "$f"; after=$(md5sum < "$f")
+  if [ "$before" = "$after" ]; then echo "FAULT $name: sed changed nothing"; rm -rf "$dst"; return; fi
+  (cd "$dst" && JAX_PLATFORMS=cpu timeout 900 python -m pytest -q -p no:cacheprovider "$@" \
+    > out.log 2>&1); rc=$?
+  echo "FAULT $name: pytest exit $rc (must be 1), $(tail -1 "$dst/out.log")"
+  grep -E "^FAILED" "$dst/out.log" | cut -c1-300 | head -8
   rm -rf "$dst"
 }
 run no_rowsum tc_attention.cuh 's/return p \* (dp - delta) \* scale;/return p * dp * scale;/'
@@ -149,3 +173,6 @@ run band_mt_teacher_bf16 ../../engine/scoring.py 's/            fr = self._gathe
 run seq_strips_row_swapped tc_attention.cuh 's/    cp_async16(dA.at(r, c), da + rr \* D + h \* HD + c \* 8, 16);/    cp_async16(dA.at(r, c), da + (kRows == kSeqStrips ? row(r ^ 1) : rr) * D + h * HD + c * 8, 16);/'
 run f32_cls_b1_rounded ../fused_block.py 's/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), cls.data_ptr(),/        _run(lib.dvst_spatial_mlp, x1.data_ptr(), (cls.to(torch.bfloat16).to(cls.dtype) if B == 1 else cls).data_ptr(),/'
 run cross_takes_rgb_targets ../../train/ssl.py 's/l_cross, c_cross = dino_loss(s_cross.float(), t_flow.float(), state.center_cross,/l_cross, c_cross = dino_loss(s_cross.float(), t_rgb.float(), state.center_cross,/'
+run partial_keeps_residual fused_block.cu 's/  return wg_gemm<kEpiBf16>(w.buf1, fc_w, nullptr, nullptr, out, M, D, D, st);/  return wg_gemm<kEpiAddBf16>(w.buf1, fc_w, nullptr, x_, out, M, D, D, st);/'
+run tp_ln_grad_unreduced ../../parallel/tp_fused.py 's/        return tp.copy_to_model(t, mesh)/        return t/'
+run_test tp_ln_grad_unreduced ../../parallel/tp_fused.py 's/        return tp.copy_to_model(t, mesh)/        return t/' tests/test_torch_parallel_fused.py tests/test_torch_parallel_steps.py

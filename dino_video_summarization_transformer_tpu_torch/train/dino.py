@@ -1,12 +1,13 @@
 """DINO losses and the teacher EMA (counterpart of the JAX package's
 ``train/dino.py``), for one device: the per-frame scoring loss and the
 training loss with centering, temperature warmup and same-view skipping.
-The center's batch mean is the local one; the all-reduce over data-parallel
-replicas waits for the parallelism item (ROADMAP)."""
+Under data parallelism the center's batch mean is the global batch's
+(``batch_mean``: the mean over the data group of the replicas' equal-sized
+batch means, the reference's all_reduce at train_ssl.py:681-687)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,16 +43,22 @@ def teacher_temp_schedule(warmup_teacher_temp: float, teacher_temp: float,
 
 
 def update_center(teacher_output: torch.Tensor, center: torch.Tensor,
-                  center_momentum: float = 0.9) -> torch.Tensor:
-    """EMA of the teacher outputs' batch mean (ref: train_ssl.py:673-691)."""
+                  center_momentum: float = 0.9,
+                  batch_mean: Optional[Callable] = None) -> torch.Tensor:
+    """EMA of the teacher outputs' batch mean (ref: train_ssl.py:673-691);
+    ``batch_mean`` maps the local mean to the global batch's (data
+    parallelism)."""
     batch_center = teacher_output.sum(dim=0, keepdim=True) / teacher_output.shape[0]
+    if batch_mean is not None:
+        batch_center = batch_mean(batch_center)
     return center * center_momentum + batch_center * (1.0 - center_momentum)
 
 
 def dino_loss(student_output: torch.Tensor, teacher_output: torch.Tensor,
               center: torch.Tensor, temp: float, n_crops: int,
               global_crops: int = 2, student_temp: float = 0.1,
-              center_momentum: float = 0.9) -> Tuple[torch.Tensor, torch.Tensor]:
+              center_momentum: float = 0.9,
+              batch_mean: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full DINO training loss (ref: train_ssl.py:626-671).
 
     student_output (n_crops * B, out_dim), crops concatenated;
@@ -71,13 +78,14 @@ def dino_loss(student_output: torch.Tensor, teacher_output: torch.Tensor,
             total = total + torch.sum(-q * logp, dim=-1).mean()
             n_terms += 1
     new_center = update_center(teacher_output.float().detach(), center,
-                               center_momentum)
+                               center_momentum, batch_mean)
     return total / n_terms, new_center
 
 
 def dino_loss_two_token(student_pair, teacher_pair, center: torch.Tensor,
                         temp: float, student_temp: float = 0.1,
-                        center_momentum: float = 0.9
+                        center_momentum: float = 0.9,
+                        batch_mean: Optional[Callable] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-token DINO loss (ref: train_ssl.py:632-651): ``student_pair`` the
     (main, aux) head outputs of the 4 student views, ``teacher_pair`` those
@@ -99,7 +107,7 @@ def dino_loss_two_token(student_pair, teacher_pair, center: torch.Tensor,
         total = total + torch.sum(-q * torch.log_softmax(v, dim=-1), dim=-1).mean()
     new_center = torch.cat([
         update_center(teacher_pair[i].float().detach(), center[i:i + 1],
-                      center_momentum) for i in range(2)])
+                      center_momentum, batch_mean) for i in range(2)])
     return total / 4.0, new_center
 
 

@@ -10,12 +10,20 @@ ratio. The port keeps one tensor per block and reproduces both through
 ``leaf_groups`` (``blocks.<i>.`` -> ``blocks.*.``), so its numbers equal
 the JAX package's; the reference clips and adapts per block tensor
 (ROADMAP section 3).
+
+Sharded states (``apply_updates_with_schedules(..., sharding=...)``, the
+``parallel`` modules): under tensor parallelism a leaf's norm is over the
+whole tensor, its shards' sums of squares added over the model group
+(``NormReduce``); under ZeRO-1 the norms are taken on the whole replicated
+tensors and only the elementwise moment update runs on the rank's slices
+(``Optimizer.adapt`` then ``Optimizer.moments``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, FrozenSet, Optional
 
 import torch
 from torch import nn
@@ -54,20 +62,37 @@ def wd_mask(model: nn.Module) -> Dict[str, bool]:
     return mask
 
 
-def _group_norms(ts: Tensors, groups: Dict[str, str]) -> Tensors:
+@dataclasses.dataclass
+class NormReduce:
+    """The tensors that are shards of a larger one (``sharded``) and the
+    sum over the ranks holding its other shards (``reduce``, applied to a
+    stack of sums of squares): a leaf's norm then covers the whole tensor."""
+    sharded: FrozenSet[str]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _group_norms(ts: Tensors, groups: Dict[str, str],
+                 norm_reduce: Optional[NormReduce] = None) -> Tensors:
     sq: Tensors = {}
+    part: Tensors = {}  # the shards' sums of squares, summed over their ranks below
     for n, t in ts.items():
         s = t.float().square().sum()
-        sq[groups[n]] = sq[groups[n]] + s if groups[n] in sq else s
+        acc = part if norm_reduce is not None and n in norm_reduce.sharded else sq
+        acc[groups[n]] = acc[groups[n]] + s if groups[n] in acc else s
+    if part:
+        keys = list(part)
+        for g, v in zip(keys, norm_reduce.reduce(torch.stack([part[g] for g in keys])).unbind(0)):
+            sq[g] = sq[g] + v if g in sq else v
     return {g: v.sqrt() for g, v in sq.items()}
 
 
 def per_param_clip(grads: Tensors, clip: float,
-                   groups: Optional[Dict[str, str]] = None) -> Tensors:
+                   groups: Optional[Dict[str, str]] = None,
+                   norm_reduce: Optional[NormReduce] = None) -> Tensors:
     """Each leaf's gradient scaled by min(clip / (||g|| + 1e-6), 1) —
     per leaf, not global-norm clipping (ref: utils/utils.py:102-111)."""
     groups = groups or leaf_groups(grads)
-    norms = _group_norms(grads, groups)
+    norms = _group_norms(grads, groups, norm_reduce)
     return {n: (g * torch.clamp(clip / (norms[groups[n]] + 1e-6), max=1.0)).to(g.dtype)
             for n, g in grads.items()}
 
@@ -99,8 +124,32 @@ class Optimizer:
         return {"trace" if self.name == "sgd" else "mu": zeros()}
 
     def update(self, grads: Tensors, state: dict, params: Tensors,
-               groups: Dict[str, str]):
+               groups: Dict[str, str], norm_reduce: Optional[NormReduce] = None):
         """-> (updates, new state)."""
+        return self.moments(self.adapt(grads, params, groups, norm_reduce), state)
+
+    def adapt(self, grads: Tensors, params: Tensors, groups: Dict[str, str],
+              norm_reduce: Optional[NormReduce] = None) -> Tensors:
+        """LARS's trust ratio eta * ||p|| / ||g|| on the leaves of rank != 1
+        (the gradients as they are for AdamW and SGD)."""
+        if self.name != "lars":
+            return grads
+        adapt = {n for n in grads if jax_ndim(n, params[n]) != 1}
+        pn = _group_norms({n: params[n] for n in adapt}, groups, norm_reduce)
+        un = _group_norms({n: grads[n] for n in adapt}, groups, norm_reduce)
+        adapted = {}
+        for n, g in grads.items():
+            if n not in adapt:
+                adapted[n] = g
+                continue
+            p_, u_ = pn[groups[n]], un[groups[n]]
+            one = torch.ones_like(p_)
+            q = torch.where(p_ > 0, torch.where(u_ > 0, self.eta * p_ / u_, one), one)
+            adapted[n] = g * q
+        return adapted
+
+    def moments(self, grads: Tensors, state: dict):
+        """The elementwise half: -> (updates, new state)."""
         if self.name == "adamw":
             b1, b2 = self.b1, self.b2
             count = state["count"] + 1
@@ -114,19 +163,7 @@ class Optimizer:
         if self.name == "sgd":
             tr = {n: g + self.momentum * state["trace"][n] for n, g in grads.items()}
             return tr, {"trace": tr}
-        adapt = {n for n in grads if jax_ndim(n, params[n]) != 1}
-        pn = _group_norms({n: params[n] for n in adapt}, groups)
-        un = _group_norms({n: grads[n] for n in adapt}, groups)
-        adapted = {}
-        for n, g in grads.items():
-            if n not in adapt:
-                adapted[n] = g
-                continue
-            p_, u_ = pn[groups[n]], un[groups[n]]
-            one = torch.ones_like(p_)
-            q = torch.where(p_ > 0, torch.where(u_ > 0, self.eta * p_ / u_, one), one)
-            adapted[n] = g * q
-        mu = {n: state["mu"][n] * self.momentum + d for n, d in adapted.items()}
+        mu = {n: state["mu"][n] * self.momentum + d for n, d in grads.items()}
         return mu, {"mu": mu}
 
 
@@ -135,7 +172,8 @@ def apply_updates_with_schedules(params: Tensors, grads: Tensors, opt_state: dic
                                  core: Optimizer, mask: Dict[str, bool],
                                  lr: float, wd: float,
                                  clip: Optional[float] = None,
-                                 freeze_last_layer: Optional[bool] = None) -> dict:
+                                 freeze_last_layer: Optional[bool] = None,
+                                 sharding=None) -> dict:
     """One optimizer step in the JAX package's order (its
     ``train/optim.py:121-166``): per-leaf clip, then g + wd * p on the
     masked subset, then the ``last_layer`` gradients zeroed when frozen,
@@ -144,15 +182,42 @@ def apply_updates_with_schedules(params: Tensors, grads: Tensors, opt_state: dic
 
     A frozen leaf's zeroed gradient still goes through the core, as in
     optax: Adam's moments decay and the leaf moves while they are non-zero
-    (the JAX comment at ``:149-152`` says otherwise; the code is followed)."""
+    (the JAX comment at ``:149-152`` says otherwise; the code is followed).
+
+    ``sharding`` (a ``parallel.StateSharding``): "tp", the tensors of
+    ``sharding.dims`` are the rank's shards and every leaf norm is summed
+    over the model group; "zero1", ``opt_state`` holds the rank's moment
+    slices, the update runs on the matching slices of the (whole)
+    gradients and parameters, and the ranks then exchange the updated
+    slices."""
     groups = leaf_groups(grads)
+    norm_reduce = None
+    if sharding is not None and sharding.kind == "tp" and sharding.mesh.model_group is not None:
+        from ..parallel.mesh import all_reduce
+
+        group = sharding.mesh.model_group
+        norm_reduce = NormReduce(frozenset(n for n, d in sharding.dims.items() if d is not None),
+                                 lambda t: all_reduce(t, group))
     if clip is not None:
-        grads = per_param_clip(grads, clip, groups)
+        grads = per_param_clip(grads, clip, groups, norm_reduce)
     grads = {n: g + wd * params[n] if mask[n] else g for n, g in grads.items()}
     if freeze_last_layer:
         grads = {n: torch.zeros_like(g) if "last_layer" in n else g
                  for n, g in grads.items()}
-    updates, new_state = core.update(grads, opt_state, params, groups)
+    if sharding is not None and sharding.kind == "zero1":
+        from ..parallel.zero import exchange_slices, owned
+
+        mesh, dims = sharding.mesh, sharding.dims
+        grads = core.adapt(grads, params, groups)
+        own = {n: owned(params[n], dims[n], mesh.data_index, mesh.data) for n in params}
+        updates, new_state = core.moments(
+            {n: owned(g, dims[n], mesh.data_index, mesh.data) for n, g in grads.items()},
+            opt_state)
+        for n, p in own.items():
+            p.add_(-lr * updates[n])
+        exchange_slices(params, dims, mesh)
+        return new_state
+    updates, new_state = core.update(grads, opt_state, params, groups, norm_reduce)
     for n, p in params.items():
         p.add_(-lr * updates[n])
     return new_state

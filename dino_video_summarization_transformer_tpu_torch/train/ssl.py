@@ -1,6 +1,6 @@
 """DINO self-supervised training: state and the plain train step
 (counterpart of the JAX package's ``train/ssl.py``; ref:
-train_ssl.py:154-599), for one device.
+train_ssl.py:154-599), on one card or over a mesh of ranks.
 
 One step (``make_train_step``) runs both student forwards (the 2 global
 and the n local crops), the teacher forward on the global crops without
@@ -47,8 +47,29 @@ The variants on the other backbones:
   take the step's route (bf16 ViT-B: the per-phase kernels), the motion
   nets plain torch, as JAX runs them on XLA.
 
-The parallel forward hook (``backbone_forward``) needs the parallel
-modules (ROADMAP) and raises ``NotImplementedError``.
+Parallel steps (the ``parallel`` modules; JAX's ``mesh=``,
+``state_sharding=`` and ``backbone_forward=``):
+
+* ``mesh`` (``parallel.build_mesh``): data parallelism over its data axis.
+  Each rank runs the step on its own rows of the global batch; the
+  gradients are averaged over the data group before the clip and the
+  optimizer, the DINO center's batch mean is the global batch's and the
+  returned losses are the global means (JAX takes both over the sharded
+  batch). The teacher EMA stays rank-local: it runs on identical values.
+  Every variant takes it, as every JAX variant takes its mesh;
+* ``state_sharding`` (``parallel.shard_train_state``): "tp", tensor
+  parallelism over the mesh's model axis, the state the rank's shards; the
+  backbone runs ``backbone_forward`` (by default the plain TP route,
+  ``parallel.tp.tp_forward_features``; the head-sharded kernels are
+  ``parallel.tp_fused.tp_fused_forward_features``), the DINO head
+  ``parallel.tp.head_forward`` (its logits gathered over the model group
+  before the softmax and centering) and every leaf norm covers the whole
+  tensor; "zero1", the moments sharded over the data axis;
+* ``backbone_forward``: ``(backbone, x) -> (B, D) CLS features`` in place
+  of ``forward_train`` for the student's and the teacher's passes of the
+  plain variant (remat wraps the student's call whole).
+
+A step with none of them is the single-card step, bit for bit.
 """
 
 from __future__ import annotations
@@ -145,7 +166,8 @@ class TrainStep:
 
     def __init__(self, model_cfg, core, mask, clip_grad, student_temp,
                  center_momentum, compute_dtype, route, n_crops, remat=False,
-                 cnn=None, cnn_distill_weight=0.0):
+                 cnn=None, cnn_distill_weight=0.0, mesh=None, sharding=None,
+                 backbone_forward=None):
         self.cfg = model_cfg
         self.core = core
         self.mask = mask
@@ -158,22 +180,51 @@ class TrainStep:
         self.remat = remat
         self.cnn = cnn
         self.cnn_distill_weight = cnn_distill_weight
+        self.sharding = sharding
+        self.mesh = sharding.mesh if mesh is None and sharding is not None else mesh
+        self.backbone_forward = backbone_forward
+        self.tp = sharding is not None and sharding.kind == "tp"
+        group = None if self.mesh is None else self.mesh.data_group
+        self._data_group = group
+        self.batch_mean = None if group is None else self.global_mean
+
+    def global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the data group (t where it has one rank)."""
+        from ..parallel.mesh import all_reduce
+
+        if self._data_group is None:
+            return t
+        return all_reduce(t, self._data_group) / self.mesh.data
 
     def _features(self, model: nn.ModuleDict, x: torch.Tensor,
                   student: bool = False) -> torch.Tensor:
+        if self.backbone_forward is not None:
+            if student and self.remat:
+                from torch.utils import checkpoint
+
+                return checkpoint.checkpoint(self.backbone_forward, model["backbone"], x,
+                                             use_reentrant=False)
+            return self.backbone_forward(model["backbone"], x)
         return model["backbone"].forward_train(x, self.compute_dtype, self.route,
                                                remat=student and self.remat)
+
+    def _head(self, model: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+        if self.tp:
+            from ..parallel import tp
+
+            return tp.head_forward(model["head"], x, self.mesh)
+        return model["head"](x)
 
     def _dino(self, state: TrainState, s_feats, g_crops, teacher_temp):
         """The head on the student's features and the teacher's on its
         forward of ``g_crops``, then ``dino_loss``."""
-        s_out = state.student["head"](torch.cat(s_feats, dim=0))
+        s_out = self._head(state.student, torch.cat(s_feats, dim=0))
         with torch.no_grad():
-            t_out = state.teacher["head"](torch.cat(
+            t_out = self._head(state.teacher, torch.cat(
                 [self._features(state.teacher, g) for g in g_crops], dim=0))
         return dino_loss(s_out.float(), t_out.float(), state.center, teacher_temp,
                          n_crops=self.n_crops, student_temp=self.student_temp,
-                         center_momentum=self.center_momentum)
+                         center_momentum=self.center_momentum, batch_mean=self.batch_mean)
 
     def _loss(self, state: TrainState, g_crops, l_crops, teacher_temp):
         s_feats = [self._features(state.student, c, student=True)
@@ -200,25 +251,37 @@ class TrainStep:
         return torch.mean(1.0 - (p * feats).sum(dim=-1))
 
     def loss_and_grads(self, state: TrainState, *batch):
-        """``batch``: the step's crops, then the teacher temperature."""
+        """``batch``: the step's crops, then the teacher temperature. Under
+        data parallelism the loss and the gradients are the global batch's
+        (the means over the data group)."""
+        from ..parallel.mesh import all_reduce_flat
+
         params = state.params()
         loss, new_center = self._loss(state, *batch)
         names = list(params)
         gs = torch.autograd.grad(loss, [params[n] for n in names],
                                  allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g.float()
-                 for n, g in zip(names, gs)}
-        return loss.detach(), new_center, grads
+        grads = [torch.zeros_like(params[n]) if g is None else g.float()
+                 for n, g in zip(names, gs)]
+        if self._data_group is not None:
+            grads = all_reduce_flat(grads, self._data_group, 1.0 / self.mesh.data)
+        return self.global_mean(loss.detach()), new_center, dict(zip(names, grads))
 
     def __call__(self, state: TrainState, *args):
         """``args``: the step's crops, then lr, wd, teacher momentum,
         teacher temperature and the last-layer freeze."""
         *crops, lr, wd, teacher_momentum, teacher_temp, freeze_last = args
-        loss, aux, grads = self.loss_and_grads(state, *crops, teacher_temp)
+        return self.update(state, *self.loss_and_grads(state, *crops, teacher_temp),
+                           lr, wd, teacher_momentum, freeze_last)
+
+    def update(self, state: TrainState, loss, aux, grads, lr, wd, teacher_momentum,
+               freeze_last):
+        """The step's second half: the optimizer on ``loss_and_grads``'s
+        gradients, then ``_after_update``; -> (state, metrics)."""
         state.opt_state = apply_updates_with_schedules(
             state.params(), grads, state.opt_state, self.core, self.mask,
             float(lr), float(wd), clip=self.clip_grad,
-            freeze_last_layer=bool(freeze_last))
+            freeze_last_layer=bool(freeze_last), sharding=self.sharding)
         metrics = self._after_update(state, loss, aux, float(teacher_momentum))
         state.step += 1
         return state, metrics
@@ -249,7 +312,8 @@ class TwoTokenTrainStep(TrainStep):
             t_out = state.teacher["head"](self._features(state.teacher, g_crops))
         return dino_loss_two_token(s_out, t_out, state.center, teacher_temp,
                                    student_temp=self.student_temp,
-                                   center_momentum=self.center_momentum)
+                                   center_momentum=self.center_momentum,
+                                   batch_mean=self.batch_mean)
 
 
 class RandFrTrainStep(TrainStep):
@@ -284,8 +348,8 @@ def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
                     compute_dtype: torch.dtype = torch.float32,
                     route: str = "auto", remat: bool = False,
                     two_token: bool = False, cnn_params=None,
-                    cnn_distill_weight: float = 0.0,
-                    backbone_forward=None) -> TrainStep:
+                    cnn_distill_weight: float = 0.0, mesh=None,
+                    state_sharding=None, backbone_forward=None) -> TrainStep:
     """The DINO step (the JAX ``make_train_step``). ``route``: ``"auto"``
     (``train_route``, once for the model), ``"plain"`` or ``"kernels"``
     (bf16, or f32: the mixed tier; raises where the kernels' gate refuses
@@ -296,32 +360,48 @@ def make_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
     raises). ``cnn_params`` (a frozen ``s3d.S3D``) with ``cnn_distill_weight``
     > 0 adds the CNN-distillation term (the state needs ``cnn_proj``:
     ``init_train_state(cnn_distill_dim=1024)``); weight 0 is the reference's
-    behaviour, the S3D built and no term."""
-    if backbone_forward is not None:
-        raise NotImplementedError("the parallel forward hook (backbone_forward) "
-                                  "needs the parallel modules (ROADMAP)")
+    behaviour, the S3D built and no term. ``mesh``, ``state_sharding`` and
+    ``backbone_forward``: the parallel step (module docstring); a
+    "tp" sharding without a ``backbone_forward`` runs the plain TP route.
+    The two-token variant takes a mesh (data parallelism) and nothing
+    else, as the JAX CLI allows it."""
     route = _step_route(route, two_token)
+    tp = state_sharding is not None and state_sharding.kind == "tp"
     if two_token:
+        if backbone_forward is not None or tp:
+            raise ValueError("backbone_forward and tensor parallelism run the plain "
+                             "variant; the two-token step takes data parallelism only")
         return TwoTokenTrainStep(model_cfg, core, mask, clip_grad, student_temp,
-                                 center_momentum, compute_dtype, route, n_crops=4)
+                                 center_momentum, compute_dtype, route, n_crops=4,
+                                 mesh=mesh, sharding=state_sharding)
+    if tp and backbone_forward is None:
+        from functools import partial
+
+        from ..parallel.tp import tp_forward_features
+
+        backbone_forward = partial(tp_forward_features, cfg=model_cfg,
+                                   mesh=mesh or state_sharding.mesh,
+                                   compute_dtype=compute_dtype)
     use_cnn = cnn_params is not None and cnn_distill_weight > 0.0
     return TrainStep(model_cfg, core, mask, clip_grad, student_temp,
                      center_momentum, compute_dtype, route,
                      n_crops=2 + n_local_crops, remat=remat,
                      cnn=cnn_params if use_cnn else None,
-                     cnn_distill_weight=cnn_distill_weight)
+                     cnn_distill_weight=cnn_distill_weight, mesh=mesh,
+                     sharding=state_sharding, backbone_forward=backbone_forward)
 
 
 def make_rand_fr_train_step(model_cfg: tsf.TimeSformerConfig, core: Optimizer, mask,
                             clip_grad: Optional[float] = 3.0,
                             student_temp: float = 0.1, center_momentum: float = 0.9,
                             compute_dtype: torch.dtype = torch.float32,
-                            route: str = "auto") -> RandFrTrainStep:
+                            route: str = "auto", mesh=None) -> RandFrTrainStep:
     """The variable-frame-count multi-crop step (DATA.RAND_FR; JAX
-    ``make_rand_fr_train_step``), on ``make_train_step``'s routes."""
+    ``make_rand_fr_train_step``), on ``make_train_step``'s routes;
+    ``mesh``: data parallelism."""
     route = _step_route(route, False)
     return RandFrTrainStep(model_cfg, core, mask, clip_grad, student_temp,
-                           center_momentum, compute_dtype, route, n_crops=10)
+                           center_momentum, compute_dtype, route, n_crops=10, mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -432,7 +512,8 @@ class TwoStreamTrainStep(TrainStep):
             # the teacher's dual head on (t, t): only its rgb stream is read
             t_rgb = state.teacher["head"].main(self._features(state.teacher, g_crops))
             t_flow = self._motion(state.motion_teacher, flow)
-        kw = dict(student_temp=self.student_temp, center_momentum=self.center_momentum)
+        kw = dict(student_temp=self.student_temp, center_momentum=self.center_momentum,
+                  batch_mean=self.batch_mean)
         l_rgb, c_rgb = dino_loss(s_rgb.float(), t_rgb.float(), state.center_rgb,
                                  teacher_temp, n_crops=self.n_crops, **kw)
         l_flow, c_flow = dino_loss(s_flow.float(), t_flow.float(), state.center_flow,
@@ -441,8 +522,9 @@ class TwoStreamTrainStep(TrainStep):
                                      teacher_temp, n_crops=self.n_crops, **kw)
         loss = l_rgb + l_flow + l_cross
         return loss, ((c_rgb, c_flow, c_cross),
-                      {"loss_rgb": l_rgb.detach(), "loss_flow": l_flow.detach(),
-                       "loss_cross": l_cross.detach()})
+                      {"loss_rgb": self.global_mean(l_rgb.detach()),
+                       "loss_flow": self.global_mean(l_flow.detach()),
+                       "loss_cross": self.global_mean(l_cross.detach())})
 
     def _after_update(self, state: TwoStreamState, loss, aux, teacher_momentum):
         centers, metrics = aux
@@ -457,16 +539,16 @@ def make_two_stream_train_step(model_cfg: tsf.TimeSformerConfig, motion_cfg,
                                clip_grad: Optional[float] = 3.0,
                                student_temp: float = 0.1, center_momentum: float = 0.9,
                                compute_dtype: torch.dtype = torch.float32,
-                               route: str = "auto", remat: bool = False
+                               route: str = "auto", remat: bool = False, mesh=None
                                ) -> TwoStreamTrainStep:
     """The TWO_STREAM step (JAX ``make_two_stream_train_step``) on
     ``make_train_step``'s routes for the RGB backbones (``"auto"`` on bf16
     ViT-B: the per-phase kernels); ``remat`` rematerializes the RGB
-    student's passes."""
+    student's passes; ``mesh``: data parallelism."""
     route = _step_route(route, False)
     return TwoStreamTrainStep(motion_cfg, model_cfg, core, mask, clip_grad,
                               student_temp, center_momentum, compute_dtype, route,
-                              n_crops=2 + n_local_crops, remat=remat)
+                              n_crops=2 + n_local_crops, remat=remat, mesh=mesh)
 
 
 def build_schedules(args_like, niter_per_ep: int, world: int = 1):

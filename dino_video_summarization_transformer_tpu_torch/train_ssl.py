@@ -41,8 +41,30 @@ runs its training forward in f32 under ``torch.no_grad``, on the train
 step's route: the kernel route's f32 tiers (rows 1f, 4f and 3f) where the
 step runs the kernels, as JAX's hook runs ``use_fused`` at f32.
 
-The parallel strategies' flags raise ``NotImplementedError`` unless they
-are at their defaults.
+Parallelism, with JAX's flags and rules (``train_ssl.py:236-252,
+313-350, 419-441`` there), over the ranks torchrun starts::
+
+    torchrun --nproc_per_node 4 -m \
+        dino_video_summarization_transformer_tpu_torch.train_ssl \
+        --model_parallel 2 --tp_fused true ...
+
+Data parallelism over the ranks is the default, as JAX's mesh spans every
+device: the node's batch is ``--batch_size_per_gpu`` x (ranks of the node
+// the parallelism group), drawn in JAX's order (``shard_indices`` over the
+nodes), and data rank r trains on its contiguous rows r * b .. (r + 1) * b
+(every rank decodes the node's batch, whose augmentations draw one
+``RandomState`` stream, as JAX's host does). ``--model_parallel N``: tensor
+parallelism over N ranks, the plain route, or with ``--tp_fused true``
+(bf16 on the kernels' geometry, heads divisible by N, the plain variant)
+the head-sharded per-phase kernels; ``--zero1 true``: the Adam moments
+over the data axis (exclusive of ``--model_parallel``); ``--num_shards
+N``: fail unless the launch brought up at least N ranks. Only the main
+process writes ``config.json``, ``log.txt`` and the checkpoints; the
+checkpoint is always the single-card layout (the ranks gather the state
+first), so a TP run's checkpoint loads into the single-card trainer and
+scorer and a resume under another ``--model_parallel`` cuts it anew.
+``--pipeline`` and ``--seq_parallel`` raise ``NotImplementedError``
+unless they are at their defaults.
 ``--norm_last_layer`` is parsed and never read, as in the JAX CLI
 (ROADMAP section 3).
 """
@@ -54,6 +76,7 @@ import math
 import os
 import sys
 import time
+from functools import partial
 
 from .utils.misc import bool_flag
 
@@ -61,12 +84,8 @@ SYNC_EVERY = 10
 
 # flag -> (default, what it selects)
 UNPORTED_FLAGS = {
-    "model_parallel": (1, "tensor parallelism (parallelism)"),
-    "tp_fused": (False, "tensor parallelism (parallelism)"),
-    "zero1": (False, "ZeRO-1 (parallelism)"),
-    "pipeline": (1, "pipeline parallelism (parallelism)"),
-    "seq_parallel": (1, "sequence parallelism (parallelism)"),
-    "num_shards": (1, "multi-process data parallelism (parallelism)"),
+    "pipeline": (1, "pipeline parallelism (JAX parallel/pp.py; the next parallel slice)"),
+    "seq_parallel": (1, "sequence parallelism (JAX parallel/sp.py; the next parallel slice)"),
 }
 
 
@@ -187,6 +206,34 @@ class StepProfiler:
         print(f"profiler trace written to {self.profile_dir}", flush=True)
 
 
+def parallel_plan(args, two_token: bool, two_stream: bool, rand_fr: bool,
+                  local_ranks: int):
+    """JAX's parallelism rules (its ``train_ssl.py:236-249, 344-350,
+    419-421``): -> the parallelism group's size. Raises ValueError where
+    JAX asserts."""
+    sizes = (args.model_parallel, args.pipeline, args.seq_parallel)
+    if min(sizes) < 1:
+        raise ValueError("--model_parallel / --pipeline / --seq_parallel must be >= 1")
+    if sum(x > 1 for x in sizes) > 1:
+        raise ValueError("--model_parallel / --pipeline / --seq_parallel are exclusive "
+                         "(compose dp with ONE of them)")
+    group = max(sizes)
+    if local_ranks % group:
+        raise ValueError(f"the parallelism group size ({group}) must divide the ranks "
+                         f"of the node ({local_ranks}); otherwise the per-node batch "
+                         "would silently floor")
+    if not ((group == 1 and not args.zero1) or not (two_stream or rand_fr)):
+        raise ValueError("--model_parallel/--pipeline/--seq_parallel/--zero1 support "
+                         "the plain/two_token trainer variants")
+    if not (group == 1 or not two_token):
+        raise ValueError("--pipeline/--seq_parallel/--model_parallel support the plain "
+                         "trainer variant")
+    if args.zero1 and args.model_parallel > 1:
+        raise ValueError("--zero1 and --model_parallel are exclusive (the TP tree "
+                         "already shards the moments over the model axis)")
+    return group
+
+
 def online_knn_eval(args, cfg, backbone, epoch, route, device):
     """Online kNN probe on the teacher backbone (ref: train_ssl.py:576-599;
     JAX ``online_knn_eval``): f32 features of the ``--knn_dataset`` splits
@@ -230,7 +277,8 @@ def train_svt(args):
     from .data.datasets import ClipDataset
     from .data.loader import PrefetchLoader, shard_indices
     from .models import convert
-    from .models.timesformer import config_from_cfg
+    from .models.timesformer import config_from_cfg, train_route
+    from .parallel import mesh as pmesh
     from .train.dino import teacher_temp_schedule
     from .train.ssl import (build_schedules, init_train_state, init_two_stream_state,
                             make_rand_fr_train_step, make_train_step,
@@ -242,15 +290,19 @@ def train_svt(args):
     cfg = load_config(args)
     check_unported(args)
     set_data_path(cfg, args.data_path)
-    dev = resolve_device(args.device)
+    dist_info = pmesh.init_distributed_mode(num_shards=args.num_shards, device=args.device)
+    world = dist_info["world_size"]
+    dev = pmesh.rank_device(args.device) if world > 1 else resolve_device(args.device)
+    main_process = pmesh.is_main_process()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
     print("\n".join(f"{k}: {v}" for k, v in sorted(dict(vars(args)).items())))
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    if main_process:
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     # ---------------- data -------------------------------------------------
     two_token = args.two_token or cfg.MODEL.TWO_TOKEN
@@ -265,12 +317,20 @@ def train_svt(args):
             "--knn_eval_freq with the two-token variant: JAX's hook runs the "
             "one-token forward on the two-token backbone; the port does not "
             "(ROADMAP section 3)")
+    # JAX's parallelism rules, before any rank reads data
+    local_ranks = pmesh.local_world_size() if world > 1 else 1
+    group = parallel_plan(args, two_token, two_stream, rand_fr, local_ranks)
     dataset = ClipDataset(cfg, "train", temporal_aug=not two_token,
                           two_token=two_token, rand_fr=rand_fr, get_flow=two_stream,
                           seed=args.seed)
-    per_host = args.batch_size_per_gpu
+    # the node's batch (JAX's per-host batch) and this rank's rows of it
+    nodes, node = max(world // local_ranks, 1), pmesh.get_rank() // local_ranks
+    per_host = args.batch_size_per_gpu * (local_ranks // group)
+    data_rank = (pmesh.get_rank() % local_ranks) // group
+    rows = slice(data_rank * args.batch_size_per_gpu,
+                 (data_rank + 1) * args.batch_size_per_gpu)
     n_local = 2 if two_token else args.local_crops_number
-    idx = shard_indices(len(dataset), 0, 1, shuffle=True, seed=args.seed,
+    idx = shard_indices(len(dataset), node, nodes, shuffle=True, seed=args.seed,
                         drop_last=True)
     niter_per_ep = max(len(idx) // per_host, 1)
     print(f"Data loaded: {len(dataset)} videos, {niter_per_ep} it/epoch.")
@@ -306,15 +366,35 @@ def train_svt(args):
             return views(range(2)), views(range(2, 2 + n_local)), flow
         return views(range(2)), views(range(2, 2 + n_local))
 
+    def rank_rows(tree):
+        """This rank's rows of the node's batch: of each view-major tensor,
+        its rows of every view."""
+        if isinstance(tree, tuple):
+            return tuple(rank_rows(c) for c in tree)
+        v = tree.reshape((-1, per_host) + tree.shape[1:])[:, rows]
+        return v.reshape((-1,) + tree.shape[1:])
+
+    # the node's first rank decodes and collates the node's batch (JAX's one
+    # process a host) and every rank of the node takes its rows of it
+    src = node * local_ranks
+    node_ranks = pmesh.node_group(local_ranks) if local_ranks > 1 else None
+
     def batches(epoch):
-        order = shard_indices(len(dataset), 0, 1, shuffle=True,
+        order = shard_indices(len(dataset), node, nodes, shuffle=True,
                               seed=args.seed + epoch, drop_last=True)
+        if pmesh.get_rank() != src:
+            for _ in range(len(order) // per_host):
+                yield rank_rows(pmesh.broadcast_tree(None, src, node_ranks, dev))
+            return
         items = []
         for item in PrefetchLoader(dataset, indices=order,
                                    num_workers=args.num_workers):
             items.append(item)
             if len(items) == per_host:
-                yield collate(items)
+                full = collate(items)
+                if local_ranks > 1:
+                    pmesh.broadcast_tree(full, src, node_ranks, dev)
+                yield rank_rows(full)
                 items = []
 
     # ---------------- model ------------------------------------------------
@@ -339,6 +419,16 @@ def train_svt(args):
             cnn = s3d.init_s3d(torch.Generator().manual_seed(args.seed + 7), device=dev)
         cnn.requires_grad_(False)
     compute_dtype = torch.bfloat16 if args.use_fp16 else torch.float32
+    # JAX's fuse_tp: the head-sharded kernels where the kernels take the
+    # model (bf16), its heads split evenly, on the plain variant
+    kernels = train_route(mcfg, compute_dtype, "auto") == "kernels"
+    fuse_tp = (args.tp_fused and kernels and args.model_parallel > 1
+               and mcfg.num_heads % args.model_parallel == 0
+               and not two_token and not (two_stream or rand_fr))
+    if kernels and group > 1 and not fuse_tp:
+        print("NOTE: --model_parallel runs the plain TP route by default; "
+              "--tp_fused true opts into the head-sharded kernels", flush=True)
+    mesh = pmesh.build_mesh(model=args.model_parallel) if world > 1 else None
     if two_stream:
         from .models.vit2d import vit2d_small
 
@@ -354,34 +444,49 @@ def train_svt(args):
             pretrained_motion=motion_sd, device=dev)
         step_fn = make_two_stream_train_step(
             mcfg, motion_cfg, core, mask, n_local_crops=n_local,
-            clip_grad=args.clip_grad, compute_dtype=compute_dtype, remat=args.use_remat)
+            clip_grad=args.clip_grad, compute_dtype=compute_dtype, remat=args.use_remat,
+            mesh=mesh)
     elif rand_fr:
         state, core, mask = init_train_state(
             mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
             pretrained_backbone=backbone_sd, device=dev)
         step_fn = make_rand_fr_train_step(mcfg, core, mask, clip_grad=args.clip_grad,
-                                          compute_dtype=compute_dtype)
+                                          compute_dtype=compute_dtype, mesh=mesh)
     else:
         distill = cnn is not None and args.cnn_distill_weight > 0
         state, core, mask = init_train_state(
             mcfg, out_dim=args.out_dim, optimizer=args.optimizer, seed=args.seed,
             pretrained_backbone=backbone_sd, device=dev, two_token=two_token,
             cnn_distill_dim=1024 if distill else 0)
-        step_fn = make_train_step(mcfg, core, mask, n_local_crops=n_local,
-                                  clip_grad=args.clip_grad,
-                                  compute_dtype=compute_dtype,
-                                  remat=args.use_remat, two_token=two_token,
-                                  cnn_params=cnn,
-                                  cnn_distill_weight=args.cnn_distill_weight)
-    print(f"Block route: {step_fn.route} ({compute_dtype})")
+    sharding_kind = ("tp" if args.model_parallel > 1 else "zero1" if args.zero1 and mesh
+                     else None)
+
+    def make_step(sharding):
+        if two_stream or rand_fr:
+            return step_fn
+        fwd = None
+        if fuse_tp:
+            from .parallel.tp_fused import tp_fused_forward_features
+
+            fwd = partial(tp_fused_forward_features, cfg=mcfg, mesh=mesh,
+                          compute_dtype=compute_dtype)
+        return make_train_step(mcfg, core, mask, n_local_crops=n_local,
+                               clip_grad=args.clip_grad, compute_dtype=compute_dtype,
+                               remat=args.use_remat, two_token=two_token,
+                               cnn_params=cnn, cnn_distill_weight=args.cnn_distill_weight,
+                               mesh=mesh, state_sharding=sharding, backbone_forward=fwd)
 
     # ---------------- schedules --------------------------------------------
-    lr_sched, wd_sched, mom_sched = build_schedules(args, niter_per_ep)
+    # lr scaled by batch_size_per_gpu x every card of the world, as JAX scales
+    # it by its device count whatever the parallelism group
+    lr_sched, wd_sched, mom_sched = build_schedules(args, niter_per_ep, world=world)
     tt_sched = teacher_temp_schedule(
         args.warmup_teacher_temp, args.teacher_temp,
         args.warmup_teacher_temp_epochs, args.epochs)
 
     # ---------------- resume ------------------------------------------------
+    # the checkpoint is the single-card layout: restore the whole state,
+    # then cut this rank's shards
     ckpt_path = os.path.join(args.output_dir, "checkpoint")
     restored, run_vars = restore_checkpoint(ckpt_path, state)
     start_epoch = 0
@@ -389,11 +494,24 @@ def train_svt(args):
         state = restored
         start_epoch = int(run_vars.get("epoch", 0))
         print(f"Resumed from {ckpt_path} at epoch {start_epoch}")
+    sharding = None
+    if sharding_kind is not None:
+        from .parallel.state import shard_train_state
+
+        sharding = shard_train_state(state, sharding_kind, mesh, mcfg.num_heads)
+    step_fn = make_step(sharding)
+    if fuse_tp:
+        print(f"TP x{args.model_parallel}: head-sharded per-phase kernels "
+              "(parallel/tp_fused.py)", flush=True)
+    route = step_fn.route
+    if sharding_kind == "tp":  # the backbone runs one of the TP forwards
+        route = "kernels (TP-fused)" if fuse_tp else "plain (TP)"
+    print(f"Block route: {route} ({compute_dtype})")
 
     if rand_fr or two_token or two_stream:
         step_flops = 0.0  # mixed-geometry steps: no analytic model, as in JAX
-    else:
-        step_flops = train_step_flops(mcfg, per_host, n_local_crops=n_local,
+    else:  # the step's global batch, over every card of the world
+        step_flops = train_step_flops(mcfg, per_host * nodes, n_local_crops=n_local,
                                       local_size_px=96)
 
     # ---------------- train loop -------------------------------------------
@@ -440,10 +558,21 @@ def train_svt(args):
         drain()
         epoch_dt = time.time() - epoch_t0
 
-        save_checkpoint(ckpt_path, state, {"epoch": epoch + 1})
-        if args.saveckp_freq and epoch % args.saveckp_freq == 0:
-            save_checkpoint(os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
-                            state, {"epoch": epoch + 1})
+        # every rank gathers the whole state (a collective); the main
+        # process writes it, in the single-card layout
+        if sharding is not None:
+            from .parallel.state import gather_train_state
+
+            ckpt_state = gather_train_state(state, sharding)
+        else:
+            ckpt_state = state
+        if main_process:
+            save_checkpoint(ckpt_path, ckpt_state, {"epoch": epoch + 1})
+            if args.saveckp_freq and epoch % args.saveckp_freq == 0:
+                save_checkpoint(os.path.join(args.output_dir, f"checkpoint{epoch:04d}"),
+                                ckpt_state, {"epoch": epoch + 1})
+        # the losses are the global batch's already (the step's means over
+        # the data group), so every rank's averages agree
         log_stats = {f"train_{k}": v / max(count, 1) for k, v in sums.items()}
         log_stats["epoch"] = epoch
         if step_flops and steps_done and dev.type == "cuda":
@@ -451,10 +580,12 @@ def train_svt(args):
                 step_flops * steps_done / epoch_dt / 1e12, 2)
         if (args.knn_eval_freq and args.knn_data_path
                 and (epoch % args.knn_eval_freq == 0 or epoch == args.epochs - 1)):
-            log_stats.update(online_knn_eval(args, cfg, state.teacher["backbone"], epoch,
+            log_stats.update(online_knn_eval(args, cfg, ckpt_state.teacher["backbone"], epoch,
                                              step_fn.route, dev))
-        with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log_stats) + "\n")
+        del ckpt_state
+        if main_process:
+            with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log_stats) + "\n")
         print(json.dumps(log_stats), flush=True)
 
     # the run ended inside the trace window: flush the trace, as JAX does

@@ -102,6 +102,31 @@ def test_no_import_of_what_the_card_lacks(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+# the parallel modules and the world launcher: every rank of a
+# world imports them, so each is walked above and a spawned rank is checked
+# below
+PARALLEL = ("mesh", "launch", "tp", "tp_fused", "zero", "state", "worlds")
+
+
+@pytest.mark.parametrize("mod", PARALLEL)
+def test_parallel_modules_are_checked(mod):
+    path = os.path.join(PORT, "parallel", f"{mod}.py")
+    assert path in _port_files()
+    assert f"{PORT}.parallel.{mod}" in [m.name for m in pkgutil.walk_packages(
+        [PORT_DIR], prefix=PORT + ".")]
+
+
+def test_world_ranks_leave_jax_out():
+    """A rank of a world spawned from this process (which has JAX loaded)
+    imports the port's parallel modules and no JAX, no JAX package."""
+    from dino_video_summarization_transformer_tpu_torch.parallel import launch, worlds
+
+    mods = [f"{PORT}.parallel.{m}" for m in PARALLEL]
+    for loaded in launch.run_world(worlds.imported, 2, mods + ["jax", JAX_PKG]):
+        assert set(mods) <= set(loaded), loaded
+        assert not [m for m in loaded if _forbidden(m)], loaded
+
+
 def test_forbidden_matches_whole_names():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".ops.fused_block")

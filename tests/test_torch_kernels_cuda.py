@@ -747,7 +747,11 @@ def test_attention_swap_forward_kernels_match_twins(cuda_device):
 GEMM_SHAPES = [(300, 384, 128), (77, 768, 256), (47040, 2304, 768),
                (129, 1152, 384), (65, 1920, 640), (1, 2688, 896),
                (8, 2304, 768), (47040, 768, 768), (47040, 3072, 768),
-               (47040, 768, 3072), (127, 256, 64), (129, 128, 192)]
+               (47040, 768, 3072), (127, 256, 64), (129, 128, 192),
+               # the 64-wide tile (N % 128 == 64): tensor parallelism's
+               # head-sharded qkv at ViT-B over four shards (3 x 192), its
+               # proj's 192-deep reduction, one 64-column tile
+               (3136, 576, 768), (3136, 768, 192), (77, 64, 128)]
 
 
 @pytest.mark.parametrize("epi", sorted(fb.GEMM_EPILOGUES))
@@ -1026,11 +1030,12 @@ def test_spatial_attention_bwd_refuses_what_shared_memory_cannot_hold(cuda_devic
 GEMM_DX_SHAPES = [(25216, 768, 768), (25216, 768, 2304), (25088, 3072, 768),
                   (25088, 768, 3072), (18944, 768, 2304), (16, 3072, 768),
                   (64, 768, 3072), (100, 768, 2304), (1, 128, 128), (129, 384, 128),
-                  (300, 256, 192)]
+                  (300, 256, 192), (3136, 192, 768), (3136, 768, 576), (65, 64, 128)]
 GEMM_DW_SHAPES = [(25216, 768, 768), (25216, 2304, 768), (25088, 768, 3072),
                   (25088, 3072, 768), (18944, 2304, 768), (18432, 3072, 768),
                   (16, 768, 3072), (64, 3072, 768), (100, 2304, 768), (1, 128, 128),
-                  (300, 384, 128), (4096, 256, 512)]
+                  (300, 384, 128), (4096, 256, 512), (3136, 576, 768), (3136, 768, 192),
+                  (100, 192, 64)]
 
 
 @pytest.mark.parametrize("epi", sorted(fb.GEMM_DX_EPILOGUES))
@@ -1966,3 +1971,59 @@ def test_two_stream_kernel_route_matches_plain_bf16(cuda_device):
         assert rel < 0.15, (n, rel)
     for k in tp:
         assert abs(float(tk[k]) - float(tp[k])) <= 0.05 * abs(float(tp[k])), k
+
+
+# Tier C, tensor parallelism's partial tier (rows 1p, 4p, 7p and 8p): one
+# shard's heads (the head-major qkv rows, proj's input columns), no proj
+# or fc bias, no residual, at (B, T, N, D, H, tp): ViT-B's global crops
+# over two and four shards (Dq 384, 192), the crops a TP-fused step at
+# batch 4 gives the kernels (8 global, N=196; 32 local of 96 px, N=36),
+# ViT-S over two (Dq 192), a 64-wide shard (D 256 over four).
+PARTIAL_SHAPES = [(2, 8, 196, 768, 12, 2), (2, 8, 196, 768, 12, 4),
+                  (8, 8, 196, 768, 12, 4), (32, 8, 36, 768, 12, 2), (32, 8, 36, 768, 12, 4),
+                  (2, 8, 196, 384, 6, 2), (1, 4, 16, 256, 4, 4)]
+
+
+@pytest.mark.parametrize("B,T,N,D,H,tp", PARTIAL_SHAPES)
+def test_partial_tier_kernels_match_twins(cuda_device, B, T, N, D, H, tp):
+    from dino_video_summarization_transformer_tpu_torch.parallel.tp_fused import (
+        qkv_head_perm)
+
+    p = _block(D, H, 21, cuda_device)
+    pt, ps = p["temporal"], p["spatial"]
+    Dq, Hl = D // tp, H // tp
+    rows = torch.as_tensor(qkv_head_perm(D, H, tp)[-3 * Dq:], device=cuda_device)
+    wt = {"ln_w": pt["ln_w"], "ln_b": pt["ln_b"], "qkv_w": pt["qkv_w"][rows].contiguous(),
+          "qkv_b": pt["qkv_b"][rows].contiguous(),
+          "proj_w": pt["proj_w"][:, -Dq:].contiguous(), "fc_w": pt["fc_w"]}
+    ws = {"ln1_w": ps["ln1_w"], "ln1_b": ps["ln1_b"], "qkv_w": ps["qkv_w"][rows].contiguous(),
+          "qkv_b": ps["qkv_b"][rows].contiguous(), "proj_w": ps["proj_w"][:, -Dq:].contiguous()}
+    r = np.random.RandomState(B * T * N + tp)
+
+    def rnd(*shape):
+        return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(cuda_device,
+                                                                       torch.bfloat16)
+
+    x, cls, dout, dco = rnd(B, T, N, D), rnd(B, 1, D), rnd(B, T, N, D), rnd(B, T, D)
+    before = dict(fb.launches)
+    got = fb.temporal_phase_tm(x, wt, Hl, partial_out=True)
+    _close(got, fb.temporal_phase_tm_partial_plain(x, wt, Hl))
+    g, c = fb.spatial_phase(x, cls, ws, Hl, partial_out=True)
+    want = fb.spatial_phase_partial_plain(x, cls, ws, Hl)
+    _close(g, want[0])
+    _close(c, want[1])
+    dx, grads = fb.temporal_phase_tm_bwd(x, dout, wt, Hl, partial_out=True)
+    wdx, wgrads = fb.temporal_phase_tm_partial_bwd_plain(x, dout, wt, Hl)
+    _close(dx, wdx)
+    for k in fb.TEMPORAL_PARTIAL_KEYS:
+        _close(grads[k], wgrads[k])
+    dx, dcls, grads = fb.spatial_phase_bwd(x, cls, dout, dco, ws, Hl, partial_out=True)
+    wdx, wdcls, wgrads = fb.spatial_phase_partial_bwd_plain(x, cls, dout, dco, ws, Hl)
+    _close(dx, wdx)
+    _close(dcls, wdcls)
+    for k in fb.SPATIAL_PARTIAL_KEYS:
+        _close(grads[k], wgrads[k])
+    torch.cuda.synchronize()
+    for op in ("temporal_phase_tm_partial", "spatial_phase_partial",
+               "temporal_phase_tm_bwd_partial", "spatial_phase_bwd_partial"):
+        assert fb.launches[op] == before[op] + 1, op

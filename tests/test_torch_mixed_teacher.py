@@ -384,9 +384,10 @@ def test_workspace_mirrors_are_the_sources_layouts():
     csrc = open(os.path.join(CSRC, "dvst_common.cuh")).read()
     assert "off = (off + 255) & ~size_t(255);" in csrc
     for block in [
-            # temporal_ws
-            ["w.qkv = c.take<bf16>(M * 3 * D);", "w.buf1 = c.take<bf16>(M * D);",
-             "w.buf2 = c.take<bf16>(M * D);"],
+            # temporal_ws (Dq: the attention width, D but in the partial
+            # tier; the wrappers' mirror sizes the full-width tiers)
+            ["w.qkv = c.take<bf16>(M * 3 * Dq);", "w.buf1 = c.take<bf16>(M * D);",
+             "w.buf2 = c.take<bf16>(M * Dq);"],
             # spatial_mlp_ws
             ["w.y = c.take<bf16>(M * D);", "w.qkv = c.take<bf16>(M * 3 * D);",
              "w.a = c.take<bf16>(M * D);", "w.hid = c.take<bf16>(M * Dh);",
@@ -398,6 +399,8 @@ def test_workspace_mirrors_are_the_sources_layouts():
         at = fsrc.index(block[0])
         for line in block:  # in this order
             at = fsrc.index(line, at)
+    # the full-width tiers carve temporal_ws at Dq = D, the mirror's layout
+    assert "return (long)temporal_ws(nullptr, (long)B * T * N, D, D).bytes;" in fsrc
     at = bsrc.index("SpatialPfWs spatial_pf_ws(")
     for line in ["w.y = c.take<bf16>(M * D);", "w.y_cls = c.take<bf16>((long)C * D);",
                  "w.a = c.take<bf16>(M * D);"]:

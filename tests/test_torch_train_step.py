@@ -324,13 +324,16 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 
 def test_unported_variants_raise():
-    """What stays unported: the parallel forward hook. CNN distillation is
-    ported (``tests/test_torch_two_stream.py``): its state has ``cnn_proj``,
-    and weight 0 adds no term, as the reference."""
+    """What the step refuses: the parallel forward hook on the two-token
+    variant (JAX's hook serves the plain variant; the hook itself is ported,
+    ``tests/test_torch_parallel_steps.py``). CNN distillation is ported
+    (``tests/test_torch_two_stream.py``): its state has ``cnn_proj``, and
+    weight 0 adds no term, as the reference."""
     cfg = tsf.TimeSformerConfig(**KW)
     state, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ssl.make_train_step(cfg, core, mask, backbone_forward=lambda p, x: x)
+    with pytest.raises(ValueError, match="backbone_forward"):
+        ssl.make_train_step(cfg, core, mask, two_token=True,
+                            backbone_forward=lambda p, x: x)
     assert ssl.make_train_step(cfg, core, mask, cnn_params=object(),
                                cnn_distill_weight=0.0).cnn is None
     state, core, mask = ssl.init_train_state(cfg, out_dim=OUT, device="cpu",
@@ -393,7 +396,7 @@ def test_train_ssl_cli_one_step_and_resume(tmp_path, capsys):
     with pytest.raises(ValueError, match="NO_FLOW_AUG"):
         train_ssl.main(argv + ["MODEL.TWO_STREAM", "True"])
     with pytest.raises(NotImplementedError):
-        train_ssl.main(["--model_parallel", "2"] + argv)
+        train_ssl.main(["--pipeline", "2"] + argv)
 
 
 def test_dino_augmentation_matches_jax():

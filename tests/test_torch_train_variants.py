@@ -529,21 +529,32 @@ def test_train_ssl_cli_variant_one_step(corpus, tmp_path, monkeypatch, capsys, f
         assert trace["traceEvents"]
 
 
-@pytest.mark.parametrize("flags,opts", [
+@pytest.mark.parametrize("flags,opts,exc", [
     # two-stream and CNN distillation are ported (tests/test_torch_train_cli_
-    # variants.py); the parallel flags stay refused, alone and with them
-    (["--model_parallel", "2"], ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"]),
-    (["--pipeline", "2"], ["MODEL.CNN_DISTILL", "True"]),
-    (["--zero1", "true", "--cnn_distill_weight", "0.5"], ["MODEL.CNN_DISTILL", "True"]),
+    # variants.py), and so are --model_parallel, --tp_fused, --zero1 and
+    # --num_shards (tests/test_torch_parallel_cli.py): those are refused
+    # where JAX asserts (ValueError: a group the ranks do not divide, a
+    # variant the parallel step does not take) or fails fast (RuntimeError:
+    # --num_shards without the ranks); --pipeline and --seq_parallel stay
+    # unported (NotImplementedError), alone and with the variants
+    (["--model_parallel", "2"], ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"],
+     ValueError),
+    (["--pipeline", "2"], ["MODEL.CNN_DISTILL", "True"], NotImplementedError),
+    (["--zero1", "true"], ["DATA.RAND_FR", "True"], ValueError),
     # the online kNN hook is ported; with the two-token variant it is refused
-    (["--knn_eval_freq", "1", "--two_token", "true"], []),
-    (["--model_parallel", "2"], []), (["--tp_fused", "true"], []),
-    (["--zero1", "true"], []), (["--pipeline", "2"], []), (["--seq_parallel", "2"], []),
-    (["--num_shards", "2"], []), (["--seq_parallel", "2", "--pretrained_motion", "m.pth"],
-                                  ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"]),
-    (["--num_shards", "2", "--pretrained_cnn", "c.pth"], ["MODEL.CNN_DISTILL", "True"])])
-def test_train_ssl_cli_refuses_unported_variants(tmp_path, flags, opts):
+    (["--knn_eval_freq", "1", "--two_token", "true"], [], NotImplementedError),
+    (["--model_parallel", "2"], [], ValueError),
+    (["--model_parallel", "2", "--tp_fused", "true", "--two_token", "true"], [], ValueError),
+    (["--model_parallel", "0"], [], ValueError),
+    (["--pipeline", "2"], [], NotImplementedError),
+    (["--seq_parallel", "2"], [], NotImplementedError),
+    (["--num_shards", "2"], [], RuntimeError),
+    (["--seq_parallel", "2", "--pretrained_motion", "m.pth"],
+     ["MODEL.TWO_STREAM", "True", "DATA.NO_FLOW_AUG", "True"], NotImplementedError),
+    (["--num_shards", "2", "--pretrained_cnn", "c.pth"], ["MODEL.CNN_DISTILL", "True"],
+     RuntimeError)])
+def test_train_ssl_cli_refuses_unported_variants(tmp_path, flags, opts, exc):
     from dino_video_summarization_transformer_tpu_torch import train_ssl
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         train_ssl.main(_argv(tmp_path, tmp_path / "out", flags, opts))
